@@ -13,24 +13,59 @@
 // same gene) one hit loses. Per loser: a mark and the dominator argmax
 // (max winner score, ties to the smallest winner index) with its ov.
 //
-// What bounds it: integer work. A pair costs n_exon_i * n_exon_j exon
-// intersections plus ~10 gate operations, and the band holds ~n * W pairs;
-// the columns read are ~70 bytes a hit, so at realistic W (tens) and exon
-// counts (a few) the operations exceed what the bytes allow by far, and
-// the columns of a 20k-hit genome (~2 MB) stay in the 50 MB L2.
+// What bounds it on the H100: neither bytes nor operations but latency. A
+// 20k-hit genome is ~2.3 MB of columns (0.7 us at 3.35 TB/s) and a few
+// million integer operations (under 0.5 us on the INT32 lanes), so the
+// kernel's time is set by dependent memory round trips, by barriers, and by
+// lanes that wait for the slowest lane of their warp. The first version (one
+// thread per hit walking its band through global memory) gave less than one
+// wave of blocks and 2W dependent pair evaluations per thread, each pair
+// evaluated from both ends.
 //
-// Design: one thread per hit r, no shared state. The thread walks the band
-// backwards (r plays i, j = r - delta) and forwards (r plays j,
-// i = r + delta) and keeps the argmax in registers. Every candidate of a
-// loser has a distinct winner index, so the visiting order cannot change
-// the result: no atomics, no cross-block pass, deterministic. Each pair is
-// evaluated twice (once from each end); that doubles the integer work and
-// is the first thing a faster version would remove. Unlike the Pallas
-// kernel there is no 128-lane rolling frame, halo gather, host halo merge,
-// K-padding or int32 coordinate limit: exons are read from the CSR pool,
-// coordinates are int64, and the coverage gate is IEEE round-to-nearest
-// f64 division (__ddiv_rn), the reference's own arithmetic, so every ratio
-// f is exact. Do not build with --use_fast_math.
+// Design:
+//  * Tiles. Block p owns the loser rows [r0, r0 + kRows). When W <=
+//    kBandTile it stages rows [r0 - W, r0 + kRows + W) (clipped to [0, n))
+//    of every column into shared memory, one row a thread (coalesced), and
+//    then the exons of those rows, flat over an exclusive prefix of their
+//    n_exon (the exon pool is not in hit order), several loads a thread in
+//    flight. kRows = 64 and 256 threads give ceil(n / 64) blocks, 322-328
+//    for a 20k-hit genome; at most 85 registers a thread keep 3 blocks on
+//    each of the 132 SMs, so all of them are resident in one wave.
+//  * Each pair once. Phase 1a: the block's threads take the tile's pairs
+//    (j, i), 0 < i - j <= W, with at least one row owned, neighbouring
+//    threads on neighbouring rows of one band offset, through the cheap
+//    gates; the survivors are queued in shared memory (one atomic a warp).
+//    Phase 1b: each thread takes a queued pair and intersects its exons, the
+//    shorter list held in registers, then __ddiv_rn for cross-gene SHADOW
+//    pairs. Without the queue every warp of every round waited for its one
+//    lane with exon work; that was most of the time. A pair's outcome goes
+//    to the loser's candidate slot in shared memory, [2 * band chunk][kRows]
+//    (left winners j = r - d, then right winners i = r + d). Phase 2: one
+//    thread per owned row folds its slots. Every candidate of a row has a
+//    distinct winner index, so neither the queue's order nor the fold's can
+//    change the lexicographic result: no cross-block merge, deterministic. A
+//    pair that straddles two tiles is evaluated by both blocks, each keeping
+//    only its own loser.
+//  * Coordinates. A pair whose two rows' exons are staged, whose tile's
+//    exon offsets all lie in (-2^29, 2^29) and whose cs differ by less than
+//    2^29 intersects its exons in int32 relative to cs_i (every value stays
+//    in (-2^30, 2^30), every difference below 2^31); any other pair takes
+//    the int64 loop. Both are exact. scripts/torch_sweep_ablation.py times
+//    this path against int64 alone (with and without the register list).
+//  * Large W and long exon lists: a second path of the same kernel. A tile
+//    whose staged exons exceed kExonsPerRow per staged row reads its exons
+//    from the global CSR pool. For W > kBandTile the block stages only its
+//    own rows, reads the halo rows from global memory (L2) and walks the
+//    band in chunks of kBandTile offsets, folding each chunk's slots into
+//    per-row registers, so shared memory stays bounded for any W.
+//
+// Exactness: the coverage gate is IEEE round-to-nearest f64 division
+// (__ddiv_rn), the reference's own arithmetic, so every ratio f is exact.
+// Do not build with --use_fast_math. Scores are the biased int64 packed
+// scores, compared signed; SCORE_NONE / OTHER_NONE mark "no dominator".
+//
+// Input and output are one packed buffer each (ops/sweep_kernel.py:
+// pack_layout, out_layout): every column at a 16-byte-aligned byte offset.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,8 +74,26 @@ namespace {
 constexpr int kShadow = 0;
 constexpr int kIsoform = 1;
 constexpr int kThreads = 256;
+constexpr int kRows = 64;          // owned loser rows per block
+constexpr int kBandTile = 32;      // largest W whose halo is staged
+constexpr int kExonsPerRow = 12;   // staged-exon room per staged row
+constexpr int kRegExons = 8;       // exon lists held in registers
+// 3 resident blocks of 256 threads a SM (<= 85 registers a thread): 396
+// block slots on 132 SMs, one wave for genomes up to 25k hits.
+constexpr int kMinBlocksPerSM = 3;
+constexpr int kNarrow = 1 << 29;
 constexpr int64_t kScoreNone = -9223372036854775807LL - 1;  // biased raw 0
 constexpr int32_t kOtherNone = 2147483647;
+static_assert(kRows + 2 * kBandTile < kThreads,
+              "one staged row per thread in the exon prefix, plus its end");
+static_assert(kRows <= kThreads, "one thread per owned row in phase 2");
+
+// Column order of the packed input (ops/sweep_kernel.py: SweepCols).
+enum {
+  kCid, kCs, kCe, kFlt, kRev, kGid, kPscore, kRank, kWeak, kCdsLen,
+  kOffExon, kNExon, kExonOs, kExonOe, kNumCols
+};
+enum { kOutMarks, kOutScore, kOutOther, kOutOv, kNumOut };
 
 struct Cols {
   const int32_t* cid;
@@ -59,47 +112,158 @@ struct Cols {
   const int32_t* exon_oe;
 };
 
-// Sum over exon pairs of max(min(end) - max(start), 0), absolute coords.
-__device__ __forceinline__ int64_t exon_overlap(const Cols& c, int a, int b) {
-  const int64_t csa = c.cs[a], csb = c.cs[b];
-  const int oa = c.off_exon[a], na = c.n_exon[a];
-  const int ob = c.off_exon[b], nb = c.n_exon[b];
+// Shared-memory copy of rows [s0, s0 + R). off[] indexes eos/eoe, which
+// are the staged exons or, when they did not fit, the global pool.
+struct Tile {
+  int s0, R;
+  const int64_t *cs, *ce, *ps;
+  const int32_t *cid, *gid, *rank, *cds, *ne, *off;
+  const uint8_t *flt, *rev, *weak;
+  const int32_t *eos, *eoe;
+  bool narrow;  // exons staged and every staged offset in (-2^29, 2^29)
+};
+
+// kTile: every row the block touches is staged (W <= kBandTile), so the
+// tile is read directly; otherwise rows outside it come from global memory.
+template <bool kTile>
+__device__ __forceinline__ bool staged(const Tile& t, int r) {
+  return kTile || (unsigned)(r - t.s0) < (unsigned)t.R;
+}
+
+// Row r's value from the tile when staged, else from global memory.
+template <bool kTile, typename T>
+__device__ __forceinline__ T ld(const T* tile_col, const T* glob_col,
+                                const Tile& t, int r) {
+  const int k = r - t.s0;
+  return staged<kTile>(t, r) ? tile_col[k] : glob_col[r];
+}
+
+template <bool kTile>
+__device__ __forceinline__ int exons_of(const Cols& c, const Tile& t, int r,
+                                        const int32_t** os,
+                                        const int32_t** oe) {
+  const int k = r - t.s0;
+  if (staged<kTile>(t, r)) {
+    *os = t.eos + t.off[k];
+    *oe = t.eoe + t.off[k];
+    return t.ne[k];
+  }
+  *os = c.exon_os + c.off_exon[r];
+  *oe = c.exon_oe + c.off_exon[r];
+  return c.n_exon[r];
+}
+
+// Sum over exon pairs of max(min(end) - max(start), 0); row a's exons are
+// shifted by ba, row b's by bb. The shorter list, when it has at most
+// kRegExons exons, is held in registers and the inner loop is unrolled over
+// it: no shared-memory load and no branch inside the inner loop. Padding
+// entries are empty intervals [P, -P), P = 2^(bits - 2): every real value
+// lies in (-P, P), so hi - lo of a padding entry is -2P, still
+// representable. (With +-max, hi - lo overflows; signed overflow is
+// undefined and the compiler may then add max(hi - lo, 0) unguarded.)
+template <typename T>
+__device__ __forceinline__ int64_t exon_overlap(
+    const int32_t* osa, const int32_t* oea, int na, T ba,
+    const int32_t* osb, const int32_t* oeb, int nb, T bb) {
+  if (na < nb) {
+    const int32_t* p = osa; osa = osb; osb = p;
+    p = oea; oea = oeb; oeb = p;
+    const int m = na; na = nb; nb = m;
+    const T v = ba; ba = bb; bb = v;
+  }
   int64_t ov = 0;
+  if (sizeof(T) == 4 && nb <= kRegExons) {  // the int32 path only: registers
+    constexpr T kPad = (T)1 << (8 * sizeof(T) - 2);
+    T sb[kRegExons], eb[kRegExons];
+#pragma unroll
+    for (int y = 0; y < kRegExons; ++y) {
+      sb[y] = y < nb ? bb + (T)osb[y] : kPad;
+      eb[y] = y < nb ? bb + (T)oeb[y] : -kPad;
+    }
+    for (int x = 0; x < na; ++x) {
+      const T sa = ba + (T)osa[x];
+      const T ea = ba + (T)oea[x];
+#pragma unroll
+      for (int y = 0; y < kRegExons; ++y) {
+        const T lo = sa > sb[y] ? sa : sb[y];
+        const T hi = ea < eb[y] ? ea : eb[y];
+        if (hi > lo) ov += (int64_t)(hi - lo);
+      }
+    }
+    return ov;
+  }
   for (int x = 0; x < na; ++x) {
-    const int64_t sa = csa + c.exon_os[oa + x];
-    const int64_t ea = csa + c.exon_oe[oa + x];
+    const T sa = ba + (T)osa[x];
+    const T ea = ba + (T)oea[x];
     for (int y = 0; y < nb; ++y) {
-      const int64_t sb = csb + c.exon_os[ob + y];
-      const int64_t eb = csb + c.exon_oe[ob + y];
-      const int64_t lo = sa > sb ? sa : sb;
-      const int64_t hi = ea < eb ? ea : eb;
-      if (hi > lo) ov += hi - lo;
+      const T sb = bb + (T)osb[y];
+      const T eb = bb + (T)oeb[y];
+      const T lo = sa > sb ? sa : sb;
+      const T hi = ea < eb ? ea : eb;
+      if (hi > lo) ov += (int64_t)(hi - lo);
     }
   }
   return ov;
 }
 
-// Gates of pair (j, i), j < i. On success sets ov and whether i loses.
-__device__ __forceinline__ bool pair_gates(const Cols& c, int j, int i,
-                                           int mode, bool check_strand,
-                                           double f, int64_t* ov,
-                                           bool* i_loses) {
-  if (c.flt[j] || c.flt[i] || c.cid[j] != c.cid[i] || c.ce[j] <= c.cs[i])
+// The cheap gates of pair (j, i), j < i: both unfiltered, same contig,
+// ce_j > cs_i, optionally the same strand; ISOFORM also the same gene. The
+// operands are loaded together, then tested.
+template <bool kTile>
+__device__ __forceinline__ bool cheap_gates(const Cols& c, const Tile& t,
+                                            int j, int i, int mode,
+                                            bool check_strand) {
+  const uint8_t flt_j = ld<kTile>(t.flt, c.flt, t, j);
+  const uint8_t flt_i = ld<kTile>(t.flt, c.flt, t, i);
+  const int32_t cid_j = ld<kTile>(t.cid, c.cid, t, j);
+  const int32_t cid_i = ld<kTile>(t.cid, c.cid, t, i);
+  const int64_t ce_j = ld<kTile>(t.ce, c.ce, t, j);
+  const int64_t cs_i = ld<kTile>(t.cs, c.cs, t, i);
+  if ((flt_j | flt_i) || cid_j != cid_i || ce_j <= cs_i) return false;
+  if (check_strand &&
+      ld<kTile>(t.rev, c.rev, t, j) != ld<kTile>(t.rev, c.rev, t, i))
     return false;
-  if (check_strand && c.rev[j] != c.rev[i]) return false;
-  const bool same_gene = c.gid[j] == c.gid[i];
-  if (mode == kIsoform && !same_gene) return false;
-  const int64_t o = exon_overlap(c, j, i);
+  return mode != kIsoform ||
+         ld<kTile>(t.gid, c.gid, t, j) == ld<kTile>(t.gid, c.gid, t, i);
+}
+
+// The rest of the gates of a pair that passed cheap_gates: exact exon
+// intersection ov > 0 and, for a cross-gene SHADOW pair, the coverage
+// ratio. On success sets ov and whether i loses.
+template <bool kTile>
+__device__ __forceinline__ bool pair_outcome(const Cols& c, const Tile& t,
+                                             int j, int i, int mode,
+                                             double f, int64_t* ov,
+                                             bool* i_loses) {
+  const int32_t *osj, *oej, *osi, *oei;
+  const int nj = exons_of<kTile>(c, t, j, &osj, &oej);
+  const int ni = exons_of<kTile>(c, t, i, &osi, &oei);
+  const int64_t delta =
+      ld<kTile>(t.cs, c.cs, t, j) - ld<kTile>(t.cs, c.cs, t, i);
+  int64_t o;
+  if (t.narrow && staged<kTile>(t, j) && staged<kTile>(t, i) &&
+      delta > -kNarrow && delta < kNarrow)
+    o = exon_overlap<int32_t>(osj, oej, nj, (int32_t)delta, osi, oei, ni, 0);
+  else
+    o = exon_overlap<int64_t>(osj, oej, nj, delta, osi, oei, ni, 0);
   if (o <= 0) return false;
-  const int64_t pi = c.pscore[i], pj = c.pscore[j];
-  const bool score_i_loses = pi < pj || (pi == pj && c.rank[i] > c.rank[j]);
+  const bool same_gene =
+      ld<kTile>(t.gid, c.gid, t, j) == ld<kTile>(t.gid, c.gid, t, i);
+  const int64_t pi = ld<kTile>(t.ps, c.pscore, t, i);
+  const int64_t pj = ld<kTile>(t.ps, c.pscore, t, j);
+  const int32_t ri = ld<kTile>(t.rank, c.rank, t, i);
+  const int32_t rj = ld<kTile>(t.rank, c.rank, t, j);
+  const bool score_i_loses = pi < pj || (pi == pj && ri > rj);
   if (mode == kShadow) {
     if (!same_gene) {
-      int m = c.cds_len[i] < c.cds_len[j] ? c.cds_len[i] : c.cds_len[j];
+      const int32_t li = ld<kTile>(t.cds, c.cds_len, t, i);
+      const int32_t lj = ld<kTile>(t.cds, c.cds_len, t, j);
+      int m = li < lj ? li : lj;
       if (m < 1) m = 1;
       if (__ddiv_rn((double)o, (double)m) < f) return false;
     }
-    const uint8_t wi = c.weak[i], wj = c.weak[j];
+    const uint8_t wi = ld<kTile>(t.weak, c.weak, t, i);
+    const uint8_t wj = ld<kTile>(t.weak, c.weak, t, j);
     *i_loses = (same_gene || wi == wj) ? score_i_loses : (wi > wj);
   } else {
     *i_loses = score_i_loses;
@@ -108,83 +272,335 @@ __device__ __forceinline__ bool pair_gates(const Cols& c, int j, int i,
   return true;
 }
 
-__global__ void __launch_bounds__(kThreads)
-shadow_sweep_kernel(Cols c, int n, int W, int mode, int check_strand,
-                    double f, uint8_t* marks, int64_t* best_score,
-                    int32_t* best_other, int32_t* best_ov) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  uint8_t mark = 0;
-  int64_t bs = kScoreNone;
-  int32_t bo = kOtherNone;
-  int32_t bv = 0;
-  if (!c.flt[r]) {
-    int64_t ov;
-    bool i_loses;
-    // r plays i: it loses to an earlier j
-    for (int j = r - 1; j >= 0 && j >= r - W; --j) {
-      if (!pair_gates(c, j, r, mode, check_strand, f, &ov, &i_loses) ||
-          !i_loses)
-        continue;
-      mark = 1;
-      const int64_t s = c.pscore[j];
-      if (s > bs || (s == bs && j < bo)) {
-        bs = s;
-        bo = j;
-        bv = (int32_t)ov;
+// Item `it` of a band chunk (offsets d0 + 1 .. d0 + dn, n0 = dn * kRows):
+// items [0, n0) are the pairs whose i is owned, the rest those whose j
+// alone is owned (j = r0 + kRows - 1 - m, i = j + d >= r0 + kRows, m < d).
+// Sets the pair and its offset index k; false when the item has no pair.
+__device__ __forceinline__ bool item_pair(int it, int n0, int m1, int d0,
+                                          int r0, int nown, int n, int* k,
+                                          int* j, int* i) {
+  if (it < n0) {
+    *k = it / kRows;
+    const int l = it - *k * kRows;
+    *i = r0 + l;
+    *j = *i - (d0 + 1 + *k);
+    return l < nown && *j >= 0;
+  }
+  const int q = it - n0;
+  *k = q / m1;
+  const int m = q - *k * m1;
+  const int d = d0 + 1 + *k;
+  *j = r0 + kRows - 1 - m;
+  *i = *j + d;
+  return m < d && *i < n;
+}
+
+// Dynamic shared memory of one block: the staged rows, their exons, the
+// candidate slots and the queue of pairs past the cheap gates. Must match
+// the carving in the kernel.
+constexpr size_t smem_bytes(int halo, int chunk) {
+  return (size_t)(kRows + 2 * halo) *
+             (3 * sizeof(int64_t) + 6 * sizeof(int32_t) + 3 +
+              kExonsPerRow * 2 * sizeof(int32_t)) +
+         (size_t)2 * chunk * kRows *
+             (sizeof(int32_t) + 1 + sizeof(uint16_t));
+}
+constexpr size_t kStaticSmem =
+    (kThreads + 1) * sizeof(int32_t) + (kThreads / 32) * sizeof(int64_t) +
+    sizeof(int);
+static_assert(smem_bytes(kBandTile, kBandTile) + kStaticSmem <= 48 * 1024,
+              "shared memory beyond 48 KB needs an opt-in per launch");
+
+template <bool kTile>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
+shadow_sweep_kernel(Cols c, int n, int W, int halo, int chunk, int mode,
+                    int check_strand, double f, uint8_t* marks,
+                    int64_t* best_score, int32_t* best_other,
+                    int32_t* best_ov) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int32_t s_pref[kThreads + 1];
+  __shared__ int64_t s_warp[kThreads / 32];
+  __shared__ int s_qn;
+
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * kRows;
+  const int nown = min(kRows, n - r0);
+  const int s0 = max(r0 - halo, 0);
+  const int R = min(r0 + kRows + halo, n) - s0;
+  const int rmax = kRows + 2 * halo;
+  const int exon_cap = rmax * kExonsPerRow;
+
+  int64_t* s_cs = reinterpret_cast<int64_t*>(smem);
+  int64_t* s_ce = s_cs + rmax;
+  int64_t* s_ps = s_ce + rmax;
+  int32_t* s_cid = reinterpret_cast<int32_t*>(s_ps + rmax);
+  int32_t* s_gid = s_cid + rmax;
+  int32_t* s_rank = s_gid + rmax;
+  int32_t* s_cds = s_rank + rmax;
+  int32_t* s_ne = s_cds + rmax;
+  int32_t* s_off = s_ne + rmax;
+  int32_t* s_eos = s_off + rmax;
+  int32_t* s_eoe = s_eos + exon_cap;
+  int32_t* s_slot_ov = s_eoe + exon_cap;  // [2 * chunk][kRows]
+  uint16_t* s_queue =                     // items past the cheap gates
+      reinterpret_cast<uint16_t*>(s_slot_ov + 2 * chunk * kRows);
+  uint8_t* s_flt = reinterpret_cast<uint8_t*>(s_queue + 2 * chunk * kRows);
+  uint8_t* s_rev = s_flt + rmax;
+  uint8_t* s_weak = s_rev + rmax;
+  uint8_t* s_slot = s_weak + rmax;        // [2 * chunk][kRows], 1 = candidate
+
+  // stage the rows (R <= kThreads: one row a thread)
+  int64_t ne = 0;
+  if (tid < R) {
+    const int r = s0 + tid;
+    s_cs[tid] = c.cs[r];
+    s_ce[tid] = c.ce[r];
+    s_ps[tid] = c.pscore[r];
+    s_cid[tid] = c.cid[r];
+    s_gid[tid] = c.gid[r];
+    s_rank[tid] = c.rank[r];
+    s_cds[tid] = c.cds_len[r];
+    s_off[tid] = c.off_exon[r];
+    s_flt[tid] = c.flt[r];
+    s_rev[tid] = c.rev[r];
+    s_weak[tid] = c.weak[r];
+    ne = c.n_exon[r];
+    s_ne[tid] = (int32_t)ne;
+  }
+  // exclusive prefix over n_exon of the staged rows
+  const int lane = tid & 31, warp = tid >> 5;
+  int64_t incl = ne;
+  for (int s = 1; s < 32; s <<= 1) {
+    const int64_t v = __shfl_up_sync(0xffffffffu, incl, s);
+    if (lane >= s) incl += v;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  int64_t base = 0, total = 0;
+  for (int w = 0; w < kThreads / 32; ++w) {
+    if (w < warp) base += s_warp[w];
+    total += s_warp[w];
+  }
+  const bool exons_staged = total <= exon_cap;
+  // R < kThreads, so thread R writes s_pref[R] = total
+  if (exons_staged) s_pref[tid] = (int32_t)(base + incl - ne);
+  __syncthreads();
+  int wide = 0;
+  if (exons_staged) {
+    // flat over the staged exons, kGather a thread at a time: each finds its
+    // row by binary search over the prefix, then all kGather loads are in
+    // flight together
+    constexpr int kGather = 4;
+    for (int e0 = tid; e0 < (int)total; e0 += kGather * kThreads) {
+      int src[kGather];
+      int32_t os[kGather], oe[kGather];
+#pragma unroll
+      for (int u = 0; u < kGather; ++u) {
+        const int e = e0 + u * kThreads;
+        int lo = 0, hi = R;  // last row k with s_pref[k] <= e
+        while (hi - lo > 1) {
+          const int mid = (lo + hi) >> 1;
+          if (s_pref[mid] <= e) lo = mid; else hi = mid;
+        }
+        src[u] = e < (int)total ? s_off[lo] + (e - s_pref[lo]) : -1;
       }
-    }
-    // r plays j: it loses to a later i
-    for (int i = r + 1; i < n && i <= r + W; ++i) {
-      if (!pair_gates(c, r, i, mode, check_strand, f, &ov, &i_loses) ||
-          i_loses)
-        continue;
-      mark = 1;
-      const int64_t s = c.pscore[i];
-      if (s > bs || (s == bs && i < bo)) {
-        bs = s;
-        bo = i;
-        bv = (int32_t)ov;
+#pragma unroll
+      for (int u = 0; u < kGather; ++u) {
+        if (src[u] >= 0) {
+          os[u] = c.exon_os[src[u]];
+          oe[u] = c.exon_oe[src[u]];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kGather; ++u) {
+        if (src[u] < 0) continue;
+        const int e = e0 + u * kThreads;
+        s_eos[e] = os[u];
+        s_eoe[e] = oe[u];
+        wide |= os[u] <= -kNarrow || os[u] >= kNarrow ||
+                oe[u] <= -kNarrow || oe[u] >= kNarrow;
       }
     }
   }
-  marks[r] = mark;
-  best_score[r] = bs;
-  best_other[r] = bo;
-  best_ov[r] = bv;
+  wide = __syncthreads_or(wide);
+  if (exons_staged && tid < R) s_off[tid] = s_pref[tid];
+  __syncthreads();
+
+  Tile t;
+  t.s0 = s0;
+  t.R = R;
+  t.cs = s_cs;
+  t.ce = s_ce;
+  t.ps = s_ps;
+  t.cid = s_cid;
+  t.gid = s_gid;
+  t.rank = s_rank;
+  t.cds = s_cds;
+  t.ne = s_ne;
+  t.off = s_off;
+  t.flt = s_flt;
+  t.rev = s_rev;
+  t.weak = s_weak;
+  t.eos = exons_staged ? s_eos : c.exon_os;
+  t.eoe = exons_staged ? s_eoe : c.exon_oe;
+  t.narrow = exons_staged && !wide;
+
+  uint8_t mark = 0;
+  int64_t bs = kScoreNone;
+  int32_t bo = kOtherNone, bv = 0;
+  const int nslot = 2 * chunk * kRows;
+  for (int d0 = 0; d0 < W; d0 += chunk) {
+    const int dn = min(chunk, W - d0);  // band offsets d0 + 1 .. d0 + dn
+    for (int k = tid; k < nslot; k += kThreads) s_slot[k] = 0;
+    if (tid == 0) s_qn = 0;
+    __syncthreads();
+    // phase 1a: every item through the cheap gates; the survivors go to a
+    // queue (one atomic a warp), so that phase 1b gives every thread a pair
+    // that needs its exons intersected. The queue's order varies, the slots
+    // it fills do not.
+    const int n0 = dn * kRows;
+    const int m1 = min(d0 + dn, kRows);
+    const int n01 = n0 + dn * m1;
+    for (int b0 = 0; b0 < n01; b0 += kThreads) {
+      const int it = b0 + tid;
+      int k, i, j;
+      const bool pass =
+          it < n01 && item_pair(it, n0, m1, d0, r0, nown, n, &k, &j, &i) &&
+          cheap_gates<kTile>(c, t, j, i, mode, check_strand);
+      const unsigned ballot = __ballot_sync(0xffffffffu, pass);
+      int at = 0;
+      if (lane == 0 && ballot) at = atomicAdd(&s_qn, __popc(ballot));
+      at = __shfl_sync(0xffffffffu, at, 0);
+      if (pass) s_queue[at + __popc(ballot & ((1u << lane) - 1))] = it;
+    }
+    __syncthreads();
+    // phase 1b: the queued pairs' outcomes into the losers' slots
+    const int qn = s_qn;
+    for (int q = tid; q < qn; q += kThreads) {
+      int k, i, j;
+      item_pair(s_queue[q], n0, m1, d0, r0, nown, n, &k, &j, &i);
+      int64_t ov;
+      bool i_loses;
+      if (!pair_outcome<kTile>(c, t, j, i, mode, f, &ov, &i_loses)) continue;
+      int slot = -1;
+      if (i_loses) {
+        if (i - r0 < kRows) slot = k * kRows + (i - r0);
+      } else if (j >= r0) {
+        slot = (chunk + k) * kRows + (j - r0);
+      }
+      if (slot >= 0) {
+        s_slot_ov[slot] = (int32_t)ov;
+        s_slot[slot] = 1;
+      }
+    }
+    __syncthreads();
+    // phase 2: one thread per owned row folds its candidates
+    if (tid < nown) {
+      const int r = r0 + tid;
+      for (int side = 0; side < 2; ++side) {
+        for (int k = 0; k < dn; ++k) {
+          const int slot = (side * chunk + k) * kRows + tid;
+          if (!s_slot[slot]) continue;
+          const int w = side ? r + d0 + 1 + k : r - d0 - 1 - k;
+          const int64_t s = ld<kTile>(t.ps, c.pscore, t, w);
+          mark = 1;
+          if (s > bs || (s == bs && w < bo)) {
+            bs = s;
+            bo = w;
+            bv = s_slot_ov[slot];
+          }
+        }
+      }
+    }
+    __syncthreads();  // slots are cleared for the next chunk
+  }
+  if (tid < nown) {
+    const int r = r0 + tid;
+    marks[r] = mark;
+    best_score[r] = bs;
+    best_other[r] = bo;
+    best_ov[r] = bv;
+  }
 }
+
+// Band chunk and staged halo of a launch. W is already clipped to n - 1.
+void tile_shape(int W, int* halo, int* chunk) {
+  *halo = W <= kBandTile ? W : 0;
+  *chunk = W < kBandTile ? W : kBandTile;
+}
+
+Cols unpack(const void* in, const long long* in_off) {
+  const char* b = static_cast<const char*>(in);
+  Cols c;
+  c.cid = reinterpret_cast<const int32_t*>(b + in_off[kCid]);
+  c.cs = reinterpret_cast<const int64_t*>(b + in_off[kCs]);
+  c.ce = reinterpret_cast<const int64_t*>(b + in_off[kCe]);
+  c.flt = reinterpret_cast<const uint8_t*>(b + in_off[kFlt]);
+  c.rev = reinterpret_cast<const uint8_t*>(b + in_off[kRev]);
+  c.gid = reinterpret_cast<const int32_t*>(b + in_off[kGid]);
+  c.pscore = reinterpret_cast<const int64_t*>(b + in_off[kPscore]);
+  c.rank = reinterpret_cast<const int32_t*>(b + in_off[kRank]);
+  c.weak = reinterpret_cast<const uint8_t*>(b + in_off[kWeak]);
+  c.cds_len = reinterpret_cast<const int32_t*>(b + in_off[kCdsLen]);
+  c.off_exon = reinterpret_cast<const int32_t*>(b + in_off[kOffExon]);
+  c.n_exon = reinterpret_cast<const int32_t*>(b + in_off[kNExon]);
+  c.exon_os = reinterpret_cast<const int32_t*>(b + in_off[kExonOs]);
+  c.exon_oe = reinterpret_cast<const int32_t*>(b + in_off[kExonOe]);
+  return c;
+}
+
+int clip_band(int n, int W) { return W < n - 1 ? W : (n > 1 ? n - 1 : 1); }
 
 }  // namespace
 
-// One launch on `stream`; returns cudaGetLastError() (0 on success).
-extern "C" int pg_shadow_sweep(
-    const void* cid, const void* cs, const void* ce, const void* flt,
-    const void* rev, const void* gid, const void* pscore, const void* rank,
-    const void* weak, const void* cds_len, const void* off_exon,
-    const void* n_exon, const void* exon_os, const void* exon_oe,
-    void* marks, void* best_score, void* best_other, void* best_ov, int n,
-    int W, int mode, int check_strand, double f, void* stream) {
+// One launch on `stream` over the packed input `in` (byte offsets in_off,
+// kNumCols of them, host memory) into the packed output `out` (out_off,
+// kNumOut). Returns cudaGetLastError() (0 on success).
+extern "C" int pg_shadow_sweep(const void* in, const long long* in_off,
+                               void* out, const long long* out_off, int n,
+                               int W, int mode, int check_strand, double f,
+                               void* stream) {
   if (n <= 0) return 0;
-  Cols c;
-  c.cid = static_cast<const int32_t*>(cid);
-  c.cs = static_cast<const int64_t*>(cs);
-  c.ce = static_cast<const int64_t*>(ce);
-  c.flt = static_cast<const uint8_t*>(flt);
-  c.rev = static_cast<const uint8_t*>(rev);
-  c.gid = static_cast<const int32_t*>(gid);
-  c.pscore = static_cast<const int64_t*>(pscore);
-  c.rank = static_cast<const int32_t*>(rank);
-  c.weak = static_cast<const uint8_t*>(weak);
-  c.cds_len = static_cast<const int32_t*>(cds_len);
-  c.off_exon = static_cast<const int32_t*>(off_exon);
-  c.n_exon = static_cast<const int32_t*>(n_exon);
-  c.exon_os = static_cast<const int32_t*>(exon_os);
-  c.exon_oe = static_cast<const int32_t*>(exon_oe);
-  const int blocks = (n + kThreads - 1) / kThreads;
-  shadow_sweep_kernel<<<blocks, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      c, n, W, mode, check_strand, f, static_cast<uint8_t*>(marks),
-      static_cast<int64_t*>(best_score), static_cast<int32_t*>(best_other),
-      static_cast<int32_t*>(best_ov));
+  W = clip_band(n, W);
+  int halo, chunk;
+  tile_shape(W, &halo, &chunk);
+  char* o = static_cast<char*>(out);
+  const int blocks = (n + kRows - 1) / kRows;
+  auto kernel = halo == W ? shadow_sweep_kernel<true>
+                          : shadow_sweep_kernel<false>;
+  kernel<<<blocks, kThreads, smem_bytes(halo, chunk),
+           static_cast<cudaStream_t>(stream)>>>(
+      unpack(in, in_off), n, W, halo, chunk, mode, check_strand, f,
+      reinterpret_cast<uint8_t*>(o + out_off[kOutMarks]),
+      reinterpret_cast<int64_t*>(o + out_off[kOutScore]),
+      reinterpret_cast<int32_t*>(o + out_off[kOutOther]),
+      reinterpret_cast<int32_t*>(o + out_off[kOutOv]));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch shape for n hits and band W: info = {blocks, threads, dynamic
+// shared bytes, resident blocks per SM, registers per thread, halo,
+// chunk}. Returns a CUDA error code (0 on success).
+extern "C" int pg_shadow_sweep_shape(int n, int W, int* info) {
+  W = clip_band(n, W);
+  int halo, chunk;
+  tile_shape(W, &halo, &chunk);
+  const size_t smem = smem_bytes(halo, chunk);
+  auto kernel = halo == W ? shadow_sweep_kernel<true>
+                          : shadow_sweep_kernel<false>;
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kThreads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  info[0] = (n + kRows - 1) / kRows;
+  info[1] = kThreads;
+  info[2] = static_cast<int>(smem);
+  info[3] = per_sm;
+  info[4] = attr.numRegs;
+  info[5] = halo;
+  info[6] = chunk;
+  return 0;
 }

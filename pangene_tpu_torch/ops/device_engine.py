@@ -1,11 +1,12 @@
 """Host <-> device bridge of the per-genome sweeps.
 
-Builds the sweep columns of one genome on the torch device, runs the
-shadow / isoform sweep (ops/sweep_kernel.py: the CUDA kernel on "cuda",
-its plain version on "cpu"), and finalizes on the host exactly as the
-JAX package does (pangene_tpu/ops/device_engine.py): the stale shadow flags
-of hit 0 and of filtered hits, has_dom = best score > 0, and the +.499 f64
-blend of score_dom.
+Packs the sweep columns of one genome into one (pinned) host buffer and
+uploads it with one copy, runs the shadow / isoform sweep
+(ops/sweep_kernel.py: the CUDA kernel on "cuda", its plain version on
+"cpu"), copies the packed result back once, and finalizes on the host
+exactly as the JAX package does (pangene_tpu/ops/device_engine.py): the
+stale shadow flags of hit 0 and of filtered hits, has_dom = best score > 0,
+and the +.499 f64 blend of score_dom.
 """
 from __future__ import annotations
 
@@ -43,8 +44,15 @@ def hash_u32_np(keys: np.ndarray) -> np.ndarray:
     return k
 
 
-def build_cols(d: DataSet, g: Genome, device: torch.device) -> sk.SweepCols:
-    """Sweep columns of one cs-sorted genome, uploaded to `device`."""
+_NP_DTYPE = {torch.int32: np.int32, torch.int64: np.int64,
+             torch.uint8: np.uint8}
+
+
+def pack_host(d: DataSet, g: Genome, cds_len: np.ndarray,
+              pin: bool) -> torch.Tensor:
+    """Sweep columns of one cs-sorted genome packed into one host buffer
+    (sweep_kernel.pack_layout), in pinned memory when `pin`. cds_len is
+    cds_len_all(g), which the caller may need too."""
     h = g.hits
     gid = np.asarray(d.prot_gid, np.int32)[h.pid]
     pref = np.asarray(d.gene_preferred, np.uint8)[gid]
@@ -56,30 +64,52 @@ def build_cols(d: DataSet, g: Genome, device: torch.device) -> sk.SweepCols:
     host = {
         "cid": h.cid, "cs": h.cs, "ce": h.ce, "flt": h.flt != 0,
         "rev": h.rev, "gid": gid, "pscore": pscore, "rank": h.rank,
-        "weak": h.weak_br, "cds_len": cds_len_all(g), "off_exon": h.off_exon,
+        "weak": h.weak_br, "cds_len": cds_len, "off_exon": h.off_exon,
         "n_exon": h.n_exon, "exon_os": g.exon_os, "exon_oe": g.exon_oe,
     }
-    np_dtype = {torch.int32: np.int32, torch.int64: np.int64,
-                torch.uint8: np.uint8}
-    return sk.SweepCols(**{
-        name: torch.from_numpy(np.ascontiguousarray(
-            host[name], np_dtype[sk.COL_DTYPES[name]])).to(device)
-        for name in sk.SweepCols._fields})
+    offs, total = sk.pack_layout(len(h), len(g.exon_os))
+    buf = torch.empty(total, dtype=torch.uint8, pin_memory=pin)
+    view = buf.numpy()
+    for name, off, end in zip(sk.SweepCols._fields, offs, offs[1:] + [total]):
+        a = np.asarray(host[name]).astype(_NP_DTYPE[sk.COL_DTYPES[name]],
+                                          copy=False)
+        view[off:off + a.nbytes].view(a.dtype)[:] = a
+        view[off + a.nbytes:end] = 0   # alignment padding
+    return buf
 
 
-def _sweep(opt: PgOpt, d: DataSet, g: Genome, mode: int):
+def upload(d: DataSet, g: Genome, device: torch.device,
+           cds_len=None) -> torch.Tensor:
+    """The packed sweep columns of one genome on `device`: one copy from
+    pinned host memory, not waited for."""
+    if cds_len is None:
+        cds_len = cds_len_all(g)
+    return pack_host(d, g, cds_len, pin=device.type == "cuda").to(
+        device, non_blocking=True)
+
+
+def build_cols(d: DataSet, g: Genome, device: torch.device) -> sk.SweepCols:
+    """Sweep columns of one cs-sorted genome on `device`, as views of its
+    packed upload."""
+    return sk.unpack_cols(upload(d, g, device), len(g.hits), len(g.exon_os))
+
+
+def _sweep(opt: PgOpt, d: DataSet, g: Genome, mode: int,
+           cds_len: np.ndarray):
     h = g.hits
-    cols = build_cols(d, g, resolve_device(opt.device))
+    n = len(h)
+    buf = upload(d, g, resolve_device(opt.device), cds_len)
     W = sk.band_width(h.cid, np.asarray(h.cs), np.asarray(h.ce))
-    return [t.cpu().numpy() for t in sk.shadow_sweep(
-        cols, W, mode, opt.check_strand, float(opt.min_ov_ratio))]
+    out = sk.shadow_sweep_packed(buf, n, len(g.exon_os), W, mode,
+                                 opt.check_strand, float(opt.min_ov_ratio))
+    return [t.numpy() for t in sk.unpack_out(out.cpu(), n)]
 
 
 def flt_ov_isoform(opt: PgOpt, d: DataSet, g: Genome) -> int:
     """Device pg_flt_ov_isoform (overlap.c:58-93)."""
     if g.n_hit == 0:
         return 0
-    marks = _sweep(opt, d, g, sk.ISOFORM)[0]
+    marks = _sweep(opt, d, g, sk.ISOFORM, cds_len_all(g))[0]
     h = g.hits
     h.flt_iso_ov[marks != 0] = 1
     got = h.flt_iso_ov != 0
@@ -91,7 +121,8 @@ def shadow(opt: PgOpt, d: DataSet, g: Genome, cal_dom_sc: bool) -> int:
     """Device pg_shadow (overlap.c:101-178); bit-equal to the host oracle."""
     if g.n_hit == 0:
         return 0
-    marks, b_score, b_other, b_ov = _sweep(opt, d, g, sk.SHADOW)
+    lens = cds_len_all(g)
+    marks, b_score, b_other, b_ov = _sweep(opt, d, g, sk.SHADOW, lens)
     marks = marks != 0
     h = g.hits
     n = len(h)
@@ -111,7 +142,7 @@ def shadow(opt: PgOpt, d: DataSet, g: Genome, cal_dom_sc: bool) -> int:
     pid_dom = np.where(has_dom, h.pid[other], pid_dom)
     h.set("pid_dom", pid_dom.astype(np.int32))
     if cal_dom_sc:
-        lens = cds_len_all(g).astype(np.float64)
+        lens = lens.astype(np.float64)
         li = lens
         lj = lens[other]
         ovf = b_ov.astype(np.float64)

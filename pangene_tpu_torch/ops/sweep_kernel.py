@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import subprocess
 import threading
 import time
@@ -111,11 +112,95 @@ def band_width(cid: np.ndarray, cs: np.ndarray, ce: np.ndarray) -> int:
     return max(w, 1)
 
 
-def _check(c: SweepCols, W: int, mode: int) -> torch.device:
+# Packed buffers: one uint8 buffer per call in each direction, every column
+# at a byte offset aligned to PACK_ALIGN (csrc/shadow_sweep.cu reads them in
+# this order). The host fills the input in pinned memory and uploads it
+# with one copy; the kernel writes the four outputs into one buffer that is
+# copied back once.
+PACK_ALIGN = 16
+EXON_FIELDS = ("exon_os", "exon_oe")
+OUT_DTYPES = (("marks", torch.uint8), ("best_score", torch.int64),
+              ("best_other", torch.int32), ("best_ov", torch.int32))
+
+
+def tile_shape() -> Tuple[int, int]:
+    """(kRows, kBandTile) as csrc/shadow_sweep.cu defines them: the owned
+    rows of a block and the largest W whose halo is staged. Read from the
+    source, so the kernel alone owns its tile shape."""
+    with open(_SRC) as fp:
+        src = fp.read()
+    return tuple(int(re.search(r"constexpr int %s = (\d+);" % name,
+                               src).group(1))
+                 for name in ("kRows", "kBandTile"))
+
+
+def _layout(counts_dtypes):
+    offs, pos = [], 0
+    for count, dtype in counts_dtypes:
+        offs.append(pos)
+        pos += -(-count * dtype.itemsize // PACK_ALIGN) * PACK_ALIGN
+    return offs, pos
+
+
+def pack_layout(n: int, E: int) -> Tuple[list, int]:
+    """Byte offsets of the SweepCols columns (n hits, E exons) in the packed
+    input, and its total size."""
+    return _layout([(E if name in EXON_FIELDS else n, COL_DTYPES[name])
+                    for name in SweepCols._fields])
+
+
+def out_layout(n: int) -> Tuple[list, int]:
+    """Byte offsets of (marks, best_score, best_other, best_ov) in the
+    packed output, and its total size."""
+    return _layout([(n, dtype) for _, dtype in OUT_DTYPES])
+
+
+def _views(buf: torch.Tensor, offs, counts_dtypes):
+    return [buf[off:off + count * dtype.itemsize].view(dtype)
+            for off, (count, dtype) in zip(offs, counts_dtypes)]
+
+
+def _pack(ts, offs, total) -> torch.Tensor:
+    buf = torch.empty(total, dtype=torch.uint8, device=ts[0].device)
+    for off, end, t in zip(offs, offs[1:] + [total], ts):
+        nbytes = t.numel() * t.element_size()
+        buf[off:off + nbytes].view(t.dtype).copy_(t)
+        buf[off + nbytes:end].zero_()   # alignment padding
+    return buf
+
+
+def pack_cols(c: SweepCols) -> torch.Tensor:
+    """The columns as one packed uint8 buffer on their device."""
+    return _pack(c, *pack_layout(c.cid.shape[0], c.exon_os.shape[0]))
+
+
+def unpack_cols(buf: torch.Tensor, n: int, E: int) -> SweepCols:
+    """SweepCols of views into a packed input buffer (no copy)."""
+    cd = [(E if name in EXON_FIELDS else n, COL_DTYPES[name])
+          for name in SweepCols._fields]
+    return SweepCols(*_views(buf, pack_layout(n, E)[0], cd))
+
+
+def pack_out(outs) -> torch.Tensor:
+    """(marks, best_score, best_other, best_ov) as one packed buffer."""
+    return _pack(outs, *out_layout(outs[0].shape[0]))
+
+
+def unpack_out(buf: torch.Tensor, n: int):
+    """Views (marks, best_score, best_other, best_ov) of a packed output."""
+    return tuple(_views(buf, out_layout(n)[0],
+                        [(n, dtype) for _, dtype in OUT_DTYPES]))
+
+
+def _check_args(W: int, mode: int) -> None:
     if mode not in MODE_NAMES:
         raise ValueError("unknown sweep mode %r" % (mode,))
     if W < 1:
         raise ValueError("band width must be >= 1, got %d" % W)
+
+
+def _check(c: SweepCols, W: int, mode: int) -> torch.device:
+    _check_args(W, mode)
     dev = c.cid.device
     n = c.cid.shape[0]
     for name, t in zip(SweepCols._fields, c):
@@ -125,7 +210,7 @@ def _check(c: SweepCols, W: int, mode: int) -> torch.device:
         if t.device != dev or t.dim() != 1 or not t.is_contiguous():
             raise ValueError("column %s must be a contiguous 1-D tensor on "
                              "%s" % (name, dev))
-        if name not in ("exon_os", "exon_oe") and t.shape[0] != n:
+        if name not in EXON_FIELDS and t.shape[0] != n:
             raise ValueError("column %s has %d rows, expected %d"
                              % (name, t.shape[0], n))
     if c.exon_os.shape != c.exon_oe.shape:
@@ -133,40 +218,84 @@ def _check(c: SweepCols, W: int, mode: int) -> torch.device:
     return dev
 
 
+def _check_packed(buf: torch.Tensor, n: int, E: int, W: int,
+                  mode: int) -> torch.device:
+    _check_args(W, mode)
+    if n < 0 or E < 0:
+        raise ValueError("negative sizes n=%d E=%d" % (n, E))
+    total = pack_layout(n, E)[1]
+    if buf.dtype != torch.uint8 or buf.dim() != 1 or \
+            not buf.is_contiguous() or buf.shape[0] != total:
+        raise ValueError("packed input must be a contiguous uint8 tensor of "
+                         "%d bytes for n=%d, E=%d" % (total, n, E))
+    return buf.device
+
+
 def shadow_sweep(c: SweepCols, W: int, mode: int, check_strand: bool,
                  min_ov_ratio: float = 0.0
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor]:
-    """Run the sweep on the columns' device.
+    """shadow_sweep_packed on columns: packs them on their device and
+    returns (marks uint8, best_score int64 biased, best_other int32,
+    best_ov int32), one row per hit. min_ov_ratio is read in SHADOW mode
+    only."""
+    _check(c, W, mode)
+    n = c.cid.shape[0]
+    return unpack_out(shadow_sweep_packed(
+        pack_cols(c), n, c.exon_os.shape[0], W, mode, check_strand,
+        min_ov_ratio), n)
 
-    Returns (marks uint8, best_score int64 biased, best_other int32,
-    best_ov int32), one row per hit. CUDA tensors launch the kernel (or
-    raise); CPU tensors take the plain version. min_ov_ratio is read in
-    SHADOW mode only."""
-    dev = _check(c, W, mode)
+
+def shadow_sweep_packed(buf: torch.Tensor, n: int, E: int, W: int, mode: int,
+                        check_strand: bool, min_ov_ratio: float = 0.0
+                        ) -> torch.Tensor:
+    """The sweep on a packed input (pack_layout(n, E)); returns the packed
+    output (out_layout(n)) on the same device. The one way into the
+    kernel: on cuda it launches the kernel or raises; on the CPU it takes
+    the plain version."""
+    dev = _check_packed(buf, n, E, W, mode)
     if dev.type == "cpu":
         n_plain_calls[mode] += 1
-        return shadow_sweep_plain(c, W, mode, check_strand, min_ov_ratio)
+        return pack_out(shadow_sweep_plain(unpack_cols(buf, n, E), W, mode,
+                                           check_strand, min_ov_ratio))
+    return _launch(buf, n, E, W, mode, check_strand, min_ov_ratio)
+
+
+def _launch(buf: torch.Tensor, n: int, E: int, W: int, mode: int,
+            check_strand: bool, min_ov_ratio: float) -> torch.Tensor:
+    dev = buf.device
     if dev.type != "cuda":
         raise ValueError("shadow_sweep runs on cuda or cpu, not %s" % dev)
-    n = c.cid.shape[0]
-    marks = torch.empty(n, dtype=torch.uint8, device=dev)
-    b_score = torch.empty(n, dtype=torch.int64, device=dev)
-    b_other = torch.empty(n, dtype=torch.int32, device=dev)
-    b_ov = torch.empty(n, dtype=torch.int32, device=dev)
+    in_off = (ctypes.c_longlong * len(SweepCols._fields))(
+        *pack_layout(n, E)[0])
+    offs, total = out_layout(n)
+    out_off = (ctypes.c_longlong * len(OUT_DTYPES))(*offs)
+    out = torch.empty(total, dtype=torch.uint8, device=dev)
     lib = _kernel_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pg_shadow_sweep(
-            *[t.data_ptr() for t in c],
-            marks.data_ptr(), b_score.data_ptr(), b_other.data_ptr(),
-            b_ov.data_ptr(), n, W, mode, int(bool(check_strand)),
-            float(min_ov_ratio), stream)
+        err = lib.pg_shadow_sweep(buf.data_ptr(), in_off, out.data_ptr(),
+                                  out_off, n, W, mode,
+                                  int(bool(check_strand)),
+                                  float(min_ov_ratio), stream)
     if err != 0:
         raise RuntimeError("shadow_sweep kernel launch failed: CUDA error %d"
                            % err)
     n_kernel_launches[mode] += 1
-    return marks, b_score, b_other, b_ov
+    return out
+
+
+def launch_shape(n: int, W: int) -> dict:
+    """The kernel's launch shape for n hits and band W, from the CUDA
+    runtime: blocks, threads, dynamic shared bytes, resident blocks per SM,
+    registers per thread, staged halo and band chunk."""
+    info = (ctypes.c_int * 7)()
+    err = _kernel_lib().pg_shadow_sweep_shape(n, W, info)
+    if err != 0:
+        raise RuntimeError("shadow_sweep shape query failed: CUDA error %d"
+                           % err)
+    return dict(zip(("blocks", "threads", "smem_bytes", "blocks_per_sm",
+                     "registers", "halo", "chunk"), info))
 
 
 def shadow_sweep_plain(c: SweepCols, W: int, mode: int, check_strand: bool,
@@ -179,7 +308,7 @@ def shadow_sweep_plain(c: SweepCols, W: int, mode: int, check_strand: bool,
     b_score = torch.full((n,), SCORE_NONE, dtype=torch.int64, device=dev)
     b_other = torch.full((n,), OTHER_NONE, dtype=torch.int32, device=dev)
     b_ov = torch.zeros(n, dtype=torch.int32, device=dev)
-    if n < 2:
+    if n < 2 or c.exon_os.shape[0] == 0:   # no pair, or every ov is 0
         return marks.to(torch.uint8), b_score, b_other, b_ov
     # absolute exon windows [n, K]; padding (0, 0) adds nothing to the
     # intersection because every coordinate is >= 0
@@ -255,6 +384,14 @@ def _nvcc() -> str:
     return path if os.path.exists(path) else "nvcc"
 
 
+def nvcc_command(src: str, out: str) -> list:
+    """The nvcc command that builds `src` into the shared library `out`
+    for sm_90a (IEEE division: never --use_fast_math)."""
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-o", out, src]
+
+
 def build(force: bool = False) -> Tuple[float, str]:
     """Compile csrc/shadow_sweep.cu for sm_90a into build/pangene_tpu_torch/
     (skipped when the library is newer than the source, unless `force`).
@@ -264,11 +401,9 @@ def build(force: bool = False) -> Tuple[float, str]:
             os.path.getmtime(so) >= os.path.getmtime(_SRC):
         return 0.0, ""
     tmp = "%s.%d.tmp" % (so, os.getpid())
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, _SRC]
     t0 = time.monotonic()
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    r = subprocess.run(nvcc_command(_SRC, tmp), capture_output=True,
+                       text=True)
     dt = time.monotonic() - t0
     if r.returncode != 0:
         raise RuntimeError("nvcc failed (%d):\n%s%s"
@@ -277,17 +412,24 @@ def build(force: bool = False) -> Tuple[float, str]:
     return dt, r.stderr
 
 
+def load(path: str) -> ctypes.CDLL:
+    """A built kernel library with its entry points' C signatures."""
+    lib = ctypes.CDLL(path)
+    i64p = ctypes.POINTER(ctypes.c_longlong)
+    fn = lib.pg_shadow_sweep
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, i64p, ctypes.c_void_p, i64p]
+                   + [ctypes.c_int] * 4 + [ctypes.c_double, ctypes.c_void_p])
+    fn = lib.pg_shadow_sweep_shape
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    return lib
+
+
 def _kernel_lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
             build()
-            lib = ctypes.CDLL(os.path.join(build_dir(),
-                                           "libshadow_sweep.so"))
-            fn = lib.pg_shadow_sweep
-            fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * (len(SweepCols._fields) + 4)
-                           + [ctypes.c_int] * 4
-                           + [ctypes.c_double, ctypes.c_void_p])
-            _lib = lib
+            _lib = load(os.path.join(build_dir(), "libshadow_sweep.so"))
         return _lib

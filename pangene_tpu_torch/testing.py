@@ -131,3 +131,119 @@ def random_genome(rng, n_hits=60, n_genes=8, n_prots_per_gene=3, n_ctg=3,
     d.genomes.append(g)
     hit_sort(g, by_cm=False)
     return d, g
+
+
+def band_genome(rng, n_hits, W, max_exon=4, long_exons=0, all_flt=False):
+    """One-contig genome whose band width is exactly W: hit r spans
+    [10 r, 10 (r + W) + 5), so it reaches the next W hits and no further.
+    Exons are random windows inside the span (they may overlap each other;
+    the sweep sums over exon pairs all the same). `long_exons` > 0 gives
+    hit n_hits // 2 that many exons; `all_flt` filters every hit. Other
+    columns come from random_genome."""
+    d, g = random_genome(rng, n_hits=n_hits, n_ctg=1, max_exon=max_exon,
+                         max_cs=10 * n_hits)
+    h = g.hits
+    span = 10 * W + 5
+    cs = 10 * np.arange(n_hits, dtype=np.int64)
+    h.set("cs", cs.astype(h.cs.dtype))
+    h.set("ce", (cs + span).astype(h.ce.dtype))
+    h.set("cm", (cs + span // 2).astype(h.cm.dtype))
+    n_exon = h.n_exon.astype(np.int64)
+    if long_exons:
+        n_exon[n_hits // 2] = long_exons
+    starts = rng.integers(0, span - 1, int(n_exon.sum()))
+    ends = np.minimum(starts + rng.integers(1, 40, len(starts)), span)
+    h.set("n_exon", n_exon.astype(h.n_exon.dtype))
+    h.set("off_exon", (np.cumsum(n_exon) - n_exon).astype(h.off_exon.dtype))
+    if all_flt:
+        h.set("flt", np.ones(n_hits, h.flt.dtype))
+    g.exon_os = starts.astype(np.int32)
+    g.exon_oe = ends.astype(np.int32)
+    return d, g
+
+
+SWEEP_EDGE_CASES = ("n=B-1", "n=B", "n=B+1", "n=2B+W", "W>tile",
+                    "2000 exons", "all filtered", "no exons",
+                    "dense cluster", "cs>2^31")
+
+
+def _far_hits(d, g, base=5 << 30):
+    """Shift every hit of a one-contig band genome but the first by `base`
+    (beyond 2^32), and make three kinds of far hit; the band width stays
+    what it was.
+
+    * Hits m = n - 10 and m + 1 reach 2^31 - 1000 past their cs. Hit m has
+      an exon at offset 0, which overlaps its neighbours, and one near
+      2^31; hit m + 1 has only one near 2^31, which overlaps m's by 590.
+      Both are unfiltered, of one protein, and m + 1 scores lower: it loses
+      to m with ov 590. Their tile's exon offsets pass 2^29.
+    * Hit 0 lies 2^32 - 50 before hit 1 and reaches 50 past it. Its exon
+      [0, 100) overlaps nothing, but cut to int32 the cs difference would
+      be +50 and shift it onto hit 1's exon [40, 140)."""
+    h = g.hits
+    n = g.n_hit
+    ne = h.n_exon.astype(np.int64)
+    off = np.cumsum(ne) - ne
+    exons = [[g.exon_os[o:o + k], g.exon_oe[o:o + k]]
+             for o, k in zip(off, ne)]
+    top = 1 << 31
+    m = n - 10
+    exons[m] = [np.array([0, top - 3000]), np.array([100, top - 2000])]
+    exons[m + 1] = [np.array([top - 2600]), np.array([top - 1500])]
+    exons[0] = [np.array([0]), np.array([100])]
+    exons[1] = [np.array([40]), np.array([140])]
+    for name, v in (("flt", 0), ("pid", h.pid[m]), ("score_adj", 0)):
+        h.cols[name][m + 1] = v
+    h.cols["flt"][[0, 1, m]] = 0
+    h.cols["score_adj"][m] = 999
+    cs = h.cs.astype(np.int64) + base
+    ce = h.ce.astype(np.int64) + base
+    ce[m:m + 2] = cs[m:m + 2] + top - 1000
+    cs[0] = cs[1] - (2 * top - 50)
+    ce[0] = cs[1] + 50
+    for name, v in (("cs", cs), ("ce", ce), ("cm", (cs + ce) // 2)):
+        h.set(name, v.astype(h.cols[name].dtype))
+    ne = np.array([len(e[0]) for e in exons])
+    h.set("n_exon", ne.astype(h.n_exon.dtype))
+    h.set("off_exon", (np.cumsum(ne) - ne).astype(h.off_exon.dtype))
+    g.exon_os = np.concatenate([e[0] for e in exons]).astype(np.int32)
+    g.exon_oe = np.concatenate([e[1] for e in exons]).astype(np.int32)
+    return d, g
+
+
+def sweep_edge_case(name):
+    """(DataSet, Genome) of one of the sweep kernel's edge cases
+    (SWEEP_EDGE_CASES), for its tiles of `rows` owned rows whose halo is
+    staged up to W = `band_tile` (sweep_kernel.tile_shape): n at the tile
+    edges, a band wider than the staged halo, a hit with thousands of
+    exons, every hit filtered, one dense overlap cluster, an empty exon
+    pool, coordinates beyond 2^31 with spans and exon offsets beyond
+    2^29 and a cs difference beyond 2^31 (_far_hits)."""
+    from .ops.sweep_kernel import tile_shape
+    rows, band_tile = tile_shape()
+    W = 15
+    edges = {"n=B-1": rows - 1, "n=B": rows, "n=B+1": rows + 1,
+             "n=2B+W": 2 * rows + W}
+    if name in edges:
+        return band_genome(np.random.default_rng(edges[name]), edges[name], W)
+    if name == "W>tile":
+        return band_genome(np.random.default_rng(1), 4 * rows,
+                           3 * band_tile + 7)
+    if name == "2000 exons":
+        return band_genome(np.random.default_rng(2), 80, 8, long_exons=2000)
+    if name == "all filtered":
+        return band_genome(np.random.default_rng(3), 3 * rows, W,
+                           all_flt=True)
+    if name == "no exons":
+        d, g = band_genome(np.random.default_rng(5), 2 * rows, W)
+        g.hits.set("n_exon", np.zeros(g.n_hit, g.hits.n_exon.dtype))
+        g.hits.set("off_exon", np.zeros(g.n_hit, g.hits.off_exon.dtype))
+        g.exon_os = g.exon_os[:0]
+        g.exon_oe = g.exon_oe[:0]
+        return d, g
+    if name == "dense cluster":
+        return random_genome(np.random.default_rng(4), n_hits=600, n_ctg=1,
+                             max_exon=6, max_cs=400)
+    if name == "cs>2^31":
+        return _far_hits(*band_genome(np.random.default_rng(6), 2 * rows, W))
+    raise ValueError("unknown sweep edge case %r" % (name,))

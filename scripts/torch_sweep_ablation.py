@@ -1,0 +1,142 @@
+#!/usr/bin/env python3
+"""Ablation of the CUDA sweep kernel's exon intersection, on one NVIDIA GPU.
+Run from the root of a checkout:
+
+    python3 scripts/torch_sweep_ablation.py [--rounds 5]
+
+Builds pangene_tpu_torch/csrc/shadow_sweep.cu as it is and in variants made
+by textual substitution of its source (VARIANTS; all built at once into
+build/ablation/), holds every variant against the plain PyTorch version on
+the kernel's edge cases and on the largest genome of chip_smoke.py's big
+corpus (every hit unfiltered), then times the variants in turns (a, b, c,
+a, b, c, ...): device time per launch of 200 launches replayed from one
+CUDA graph, both modes. Prints the card, each variant's ptxas lines, one
+JSON line a reading and a summary line of each variant's readings.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NARROW = "t.narrow = exons_staged && !wide;"
+REG_INT32 = "if (sizeof(T) == 4 && nb <= kRegExons)"
+# name: [(text of the source, its replacement), ...]
+VARIANTS = {
+    "committed": [],
+    # every pair through the int64 loop over shared memory
+    "int64_loop": [(NARROW, "t.narrow = false;")],
+    # every pair in int64, the shorter list held in registers
+    "int64_regs": [(NARROW, "t.narrow = false;"),
+                   (REG_INT32, "if (nb <= kRegExons)")],
+}
+
+
+def build_variants(sk, out_dir):
+    """Build every variant at once; returns {name: (library path, ptxas
+    lines)}. Raises when a substitution finds no text or nvcc fails."""
+    with open(sk._SRC) as fp:
+        src = fp.read()
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name, subs in VARIANTS.items():
+        text = src
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise RuntimeError("variant %s: %r found %d times"
+                                   % (name, old, text.count(old)))
+            text = text.replace(old, new)
+        cu = os.path.join(out_dir, name + ".cu")
+        with open(cu, "w") as fp:
+            fp.write(text)
+        so = os.path.join(out_dir, "lib%s.so" % name)
+        procs[name] = (so, subprocess.Popen(
+            sk.nvcc_command(cu, so), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    built = {}
+    for name, (so, p) in procs.items():
+        out, err = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError("nvcc %s failed:\n%s%s" % (name, out, err))
+        built[name] = (so, [ln.strip() for ln in err.splitlines()
+                            if "registers" in ln or "spill" in ln])
+    return built
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--rounds", type=int, default=5)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.stderr.write("torch_sweep_ablation: no CUDA device\n")
+        return 2
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from pangene_tpu_torch.ops import device_engine as de
+    from pangene_tpu_torch.ops import sweep_kernel as sk
+    from pangene_tpu_torch.ops.sort import hit_sort
+    from pangene_tpu_torch.testing import SWEEP_EDGE_CASES, sweep_edge_case
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print("card: %s" % smi, flush=True)
+
+    t0 = time.monotonic()
+    built = build_variants(sk, os.path.join(ROOT, "build", "ablation"))
+    print("build: %d variants in %.1f s" % (len(built),
+                                            time.monotonic() - t0))
+    for name, (_, ptxas) in built.items():
+        for ln in ptxas:
+            print("  %s ptxas: %s" % (name, ln))
+    libs = {name: sk.load(so) for name, (so, _) in built.items()}
+
+    _, graph = cs.run_cli(cs.make_corpus("big"))
+    g = max(graph.d.genomes, key=lambda x: x.n_hit)
+    hit_sort(g, by_cm=False)
+    g.hits.flt[:] = 0
+    n, E = g.n_hit, len(g.exon_os)
+    buf = de.upload(graph.d, g, dev)
+    W = sk.band_width(g.hits.cid, g.hits.cs, g.hits.ce)
+    edges = []
+    for case in SWEEP_EDGE_CASES:
+        d, ge = sweep_edge_case(case)
+        edges.append((de.upload(d, ge, dev), ge.n_hit, len(ge.exon_os),
+                      sk.band_width(ge.hits.cid, ge.hits.cs, ge.hits.ce)))
+
+    for name, lib in libs.items():
+        sk._lib = lib
+        for mode in sk.MODE_NAMES:
+            cs.compare(sk, buf, n, E, W, mode, False, 0.5)
+            for eb, en, eE, eW in edges:
+                cs.compare(sk, eb, en, eE, eW, mode, False, 0.3)
+    print("every variant == plain on the genome (hits %d, W %d) and %d "
+          "edge cases, both modes" % (n, W, len(edges)), flush=True)
+
+    readings = {(v, m): [] for v in libs for m in sk.MODE_NAMES}
+    for r in range(args.rounds):
+        for name, lib in libs.items():
+            sk._lib = lib
+            for mode in sk.MODE_NAMES:
+                ms = cs.graph_ms(lambda: sk.shadow_sweep_packed(
+                    buf, n, E, W, mode, False, 0.5), cs.TIMED_LAUNCHES)
+                readings[(name, mode)].append(ms)
+                print(json.dumps({"round": r, "variant": name,
+                                  "mode": sk.MODE_NAMES[mode], "ms": ms}))
+    sk._lib = None
+    print(smi)
+    print(json.dumps({"ablation": [
+        {"variant": v, "mode": sk.MODE_NAMES[m], "ms": ms,
+         "median_ms": float(np.median(ms)), "min_ms": min(ms),
+         "max_ms": max(ms)} for (v, m), ms in readings.items()]}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -14,7 +14,8 @@ import torch
 
 from pangene_tpu_torch.ops import device_engine as de
 from pangene_tpu_torch.ops import sweep_kernel as sk
-from pangene_tpu_torch.testing import random_genome
+from pangene_tpu_torch.testing import (SWEEP_EDGE_CASES, random_genome,
+                                       sweep_edge_case)
 
 
 @pytest.fixture
@@ -25,10 +26,15 @@ def cuda_device():
 
 
 def sweep_both(d, g, device, mode, check_strand, f):
-    cols = de.build_cols(d, g, device)
+    """The kernel through the main path's entry, on the main path's packed
+    upload, and the plain version on views of the same buffer."""
+    n, E = g.n_hit, len(g.exon_os)
+    buf = de.upload(d, g, device)
     W = sk.band_width(g.hits.cid, g.hits.cs, g.hits.ce)
-    got = sk.shadow_sweep(cols, W, mode, check_strand, f)
-    want = sk.shadow_sweep_plain(cols, W, mode, check_strand, f)
+    got = sk.unpack_out(sk.shadow_sweep_packed(buf, n, E, W, mode,
+                                               check_strand, f), n)
+    want = sk.shadow_sweep_plain(sk.unpack_cols(buf, n, E), W, mode,
+                                 check_strand, f)
     torch.cuda.synchronize()
     return got, want
 
@@ -55,6 +61,32 @@ def test_kernel_edges(cuda_device, n_hits):
                          n_ctg=1, max_cs=500)
     got, want = sweep_both(d, g, cuda_device, sk.SHADOW, False, 0.5)
     for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [sk.SHADOW, sk.ISOFORM])
+@pytest.mark.parametrize("case", SWEEP_EDGE_CASES)
+def test_kernel_tile_cases(cuda_device, case, mode):
+    """Tile edges, the large-W path, exons that outgrow shared memory,
+    every hit filtered, one dense cluster: kernel == plain exactly."""
+    d, g = sweep_edge_case(case)
+    got, want = sweep_both(d, g, cuda_device, mode, False, 0.3)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if case in ("all filtered", "no exons"):
+        assert not got[0].any()
+
+
+@pytest.mark.cuda
+def test_cols_entry_matches_plain(cuda_device):
+    """shadow_sweep on SweepCols (packed again on the card) equals the
+    plain version."""
+    d, g = random_genome(np.random.default_rng(9), n_hits=500, weak=True)
+    cols = de.build_cols(d, g, cuda_device)
+    W = sk.band_width(g.hits.cid, g.hits.cs, g.hits.ce)
+    for a, b in zip(sk.shadow_sweep(cols, W, sk.SHADOW, True, 0.5),
+                    sk.shadow_sweep_plain(cols, W, sk.SHADOW, True, 0.5)):
         assert torch.equal(a, b)
 
 
