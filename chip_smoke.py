@@ -13,15 +13,27 @@ Phases (each one passes or raises, so any failure exits nonzero):
      exons, every hit filtered, one dense cluster, coordinates beyond
      2^31): all four outputs exactly equal. The kernel is called through
      shadow_sweep_packed, the main path's entry, on a packed upload.
-  3. the main path: the CLI on cuda over the small (32 genomes x 2,000
-     genes, seed 11) and the big (64 x 10,000, seed 7) synthetic corpora.
-     Each GFA's md5 must be the reference binary's. Launch counts are zeroed
-     before and read after each run: both modes launched, no plain call.
+     Then the batched entry of the kernel (all genomes of the device
+     loop's [G, H] columns in one launch) against its plain version, the
+     split sweep forms, on random genome sets and on the edge cases stacked
+     as genomes of one batch (with an empty genome and one whose row 0 is
+     filtered).
+  3. the main paths: the CLI on cuda over the small (32 genomes x 2,000
+     genes, seed 11) and the big (64 x 10,000, seed 7) synthetic corpora,
+     first with --engine device (one sweep launch per genome, host rounds),
+     then with --engine sharded (the device-resident pruning loop). Each
+     GFA's md5 must be the reference binary's. Launch counts are zeroed
+     before and read after each run: no plain call; on the sharded path
+     the loop engaged and launched the batched kernel once per sweep round.
+     For the loop it prints its diagnostics (shape, stage times, rounds run,
+     host reads a round, device ms per block, peak device memory).
   4. the kernel against the plain version on the largest genome of the big
      corpus (the main path's shapes), unfiltered and in the run's final
      filter state. Kernel time is the device time per launch of 200
      launches replayed from one CUDA graph; beside it the least time the
-     card could take for the same work.
+     card could take for the same work. The same for the batched entry on
+     the big run's device-resident columns, and colsort_i64 against
+     torch.sort at the loop's merge key count.
 
 Before the last line it prints the nvidia-smi line and one JSON line with a
 record per kernel; the last line is {"ok": true, "device": {...}}. Without
@@ -170,6 +182,73 @@ def bound_ms(sk, cols, W, mode, check_strand):
                                        else "operations"), ops, nbytes
 
 
+def compare_batched(sk, de, genomes, dev, check_strand, f, split_form):
+    """The batched kernel on `genomes` stacked into one batch: against its
+    plain version (the split sweep forms) on the whole batch when
+    `split_form`, and against the per-genome plain version genome by
+    genome; rows past a genome's end must come back empty. Returns the
+    number of marked rows; raises on any difference."""
+    from pangene_tpu_torch.testing import batch_cols
+    bc, flt, weak, W = batch_cols(genomes, dev)
+    got = sk.shadow_sweep_batched(bc, flt, weak, W, check_strand, f)
+    if split_form:
+        want = sk.shadow_sweep_batched_plain(bc, flt, weak, W, check_strand,
+                                             f)
+        for name, a, b in zip(("marks", "score", "other"), got, want):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError("batched kernel != split-form plain: "
+                                     "%s (strand %s, f %s)"
+                                     % (name, check_strand, f))
+    marks, score, other = got
+    for j, (d, g) in enumerate(genomes):
+        n = g.n_hit
+        m, s, o, _ = sk.shadow_sweep_plain(de.build_cols(d, g, dev), W,
+                                           sk.SHADOW, check_strand, f)
+        same = (torch.equal(marks[j, :n], m) and torch.equal(score[j, :n], s)
+                and torch.equal(other[j, :n], o)
+                and not bool(marks[j, n:].any())
+                and bool((score[j, n:] == sk.SCORE_NONE).all())
+                and bool((other[j, n:] == sk.OTHER_NONE).all()))
+        if not same:
+            raise AssertionError("batched kernel != per-genome plain: genome "
+                                 "%d of %d (n %d, W %d, strand %s, f %s)"
+                                 % (j, len(genomes), n, W, check_strand, f))
+    torch.cuda.synchronize()
+    return int(marks.sum())
+
+
+def bound_batched_ms(bc, flt, W, check_strand):
+    """Least time for one batched sweep on these inputs: the bytes it must
+    move (for every hit row the SHADOW input columns, hit_bytes; 8 bytes an
+    exon of those rows; the three [G, H] output planes, 13 bytes a row,
+    padding included since the kernel must write it) over the memory rate,
+    or the integer operations these inputs need (as bound_ms counts them,
+    summed over genomes) over the INT32 rate, whichever is larger."""
+    c = {k: v.cpu().numpy() for k, v in bc._asdict().items()}
+    fl = flt.cpu().numpy() != 0
+    G, H = c["cid"].shape
+    rows = int(c["n_rows"].sum())
+    n_exon = sum(int(c["n_exon"][g, :c["n_rows"][g]].sum()) for g in range(G))
+    nbytes = (rows * (50 + (1 if check_strand else 0)) + 4 * G
+              + n_exon * EXON_BYTES + G * H * 13)
+    ops = 0
+    for g in range(G):
+        n = int(c["n_rows"][g])
+        ne = c["n_exon"][g, :n].astype(np.int64)
+        for d in range(1, min(W, n - 1) + 1):
+            i, j = slice(d, n), slice(0, n - d)
+            m = ((c["cid"][g, j] == c["cid"][g, i])
+                 & (c["ce"][g, j] > c["cs"][g, i]) & ~fl[g, i] & ~fl[g, j])
+            if check_strand:
+                m &= c["rev"][g, j] == c["rev"][g, i]
+            ops += (5 * (n - d) + 5 * int(m.sum())
+                    + 4 * int((ne[i] * ne[j])[m].sum()))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations"), ops, nbytes
+
+
 def make_corpus(name):
     from pangene_tpu_torch.testing import synth_paf_files
     n_genome, n_gene, seed, _ = CORPORA[name]
@@ -185,8 +264,9 @@ def make_corpus(name):
                   if f.endswith(".paf.gz"))
 
 
-def run_cli(files):
-    """The user's entry point on cuda; returns (GFA text, final graph)."""
+def run_cli(files, engine="device"):
+    """The user's entry point on cuda with `engine`; returns (GFA text,
+    final graph)."""
     from pangene_tpu_torch import cli, pipeline
     graphs = []
     run = pipeline.run
@@ -199,7 +279,8 @@ def run_cli(files):
     pipeline.run = keep
     try:
         with contextlib.redirect_stdout(buf):
-            cli.main(["--device", DEVICE, "-v", "1"] + files)
+            cli.main(["--device", DEVICE, "--engine", engine, "-v", "1"]
+                     + files)
     finally:
         pipeline.run = run
     return buf.getvalue(), graphs[0]
@@ -215,7 +296,10 @@ def main():
     from pangene_tpu_torch.ops import dispatch
     from pangene_tpu_torch.ops import sweep_kernel as sk
     from pangene_tpu_torch.ops.sort import hit_sort
+    from pangene_tpu_torch.ops import device as tdev
+    from pangene_tpu_torch.parallel import device_loop as dl
     from pangene_tpu_torch.testing import (SWEEP_EDGE_CASES, random_genome,
+                                           stacked_edge_cases,
                                            sweep_edge_case)
     dev = torch.device(DEVICE)
 
@@ -264,7 +348,35 @@ def main():
     log("edge cases: %d, kernel == plain in both modes (%.1f s)"
         % (len(SWEEP_EDGE_CASES), time.monotonic() - t0))
 
-    # 3. the main path, counts zeroed just before and read just after
+    # 2c. the batched entry: random genome sets, then the edge cases as
+    # genomes of one batch
+    t0 = time.monotonic()
+    n_cases = 0
+    sizes = (3000, 700, 0, 64, 65, 1, 1300, 2500)
+    for seed0 in (0, 100):
+        genomes = [random_genome(np.random.default_rng(seed0 + k), n_hits=n,
+                                 weak=True, max_exon=6, max_cs=30 * n + 100)
+                   for k, n in enumerate(sizes)]
+        for check_strand in (False, True):
+            for f in (0.5, 0.3):
+                if not compare_batched(sk, de, genomes, dev, check_strand, f,
+                                       True):
+                    raise AssertionError("batched sweep marked nothing")
+                n_cases += 1
+    for which, genomes in stacked_edge_cases().items():
+        compare_batched(sk, de, genomes, dev, False, 0.3, False)
+        # the split form's [G, H, K, K] exon block cannot hold the hit with
+        # 2,000 exons; every other genome is held against it too
+        compare_batched(sk, de, [(d, g) for d, g in genomes
+                                 if int(g.hits.n_exon.max(initial=0)) < 100],
+                        dev, False, 0.3, True)
+        n_cases += 2
+        log("  stacked edge cases '%s': %d genomes, batched kernel == plain"
+            % (which, len(genomes)))
+    log("batched entry: %d cases, kernel == plain (%.1f s)"
+        % (n_cases, time.monotonic() - t0))
+
+    # 3. the main paths, counts zeroed just before and read just after
     sweep_s = {"s": 0.0}
 
     def timed(fn):
@@ -279,8 +391,19 @@ def main():
     untimed = (dispatch.shadow, dispatch.flt_ov_isoform)
     dispatch.shadow, dispatch.flt_ov_isoform = (timed(f) for f in untimed)
     launches = {m: 0 for m in sk.MODE_NAMES}
+    batched_launches = 0
     runs = {}
     graph = None
+    # the loop's device tensors of the last sharded run, for phase 4
+    kept = {}
+    schedule_device = dl.schedule_device
+
+    def keep_schedule(*a, **kw):
+        outs = schedule_device(*a, **kw)
+        kept.update(blocks=a[:5], cfg=kw["cfg"], outs=outs)
+        return outs
+
+    dl.schedule_device = keep_schedule
     for name in ("small", "big"):
         t0 = time.monotonic()
         files = make_corpus(name)
@@ -288,7 +411,7 @@ def main():
         sweep_s["s"] = 0.0
         sk.reset_counts()
         t0 = time.monotonic()
-        gfa, graph = run_cli(files)
+        gfa, graph = run_cli(files, "device")
         wall = time.monotonic() - t0
         counts = dict(sk.n_kernel_launches)
         plain = dict(sk.n_plain_calls)
@@ -309,9 +432,61 @@ def main():
             raise AssertionError("main path did not run on the kernel: "
                                  "launches %s, plain calls %s"
                                  % (counts, plain))
+        if sk.n_batched["kernel"] or sk.n_batched["plain"]:
+            raise AssertionError("the per-genome path ran the batched sweep")
+        for m in launches:
+            launches[m] += counts[m]
+
+        # the same corpus through the device-resident loop
+        sweep_s["s"] = 0.0
+        sk.reset_counts()
+        dl.LAST.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        gfa, graph = run_cli(files, "sharded")
+        wall = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = dict(sk.n_kernel_launches)
+        plain = dict(sk.n_plain_calls)
+        batched = dict(sk.n_batched)
+        last = dict(dl.LAST)
+        md5 = hashlib.md5(gfa.encode()).hexdigest()
+        key = name + "_sharded"
+        runs[key] = {
+            "md5": md5, "wall_s": round(wall, 3),
+            "stages": dict(util.stage_stats),
+            "per_genome_sweep_s": round(sweep_s["s"], 3),
+            "launches": {sk.MODE_NAMES[m]: counts[m] for m in counts},
+            "batched_launches": batched["kernel"],
+            "plain_calls": sum(plain.values()) + batched["plain"],
+            "host_syncs_a_round": round(
+                last.get("host_syncs", 0) / max(last.get("rounds_total", 1),
+                                                1), 3),
+            "peak_device_bytes": peak, "LAST": last}
+        log("e2e %s: %s" % (key, json.dumps(runs[key])))
+        if md5 != CORPORA[name][3]:
+            raise AssertionError("%s corpus GFA md5 %s != %s (sharded)"
+                                 % (name, md5, CORPORA[name][3]))
+        if last.get("engaged") is not True:
+            raise AssertionError("the device loop did not engage: %s" % last)
+        if runs[key]["plain_calls"]:
+            raise AssertionError("plain calls on the card path: %s %s"
+                                 % (plain, batched))
+        if batched["kernel"] == 0 or \
+                batched["kernel"] != last["rounds_sweep_run"] or \
+                batched["kernel"] != last["sweep_launches"]:
+            raise AssertionError("batched launches %d != sweep rounds run %d"
+                                 % (batched["kernel"],
+                                    last["rounds_sweep_run"]))
+        if any(v == 0 for v in counts.values()):
+            raise AssertionError("phase 1 of the sharded run did not launch "
+                                 "the per-genome kernel: %s" % counts)
+        batched_launches += batched["kernel"]
         for m in launches:
             launches[m] += counts[m]
     dispatch.shadow, dispatch.flt_ov_isoform = untimed
+    dl.schedule_device = schedule_device
 
     # 4. the largest big-corpus genome: compare, time, bound
     g = max(graph.d.genomes, key=lambda x: x.n_hit)
@@ -354,6 +529,78 @@ def main():
                 rec["ms_final"] = ms
         kernels.append(rec)
     g.hits.flt[:] = states["final"]
+
+    # 4b. the batched entry on the big run's device-resident columns: entry
+    # state (no kept row filtered) and the loop's final state
+    cfg = kept["cfg"]
+    cols, bc = dl.unpack_blocks(*kept["blocks"])
+    rec = {"name": "shadow_sweep_batched", "route": "cuda",
+           "source": "pangene_tpu_torch/csrc/shadow_sweep.cu",
+           "replaces": "pangene_tpu/ops/device.py:232",
+           "launches": batched_launches, "max_abs_err": 0,
+           "library_ms": None}
+    G, H = bc.cid.shape
+    for state, flt, weak in (
+            ("entry", cols["flt"].contiguous(), cols["weak_br"].contiguous()),
+            ("final", kept["outs"][0].contiguous(),
+             kept["outs"][1].contiguous())):
+        got = sk.shadow_sweep_batched(bc, flt, weak, cfg.W, cfg.check_strand,
+                                      cfg.min_ov_ratio)
+        geo = {}
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        want = sk.shadow_sweep_batched_plain(
+            bc, flt, weak, cfg.W, cfg.check_strand, cfg.min_ov_ratio, geo)
+        torch.cuda.synchronize()
+        plain_first_ms = 1e3 * (time.monotonic() - t0)
+        for a, b in zip(got, want):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError("batched kernel != plain on the big "
+                                     "run's columns (%s state)" % state)
+
+        def kernel():
+            sk.shadow_sweep_batched(bc, flt, weak, cfg.W, cfg.check_strand,
+                                    cfg.min_ov_ratio)
+        ms = graph_ms(kernel, TIMED_LAUNCHES)
+        eager_ms = stream_ms(kernel, TIMED_LAUNCHES)
+        # the plain version's round pass alone (its planes are in `geo`)
+        plain_round_ms = stream_ms(lambda: sk.shadow_sweep_batched_plain(
+            bc, flt, weak, cfg.W, cfg.check_strand, cfg.min_ov_ratio, geo), 5)
+        b_ms, b_by, ops, nbytes = bound_batched_ms(bc, flt, cfg.W,
+                                                   cfg.check_strand)
+        log("BATCHED %s: G %d H %d rows %d W %d blocks %d ms %.5f (eager "
+            "back-to-back %.5f) plain_ms %.3f (geometry pass + round pass; "
+            "round pass alone %.3f) bound_ms %.6f (%s; %d ops, %d bytes) "
+            "marked %d" % (state, G, H, int(bc.n_rows.sum()), cfg.W,
+                           G * -(-H // sk.tile_shape()[0]), ms, eager_ms,
+                           plain_first_ms,
+                           plain_round_ms, b_ms, b_by, ops, nbytes,
+                           int(got[0].sum())))
+        if state == "entry":
+            rec.update(ms=ms, plain_ms=plain_first_ms,
+                       plain_round_ms=plain_round_ms, bound_ms=b_ms,
+                       bound_by=b_by)
+        else:
+            rec["ms_final"] = ms
+    kernels.append(rec)
+
+    # 4c. colsort_i64 against torch.sort at the loop's merge key count
+    n_keys = G * 2 * H
+    c = tdev.colsort_cols(n_keys)
+    keys = torch.randperm(n_keys, device=dev, dtype=torch.int64) * 977 - 5
+    if c:
+        if not torch.equal(tdev.colsort_i64(keys, c),
+                           torch.sort(keys).values):
+            raise AssertionError("colsort_i64 != torch.sort")
+        log("sort of %d int64 keys: torch.sort %.4f ms, colsort_i64 (%d "
+            "columns) %.4f ms" % (
+                n_keys, stream_ms(lambda: torch.sort(keys), 20), c,
+                stream_ms(lambda: tdev.colsort_i64(keys, c), 20)))
+    else:
+        log("sort of %d int64 keys: torch.sort %.4f ms; columnsort has no "
+            "valid column count here" % (
+                n_keys, stream_ms(lambda: torch.sort(keys), 20)))
+    kept.clear()
 
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
 """CLI with flag-for-flag compatibility with the reference binary
-(main.c:5-113) plus the port's own flags (--device, --save-hits,
+(main.c:5-113) plus the port's own flags (--device, --engine, --save-hits,
 --load-hits).
 
     python -m pangene_tpu_torch.cli [options] *.paf.gz > graph.gfa
@@ -16,6 +16,8 @@ from .options import (PG_F_CHECK_STRAND, PG_F_DROP_SGL_EXON, PG_F_FRAG_MODE,
                       PG_F_WRITE_BED_FLAG, PG_F_WRITE_BED_RAW,
                       PG_F_WRITE_BED_WALK, PG_F_WRITE_NO_WALK,
                       PG_F_WRITE_VTX_SEL, PG_REF_VERSION, PG_VERSION, PgOpt)
+
+ENGINES = ("device", "sharded")
 
 
 def parse_num(s: str) -> int:
@@ -62,6 +64,8 @@ Options:
     --version     print version number
   Device:
     --device STR  cuda | cpu: where the overlap sweeps run [cuda]
+    --engine STR  device | sharded: one sweep per genome and host rounds, or
+                  the pruning rounds as one device-resident loop [device]
     --save-hits F checkpoint post-ingest hit tensors to F (.npz)
     --load-hits F resume from a checkpoint instead of parsing PAFs
 """
@@ -104,6 +108,11 @@ def parse_args(argv: List[str]) -> Optional[tuple]:
             if opt.device not in ("cuda", "cpu"):
                 raise SystemExit("ERROR: unknown --device %r; expected "
                                  "cuda|cpu" % opt.device)
+        elif a == "--engine":
+            opt.engine = need_arg()
+            if opt.engine not in ENGINES:
+                raise SystemExit("ERROR: unknown --engine %r; expected %s"
+                                 % (opt.engine, "|".join(ENGINES)))
         elif a == "--save-hits":
             extras["save_hits"] = need_arg()
         elif a == "--load-hits":

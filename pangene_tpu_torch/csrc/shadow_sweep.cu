@@ -66,6 +66,15 @@
 //
 // Input and output are one packed buffer each (ops/sweep_kernel.py:
 // pack_layout, out_layout): every column at a 16-byte-aligned byte offset.
+//
+// The batched entry (pg_shadow_sweep_batched) runs mode SHADOW over the
+// H-padded [G, H] columns that the device-resident pruning loop keeps on the
+// card (parallel/device_loop.py), all genomes in one launch: the grid is
+// (tile, genome), genome g's hits are rows [0, n_rows[g]) of its plane and
+// its exons row g of the [G, E] pools, so no tile crosses a genome. It is the
+// same tile code (sweep_tile) on column pointers moved to the genome's rows;
+// rows past n_rows[g] come back unmarked with no dominator. It replaces the
+// XLA pair pangene_tpu/ops/device.py:sweep_geo_planes + shadow_round_kernel.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -311,19 +320,29 @@ constexpr size_t kStaticSmem =
 static_assert(smem_bytes(kBandTile, kBandTile) + kStaticSmem <= 48 * 1024,
               "shared memory beyond 48 KB needs an opt-in per launch");
 
+// One block's work: tile `blk` of a genome of n hits whose output planes have
+// nout >= n rows. Rows [n, nout) of the tile get "no candidate"; best_ov may
+// be null.
 template <bool kTile>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
-shadow_sweep_kernel(Cols c, int n, int W, int halo, int chunk, int mode,
-                    int check_strand, double f, uint8_t* marks,
-                    int64_t* best_score, int32_t* best_other,
-                    int32_t* best_ov) {
+__device__ __forceinline__ void sweep_tile(
+    const Cols& c, int n, int nout, int blk, int W, int halo, int chunk,
+    int mode, int check_strand, double f, uint8_t* marks,
+    int64_t* best_score, int32_t* best_other, int32_t* best_ov) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int32_t s_pref[kThreads + 1];
   __shared__ int64_t s_warp[kThreads / 32];
   __shared__ int s_qn;
 
   const int tid = threadIdx.x;
-  const int r0 = blockIdx.x * kRows;
+  const int r0 = blk * kRows;
+  if (tid < kRows && r0 + tid >= n && r0 + tid < nout) {
+    const int r = r0 + tid;
+    marks[r] = 0;
+    best_score[r] = kScoreNone;
+    best_other[r] = kOtherNone;
+    if (best_ov) best_ov[r] = 0;
+  }
+  if (r0 >= n) return;  // the whole block: no barrier has been reached
   const int nown = min(kRows, n - r0);
   const int s0 = max(r0 - halo, 0);
   const int R = min(r0 + kRows + halo, n) - s0;
@@ -519,8 +538,50 @@ shadow_sweep_kernel(Cols c, int n, int W, int halo, int chunk, int mode,
     marks[r] = mark;
     best_score[r] = bs;
     best_other[r] = bo;
-    best_ov[r] = bv;
+    if (best_ov) best_ov[r] = bv;
   }
+}
+
+template <bool kTile>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
+shadow_sweep_kernel(Cols c, int n, int W, int halo, int chunk, int mode,
+                    int check_strand, double f, uint8_t* marks,
+                    int64_t* best_score, int32_t* best_other,
+                    int32_t* best_ov) {
+  sweep_tile<kTile>(c, n, n, blockIdx.x, W, halo, chunk, mode, check_strand,
+                    f, marks, best_score, best_other, best_ov);
+}
+
+// Grid (tiles of H rows, genomes): block (x, g) is tile x of genome g, whose
+// columns start at row g * H of every [G, H] plane and whose exon pool is
+// row g of the [G, E] pools.
+template <bool kTile>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
+shadow_sweep_batched_kernel(Cols c, const int32_t* n_rows, int H, int E,
+                            int W, int halo, int chunk, int check_strand,
+                            double f, uint8_t* marks, int64_t* best_score,
+                            int32_t* best_other) {
+  const int g = blockIdx.y;
+  const size_t ro = (size_t)g * H, eo = (size_t)g * E;
+  c.cid += ro;
+  c.cs += ro;
+  c.ce += ro;
+  c.flt += ro;
+  c.rev += ro;
+  c.gid += ro;
+  c.pscore += ro;
+  c.rank += ro;
+  c.weak += ro;
+  c.cds_len += ro;
+  c.off_exon += ro;
+  c.n_exon += ro;
+  c.exon_os += eo;
+  c.exon_oe += eo;
+  int n = n_rows[g];
+  n = n < 0 ? 0 : (n > H ? H : n);
+  sweep_tile<kTile>(c, n, H, blockIdx.x, W, halo, chunk, kShadow,
+                    check_strand, f, marks + ro, best_score + ro,
+                    best_other + ro, nullptr);
 }
 
 // Band chunk and staged halo of a launch. W is already clipped to n - 1.
@@ -575,6 +636,47 @@ extern "C" int pg_shadow_sweep(const void* in, const long long* in_off,
       reinterpret_cast<int64_t*>(o + out_off[kOutScore]),
       reinterpret_cast<int32_t*>(o + out_off[kOutOther]),
       reinterpret_cast<int32_t*>(o + out_off[kOutOv]));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One launch on `stream` of mode SHADOW over G genomes of H-padded columns:
+// cols holds the kNumCols device pointers in the packed input's column order
+// ([G, H] planes; the two exon pools [G, E]), n_rows the int32 [G] hit
+// counts on the device; marks, best_score and best_other are [G, H] planes.
+// Returns cudaGetLastError() (0 on success).
+extern "C" int pg_shadow_sweep_batched(const void* const* cols,
+                                       const void* n_rows, int G, int H,
+                                       int E, int W, int check_strand,
+                                       double f, void* marks,
+                                       void* best_score, void* best_other,
+                                       void* stream) {
+  if (G <= 0 || H <= 0) return 0;
+  W = clip_band(H, W);
+  int halo, chunk;
+  tile_shape(W, &halo, &chunk);
+  Cols c;
+  c.cid = static_cast<const int32_t*>(cols[kCid]);
+  c.cs = static_cast<const int64_t*>(cols[kCs]);
+  c.ce = static_cast<const int64_t*>(cols[kCe]);
+  c.flt = static_cast<const uint8_t*>(cols[kFlt]);
+  c.rev = static_cast<const uint8_t*>(cols[kRev]);
+  c.gid = static_cast<const int32_t*>(cols[kGid]);
+  c.pscore = static_cast<const int64_t*>(cols[kPscore]);
+  c.rank = static_cast<const int32_t*>(cols[kRank]);
+  c.weak = static_cast<const uint8_t*>(cols[kWeak]);
+  c.cds_len = static_cast<const int32_t*>(cols[kCdsLen]);
+  c.off_exon = static_cast<const int32_t*>(cols[kOffExon]);
+  c.n_exon = static_cast<const int32_t*>(cols[kNExon]);
+  c.exon_os = static_cast<const int32_t*>(cols[kExonOs]);
+  c.exon_oe = static_cast<const int32_t*>(cols[kExonOe]);
+  const dim3 grid((H + kRows - 1) / kRows, G);
+  auto kernel = halo == W ? shadow_sweep_batched_kernel<true>
+                          : shadow_sweep_batched_kernel<false>;
+  kernel<<<grid, kThreads, smem_bytes(halo, chunk),
+           static_cast<cudaStream_t>(stream)>>>(
+      c, static_cast<const int32_t*>(n_rows), H, E, W, halo, chunk,
+      check_strand, f, static_cast<uint8_t*>(marks),
+      static_cast<int64_t*>(best_score), static_cast<int32_t*>(best_other));
   return static_cast<int>(cudaGetLastError());
 }
 

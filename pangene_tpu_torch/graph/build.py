@@ -3,11 +3,13 @@
 Reference: pg_graph_gen (graph.c:280-322) plus the high-occurrence filters
 (graph.c:237-263) and hard deletion (graph.c:219-235). Every round runs on
 the host except the per-genome shadow sweep, which gen_arc sends to the
-device through ops/dispatch.
+device through ops/dispatch; under engine "sharded" phases 2+3 run on the
+device instead (parallel/device_loop.py).
 """
 from __future__ import annotations
 
 import sys
+import time
 
 import numpy as np
 
@@ -109,16 +111,38 @@ def cut_low_arc(opt: PgOpt, q: Graph) -> None:
 
 
 def graph_gen(opt: PgOpt, q: Graph) -> None:
-    """The full 3-phase schedule (pg_graph_gen, graph.c:280-322)."""
+    """The full 3-phase schedule (pg_graph_gen, graph.c:280-322).
+
+    Under engine "sharded", phases 2+3 run as the device-resident loop
+    (parallel/device_loop.py). Phase 1 runs on the host first, which also
+    settles the physical sort order into its steady cycle (the loop's
+    precondition). Any precondition or capacity failure falls back to the
+    host rounds below, bit-identically.
+    """
     d = q.d
+    if opt.engine not in ("device", "sharded"):
+        raise ValueError("engine must be device or sharded, not %r"
+                         % (opt.engine,))
     # phase 1: initial vertices
+    t0 = time.monotonic()
     set_filter(d, "pseudo", 1)
     gen_vtx(opt, q)
     q.flag_vtx()
     set_filter_eq0(d, "vtx")
     arcs_ops.gen_arc(opt, q)
+    util.stage_stats["phase1_host_s"] = round(time.monotonic() - t0, 3)
     log_msg("pg_graph_gen", "round-1 graph: %d genes and %d arcs",
             q.n_seg, q.n_arc)
+    if opt.engine == "sharded":
+        from ..parallel.device_loop import graph_gen_device
+        if graph_gen_device(opt, q):
+            set_filter(d, "shadow", 1)
+            if opt.min_arc_cnt > 1:
+                cut_low_arc(opt, q)
+            q.arc_index()
+            log_msg("pg_graph_gen", "round-3 graph: %d genes and %d arcs",
+                    q.n_seg, q.n_arc)
+            return
 
     # phase 2: relaxed high-occurrence filter (max_dist_loci not yet known)
     flt_high_occ(q, opt.max_avg_occ * 2, opt.max_degree * 2, opt.max_dist_loci)

@@ -18,6 +18,11 @@ with the largest winner score, ties to the smallest winner index, with the
 pair's ov. That lexicographic argmax equals the reference's first-max-wins
 chronological scan (ops/sweep.py:149-156 of the JAX package).
 
+shadow_sweep_batched is the same kernel in SHADOW mode over the H-padded
+columns of many genomes at once (the device-resident loop's layout,
+parallel/device_loop.py): one launch over (genome, tile). Its plain version
+is the split form of ops/device.py.
+
 The packed score is the reference's uint64 score_adj<<33 | pref<<32 |
 hash(pid). torch has poor uint64 support, so it travels as int64
 ``u ^ (1 << 63)``: an order-preserving bijection, so signed int64
@@ -49,12 +54,16 @@ OTHER_NONE = (1 << 31) - 1
 # reset_counts() zeroes both; chip_smoke.py reads them around the main path.
 n_kernel_launches = {SHADOW: 0, ISOFORM: 0}
 n_plain_calls = {SHADOW: 0, ISOFORM: 0}
+# The same two counts for the batched entry (shadow_sweep_batched).
+n_batched = {"kernel": 0, "plain": 0}
 
 
 def reset_counts() -> None:
     for m in (SHADOW, ISOFORM):
         n_kernel_launches[m] = 0
         n_plain_calls[m] = 0
+    for k in n_batched:
+        n_batched[k] = 0
 
 
 class SweepCols(NamedTuple):
@@ -285,6 +294,114 @@ def _launch(buf: torch.Tensor, n: int, E: int, W: int, mode: int,
     return out
 
 
+class BatchCols(NamedTuple):
+    """Static sweep columns of G cs-sorted genomes on one device, H-padded:
+    genome g's hits are rows [0, n_rows[g]) of its plane, and its exon pool
+    is row g of the [G, E] pools (exon coordinates relative to the hit's
+    cs). The per-round columns flt and weak travel beside it."""
+    n_rows: torch.Tensor    # int32 [G]
+    cid: torch.Tensor       # int32 [G, H]
+    cs: torch.Tensor        # int64 [G, H]
+    ce: torch.Tensor        # int64 [G, H]
+    rev: torch.Tensor       # uint8 [G, H]
+    gid: torch.Tensor       # int32 [G, H]
+    pscore: torch.Tensor    # int64 [G, H], biased packed score
+    rank: torch.Tensor      # int32 [G, H]
+    cds_len: torch.Tensor   # int32 [G, H]
+    off_exon: torch.Tensor  # int32 [G, H]
+    n_exon: torch.Tensor    # int32 [G, H]
+    exon_os: torch.Tensor   # int32 [G, E]
+    exon_oe: torch.Tensor   # int32 [G, E]
+
+
+def _check_batched(bc: BatchCols, flt: torch.Tensor, weak: torch.Tensor,
+                   W: int) -> Tuple[torch.device, int, int, int]:
+    if W < 1:
+        raise ValueError("band width must be >= 1, got %d" % W)
+    dev = bc.cid.device
+    G, H = bc.cid.shape
+    E = bc.exon_os.shape[1]
+    named = list(zip(BatchCols._fields, bc)) + [("flt", flt), ("weak", weak)]
+    dtypes = dict(COL_DTYPES, n_rows=torch.int32)
+    for name, t in named:
+        if t.dtype != dtypes[name]:
+            raise ValueError("column %s: dtype %s, expected %s"
+                             % (name, t.dtype, dtypes[name]))
+        want = ((G,) if name == "n_rows" else
+                (G, E) if name in EXON_FIELDS else (G, H))
+        if t.device != dev or tuple(t.shape) != want or \
+                not t.is_contiguous():
+            raise ValueError("column %s must be a contiguous %s tensor on %s"
+                             % (name, want, dev))
+    return dev, G, H, E
+
+
+def shadow_sweep_batched(bc: BatchCols, flt: torch.Tensor,
+                         weak: torch.Tensor, W: int, check_strand: bool,
+                         min_ov_ratio: float, geo: Optional[dict] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The SHADOW sweep of every genome of `bc` under the round's flt and
+    weak (uint8 [G, H]), with one band W for all: (marks uint8, best_score
+    int64 biased, best_other int32), [G, H] each; rows past a genome's
+    n_rows come back unmarked with no dominator. On cuda it is one launch
+    of the kernel over (genome, tile) or it raises; on the CPU it is the
+    plain version (ops/device.py: sweep_geo_planes + shadow_round_kernel).
+    `geo`, a dict the caller keeps for one `bc`, lets the plain version
+    compute its round-invariant planes once."""
+    dev, G, H, E = _check_batched(bc, flt, weak, W)
+    if dev.type == "cpu":
+        n_batched["plain"] += 1
+        return shadow_sweep_batched_plain(bc, flt, weak, W, check_strand,
+                                          min_ov_ratio, geo)
+    if dev.type != "cuda":
+        raise ValueError("shadow_sweep runs on cuda or cpu, not %s" % dev)
+    marks = torch.empty((G, H), dtype=torch.uint8, device=dev)
+    score = torch.empty((G, H), dtype=torch.int64, device=dev)
+    other = torch.empty((G, H), dtype=torch.int32, device=dev)
+    if G == 0 or H == 0:
+        return marks, score, other
+    by_name = dict(zip(BatchCols._fields, bc), flt=flt, weak=weak)
+    ptrs = (ctypes.c_void_p * len(SweepCols._fields))(
+        *[by_name[name].data_ptr() for name in SweepCols._fields])
+    lib = _kernel_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pg_shadow_sweep_batched(
+            ptrs, bc.n_rows.data_ptr(), G, H, E, W, int(bool(check_strand)),
+            float(min_ov_ratio), marks.data_ptr(), score.data_ptr(),
+            other.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("batched shadow_sweep kernel launch failed: CUDA "
+                           "error %d" % err)
+    n_batched["kernel"] += 1
+    return marks, score, other
+
+
+def shadow_sweep_batched_plain(bc: BatchCols, flt: torch.Tensor,
+                               weak: torch.Tensor, W: int,
+                               check_strand: bool, min_ov_ratio: float,
+                               geo: Optional[dict] = None):
+    """Plain PyTorch version of shadow_sweep_batched, through the split
+    forms of ops/device.py."""
+    from . import device as dv
+    if geo is None:
+        geo = {}
+    if "planes" not in geo:
+        H = bc.cid.shape[1]
+        valid = (torch.arange(H, dtype=torch.int32, device=bc.cid.device)
+                 [None, :] < bc.n_rows[:, None])
+        K = max(int(bc.n_exon.max()) if bc.n_exon.numel() else 1, 1)
+        ex_os, ex_oe = dv.gather_exons(bc.off_exon, bc.n_exon, bc.cs,
+                                       bc.exon_os, bc.exon_oe, K)
+        geo["planes"] = dv.sweep_geo_planes(
+            dv.RoundCols(valid, bc.cid, bc.cs, bc.ce, bc.rev, bc.rank,
+                         bc.gid, bc.pscore, bc.cds_len, ex_os, ex_oe),
+            min_ov_ratio, W, check_strand)
+    marks, score, other = dv.shadow_round_kernel(
+        flt != 0, weak, bc.pscore, geo["planes"], W)
+    return marks.to(torch.uint8), score, other
+
+
 def launch_shape(n: int, W: int) -> dict:
     """The kernel's launch shape for n hits and band W, from the CUDA
     runtime: blocks, threads, dynamic shared bytes, resident blocks per SM,
@@ -423,6 +540,11 @@ def load(path: str) -> ctypes.CDLL:
     fn = lib.pg_shadow_sweep_shape
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn = lib.pg_shadow_sweep_batched
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
+                   + [ctypes.c_int] * 5 + [ctypes.c_double]
+                   + [ctypes.c_void_p] * 4)
     return lib
 
 

@@ -51,10 +51,16 @@ class PgOpt:
     incl: Optional[Set[str]] = None
     preferred: Optional[Set[str]] = None
 
-    # --- port-specific knob (no reference equivalent) ---
-    # torch device of the per-genome sweeps: "cuda" (the default; raises
-    # when no CUDA device exists) or "cpu" (the kernel's plain version)
+    # --- port-specific knobs (no reference equivalent) ---
+    # torch device of the sweeps and the device loop: "cuda" (the default;
+    # raises when no CUDA device exists) or "cpu" (the kernels' plain
+    # versions)
     device: str = "cuda"
+    # "device": phase 1-3 rounds on the host with one sweep launch per
+    # genome (the JAX package's --engine jax); "sharded": phases 2+3 as the
+    # device-resident loop (parallel/device_loop.py; the JAX package's name
+    # for it, here on one device)
+    engine: str = "device"
 
     @property
     def check_strand(self) -> bool:

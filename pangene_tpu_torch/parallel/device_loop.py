@@ -1,0 +1,1059 @@
+"""Device-resident graph-round schedule: phases 2+3 of pg_graph_gen
+(reference graph.c:280-322) on one torch device.
+
+The counterpart of pangene_tpu/parallel/device_loop.py at one device. After
+the host runs phase 1 (which also settles the physical sort order into its
+steady cycle), the remaining (1 + n_branch_flt) rounds run on the device
+from one upload to one pull: branch marking (branch.c:48-106), weak
+propagation (branch.c:108-145), weak/vertex filtering, the annealed
+high-occurrence filter (graph.c:237-263), the shadow sweep (overlap.c:
+101-156) and arc regeneration with the two-level exact-integer merge
+(graph.c:87-177). The per-hit columns stay on the device; between rounds
+only flt, weak, shadow, pid_dom, alive and the arc table change.
+
+The rounds are a Python loop over torch ops. The shadow sweep of all
+genomes is one launch a round of the hand-written CUDA kernel
+(sweep_kernel.shadow_sweep_batched; on the CPU its plain version, the split
+forms of ops/device.py). Three values a round may be read on the host
+(counted in LAST["host_syncs"]): whether the round changed anything, which
+gives the convergence skip, and the branching arcs' count and largest group.
+
+Bit-exactness:
+  * Every in-loop IEEE-double expression of the reference runs through
+    ops/softfloat (exact integer emulation): the merged s1/s2/dist averages
+    ``(int)((double)S/n + .499)`` (graph.c:141,170-172) and the branch
+    deficit ``1.0 - (double)s1/max`` compared against -b/-y/-B
+    (branch.c:72-78). The sweep's coverage gate is IEEE division in the
+    kernel and softfloat in its plain version.
+  * Physical hit order: the reference re-sorts every genome cm->cs each
+    round; once that round trip is a cycle (ops/sort.py), the cs order is
+    a fixed point and the cm order is a fixed gather view, both verified
+    on the host before entry (fallback to the host rounds otherwise).
+  * Kept-row compaction: only flt==0 rows are uploaded (flt is monotone and
+    the reference skips flt rows on both sides of every evaluation).
+    Dropped rows keep their entry flt/shadow/weak_br/pid_dom on the host
+    (the stale-flag quirks); the reference's "hit 0 is never evaluated"
+    rule rides the ev1 plane (original index >= 1), not the compacted row
+    index.
+  * Segment deletion keeps original seg ids behind an alive mask; the
+    reference's hard compaction (graph.c:219-235) is order-preserving, so
+    arc keys group and sort identically; ids are compacted once on the
+    host after the loop.
+  * Capacity overflows (arc table, branch window) set a flag and the host
+    falls back to the reference-exact host rounds.
+  * Every reduction is over integers (sums, maxima), so the order in which
+    a device adds them cannot change a bit.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import sys
+import time
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..options import PgOpt
+from ..ops import device as dev
+from ..ops import softfloat as sf
+from ..ops import sweep_kernel as sk
+from ..util import log_msg
+
+I64 = torch.int64
+I32 = torch.int32
+SENT_I = (1 << 62) - 1                   # empty arc-table slot
+KSENT_I = (1 << 62)                      # merge-sort key for invalid rows
+_BIAS = -(1 << 63)                       # uint64 -> biased int64 (xor)
+
+# upload layout, the JAX package's: the per-hit columns ship as five stacked
+# blocks [n_col, G, H]. Coordinates (cs/ce/cm) ship as int32 whenever every
+# value fits; on the device they are widened to int64 once (the CUDA sweep
+# picks int32 arithmetic itself where it is safe).
+PACK_I32 = ("cid", "rank", "gid", "dom_gid", "score_ori", "score_dom",
+            "cds_len", "n_exon", "off_exon", "pid", "pid_dom", "ordcm")
+PACK_C = ("cs", "ce", "cm")      # int32 or int64 (coord32)
+# ev1: original hit index >= 1. The reference's "hit 0 is never the
+# evaluated side of a shadow pair" rule (overlap.c:101 loop from i=1) must
+# survive kept-row compaction, where the first kept row may not be the
+# genome's original row 0
+PACK_U8 = ("flt", "shadow", "weak_br", "valid", "rev", "ev1")
+
+BLOCKS = ("branch", "prop", "occ", "sweep", "walk_merge")
+
+
+class Cfg(NamedTuple):
+    """Static configuration of the device schedule (the JAX package's Cfg
+    less the fields that only a mesh of several devices reads)."""
+    H: int          # hit capacity per genome
+    K: int          # exon capacity per hit
+    W: int          # sweep band width
+    S: int          # segment count at entry (original ids)
+    A: int          # merged arc-table capacity
+    D: int          # max arcs per oriented vertex (branch window)
+    B: int          # bits of a packed vertex (sid<<1|rev < 2^B)
+    GB: int         # bits of a genome index
+    JB: int         # bits of a global pair-row index packed into the lean
+                    # sort key (0 = disabled: 2B+GB+JB would exceed 62)
+    n_gene: int
+    R: int          # device rounds: 1 (phase 2) + n_branch_flt
+    coord32: bool   # cs/ce/cm uploaded as int32
+    check_strand: bool
+    use_ori: bool
+    frag_mode: bool
+    min_ov_ratio: float
+    branch_diff: float
+    branch_diff_dist: float
+    branch_diff_cut: float
+    local_dist: int
+    local_count: int
+
+
+def cfg_from(other) -> Cfg:
+    """Cfg from any object with the same attributes (a JAX-package Cfg)."""
+    return Cfg(**{f: getattr(other, f) for f in Cfg._fields})
+
+
+class _BlockTimer:
+    """Time per named block of the round loop, summed over rounds: CUDA
+    events on cuda (read once, after the loop), the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.spans = []
+        self.ms = {b: 0.0 for b in BLOCKS}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        if self.cuda:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            yield
+            t1.record()
+            self.spans.append((name, t0, t1))
+        else:
+            t0 = time.monotonic()
+            yield
+            self.ms[name] += 1e3 * (time.monotonic() - t0)
+
+    def result(self) -> dict:
+        if self.cuda:
+            torch.cuda.synchronize()
+            for name, t0, t1 in self.spans:
+                self.ms[name] += t0.elapsed_time(t1)
+            self.spans = []
+        return {k: round(v, 3) for k, v in self.ms.items()}
+
+
+def _steady_cm_views(d):
+    """Per genome: the cm-order index vector IF the cm->cs round trip from
+    the current physical order is a cycle (no mutation); None otherwise."""
+    views = []
+    for g in d.genomes:
+        h = g.hits
+        n = len(h)
+        if n == 0:
+            views.append(np.zeros(0, np.int64))
+            continue
+        cid = np.asarray(h.cid)
+        perm_cm = np.lexsort((np.asarray(h.cm), cid))
+        back = np.lexsort((np.asarray(h.cs)[perm_cm], cid[perm_cm]))
+        if not np.array_equal(perm_cm[back], np.arange(n)):
+            return None
+        views.append(perm_cm.astype(np.int64))
+    return views
+
+
+def _seg_sum(vals: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.zeros(n, dtype=vals.dtype, device=vals.device) \
+        .index_add_(0, ids, vals)
+
+
+def _seg_max(vals: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-segment maximum; a segment with no member reads 0 (unread)."""
+    return torch.zeros(n, dtype=vals.dtype, device=vals.device) \
+        .scatter_reduce_(0, ids, vals, "amax", include_self=False)
+
+
+def _seg_min(vals: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.zeros(n, dtype=vals.dtype, device=vals.device) \
+        .scatter_reduce_(0, ids, vals, "amin", include_self=False)
+
+
+def _plus499_i32(S: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    return sf.plus499_trunc(S, n.clamp(min=1)).to(I32)
+
+
+def _prev_row(x: torch.Tensor, first) -> torch.Tensor:
+    """[first, x[0], ..., x[-2]]."""
+    return torch.cat([x.new_full((1,), first), x[:-1]])
+
+
+# ---------------------------------------------------------------------------
+# the schedule
+# ---------------------------------------------------------------------------
+
+def schedule(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
+             arc0_vw, arc0_s1, seg_tot0, seg_ng0, occ_cut, deg_cut, loci_cut,
+             do_branch, do_occ, do_sweep, do_walk, no_skip, *, cfg: Cfg,
+             device):
+    """The round schedule on numpy inputs, exactly those of the JAX
+    package's _schedule (the five packed blocks, blk_ps as the int64 view of
+    the raw uint64 scores; the segment and arc tables of phase 1; the
+    per-round cuts and block switches), returning its 20 outputs as numpy
+    arrays: flt, weak, shadow, pid_dom [G, H]; alive, seg_tot, seg_ng [S];
+    arc_vw, arc_s1, arc_ng, arc_tot, arc_ad, arc_s2 [A]; loci [S, 2]; logs
+    [R, 10]; the four #del capture planes; overflow."""
+    device = torch.device(device)
+    t = lambda a: torch.from_numpy(np.array(a)).to(device)   # a copy
+    outs = schedule_device(
+        t(blk_i32), t(blk_c), t(np.asarray(blk_ps).view(np.int64)),
+        t(blk_u8), t(blk_ex), t(seg_gid), t(sid_of), t(arc0_vw), t(arc0_s1),
+        t(seg_tot0), t(seg_ng0), np.asarray(occ_cut), np.asarray(deg_cut),
+        np.asarray(loci_cut), np.asarray(do_branch), np.asarray(do_occ),
+        np.asarray(do_sweep), np.asarray(do_walk), bool(no_skip), cfg=cfg)
+    return tuple(o.cpu().numpy() for o in outs)
+
+
+def unpack_blocks(blk_i32, blk_c, blk_ps, blk_u8, blk_ex):
+    """The packed blocks on their device as named [G, H] columns (cs/ce/cm
+    widened to int64), and the sweep's static columns in the kernel's types
+    and layout (the packed score biased to int64)."""
+    cols = {n: blk_i32[i] for i, n in enumerate(PACK_I32)}
+    cols.update({n: blk_c[i].to(I64) for i, n in enumerate(PACK_C)})
+    cols.update({n: blk_u8[i] for i, n in enumerate(PACK_U8)})
+    batch = dict(
+        n_rows=(cols["valid"] != 0).sum(dim=1, dtype=I32),
+        pscore=blk_ps[0] ^ _BIAS, exon_os=blk_ex[0], exon_oe=blk_ex[1],
+        **{n: cols[n] for n in ("cid", "cs", "ce", "rev", "gid", "rank",
+                                "cds_len", "off_exon", "n_exon")})
+    return cols, sk.BatchCols(**{n: c.contiguous()
+                                 for n, c in batch.items()})
+
+
+def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
+                    arc0_vw, arc0_s1, seg_tot0, seg_ng0, occ_cut, deg_cut,
+                    loci_cut, do_branch, do_occ, do_sweep, do_walk, no_skip,
+                    *, cfg: Cfg, stats: Optional[dict] = None):
+    """schedule() on tensors that already lie on the device (the per-round
+    cuts and switches stay host arrays); returns device tensors. `stats`,
+    when given, receives host_syncs, block_ms and sweep_launches."""
+    device = blk_i32.device
+    cols, batch = unpack_blocks(blk_i32, blk_c, blk_ps, blk_u8, blk_ex)
+    valid = cols["valid"] != 0
+    ev1 = cols["ev1"] != 0
+    ordcm = cols.pop("ordcm").to(I64)
+    G, H = valid.shape
+    S, A, D, B, GB = cfg.S, cfg.A, cfg.D, cfg.B, cfg.GB
+    ng = cfg.n_gene
+    iotaH = torch.arange(H, dtype=I32, device=device)
+    iotaA = torch.arange(A, dtype=I64, device=device)
+    jglob = torch.arange(G, dtype=I64, device=device)
+    wmask = (1 << B) - 1
+    sid_of = sid_of.to(I32)
+    seg_gid = seg_gid.to(I64)
+    syncs = [0]
+    timer = _BlockTimer(device)
+
+    def host(x: torch.Tensor):
+        """One read of a small tensor on the host (a synchronisation)."""
+        syncs[0] += 1
+        return x.tolist()
+
+    # ---- one-time device-side constant prep ----
+    def g_cm(a):  # gather a [G, H] column into cm order
+        return torch.gather(a, 1, ordcm)
+
+    cid_cm = g_cm(cols["cid"])
+    cm_cm = g_cm(cols["cm"])
+    gid_cm = g_cm(cols["gid"])
+    rev_cm = g_cm(cols["rev"]).to(I64)
+    so_cm = g_cm(cols["score_ori"])
+    sd_cm = g_cm(cols["score_dom"])
+    dg_cm = g_cm(cols["dom_gid"])
+    valid_cm = g_cm(valid)
+    sid_cm = sid_of[gid_cm.clamp(0, ng - 1).long()]
+    dsid_cm = sid_of[dg_cm.clamp(0, ng - 1).long()]
+    sidc_cm = sid_cm.clamp(0, S - 1).long()
+    w_cm = (sid_cm.to(I64) << 1) | rev_cm
+
+    geo: dict = {}                # the plain sweep's round-invariant planes
+    launches0 = sk.n_batched["kernel"]
+
+    def kept_pairs(flt_b, shadow_b, alive):
+        """Adjacent kept pairs in cm order: (kept, pair_ok, prev, v, w,
+        dist, s1, s2) as [G, H] tensors (positions are cm-order)."""
+        kept = g_cm(~flt_b & ~shadow_b) & valid_cm
+        idxk = torch.where(kept, iotaH[None, :], -1)
+        run = torch.cummax(idxk, dim=1).values
+        prev = torch.cat([run.new_full((G, 1), -1), run[:, :-1]], dim=1)
+        prevc = prev.clamp(0, H - 1).long()
+        take = lambda a: torch.gather(a, 1, prevc)
+        pair_ok = kept & (prev >= 0) & (take(cid_cm) == cid_cm)
+        v = take(w_cm)
+        # dist truncates to int32 like the reference pg_tmparc_t
+        dist = (cm_cm - take(cm_cm)).to(I32)
+        dom_alive = (dg_cm >= 0) & (dsid_cm >= 0) \
+            & alive[dsid_cm.clamp(0, S - 1).long()]
+        use_ori_vec = (so_cm > sd_cm) | (dg_cm < 0) | dom_alive
+        sc = so_cm if cfg.use_ori else torch.where(use_ori_vec, so_cm, sd_cm)
+        return kept, pair_ok, prevc, v, w_cm, dist, take(sc), sc
+
+    def walk_merge(flt_b, shadow_b, alive, full: bool):
+        """Walk + two-level merge (graph.c:87-177) from one global sort of
+        (vw, genome) keys. full=False (in the loop) computes only what the
+        rounds consume (group structure + the exact s1 average) and
+        records, per pair slot, the arc row its key landed in: the next
+        round's weak propagation (branch.c:108-145) is then two gathers
+        (the pairs it walks are built from the same flt/shadow state this
+        merge consumed). full=True (after the loop) adds the output-only
+        stats (n_genome, tot_cnt, dist, s2)."""
+        kept, pair_ok, prevc, v, w, dist, s1w, s2w = kept_pairs(
+            flt_b, shadow_b, alive)
+        cnts = torch.zeros((G, S), dtype=I32, device=device) \
+            .scatter_add_(1, sidc_cm, kept.to(I32))
+        seg_tot = cnts.sum(0, dtype=I32)
+        seg_ng = (cnts > 0).sum(0, dtype=I32)
+
+        kf = (v << B) | w
+        kr = ((w ^ 1) << B) | (v ^ 1)
+        keys = torch.cat([kf, kr], dim=1)                 # [G, 2H]
+        keys = (keys << GB) | jglob[:, None]
+        ok2 = torch.cat([pair_ok, pair_ok], dim=1)
+        N = G * 2 * H
+        s1_2 = torch.cat([s1w, s2w], dim=1).reshape(-1)
+        JB = cfg.JB
+        if full:
+            keys, so = torch.sort(
+                torch.where(ok2, keys, KSENT_I).reshape(-1), stable=True)
+            d2 = torch.cat([dist, dist], dim=1).reshape(-1)[so]
+            s2_2 = torch.cat([s2w, s1w], dim=1).reshape(-1)[so]
+            s1_2 = s1_2[so]
+            va = keys != KSENT_I
+        elif JB:
+            # JB low bits of the lean sort key carry the global row index:
+            # the merge sorts one int64 tensor of distinct keys and
+            # recovers the permutation and s1 by mask and gather
+            jo = torch.arange(N, dtype=I64, device=device).reshape(G, 2 * H)
+            kps = torch.sort(torch.where(ok2, (keys << JB) | jo, KSENT_I)
+                             .reshape(-1)).values
+            keys = kps >> JB                    # (vw<<GB)|g rows
+            va = keys != (KSENT_I >> JB)
+            so = torch.where(va, kps & ((1 << JB) - 1), N)
+            s1_2 = s1_2[so.clamp(0, N - 1)]
+        else:
+            # co-sorted form: equal keys keep their row order
+            keys, so = torch.sort(
+                torch.where(ok2, keys, KSENT_I).reshape(-1), stable=True)
+            s1_2 = s1_2[so]
+            va = keys != KSENT_I
+        in_new = va & (keys != _prev_row(keys, KSENT_I))
+        in_id = (torch.cumsum(in_new, 0) - 1).clamp(0, N - 1)
+        s1_in = _seg_max(torch.where(va, s1_2, 0), in_id, N)
+        vw_row = keys >> GB
+        out_new = va & (vw_row != _prev_row(vw_row, KSENT_I))
+        out_id = (torch.cumsum(out_new, 0) - 1).clamp(0, N - 1)
+        ng_f = _seg_sum(in_new.to(I32), out_id, N)
+        s1s_f = _seg_sum(torch.where(in_new, s1_in[in_id].to(I64), 0),
+                         out_id, N)
+        vw_f = _seg_max(torch.where(va, vw_row, 0), out_id, N)
+        n_out = out_new.sum()
+        live = iotaA < n_out
+        arc_vw = torch.where(live, vw_f[:A], SENT_I)
+        arc_ng = torch.where(live, ng_f[:A], 0)
+        arc_s1s = torch.where(live, s1s_f[:A], 0)
+        arc_s1 = torch.where(live, _plus499_i32(arc_s1s, arc_ng.to(I64)), 0)
+        lean = (arc_vw, arc_s1, n_out, seg_tot, seg_ng)
+        if not full:
+            # scatter each pair slot's arc row back through the sort
+            # permutation; invalid rows of the packed path carry so == N
+            # and land in a spare slot; their pair slots have pair_ok False
+            pair_arc = torch.zeros(N + 1, dtype=I32, device=device) \
+                .scatter_(0, so, out_id.to(I32))
+            mine = pair_arc[:N].reshape(G, 2 * H)
+            tgt_prev = torch.gather(ordcm, 1, prevc)
+            return lean + ((mine[:, :H], mine[:, H:], tgt_prev, pair_ok),)
+        cnt_in = _seg_sum(va.to(I64), in_id, N)
+        ds_in = _seg_sum(torch.where(va, d2.to(I64), 0), in_id, N)
+        dr_in = sf.plus499_trunc(ds_in, cnt_in.clamp(min=1))
+        s2_in = _seg_max(torch.where(va, s2_2, 0), in_id, N)
+        tot_f = _seg_sum(torch.where(in_new, cnt_in[in_id], 0).to(I32),
+                         out_id, N)
+        ds_f = _seg_sum(torch.where(in_new, dr_in[in_id] * cnt_in[in_id], 0),
+                        out_id, N)
+        s2s_f = _seg_sum(torch.where(in_new, s2_in[in_id].to(I64), 0),
+                         out_id, N)
+        arc_tot = torch.where(live, tot_f[:A], 0)
+        # exact output averages (graph.c:170-172) via softfloat
+        arc_ad = torch.where(live, sf.plus499_trunc(
+            torch.where(live, ds_f[:A], 0),
+            arc_tot.clamp(min=1).to(I64)), 0).to(I32)
+        arc_s2 = torch.where(live, _plus499_i32(
+            torch.where(live, s2s_f[:A], 0), arc_ng.to(I64)), 0)
+        return lean + (arc_ng, arc_tot, arc_ad, arc_s2)
+
+    # ---- round state ----
+    flt = cols["flt"]
+    weak = cols["weak_br"]
+    shadow = cols["shadow"]
+    pid_dom = cols["pid_dom"]
+    alive = torch.ones(S, dtype=torch.bool, device=device)
+    seg_tot, seg_ng = seg_tot0.to(I32), seg_ng0.to(I32)
+    arc_vw, arc_s1 = arc0_vw.to(I64), arc0_s1.to(I32)
+    zGH = torch.zeros((G, H), dtype=I32, device=device)
+    pair_st = (zGH, zGH, zGH.to(I64), zGH.to(torch.bool))
+    loci_st = torch.zeros((S, 2), dtype=I32, device=device)
+    logs = torch.zeros((cfg.R, 10), dtype=I64, device=device)
+    dcap_mask = torch.zeros((cfg.R, S), dtype=torch.uint8, device=device)
+    dcap_deg = torch.zeros((cfg.R, S, 2), dtype=I32, device=device)
+    dcap_loci = torch.zeros((cfg.R, S, 2), dtype=I32, device=device)
+    dcap_tot = torch.zeros((cfg.R, S), dtype=I32, device=device)
+    zero = torch.zeros((), dtype=I64, device=device)
+    aw_c = torch.zeros(A, dtype=torch.uint8, device=device)
+    n1_c = n2_c = n_out_c = zero
+    nc_in = False
+    overflow = torch.zeros((), dtype=torch.bool, device=device)
+
+    for r in range(cfg.R):
+        flt_in, weak_in, alive_in = flt, weak, alive
+        run_br = bool(do_branch[r]) and (not nc_in or no_skip)
+
+        # ===== arc-group structure of the previous round's arcs =====
+        with timer("branch"):
+            valid_a = arc_vw != SENT_I
+            v_a = arc_vw >> B
+            g_new = valid_a & (v_a != _prev_row(v_a, -1))
+            g_id = (torch.cumsum(g_new, 0) - 1).clamp(0, A - 1)
+            n_in_g = _seg_sum(valid_a.to(I32), g_id, A)[g_id]
+
+        def branch_block():
+            """Branch marking (branch.c:48-106): for every arc of a
+            branching group, is there a genome in which its target is local
+            to a max arc's target of the group (aml), and to an earlier
+            member's (he); then the softfloat classification and the
+            n_dist_loci greedy."""
+            gs_of = _seg_min(torch.where(valid_a, iotaA, A), g_id, A)[g_id]
+            mx = _seg_max(torch.where(valid_a, arc_s1, 0), g_id, A)[g_id] \
+                .clamp(min=0)
+            branching = valid_a & (n_in_g >= 2)
+            tgt_gid = seg_gid[((arc_vw & wmask) >> 1).clamp(0, S - 1)] \
+                .clamp(0, ng - 1)
+            ovf = (branching & (n_in_g > D)).any()
+            # rep positions (branch.c:6-29): last kept hit per gene in the
+            # current cs order, with its kept-rank and cm
+            keptc = (flt == 0) & (shadow == 0) & valid
+            krank = torch.cumsum(keptc, dim=1) - 1
+            pos = torch.where(keptc, iotaH[None, :], -1)
+            gidc = cols["gid"].clamp(0, ng - 1).long()
+            last = torch.full((G, ng), -1, dtype=I32, device=device) \
+                .scatter_reduce_(1, gidc, pos, "amax", include_self=True)
+            lastc = last.clamp(0, H - 1).long()
+            r_pres = last >= 0
+            r_cid = torch.gather(cols["cid"], 1, lastc)
+            r_rank = torch.gather(krank, 1, lastc)
+            r_cm = torch.gather(cols["cm"], 1, lastc)
+            # pairwise any-genome locality within each group. Members of a
+            # group are contiguous in the v-sorted arc table and stay so
+            # among the branching arcs alone, so the partner at in-group
+            # offset d is index a + d of the compacted planes. Locality is
+            # symmetric: each offset is evaluated once and feeds both
+            # members. The self pair is unobservable (it only affects arcs
+            # that are themselves max, which are never weak candidates).
+            nb, max_n = host(torch.stack([
+                branching.sum(), torch.where(branching, n_in_g, 0).max()]))
+            aml = torch.zeros(A, dtype=torch.bool, device=device)
+            he = torch.zeros(A, dtype=torch.bool, device=device)
+            if nb:
+                syncs[0] += 1                 # nonzero sizes its result
+                bidx = torch.nonzero(branching).squeeze(1)
+                tg = tgt_gid[bidx]
+                pa, ca = r_pres[:, tg], r_cid[:, tg]      # [G, nb]
+                ma, ra = r_cm[:, tg], r_rank[:, tg]
+                gs_b = gs_of[bidx]
+                im_b = (arc_s1 == mx)[bidx]
+                aml_b = torch.zeros(nb, dtype=torch.bool, device=device)
+                he_b = torch.zeros(nb, dtype=torch.bool, device=device)
+                for d in range(1, min(max_n, D)):
+                    e, l = slice(0, nb - d), slice(d, nb)  # earlier, later
+                    ok = pa[:, e] & pa[:, l]
+                    if not cfg.frag_mode:
+                        ok &= ca[:, e] == ca[:, l]
+                    loc = ok & (
+                        ((ma[:, e] - ma[:, l]).abs() <= cfg.local_dist)
+                        | ((ra[:, e] - ra[:, l]).abs() <= cfg.local_count))
+                    lp = loc.any(dim=0) & (gs_b[e] == gs_b[l])
+                    aml_b[e] |= lp & im_b[l]              # a later max
+                    aml_b[l] |= lp & im_b[e]              # an earlier max
+                    he_b[l] |= lp                         # an earlier local
+                aml[bidx] = aml_b
+                he[bidx] = he_b
+            rm, rk = sf.one_minus_div(arc_s1.clamp(min=0).to(I64),
+                                      mx.clamp(min=1).to(I64))
+            cand = branching & (mx > 0) \
+                & sf.gt_const(rm, rk, cfg.branch_diff)
+            cut = cand & ((~aml & sf.gt_const(rm, rk, cfg.branch_diff_dist))
+                          | sf.gt_const(rm, rk, cfg.branch_diff_cut))
+            aw = cand.to(torch.uint8) + cut.to(torch.uint8)
+            # n_dist_loci (branch.c:82-90): count group members with no
+            # earlier local partner (the greedy marks j from every earlier
+            # i regardless of i's own group)
+            n_grp = _seg_sum((branching & ~he).to(I32), g_id, A)
+            head = g_new & (n_in_g >= 2)
+            slot = (v_a >> 1).clamp(0, S - 1) * 2 + (v_a & 1)
+            loci = _seg_sum(torch.where(head, n_grp[g_id], 0), slot,
+                            2 * S).reshape(S, 2)
+            return aw, loci, (cand & ~cut).sum(), cut.sum(), ovf
+
+        if run_br:
+            with timer("branch"):
+                arc_weak, loci, n_flt1, n_flt2, ovf_b = branch_block()
+            overflow = overflow | ovf_b
+        else:
+            # convergence skip: nc_in certifies the previous round had
+            # do_branch and changed nothing in (flt, weak, alive), so this
+            # round's branch marking would reproduce the carried values. At
+            # r=0 (no branch round yet) the carries are all zeros.
+            arc_weak, loci, n_flt1, n_flt2 = aw_c, loci_st, n1_c, n2_c
+        if do_branch[r]:
+            loci_st = loci
+
+        # ===== weak propagation onto hits (branch.c:108-145) =====
+        # the pairs walked here are built from the same flt/shadow state as
+        # the previous round's walk_merge, which recorded each pair's arc
+        # row: two gathers
+        with timer("prop"):
+            if do_branch[r]:
+                idx_f, idx_r, tgt_prev, pair_ok = pair_st
+                aw32 = arc_weak.to(I32)
+                wk_f = torch.where(pair_ok,
+                                   aw32[idx_f.clamp(0, A - 1).long()], 0)
+                wk_r = torch.where(pair_ok,
+                                   aw32[idx_r.clamp(0, A - 1).long()], 0)
+                # earlier hit gets the forward arc's mark, later the rev's
+                weak = weak.to(I32) \
+                    .scatter_reduce(1, tgt_prev, wk_f, "amax") \
+                    .scatter_reduce(1, ordcm, wk_r, "amax").to(torch.uint8)
+            flt = torch.where((weak == 2) & (flt == 0), 1, flt) \
+                .to(torch.uint8)
+
+        # ===== annealed high-occurrence filter (graph.c:237-263) =====
+        with timer("occ"):
+            if do_occ[r]:
+                occ_del = alive & (seg_tot.to(I64) > int(occ_cut[r]))
+                vc = v_a.clamp(0, 2 * S - 1)
+                deg_v = _seg_sum(torch.where(g_new, n_in_g, 0), vc, 2 * S)
+                degd = _seg_sum((g_new & (n_in_g > int(deg_cut[r])))
+                                .to(I32), vc >> 1, S) > 0
+                degd &= alive
+                locid = alive & (loci.max(dim=1).values > int(loci_cut[r]))
+                n_occ = occ_del.sum()
+                n_deg = (degd & ~occ_del).sum()
+                n_loci = (locid & ~degd & ~occ_del).sum()
+                newdel = occ_del | degd | locid
+                alive = alive & ~newdel
+                # hits of dead genes leave the walk (PG_SET_FILTER(vtx==0))
+                sid_h = sid_of[cols["gid"].clamp(0, ng - 1).long()]
+                dead = (sid_h < 0) | ~alive[sid_h.clamp(0, S - 1).long()]
+                flt = torch.where(dead & valid & (flt == 0), 1, flt) \
+                    .to(torch.uint8)
+            else:
+                n_occ = n_deg = n_loci = zero
+                newdel = torch.zeros(S, dtype=torch.bool, device=device)
+                deg_v = torch.zeros(2 * S, dtype=I32, device=device)
+
+            # ===== convergence detection =====
+            # weak is untouched after prop and flt after occ, so counting
+            # here matches the reference's post-propagation log exactly
+            n_prop = ((weak != 0) & valid).sum()
+            ch = bool(host((flt != flt_in).any() | (weak != weak_in).any()
+                           | (alive != alive_in).any()))
+            # #del replay capture
+            dcap_mask[r] = newdel.to(torch.uint8)
+            dcap_deg[r] = deg_v.reshape(S, 2)
+            dcap_loci[r] = loci
+            dcap_tot[r] = seg_tot
+
+        # ===== arc regeneration (graph.c:87-177) =====
+        # Skipped entirely when the round changed nothing: shadow, pid_dom
+        # and the arc table are consistent with (flt, weak, alive) at every
+        # round boundary (round 0 always runs; the updates are idempotent
+        # and the walk is a pure function of that state). do_sweep/do_walk
+        # exist to time or isolate a block; they claim no exactness.
+        recompute = ch or r == 0 or no_skip
+        run_sw = recompute and bool(do_sweep[r])
+        if run_sw:
+            with timer("sweep"):
+                marks, b_score, b_other = sk.shadow_sweep_batched(
+                    batch, flt, weak, cfg.W, cfg.check_strand,
+                    cfg.min_ov_ratio, geo)
+                marks = marks != 0
+                nonflt = flt == 0
+                evaluated = nonflt & ev1 & valid
+                shadow = torch.where(evaluated, marks, (shadow != 0) | marks) \
+                    .to(torch.uint8)
+                has_dom = nonflt & (b_score > sk.SCORE_NONE)
+                pid_o = torch.gather(cols["pid"], 1,
+                                     b_other.clamp(0, H - 1).long())
+                pid_dom = torch.where(has_dom, pid_o,
+                                      torch.where(nonflt, -1, pid_dom))
+
+        # walk + lean merge (the rounds only consume group structure, the
+        # exact s1 average and the seg counters)
+        if recompute and do_walk[r]:
+            with timer("walk_merge"):
+                arc_vw, arc_s1, n_out, seg_tot, seg_ng, pair_st = walk_merge(
+                    flt != 0, shadow != 0, alive, full=False)
+        else:
+            n_out = n_out_c
+        overflow = overflow | (n_out > A)
+        nc_in = bool(do_branch[r]) and not ch
+        logs[r] = torch.stack([
+            n_flt1, n_flt2, n_prop, n_occ, n_deg, n_loci, alive.sum(), n_out,
+            zero + int(run_br), zero + int(run_sw)])
+        aw_c, n1_c, n2_c, n_out_c = arc_weak, n_flt1, n_flt2, n_out
+
+    # recompute the final arc table with its output-only stats from the
+    # final state (identical kept pairs -> identical groups); all averages
+    # are rounded exactly on the device (softfloat)
+    with timer("walk_merge"):
+        (arc_vw, arc_s1, n_out, seg_tot, seg_ng, arc_ng, arc_tot, arc_ad,
+         arc_s2) = walk_merge(flt != 0, shadow != 0, alive, full=True)
+    if stats is not None:
+        stats.update(host_syncs=syncs[0], block_ms=timer.result(),
+                     sweep_launches=sk.n_batched["kernel"] - launches0)
+    return (flt, weak, shadow, pid_dom, alive, seg_tot, seg_ng, arc_vw,
+            arc_s1, arc_ng, arc_tot, arc_ad, arc_s2, loci_st, logs,
+            dcap_mask, dcap_deg, dcap_loci, dcap_tot, overflow)
+
+
+# ---------------------------------------------------------------------------
+# the host side: pack, upload, run, pull, apply
+# ---------------------------------------------------------------------------
+
+# Diagnostics of the most recent graph_gen_device call: engaged flag,
+# fallback reason, static shape, wall-clock stage breakdown (pack / upload /
+# device run / pull), rounds run, host reads and per-block time.
+LAST: dict = {}
+
+
+def _fallback(reason: str) -> bool:
+    LAST.clear()
+    LAST.update(engaged=False, reason=reason)
+    return False
+
+
+class Pack(NamedTuple):
+    """What pack_host hands to the schedule: its inputs in the order
+    schedule() takes them, the static configuration, and what the apply
+    step needs (kept row indices per genome, the stale n_prop constant)."""
+    inputs: tuple
+    cfg: Cfg
+    kept_idx: list
+    n_prop_stale: int
+    E: int
+
+
+def _host_array(shape, dtype, pin: bool) -> np.ndarray:
+    """An uninitialised host array; in pinned memory (a view of a pinned
+    torch tensor) when it is to be copied to a CUDA device."""
+    if not pin:
+        return np.empty(shape, dtype)
+    tdt = {np.int32: torch.int32, np.int64: torch.int64,
+           np.uint64: torch.int64, np.uint8: torch.uint8}[dtype]
+    return torch.empty(shape, dtype=tdt, pin_memory=True).numpy().view(dtype)
+
+
+def pack_host(opt: PgOpt, q, pin: bool = False):
+    """Size and pack the schedule's inputs from the graph after phase 1, in
+    NumPy (into pinned memory when `pin`). Returns a Pack, or the reason (a
+    string) why the device loop cannot take this graph."""
+    d = q.d
+    G = d.n_genome
+    views = _steady_cm_views(d)
+    if views is None:
+        log_msg("pg_device_loop", "cm/cs sort order not in steady cycle; "
+                "falling back to host rounds")
+        return "cm/cs sort order not in steady cycle"
+    S = q.n_seg
+    ngene = d.n_gene
+    B = max(int(2 * S - 1).bit_length(), 2)
+    GB = max((G - 1).bit_length(), 1)
+    if 2 * B + GB > 62:
+        return "2B+GB=%d > 62 (S=%d, Gp=%d)" % (2 * B + GB, S, G)
+    # Kept-row compaction: an entry-filtered hit never takes part in any
+    # round block (the reference skips flt rows on both sides of every
+    # sweep/walk/rep evaluation), so only flt==0 rows are packed. Dropped
+    # rows keep their entry flt/shadow/weak_br/pid_dom on the host and are
+    # merged back untouched after the pull.
+    kept_idx = []
+    ex_tot = []
+    for g in d.genomes:
+        h = g.hits
+        n = g.n_hit
+        kk = (np.flatnonzero(np.asarray(h.flt)[:n] == 0) if n
+              else np.zeros(0, np.int64))
+        kept_idx.append(kk)
+        ex_tot.append(int(np.asarray(h.n_exon)[kk].sum()) if len(kk) else 0)
+    # H is rounded up to 512 rows as in the JAX package (there it bounds the
+    # number of compiled shapes), so that both packages pack one graph into
+    # equal blocks; here it costs the padded rows and nothing else
+    H = max(((max((len(k) for k in kept_idx), default=1) + 511) // 512)
+            * 512, 512)
+    E = dev.next_pow2(max(max(ex_tot, default=1), 1))
+    K = dev.next_pow2(
+        max((int(np.asarray(g.hits.n_exon)[k].max(initial=1))
+             for g, k in zip(d.genomes, kept_idx) if len(k)), default=1),
+        lo=2)
+    W = 1
+    for g, k in zip(d.genomes, kept_idx):
+        if len(k):
+            W = max(W, sk.band_width(np.asarray(g.hits.cid)[k],
+                                     np.asarray(g.hits.cs)[k],
+                                     np.asarray(g.hits.ce)[k]))
+    W = min(dev.next_pow2(W, lo=2), H)
+    # 25% headroom over the phase-1 arc count, in steps of 4096; overflow
+    # falls back to the host rounds. PANGENE_DEVLOOP_MAX_A caps device
+    # memory on huge graphs (and lets tests exercise the fallback).
+    A = ((q.n_arc + q.n_arc // 4 + 4095) // 4096 + 1) * 4096
+    A = min(max(A, 4096), G * 2 * H)
+    max_a = int(os.environ.get("PANGENE_DEVLOOP_MAX_A", "0"))
+    if max_a > 0:
+        A = min(A, max_a)
+    if q.n_arc > A:
+        log_msg("pg_device_loop", "arc capacity %d below phase-1 count %d; "
+                "falling back to host rounds", A, q.n_arc)
+        return "arc capacity %d < phase-1 count %d" % (A, q.n_arc)
+    D = 64
+    T = opt.n_branch_flt
+    R = T + 1
+
+    from ..ops.device_engine import hash_u32_np
+    from ..ops.overlap import cds_len_all
+    cmax = 0
+    for g, kk in zip(d.genomes, kept_idx):
+        if len(kk):
+            h = g.hits
+            cmax = max(cmax, int(np.asarray(h.ce)[kk].max(initial=0)),
+                       int(np.asarray(h.cm)[kk].max(initial=0)),
+                       int(np.asarray(h.cs)[kk].max(initial=0)))
+    coord32 = cmax < 2**31
+    cdt = np.int32 if coord32 else np.int64
+    I = {n: i for i, n in enumerate(PACK_I32)}
+    U8 = {n: i for i, n in enumerate(PACK_U8)}
+    blk_i32 = _host_array((len(PACK_I32), G, H), np.int32, pin)
+    blk_i32.fill(0)
+    blk_i32[I["cid"]].fill(dev.PAD_CID)
+    blk_i32[I["dom_gid"]].fill(-1)
+    blk_i32[I["pid_dom"]].fill(-1)
+    blk_i32[I["cds_len"]].fill(1)
+    blk_i32[I["ordcm"]] = np.arange(H, dtype=np.int32)
+    blk_c = _host_array((len(PACK_C), G, H), cdt, pin)
+    blk_c.fill(0)
+    blk_c[1].fill(-1)                       # ce pad
+    blk_ps = _host_array((1, G, H), np.uint64, pin)
+    blk_ps.fill(0)
+    blk_u8 = _host_array((len(PACK_U8), G, H), np.uint8, pin)
+    blk_u8.fill(0)
+    blk_ex = _host_array((2, G, E), np.int32, pin)
+    blk_ex.fill(0)
+    prot_gid = np.asarray(d.prot_gid, np.int32)
+    pref = np.asarray(d.gene_preferred, np.uint8)
+    # stale-quirk constant: the reference's per-round n_prop counts all
+    # hits with weak_br != 0; entry-filtered rows are not uploaded, so
+    # their (constant) contribution is added back to the pulled logs
+    n_prop_stale = 0
+    for j, g in enumerate(d.genomes):
+        h = g.hits
+        n = g.n_hit
+        kk = kept_idx[j]
+        nk = len(kk)
+        if n:
+            n_prop_stale += int(((np.asarray(h.flt)[:n] != 0)
+                                 & (np.asarray(h.weak_br)[:n] != 0)).sum())
+        if nk == 0:
+            continue
+        tk = lambda a: np.asarray(a)[kk]
+        pid_k = tk(h.pid)
+        gid = prot_gid[pid_k]
+        pid_dom0_k = tk(h.pid_dom0)
+        blk_i32[I["cid"], j, :nk] = tk(h.cid)
+        blk_i32[I["rank"], j, :nk] = tk(h.rank)
+        blk_i32[I["gid"], j, :nk] = gid
+        blk_i32[I["dom_gid"], j, :nk] = np.where(
+            pid_dom0_k >= 0, prot_gid[np.clip(pid_dom0_k, 0, None)], -1)
+        blk_i32[I["score_ori"], j, :nk] = tk(h.score_ori)
+        blk_i32[I["score_dom"], j, :nk] = tk(h.score_dom)
+        blk_i32[I["cds_len"], j, :nk] = np.asarray(cds_len_all(g))[kk]
+        blk_i32[I["pid"], j, :nk] = pid_k
+        blk_i32[I["pid_dom"], j, :nk] = tk(h.pid_dom)
+        # cm-order view of the kept subset: relative order is preserved
+        # under subsetting, so filtering + renumbering the full stable
+        # perm is the stable perm of the subset
+        vk = views[j]
+        keptmask = np.zeros(n, bool)
+        keptmask[kk] = True
+        renum = np.cumsum(keptmask) - 1
+        blk_i32[I["ordcm"], j, :nk] = renum[vk[keptmask[vk]]]
+        blk_c[0, j, :nk] = tk(h.cs)
+        blk_c[1, j, :nk] = tk(h.ce)
+        blk_c[2, j, :nk] = tk(h.cm)
+        blk_ps[0, j, :nk] = (
+            (tk(h.score_adj).astype(np.int64).astype(np.uint64)
+             << np.uint64(33))
+            | (pref[gid].astype(np.uint64) << np.uint64(32))
+            | hash_u32_np(pid_k).astype(np.uint64))
+        # flt is 0 for every kept row by construction (plane stays zero)
+        blk_u8[U8["shadow"], j, :nk] = tk(h.shadow)
+        blk_u8[U8["weak_br"], j, :nk] = tk(h.weak_br)
+        blk_u8[U8["valid"], j, :nk] = 1
+        blk_u8[U8["rev"], j, :nk] = tk(h.rev)
+        blk_u8[U8["ev1"], j, :nk] = kk >= 1
+        # exon ranges of kept hits, compacted with rewritten offsets
+        cnt = tk(h.n_exon)
+        off = tk(h.off_exon).astype(np.int64)
+        new_off = np.zeros(nk, np.int64)
+        new_off[1:] = np.cumsum(cnt[:-1], dtype=np.int64)
+        tot = ex_tot[j]
+        pos = (np.arange(tot, dtype=np.int64)
+               - np.repeat(new_off, cnt) + np.repeat(off, cnt))
+        blk_i32[I["n_exon"], j, :nk] = cnt
+        blk_i32[I["off_exon"], j, :nk] = new_off.astype(np.int32)
+        blk_ex[0, j, :tot] = np.asarray(g.exon_os)[pos]
+        blk_ex[1, j, :tot] = np.asarray(g.exon_oe)[pos]
+
+    # arc init from phase 1 (packed to B-bit vertices)
+    a = q.arcs
+    v0 = (a.x >> np.uint64(32)).astype(np.int64)
+    w0 = (a.x & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    arc0_vw = np.full(A, SENT_I, np.int64)
+    arc0_vw[:len(a)] = (v0 << B) | w0
+    arc0_s1 = np.zeros(A, np.int32)
+    arc0_s1[:len(a)] = a.s1
+
+    # per-round thresholds (host IEEE doubles, exact)
+    occ_cut = np.zeros(R, np.int64)
+    deg_cut = np.zeros(R, np.int32)
+    loci_cut = np.zeros(R, np.int32)
+    do_branch = np.zeros(R, bool)
+    do_occ = np.zeros(R, bool)
+    occ_cut[0] = opt.max_avg_occ * 2 * G
+    deg_cut[0] = opt.max_degree * 2
+    loci_cut[0] = opt.max_dist_loci
+    do_occ[0] = True
+    for i in range(T):
+        rr = 1.0 + (T - 1 - i) / T
+        r_ = i + 1
+        do_branch[r_] = True
+        if i > 0:
+            do_occ[r_] = True
+            occ_cut[r_] = int(opt.max_avg_occ * rr + 0.499) * G
+            deg_cut[r_] = int(opt.max_degree * rr + 0.499)
+            loci_cut[r_] = int(opt.max_dist_loci * rr + 0.499)
+
+    # PANGENE_DEVLOOP_DISABLE switches round blocks off to time or isolate
+    # them: input values only, and no reference exactness is claimed.
+    # "conv" defeats the convergence skip (every round recomputes).
+    do_sweep = np.ones(R, bool)
+    do_walk = np.ones(R, bool)
+    disable = os.environ.get("PANGENE_DEVLOOP_DISABLE", "")
+    if "branch" in disable:
+        do_branch[:] = False
+    if "occ" in disable:
+        do_occ[:] = False
+    if "sweep" in disable:
+        do_sweep[:] = False
+    if "walk" in disable:
+        do_walk[:] = False
+    no_skip = np.asarray("conv" in disable)
+
+    # coord32: clamping local_dist at INT32_MAX is exact (every |cm gap|
+    # fits int32, so a clamped threshold admits the same pairs)
+    ld = int(opt.local_dist)
+    if coord32:
+        ld = min(ld, 2**31 - 1)
+    lc = min(int(opt.local_count), 2**31 - 1)
+    JB = max((G * 2 * H - 1).bit_length(), 1)
+    if 2 * B + GB + JB > 62 or os.environ.get("PANGENE_DEVLOOP_NO_JB"):
+        JB = 0          # lean merge falls back to co-sorted payloads
+    cfg = Cfg(H=H, K=K, W=W, S=S, A=A, D=D, B=B, GB=GB, JB=JB,
+              n_gene=ngene, R=R, coord32=coord32,
+              check_strand=bool(opt.check_strand),
+              use_ori=bool(opt.use_ori_for_branch),
+              frag_mode=bool(opt.frag_mode),
+              min_ov_ratio=float(opt.min_ov_ratio),
+              branch_diff=float(opt.branch_diff),
+              branch_diff_dist=float(opt.branch_diff_dist),
+              branch_diff_cut=float(opt.branch_diff_cut),
+              local_dist=ld, local_count=lc)
+    inputs = (blk_i32, blk_c, blk_ps.view(np.int64), blk_u8, blk_ex,
+              np.asarray(q.seg_gid), np.asarray(q.g2s), arc0_vw, arc0_s1,
+              q.seg_tot_cnt.astype(np.int32), q.seg_n_genome.astype(np.int32),
+              occ_cut, deg_cut, loci_cut, do_branch, do_occ, do_sweep,
+              do_walk, no_skip)
+    return Pack(inputs, cfg, kept_idx, n_prop_stale, E)
+
+
+N_DEVICE_INPUTS = 11   # leading inputs of schedule() that live on the device
+
+
+def graph_gen_device(opt: PgOpt, q) -> bool:
+    """Run phases 2+3 of the schedule on opt.device. Returns True when the
+    results were applied (bit-identical to the host rounds); False when a
+    precondition or capacity check failed and the caller must run the host
+    rounds instead. Assumes phase 1 (gen_vtx + first gen_arc) already ran.
+    Raises when opt.device is "cuda" and there is no CUDA device."""
+    from .. import util
+    from ..graph.graphdata import ArcTable
+    from ..ops.device_engine import resolve_device
+
+    device = resolve_device(opt.device)
+    d = q.d
+    G = d.n_genome
+    if G == 0 or q.n_seg == 0 or q.n_arc == 0:
+        return _fallback("empty graph")
+    cuda = device.type == "cuda"
+    t_pack0 = time.monotonic()
+    pk = pack_host(opt, q, pin=cuda)
+    if isinstance(pk, str):
+        return _fallback(pk)
+    cfg = pk.cfg
+    t_up0 = time.monotonic()
+    # one copy per block, from pinned memory on cuda
+    on_dev = [torch.from_numpy(a).to(device, non_blocking=True)
+              for a in pk.inputs[:N_DEVICE_INPUTS]]
+    if cuda:
+        torch.cuda.synchronize(device)
+    t_run0 = time.monotonic()
+    stats: dict = {}
+    outs = schedule_device(*on_dev, *pk.inputs[N_DEVICE_INPUTS:-1],
+                           bool(pk.inputs[-1]), cfg=cfg, stats=stats)
+    overflow_flag = bool(outs[-1].item())
+    t_pull0 = time.monotonic()
+    # the #del capture planes (outs[15:19], O(R*S)) are pulled only when
+    # the verbosity will replay them
+    pull_dcap = util.verbose >= 3
+    host = [o.cpu().numpy() if pull_dcap or not 15 <= i < 19
+            else np.zeros((0,) + tuple(o.shape[1:]), np.int32)
+            for i, o in enumerate(outs)]
+    t_pull1 = time.monotonic()
+    (flt, weak, shadow, pid_dom, alive, seg_tot, seg_ng, arc_vw, arc_s1,
+     arc_ng, arc_tot, arc_ad, arc_s2, loci_fin, logs,
+     dmask, ddeg, dloci, dtot, overflow) = host
+    H, S, B, R = cfg.H, cfg.S, cfg.B, cfg.R
+    LAST.clear()
+    LAST.update(
+        engaged=not overflow_flag,
+        device=str(device),
+        shape=dict(G=G, Gp=G, H=H, E=pk.E, K=cfg.K, W=cfg.W, S=S, A=cfg.A,
+                   D=cfg.D, R=R, n_devices=1),
+        coord32=cfg.coord32,
+        kept_frac=round(sum(len(k) for k in pk.kept_idx)
+                        / max(1, sum(g.n_hit for g in d.genomes)), 3),
+        upload_bytes=int(sum(a.nbytes for a in pk.inputs[:5])),
+        pack_s=round(t_up0 - t_pack0, 3),
+        upload_s=round(t_run0 - t_up0, 3),
+        run_s=round(t_pull0 - t_run0, 3),
+        pull_s=round(t_pull1 - t_pull0, 3),
+        # convergence skipping (logs cols 8/9 = ran_branch / ran_sweep)
+        rounds_branch_run=int(logs[:, 8].sum()),
+        rounds_sweep_run=int(logs[:, 9].sum()),
+        rounds_total=R,
+        **stats)
+    if overflow_flag:
+        LAST["reason"] = "capacity overflow (arcs or branch window)"
+        log_msg("pg_device_loop", "capacity overflow (arcs or branch "
+                "window); falling back to host rounds")
+        return False
+
+    logs = np.array(logs)
+    logs[:, 2] += pk.n_prop_stale
+    _emit_round_logs(q, logs, dmask, ddeg, dloci, dtot, R)
+
+    # apply hit state: scatter pulled values to the kept rows; dropped
+    # (entry-filtered) rows keep their entry values, the stale shadow /
+    # pid_dom quirks, identical to what the host rounds leave behind
+    for j, g in enumerate(d.genomes):
+        h = g.hits
+        kk = pk.kept_idx[j]
+        nk = len(kk)
+        if nk == 0:
+            continue
+        for name, plane, dt in (("flt", flt, np.uint8),
+                                ("weak_br", weak, np.uint8),
+                                ("shadow", shadow, np.uint8),
+                                ("pid_dom", pid_dom, np.int32)):
+            base = np.asarray(getattr(h, name)).astype(dt, copy=True)
+            base[kk] = plane[j, :nk].astype(dt)
+            h.set(name, base)
+    # segment compaction (the reference hard-deleted each round; ids are
+    # order-preserving so one final compaction is identical)
+    keep = alive.astype(bool)
+    q.seg_gid = q.seg_gid[keep]
+    q.seg_n_dom = q.seg_n_dom[keep]
+    q.seg_n_sub = q.seg_n_sub[keep]
+    q.seg_n_genome = seg_ng[keep].astype(np.int32)
+    q.seg_tot_cnt = seg_tot[keep].astype(np.int32)
+    q.seg_n_dist_loci = loci_fin[keep].astype(np.int32)
+    q.seg_del = np.zeros(int(keep.sum()), np.uint8)
+    q.gen_g2s()
+    q.flag_vtx()
+    # rebuild the arc table with original->compacted id remap
+    na = int((arc_vw != SENT_I).sum())
+    vw = arc_vw[:na]
+    remap = np.cumsum(keep) - 1
+    v = vw >> B
+    w = vw & ((1 << B) - 1)
+    newv = (remap[(v >> 1)] << 1) | (v & 1)
+    neww = (remap[(w >> 1)] << 1) | (w & 1)
+    out = ArcTable.empty(na)
+    out.x = (newv.astype(np.uint64) << np.uint64(32)) | neww.astype(np.uint64)
+    out.n_genome = arc_ng[:na].astype(np.int32)
+    out.tot_cnt = arc_tot[:na].astype(np.int32)
+    # averages already rounded exactly on the device (softfloat +.499)
+    out.avg_dist = arc_ad[:na].astype(np.int32)
+    out.s1 = arc_s1[:na].astype(np.int32)
+    out.s2 = arc_s2[:na].astype(np.int32)
+    q.arcs = out
+    return True
+
+
+def _emit_round_logs(q, logs, dmask, ddeg, dloci, dtot, R) -> None:
+    """Replay the reference's per-round stderr messages from the pulled
+    counters (content-exact; timestamps are emission-time)."""
+    from .. import util
+    d = q.d
+    for r in range(R):
+        n1, n2, nprop, nocc, ndeg, nloci, nseg, narc = (
+            int(x) for x in logs[r][:8])
+        if r >= 1:
+            log_msg("pg_mark_branch_flt_arc",
+                    "marked %d locally diverged branches and %d distantly "
+                    "diverged branches", n1, n2)
+            log_msg("pg_mark_branch_flt_hit", "marked %d diverged hits",
+                    nprop)
+        if r == 0 or r >= 2:
+            log_msg("pg_flt_high_occ",
+                    "filtered %d high-occurrence segments, %d high-degree "
+                    "segments and %d segments connecting distant loci",
+                    nocc, ndeg, nloci)
+            if util.verbose >= 3 and dmask.shape[0] == R:
+                for i in np.flatnonzero(dmask[r]):
+                    s_occ = dtot[r, i] / d.n_genome
+                    if r >= 2:
+                        sys.stderr.write(
+                            "#del\t%s\tavg_occ=%.1f\tdeg=%d,%d\t"
+                            "dist_deg=%d,%d\n" % (
+                                d.gene_name[q.seg_gid[i]], s_occ,
+                                ddeg[r, i, 0], ddeg[r, i, 1],
+                                dloci[r, i, 0], dloci[r, i, 1]))
+                    else:
+                        sys.stderr.write(
+                            "#del\t%s\tavg_occ=%.1f\tdeg=*,*\t"
+                            "dist_deg=%d,%d\n" % (
+                                d.gene_name[q.seg_gid[i]], s_occ,
+                                dloci[r, i, 0], dloci[r, i, 1]))
+        if r == 0:
+            log_msg("pg_graph_gen", "round-2 graph: %d genes and %d arcs",
+                    nseg, narc)

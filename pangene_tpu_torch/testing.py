@@ -127,7 +127,8 @@ def random_genome(rng, n_hits=60, n_genes=8, n_prots_per_gene=3, n_ctg=3,
     h.set("pid_dom", np.full(n_hits, -1, np.int32))
     g = Genome("test", ["c%d" % i for i in range(n_ctg)],
                np.full(n_ctg, 10000, np.int64), h,
-               np.concatenate(exon_os), np.concatenate(exon_oe))
+               np.concatenate([np.zeros(0, np.int32)] + exon_os),
+               np.concatenate([np.zeros(0, np.int32)] + exon_oe))
     d.genomes.append(g)
     hit_sort(g, by_cm=False)
     return d, g
@@ -247,3 +248,53 @@ def sweep_edge_case(name):
     if name == "cs>2^31":
         return _far_hits(*band_genome(np.random.default_rng(6), 2 * rows, W))
     raise ValueError("unknown sweep edge case %r" % (name,))
+
+
+def batch_cols(genomes, device, H=None):
+    """The genomes [(DataSet, Genome), ...] (cs-sorted) stacked into the
+    batched sweep's layout on `device`: (BatchCols, flt uint8 [G, H], weak
+    uint8 [G, H], W), rows and exon pools zero-padded to the longest genome
+    (or to H rows), contig ids padded with PAD_CID and ce with -1 as the
+    device loop pads them, W the largest band of any genome."""
+    import torch
+
+    from .ops import device_engine as de
+    from .ops import sweep_kernel as sk
+    from .ops.device import PAD_CID
+    cpu = torch.device("cpu")
+    cols = [de.build_cols(d, g, cpu) for d, g in genomes]
+    H = max([H or 1] + [c.cid.shape[0] for c in cols])
+    E = max([1] + [c.exon_os.shape[0] for c in cols])
+    pad = {"cid": int(PAD_CID), "ce": -1, "cds_len": 1}
+
+    def stack(name):
+        width = E if name in sk.EXON_FIELDS else H
+        out = torch.full((len(cols), width), pad.get(name, 0),
+                         dtype=sk.COL_DTYPES[name])
+        for j, c in enumerate(cols):
+            t = getattr(c, name)
+            out[j, :t.shape[0]] = t
+        return out.to(device)
+
+    n_rows = torch.tensor([c.cid.shape[0] for c in cols], dtype=torch.int32)
+    bc = sk.BatchCols(n_rows.to(device), *[
+        stack(name) for name in sk.BatchCols._fields[1:]])
+    W = max([1] + [sk.band_width(g.hits.cid, g.hits.cs, g.hits.ce)
+                   for _, g in genomes])
+    return bc, stack("flt"), stack("weak"), W
+
+
+def stacked_edge_cases():
+    """The sweep kernel's edge cases as genomes of one batch, with an empty
+    genome and a genome whose row 0 is filtered: {"tile": the cases whose
+    band fits the staged halo, "wide": all of them (one band for the batch,
+    so every genome takes the large-W path)}."""
+    from .ops.sweep_kernel import band_width, tile_shape
+    band_tile = tile_shape()[1]
+    row0 = random_genome(np.random.default_rng(8), n_hits=200, weak=True)
+    row0[1].hits.flt[0] = 1
+    extra = [random_genome(np.random.default_rng(7), n_hits=0), row0]
+    cases = [sweep_edge_case(name) for name in SWEEP_EDGE_CASES]
+    tile = [c for c in cases if band_width(
+        c[1].hits.cid, c[1].hits.cs, c[1].hits.ce) <= band_tile]
+    return {"tile": tile + extra, "wide": cases + extra}

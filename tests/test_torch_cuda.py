@@ -1,4 +1,5 @@
-"""The CUDA sweep kernel against its plain PyTorch version, on the card.
+"""The CUDA sweep kernel and its batched entry against their plain PyTorch
+versions, on the card.
 
 These tests need an NVIDIA GPU (the kernel has no CPU mode) and skip
 without one. The file imports neither jax nor pangene_tpu, so it runs on a
@@ -14,7 +15,8 @@ import torch
 
 from pangene_tpu_torch.ops import device_engine as de
 from pangene_tpu_torch.ops import sweep_kernel as sk
-from pangene_tpu_torch.testing import (SWEEP_EDGE_CASES, random_genome,
+from pangene_tpu_torch.testing import (SWEEP_EDGE_CASES, batch_cols,
+                                       random_genome, stacked_edge_cases,
                                        sweep_edge_case)
 
 
@@ -98,3 +100,71 @@ def test_kernel_counts(cuda_device):
     assert sk.n_kernel_launches == {sk.SHADOW: 0, sk.ISOFORM: 1}
     assert sk.n_plain_calls == {sk.SHADOW: 0, sk.ISOFORM: 0}
     sk.reset_counts()
+
+
+def assert_batched_equals_per_genome(genomes, device, check_strand, f,
+                                     split_form):
+    """The batched kernel against the per-genome plain version, genome by
+    genome, and (split_form) against its own plain version, the split
+    forms of ops/device.py, on the whole batch."""
+    bc, flt, weak, W = batch_cols(genomes, device)
+    sk.reset_counts()
+    marks, score, other = sk.shadow_sweep_batched(bc, flt, weak, W,
+                                                  check_strand, f)
+    assert sk.n_batched == {"kernel": 1, "plain": 0}
+    if split_form:
+        want = sk.shadow_sweep_batched_plain(bc, flt, weak, W, check_strand,
+                                             f)
+        for a, b in zip((marks, score, other), want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    for j, (d, g) in enumerate(genomes):
+        n = g.n_hit
+        m, s, o, _ = sk.shadow_sweep_plain(de.build_cols(d, g, device), W,
+                                           sk.SHADOW, check_strand, f)
+        assert torch.equal(marks[j, :n], m)
+        assert torch.equal(score[j, :n], s)
+        assert torch.equal(other[j, :n], o)
+        assert not marks[j, n:].any()
+        assert (score[j, n:] == sk.SCORE_NONE).all()
+        assert (other[j, n:] == sk.OTHER_NONE).all()
+    sk.reset_counts()
+    return marks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [0.5, 0.3])
+@pytest.mark.parametrize("check_strand", [False, True])
+@pytest.mark.parametrize("seed0", [0, 20])
+def test_batched_kernel_vs_plain(cuda_device, seed0, check_strand, f):
+    sizes = (2000, 700, 0, 64, 65, 1, 1300)
+    genomes = [random_genome(np.random.default_rng(seed0 + k), n_hits=n,
+                             weak=True, max_exon=6, max_cs=30 * n + 100)
+               for k, n in enumerate(sizes)]
+    marks = assert_batched_equals_per_genome(genomes, cuda_device,
+                                             check_strand, f, True)
+    assert marks.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["tile", "wide"])
+def test_batched_kernel_stacked_edge_cases(cuda_device, which):
+    """The edge cases as genomes of one batch, with an empty genome and a
+    genome whose row 0 is filtered. The split form's exon block does not
+    fit the 2,000-exon hit, so the whole-batch comparison leaves it out."""
+    genomes = stacked_edge_cases()[which]
+    assert_batched_equals_per_genome(genomes, cuda_device, False, 0.3, False)
+    small = [(d, g) for d, g in genomes if int(g.hits.n_exon.max(
+        initial=0)) < 100]
+    assert len(small) == len(genomes) - 1
+    assert_batched_equals_per_genome(small, cuda_device, False, 0.3, True)
+
+
+@pytest.mark.cuda
+def test_batched_wrapper_raises_on_bad_columns(cuda_device):
+    genomes = [random_genome(np.random.default_rng(3), n_hits=100)]
+    bc, flt, weak, W = batch_cols(genomes, cuda_device)
+    with pytest.raises(ValueError):
+        sk.shadow_sweep_batched(bc, flt.cpu(), weak, W, False, 0.5)
+    with pytest.raises(ValueError):
+        sk.shadow_sweep_batched(bc._replace(ce=bc.ce.to(torch.int32)), flt,
+                                weak, W, False, 0.5)

@@ -1,0 +1,414 @@
+"""The port's device-resident pruning loop
+(pangene_tpu_torch/parallel/device_loop.py) against the JAX package's
+(pangene_tpu/parallel/device_loop.py at one device), on the CPU.
+
+Three levels, every comparison exact (integers and bytes, tolerance 0):
+
+  state  a spy on the JAX package's _schedule captures its numpy inputs, its
+         static configuration and its 20 outputs from a run of
+         --engine sharded on one device; the port's schedule() gets the same
+         inputs and must return the same 20 outputs. Then, with the same
+         jitted JAX schedule, one block switched off at a time (and the
+         convergence skip defeated), so that a wrong block is named by the
+         case that fails.
+  pack   the port's host pack on the port's own graph after phase 1 equals
+         the captured JAX inputs, configuration and stale n_prop constant.
+  e2e    the port's --engine sharded --device cpu gives the bytes of the
+         JAX package's --engine host (whose tests hold sharded == host) for
+         every option set, flag, log line and fallback; each case asserts
+         that the loop engaged, since GFA equality alone also passes on a
+         silent fallback to the host rounds.
+"""
+import gzip
+import io
+import pathlib
+import re
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from pangene_tpu import pipeline as jpipeline
+from pangene_tpu import util as jutil
+from pangene_tpu.options import PgOpt as JaxOpt
+from pangene_tpu.parallel import device_loop as jdl
+from pangene_tpu_torch import cli, pipeline, util
+from pangene_tpu_torch.options import (PG_F_CHECK_STRAND, PG_F_FRAG_MODE,
+                                       PG_F_ORI_FOR_BRANCH,
+                                       PG_F_WRITE_BED_FLAG,
+                                       PG_F_WRITE_BED_WALK, PgOpt)
+from pangene_tpu_torch.parallel import device_loop as dl
+from pangene_tpu_torch.testing import synth_paf_files
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+# small tensors: one torch thread per test process, so that several test
+# workers on one machine do not contend for its cores
+torch.set_num_threads(1)
+
+OUT_NAMES = ("flt", "weak", "shadow", "pid_dom", "alive", "seg_tot",
+             "seg_ng", "arc_vw", "arc_s1", "arc_ng", "arc_tot", "arc_ad",
+             "arc_s2", "loci", "logs", "dcap_mask", "dcap_deg", "dcap_loci",
+             "dcap_tot", "overflow")
+# positions in _schedule's argument list
+DO_BRANCH, DO_OCC, DO_SWEEP, DO_WALK, NO_SKIP = 14, 15, 16, 17, 18
+
+OPTION_SETS = {
+    "default": {},
+    # several softfloat predicates + capacity pressure at once
+    "combined": {"min_ov_ratio": 0.3, "max_degree": 5, "branch_diff": 0.005,
+                 "branch_diff_dist": 0.02, "n_branch_flt": 7},
+}
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_devloop")
+    return synth_paf_files(str(d), n_genome=10, n_gene=250, n_iso=3, seed=17)
+
+
+@pytest.fixture(autouse=True)
+def _env(monkeypatch):
+    # parse in the main process: no worker pool to start for ten small files
+    monkeypatch.setenv("PANGENE_PARSE_WORKERS", "1")
+    yield
+    util.verbose = 3
+    jutil.verbose = 3
+
+
+def run_port(files, engine="sharded", **kw):
+    util.verbose = 0
+    opt = PgOpt(engine=engine, device="cpu", **kw)
+    out = io.StringIO()
+    pipeline.run(opt, files, out=out)
+    return out.getvalue()
+
+
+def run_jax(files, engine="host", **kw):
+    jutil.verbose = 0
+    out = io.StringIO()
+    jpipeline.run(JaxOpt(engine=engine, **kw), files, out=out)
+    return out.getvalue()
+
+
+# ---------------------------------------------------------------------------
+# state level
+# ---------------------------------------------------------------------------
+
+_captures = {}
+
+
+def jax_capture(corpus, name):
+    """One run of the JAX package's sharded engine on one device with a spy
+    on _schedule: its inputs and outputs as numpy, cfg, mesh, the function
+    itself and the n_prop constant graph_gen_device added to the logs."""
+    if name in _captures:
+        return _captures[name]
+    cap = {}
+    orig, orig_emit = jdl._schedule, jdl._emit_round_logs
+
+    def spy(*args, cfg, mesh):
+        outs = orig(*args, cfg=cfg, mesh=mesh)
+        cap.update(inputs=[np.asarray(a) for a in args], cfg=cfg, mesh=mesh,
+                   outputs=[np.asarray(o) for o in outs], fn=orig)
+        return outs
+
+    def spy_emit(q, logs, *rest):
+        cap["logs_emitted"] = np.array(logs)
+        return orig_emit(q, logs, *rest)
+
+    jdl._schedule, jdl._emit_round_logs = spy, spy_emit
+    try:
+        cap["gfa"] = run_jax(corpus, "sharded", n_devices=1,
+                             **OPTION_SETS[name])
+    finally:
+        jdl._schedule, jdl._emit_round_logs = orig, orig_emit
+    assert jdl.LAST["engaged"] and cap["cfg"].G_loc == 10
+    cap["n_prop_stale"] = int((cap["logs_emitted"][:, 2]
+                               - cap["outputs"][14][:, 2])[0])
+    _captures[name] = cap
+    return cap
+
+
+def assert_outputs_equal(got, want):
+    assert len(got) == len(want) == len(OUT_NAMES)
+    for name, g, w in zip(OUT_NAMES, got, want):
+        assert g.shape == w.shape, name
+        assert g.dtype == w.dtype, (name, g.dtype, w.dtype)
+        assert np.array_equal(g, w), name
+
+
+VARIANTS = {
+    "as run": None,
+    "no branch": (DO_BRANCH, False),
+    "no occ": (DO_OCC, False),
+    "no sweep": (DO_SWEEP, False),
+    "no walk": (DO_WALK, False),
+    "no skip": (NO_SKIP, True),
+}
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("optset", list(OPTION_SETS))
+def test_schedule_equals_jax(corpus, optset, variant):
+    cap = jax_capture(corpus, optset)
+    inputs = list(cap["inputs"])
+    if VARIANTS[variant] is None:
+        want = cap["outputs"]
+        assert want[14][:, 8].sum() > 1 and want[14][:, 9].sum() > 1
+        assert not want[19]
+    else:
+        pos, value = VARIANTS[variant]
+        inputs[pos] = np.full_like(inputs[pos], value)
+        # the same jitted schedule (cfg, mesh): only input values differ
+        want = [np.asarray(o) for o in cap["fn"](
+            *inputs, cfg=cap["cfg"], mesh=cap["mesh"])]
+    got = dl.schedule(*inputs, cfg=dl.cfg_from(cap["cfg"]), device="cpu")
+    assert_outputs_equal(got, want)
+
+
+def test_block_variants_change_the_outputs(corpus):
+    """The switches do isolate blocks: each variant's JAX outputs differ
+    from the run's own."""
+    cap = jax_capture(corpus, "default")
+    for variant in ("no branch", "no occ", "no sweep", "no walk"):
+        pos, value = VARIANTS[variant]
+        inputs = list(cap["inputs"])
+        inputs[pos] = np.full_like(inputs[pos], value)
+        outs = [np.asarray(o) for o in cap["fn"](
+            *inputs, cfg=cap["cfg"], mesh=cap["mesh"])]
+        assert any(not np.array_equal(a, b)
+                   for a, b in zip(outs, cap["outputs"])), variant
+
+
+# ---------------------------------------------------------------------------
+# pack level
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("optset", list(OPTION_SETS))
+def test_pack_equals_jax(corpus, optset, monkeypatch):
+    cap = jax_capture(corpus, optset)
+    packs = []
+    orig = dl.pack_host
+
+    def spy(opt, q, pin=False):
+        packs.append(orig(opt, q, pin))
+        return packs[-1]
+
+    monkeypatch.setattr(dl, "pack_host", spy)
+    gfa = run_port(corpus, **OPTION_SETS[optset])
+    assert dl.LAST["engaged"] is True and len(packs) == 1
+    pk = packs[0]
+    assert pk.cfg == dl.cfg_from(cap["cfg"])
+    assert len(pk.inputs) == len(cap["inputs"])
+    for i, (a, b) in enumerate(zip(pk.inputs, cap["inputs"])):
+        assert a.shape == b.shape and a.dtype == b.dtype, i
+        assert np.array_equal(a, b), i
+    assert pk.n_prop_stale == cap["n_prop_stale"]
+    assert gfa == cap["gfa"]
+    shape = dl.LAST["shape"]
+    assert {k: shape[k] for k in ("G", "H", "K", "W", "S", "A", "D", "R")} \
+        == {"G": 10, **{k: getattr(pk.cfg, k) for k in "HKWSADR"}}
+
+
+# ---------------------------------------------------------------------------
+# end to end
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kw", [
+    {},
+    {"min_ov_ratio": 0.3},
+    {"max_avg_occ": 2, "max_degree": 4, "max_dist_loci": 1},
+    {"branch_diff": 0.001, "branch_diff_cut": 0.1, "branch_diff_dist": 0.01},
+    {"min_arc_cnt": 2},
+    {"n_branch_flt": 0},
+    {"n_branch_flt": 1},
+    {"n_branch_flt": 3},
+    {"local_dist": 100000, "local_count": 2},
+    OPTION_SETS["combined"],
+])
+def test_devloop_matches_jax_host(corpus, kw):
+    got = run_port(corpus, **kw)
+    assert dl.LAST["engaged"] is True
+    assert dl.LAST["rounds_total"] == kw.get("n_branch_flt", 15) + 1
+    assert got == run_jax(corpus, **kw)
+
+
+@pytest.mark.parametrize("flag", [PG_F_CHECK_STRAND, PG_F_ORI_FOR_BRANCH,
+                                  PG_F_FRAG_MODE])
+def test_devloop_matches_jax_host_flags(corpus, flag):
+    got = run_port(corpus, flag=flag)
+    assert dl.LAST["engaged"] is True
+    assert got == run_jax(corpus, flag=flag)
+
+
+@pytest.mark.parametrize("mode,flag", [("walk", PG_F_WRITE_BED_WALK),
+                                       ("flag", PG_F_WRITE_BED_FLAG)])
+def test_devloop_bed_modes(corpus, mode, flag):
+    """The BED dump reads the final flt/shadow/weak/pid_dom state that the
+    loop pulled back and scattered to the kept rows."""
+    got = run_port(corpus, flag=flag)
+    assert dl.LAST["engaged"] is True
+    assert got == run_jax(corpus, flag=flag)
+    assert got.count("\n") > 1000
+
+
+def test_devloop_equals_port_device_engine(corpus):
+    got = run_port(corpus)
+    assert dl.LAST["engaged"] is True
+    dl.LAST.clear()
+    assert got == run_port(corpus, engine="device")
+    assert dl.LAST == {}
+
+
+def test_devloop_jb_fallback(corpus, monkeypatch):
+    """The co-sorted lean merge (JB = 0) stays byte-identical."""
+    monkeypatch.setenv("PANGENE_DEVLOOP_NO_JB", "1")
+    packs = []
+    orig = dl.pack_host
+    monkeypatch.setattr(dl, "pack_host",
+                        lambda *a, **kw: packs.append(orig(*a, **kw))
+                        or packs[-1])
+    got = run_port(corpus)
+    assert dl.LAST["engaged"] is True and packs[0].cfg.JB == 0
+    assert got == run_jax(corpus)
+
+
+def test_devloop_capacity_fallback(corpus, monkeypatch):
+    """An arc table too small for phase 1 falls back to the host rounds,
+    with its reason, and the bytes stay the same."""
+    monkeypatch.setenv("PANGENE_DEVLOOP_MAX_A", "64")
+    got = run_port(corpus)
+    assert dl.LAST["engaged"] is False
+    assert dl.LAST["reason"].startswith("arc capacity 64 < phase-1 count")
+    assert got == run_jax(corpus)
+
+
+def test_devloop_overflow_in_loop_falls_back(corpus, monkeypatch):
+    """A branch group wider than the window sets the overflow flag inside
+    the loop; the host rounds take over and the bytes stay the same."""
+    orig = dl.pack_host
+
+    def narrow(opt, q, pin=False):
+        pk = orig(opt, q, pin)
+        return pk._replace(cfg=pk.cfg._replace(D=2))
+
+    monkeypatch.setattr(dl, "pack_host", narrow)
+    got = run_port(corpus)
+    assert dl.LAST["engaged"] is False
+    assert dl.LAST["reason"] == "capacity overflow (arcs or branch window)"
+    assert got == run_jax(corpus)
+
+
+def test_devloop_hit0_filtered_at_entry(corpus, monkeypatch):
+    """The ev1 precondition: the corpus has a genome whose original hit 0
+    is filtered in phase 1, so the first row of its compacted plane is a
+    later hit, which the reference does evaluate in the shadow sweep."""
+    seen = {}
+    orig = dl.graph_gen_device
+
+    def spy(opt, q):
+        seen["first_flt"] = [int(np.asarray(g.hits.flt)[0]) if g.n_hit else 0
+                             for g in q.d.genomes]
+        return orig(opt, q)
+
+    monkeypatch.setattr(dl, "graph_gen_device", spy)
+    got = run_port(corpus)
+    assert dl.LAST["engaged"] is True
+    assert got == run_jax(corpus)
+    assert any(f > 0 for f in seen["first_flt"])
+
+
+def _log_lines(run, **kw):
+    err = io.StringIO()
+    old = sys.stderr
+    sys.stderr = err
+    try:
+        out = run(**kw)
+    finally:
+        sys.stderr = old
+    keep = [l for l in err.getvalue().splitlines()
+            if l.startswith("#del") or "marked" in l or "filtered" in l
+            or "round-" in l]
+    # strip wall-clock timestamps
+    return [re.sub(r"::[0-9.]+\*[0-9.]+", "", l) for l in keep], out
+
+
+def test_devloop_verbose_del_logs(corpus):
+    """verbose >= 3 replays the #del lines and the per-round counters from
+    the pulled capture planes; the lines equal the JAX host engine's."""
+    kw = {"max_avg_occ": 2, "max_degree": 4}
+
+    def port(**kw):
+        util.verbose = 3
+        out = io.StringIO()
+        pipeline.run(PgOpt(engine="sharded", device="cpu", **kw), corpus,
+                     out=out)
+        return out.getvalue()
+
+    def host(**kw):
+        jutil.verbose = 3
+        out = io.StringIO()
+        jpipeline.run(JaxOpt(engine="host", **kw), corpus, out=out)
+        return out.getvalue()
+
+    want_lines, want = _log_lines(host, **kw)
+    got_lines, got = _log_lines(port, **kw)
+    assert dl.LAST["engaged"] is True
+    assert got == want
+    assert got_lines == want_lines
+    assert sum(l.startswith("#del") for l in got_lines) > 3
+
+
+def test_devloop_synth16_golden(tmp_path):
+    files = synth_paf_files(str(tmp_path), n_genome=16, n_gene=500,
+                            n_iso=3, seed=42)
+    want = gzip.open(REPO / "tests" / "golden" / "synth16.gfa.gz",
+                     "rt").read()
+    got = run_port(files)
+    assert dl.LAST["engaged"] is True
+    assert got == want
+
+
+def test_last_diagnostics(corpus):
+    run_port(corpus)
+    last = dl.LAST
+    for key in ("engaged", "shape", "kept_frac", "upload_bytes", "pack_s",
+                "upload_s", "run_s", "pull_s", "rounds_branch_run",
+                "rounds_sweep_run", "rounds_total", "host_syncs",
+                "block_ms", "sweep_launches"):
+        assert key in last, key
+    assert last["device"] == "cpu" and last["sweep_launches"] == 0
+    assert 0 < last["rounds_sweep_run"] <= last["rounds_total"] == 16
+    assert 0 < last["kept_frac"] < 1
+    # at most three host reads a round, plus none outside the rounds
+    assert last["host_syncs"] <= 3 * last["rounds_total"]
+    assert set(last["block_ms"]) == set(dl.BLOCKS)
+
+
+def test_sharded_plain_sweep_calls_equal_sweep_rounds(corpus):
+    from pangene_tpu_torch.ops import sweep_kernel as sk
+    sk.reset_counts()
+    run_port(corpus)
+    assert sk.n_batched == {"kernel": 0,
+                            "plain": dl.LAST["rounds_sweep_run"]}
+    sk.reset_counts()
+
+
+def test_sharded_without_cuda_raises(corpus, monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--engine", "sharded", "-v", "0"] + corpus)
+
+
+def test_cli_engine_flag(corpus, capsys):
+    with pytest.raises(SystemExit):
+        cli.main(["--engine", "jax", "--device", "cpu"] + corpus)
+    capsys.readouterr()
+    cli.main(["--engine", "sharded", "--device", "cpu", "-v", "0"] + corpus)
+    assert dl.LAST["engaged"] is True
+    assert capsys.readouterr().out == run_jax(corpus)
+    with pytest.raises(ValueError):
+        run_port(corpus, engine="host")

@@ -12,11 +12,13 @@ import ast
 import gzip
 import io
 import json
+import os
 import pathlib
 import subprocess
 import sys
 
 import pytest
+import torch
 
 from pangene_tpu import pipeline as jpipeline
 from pangene_tpu import util as jutil
@@ -26,6 +28,10 @@ from pangene_tpu_torch import cli, util
 from pangene_tpu_torch.testing import synth_paf_files
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
+
+# small tensors: one torch thread per test process, so that several test
+# workers on one machine do not contend for its cores
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")
@@ -102,30 +108,48 @@ def test_load_hits_from_jax_checkpoint(corpus, capsys, tmp_path):
 
 
 def test_run_loads_neither_jax_nor_pangene_tpu(corpus, tmp_path):
-    """In a fresh process: another test in this worker may have loaded jax."""
-    gfa = tmp_path / "out.gfa"
+    """In a fresh process: another test in this worker may have loaded jax.
+    Both engines run, the per-genome one and the device-resident loop."""
+    gfa = [tmp_path / "device.gfa", tmp_path / "sharded.gfa"]
     code = (
         "import json, sys\n"
         "from pangene_tpu_torch import cli\n"
-        "sys.stdout = open(%r, 'w')\n"
-        "cli.main(['--device', 'cpu', '-v', '0'] + %r)\n"
-        "sys.stdout.close()\n"
+        "from pangene_tpu_torch.parallel import device_loop\n"
+        "for engine, path in zip(('device', 'sharded'), %r):\n"
+        "    sys.stdout = open(path, 'w')\n"
+        "    cli.main(['--device', 'cpu', '--engine', engine, '-v', '0']"
+        " + %r)\n"
+        "    sys.stdout.close()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'pangene_tpu')]\n"
         "sys.stderr.write('MODULES=' + json.dumps(bad) + '\\n')\n"
-        % (str(gfa), corpus))
+        "sys.stderr.write('ENGAGED=' + json.dumps("
+        "device_loop.LAST.get('engaged')) + '\\n')\n"
+        % ([str(p) for p in gfa], corpus))
     r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
-                       capture_output=True, text=True, timeout=600)
+                       capture_output=True, text=True, timeout=600,
+                       env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert r.returncode == 0, r.stderr[-2000:]
-    line = [x for x in r.stderr.splitlines() if x.startswith("MODULES=")]
-    assert json.loads(line[-1][len("MODULES="):]) == []
-    assert gfa.read_text() == run_jax(corpus, "host")
+
+    def reported(key):
+        line = [x for x in r.stderr.splitlines() if x.startswith(key + "=")]
+        return json.loads(line[-1][len(key) + 1:])
+
+    assert reported("MODULES") == []
+    assert reported("ENGAGED") is True
+    want = run_jax(corpus, "host")
+    assert gfa[0].read_text() == want
+    assert gfa[1].read_text() == want
 
 
 def test_no_module_imports_jax_or_pangene_tpu():
     files = sorted((REPO / "pangene_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    rel = {str(p.relative_to(REPO)) for p in files}
+    assert {"pangene_tpu_torch/parallel/device_loop.py",
+            "pangene_tpu_torch/ops/softfloat.py",
+            "pangene_tpu_torch/ops/device.py"} <= rel
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -142,7 +166,6 @@ def test_no_module_imports_jax_or_pangene_tpu():
 
 
 def test_cli_without_cuda_raises(corpus, monkeypatch):
-    import torch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["-v", "0"] + corpus)
