@@ -18,22 +18,43 @@ Phases (each one passes or raises, so any failure exits nonzero):
      split sweep forms, on random genome sets and on the edge cases stacked
      as genomes of one batch (with an empty genome and one whose row 0 is
      filtered).
+     Then (2d) the per-round device step (parallel/stacked.round_step: the
+     batched sweep with filtered rows in place, the sort, the walk, the
+     dedupe, the counters) on the card against the same step with the plain
+     sweep and against the whole step on the CPU, on random genome sets and
+     on the stacked edge cases: every output equal.
   3. the main paths: the CLI on cuda over the small (32 genomes x 2,000
-     genes, seed 11) and the big (64 x 10,000, seed 7) synthetic corpora,
-     first with --engine device (one sweep launch per genome, host rounds),
-     then with --engine sharded (the device-resident pruning loop). Each
-     GFA's md5 must be the reference binary's. Launch counts are zeroed
-     before and read after each run: no plain call; on the sharded path
-     the loop engaged and launched the batched kernel once per sweep round.
-     For the loop it prints its diagnostics (shape, stage times, rounds run,
-     host reads a round, device ms per block, peak device memory).
+     genes, seed 11) and the big (64 x 10,000, seed 7) synthetic corpora:
+     --engine device (one sweep launch per genome, host rounds; small corpus
+     only), --engine sharded (the device-resident pruning loop), and
+     --engine sharded with PANGENE_DEVICE_LOOP=0 (the per-round device
+     step). Each GFA's md5 must be the reference binary's. Launch counts are
+     zeroed before and read after each run: no plain call; the loop engaged
+     and launched the batched kernel once per sweep round; the per-round
+     path launched it once per round (17), uploaded its constant columns
+     once, and the loop did not run. Each path prints its diagnostics
+     (device_loop.LAST, stacked.LAST, peak device memory). After each
+     corpus, the protein-keyed reductions on the card
+     (stacked.post_reductions_sharded) against the host loops of
+     ops/pseudo.py. Then the small corpus once more with the loop forced to
+     fall back (PANGENE_DEVLOOP_MAX_A=1): it must report engaged false and
+     the per-round path must have run its 16 rounds.
+  3b. one --profile run (--engine sharded, big corpus): the chrome trace
+     exists; from its device events, the device's busy seconds, the build
+     wall, the idle share and the five device operations with most time.
   4. the kernel against the plain version on the largest genome of the big
      corpus (the main path's shapes), unfiltered and in the run's final
      filter state. Kernel time is the device time per launch of 200
      launches replayed from one CUDA graph; beside it the least time the
      card could take for the same work. The same for the batched entry on
-     the big run's device-resident columns, and colsort_i64 against
-     torch.sort at the loop's merge key count.
+     the big run's device-resident columns and on the per-round path's full
+     [G, H] stack in the run's final filter state, colsort_i64 against
+     torch.sort at the loop's merge key count, the least time of each block
+     of the loop and of the per-round step (bytes over the memory rate), and
+     the reductions' time against the host loops'.
+
+``--corpora small`` leaves the big corpus and what needs it out, for a short
+first run of new code; such a run prints no result line.
 
 Before the last line it prints the nvidia-smi line and one JSON line with a
 record per kernel; the last line is {"ok": true, "device": {...}}. Without
@@ -249,6 +270,93 @@ def bound_batched_ms(bc, flt, W, check_strand):
                                        else "operations"), ops, nbytes
 
 
+# Least bytes a call of each block of the device loop must move, worked out
+# from parallel/device_loop.py: (bytes per [G, H] row, per arc-table slot,
+# per segment), inputs read once and outputs written once; what a block
+# builds and consumes inside (the [G, n_gene] representative planes, the
+# sort's scratch) is not counted.
+#   walk_merge  in: flt, shadow (1 + 1), the cm-order planes cid 4, cm 8,
+#               w 8, score_ori 4, score_dom 4, dom's segment 4, valid 1,
+#               segment 4, ordcm 8 = 47; out: the pair state 4 + 4 + 8 + 1
+#               = 17. Per arc out: vw 8, s1 4. Per segment: alive 1 in,
+#               seg_tot 4, seg_ng 4 out.
+#   branch      in: flt, shadow, valid (3), gid 4, cid 4, cm 8 = 19. Per
+#               arc: vw 8, s1 4 in, weak 1 out. Per segment: gene 8 in,
+#               loci 8 out.
+#   prop        in: the pair state 17, weak 1, flt 1, ordcm 8; out: weak 1,
+#               flt 1 = 29. Per arc: weak 1 in.
+#   occ         (with the convergence check and the #del capture) in: gid 4,
+#               valid 1, flt and weak now and at the round's entry 4; out:
+#               flt 1 = 10. Per arc: vw 8 in. Per segment: alive 1, seg_tot
+#               4, loci 8 in; alive 1, capture 1 + 8 + 8 + 4 out = 35.
+LOOP_BLOCK_BYTES = {"walk_merge": (64, 12, 9), "branch": (19, 13, 16),
+                    "prop": (29, 1, 0), "occ": (10, 8, 35)}
+# The per-round step beside its sweep (parallel/stacked.round_step): per
+# [G, H] row in: flt, shadow, weak 3, cid 4, cm 8, gid 4, rev 1, score_ori
+# 4, score_dom 4, dom_gid 4 = 32; out: shadow 1, b_score 8, b_other 4, and
+# two arc slots of uniq_x 8, cnt 4, dsum 8, m1 4, m2 4 = 69.
+STEP_ROW_BYTES = 32 + 69
+
+
+def loop_block_bounds(shape, calls):
+    """{block: (least ms a call, calls)} at the loop's shape."""
+    rows = shape["G"] * shape["H"]
+    return {b: ((rows * r + shape["A"] * a + shape["S"] * sg)
+                / HBM_BYTES_PER_S * 1e3, calls[b])
+            for b, (r, a, sg) in LOOP_BLOCK_BYTES.items()}
+
+
+def compare_step(stk, sk, genomes, dev, check_strand, use_ori, f):
+    """The per-round step on the card (one launch of the batched kernel, at
+    filtered rows in place, weak_br set, one band over all rows) against
+    the same step with the plain sweep, and against the whole step on the
+    CPU. Every output must be equal; returns the number of arcs found."""
+    from pangene_tpu_torch.testing import stack_cols
+    cols, flt, shadow, weak, g2s, W = stack_cols(genomes, dev, seed=1)
+    kw = dict(W=W, min_ov_ratio=f, check_strand=check_strand,
+              use_ori=use_ori)
+    before = sk.n_batched["kernel"]
+    got = stk.round_step(cols, flt, shadow, weak, g2s, **kw)
+    if sk.n_batched["kernel"] != before + 1:
+        raise AssertionError("the step did not launch the batched kernel")
+    want = stk.round_step(cols, flt, shadow, weak, g2s,
+                          sweep=sk.shadow_sweep_batched_plain, **kw)
+    c = stack_cols(genomes, torch.device("cpu"), seed=1)
+    host = stk.round_step(*c[:5], **kw)
+    for name, a, b, h in zip(stk.STEP_OUTPUTS, got, want, host):
+        if not (a.dtype == b.dtype == h.dtype and torch.equal(a, b)
+                and torch.equal(a.cpu(), h)):
+            raise AssertionError(
+                "per-round step: %s differs (card vs plain sweep %s, card "
+                "vs CPU %s; strand %s, ori %s, f %s)" % (
+                    name, torch.equal(a, b), torch.equal(a.cpu(), h),
+                    check_strand, use_ori, f))
+    return int((got[4] > 0).sum())
+
+
+def host_reductions(d):
+    """(mx, z, c, s) by the host loops of ops/pseudo.py."""
+    from pangene_tpu_torch.ops import pseudo
+    c, s = pseudo.joint_counts(d)
+    return pseudo.max_score_ori(d), pseudo.representative_sums(d), c, s
+
+
+def compare_reductions(stk, opt, d):
+    """post_reductions_sharded on the card against the host loops: equal,
+    value for value. Returns (card seconds, host seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    mx, z, (c, s) = stk.post_reductions_sharded(opt, d)
+    t1 = time.monotonic()
+    want = host_reductions(d)
+    t2 = time.monotonic()
+    for name, a, b in zip(("mx", "z", "c", "s"), (mx, z, c, s), want):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError("post_reductions_sharded != host loops: %s"
+                                 % name)
+    return t1 - t0, t2 - t1
+
+
 def make_corpus(name):
     from pangene_tpu_torch.testing import synth_paf_files
     n_genome, n_gene, seed, _ = CORPORA[name]
@@ -264,9 +372,9 @@ def make_corpus(name):
                   if f.endswith(".paf.gz"))
 
 
-def run_cli(files, engine="device"):
-    """The user's entry point on cuda with `engine`; returns (GFA text,
-    final graph)."""
+def run_cli(files, engine="device", args=()):
+    """The user's entry point on cuda with `engine` (and further flags);
+    returns (GFA text, final graph)."""
     from pangene_tpu_torch import cli, pipeline
     graphs = []
     run = pipeline.run
@@ -280,7 +388,7 @@ def run_cli(files, engine="device"):
     try:
         with contextlib.redirect_stdout(buf):
             cli.main(["--device", DEVICE, "--engine", engine, "-v", "1"]
-                     + files)
+                     + list(args) + files)
     finally:
         pipeline.run = run
     return buf.getvalue(), graphs[0]
@@ -290,14 +398,19 @@ def main():
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device\n")
         return 2
+    names = ("small", "big")
+    if sys.argv[1:2] == ["--corpora"]:
+        names = tuple(sys.argv[2].split(","))
     sys.path.insert(0, ROOT)
-    from pangene_tpu_torch import util
+    from pangene_tpu_torch import pipeline, util
+    from pangene_tpu_torch.options import PgOpt
     from pangene_tpu_torch.ops import device_engine as de
     from pangene_tpu_torch.ops import dispatch
     from pangene_tpu_torch.ops import sweep_kernel as sk
     from pangene_tpu_torch.ops.sort import hit_sort
     from pangene_tpu_torch.ops import device as tdev
     from pangene_tpu_torch.parallel import device_loop as dl
+    from pangene_tpu_torch.parallel import stacked as stk
     from pangene_tpu_torch.testing import (SWEEP_EDGE_CASES, random_genome,
                                            stacked_edge_cases,
                                            sweep_edge_case)
@@ -376,6 +489,30 @@ def main():
     log("batched entry: %d cases, kernel == plain (%.1f s)"
         % (n_cases, time.monotonic() - t0))
 
+    # 2d. the per-round device step: random genome sets (one genome's row 0
+    # filtered), then the edge cases as one stack (without the 2,000-exon
+    # hit, which the split-form plain sweep cannot hold)
+    t0 = time.monotonic()
+    n_cases = 0
+    genomes = [random_genome(np.random.default_rng(60 + k), n_hits=n,
+                             weak=True, max_exon=6, max_cs=30 * n + 100)
+               for k, n in enumerate(sizes)]
+    genomes[1][1].hits.flt[0] = 1
+    for check_strand in (False, True):
+        for use_ori in (False, True):
+            for f in (0.5, 0.3):
+                if not compare_step(stk, sk, genomes, dev, check_strand,
+                                    use_ori, f):
+                    raise AssertionError("the step found no arc")
+                n_cases += 1
+    for which, genomes in stacked_edge_cases().items():
+        compare_step(stk, sk, [(d, g) for d, g in genomes
+                               if int(g.hits.n_exon.max(initial=0)) < 100],
+                     dev, False, False, 0.3)
+        n_cases += 1
+    log("per-round step: %d cases, card == plain sweep == CPU, every output "
+        "(%.1f s)" % (n_cases, time.monotonic() - t0))
+
     # 3. the main paths, counts zeroed just before and read just after
     sweep_s = {"s": 0.0}
 
@@ -393,7 +530,6 @@ def main():
     launches = {m: 0 for m in sk.MODE_NAMES}
     batched_launches = 0
     runs = {}
-    graph = None
     # the loop's device tensors of the last sharded run, for phase 4
     kept = {}
     schedule_device = dl.schedule_device
@@ -404,89 +540,175 @@ def main():
         return outs
 
     dl.schedule_device = keep_schedule
-    for name in ("small", "big"):
-        t0 = time.monotonic()
-        files = make_corpus(name)
-        gen_s = time.monotonic() - t0
-        sweep_s["s"] = 0.0
-        sk.reset_counts()
-        t0 = time.monotonic()
-        gfa, graph = run_cli(files, "device")
-        wall = time.monotonic() - t0
-        counts = dict(sk.n_kernel_launches)
-        plain = dict(sk.n_plain_calls)
-        md5 = hashlib.md5(gfa.encode()).hexdigest()
-        runs[name] = {
-            "hits": sum(g.n_hit for g in graph.d.genomes), "md5": md5,
-            "wall_s": round(wall, 3), "sweep_s": round(sweep_s["s"], 3),
-            "sweep_ms_per_call": round(
-                1e3 * sweep_s["s"] / max(sum(counts.values()), 1), 4),
-            "corpus_s": round(gen_s, 3), "stages": dict(util.stage_stats),
-            "launches": {sk.MODE_NAMES[m]: counts[m] for m in counts},
-            "plain_calls": {sk.MODE_NAMES[m]: plain[m] for m in plain}}
-        log("e2e %s: %s" % (name, json.dumps(runs[name])))
-        if md5 != CORPORA[name][3]:
-            raise AssertionError("%s corpus GFA md5 %s != %s"
-                                 % (name, md5, CORPORA[name][3]))
-        if any(v == 0 for v in counts.values()) or any(plain.values()):
-            raise AssertionError("main path did not run on the kernel: "
-                                 "launches %s, plain calls %s"
-                                 % (counts, plain))
-        if sk.n_batched["kernel"] or sk.n_batched["plain"]:
-            raise AssertionError("the per-genome path ran the batched sweep")
-        for m in launches:
-            launches[m] += counts[m]
 
-        # the same corpus through the device-resident loop
+    def drive(key, name, engine, env=None, args=()):
+        """One run of the CLI on cuda over corpus `name`, every count zeroed
+        just before and read just after; checks the md5 and that no plain
+        version ran; returns (record, final graph)."""
+        nonlocal batched_launches
+        env = env or {}
+        old = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
         sweep_s["s"] = 0.0
         sk.reset_counts()
         dl.LAST.clear()
+        stk.LAST.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.monotonic()
-        gfa, graph = run_cli(files, "sharded")
+        try:
+            gfa, graph = run_cli(corpora[name], engine, args)
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    del os.environ[k]
+                else:
+                    os.environ[k] = v
         wall = time.monotonic() - t0
-        peak = torch.cuda.max_memory_allocated()
         counts = dict(sk.n_kernel_launches)
         plain = dict(sk.n_plain_calls)
         batched = dict(sk.n_batched)
-        last = dict(dl.LAST)
-        md5 = hashlib.md5(gfa.encode()).hexdigest()
-        key = name + "_sharded"
-        runs[key] = {
-            "md5": md5, "wall_s": round(wall, 3),
-            "stages": dict(util.stage_stats),
+        calls = max(sum(counts.values()), 1)
+        rec = {
+            "hits": sum(g.n_hit for g in graph.d.genomes),
+            "md5": hashlib.md5(gfa.encode()).hexdigest(),
+            "wall_s": round(wall, 3), "stages": dict(util.stage_stats),
             "per_genome_sweep_s": round(sweep_s["s"], 3),
+            "sweep_ms_per_call": round(1e3 * sweep_s["s"] / calls, 4),
             "launches": {sk.MODE_NAMES[m]: counts[m] for m in counts},
             "batched_launches": batched["kernel"],
             "plain_calls": sum(plain.values()) + batched["plain"],
-            "host_syncs_a_round": round(
-                last.get("host_syncs", 0) / max(last.get("rounds_total", 1),
-                                                1), 3),
-            "peak_device_bytes": peak, "LAST": last}
-        log("e2e %s: %s" % (key, json.dumps(runs[key])))
-        if md5 != CORPORA[name][3]:
-            raise AssertionError("%s corpus GFA md5 %s != %s (sharded)"
-                                 % (name, md5, CORPORA[name][3]))
-        if last.get("engaged") is not True:
-            raise AssertionError("the device loop did not engage: %s" % last)
-        if runs[key]["plain_calls"]:
-            raise AssertionError("plain calls on the card path: %s %s"
-                                 % (plain, batched))
-        if batched["kernel"] == 0 or \
-                batched["kernel"] != last["rounds_sweep_run"] or \
-                batched["kernel"] != last["sweep_launches"]:
-            raise AssertionError("batched launches %d != sweep rounds run %d"
-                                 % (batched["kernel"],
-                                    last["rounds_sweep_run"]))
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "env": env}
+        if dl.LAST:
+            rec["host_syncs_a_round"] = round(
+                dl.LAST.get("host_syncs", 0)
+                / max(dl.LAST.get("rounds_total", 1), 1), 3)
+            rec["LAST"] = dict(dl.LAST)
+        if stk.LAST:
+            rec["rounds_LAST"] = dict(stk.LAST)
+        runs[key] = rec
+        log("e2e %s: %s" % (key, json.dumps(rec)))
+        if rec["md5"] != CORPORA[name][3]:
+            raise AssertionError("%s: GFA md5 %s != %s"
+                                 % (key, rec["md5"], CORPORA[name][3]))
+        if rec["plain_calls"]:
+            raise AssertionError("%s: plain calls on the card path: %s %s"
+                                 % (key, plain, batched))
         if any(v == 0 for v in counts.values()):
-            raise AssertionError("phase 1 of the sharded run did not launch "
-                                 "the per-genome kernel: %s" % counts)
+            raise AssertionError("%s: the per-genome kernel was not launched "
+                                 "in both modes: %s" % (key, counts))
         batched_launches += batched["kernel"]
         for m in launches:
             launches[m] += counts[m]
+        return rec, graph
+
+    def check_rounds(key, rec, rounds):
+        """The per-round path ran `rounds` device steps, one batched launch
+        each, on constant columns uploaded once."""
+        last = rec.get("rounds_LAST", {})
+        if not (last.get("rounds") == rounds == rec["batched_launches"]
+                == last.get("sweep_launches")):
+            raise AssertionError("%s: per-round steps %s, batched launches "
+                                 "%d, expected %d" % (
+                                     key, last.get("rounds"),
+                                     rec["batched_launches"], rounds))
+        if last["const_uploads"] != 1:
+            raise AssertionError("%s: constant columns uploaded %d times"
+                                 % (key, last["const_uploads"]))
+
+    corpora = {}
+    gen_s = {}
+    graph = rounds_graph = None
+    opt_cuda = PgOpt(device=DEVICE)
+    n_rounds = 2 + opt_cuda.n_branch_flt
+    for name in names:
+        t0 = time.monotonic()
+        corpora[name] = make_corpus(name)
+        gen_s[name] = round(time.monotonic() - t0, 3)
+        log("corpus %s: %.3f s" % (name, gen_s[name]))
+        if name == "small":
+            # the per-genome engine: host rounds, one launch a sweep
+            rec, _ = drive(name, name, "device")
+            if rec["batched_launches"] or "LAST" in rec or \
+                    "rounds_LAST" in rec:
+                raise AssertionError("the per-genome path ran a batched "
+                                     "sweep")
+
+        # the device-resident loop
+        key = name + "_sharded"
+        rec, graph = drive(key, name, "sharded")
+        last = rec.get("LAST", {})
+        if last.get("engaged") is not True:
+            raise AssertionError("the device loop did not engage: %s" % last)
+        if rec["batched_launches"] == 0 or \
+                rec["batched_launches"] != last["rounds_sweep_run"] or \
+                rec["batched_launches"] != last["sweep_launches"]:
+            raise AssertionError("batched launches %d != sweep rounds run %d"
+                                 % (rec["batched_launches"],
+                                    last["rounds_sweep_run"]))
+        if "rounds_LAST" in rec:
+            raise AssertionError("the per-round path ran beside the loop")
+
+        # the per-round device step in place of the loop
+        key = name + "_rounds"
+        rec, rounds_graph = drive(key, name, "sharded",
+                                  env={"PANGENE_DEVICE_LOOP": "0"})
+        if "LAST" in rec:
+            raise AssertionError("the device loop ran with "
+                                 "PANGENE_DEVICE_LOOP=0")
+        check_rounds(key, rec, n_rounds)
+
+        # the protein-keyed reductions on the card against the host loops
+        card_s, host_s = compare_reductions(stk, opt_cuda, rounds_graph.d)
+        runs[key]["reductions_s"] = {"card": round(card_s, 4),
+                                     "host_loops": round(host_s, 4)}
+        log("reductions %s: post_reductions_sharded == host loops (%d "
+            "proteins); card %.4f s (stacking, upload, 7 reductions, one "
+            "pull), host loops %.4f s" % (name, rounds_graph.d.n_prot, card_s,
+                                          host_s))
+
+    # the fallback a user gets: the loop refuses the graph after phase 1 (an
+    # arc table of one slot) and the host rounds take the per-round step
+    rec, _ = drive("small_fallback", "small", "sharded",
+                   env={"PANGENE_DEVLOOP_MAX_A": "1"})
+    if rec.get("LAST", {}).get("engaged") is not False:
+        raise AssertionError("the loop did not report a fallback: %s"
+                             % rec.get("LAST"))
+    check_rounds("small_fallback", rec, n_rounds - 1)
+
+    # 3b. one traced run: the device's busy time from the profiler's events
+    prof_name = names[-1]
+    prof_dir = os.path.join(ROOT, "build", "chip_smoke", "profile")
+    rec, _ = drive(prof_name + "_profile", prof_name, "sharded",
+                   args=("--profile", prof_dir))
+    trace = os.path.join(prof_dir, pipeline.TRACE_NAME)
+    trace_bytes = os.path.getsize(trace)
+    summary = util.trace_device_summary(trace)
+    if summary["n_events"] == 0 or summary["busy_s"] <= 0:
+        raise AssertionError("the trace holds no device event: %s" % summary)
+    # the build is the traced stages; writing the trace comes after them
+    build_s = sum(rec["stages"][k] for k in ("parse_s", "post_s", "graph_s",
+                                             "emit_s"))
+    idle = 1.0 - summary["busy_s"] / build_s
+    runs[prof_name + "_profile"].update(
+        trace_bytes=trace_bytes, device_busy_s=round(summary["busy_s"], 6),
+        device_events=summary["n_events"], build_s=round(build_s, 3),
+        idle_share=round(idle, 6))
+    log("profile (%s corpus, --engine sharded): trace %d bytes, %d device "
+        "events, device busy %.6f s of a %.3f s build (%.3f s with the "
+        "trace's export): idle share %.4f%%"
+        % (prof_name, trace_bytes, summary["n_events"], summary["busy_s"],
+           build_s, rec["wall_s"], 100 * idle))
+    for op, secs, n in summary["top"]:
+        log("  device op %.6f s in %d calls: %s" % (secs, n, op[:100]))
+    os.remove(trace)
     dispatch.shadow, dispatch.flt_ov_isoform = untimed
     dl.schedule_device = schedule_device
+    if "big" not in names:
+        log("partial run (--corpora %s): phase 4 and the result lines are "
+            "left out" % ",".join(names))
+        return 0
 
     # 4. the largest big-corpus genome: compare, time, bound
     g = max(graph.d.genomes, key=lambda x: x.n_hit)
@@ -582,7 +804,75 @@ def main():
                        bound_by=b_by)
         else:
             rec["ms_final"] = ms
+
+    # the same entry at the per-round path's shape: the full [G, H] stack of
+    # the big run, filtered rows in place, with every row unfiltered (the
+    # most work) and in the run's final filter state
+    cache = rounds_graph._stacked_dev_cache
+    sbc, sW = cache["cols"].batch, cache["W"]
+    sG, sH = cache["G"], cache["H"]
+    fin_flt, _, sweak = torch.from_numpy(stk.stack_mutable(
+        rounds_graph.d, np.zeros((3, sG, sH), np.uint8))).to(dev)
+    for state, sflt in (("unfiltered", torch.zeros_like(fin_flt)),
+                        ("final", fin_flt)):
+        got = sk.shadow_sweep_batched(sbc, sflt, sweak, sW, False, 0.5)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        want = sk.shadow_sweep_batched_plain(sbc, sflt, sweak, sW, False,
+                                             0.5)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.monotonic() - t0)
+        for a, b in zip(got, want):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError("batched kernel != plain on the "
+                                     "per-round path's big stack (%s)"
+                                     % state)
+        del want
+
+        def kernel():
+            sk.shadow_sweep_batched(sbc, sflt, sweak, sW, False, 0.5)
+        ms = graph_ms(kernel, TIMED_LAUNCHES)
+        b_ms, b_by, ops, nbytes = bound_batched_ms(sbc, sflt, sW, False)
+        rows = int(sbc.n_rows.sum())
+        log("BATCHED per-round stack %s: G %d H %d rows %d (unfiltered %d) "
+            "W %d E %d blocks %d ms %.5f plain_ms %.3f bound_ms %.6f (%s; "
+            "%d ops, %d bytes) marked %d" % (
+                state, sG, sH, rows,
+                int((sflt == 0).sum()) - (sG * sH - rows), sW, cache["E"],
+                sG * -(-sH // sk.tile_shape()[0]), ms, plain_ms, b_ms, b_by,
+                ops, nbytes, int(got[0].sum())))
+        if state == "unfiltered":
+            if not got[0].any():
+                raise AssertionError("the unfiltered stack marked nothing")
+            rec.update(ms_rounds=ms, plain_ms_rounds=plain_ms,
+                       bound_ms_rounds=b_ms)
+        else:
+            rec["ms_rounds_final"] = ms
     kernels.append(rec)
+
+    # the per-round step and the loop's blocks: measured device time beside
+    # the least time their bytes allow
+    last = runs["big_rounds"]["rounds_LAST"]
+    step_bound = b_ms + sG * sH * STEP_ROW_BYTES / HBM_BYTES_PER_S * 1e3
+    log("per-round step, big corpus: %d rounds, device ms summed %s; least "
+        "ms a round %.6f (the sweep's bytes + %d bytes a row); pull %d bytes "
+        "a round; upload_s %.3f step_s %.3f pull_s %.3f apply_s %.3f "
+        "stack_s %.3f" % (
+            last["rounds"], json.dumps(last["block_ms"]), step_bound,
+            STEP_ROW_BYTES, last["pull_bytes"], last["upload_s"],
+            last["step_s"], last["pull_s"], last["apply_s"],
+            last["stack_s"]))
+    loop = runs["big_sharded"]["LAST"]
+    calls = {"walk_merge": loop["rounds_sweep_run"] + 1,
+             "branch": loop["rounds_branch_run"],
+             "prop": loop["rounds_branch_run"], "occ": loop["rounds_total"]}
+    for block, (least, n) in loop_block_bounds(loop["shape"], calls).items():
+        log("loop block %s: %d calls, %.3f ms measured, least %.6f ms a call "
+            "= %.6f ms (bytes)" % (block, n, loop["block_ms"][block], least,
+                                   least * n))
+    red = runs["big_rounds"]["reductions_s"]
+    log("reductions, big corpus: card %.4f s, host loops %.4f s"
+        % (red["card"], red["host_loops"]))
 
     # 4c. colsort_i64 against torch.sort at the loop's merge key count
     n_keys = G * 2 * H

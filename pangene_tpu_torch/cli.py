@@ -1,6 +1,6 @@
 """CLI with flag-for-flag compatibility with the reference binary
-(main.c:5-113) plus the port's own flags (--device, --engine, --save-hits,
---load-hits).
+(main.c:5-113) plus the port's own flags (--device, --engine, --profile,
+--save-hits, --load-hits).
 
     python -m pangene_tpu_torch.cli [options] *.paf.gz > graph.gfa
 """
@@ -64,8 +64,11 @@ Options:
     --version     print version number
   Device:
     --device STR  cuda | cpu: where the overlap sweeps run [cuda]
-    --engine STR  device | sharded: one sweep per genome and host rounds, or
-                  the pruning rounds as one device-resident loop [device]
+    --engine STR  sharded | device: the pruning rounds as one device-resident
+                  loop (PANGENE_DEVICE_LOOP=0: one device step per round), or
+                  host rounds with one sweep per genome [sharded]
+    --profile DIR write a torch.profiler chrome trace of the whole run into
+                  DIR (the parse workers are other processes: not traced)
     --save-hits F checkpoint post-ingest hit tensors to F (.npz)
     --load-hits F resume from a checkpoint instead of parsing PAFs
 """
@@ -74,7 +77,7 @@ Options:
 def parse_args(argv: List[str]) -> Optional[tuple]:
     opt = PgOpt()
     files: List[str] = []
-    extras = {"save_hits": None, "load_hits": None}
+    extras = {"save_hits": None, "load_hits": None, "profile": None}
     i = 0
 
     def need_arg() -> str:
@@ -113,6 +116,8 @@ def parse_args(argv: List[str]) -> Optional[tuple]:
             if opt.engine not in ENGINES:
                 raise SystemExit("ERROR: unknown --engine %r; expected %s"
                                  % (opt.engine, "|".join(ENGINES)))
+        elif a == "--profile":
+            extras["profile"] = need_arg()
         elif a == "--save-hits":
             extras["save_hits"] = need_arg()
         elif a == "--load-hits":

@@ -2,12 +2,16 @@
 
 Reference: pg_graph_gen (graph.c:280-322) plus the high-occurrence filters
 (graph.c:237-263) and hard deletion (graph.c:219-235). Every round runs on
-the host except the per-genome shadow sweep, which gen_arc sends to the
-device through ops/dispatch; under engine "sharded" phases 2+3 run on the
-device instead (parallel/device_loop.py).
+the host except the shadow sweep: under engine "device" gen_arc sends it
+to the device genome by genome through ops/dispatch; under engine "sharded"
+phases 2+3 run on the device as one loop (parallel/device_loop.py), and
+where that loop is switched off (PANGENE_DEVICE_LOOP=0) or cannot take the
+graph, every round's sweep, sort, walk and per-genome dedupe run as one
+device step over all genomes (parallel/stacked.py).
 """
 from __future__ import annotations
 
+import os
 import sys
 import time
 
@@ -117,23 +121,30 @@ def graph_gen(opt: PgOpt, q: Graph) -> None:
     (parallel/device_loop.py). Phase 1 runs on the host first, which also
     settles the physical sort order into its steady cycle (the loop's
     precondition). Any precondition or capacity failure falls back to the
-    host rounds below, bit-identically.
+    host rounds below, bit-identically; their gen_arc is then the per-round
+    device step (parallel/stacked.py), as it is for every phase when
+    PANGENE_DEVICE_LOOP=0 switches the loop off.
     """
     d = q.d
     if opt.engine not in ("device", "sharded"):
         raise ValueError("engine must be device or sharded, not %r"
                          % (opt.engine,))
+    use_devloop = (opt.engine == "sharded"
+                   and os.environ.get("PANGENE_DEVICE_LOOP", "1") != "0")
     # phase 1: initial vertices
     t0 = time.monotonic()
     set_filter(d, "pseudo", 1)
     gen_vtx(opt, q)
     q.flag_vtx()
     set_filter_eq0(d, "vtx")
-    arcs_ops.gen_arc(opt, q)
+    if use_devloop:
+        arcs_ops.gen_arc_loop(opt, q)
+    else:
+        arcs_ops.gen_arc(opt, q)
     util.stage_stats["phase1_host_s"] = round(time.monotonic() - t0, 3)
     log_msg("pg_graph_gen", "round-1 graph: %d genes and %d arcs",
             q.n_seg, q.n_arc)
-    if opt.engine == "sharded":
+    if use_devloop:
         from ..parallel.device_loop import graph_gen_device
         if graph_gen_device(opt, q):
             set_filter(d, "shadow", 1)
@@ -153,11 +164,13 @@ def graph_gen(opt: PgOpt, q: Graph) -> None:
 
     # phase 3: annealed branch-filtering rounds
     T = opt.n_branch_flt
+    branch_s = arc_s = 0.0
     for i in range(T):
         r = 1.0 + (T - 1 - i) / T
         max_avg_occ = int(opt.max_avg_occ * r + 0.499)
         max_degree = int(opt.max_degree * r + 0.499)
         max_dist_loci = int(opt.max_dist_loci * r + 0.499)
+        t0 = time.monotonic()
         q.arc_index()
         mark_branch_flt_arc(opt, q)
         mark_branch_flt_hit(opt, q)
@@ -165,7 +178,14 @@ def graph_gen(opt: PgOpt, q: Graph) -> None:
         if i > 0:
             flt_high_occ(q, max_avg_occ, max_degree, max_dist_loci)
             set_filter_eq0(d, "vtx")
+        t1 = time.monotonic()
         arcs_ops.gen_arc(opt, q)
+        branch_s += t1 - t0
+        arc_s += time.monotonic() - t1
+    # the host rounds' wall by part: branch marking with the filters, and
+    # arc regeneration (per genome, or the per-round device step)
+    util.stage_stats["rounds_branch_host_s"] = round(branch_s, 3)
+    util.stage_stats["rounds_gen_arc_s"] = round(arc_s, 3)
     set_filter(d, "shadow", 1)
     if opt.min_arc_cnt > 1:
         cut_low_arc(opt, q)

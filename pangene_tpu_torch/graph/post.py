@@ -12,12 +12,25 @@ from ..ops import dispatch as sweep
 from ..util import log_msg, timestamp
 
 
+def n_genome_shards(opt: PgOpt) -> int:
+    """The number of devices that shard the genomes: one, until the
+    multi-device mesh is ported."""
+    return 1
+
+
 def post_process(opt: PgOpt, d: DataSet) -> None:
     log_msg("pg_post_process", "%d genes and %d proteins", d.n_gene, d.n_prot)
-    pseudo_ops.cap_score_dom(d)
-    pseudo_ops.flag_representative(d)
+    mx = z = acc = None
+    if opt.engine == "sharded" and d.n_genome and n_genome_shards(opt) > 1:
+        # the protein-keyed reductions run on the devices only when more
+        # than one shards the genomes (sums across devices); on one device
+        # the host loops below are taken
+        from ..parallel.stacked import post_reductions_sharded
+        mx, z, acc = post_reductions_sharded(opt, d)
+    pseudo_ops.cap_score_dom(d, mx)
+    pseudo_ops.flag_representative(d, z)
     if not (opt.flag & PG_F_NO_JOINT_PSEUDO):
-        n = pseudo_ops.flag_pseudo_joint(opt, d)
+        n = pseudo_ops.flag_pseudo_joint(opt, d, acc)
         log_msg("pg_post_process", "%d pseudogene hits identified jointly", n)
     for j, g in enumerate(d.genomes):
         tot = int((g.hits.flt == 0).sum())

@@ -147,8 +147,21 @@ def merge_arcs(per_genome: list) -> ArcTable:
 
 def gen_arc(opt: PgOpt, g: Graph) -> None:
     """Full arc (re)generation pass over all genomes (pg_gen_arc,
-    graph.c:87-177): per genome, re-shadow on the device, walk the
-    cm-ordered kept hits and dedupe; then the global merge. Segment
+    graph.c:87-177).
+
+    engine == "sharded" runs the fused per-round device step over all
+    genomes (parallel/stacked.py); otherwise the per-genome loop. Identical
+    outputs either way."""
+    if opt.engine == "sharded":
+        from ..parallel.stacked import gen_arc_sharded
+        gen_arc_sharded(opt, g)
+        return
+    gen_arc_loop(opt, g)
+
+
+def gen_arc_loop(opt: PgOpt, g: Graph) -> None:
+    """Per-genome-loop gen_arc: per genome, re-shadow on the device, walk
+    the cm-ordered kept hits and dedupe; then the global merge. Segment
     n_genome/tot_cnt counters are refreshed here."""
     d = g.d
     use_ori = opt.use_ori_for_branch

@@ -98,22 +98,28 @@ def flt_chain_shadow(d: DataSet, g: Genome) -> int:
     return int(mask.sum())
 
 
-def flag_pseudo_joint(opt: PgOpt, d: DataSet) -> int:
-    """Cross-genome pseudogene flagging (pg_flag_pseudo_joint, hit.c:148-187).
-
-    Per protein accumulates (count, score sum) split by single/multi-exon over
-    rank-0 unfiltered hits of all genomes, then flags single-exon hits of
-    proteins that are dominantly multi-exon.
-    """
-    n_prot = d.n_prot
-    c = np.zeros((n_prot, 2), np.int64)
-    s = np.zeros((n_prot, 2), np.int64)
+def joint_counts(d: DataSet):
+    """Per protein (count, score_ori sum) of the rank-0 unfiltered hits of
+    all genomes, split by single / multi-exon: (c, s), int64 [n_prot, 2]."""
+    c = np.zeros((d.n_prot, 2), np.int64)
+    s = np.zeros((d.n_prot, 2), np.int64)
     for g in d.genomes:
         h = g.hits
         m = (h.flt == 0) & (h.rank == 0)
         w = (h.n_exon[m] != 1).astype(np.int64)
         np.add.at(c, (h.pid[m], w), 1)
         np.add.at(s, (h.pid[m], w), h.score_ori[m].astype(np.int64))
+    return c, s
+
+
+def flag_pseudo_joint(opt: PgOpt, d: DataSet, acc=None) -> int:
+    """Cross-genome pseudogene flagging (pg_flag_pseudo_joint, hit.c:148-187).
+
+    From joint_counts (or `acc`, the same pair precomputed by
+    parallel/stacked.post_reductions_sharded), flags single-exon hits of
+    proteins that are dominantly multi-exon.
+    """
+    c, s = joint_counts(d) if acc is None else acc
     thresh = d.n_genome * opt.min_vertex_ratio
     drop_sgl = bool(opt.flag & PG_F_DROP_SGL_EXON)
     with np.errstate(divide="ignore", invalid="ignore"):
@@ -135,16 +141,36 @@ def flag_pseudo_joint(opt: PgOpt, d: DataSet) -> int:
     return n_pseudo
 
 
-def flag_representative(d: DataSet) -> None:
-    """Pick each gene's representative isoform by average rank-0 adjusted
-    score across genomes (reference pg_flag_representative, hit.c:189-225)."""
-    n_prot = d.n_prot
-    z = np.zeros(n_prot, np.uint64)  # sum(score_adj)<<32|count, C wrap
+def representative_sums(d: DataSet) -> np.ndarray:
+    """Per protein sum(score_adj) << 32 | count over the rank-0 unfiltered
+    hits of all genomes, uint64 with C wraparound."""
+    z = np.zeros(d.n_prot, np.uint64)
     for g in d.genomes:
         h = g.hits
         m = (h.rank == 0) & (h.flt == 0)
         add = h.score_adj[m].astype(np.int64).astype(np.uint64)
         np.add.at(z, h.pid[m], (add << U64(32)) + U64(1))
+    return z
+
+
+def max_score_ori(d: DataSet) -> np.ndarray:
+    """Per protein the largest score_ori of any hit of any genome (at
+    least 0), int32."""
+    mx = np.zeros(d.n_prot, np.int32)
+    for g in d.genomes:
+        np.maximum.at(mx, g.hits.pid, g.hits.score_ori)
+    return mx
+
+
+def flag_representative(d: DataSet, z=None) -> None:
+    """Pick each gene's representative isoform by average rank-0 adjusted
+    score across genomes (reference pg_flag_representative, hit.c:189-225).
+    `z` is representative_sums(d), or the same precomputed by
+    post_reductions_sharded: modular uint64 arithmetic makes (sum << 32) +
+    cnt identical to the per-hit accumulation."""
+    n_prot = d.n_prot
+    if z is None:
+        z = representative_sums(d)
     for g in d.genomes:
         g.hits.rep[:] = 0
     cnt = (z & U64(MASK32)).astype(np.int64)
@@ -172,12 +198,12 @@ def flag_representative(d: DataSet) -> None:
         h.rep[:] = prot_rep[h.pid]
 
 
-def cap_score_dom(d: DataSet) -> None:
+def cap_score_dom(d: DataSet, mx=None) -> None:
     """Cap score_dom at the protein's max score_ori across genomes
-    (reference pg_cap_score_dom, hit.c:227-247)."""
-    mx = np.zeros(d.n_prot, np.int32)
-    for g in d.genomes:
-        np.maximum.at(mx, g.hits.pid, g.hits.score_ori)
+    (reference pg_cap_score_dom, hit.c:227-247). `mx` is max_score_ori(d),
+    or the same precomputed by post_reductions_sharded."""
+    if mx is None:
+        mx = max_score_ori(d)
     d.prot_max_score_ori = mx
     for g in d.genomes:
         h = g.hits

@@ -56,11 +56,13 @@ class PgOpt:
     # raises when no CUDA device exists) or "cpu" (the kernels' plain
     # versions)
     device: str = "cuda"
-    # "device": phase 1-3 rounds on the host with one sweep launch per
-    # genome (the JAX package's --engine jax); "sharded": phases 2+3 as the
-    # device-resident loop (parallel/device_loop.py; the JAX package's name
-    # for it, here on one device)
-    engine: str = "device"
+    # "sharded" (the default; the JAX package's name, here on one device):
+    # phases 2+3 as the device-resident loop (parallel/device_loop.py), and
+    # where the loop is off or cannot take the graph, each round as one
+    # device step over all genomes (parallel/stacked.py); "device": phase
+    # 1-3 rounds on the host with one sweep launch per genome (the JAX
+    # package's --engine jax)
+    engine: str = "sharded"
 
     @property
     def check_strand(self) -> bool:

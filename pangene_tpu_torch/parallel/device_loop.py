@@ -117,12 +117,13 @@ def cfg_from(other) -> Cfg:
 
 class _BlockTimer:
     """Time per named block of the round loop, summed over rounds: CUDA
-    events on cuda (read once, after the loop), the host clock on the CPU."""
+    events on cuda (read by result(), which synchronises), the host clock
+    on the CPU."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, blocks=BLOCKS):
         self.cuda = device.type == "cuda"
         self.spans = []
-        self.ms = {b: 0.0 for b in BLOCKS}
+        self.ms = {b: 0.0 for b in blocks}
 
     @contextlib.contextmanager
     def __call__(self, name):

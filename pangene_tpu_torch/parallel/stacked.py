@@ -1,0 +1,614 @@
+"""The per-round device path: one fused step per arc round over all genomes.
+
+The counterpart of pangene_tpu/parallel/stacked.py at one device. It is what
+``--engine sharded`` runs when the device-resident loop
+(parallel/device_loop.py) is switched off (PANGENE_DEVICE_LOOP=0) or cannot
+take the graph (a branch group wider than its window, an arc table over its
+capacity, an unsettled sort cycle): every pg_gen_arc (graph.c:87-177) of the
+host rounds becomes one device step over the stacked [G, H] hit tables:
+
+  a. the shadow sweep of every genome: one launch of the hand-written CUDA
+     kernel (sweep_kernel.shadow_sweep_batched; its plain version on the
+     CPU), then the reference's stale-flag merge (overlap.c:108-116);
+  b. the stable (cid, cm) sort of every genome;
+  c. the gene walk: the previous kept hit by a running max of kept indices;
+  d. the per-genome arc dedupe: sort by x, segment-reduce;
+  e. the gene-indexed occurrence counters and their sums over genomes.
+
+The per-genome deduped arc lists return to the host through one pinned
+buffer for the exact global merge (all averaging in host IEEE f64 with the
+reference's +.499 rounding, graph.c:141,170-172). The host DataSet stays
+the source of truth: after each step the host applies the same stable
+permutations (cm then cs) to its tables, so tie orders track the
+reference's physical re-sorts.
+
+The constant columns (coordinates, scores, exon pools, packed score keys:
+frozen after ingest) are uploaded once and stay on the card across the ~17
+rounds; only flt / shadow / weak_br go up each round. The cache is keyed on
+each genome's sort-state tag (ops/sort.py). When a physical order changes
+(the first cm -> cs round trip may reorder cs ties), the rows on the card
+are re-ordered by a permutation sent in place of the columns; anything else
+that no longer matches drops the cache and uploads again.
+
+uint64 in torch: the arc key x = v << 32 | w and the packed scores are
+uint64 in the reference. Their bit patterns travel as int64; wherever their
+order matters they are compared as ``u ^ (1 << 63)``, a bijection under
+which signed order is unsigned order (ops/sweep_kernel.py), so every
+pattern, a negative w of a non-vertex gene included, sorts and groups as
+the reference's uint64 does. The all-ones key of an invalid pair is then
+int64 max.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..options import PgOpt
+from ..ops import sweep_kernel as sk
+from ..ops.device import PAD_CID
+from .device_loop import _BlockTimer, _host_array, _seg_max, _seg_sum
+
+KEY_B = 44                      # composite sort key: cid << KEY_B | coord
+I64 = torch.int64
+I32 = torch.int32
+_BIAS = -(1 << 63)              # uint64 order as int64 order (xor)
+_I64_MAX = (1 << 63) - 1        # the all-ones uint64 key, biased
+_SCORE_FLOOR = -2**31 + 1       # m1 / m2 of a group's invalid members
+
+# host blocks of the constant columns, one upload each
+STACK_I32 = ("cid", "rank", "gid", "dom_gid", "score_ori", "score_dom",
+             "n_exon", "off_exon", "cds_len")
+STACK_I64 = ("cs", "ce", "cm", "pscore")
+STACK_U8 = ("rev",)
+MUTABLE_COLS = ("flt", "shadow", "weak_br")     # one [3, G, H] upload a round
+
+STEP_BLOCKS = ("sweep", "sort", "walk", "dedupe", "counters")
+STEP_OUTPUTS = ("shadow", "b_score", "b_other", "uniq_x", "cnt", "dsum",
+                "m1", "m2", "tot_cnt", "n_genome")
+
+# Diagnostics of the per-round path since it first saw the current graph:
+# rounds (device steps run), const_uploads / const_permutes (uploads of the
+# constant columns; re-orderings of them on the card), shape (G, H, E, W),
+# seconds summed over the rounds (stack_s: host stacking; upload_s; step_s:
+# the device step; pull_s; apply_s: host apply and merge), pull_bytes (one
+# round's pull), sweep_launches (of the batched CUDA kernel), block_ms
+# (device time of the step's parts, summed over the rounds).
+LAST: dict = {}
+
+
+class StackCols(NamedTuple):
+    """The constant columns of G cs-sorted genomes, H-padded: the batched
+    sweep's columns and the walk's."""
+    batch: sk.BatchCols
+    cm: torch.Tensor          # int64 [G, H]
+    dom_gid: torch.Tensor     # int32 [G, H], -1 = no read-time dominator
+    score_ori: torch.Tensor   # int32 [G, H]
+    score_dom: torch.Tensor   # int32 [G, H]
+
+
+class HostStack(NamedTuple):
+    """build_stacked's result: the constant columns as five host blocks (one
+    upload each) and the sweep band over all rows of all genomes."""
+    n_rows: np.ndarray        # int32 [G]
+    i32: np.ndarray           # [len(STACK_I32), G, H]
+    i64: np.ndarray           # [len(STACK_I64), G, H]; pscore biased
+    u8: np.ndarray            # [len(STACK_U8), G, H]
+    ex: np.ndarray            # int32 [2, G, E]: exon_os, exon_oe
+    W: int
+
+
+def stack_views(n_rows, i32, i64, u8, ex) -> StackCols:
+    """The five blocks (numpy arrays or tensors) as named columns."""
+    c = {n: i32[k] for k, n in enumerate(STACK_I32)}
+    c.update({n: i64[k] for k, n in enumerate(STACK_I64)})
+    c.update({n: u8[k] for k, n in enumerate(STACK_U8)})
+    batch = sk.BatchCols(n_rows=n_rows, exon_os=ex[0], exon_oe=ex[1], **{
+        n: c[n] for n in sk.BatchCols._fields
+        if n not in ("n_rows",) + sk.EXON_FIELDS})
+    return StackCols(batch, c["cm"], c["dom_gid"], c["score_ori"],
+                     c["score_dom"])
+
+
+def band_over_genomes(d) -> int:
+    """One sweep band for the whole stack: the largest exact band of any
+    genome over all its rows. A wider band than a genome's own is exact
+    (the candidates beyond it fail ce_j > cs_i)."""
+    W = 1
+    for g in d.genomes:
+        if g.n_hit:
+            h = g.hits
+            W = max(W, sk.band_width(h.cid, np.asarray(h.cs),
+                                     np.asarray(h.ce)))
+    return W
+
+
+def build_stacked(d, pin: bool = False) -> HostStack:
+    """Stack the per-genome tables into [G, H] / [G, E] host blocks (pinned
+    memory when `pin`), padded to the longest genome and the largest exon
+    pool and no further: the kernel's tiles need no padding of their own.
+    Padding rows read cid PAD_CID, ce -1, dom_gid -1, cds_len 1, no score."""
+    from ..ops.device_engine import hash_u32_np
+    from ..ops.overlap import cds_len_all
+    G = d.n_genome
+    H = max(max((g.n_hit for g in d.genomes), default=1), 1)
+    E = max(max((len(g.exon_os) for g in d.genomes), default=1), 1)
+    prot_gid = np.asarray(d.prot_gid, np.int32)
+    pref = np.asarray(d.gene_preferred, np.uint8)
+    I = {n: k for k, n in enumerate(STACK_I32)}
+    L = {n: k for k, n in enumerate(STACK_I64)}
+    n_rows = _host_array((G,), np.int32, pin)
+    i32 = _host_array((len(STACK_I32), G, H), np.int32, pin)
+    i64 = _host_array((len(STACK_I64), G, H), np.int64, pin)
+    u8 = _host_array((len(STACK_U8), G, H), np.uint8, pin)
+    ex = _host_array((2, G, E), np.int32, pin)
+    for blk in (i32, i64, u8, ex):
+        blk.fill(0)
+    i32[I["cid"]].fill(PAD_CID)
+    i32[I["dom_gid"]].fill(-1)
+    i32[I["cds_len"]].fill(1)
+    i64[L["ce"]].fill(-1)
+    i64[L["pscore"]].fill(sk.SCORE_NONE)
+    for j, g in enumerate(d.genomes):
+        h = g.hits
+        n = len(h)
+        n_rows[j] = n
+        gid = prot_gid[h.pid]
+        for name in STACK_I32:
+            if name == "gid":
+                col = gid
+            elif name == "dom_gid":
+                col = np.where(h.pid_dom0 >= 0,
+                               prot_gid[np.clip(h.pid_dom0, 0, None)], -1)
+            elif name == "cds_len":
+                col = cds_len_all(g)
+            else:
+                col = h.cols[name]
+            i32[I[name], j, :n] = col
+        for name in ("cs", "ce", "cm"):
+            i64[L[name], j, :n] = h.cols[name]
+        raw = ((h.score_adj.astype(np.int64).astype(np.uint64)
+                << np.uint64(33))
+               | (pref[gid].astype(np.uint64) << np.uint64(32))
+               | hash_u32_np(h.pid).astype(np.uint64))
+        i64[L["pscore"], j, :n] = (raw ^ np.uint64(1 << 63)).view(np.int64)
+        u8[0, j, :n] = h.rev
+        ne = len(g.exon_os)
+        ex[0, j, :ne] = g.exon_os
+        ex[1, j, :ne] = g.exon_oe
+    return HostStack(n_rows, i32, i64, u8, ex, band_over_genomes(d))
+
+
+def stack_mutable(d, out: np.ndarray) -> np.ndarray:
+    """The columns that change between rounds (MUTABLE_COLS) into the
+    [3, G, H] uint8 block `out`, whose padding rows are zero."""
+    for j, g in enumerate(d.genomes):
+        h = g.hits
+        n = len(h)
+        for k, name in enumerate(MUTABLE_COLS):
+            out[k, j, :n] = h.cols[name]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the device step
+# ---------------------------------------------------------------------------
+
+def sum_over_genomes(x: torch.Tensor) -> torch.Tensor:
+    """Sum of a [G, ...] tensor over the genome axis. On one device every
+    genome is local; with the genomes sharded over several devices this is
+    where the sum across devices goes."""
+    return x.sum(0, dtype=I32)
+
+
+def round_step(st: StackCols, flt: torch.Tensor, shadow: torch.Tensor,
+               weak_br: torch.Tensor, g2s: torch.Tensor, *, W: int,
+               min_ov_ratio: float, check_strand: bool, use_ori: bool,
+               geo: Optional[dict] = None, sweep=None, timer=None):
+    """One arc round over all genomes on the device of `st` (the JAX
+    package's round_step over _genome_round, batched over the genome axis).
+
+    flt / shadow / weak_br: uint8 [G, H], the round's flags, filtered rows
+    in place; g2s: int32 [n_gene], gene -> segment or -1. Returns, as
+    STEP_OUTPUTS names them: shadow uint8 [G, H]; b_score int64 [G, H]
+    (biased; sk.SCORE_NONE = no dominator) and b_other int32 [G, H], the
+    sweep's dominators; per genome the deduped arcs in the leading rows of
+    [G, 2H] planes, valid where cnt > 0: uniq_x int64 (the uint64 key's bit
+    pattern), cnt int32, dsum int64, m1 / m2 int32; tot_cnt and n_genome
+    int32 [n_gene], the kept hits per clipped segment id summed over
+    genomes and the genomes that have one.
+
+    `sweep` replaces sk.shadow_sweep_batched (the kernel on cuda, the plain
+    version on the CPU), e.g. by sk.shadow_sweep_batched_plain; `geo` is the
+    plain version's cache for this `st`; `timer`, a device_loop._BlockTimer
+    over STEP_BLOCKS, times the parts."""
+    bc = st.batch
+    dev = flt.device
+    G, H = flt.shape
+    n_gene = g2s.shape[0]
+    span = timer if timer is not None else \
+        (lambda name: contextlib.nullcontext())
+    iota = torch.arange(H, dtype=I32, device=dev)
+    valid = iota[None, :] < bc.n_rows[:, None]
+
+    # a. shadow sweep on the cs-sorted state; hit 0 and filtered hits are
+    # never the evaluated side and keep their stale flag (overlap.c:108-116)
+    with span("sweep"):
+        marks, b_score, b_other = (sweep or sk.shadow_sweep_batched)(
+            bc, flt, weak_br, W, check_strand, min_ov_ratio, geo)
+        marks = marks != 0
+        nonflt = flt == 0
+        evaluated = nonflt & (iota >= 1)[None, :] & valid
+        shadow = torch.where(evaluated, marks, (shadow != 0) | marks) \
+            .to(torch.uint8)
+
+    # b. stable (cid, cm) sort
+    with span("sort"):
+        key = torch.where(valid, (bc.cid.to(I64) << KEY_B) | st.cm, 1 << 62)
+        perm = torch.sort(key, dim=1, stable=True).indices
+        g = lambda a: torch.gather(a, 1, perm)
+        kept = g(nonflt & (shadow == 0) & valid)
+        sid = g2s[g(bc.gid).clamp(0, n_gene - 1).long()].to(I64)
+        w = (sid << 1) | g(bc.rev).to(I64)
+        so, sd = g(st.score_ori), g(st.score_dom)
+        if use_ori:
+            scsel = so.to(I64)
+        else:
+            dom = g(st.dom_gid)
+            use_ori_vec = (so > sd) | (dom < 0) \
+                | (g2s[dom.clamp(0, n_gene - 1).long()] >= 0)
+            scsel = torch.where(use_ori_vec, so, sd).to(I64)
+        cm_s = g(st.cm)
+        cid_s = g(bc.cid)
+
+    # c. walk: previous kept hit via inclusive running max of kept indices
+    with span("walk"):
+        idxk = torch.where(kept, iota[None, :], -1)
+        run = torch.cummax(idxk, dim=1).values
+        prev = torch.cat([run.new_full((G, 1), -1), run[:, :-1]], dim=1)
+        prevc = prev.clamp(0, H - 1).long()
+        take = lambda a: torch.gather(a, 1, prevc)
+        pair_ok = kept & (prev >= 0) & (take(cid_s) == cid_s)
+        v = take(w)
+        # dist truncates to int32 like the reference pg_tmparc_t
+        dist = (cm_s - take(cm_s)).to(I32).to(I64)
+        s1, s2 = take(scsel), scsel
+        # v << 32 | w on the full 64 bits: a negative w (a kept hit of a
+        # non-vertex gene) sets the high bits as the reference's uint64 does
+        ax = torch.cat([(v << 32) | w, ((w ^ 1) << 32) | (v ^ 1)], dim=1)
+        ad = torch.cat([dist, dist], dim=1)
+        a1 = torch.cat([s1, s2], dim=1)
+        a2 = torch.cat([s2, s1], dim=1)
+        avalid = torch.cat([pair_ok, pair_ok], dim=1)
+
+    # d. per-genome dedupe: sort by x (unsigned order), segment-reduce
+    with span("dedupe"):
+        A = 2 * H
+        xs, aperm = torch.sort(torch.where(avalid, ax ^ _BIAS, _I64_MAX),
+                               dim=1, stable=True)
+        ga = lambda a: torch.gather(a, 1, aperm)
+        vs = ga(avalid)
+        newgrp = torch.cat([xs.new_ones((G, 1), dtype=torch.bool),
+                            xs[:, 1:] != xs[:, :-1]], dim=1)
+        seg = (torch.cumsum(newgrp, dim=1) - 1
+               + A * torch.arange(G, dtype=I64, device=dev)[:, None]
+               ).reshape(-1)
+        flat = lambda a: a.reshape(-1)
+        N = G * A
+        cnt = _seg_sum(flat(vs.to(I32)), seg, N)
+        dsum = _seg_sum(flat(torch.where(vs, ga(ad), 0)), seg, N)
+        m1 = _seg_max(flat(torch.where(vs, ga(a1), _SCORE_FLOOR).to(I32)),
+                      seg, N)
+        m2 = _seg_max(flat(torch.where(vs, ga(a2), _SCORE_FLOOR).to(I32)),
+                      seg, N)
+        # the group's key: the unsigned maximum over its valid members
+        uniq_x = torch.full((N,), _BIAS, dtype=I64, device=dev) \
+            .scatter_reduce_(0, seg, flat(torch.where(vs, xs, _BIAS)),
+                             "amax", include_self=True) ^ _BIAS
+
+    # e. gene-indexed occurrence counters. sid is clipped, not dropped: a
+    # kept hit of a non-vertex gene counts towards segment 0, as in the JAX
+    # package (the rounds filter such hits before they get here)
+    with span("counters"):
+        cnts = torch.zeros((G, n_gene), dtype=I32, device=dev) \
+            .scatter_add_(1, sid.clamp(0, n_gene - 1), kept.to(I32))
+        tot_cnt = sum_over_genomes(cnts)
+        n_genome = sum_over_genomes(cnts > 0)
+    sh = lambda a: a.reshape(G, A)
+    return (shadow, b_score, b_other, sh(uniq_x), sh(cnt), sh(dsum), sh(m1),
+            sh(m2), tot_cnt, n_genome)
+
+
+def _pull(tensors, host: Optional[torch.Tensor]):
+    """The tensors packed into one byte buffer on their device and copied
+    to the host once (into the pinned buffer `host` when it fits). Returns
+    (numpy views of the host copy, the host buffer)."""
+    cd = [(t.numel(), t.dtype) for t in tensors]
+    offs, total = sk._layout(cd)
+    buf = sk._pack([t.reshape(-1) for t in tensors], offs, total)
+    if buf.device.type == "cuda":
+        if host is None or host.shape[0] != total:
+            host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+        host.copy_(buf, non_blocking=True)
+        torch.cuda.synchronize(buf.device)
+    else:
+        host = buf
+    views = [v.numpy().reshape(t.shape)
+             for v, t in zip(sk._views(host, offs, cd), tensors)]
+    return views, host
+
+
+# ---------------------------------------------------------------------------
+# the host side: cache, upload, step, pull, apply
+# ---------------------------------------------------------------------------
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _sort_tags(d):
+    return tuple(getattr(g, "_sort_cache", None) and g._sort_cache.state
+                 for g in d.genomes)
+
+
+def _sort_orders(d):
+    """Per genome its sort cache and the current order-from-base vector
+    (ops/sort.py), or (None, None) where no sort has run yet."""
+    caches, orders = [], []
+    for g in d.genomes:
+        c = getattr(g, "_sort_cache", None)
+        caches.append(c)
+        orders.append(None if c is None else c.orders[c.state])
+    return caches, orders
+
+
+def _upload_const(d, device: torch.device) -> dict:
+    hs = build_stacked(d, pin=device.type == "cuda")
+    blocks = [torch.from_numpy(a).to(device, non_blocking=True)
+              for a in hs[:5]]
+    _sync(device)
+    G, H = hs.i32.shape[1:]
+    caches, orders = _sort_orders(d)
+    mut = _host_array((len(MUTABLE_COLS), G, H), np.uint8,
+                      device.type == "cuda")
+    mut.fill(0)
+    return {"tags": _sort_tags(d), "G": G, "H": H, "E": hs.ex.shape[2],
+            "W": hs.W, "device": device, "blocks": blocks,
+            "cols": stack_views(*blocks), "geo": {}, "mut_host": mut,
+            "pull_host": None, "sort_caches": caches, "orders": orders,
+            "n_ex": [len(g.exon_os) for g in d.genomes]}
+
+
+def _repermute(cache: dict, d) -> bool:
+    """Bring the cached columns into the host tables' new physical order by
+    gathering their rows on the card through a [G, H] permutation. False
+    when the change is more than a re-ordering of the same rows (then the
+    caller uploads anew)."""
+    G, H = cache["G"], cache["H"]
+    if d.n_genome != G:
+        return False
+    caches, orders = _sort_orders(d)
+    perm = np.tile(np.arange(H, dtype=np.int64), (G, 1))
+    for j, g in enumerate(d.genomes):
+        old, new = cache["orders"][j], orders[j]
+        if (old is None or new is None or g.n_hit != len(old)
+                or caches[j] is not cache["sort_caches"][j]
+                or len(g.exon_os) != cache["n_ex"][j]):
+            return False
+        if new is not old:
+            inv = np.empty(len(old), np.int64)
+            inv[old] = np.arange(len(old))
+            perm[j, :len(old)] = inv[new]
+    device = cache["device"]
+    p = torch.from_numpy(perm).to(device)
+    n_rows, i32, i64, u8, ex = cache["blocks"]
+    blocks = [n_rows] + [b.gather(2, p.expand(b.shape[0], -1, -1))
+                         for b in (i32, i64, u8)] + [ex]
+    cache.update(tags=_sort_tags(d), blocks=blocks,
+                 cols=stack_views(*blocks), geo={}, orders=orders,
+                 W=band_over_genomes(d))
+    return True
+
+
+def _new_last(device: torch.device) -> None:
+    LAST.clear()
+    LAST.update(device=str(device), rounds=0, const_uploads=0,
+                const_permutes=0, shape={}, stack_s=0.0, upload_s=0.0,
+                step_s=0.0, pull_s=0.0, apply_s=0.0, pull_bytes=0,
+                sweep_launches=0, block_ms={b: 0.0 for b in STEP_BLOCKS})
+
+
+def _add(key: str, t0: float) -> float:
+    now = time.monotonic()
+    LAST[key] = round(LAST[key] + now - t0, 6)
+    return now
+
+
+def gen_arc_sharded(opt: PgOpt, q) -> None:
+    """pg_gen_arc as one device step plus the exact host merge:
+    byte-equivalent to ops/arcs.gen_arc_loop. Fills LAST."""
+    from ..ops import arcs as arcs_host
+    from ..ops.device_engine import resolve_device
+    from ..ops.sort import cm_cycle_view, hit_sort
+
+    d = q.d
+    device = resolve_device(opt.device)
+    G = d.n_genome
+    cache = getattr(q, "_stacked_dev_cache", None)
+    if cache is None:
+        _new_last(device)
+    if G == 0:
+        q.seg_tot_cnt = np.zeros(q.n_seg, np.int32)
+        q.seg_n_genome = np.zeros(q.n_seg, np.int32)
+        q.arcs = arcs_host.merge_arcs([])
+        return
+    t = time.monotonic()
+    if cache is not None and (cache["device"] != device or cache["G"] != G):
+        cache = None
+    if cache is not None and cache["tags"] != _sort_tags(d):
+        # a genome's physical order changed: the cached rows are stale
+        if _repermute(cache, d):
+            LAST["const_permutes"] += 1
+        else:
+            cache = None
+    if cache is None:
+        cache = q._stacked_dev_cache = _upload_const(d, device)
+        LAST["const_uploads"] += 1
+    H, W = cache["H"], cache["W"]
+    LAST["shape"] = dict(G=G, H=H, E=cache["E"], W=W)
+    mut = stack_mutable(d, cache["mut_host"])
+    t = _add("stack_s", t)
+    flt, shadow, weak_br = torch.from_numpy(mut).to(device,
+                                                    non_blocking=True)
+    # gene -> segment map, at least one entry so that clipping has a range
+    g2s_host = np.full(max(d.n_gene, 1), -1, np.int32)
+    g2s_host[:d.n_gene] = q.g2s
+    g2s = torch.from_numpy(g2s_host).to(device)
+    _sync(device)
+    t = _add("upload_s", t)
+
+    timer = _BlockTimer(device, STEP_BLOCKS)
+    launches0 = sk.n_batched["kernel"]
+    outs = round_step(
+        cache["cols"], flt, shadow, weak_br, g2s, W=W,
+        min_ov_ratio=float(opt.min_ov_ratio),
+        check_strand=opt.check_strand, use_ori=opt.use_ori_for_branch,
+        geo=cache["geo"], timer=timer)
+    for name, ms in timer.result().items():     # synchronises
+        LAST["block_ms"][name] = round(LAST["block_ms"][name] + ms, 3)
+    LAST["sweep_launches"] += sk.n_batched["kernel"] - launches0
+    t = _add("step_s", t)
+    host, cache["pull_host"] = _pull(outs, cache["pull_host"])
+    LAST["pull_bytes"] = int(cache["pull_host"].shape[0])
+    t = _add("pull_s", t)
+    (shadow, b_score, b_other, uniq_x, cnt, dsum, m1, m2, tot_cnt,
+     n_genome) = host
+    # the sums over genomes must describe G genomes: a device that
+    # disagrees on the hit tables would corrupt them silently otherwise
+    if len(n_genome) and (int(n_genome.max(initial=0)) > G
+                          or int(n_genome.min(initial=0)) < 0
+                          or int(tot_cnt.min(initial=0)) < 0):
+        raise RuntimeError(
+            "sharded reduction desync: per-gene genome counts outside "
+            "[0, %d]: devices disagree on the hit tables" % G)
+
+    # apply per-genome results to the host tables + the same physical
+    # re-sorts
+    per_genome = []
+    for j, g in enumerate(d.genomes):
+        h = g.hits
+        n = len(h)
+        nonflt = h.flt == 0
+        h.set("shadow", shadow[j, :n].copy())
+        # pid_dom refresh like the reference final loop (dominator argmax);
+        # a raw best score > 0 is a biased score above SCORE_NONE
+        has_dom = nonflt & (b_score[j, :n] > sk.SCORE_NONE)
+        other = np.clip(b_other[j, :n], 0, max(n - 1, 0))
+        pid_dom = np.where(nonflt, -1, h.pid_dom)
+        pid_dom = np.where(has_dom, h.pid[other], pid_dom)
+        h.set("pid_dom", pid_dom.astype(np.int32))
+        # mirror the reference's physical cm->cs resort; once the round
+        # trip is a known cycle it is the identity and can be skipped
+        if cm_cycle_view(g) is None:
+            hit_sort(g, by_cm=True)
+            hit_sort(g, by_cm=False)
+        sel = cnt[j] > 0
+        per_genome.append((uniq_x[j][sel].view(np.uint64), cnt[j][sel],
+                           (dsum[j][sel].astype(np.float64) / cnt[j][sel]
+                            + 0.499).astype(np.int64).astype(np.int32),
+                           m1[j][sel], m2[j][sel]))
+    if q.n_seg:
+        q.seg_tot_cnt = tot_cnt[:q.n_seg].astype(np.int32)
+        q.seg_n_genome = n_genome[:q.n_seg].astype(np.int32)
+    q.arcs = arcs_host.merge_arcs(per_genome)
+    LAST["rounds"] += 1
+    _add("apply_s", t)
+
+
+# ---------------------------------------------------------------------------
+# cross-genome reductions (post-process): protein-indexed accumulators
+# ---------------------------------------------------------------------------
+
+REDUCTION_COLS = ("pid", "score_ori", "score_adj", "n_exon", "rank")
+
+
+def reduction_step(pid: torch.Tensor, score_ori: torch.Tensor,
+                   score_adj: torch.Tensor, n_exon: torch.Tensor,
+                   rank: torch.Tensor, flt: torch.Tensor,
+                   n_rows: torch.Tensor, *, n_prot: int):
+    """The protein-keyed reductions feeding pg_cap_score_dom /
+    pg_flag_representative / pg_flag_pseudo_joint (hit.c:148-247) over
+    stacked [G, H] columns (int32; flt uint8; n_rows int32 [G]). Returns
+    seven [n_prot] tensors: max score_ori (int32); then, int64, over rank-0
+    unfiltered hits, the counts and score_ori sums of single-exon and of
+    multi-exon hits (cnt0, cnt1, sum0, sum1) and the representative's
+    score_adj sum and count. Integer sums and maxima: bit-equal to the host
+    loops in any order."""
+    dev = pid.device
+    H = pid.shape[1]
+    va = (torch.arange(H, dtype=I32, device=dev)[None, :]
+          < n_rows[:, None]).reshape(-1)
+    pidc = pid.reshape(-1).clamp(0, n_prot - 1).long()
+    so = score_ori.reshape(-1)
+    multi = n_exon.reshape(-1) != 1
+    r0 = (rank.reshape(-1) == 0) & (flt.reshape(-1) == 0) & va
+    max_so = torch.zeros(n_prot, dtype=I32, device=dev).scatter_reduce_(
+        0, pidc, torch.where(va, so, 0), "amax", include_self=True)
+
+    def total(mask, vals=None):
+        x = mask.to(I64) if vals is None else torch.where(mask, vals.to(I64),
+                                                          0)
+        return _seg_sum(x, pidc, n_prot)
+
+    outs = (max_so, total(r0 & ~multi), total(r0 & multi),
+            total(r0 & ~multi, so), total(r0 & multi, so),
+            total(r0, score_adj.reshape(-1)), total(r0))
+    # over several devices: the maximum of the first and the sums of the
+    # others across devices go here
+    return outs
+
+
+def post_reductions_sharded(opt: PgOpt, d):
+    """The protein-keyed cross-genome reductions of post_process on the
+    device: (mx, z, (c, s)) in the formats ops/pseudo.py's cap_score_dom,
+    flag_representative and flag_pseudo_joint take, bit-equal to their host
+    loops. One upload per column block, one pull.
+
+    On one device graph/post.py keeps the host loops, as the JAX package
+    does below two devices, so the main path does not reach this function
+    yet: the tests and chip_smoke.py hold it against the host loops, and it
+    joins the main path with the multi-device mesh."""
+    from ..ops.device_engine import resolve_device
+    device = resolve_device(opt.device)
+    pin = device.type == "cuda"
+    G = d.n_genome
+    H = max(max((g.n_hit for g in d.genomes), default=1), 1)
+    n_prot = max(d.n_prot, 1)
+    i32 = _host_array((len(REDUCTION_COLS), G, H), np.int32, pin)
+    i32.fill(0)
+    flt = _host_array((G, H), np.uint8, pin)
+    flt.fill(1)
+    n_rows = _host_array((G,), np.int32, pin)
+    for j, g in enumerate(d.genomes):
+        h = g.hits
+        n = len(h)
+        n_rows[j] = n
+        for k, name in enumerate(REDUCTION_COLS):
+            i32[k, j, :n] = h.cols[name]
+        flt[j, :n] = h.flt
+    up = lambda a: torch.from_numpy(a).to(device, non_blocking=True)
+    outs = reduction_step(*up(i32), up(flt), up(n_rows), n_prot=n_prot)
+    arr = torch.cat([o.to(I64) for o in outs]).cpu().numpy()    # one pull
+    P = n_prot
+    max_so, cnt0, cnt1, sum0, sum1, rep_sum, rep_cnt = (
+        arr[P * i:P * (i + 1)] for i in range(7))
+    mx = max_so.astype(np.int32)[:d.n_prot]
+    z = ((rep_sum.astype(np.uint64) << np.uint64(32))
+         + rep_cnt.astype(np.uint64))[:d.n_prot]
+    c = np.stack([cnt0, cnt1], axis=1)[:d.n_prot]
+    s = np.stack([sum0, sum1], axis=1)[:d.n_prot]
+    return mx, z, (c, s)

@@ -2,10 +2,10 @@
 (main.c:117-138): read all PAFs (with per-genome filter postpass),
 post-process, build graph, emit GFA/BED.
 
-Everything runs on the host in NumPy except the per-genome shadow and
-isoform sweeps, which ops/dispatch sends to the torch device named by
-opt.device (a hand-written CUDA kernel on "cuda", its plain PyTorch
-version on "cpu").
+The per-genome shadow and isoform sweeps go through ops/dispatch to the
+torch device named by opt.device (a hand-written CUDA kernel on "cuda", its
+plain PyTorch version on "cpu"); under engine "sharded" the pruning rounds
+run there too (graph/build.py). The rest is host NumPy.
 """
 from __future__ import annotations
 
@@ -109,10 +109,20 @@ def _read_all_parallel(opt: PgOpt, files: List[str], d: DataSet,
     return d
 
 
+TRACE_NAME = "pangene_trace.json"
+
+
 def run(opt: PgOpt, files: List[str], out: Optional[IO[str]] = None,
         save_hits: Optional[str] = None,
-        load_hits: Optional[str] = None) -> Graph:
+        load_hits: Optional[str] = None,
+        profile: Optional[str] = None) -> Graph:
     """Full run; returns the final Graph (None graph fields if --bed=raw).
+
+    profile: a directory; the whole run is traced with torch.profiler (CPU
+    activity, and CUDA activity when opt.device is "cuda") and the chrome
+    trace is written to <profile>/pangene_trace.json
+    (util.trace_device_summary reads the device's busy time from it). The
+    parse workers are other processes and are not traced.
 
     Raises RuntimeError when opt.device is "cuda" and no CUDA device
     exists: the CPU is used only when the caller asks for it.
@@ -123,11 +133,28 @@ def run(opt: PgOpt, files: List[str], out: Optional[IO[str]] = None,
     read-phase options (-d/-e/-l/-m/-S/-X/-I/-P) are unchanged. The file
     format is the JAX package's, so either package resumes the other's.
     """
+    from .ops.device_engine import resolve_device
+    device = resolve_device(opt.device)
+    out = out or sys.stdout
+    if not profile:
+        return _run_inner(opt, files, out, save_hits, load_hits)
+    import os
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(profile, exist_ok=True)
+    with torch_profile(activities=acts) as prof:
+        q = _run_inner(opt, files, out, save_hits, load_hits)
+    prof.export_chrome_trace(os.path.join(profile, TRACE_NAME))
+    log_msg("pg_profile", "trace written to %s", profile)
+    return q
+
+
+def _run_inner(opt, files, out, save_hits, load_hits) -> Graph:
     import time as _time
     from . import util
-    from .ops.device_engine import resolve_device
-    resolve_device(opt.device)
-    out = out or sys.stdout
     util.stage_stats.clear()
     t0 = _time.monotonic()
     if load_hits:

@@ -284,6 +284,36 @@ def batch_cols(genomes, device, H=None):
     return bc, stack("flt"), stack("weak"), W
 
 
+def stack_cols(genomes, device, seed=0):
+    """batch_cols plus what parallel/stacked.round_step takes beside it:
+    (StackCols, flt, shadow, weak, g2s, W). cm and score_ori are the
+    genomes'; score_dom, dom_gid (-1 for a third of the hits), the stale
+    shadow flags (a tenth of the hits) and g2s (a quarter of the genes are
+    no vertices, so some kept hits are a non-vertex gene's) are drawn from
+    `seed`. The genomes' gene ids share one id space."""
+    import torch
+
+    from .parallel.stacked import StackCols
+    bc, flt, weak, W = batch_cols(genomes, device)
+    G, H = flt.shape
+    rng = np.random.default_rng(seed)
+    n_gene = max([1] + [d.n_gene for d, _ in genomes])
+    cm = np.zeros((G, H), np.int64)
+    score_ori = np.zeros((G, H), np.int32)
+    for j, (_, g) in enumerate(genomes):
+        cm[j, :g.n_hit] = g.hits.cm
+        score_ori[j, :g.n_hit] = g.hits.score_ori
+    score_dom = rng.integers(0, 1200, (G, H)).astype(np.int32)
+    dom_gid = np.where(rng.random((G, H)) < 1 / 3, -1,
+                       rng.integers(0, n_gene, (G, H))).astype(np.int32)
+    shadow = (rng.random((G, H)) < 0.1).astype(np.uint8)
+    g2s = np.where(rng.random(n_gene) < 0.25, -1,
+                   np.arange(n_gene)).astype(np.int32)
+    t = lambda a: torch.from_numpy(a).to(device)
+    cols = StackCols(bc, t(cm), t(dom_gid), t(score_ori), t(score_dom))
+    return cols, flt, t(shadow), weak, t(g2s), W
+
+
 def stacked_edge_cases():
     """The sweep kernel's edge cases as genomes of one batch, with an empty
     genome and a genome whose row 0 is filtered: {"tile": the cases whose

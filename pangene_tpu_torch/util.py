@@ -57,6 +57,35 @@ def log_msg(func: str, fmt: str, *args, min_verbose: int = 3,
         sys.stderr.write(f"[M::{func}] {msg}\n")
 
 
+def trace_device_summary(path: str, top: int = 5) -> dict:
+    """What a chrome trace written by ``--profile`` says of the device:
+    busy_s (the union of the intervals in which a kernel, copy or memset
+    ran on it), n_events, and the `top` operations by summed time as
+    [name, seconds, calls]. A run on the CPU has no such event."""
+    import json
+    with open(path) as fp:
+        events = json.load(fp)["traceEvents"]
+    spans = []
+    by_name: dict = {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in (
+                "kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        spans.append((e["ts"], e["ts"] + e["dur"]))
+        rec = by_name.setdefault(e["name"], [0.0, 0])
+        rec[0] += e["dur"]
+        rec[1] += 1
+    busy = 0.0
+    end = float("-inf")
+    for t0, t1 in sorted(spans):
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"busy_s": busy / 1e6, "n_events": len(spans),
+            "top": [[name, us / 1e6, n] for name, (us, n) in ranked]}
+
+
 def build_dir() -> str:
     """build/pangene_tpu_torch/ beside the package (git-ignored): where the
     native parser and the CUDA kernels are compiled at first use."""

@@ -1,5 +1,6 @@
 """The CUDA sweep kernel and its batched entry against their plain PyTorch
-versions, on the card.
+versions, and the per-round device step that launches the batched entry, on
+the card.
 
 These tests need an NVIDIA GPU (the kernel has no CPU mode) and skip
 without one. The file imports neither jax nor pangene_tpu, so it runs on a
@@ -15,9 +16,10 @@ import torch
 
 from pangene_tpu_torch.ops import device_engine as de
 from pangene_tpu_torch.ops import sweep_kernel as sk
+from pangene_tpu_torch.parallel import stacked as st
 from pangene_tpu_torch.testing import (SWEEP_EDGE_CASES, batch_cols,
-                                       random_genome, stacked_edge_cases,
-                                       sweep_edge_case)
+                                       random_genome, stack_cols,
+                                       stacked_edge_cases, sweep_edge_case)
 
 
 @pytest.fixture
@@ -168,3 +170,70 @@ def test_batched_wrapper_raises_on_bad_columns(cuda_device):
     with pytest.raises(ValueError):
         sk.shadow_sweep_batched(bc._replace(ce=bc.ce.to(torch.int32)), flt,
                                 weak, W, False, 0.5)
+
+
+def assert_step_equals_plain(genomes, device, check_strand, use_ori, f):
+    """The per-round step on the card (one launch of the batched kernel)
+    against the same step with the plain sweep, and against the whole step
+    on the CPU: every output equal."""
+    cols, flt, shadow, weak, g2s, W = stack_cols(genomes, device, seed=1)
+    kw = dict(W=W, min_ov_ratio=f, check_strand=check_strand,
+              use_ori=use_ori)
+    sk.reset_counts()
+    got = st.round_step(cols, flt, shadow, weak, g2s, **kw)
+    assert sk.n_batched == {"kernel": 1, "plain": 0}
+    want = st.round_step(cols, flt, shadow, weak, g2s,
+                         sweep=sk.shadow_sweep_batched_plain, **kw)
+    cpu = torch.device("cpu")
+    c_cols, c_flt, c_shadow, c_weak, c_g2s, c_W = stack_cols(genomes, cpu,
+                                                             seed=1)
+    assert c_W == W
+    host = st.round_step(c_cols, c_flt, c_shadow, c_weak, c_g2s, **kw)
+    for name, a, b, c in zip(st.STEP_OUTPUTS, got, want, host):
+        assert a.dtype == b.dtype == c.dtype, name
+        assert torch.equal(a, b), name
+        assert torch.equal(a.cpu(), c), name
+    sk.reset_counts()
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [0.5, 0.3])
+@pytest.mark.parametrize("use_ori", [False, True])
+@pytest.mark.parametrize("check_strand", [False, True])
+def test_round_step_kernel_vs_plain(cuda_device, check_strand, use_ori, f):
+    sizes = (2000, 700, 0, 64, 65, 1, 1300)
+    genomes = [random_genome(np.random.default_rng(60 + k), n_hits=n,
+                             weak=True, max_exon=6, max_cs=30 * n + 100)
+               for k, n in enumerate(sizes)]
+    genomes[1][1].hits.flt[0] = 1
+    got = assert_step_equals_plain(genomes, cuda_device, check_strand,
+                                   use_ori, f)
+    assert got[0].any() and got[4].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["tile", "wide"])
+def test_round_step_stacked_edge_cases(cuda_device, which):
+    """The edge cases as one stack (the split-form plain sweep cannot hold
+    the 2,000-exon hit, which is left out)."""
+    genomes = [(d, g) for d, g in stacked_edge_cases()[which]
+               if int(g.hits.n_exon.max(initial=0)) < 100]
+    assert_step_equals_plain(genomes, cuda_device, False, False, 0.3)
+
+
+@pytest.mark.cuda
+def test_reduction_step_on_card(cuda_device):
+    rng = np.random.default_rng(4)
+    G, H, P = 5, 3000, 700
+    cols = [torch.from_numpy(rng.integers(0, P if k == 0 else 900, (G, H))
+                             .astype(np.int32)) for k in range(4)]
+    cols.append(torch.from_numpy(rng.integers(0, 2, (G, H)).astype(np.int32)))
+    flt = torch.from_numpy(rng.integers(0, 2, (G, H)).astype(np.uint8))
+    n_rows = torch.tensor([H, 0, 17, H - 1, 1000], dtype=torch.int32)
+    want = st.reduction_step(*cols, flt, n_rows, n_prot=P)
+    got = st.reduction_step(*[c.to(cuda_device) for c in cols],
+                            flt.to(cuda_device), n_rows.to(cuda_device),
+                            n_prot=P)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)

@@ -1,9 +1,10 @@
 """End to end: the port's CLI on the CPU (--device cpu) against the JAX
 package, byte for byte.
 
-The per-genome device engine of pangene_tpu (engine="jax") is the path the
-port mirrors; option sets the JAX device engine shares with the host engine
-are checked against the faster host engine. The 16-genome synthetic corpus
+The port's default engine is "sharded" (the device-resident loop); the
+per-genome engine (--engine device) mirrors pangene_tpu's engine="jax".
+Option sets the JAX engines share with the host engine are checked against
+the faster host engine. The 16-genome synthetic corpus
 is checked against the reference binary's GFA (tests/golden). A run must
 not load jax or pangene_tpu, and without a CUDA device it must not start
 unless the caller names the CPU.
@@ -66,7 +67,57 @@ def test_synth_corpus_matches_jax_generator(tmp_path):
                                      (["-f", "0.3"], {"min_ov_ratio": 0.3})])
 def test_cli_vs_jax_device_engine(corpus, capsys, argv, kw):
     want = run_jax(corpus, "jax", **kw)
-    assert run_port(argv + corpus, capsys) == want
+    assert run_port(["--engine", "device"] + argv + corpus, capsys) == want
+
+
+def test_default_engine_is_sharded(corpus, capsys):
+    """No --engine: the device-resident loop runs and gives the per-genome
+    engine's bytes."""
+    from pangene_tpu_torch.options import PgOpt as TorchOpt
+    from pangene_tpu_torch.parallel import device_loop
+    assert TorchOpt().engine == "sharded"
+    assert cli.parse_args(["x.paf"])[0].engine == "sharded"
+    device_loop.LAST.clear()
+    got = run_port(corpus, capsys)
+    assert device_loop.LAST["engaged"] is True
+    assert got == run_port(["--engine", "device"] + corpus, capsys)
+
+
+@pytest.mark.parametrize("engine", ["sharded", "device"])
+def test_profile_writes_trace_and_same_gfa(corpus, capsys, tmp_path, engine):
+    from pangene_tpu_torch.pipeline import TRACE_NAME
+    from pangene_tpu_torch.util import trace_device_summary
+    want = run_port(["--engine", engine] + corpus, capsys)
+    out = tmp_path / "prof"
+    got = run_port(["--engine", engine, "--profile", str(out)] + corpus,
+                   capsys)
+    assert got == want
+    trace = out / TRACE_NAME
+    assert trace.stat().st_size > 1000
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+    # a run on the CPU has no device event
+    assert trace_device_summary(str(trace)) == {"busy_s": 0.0, "n_events": 0,
+                                                "top": []}
+
+
+def test_trace_device_summary(tmp_path):
+    """Busy time is the union of the device intervals; operations rank by
+    their summed time."""
+    from pangene_tpu_torch.util import trace_device_summary
+    ev = lambda cat, name, ts, dur: {"ph": "X", "cat": cat, "name": name,
+                                     "ts": ts, "dur": dur}
+    trace = tmp_path / "t.json"
+    trace.write_text(json.dumps({"traceEvents": [
+        ev("kernel", "a", 0, 10), ev("kernel", "b", 5, 10),
+        ev("gpu_memcpy", "copy", 100, 4), ev("kernel", "a", 200, 1),
+        ev("cpu_op", "aten::add", 0, 1000),
+        {"ph": "i", "cat": "kernel", "name": "x", "ts": 0}]}))
+    got = trace_device_summary(str(trace), top=2)
+    assert got["n_events"] == 4
+    assert got["busy_s"] == pytest.approx(20e-6)
+    assert got["top"] == [["a", pytest.approx(11e-6), 2],
+                          ["b", pytest.approx(10e-6), 1]]
 
 
 @pytest.mark.parametrize("argv,flag,kw", [
@@ -109,22 +160,29 @@ def test_load_hits_from_jax_checkpoint(corpus, capsys, tmp_path):
 
 def test_run_loads_neither_jax_nor_pangene_tpu(corpus, tmp_path):
     """In a fresh process: another test in this worker may have loaded jax.
-    Both engines run, the per-genome one and the device-resident loop."""
-    gfa = [tmp_path / "device.gfa", tmp_path / "sharded.gfa"]
+    All three paths run: the per-genome engine, the device-resident loop
+    and, with PANGENE_DEVICE_LOOP=0, the per-round device step."""
+    gfa = [tmp_path / "device.gfa", tmp_path / "sharded.gfa",
+           tmp_path / "rounds.gfa"]
     code = (
-        "import json, sys\n"
+        "import json, os, sys\n"
         "from pangene_tpu_torch import cli\n"
-        "from pangene_tpu_torch.parallel import device_loop\n"
-        "for engine, path in zip(('device', 'sharded'), %r):\n"
+        "from pangene_tpu_torch.parallel import device_loop, stacked\n"
+        "for engine, loop, path in zip(('device', 'sharded', 'sharded'), "
+        "'110', %r):\n"
+        "    os.environ['PANGENE_DEVICE_LOOP'] = loop\n"
         "    sys.stdout = open(path, 'w')\n"
         "    cli.main(['--device', 'cpu', '--engine', engine, '-v', '0']"
         " + %r)\n"
         "    sys.stdout.close()\n"
+        "    if engine == 'sharded' and loop == '1':\n"
+        "        sys.stderr.write('ENGAGED=' + json.dumps("
+        "device_loop.LAST.get('engaged')) + '\\n')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'pangene_tpu')]\n"
         "sys.stderr.write('MODULES=' + json.dumps(bad) + '\\n')\n"
-        "sys.stderr.write('ENGAGED=' + json.dumps("
-        "device_loop.LAST.get('engaged')) + '\\n')\n"
+        "sys.stderr.write('ROUNDS=' + json.dumps("
+        "stacked.LAST.get('rounds')) + '\\n')\n"
         % ([str(p) for p in gfa], corpus))
     r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
                        capture_output=True, text=True, timeout=600,
@@ -137,9 +195,10 @@ def test_run_loads_neither_jax_nor_pangene_tpu(corpus, tmp_path):
 
     assert reported("MODULES") == []
     assert reported("ENGAGED") is True
+    assert reported("ROUNDS") == 17
     want = run_jax(corpus, "host")
-    assert gfa[0].read_text() == want
-    assert gfa[1].read_text() == want
+    for path in gfa:
+        assert path.read_text() == want
 
 
 def test_no_module_imports_jax_or_pangene_tpu():
@@ -148,6 +207,7 @@ def test_no_module_imports_jax_or_pangene_tpu():
     assert len(files) > 20
     rel = {str(p.relative_to(REPO)) for p in files}
     assert {"pangene_tpu_torch/parallel/device_loop.py",
+            "pangene_tpu_torch/parallel/stacked.py",
             "pangene_tpu_torch/ops/softfloat.py",
             "pangene_tpu_torch/ops/device.py"} <= rel
     for path in files:
