@@ -6,7 +6,10 @@ GPU. Run from the root of a checkout:
 
 Phases (each one passes or raises, so any failure exits nonzero):
   1. the card's name and power limit (nvidia-smi); the CUDA kernel is built
-     from pangene_tpu_torch/csrc/ with nvcc.
+     from pangene_tpu_torch/csrc/ with nvcc, and the native host runtime
+     (native/pgsweep.c, ops/sweep_native.py) with the host's C compiler:
+     it must load, since the host rounds' branch marking, the phase-1 walk,
+     the vertex scan and the L-line renderer take it on every card path.
   2. the kernel against its plain PyTorch version on the card, both modes,
      on random genomes from numpy seeds, then on the kernel's edge cases
      (tile edges, a band wider than the staged halo, a hit with 2,000
@@ -28,12 +31,17 @@ Phases (each one passes or raises, so any failure exits nonzero):
      --engine device (one sweep launch per genome, host rounds; small corpus
      only), --engine sharded (the device-resident pruning loop), and
      --engine sharded with PANGENE_DEVICE_LOOP=0 (the per-round device
-     step). Each GFA's md5 must be the reference binary's. Launch counts are
+     step), and --engine host (everything on the host in the native
+     runtime: no launch at all). Each GFA's md5 must be the reference
+     binary's. Launch counts and the native runtime's call counts are
      zeroed before and read after each run: no plain call; the loop engaged
      and launched the batched kernel once per sweep round; the per-round
      path launched it once per round (17), uploaded its constant columns
-     once, and the loop did not run. Each path prints its diagnostics
-     (device_loop.LAST, stacked.LAST, peak device memory). After each
+     once, and the loop did not run; every path called the native entries
+     it must take (NATIVE_ENTRIES), so a run that quietly fell back to
+     NumPy fails. Each path prints its diagnostics (device_loop.LAST,
+     stacked.LAST, the native call counts, the host rounds' split
+     rounds_branch_host_s / rounds_gen_arc_s, peak device memory). After each
      corpus, the protein-keyed reductions on the card
      (stacked.post_reductions_sharded) against the host loops of
      ops/pseudo.py. Then the small corpus once more with the loop forced to
@@ -51,7 +59,10 @@ Phases (each one passes or raises, so any failure exits nonzero):
      [G, H] stack in the run's final filter state, colsort_i64 against
      torch.sort at the loop's merge key count, the least time of each block
      of the loop and of the per-round step (bytes over the memory rate), and
-     the reductions' time against the host loops'.
+     the reductions' time against the host loops'. Beside them, the native
+     runtime's shadow sweep on the same largest genome against the wall of
+     one CUDA dispatch of it (device_engine.shadow: pack, upload, kernel,
+     download, finalize), best of five each.
 
 ``--corpora small`` leaves the big corpus and what needs it out, for a short
 first run of new code; such a run prints no result line.
@@ -88,6 +99,20 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 EXON_BYTES = 8              # exon_os + exon_oe, int32 each
 TIMED_LAUNCHES = 200
+# The native runtime's entries (ops/sweep_native.py) each path must call:
+# every card path marks branches, selects vertices and renders L lines in
+# C; the loop's phase 1 and a fallback walk in C; the host engine also
+# sweeps in C.
+NATIVE_SHARED = ("gen_vtx_greedy", "format_arcs")
+NATIVE_ROUNDS = ("mark_branch", "rep_pos_rows", "propagate_weak_hash")
+NATIVE_ENTRIES = {
+    "device": NATIVE_SHARED + NATIVE_ROUNDS,
+    "sharded": NATIVE_SHARED + ("round_genome", "merge_arcs_kway"),
+    "rounds": NATIVE_SHARED + NATIVE_ROUNDS,
+    "fallback": NATIVE_SHARED + NATIVE_ROUNDS + ("round_genome",),
+    "host": NATIVE_SHARED + NATIVE_ROUNDS + (
+        "shadow", "flt_ov_isoform", "round_genome", "merge_arcs_kway"),
+}
 
 
 def hit_bytes(sk, mode, check_strand):
@@ -296,6 +321,20 @@ LOOP_BLOCK_BYTES = {"walk_merge": (64, 12, 9), "branch": (19, 13, 16),
 # 4, score_dom 4, dom_gid 4 = 32; out: shadow 1, b_score 8, b_other 4, and
 # two arc slots of uniq_x 8, cnt 4, dsum 8, m1 4, m2 4 = 69.
 STEP_ROW_BYTES = 32 + 69
+# stacked.reduction_step: per [G, H] row in: pid, score_ori, score_adj,
+# n_exon, rank (int32) and flt = 21; per genome n_rows 4; per protein out:
+# the int32 maximum and six int64 sums = 52.
+REDUCTION_BYTES = (21, 4, 52)
+
+
+def reduction_bound_ms(d):
+    """Least time of one reduction_step over the dataset's stacked columns:
+    its bytes over the memory rate."""
+    G = d.n_genome
+    H = max(max((g.n_hit for g in d.genomes), default=1), 1)
+    r, gb, pb = REDUCTION_BYTES
+    nbytes = G * H * r + G * gb + max(d.n_prot, 1) * pb
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 
 def loop_block_bounds(shape, calls):
@@ -407,6 +446,7 @@ def main():
     from pangene_tpu_torch.ops import device_engine as de
     from pangene_tpu_torch.ops import dispatch
     from pangene_tpu_torch.ops import sweep_kernel as sk
+    from pangene_tpu_torch.ops import sweep_native as sn
     from pangene_tpu_torch.ops.sort import hit_sort
     from pangene_tpu_torch.ops import device as tdev
     from pangene_tpu_torch.parallel import device_loop as dl
@@ -428,6 +468,17 @@ def main():
     for line in ptxas.splitlines():
         if "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
+    # the native host runtime, built anew from the checkout's source
+    so = os.path.join(util.build_dir(), sn.SO_NAME)
+    if os.path.exists(so):
+        os.remove(so)
+    t0 = time.monotonic()
+    if not sn.available() or not os.path.exists(so):
+        raise AssertionError("the native runtime did not build or load from "
+                             "pangene_tpu_torch/native/pgsweep.c")
+    log("build: native runtime %s (%d bytes) in %.2f s" % (
+        os.path.relpath(so, ROOT), os.path.getsize(so),
+        time.monotonic() - t0))
 
     # 2. kernel vs plain on random genomes
     t0 = time.monotonic()
@@ -541,20 +592,23 @@ def main():
 
     dl.schedule_device = keep_schedule
 
-    def drive(key, name, engine, env=None, args=()):
+    def drive(key, name, engine, path, env=None, args=()):
         """One run of the CLI on cuda over corpus `name`, every count zeroed
-        just before and read just after; checks the md5 and that no plain
-        version ran; returns (record, final graph)."""
+        just before and read just after; checks the md5, that no plain
+        version ran and that the native entries of `path`
+        (NATIVE_ENTRIES) were called; returns (record, final graph)."""
         nonlocal batched_launches
         env = env or {}
         old = {k: os.environ.get(k) for k in env}
         os.environ.update(env)
         sweep_s["s"] = 0.0
         sk.reset_counts()
+        sn.reset_counts()
         dl.LAST.clear()
         stk.LAST.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
         t0 = time.monotonic()
         try:
             gfa, graph = run_cli(corpora[name], engine, args)
@@ -568,6 +622,7 @@ def main():
         counts = dict(sk.n_kernel_launches)
         plain = dict(sk.n_plain_calls)
         batched = dict(sk.n_batched)
+        native = {k: v for k, v in sn.n_calls.items() if v}
         calls = max(sum(counts.values()), 1)
         rec = {
             "hits": sum(g.n_hit for g in graph.d.genomes),
@@ -578,6 +633,7 @@ def main():
             "launches": {sk.MODE_NAMES[m]: counts[m] for m in counts},
             "batched_launches": batched["kernel"],
             "plain_calls": sum(plain.values()) + batched["plain"],
+            "native_calls": native,
             "peak_device_bytes": torch.cuda.max_memory_allocated(),
             "env": env}
         if dl.LAST:
@@ -595,6 +651,23 @@ def main():
         if rec["plain_calls"]:
             raise AssertionError("%s: plain calls on the card path: %s %s"
                                  % (key, plain, batched))
+        missing = [e for e in NATIVE_ENTRIES[path] if not native.get(e)]
+        if missing:
+            raise AssertionError("%s: the native runtime was not called for "
+                                 "%s (calls %s)" % (key, missing, native))
+        if "rounds_branch_host_s" in rec["stages"]:
+            log("  %s host rounds: rounds_branch_host_s %s rounds_gen_arc_s "
+                "%s graph_s %s" % (key, rec["stages"]["rounds_branch_host_s"],
+                                   rec["stages"]["rounds_gen_arc_s"],
+                                   rec["stages"]["graph_s"]))
+        if path == "host":
+            if sum(counts.values()) or batched["kernel"] or \
+                    rec["peak_device_bytes"] > mem0:
+                raise AssertionError("%s: the host engine used the card: %s "
+                                     "%s, peak bytes %d over %d" % (
+                                         key, counts, batched,
+                                         rec["peak_device_bytes"], mem0))
+            return rec, graph
         if any(v == 0 for v in counts.values()):
             raise AssertionError("%s: the per-genome kernel was not launched "
                                  "in both modes: %s" % (key, counts))
@@ -629,7 +702,7 @@ def main():
         log("corpus %s: %.3f s" % (name, gen_s[name]))
         if name == "small":
             # the per-genome engine: host rounds, one launch a sweep
-            rec, _ = drive(name, name, "device")
+            rec, _ = drive(name, name, "device", "device")
             if rec["batched_launches"] or "LAST" in rec or \
                     "rounds_LAST" in rec:
                 raise AssertionError("the per-genome path ran a batched "
@@ -637,7 +710,7 @@ def main():
 
         # the device-resident loop
         key = name + "_sharded"
-        rec, graph = drive(key, name, "sharded")
+        rec, graph = drive(key, name, "sharded", "sharded")
         last = rec.get("LAST", {})
         if last.get("engaged") is not True:
             raise AssertionError("the device loop did not engage: %s" % last)
@@ -652,7 +725,7 @@ def main():
 
         # the per-round device step in place of the loop
         key = name + "_rounds"
-        rec, rounds_graph = drive(key, name, "sharded",
+        rec, rounds_graph = drive(key, name, "sharded", "rounds",
                                   env={"PANGENE_DEVICE_LOOP": "0"})
         if "LAST" in rec:
             raise AssertionError("the device loop ran with "
@@ -661,16 +734,22 @@ def main():
 
         # the protein-keyed reductions on the card against the host loops
         card_s, host_s = compare_reductions(stk, opt_cuda, rounds_graph.d)
+        red_ms, red_bytes = reduction_bound_ms(rounds_graph.d)
         runs[key]["reductions_s"] = {"card": round(card_s, 4),
-                                     "host_loops": round(host_s, 4)}
+                                     "host_loops": round(host_s, 4),
+                                     "bound_ms": red_ms}
         log("reductions %s: post_reductions_sharded == host loops (%d "
             "proteins); card %.4f s (stacking, upload, 7 reductions, one "
-            "pull), host loops %.4f s" % (name, rounds_graph.d.n_prot, card_s,
-                                          host_s))
+            "pull), host loops %.4f s; reduction_step bound %.6f ms (%d "
+            "bytes)" % (name, rounds_graph.d.n_prot, card_s, host_s, red_ms,
+                        red_bytes))
+
+        # every stage on the host, in the native runtime
+        drive(name + "_host", name, "host", "host")
 
     # the fallback a user gets: the loop refuses the graph after phase 1 (an
     # arc table of one slot) and the host rounds take the per-round step
-    rec, _ = drive("small_fallback", "small", "sharded",
+    rec, _ = drive("small_fallback", "small", "sharded", "fallback",
                    env={"PANGENE_DEVLOOP_MAX_A": "1"})
     if rec.get("LAST", {}).get("engaged") is not False:
         raise AssertionError("the loop did not report a fallback: %s"
@@ -680,7 +759,7 @@ def main():
     # 3b. one traced run: the device's busy time from the profiler's events
     prof_name = names[-1]
     prof_dir = os.path.join(ROOT, "build", "chip_smoke", "profile")
-    rec, _ = drive(prof_name + "_profile", prof_name, "sharded",
+    rec, _ = drive(prof_name + "_profile", prof_name, "sharded", "sharded",
                    args=("--profile", prof_dir))
     trace = os.path.join(prof_dir, pipeline.TRACE_NAME)
     trace_bytes = os.path.getsize(trace)
@@ -751,6 +830,31 @@ def main():
                 rec["ms_final"] = ms
         kernels.append(rec)
     g.hits.flt[:] = states["final"]
+
+    # the native runtime's shadow sweep on the same genome, final state,
+    # against the wall of one CUDA dispatch of it: a finding for later (the
+    # card engines keep the kernel); both must leave the same columns
+    def best_ms(fn, reps=5):
+        walls = []
+        for _ in range(reps):
+            t0 = time.monotonic()
+            fn()
+            walls.append(time.monotonic() - t0)
+        return 1e3 * min(walls)
+    d_big = graph.d
+    native_ms = best_ms(lambda: sn.shadow(opt_cuda, d_big, g, False))
+    native_cols = (g.hits.shadow.copy(), g.hits.pid_dom.copy())
+    dispatch_ms = best_ms(lambda: de.shadow(opt_cuda, d_big, g, False))
+    if not (np.array_equal(native_cols[0], g.hits.shadow)
+            and np.array_equal(native_cols[1], g.hits.pid_dom)):
+        raise AssertionError("native shadow sweep != CUDA dispatch on the "
+                             "largest genome")
+    runs["native_vs_dispatch_ms"] = {"hits": g.n_hit, "native": native_ms,
+                                     "cuda_dispatch": dispatch_ms}
+    log("shadow sweep of the largest genome (%d hits, final state), best of "
+        "5: native runtime %.4f ms, CUDA dispatch (pack, upload, kernel, "
+        "download, finalize) %.4f ms; same columns" % (g.n_hit, native_ms,
+                                                     dispatch_ms))
 
     # 4b. the batched entry on the big run's device-resident columns: entry
     # state (no kept row filtered) and the loop's final state

@@ -11,13 +11,14 @@ from typing import List, Optional
 
 from . import util
 from .io.lists import read_list
-from .options import (PG_F_CHECK_STRAND, PG_F_DROP_SGL_EXON, PG_F_FRAG_MODE,
+from .options import (DEVICE_ENGINES, HOST_ENGINES, PG_F_CHECK_STRAND,
+                      PG_F_DROP_SGL_EXON, PG_F_FRAG_MODE,
                       PG_F_NO_JOINT_PSEUDO, PG_F_ORI_FOR_BRANCH,
                       PG_F_WRITE_BED_FLAG, PG_F_WRITE_BED_RAW,
                       PG_F_WRITE_BED_WALK, PG_F_WRITE_NO_WALK,
                       PG_F_WRITE_VTX_SEL, PG_REF_VERSION, PG_VERSION, PgOpt)
 
-ENGINES = ("device", "sharded")
+ENGINES = DEVICE_ENGINES + HOST_ENGINES
 
 
 def parse_num(s: str) -> int:
@@ -63,10 +64,13 @@ Options:
     --bed[=STR]   output 12-column BED where STR is walk, raw or flag [walk]
     --version     print version number
   Device:
-    --device STR  cuda | cpu: where the overlap sweeps run [cuda]
-    --engine STR  sharded | device: the pruning rounds as one device-resident
-                  loop (PANGENE_DEVICE_LOOP=0: one device step per round), or
-                  host rounds with one sweep per genome [sharded]
+    --device STR  cuda | cpu: where the card engines run [cuda]
+    --engine STR  sharded | device | host | host-vec | host-ref: the pruning
+                  rounds as one device-resident loop (PANGENE_DEVICE_LOOP=0:
+                  one device step per round), or host rounds with one sweep
+                  per genome on the device; or all on the host: native C
+                  (host), NumPy (host-vec), scalar oracle (host-ref)
+                  [sharded]
     --profile DIR write a torch.profiler chrome trace of the whole run into
                   DIR (the parse workers are other processes: not traced)
     --save-hits F checkpoint post-ingest hit tensors to F (.npz)

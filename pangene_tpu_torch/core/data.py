@@ -81,10 +81,16 @@ class HitTable:
     def set(self, name: str, value: np.ndarray) -> None:
         assert name in self.cols and value.shape == self.cols[name].shape
         self.cols[name] = value.astype(self.cols[name].dtype, copy=False)
+        # replacing a column changes its buffer address: bump the physical
+        # version so native pointer/hot caches keyed on _ver invalidate
+        self._ver = getattr(self, "_ver", 0) + 1
 
     def permute(self, perm: np.ndarray) -> None:
         for k in self.cols:
             self.cols[k] = self.cols[k][perm]
+        # physical-order version: native caches of packed per-hit state
+        # (ops/sweep_native round_genome hot buffers) key on this
+        self._ver = getattr(self, "_ver", 0) + 1
 
     def copy(self) -> "HitTable":
         return HitTable({k: v.copy() for k, v in self.cols.items()})

@@ -1,13 +1,16 @@
 """Graph construction: the 3-phase / n_branch_flt-round schedule.
 
 Reference: pg_graph_gen (graph.c:280-322) plus the high-occurrence filters
-(graph.c:237-263) and hard deletion (graph.c:219-235). Every round runs on
-the host except the shadow sweep: under engine "device" gen_arc sends it
-to the device genome by genome through ops/dispatch; under engine "sharded"
-phases 2+3 run on the device as one loop (parallel/device_loop.py), and
-where that loop is switched off (PANGENE_DEVICE_LOOP=0) or cannot take the
-graph, every round's sweep, sort, walk and per-genome dedupe run as one
-device step over all genomes (parallel/stacked.py).
+(graph.c:237-263) and hard deletion (graph.c:219-235). Under the host
+engines every round runs on the host (the native runtime under "host").
+Under engine "device" gen_arc sends the shadow sweep to the device genome
+by genome through ops/dispatch; under engine "sharded" phases 2+3 run on
+the device as one loop (parallel/device_loop.py), and where that loop is
+switched off (PANGENE_DEVICE_LOOP=0) or cannot take the graph, every
+round's sweep, sort, walk and per-genome dedupe run as one device step over
+all genomes (parallel/stacked.py). Branch marking, vertex selection and the
+filters stay on the host under every engine, in C when the native runtime
+is available (ops/branch.py, graph/vertex.py).
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import time
 import numpy as np
 
 from ..core.data import DataSet
-from ..options import PgOpt
+from ..options import DEVICE_ENGINES, HOST_ENGINES, PgOpt
 from ..ops import arcs as arcs_ops
 from ..ops.branch import mark_branch_flt_arc, mark_branch_flt_hit
 from ..util import log_msg
@@ -105,6 +108,26 @@ def flt_high_occ(q: Graph, max_avg_occ: int, max_degree: int,
     q.flag_vtx()
 
 
+def debug_gene(q: Graph, name: str) -> None:
+    """Dump one gene's outgoing arcs as Z lines (reference pg_debug_gene,
+    graph.c:265-278 — a developer hook, never wired to a flag there
+    either). Call from a debugger or a REPL while chasing graph-quality
+    regressions."""
+    d = q.d
+    gid = d.gene_id[name]
+    sid = int(q.g2s[gid])
+    assert sid >= 0, "gene %s is not a vertex" % name
+    a = q.arcs
+    src = (a.x >> np.uint64(32)).astype(np.int64)
+    for j in np.flatnonzero((src >> 1) == sid):
+        v = int(src[j])
+        w = int(a.x[j] & np.uint64(0xFFFFFFFF))
+        sys.stderr.write("Z\t%s%s\t%s%s\t%d\t%d\n" % (
+            "><"[v & 1], d.gene_name[q.seg_gid[v >> 1]],
+            "><"[w & 1], d.gene_name[q.seg_gid[w >> 1]],
+            int(a.n_genome[j]), int(a.weak_br[j])))
+
+
 def cut_low_arc(opt: PgOpt, q: Graph) -> None:
     """-a: drop arcs supported by too few genomes (graph.c:191-200), then
     drop arcs touching deleted segs (pg_graph_rm_del, graph.c:179-189)."""
@@ -126,9 +149,10 @@ def graph_gen(opt: PgOpt, q: Graph) -> None:
     PANGENE_DEVICE_LOOP=0 switches the loop off.
     """
     d = q.d
-    if opt.engine not in ("device", "sharded"):
-        raise ValueError("engine must be device or sharded, not %r"
-                         % (opt.engine,))
+    if opt.engine not in DEVICE_ENGINES + HOST_ENGINES:
+        raise ValueError("engine must be one of %s, not %r"
+                         % ("|".join(DEVICE_ENGINES + HOST_ENGINES),
+                            opt.engine))
     use_devloop = (opt.engine == "sharded"
                    and os.environ.get("PANGENE_DEVICE_LOOP", "1") != "0")
     # phase 1: initial vertices

@@ -10,7 +10,9 @@ not selected later (the y < x test).
 The per-genome dom/sub flags and dominator gids are data-parallel over
 genomes; they stay on the host because the greedy scan consumes the FULL
 [n_gene, n_genome] dominator table with sequential cross-genome mutation,
-so a device pass would only add a round trip.
+so a device pass would only add a round trip. The scan itself runs in C
+(native/pgsweep.c pg_gen_vtx_greedy, through ops/sweep_native.py) unless -G
+per-gene rows are being printed.
 """
 from __future__ import annotations
 
@@ -76,6 +78,11 @@ def gen_vtx(opt: PgOpt, q: Graph) -> None:
     included = np.asarray(d.gene_included, bool)
     vtx_thresh = G * opt.min_vertex_ratio
     write_sel = bool(opt.flag & PG_F_WRITE_VTX_SEL)
+    from ..ops import sweep_native
+    if not write_sel and sweep_native.available():
+        sg, sd, ss = sweep_native.gen_vtx_greedy(
+            ng, G, order, x, y, aux, included.view(np.uint8), vtx_thresh)
+        return _finish(q, d, sg.tolist(), sd.tolist(), ss.tolist())
     for i in range(ng - 1, -1, -1):
         xi = int(x[order[i]])
         yi = int(y[order[i]])

@@ -34,6 +34,10 @@ def write_arc(q: Graph, out: IO[str]) -> None:
     a = q.arcs
     if q.n_arc == 0:
         return
+    from ..ops import sweep_native
+    if sweep_native.available():
+        out.write(sweep_native.format_arcs(d, q.seg_gid, a))
+        return
     v = (a.x >> np.uint64(32)).astype(np.int64)
     w = (a.x & np.uint64(0xFFFFFFFF)).astype(np.int64)
     vn = [d.gene_name[g] for g in q.seg_gid[(v >> 1)].tolist()]

@@ -160,15 +160,63 @@ def gen_arc(opt: PgOpt, g: Graph) -> None:
 
 
 def gen_arc_loop(opt: PgOpt, g: Graph) -> None:
-    """Per-genome-loop gen_arc: per genome, re-shadow on the device, walk
-    the cm-ordered kept hits and dedupe; then the global merge. Segment
-    n_genome/tot_cnt counters are refreshed here."""
+    """Per-genome-loop gen_arc: re-shadow, sort by cm, walk-extract,
+    per-genome dedupe; then the global merge. Segment n_genome/tot_cnt
+    counters are refreshed here. Under engines "host" and "sharded" the
+    walk/dedupe/merge run natively (pgsweep.c) when a compiler is
+    available, else in NumPy — identical outputs (exact integer sums, one
+    double +.499 rounding). The sweep goes through ops/dispatch, except
+    under "host" with a cm-order view, where it runs inside the same C call
+    as the walk; under "sharded" it stays on the device's kernel."""
     d = g.d
     use_ori = opt.use_ori_for_branch
     g.seg_n_genome = np.zeros(g.n_seg, np.int32)
     g.seg_tot_cnt = np.zeros(g.n_seg, np.int32)
+    from . import sweep_native
+    native = opt.engine in ("host", "sharded") and sweep_native.available()
+    g2s_b = g.g2s.tobytes() if (native and g.g2s is not None) else None
+    any_recomputed = False
     per_genome = []
     for gen in d.genomes:
+        if native:
+            # The per-genome shadow sweep and walk are pure functions of
+            # (flt, weak_br, g2s): coordinates, scores and pid_dom0 are
+            # frozen after ingest, and the sweep's in-place outputs
+            # (shadow/pid_dom) are themselves determined by the same key.
+            # Once the pruning rounds converge, most genomes' keys repeat,
+            # so recomputation is skipped — outputs are bit-identical by
+            # construction (the reference recomputes the same values).
+            h = gen.hits
+            fb = h.flt.tobytes()
+            wb = h.weak_br.tobytes()
+            memo = getattr(gen, "_arc_memo", None)
+            if memo is not None and memo[0] == fb and memo[1] == wb \
+                    and memo[2] == g2s_b and memo[3] == use_ori:
+                x, n, dist, s1, s2, seg_cnt = memo[4]
+            else:
+                any_recomputed = True
+                # shadow depends on (flt, weak_br) only — skip the sweep
+                # when those repeat and just the g2s part of the key moved
+                run_shadow = getattr(gen, "_shadow_memo", None) != (fb, wb)
+                if run_shadow:
+                    gen._shadow_memo = (fb, wb)
+                view = cm_cycle_view(gen)
+                if run_shadow and (view is None or opt.engine != "host"):
+                    sweep.shadow(opt, d, gen, cal_dom_sc=False)
+                    run_shadow = False
+                if view is None:
+                    hit_sort(gen, by_cm=True)
+                x, n, dist, s1, s2, seg_cnt = sweep_native.round_genome(
+                    opt, d, gen, g.g2s, use_ori, g.n_seg, view, run_shadow)
+                if view is None:
+                    hit_sort(gen, by_cm=False)
+                gen._arc_memo = (fb, wb, g2s_b, use_ori,
+                                 (x, n, dist, s1, s2, seg_cnt))
+            if g.n_seg:
+                g.seg_n_genome += (seg_cnt > 0).astype(np.int32)
+                g.seg_tot_cnt += seg_cnt
+            per_genome.append((x, n, dist, s1, s2))
+            continue
         sweep.shadow(opt, d, gen, cal_dom_sc=False)
         view = cm_cycle_view(gen)
         if view is None:
@@ -181,4 +229,18 @@ def gen_arc_loop(opt: PgOpt, g: Graph) -> None:
             g.seg_n_genome += (cnts > 0).astype(np.int32)
             g.seg_tot_cnt += cnts.astype(np.int32)
         per_genome.append(dedupe_genome(x, dist, s1, s2))
+    if native:
+        mm = getattr(g, "_merge_memo", None)
+        if not any_recomputed and mm is not None and mm[0] == g2s_b \
+                and mm[1] == use_ori:
+            ox, ong, otot, oavg, os1, os2 = mm[2]
+        else:
+            ox, ong, otot, oavg, os1, os2 = sweep_native.merge_arcs_kway(
+                per_genome)
+            g._merge_memo = (g2s_b, use_ori, (ox, ong, otot, oavg, os1, os2))
+        out = ArcTable.empty(len(ox))
+        out.x, out.n_genome, out.tot_cnt = ox, ong, otot
+        out.avg_dist, out.s1, out.s2 = oavg, os1, os2
+        g.arcs = out
+        return
     g.arcs = merge_arcs(per_genome)

@@ -9,7 +9,10 @@ bp or local_count kept-hit ranks.
 Representative positions form a [n_genome, n_gene] table; n_local for a
 batch of gene pairs is an elementwise test summed over the genome axis. The
 per-vertex greedy loci grouping (branch.c:82-90) is O(degree^2) on a
-~20k-arc graph and stays on the host.
+~20k-arc graph and stays on the host. Every function here takes the native
+runtime (ops/sweep_native.py) whenever its library is available, under
+every engine, as the JAX package does; the NumPy branches are the path
+without a compiler and the tests' second witness.
 """
 from __future__ import annotations
 
@@ -29,10 +32,12 @@ def gen_rep_pos(d: DataSet) -> Tuple[np.ndarray, ...]:
     hit in cs-order (reference pg_gen_rep_pos, branch.c:6-29).
 
     Per-genome rows are memoized on the (flt, shadow) byte state — the only
-    inputs that change between pruning rounds."""
+    inputs that change between pruning rounds. The memo also yields a
+    per-genome version counter used as a cheap key component by the
+    mark_branch_flt_arc memo."""
     G = d.n_genome
     ng = d.n_gene
-    prot_gid = None   # converted lazily, on the first recomputed row
+    prot_gid = None   # converted lazily, only by the NumPy fallback path
     # persistent [G, ng] planes: a genome's row is rewritten ONLY when its
     # (flt, shadow) state changed since the last call — unchanged rows
     # (the common case in converged rounds) cost nothing
@@ -44,6 +49,7 @@ def gen_rep_pos(d: DataSet) -> Tuple[np.ndarray, ...]:
         for gen in d.genomes:
             gen._rep_row_ver = None
     present, cid, rank, cm = planes
+    versions = []
     for j, gen in enumerate(d.genomes):
         h = gen.hits
         key = (h.flt.tobytes(), h.shadow.tobytes(), ng)
@@ -51,21 +57,25 @@ def gen_rep_pos(d: DataSet) -> Tuple[np.ndarray, ...]:
         if memo is not None and memo[0] == key:
             row, ver = memo[1], memo[2]
         else:
-            keep = np.flatnonzero((h.shadow == 0) & (h.flt == 0))
-            row = None
-            if len(keep):
-                if prot_gid is None:
-                    prot_gid = np.asarray(d.prot_gid, np.int32)
-                gids = prot_gid[h.pid[keep]]
-                ranks = np.arange(len(keep), dtype=np.int32)
-                # last kept hit of each gene wins: final element of
-                # each stable gid group (deterministic)
-                order = np.argsort(gids, kind="stable")
-                gs = gids[order]
-                last = order[np.flatnonzero(
-                    np.concatenate((gs[1:] != gs[:-1], [True])))]
-                row = (gids[last], h.cid[keep[last]], ranks[last],
-                       h.cm[keep[last]])
+            from . import sweep_native
+            if sweep_native.available():
+                row = sweep_native.rep_pos_rows(d, gen)
+            else:
+                keep = np.flatnonzero((h.shadow == 0) & (h.flt == 0))
+                row = None
+                if len(keep):
+                    if prot_gid is None:
+                        prot_gid = np.asarray(d.prot_gid, np.int32)
+                    gids = prot_gid[h.pid[keep]]
+                    ranks = np.arange(len(keep), dtype=np.int32)
+                    # last kept hit of each gene wins: final element of
+                    # each stable gid group (deterministic)
+                    order = np.argsort(gids, kind="stable")
+                    gs = gids[order]
+                    last = order[np.flatnonzero(
+                        np.concatenate((gs[1:] != gs[:-1], [True])))]
+                    row = (gids[last], h.cid[keep[last]], ranks[last],
+                           h.cm[keep[last]])
             ver = (memo[2] + 1) if memo is not None else 0
             gen._rep_pos_memo = (key, row, ver)
         if getattr(gen, "_rep_row_ver", None) != ver:
@@ -77,7 +87,8 @@ def gen_rep_pos(d: DataSet) -> Tuple[np.ndarray, ...]:
                 rank[j, gl] = rl
                 cm[j, gl] = ml
             gen._rep_row_ver = ver
-    return present, cid, rank, cm
+        versions.append(ver)
+    return (present, cid, rank, cm), tuple(versions)
 
 
 def n_local_batch(opt: PgOpt, rep_pos, g1: np.ndarray,
@@ -88,6 +99,9 @@ def n_local_batch(opt: PgOpt, rep_pos, g1: np.ndarray,
     [n_genome, n_pairs] broadcast — vertices share many pairs and the raw
     pair count grows with sum(degree^2). Sums over the genome axis.
     """
+    from . import sweep_native
+    if sweep_native.available():
+        return sweep_native.n_local_batch(opt, rep_pos, g1, g2)
     present, cid, rank, cm = rep_pos
     ng = present.shape[1]
     a = np.minimum(g1, g2)
@@ -126,7 +140,7 @@ def mark_branch_flt_arc(opt: PgOpt, g: Graph) -> int:
     closed-form for degree 2 with a loop only over degree>=3 vertices.
     """
     d = g.d
-    rep_pos = gen_rep_pos(d)
+    rep_pos, rep_versions = gen_rep_pos(d)
     g.seg_n_dist_loci = np.zeros((g.n_seg, 2), np.int32)
     arcs = g.arcs
     n_arc = len(arcs)
@@ -137,6 +151,27 @@ def mark_branch_flt_arc(opt: PgOpt, g: Graph) -> int:
         return 0
     tgt_gid = g.seg_gid[(arcs.x & np.uint64(0xFFFFFFFF)).astype(np.int64) >> 1] \
         .astype(np.int64)
+    from . import sweep_native
+    if sweep_native.available():
+        # arcs + per-genome rep-state versions fully determine the result;
+        # pruning state is monotone so a repeated key means identical input
+        key = (arcs.x.tobytes(), arcs.s1.tobytes(), rep_versions, g.n_seg)
+        memo = getattr(g, "_mark_branch_memo", None)
+        if memo is not None and memo[0] == key:
+            n_flt1, n_flt2, weak, loci = memo[1]
+            arcs.weak_br[:] = weak
+            g.seg_n_dist_loci[:] = loci
+        else:
+            n_flt1, n_flt2 = sweep_native.mark_branch(
+                opt, rep_pos, arcs.x, arcs.s1, tgt_gid,
+                arcs.weak_br, g.seg_n_dist_loci)
+            g._mark_branch_memo = (key, (n_flt1, n_flt2,
+                                         arcs.weak_br.copy(),
+                                         g.seg_n_dist_loci.copy()))
+        log_msg("pg_mark_branch_flt_arc",
+                "marked %d locally diverged branches and %d distantly "
+                "diverged branches", n_flt1, n_flt2)
+        return n_flt1 + n_flt2
     src = (arcs.x >> np.uint64(32)).astype(np.int64)
     # contiguous per-source groups over the x-sorted arc table
     gstart = np.flatnonzero(np.concatenate(([True], src[1:] != src[:-1])))
@@ -245,17 +280,40 @@ def mark_branch_flt_hit(opt: PgOpt, g: Graph) -> int:
         n_flt = sum(int((gen.hits.weak_br != 0).sum()) for gen in d.genomes)
         log_msg("pg_mark_branch_flt_hit", "marked %d diverged hits", n_flt)
         return n_flt
+    from . import sweep_native
+    native = sweep_native.available()
+    # only marked arcs can change a hit (max with 0 is a no-op): probe the
+    # small marked subset instead of the full arc table
+    marked = np.flatnonzero(arc_w)
+    arc_xm = np.ascontiguousarray(arc_x[marked])
+    arc_wm = np.ascontiguousarray(arc_w[marked])
+    round_key = (arc_xm.tobytes(), arc_wm.tobytes())
+    tab = sweep_native.weak_hash_build(arc_xm, arc_wm) if native else None
     n_flt = 0
     for gen in d.genomes:
         h = gen.hits
+        if native:
+            # weak_br is a monotone max-accumulator and this is its only
+            # writer: re-applying the same (kept-walk, marked-arcs) input
+            # is a no-op, so skip when the key repeats
+            key = (h.flt.tobytes(), h.shadow.tobytes()) + round_key
+            if getattr(gen, "_prop_memo", None) == key:
+                n_flt += int((h.weak_br != 0).sum())
+                continue
+            gen._prop_memo = key
         view = cm_cycle_view(gen)
         if view is None:
             hit_sort(gen, by_cm=True)
-            keep = np.flatnonzero((h.flt == 0) & (h.shadow == 0))
+        if native:
+            sweep_native.propagate_weak_hash(d, gen, g.g2s, view, tab)
+            keep = ()
         else:
-            keep = view[np.flatnonzero((h.flt[view] == 0)
-                                       & (h.shadow[view] == 0))]
-        if len(keep) >= 2:
+            if view is None:
+                keep = np.flatnonzero((h.flt == 0) & (h.shadow == 0))
+            else:
+                keep = view[np.flatnonzero((h.flt[view] == 0)
+                                           & (h.shadow[view] == 0))]
+        if (not native) and len(keep) >= 2 and len(arc_x):
             sid = g.g2s[prot_gid[h.pid[keep]]].astype(np.int64)
             w = (sid << 1) | h.rev[keep].astype(np.int64)
             same = h.cid[keep[1:]] == h.cid[keep[:-1]]

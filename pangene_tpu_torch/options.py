@@ -24,6 +24,13 @@ PG_F_DROP_SGL_EXON = 0x200
 PG_VERSION = "0.1.0-torch"
 PG_REF_VERSION = "1.1-r231"  # reference version this engine is parity-checked against
 
+# engines that run every stage on the host and touch no torch device:
+# "host" = the native C runtime (ops/sweep_native.py; the NumPy branches when
+# no compiler is found), "host-vec" = NumPy, "host-ref" = the scalar oracle
+HOST_ENGINES = ("host", "host-vec", "host-ref")
+# engines that run the sweeps (and with "sharded" the rounds) on opt.device
+DEVICE_ENGINES = ("sharded", "device")
+
 
 @dataclasses.dataclass
 class PgOpt:
@@ -61,7 +68,8 @@ class PgOpt:
     # where the loop is off or cannot take the graph, each round as one
     # device step over all genomes (parallel/stacked.py); "device": phase
     # 1-3 rounds on the host with one sweep launch per genome (the JAX
-    # package's --engine jax)
+    # package's --engine jax); HOST_ENGINES: everything on the host, as the
+    # JAX package's engines of the same names, and opt.device is not read
     engine: str = "sharded"
 
     @property

@@ -2,10 +2,14 @@
 (main.c:117-138): read all PAFs (with per-genome filter postpass),
 post-process, build graph, emit GFA/BED.
 
-The per-genome shadow and isoform sweeps go through ops/dispatch to the
-torch device named by opt.device (a hand-written CUDA kernel on "cuda", its
-plain PyTorch version on "cpu"); under engine "sharded" the pruning rounds
-run there too (graph/build.py). The rest is host NumPy.
+The per-genome shadow and isoform sweeps go through ops/dispatch. Under
+the card engines ("sharded", "device") they run on the torch device named
+by opt.device (a hand-written CUDA kernel on "cuda", its plain PyTorch
+version on "cpu"), and under "sharded" the pruning rounds run there too
+(graph/build.py). The host engines ("host", "host-vec", "host-ref") run
+everything on the host and touch no torch device. The rest is host code:
+the native runtime (ops/sweep_native.py) where the JAX package uses it,
+else NumPy.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ from .graph.post import post_process
 from .io import bed as bed_mod
 from .io import gfa_write
 from .io import paf as paf_mod
-from .options import (PG_F_WRITE_BED_FLAG, PG_F_WRITE_BED_RAW,
+from .options import (HOST_ENGINES, PG_F_WRITE_BED_FLAG, PG_F_WRITE_BED_RAW,
                       PG_F_WRITE_BED_WALK, PG_F_WRITE_NO_WALK, PgOpt)
 from .ops import pseudo as pseudo_ops
 from .ops import dispatch as sweep
@@ -119,13 +123,15 @@ def run(opt: PgOpt, files: List[str], out: Optional[IO[str]] = None,
     """Full run; returns the final Graph (None graph fields if --bed=raw).
 
     profile: a directory; the whole run is traced with torch.profiler (CPU
-    activity, and CUDA activity when opt.device is "cuda") and the chrome
+    activity, and CUDA activity when a card engine runs on "cuda") and the
+    chrome
     trace is written to <profile>/pangene_trace.json
     (util.trace_device_summary reads the device's busy time from it). The
     parse workers are other processes and are not traced.
 
-    Raises RuntimeError when opt.device is "cuda" and no CUDA device
-    exists: the CPU is used only when the caller asks for it.
+    Raises RuntimeError when a card engine runs with opt.device "cuda" and
+    no CUDA device exists: the CPU is used only when the caller asks for it,
+    by --device cpu or by a host engine (which reads no opt.device).
 
     save_hits/load_hits checkpoint the post-ingest per-genome hit tensors
     (SURVEY.md §5): a resumed run skips PAF parsing and the per-genome read
@@ -133,8 +139,10 @@ def run(opt: PgOpt, files: List[str], out: Optional[IO[str]] = None,
     read-phase options (-d/-e/-l/-m/-S/-X/-I/-P) are unchanged. The file
     format is the JAX package's, so either package resumes the other's.
     """
-    from .ops.device_engine import resolve_device
-    device = resolve_device(opt.device)
+    on_cuda = False
+    if opt.engine not in HOST_ENGINES:
+        from .ops.device_engine import resolve_device
+        on_cuda = resolve_device(opt.device).type == "cuda"
     out = out or sys.stdout
     if not profile:
         return _run_inner(opt, files, out, save_hits, load_hits)
@@ -142,7 +150,7 @@ def run(opt: PgOpt, files: List[str], out: Optional[IO[str]] = None,
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
+    if on_cuda:
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(profile, exist_ok=True)
     with torch_profile(activities=acts) as prof:

@@ -134,6 +134,19 @@ def random_genome(rng, n_hits=60, n_genes=8, n_prots_per_gene=3, n_ctg=3,
     return d, g
 
 
+def clone(d, g):
+    """A one-genome copy of (d, g): the hit table and the exon pool are
+    copied, the global tables are shared (the JAX package's
+    tests/test_sweep_vec.py:clone)."""
+    from .core.data import DataSet, Genome
+    d2 = DataSet.new()
+    d2.__dict__.update({k: v for k, v in d.__dict__.items() if k != "genomes"})
+    g2 = Genome(g.label, g.ctg_names, g.ctg_len, g.hits.copy(),
+                g.exon_os.copy(), g.exon_oe.copy())
+    d2.genomes = [g2]
+    return d2, g2
+
+
 def band_genome(rng, n_hits, W, max_exon=4, long_exons=0, all_flt=False):
     """One-contig genome whose band width is exactly W: hit r spans
     [10 r, 10 (r + W) + 5), so it reaches the next W hits and no further.

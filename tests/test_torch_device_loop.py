@@ -411,4 +411,6 @@ def test_cli_engine_flag(corpus, capsys):
     assert dl.LAST["engaged"] is True
     assert capsys.readouterr().out == run_jax(corpus)
     with pytest.raises(ValueError):
-        run_port(corpus, engine="host")
+        run_port(corpus, engine="jax")
+    # "host" is one of the port's host engines (the JAX package's names)
+    assert run_port(corpus, engine="host") == run_jax(corpus)

@@ -160,18 +160,22 @@ def test_load_hits_from_jax_checkpoint(corpus, capsys, tmp_path):
 
 def test_run_loads_neither_jax_nor_pangene_tpu(corpus, tmp_path):
     """In a fresh process: another test in this worker may have loaded jax.
-    All three paths run: the per-genome engine, the device-resident loop
-    and, with PANGENE_DEVICE_LOOP=0, the per-round device step."""
+    All four paths run: the per-genome engine, the device-resident loop,
+    with PANGENE_DEVICE_LOOP=0 the per-round device step, and the host
+    engine on the native runtime (which must leave CUDA uninitialised)."""
     gfa = [tmp_path / "device.gfa", tmp_path / "sharded.gfa",
-           tmp_path / "rounds.gfa"]
+           tmp_path / "rounds.gfa", tmp_path / "host.gfa"]
     code = (
         "import json, os, sys\n"
+        "import torch\n"
         "from pangene_tpu_torch import cli\n"
+        "from pangene_tpu_torch.ops import sweep_native\n"
         "from pangene_tpu_torch.parallel import device_loop, stacked\n"
-        "for engine, loop, path in zip(('device', 'sharded', 'sharded'), "
-        "'110', %r):\n"
+        "for engine, loop, path in zip(('device', 'sharded', 'sharded', "
+        "'host'), '1101', %r):\n"
         "    os.environ['PANGENE_DEVICE_LOOP'] = loop\n"
         "    sys.stdout = open(path, 'w')\n"
+        "    sweep_native.reset_counts()\n"
         "    cli.main(['--device', 'cpu', '--engine', engine, '-v', '0']"
         " + %r)\n"
         "    sys.stdout.close()\n"
@@ -183,6 +187,10 @@ def test_run_loads_neither_jax_nor_pangene_tpu(corpus, tmp_path):
         "sys.stderr.write('MODULES=' + json.dumps(bad) + '\\n')\n"
         "sys.stderr.write('ROUNDS=' + json.dumps("
         "stacked.LAST.get('rounds')) + '\\n')\n"
+        "sys.stderr.write('NATIVE=' + json.dumps("
+        "sweep_native.n_calls) + '\\n')\n"
+        "sys.stderr.write('CUDA_INIT=' + json.dumps("
+        "torch.cuda.is_initialized()) + '\\n')\n"
         % ([str(p) for p in gfa], corpus))
     r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
                        capture_output=True, text=True, timeout=600,
@@ -196,6 +204,9 @@ def test_run_loads_neither_jax_nor_pangene_tpu(corpus, tmp_path):
     assert reported("MODULES") == []
     assert reported("ENGAGED") is True
     assert reported("ROUNDS") == 17
+    native = reported("NATIVE")
+    assert native["round_genome"] > 0 and native["shadow"] > 0
+    assert reported("CUDA_INIT") is False
     want = run_jax(corpus, "host")
     for path in gfa:
         assert path.read_text() == want
@@ -209,7 +220,10 @@ def test_no_module_imports_jax_or_pangene_tpu():
     assert {"pangene_tpu_torch/parallel/device_loop.py",
             "pangene_tpu_torch/parallel/stacked.py",
             "pangene_tpu_torch/ops/softfloat.py",
-            "pangene_tpu_torch/ops/device.py"} <= rel
+            "pangene_tpu_torch/ops/device.py",
+            "pangene_tpu_torch/ops/sweep_native.py",
+            "pangene_tpu_torch/ops/sweep_vec.py",
+            "pangene_tpu_torch/ops/sweep.py"} <= rel
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
