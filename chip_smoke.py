@@ -34,14 +34,17 @@ Phases (each one passes or raises, so any failure exits nonzero):
      step), and --engine host (everything on the host in the native
      runtime: no launch at all). Each GFA's md5 must be the reference
      binary's. Launch counts and the native runtime's call counts are
-     zeroed before and read after each run: no plain call; the loop engaged
-     and launched the batched kernel once per sweep round; the per-round
-     path launched it once per round (17), uploaded its constant columns
-     once, and the loop did not run; every path called the native entries
-     it must take (NATIVE_ENTRIES), so a run that quietly fell back to
-     NumPy fails. Each path prints its diagnostics (device_loop.LAST,
-     stacked.LAST, the native call counts, the host rounds' split
-     rounds_branch_host_s / rounds_gen_arc_s, peak device memory). After each
+     zeroed before and read after each run: no plain call; the per-genome
+     kernel launched in both modes under --engine device and never under
+     sharded, whose single-genome sweeps run in C as in the JAX package;
+     the loop engaged and launched the batched kernel once per sweep round;
+     the per-round path launched it once per round (17), uploaded its
+     constant columns once, and the loop did not run; every path called the
+     native entries it must take (NATIVE_ENTRIES), so a run that quietly
+     fell back to NumPy fails. Each path prints its diagnostics
+     (device_loop.LAST, stacked.LAST, the native call counts, the host
+     rounds' split rounds_branch_host_s / rounds_gen_arc_s, peak device
+     memory). After each
      corpus, the protein-keyed reductions on the card
      (stacked.post_reductions_sharded) against the host loops of
      ops/pseudo.py. Then the small corpus once more with the loop forced to
@@ -50,6 +53,19 @@ Phases (each one passes or raises, so any failure exits nonzero):
   3b. one --profile run (--engine sharded, big corpus): the chrome trace
      exists; from its device events, the device's busy seconds, the build
      wall, the idle share and the five device operations with most time.
+  3c. the builds as a user runs them, each in a process of its own that
+     imports no torch before the build (BUILD_SCRIPT): the default engine
+     and --engine host on each corpus, and the last corpus with --profile
+     (the idle share of a user's traced build). Each GFA's md5; the wall
+     measured outside the process, its parse_s beside the in-process
+     parse_s of the same path, and the parse pool's start method ("fork"
+     unless CUDA was initialised before parsing). Before them, the start
+     of a card engine's process, timed from inside (CUDA_START_PROBE).
+  3d. the toolkit on the card's host: `call` and `gfa2matrix` of
+     python -m pangene_tpu_torch.tools.cli on the GFA of the last corpus
+     built by the default engine, each output's md5 against TOOL_MD5 (the
+     JAX package's toolkit on the same GFA), each wall; and `call` on
+     tests/golden/C4.gfa against tests/golden/bubble/C4.call.txt.
   4. the kernel against the plain version on the largest genome of the big
      corpus (the main path's shapes), unfiltered and in the run's final
      filter state. Kernel time is the device time per launch of 200
@@ -101,17 +117,54 @@ EXON_BYTES = 8              # exon_os + exon_oe, int32 each
 TIMED_LAUNCHES = 200
 # The native runtime's entries (ops/sweep_native.py) each path must call:
 # every card path marks branches, selects vertices and renders L lines in
-# C; the loop's phase 1 and a fallback walk in C; the host engine also
-# sweeps in C.
+# C; the loop's phase 1 and a fallback walk in C; sharded and the host
+# engine sweep single genomes in C; --engine device never does.
 NATIVE_SHARED = ("gen_vtx_greedy", "format_arcs")
 NATIVE_ROUNDS = ("mark_branch", "rep_pos_rows", "propagate_weak_hash")
+NATIVE_SWEEPS = ("shadow", "flt_ov_isoform")
 NATIVE_ENTRIES = {
     "device": NATIVE_SHARED + NATIVE_ROUNDS,
-    "sharded": NATIVE_SHARED + ("round_genome", "merge_arcs_kway"),
-    "rounds": NATIVE_SHARED + NATIVE_ROUNDS,
-    "fallback": NATIVE_SHARED + NATIVE_ROUNDS + ("round_genome",),
-    "host": NATIVE_SHARED + NATIVE_ROUNDS + (
-        "shadow", "flt_ov_isoform", "round_genome", "merge_arcs_kway"),
+    "sharded": NATIVE_SHARED + NATIVE_SWEEPS + ("round_genome",
+                                                "merge_arcs_kway"),
+    "rounds": NATIVE_SHARED + NATIVE_ROUNDS + NATIVE_SWEEPS,
+    "fallback": NATIVE_SHARED + NATIVE_ROUNDS + NATIVE_SWEEPS + (
+        "round_genome",),
+    "host": NATIVE_SHARED + NATIVE_ROUNDS + NATIVE_SWEEPS + (
+        "round_genome", "merge_arcs_kway"),
+}
+# A build as a user runs it, in a process of its own whose __main__
+# imports no torch before the build: the CLI's arguments, the GFA on
+# stdout, util.stage_stats as one JSON line on stderr.
+BUILD_SCRIPT = (
+    "import json, sys\n"
+    "from pangene_tpu_torch import cli, util\n"
+    "rc = cli.main(sys.argv[1:])\n"
+    "sys.stderr.write('STAGES=' + json.dumps(util.stage_stats) + '\\n')\n"
+    "sys.exit(rc)\n")
+# The start of a card engine's process, timed from inside it.
+CUDA_START_PROBE = (
+    "import json, time\n"
+    "t0 = time.monotonic()\n"
+    "import torch\n"
+    "t1 = time.monotonic()\n"
+    "ok = torch.cuda.is_available()\n"
+    "t2 = time.monotonic()\n"
+    "init = torch.cuda.is_initialized()\n"
+    "torch.zeros(1, device='cuda')\n"
+    "torch.cuda.synchronize()\n"
+    "t3 = time.monotonic()\n"
+    "print(json.dumps({'import_torch_s': round(t1 - t0, 3), "
+    "'is_available_s': round(t2 - t1, 3), "
+    "'initialised_after_is_available': init, "
+    "'first_context_s': round(t3 - t2, 3)}))\n")
+# md5 of the toolkit's output on each corpus's GFA (the GFA of md5
+# CORPORA[name][3]), from the JAX package's toolkit (pangene_tpu.tools.cli)
+# on that GFA as the JAX package's --engine host builds it
+TOOL_MD5 = {
+    "small": {"call": "5854e95ab7f26d9c1074e550c5fbbac9",
+              "gfa2matrix": "63787fad792ff06408028d7feda68b01"},
+    "big": {"call": "5854e95ab7f26d9c1074e550c5fbbac9",
+            "gfa2matrix": "8badaede02cb0b00efe9d1db81ca22bc"},
 }
 
 
@@ -565,10 +618,13 @@ def main():
         "(%.1f s)" % (n_cases, time.monotonic() - t0))
 
     # 3. the main paths, counts zeroed just before and read just after
-    sweep_s = {"s": 0.0}
+    # wall and count of the single-genome sweep calls through ops/dispatch
+    # (the kernel under --engine device, C under sharded)
+    sweep_s = {"s": 0.0, "calls": 0}
 
     def timed(fn):
         def wrapper(*a, **kw):
+            sweep_s["calls"] += 1
             t = time.monotonic()
             try:
                 return fn(*a, **kw)
@@ -601,7 +657,7 @@ def main():
         env = env or {}
         old = {k: os.environ.get(k) for k in env}
         os.environ.update(env)
-        sweep_s["s"] = 0.0
+        sweep_s.update(s=0.0, calls=0)
         sk.reset_counts()
         sn.reset_counts()
         dl.LAST.clear()
@@ -623,12 +679,13 @@ def main():
         plain = dict(sk.n_plain_calls)
         batched = dict(sk.n_batched)
         native = {k: v for k, v in sn.n_calls.items() if v}
-        calls = max(sum(counts.values()), 1)
+        calls = max(sweep_s["calls"], 1)
         rec = {
             "hits": sum(g.n_hit for g in graph.d.genomes),
             "md5": hashlib.md5(gfa.encode()).hexdigest(),
             "wall_s": round(wall, 3), "stages": dict(util.stage_stats),
             "per_genome_sweep_s": round(sweep_s["s"], 3),
+            "per_genome_sweep_calls": sweep_s["calls"],
             "sweep_ms_per_call": round(1e3 * sweep_s["s"] / calls, 4),
             "launches": {sk.MODE_NAMES[m]: counts[m] for m in counts},
             "batched_launches": batched["kernel"],
@@ -668,9 +725,20 @@ def main():
                                          key, counts, batched,
                                          rec["peak_device_bytes"], mem0))
             return rec, graph
-        if any(v == 0 for v in counts.values()):
-            raise AssertionError("%s: the per-genome kernel was not launched "
-                                 "in both modes: %s" % (key, counts))
+        if path == "device":
+            # the port of the JAX package's "jax" engine: every
+            # single-genome sweep on the kernel, none in C
+            if any(v == 0 for v in counts.values()):
+                raise AssertionError("%s: the per-genome kernel was not "
+                                     "launched in both modes: %s"
+                                     % (key, counts))
+            if any(native.get(e) for e in NATIVE_SWEEPS):
+                raise AssertionError("%s: --engine device swept in C: %s"
+                                     % (key, native))
+        elif sum(counts.values()):
+            # sharded sweeps single genomes in C, as the JAX package does
+            raise AssertionError("%s: the per-genome kernel was launched "
+                                 "under sharded: %s" % (key, counts))
         batched_launches += batched["kernel"]
         for m in launches:
             launches[m] += counts[m]
@@ -784,6 +852,110 @@ def main():
     os.remove(trace)
     dispatch.shadow, dispatch.flt_ov_isoform = untimed
     dl.schedule_device = schedule_device
+
+    # 3c. the builds as a user runs them, each in a process of its own
+    out_dir = os.path.join(ROOT, "build", "chip_smoke")
+
+    def build_process(key, name, args, in_process):
+        """One build by BUILD_SCRIPT in a new process; checks the md5 and
+        returns the GFA's path and the build's util.stage_stats."""
+        gfa = os.path.join(out_dir, key + ".gfa")
+        t0 = time.monotonic()
+        with open(gfa, "wb") as fp:
+            r = subprocess.run(
+                [sys.executable, "-c", BUILD_SCRIPT, "-v", "1"] + list(args)
+                + corpora[name], cwd=ROOT, stdout=fp, stderr=subprocess.PIPE,
+                text=True, timeout=900)
+        wall = time.monotonic() - t0
+        if r.returncode:
+            raise AssertionError("%s: the build exited %d: %s"
+                                 % (key, r.returncode, r.stderr[-2000:]))
+        stages = json.loads([x for x in r.stderr.splitlines()
+                             if x.startswith("STAGES=")][-1][len("STAGES="):])
+        with open(gfa, "rb") as fp:
+            md5 = hashlib.md5(fp.read()).hexdigest()
+        rec = {"md5": md5, "wall_s": round(wall, 3), "stages": stages,
+               "in_process_parse_s": in_process, "args": list(args)}
+        log("process %s: %s" % (key, json.dumps(rec)))
+        if md5 != CORPORA[name][3]:
+            raise AssertionError("%s: GFA md5 %s != %s"
+                                 % (key, md5, CORPORA[name][3]))
+        return gfa, stages
+
+    # what a card engine's process pays before its build starts: the
+    # torch import, torch.cuda.is_available() (which must leave torch's
+    # CUDA state uninitialised, or the parse pool would spawn) and the
+    # first context
+    r = subprocess.run([sys.executable, "-c", CUDA_START_PROBE], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       check=True)
+    probe = json.loads(r.stdout.strip().splitlines()[-1])
+    log("process start on the card: %s" % json.dumps(probe))
+    if probe["initialised_after_is_available"]:
+        raise AssertionError("torch.cuda.is_available() initialised CUDA")
+
+    built = {}
+    for name in names:
+        for kind, engine in (("default", "sharded"), ("host", "host")):
+            key = "%s_%s_process" % (name, kind)
+            args = () if kind == "default" else ("--engine", "host")
+            built[key], stages = build_process(
+                key, name, args,
+                runs["%s_%s" % (name, engine)]["stages"]["parse_s"])
+            if stages.get("parse_pool") != "fork":
+                raise AssertionError("%s: the parse pool started by %r, not "
+                                     "fork" % (key, stages.get("parse_pool")))
+    # a traced build as a user runs it: its start method says whether
+    # starting the profiler's CUDA activity initialised CUDA before parsing,
+    # and its idle share has no spawned parse in it
+    key = prof_name + "_profile_process"
+    prof_dir = os.path.join(out_dir, "profile_process")
+    _, stages = build_process(key, prof_name, ("--profile", prof_dir),
+                              runs[prof_name + "_profile"]["stages"]
+                              ["parse_s"])
+    trace = os.path.join(prof_dir, pipeline.TRACE_NAME)
+    summary = util.trace_device_summary(trace)
+    os.remove(trace)
+    if summary["n_events"] == 0:
+        raise AssertionError("%s: the trace holds no device event" % key)
+    build_s = sum(stages[k] for k in ("parse_s", "post_s", "graph_s",
+                                      "emit_s"))
+    log("%s: the parse pool started by %s; device busy %.6f s of a %.3f s "
+        "build: idle share %.4f%% (in-process traced build: %.4f%%)" % (
+            key, stages.get("parse_pool"), summary["busy_s"], build_s,
+            100 * (1.0 - summary["busy_s"] / build_s),
+            100 * runs[prof_name + "_profile"]["idle_share"]))
+
+    # 3d. the toolkit on the card's host, on the GFA the default engine
+    # built for the last corpus, and on the C4 golden
+    tool_name = names[-1]
+    tool_gfa = built[tool_name + "_default_process"]
+
+    def tool(args):
+        t0 = time.monotonic()
+        r = subprocess.run(
+            [sys.executable, "-m", "pangene_tpu_torch.tools.cli"]
+            + list(args), cwd=ROOT, capture_output=True, timeout=600)
+        if r.returncode:
+            raise AssertionError("toolkit %s exited %d: %s" % (
+                args, r.returncode, r.stderr.decode()[-2000:]))
+        return r.stdout, time.monotonic() - t0
+
+    for cmd in ("call", "gfa2matrix"):
+        out, wall = tool((cmd, tool_gfa))
+        md5 = hashlib.md5(out).hexdigest()
+        log("toolkit %s on the %s GFA: %d bytes, md5 %s, wall %.3f s"
+            % (cmd, tool_name, len(out), md5, wall))
+        if md5 != TOOL_MD5[tool_name][cmd]:
+            raise AssertionError("toolkit %s: md5 %s != %s" % (
+                cmd, md5, TOOL_MD5[tool_name][cmd]))
+    golden = os.path.join(ROOT, "tests", "golden")
+    out, wall = tool(("call", os.path.join(golden, "C4.gfa")))
+    with open(os.path.join(golden, "bubble", "C4.call.txt"), "rb") as fp:
+        if out != fp.read():
+            raise AssertionError("toolkit call on C4.gfa != the golden")
+    log("toolkit call on tests/golden/C4.gfa == tests/golden/bubble/"
+        "C4.call.txt (%.3f s)" % wall)
     if "big" not in names:
         log("partial run (--corpora %s): phase 4 and the result lines are "
             "left out" % ",".join(names))
@@ -831,9 +1003,10 @@ def main():
         kernels.append(rec)
     g.hits.flt[:] = states["final"]
 
-    # the native runtime's shadow sweep on the same genome, final state,
-    # against the wall of one CUDA dispatch of it: a finding for later (the
-    # card engines keep the kernel); both must leave the same columns
+    # the native runtime's shadow sweep on the same genome against the wall
+    # of one CUDA dispatch of it (why sharded sweeps single genomes in C):
+    # unfiltered with the dominator scores, as parsing's read postpass calls
+    # it, and in the final filter state; both must leave the same columns
     def best_ms(fn, reps=5):
         walls = []
         for _ in range(reps):
@@ -842,19 +1015,27 @@ def main():
             walls.append(time.monotonic() - t0)
         return 1e3 * min(walls)
     d_big = graph.d
-    native_ms = best_ms(lambda: sn.shadow(opt_cuda, d_big, g, False))
-    native_cols = (g.hits.shadow.copy(), g.hits.pid_dom.copy())
-    dispatch_ms = best_ms(lambda: de.shadow(opt_cuda, d_big, g, False))
-    if not (np.array_equal(native_cols[0], g.hits.shadow)
-            and np.array_equal(native_cols[1], g.hits.pid_dom)):
-        raise AssertionError("native shadow sweep != CUDA dispatch on the "
-                             "largest genome")
-    runs["native_vs_dispatch_ms"] = {"hits": g.n_hit, "native": native_ms,
-                                     "cuda_dispatch": dispatch_ms}
-    log("shadow sweep of the largest genome (%d hits, final state), best of "
-        "5: native runtime %.4f ms, CUDA dispatch (pack, upload, kernel, "
-        "download, finalize) %.4f ms; same columns" % (g.n_hit, native_ms,
-                                                     dispatch_ms))
+    runs["native_vs_dispatch_ms"] = {}
+    for state, cal_dom_sc in (("unfiltered", True), ("final", False)):
+        g.hits.flt[:] = states[state]
+        native_ms = best_ms(lambda: sn.shadow(opt_cuda, d_big, g, cal_dom_sc))
+        native_cols = (g.hits.shadow.copy(), g.hits.pid_dom.copy(),
+                       g.hits.score_dom.copy())
+        dispatch_ms = best_ms(lambda: de.shadow(opt_cuda, d_big, g,
+                                                cal_dom_sc))
+        if not all(np.array_equal(a, b) for a, b in zip(
+                native_cols, (g.hits.shadow, g.hits.pid_dom,
+                              g.hits.score_dom))):
+            raise AssertionError("native shadow sweep != CUDA dispatch on "
+                                 "the largest genome (%s)" % state)
+        runs["native_vs_dispatch_ms"][state] = {
+            "hits": g.n_hit, "native": native_ms,
+            "cuda_dispatch": dispatch_ms}
+        log("shadow sweep of the largest genome (%d hits, %s state), best "
+            "of 5: native runtime %.4f ms, CUDA dispatch (pack, upload, "
+            "kernel, download, finalize) %.4f ms; same columns" % (
+                g.n_hit, state, native_ms, dispatch_ms))
+    g.hits.flt[:] = states["final"]
 
     # 4b. the batched entry on the big run's device-resident columns: entry
     # state (no kept row filtered) and the loop's final state
@@ -978,22 +1159,26 @@ def main():
     log("reductions, big corpus: card %.4f s, host loops %.4f s"
         % (red["card"], red["host_loops"]))
 
-    # 4c. colsort_i64 against torch.sort at the loop's merge key count
+    # 4c. colsort_i64 against torch.sort at the loop's merge key count; its
+    # bound: each int64 key read once and written once
     n_keys = G * 2 * H
     c = tdev.colsort_cols(n_keys)
     keys = torch.randperm(n_keys, device=dev, dtype=torch.int64) * 977 - 5
+    sort_bound_ms = n_keys * 16 / HBM_BYTES_PER_S * 1e3
     if c:
         if not torch.equal(tdev.colsort_i64(keys, c),
                            torch.sort(keys).values):
             raise AssertionError("colsort_i64 != torch.sort")
         log("sort of %d int64 keys: torch.sort %.4f ms, colsort_i64 (%d "
-            "columns) %.4f ms" % (
+            "columns) %.4f ms, bound %.6f ms (bytes: %d)" % (
                 n_keys, stream_ms(lambda: torch.sort(keys), 20), c,
-                stream_ms(lambda: tdev.colsort_i64(keys, c), 20)))
+                stream_ms(lambda: tdev.colsort_i64(keys, c), 20),
+                sort_bound_ms, n_keys * 16))
     else:
-        log("sort of %d int64 keys: torch.sort %.4f ms; columnsort has no "
-            "valid column count here" % (
-                n_keys, stream_ms(lambda: torch.sort(keys), 20)))
+        log("sort of %d int64 keys: torch.sort %.4f ms, bound %.6f ms; "
+            "columnsort has no valid column count here" % (
+                n_keys, stream_ms(lambda: torch.sort(keys), 20),
+                sort_bound_ms))
     kept.clear()
 
     log(smi)

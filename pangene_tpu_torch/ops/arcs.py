@@ -166,8 +166,8 @@ def gen_arc_loop(opt: PgOpt, g: Graph) -> None:
     walk/dedupe/merge run natively (pgsweep.c) when a compiler is
     available, else in NumPy — identical outputs (exact integer sums, one
     double +.499 rounding). The sweep goes through ops/dispatch, except
-    under "host" with a cm-order view, where it runs inside the same C call
-    as the walk; under "sharded" it stays on the device's kernel."""
+    with a cm-order view, where it runs inside the same C call as the
+    walk."""
     d = g.d
     use_ori = opt.use_ori_for_branch
     g.seg_n_genome = np.zeros(g.n_seg, np.int32)
@@ -201,10 +201,10 @@ def gen_arc_loop(opt: PgOpt, g: Graph) -> None:
                 if run_shadow:
                     gen._shadow_memo = (fb, wb)
                 view = cm_cycle_view(gen)
-                if run_shadow and (view is None or opt.engine != "host"):
-                    sweep.shadow(opt, d, gen, cal_dom_sc=False)
-                    run_shadow = False
                 if view is None:
+                    if run_shadow:
+                        sweep.shadow(opt, d, gen, cal_dom_sc=False)
+                        run_shadow = False
                     hit_sort(gen, by_cm=True)
                 x, n, dist, s1, s2, seg_cnt = sweep_native.round_genome(
                     opt, d, gen, g.g2s, use_ori, g.n_seg, view, run_shadow)

@@ -5,19 +5,21 @@ opt.engine == "host":     native C sweeps (ops/sweep_native.py) when a
                           path (ops/sweep_vec.py). Identical results.
 opt.engine == "host-vec": force the vectorized NumPy path.
 opt.engine == "host-ref": scalar oracle (ops/sweep.py, tests).
-opt.engine == "sharded" / "device": the device engine (ops/device_engine.py)
-                          on the torch device in opt.device: the CUDA
-                          kernel on "cuda", its plain version on "cpu".
+opt.engine == "sharded":  as "host": the single-genome sweeps run in C. The
+                          card holds the batched [G, H] sweeps of the
+                          device loop and of the per-round step
+                          (parallel/device_loop.py, parallel/stacked.py).
+opt.engine == "device":   the device engine (ops/device_engine.py) on the
+                          torch device in opt.device: the CUDA kernel on
+                          "cuda", its plain version on "cpu" (the JAX
+                          package's "jax" engine).
 
-This differs from the JAX package on purpose: its "sharded" engine sends the
-single-genome sweeps to the native C library, while here every sweep of a
-card engine stays on the card's kernel. The host engines touch no torch
-device.
+This is the JAX package's routing (pangene_tpu/ops/dispatch.py).
 """
 from __future__ import annotations
 
 from ..core.data import DataSet, Genome
-from ..options import HOST_ENGINES, PgOpt
+from ..options import PgOpt
 from . import sweep as host_sweep
 
 
@@ -27,12 +29,14 @@ def _host_native_ok() -> bool:
 
 
 def shadow(opt: PgOpt, d: DataSet, g: Genome, cal_dom_sc: bool) -> int:
-    if opt.engine not in HOST_ENGINES:
+    if opt.engine == "device":
         from . import device_engine
         return device_engine.shadow(opt, d, g, cal_dom_sc)
     if opt.engine == "host-ref":  # scalar oracle (tests)
         return host_sweep.shadow(opt, d, g, cal_dom_sc)
-    if opt.engine == "host" and _host_native_ok():
+    # "sharded" runs single-genome (latency-bound) sweeps on the host; the
+    # card holds the batched [G, H] sweep, one launch per round
+    if opt.engine in ("host", "sharded") and _host_native_ok():
         from . import sweep_native
         return sweep_native.shadow(opt, d, g, cal_dom_sc)
     from . import sweep_vec
@@ -40,12 +44,12 @@ def shadow(opt: PgOpt, d: DataSet, g: Genome, cal_dom_sc: bool) -> int:
 
 
 def flt_ov_isoform(opt: PgOpt, d: DataSet, g: Genome) -> int:
-    if opt.engine not in HOST_ENGINES:
+    if opt.engine == "device":
         from . import device_engine
         return device_engine.flt_ov_isoform(opt, d, g)
     if opt.engine == "host-ref":
         return host_sweep.flt_ov_isoform(opt, d, g)
-    if opt.engine == "host" and _host_native_ok():
+    if opt.engine in ("host", "sharded") and _host_native_ok():
         from . import sweep_native
         return sweep_native.flt_ov_isoform(opt, d, g)
     from . import sweep_vec

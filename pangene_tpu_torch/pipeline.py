@@ -3,9 +3,10 @@
 post-process, build graph, emit GFA/BED.
 
 The per-genome shadow and isoform sweeps go through ops/dispatch. Under
-the card engines ("sharded", "device") they run on the torch device named
-by opt.device (a hand-written CUDA kernel on "cuda", its plain PyTorch
-version on "cpu"), and under "sharded" the pruning rounds run there too
+engine "device" they run on the torch device named by opt.device (a
+hand-written CUDA kernel on "cuda", its plain PyTorch version on "cpu");
+under "sharded" they run in C, as in the JAX package, and the pruning
+rounds run on that device as batched launches of the same kernel
 (graph/build.py). The host engines ("host", "host-vec", "host-ref") run
 everything on the host and touch no torch device. The rest is host code:
 the native runtime (ops/sweep_native.py) where the JAX package uses it,
@@ -82,6 +83,20 @@ def read_all(opt: PgOpt, files: List[str]) -> DataSet:
     return d
 
 
+def parse_start_method() -> str:
+    """The parse pool's start method: "fork", as in the JAX package, so a
+    worker starts without importing anything again, unless this process
+    has initialised CUDA, which a forked child must not inherit: then
+    "spawn". The workers never touch CUDA (the native parser over ctypes,
+    and NumPy)."""
+    if sys.platform == "win32":
+        return "spawn"
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        return "spawn"
+    return "fork"
+
+
 def _read_all_parallel(opt: PgOpt, files: List[str], d: DataSet,
                        n_workers: int) -> DataSet:
     """Process-pool per-genome parsing: workers run the standalone native
@@ -89,18 +104,21 @@ def _read_all_parallel(opt: PgOpt, files: List[str], d: DataSet,
     file-local ids; the main process merges results IN FILE ORDER so global
     interning order — and thus every downstream id, rank and tie order —
     is byte-identical to the sequential path. The per-genome filter
-    postpass stays in the main process: it launches device sweeps between
-    files, so the workers are spawned fresh and never touch CUDA."""
+    postpass stays in the main process; under engine "device" it launches
+    CUDA sweeps between files. The pool starts all its workers when it is
+    built, before that first launch (parse_start_method)."""
     import multiprocessing as mp
     import os
+    from . import util
     args = [(fn, opt.min_prot_ratio, opt.min_prot_iden,
              opt.score_adj_coef, opt.gene_delim) for fn in files
             if fn == "-" or os.path.exists(fn)]
     skipped = [fn for fn in files if fn != "-" and not os.path.exists(fn)]
     for fn in skipped:
         sys.stderr.write("[W::pg_read_paf] failed to open %r; skipped\n" % fn)
-    ctx = mp.get_context("spawn")
-    with ctx.Pool(n_workers) as pool:
+    method = parse_start_method()
+    util.stage_stats["parse_pool"] = method
+    with mp.get_context(method).Pool(n_workers) as pool:
         for (fn, *_), nat in zip(args, pool.imap(paf_mod.parse_worker, args,
                                                  chunksize=1)):
             if nat is None:   # native parser unavailable in the worker

@@ -9,7 +9,9 @@ Port configurations: the host engines ("host" = the native runtime,
 PANGENE_DEVICE_LOOP=0 (the per-round path) and with a forced loop fallback,
 and "device"; the card engines on --device cpu (the kernels' plain
 versions). Runs that should take the native runtime (ops/sweep_native.py)
-must show calls in its counter. A host-engine run touches no CUDA state.
+must show calls in its counter: as in the JAX package, "sharded" sweeps
+single genomes in C, and only "device" sweeps them through the kernel's
+plain version. A host-engine run touches no CUDA state.
 """
 import gzip
 import io
@@ -23,6 +25,7 @@ from pangene_tpu import util as jutil
 from pangene_tpu.options import PG_F_ORI_FOR_BRANCH
 from pangene_tpu.options import PgOpt as JaxOpt
 from pangene_tpu_torch import pipeline, util
+from pangene_tpu_torch.ops import sweep_kernel as sk
 from pangene_tpu_torch.ops import sweep_native as sn
 from pangene_tpu_torch.options import PgOpt
 from pangene_tpu_torch.parallel import device_loop as dl
@@ -35,16 +38,20 @@ torch.set_num_threads(1)
 
 OPTION_SETS = {"default": {}, "f0.3": {"min_ov_ratio": 0.3},
                "ori-sc": {"flag": PgOpt().flag | PG_F_ORI_FOR_BRANCH}}
+# the single-genome sweeps in C
+NATIVE_SWEEPS = ("shadow", "flt_ov_isoform")
 # name: (engine, environment, the native entries the run must call)
 CONFIGS = {
-    "host": ("host", {}, ("shadow", "round_genome", "mark_branch")),
+    "host": ("host", {}, NATIVE_SWEEPS + ("round_genome", "mark_branch")),
     "host-vec": ("host-vec", {}, ("mark_branch",)),
     "host-ref": ("host-ref", {}, ("mark_branch",)),
-    "sharded": ("sharded", {}, ("round_genome", "gen_vtx_greedy")),
+    "sharded": ("sharded", {}, NATIVE_SWEEPS + ("round_genome",
+                                                "gen_vtx_greedy")),
     "rounds": ("sharded", {"PANGENE_DEVICE_LOOP": "0"},
-               ("mark_branch", "propagate_weak_hash")),
+               NATIVE_SWEEPS + ("mark_branch", "propagate_weak_hash")),
     "fallback": ("sharded", {"PANGENE_DEVLOOP_MAX_A": "1"},
-                 ("round_genome", "mark_branch", "propagate_weak_hash")),
+                 NATIVE_SWEEPS + ("round_genome", "mark_branch",
+                                  "propagate_weak_hash")),
     "device": ("device", {}, ("mark_branch", "format_arcs")),
 }
 
@@ -86,12 +93,21 @@ def run_port(files, config, monkeypatch, **kw):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     sn.reset_counts()
+    sk.reset_counts()
     dl.LAST.clear()
     st.LAST.clear()
     out = io.StringIO()
     pipeline.run(PgOpt(engine=engine, device="cpu", **kw), files, out=out)
     for e in entries:
         assert sn.n_calls[e] > 0, (config, e, sn.n_calls)
+    # the per-genome sweep: through the kernel's plain version under
+    # "device" only, never in C there
+    plain = list(sk.n_plain_calls.values())
+    if engine == "device":
+        assert min(plain) > 0, sk.n_plain_calls
+        assert [sn.n_calls[e] for e in NATIVE_SWEEPS] == [0, 0], sn.n_calls
+    else:
+        assert plain == [0, 0], (config, sk.n_plain_calls)
     if config == "sharded":
         assert dl.LAST["engaged"] is True and st.LAST == {}
     if config == "rounds":

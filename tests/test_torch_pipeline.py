@@ -10,6 +10,7 @@ not load jax or pangene_tpu, and without a CUDA device it must not start
 unless the caller names the CPU.
 """
 import ast
+import contextlib
 import gzip
 import io
 import json
@@ -142,6 +143,46 @@ def test_sequential_parse_vs_host(corpus, capsys, monkeypatch):
     assert run_port(corpus, capsys) == want
 
 
+@pytest.mark.parametrize("torch_loaded,cuda_initialised,want", [
+    (False, False, "fork"), (False, True, "fork"), (True, False, "fork"),
+    (True, True, "spawn")])
+def test_parse_start_method(monkeypatch, torch_loaded, cuda_initialised,
+                            want):
+    """The parse pool forks, as the JAX package's does, unless this process
+    has initialised CUDA."""
+    from pangene_tpu_torch.pipeline import parse_start_method
+    monkeypatch.setattr(torch.cuda, "is_initialized",
+                        lambda: cuda_initialised)
+    if not torch_loaded:
+        monkeypatch.delitem(sys.modules, "torch")
+    assert parse_start_method() == want
+
+
+@pytest.mark.parametrize("engine", ["sharded", "host"])
+def test_parse_pool_from_a_torch_main(corpus, tmp_path, engine):
+    """Four parse workers under a main that imports torch first, as
+    chip_smoke.py does: the pool forks (CUDA is not initialised) and the
+    GFA is the JAX package's."""
+    gfa = tmp_path / "out.gfa"
+    code = (
+        "import json, sys\n"
+        "import torch\n"
+        "from pangene_tpu_torch import cli, util\n"
+        "sys.stdout = open(%r, 'w')\n"
+        "cli.main(['--device', 'cpu', '--engine', %r, '-v', '0'] + %r)\n"
+        "sys.stdout.close()\n"
+        "sys.stderr.write('POOL=' + json.dumps("
+        "util.stage_stats.get('parse_pool')) + '\\n')\n"
+        % (str(gfa), engine, corpus))
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                       capture_output=True, text=True, timeout=600,
+                       env=dict(os.environ, OMP_NUM_THREADS="1",
+                                PANGENE_PARSE_WORKERS="4"))
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "POOL=\"fork\"" in r.stderr.splitlines()
+    assert gfa.read_text() == run_jax(corpus, "host")
+
+
 def test_synth16_golden(tmp_path, capsys):
     files = synth_paf_files(str(tmp_path), n_genome=16, n_gene=500,
                             n_iso=3, seed=42)
@@ -162,7 +203,8 @@ def test_run_loads_neither_jax_nor_pangene_tpu(corpus, tmp_path):
     """In a fresh process: another test in this worker may have loaded jax.
     All four paths run: the per-genome engine, the device-resident loop,
     with PANGENE_DEVICE_LOOP=0 the per-round device step, and the host
-    engine on the native runtime (which must leave CUDA uninitialised)."""
+    engine on the native runtime (which must leave CUDA uninitialised);
+    then the toolkit's `call` and `gfa2matrix` on the GFA built."""
     gfa = [tmp_path / "device.gfa", tmp_path / "sharded.gfa",
            tmp_path / "rounds.gfa", tmp_path / "host.gfa"]
     code = (
@@ -191,7 +233,15 @@ def test_run_loads_neither_jax_nor_pangene_tpu(corpus, tmp_path):
         "sweep_native.n_calls) + '\\n')\n"
         "sys.stderr.write('CUDA_INIT=' + json.dumps("
         "torch.cuda.is_initialized()) + '\\n')\n"
-        % ([str(p) for p in gfa], corpus))
+        "from pangene_tpu_torch.tools import cli as tools\n"
+        "for cmd in ('call', 'gfa2matrix'):\n"
+        "    sys.stdout = open(%r + '.' + cmd, 'w')\n"
+        "    tools.main([cmd, %r])\n"
+        "    sys.stdout.close()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pangene_tpu')]\n"
+        "sys.stderr.write('TOOL_MODULES=' + json.dumps(bad) + '\\n')\n"
+        % ([str(p) for p in gfa], corpus, str(gfa[3]), str(gfa[3])))
     r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
                        capture_output=True, text=True, timeout=600,
                        env=dict(os.environ, OMP_NUM_THREADS="1"))
@@ -210,6 +260,13 @@ def test_run_loads_neither_jax_nor_pangene_tpu(corpus, tmp_path):
     want = run_jax(corpus, "host")
     for path in gfa:
         assert path.read_text() == want
+    assert reported("TOOL_MODULES") == []
+    from pangene_tpu.tools.cli import main as jax_tools
+    for cmd in ("call", "gfa2matrix"):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            jax_tools([cmd, str(gfa[3])])
+        assert (tmp_path / ("host.gfa." + cmd)).read_text() == out.getvalue()
 
 
 def test_no_module_imports_jax_or_pangene_tpu():
@@ -223,7 +280,10 @@ def test_no_module_imports_jax_or_pangene_tpu():
             "pangene_tpu_torch/ops/device.py",
             "pangene_tpu_torch/ops/sweep_native.py",
             "pangene_tpu_torch/ops/sweep_vec.py",
-            "pangene_tpu_torch/ops/sweep.py"} <= rel
+            "pangene_tpu_torch/ops/sweep.py",
+            "pangene_tpu_torch/tools/cli.py",
+            "pangene_tpu_torch/tools/gfa.py",
+            "pangene_tpu_torch/tools/netgraph.py"} <= rel
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
