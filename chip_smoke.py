@@ -66,6 +66,19 @@ Phases (each one passes or raises, so any failure exits nonzero):
      built by the default engine, each output's md5 against TOOL_MD5 (the
      JAX package's toolkit on the same GFA), each wall; and `call` on
      tests/golden/C4.gfa against tests/golden/bubble/C4.call.txt.
+  3e. the genome mesh (parallel/mesh.py), each run through the CLI in
+     processes of its own, one per rank (testing.run_ranks, as torchrun
+     starts them; every rank reports the md5 of the GFA it built, its
+     device_loop.LAST, the mesh's collectives and staged bytes, its batched
+     launches and peak device memory): gloo ranks sharing cuda:0
+     (PANGENE_MESH_SHARE_DEVICE=1) on the small corpus at world 2 and 3 and
+     with PANGENE_DEVICE_LOOP=0 at world 2, and on the big corpus at world 4
+     (the bucket exchange: shard_merge and engaged asserted) and 2; the CLI's
+     own --devices 2 on the small corpus; and the big corpus at world 1
+     under torchrun (python -m torch.distributed.run --nproc-per-node 1):
+     NCCL on the card. Every rank's md5 must be the reference's, no rank may
+     fall back, launch the per-genome kernel or call a plain version, and a
+     rank that does not end within its own timeout fails the run.
   4. the kernel against the plain version on the largest genome of the big
      corpus (the main path's shapes), unfiltered and in the run's final
      filter state. Kernel time is the device time per launch of 200
@@ -78,7 +91,9 @@ Phases (each one passes or raises, so any failure exits nonzero):
      the reductions' time against the host loops'. Beside them, the native
      runtime's shadow sweep on the same largest genome against the wall of
      one CUDA dispatch of it (device_engine.shadow: pack, upload, kernel,
-     download, finalize), best of five each.
+     download, finalize), best of five each. The batched entry also at the
+     shard shapes of the mesh runs (the first G_loc = 16 and 32 genomes of
+     the big loop's columns) against its plain version, and timed.
 
 ``--corpora small`` leaves the big corpus and what needs it out, for a short
 first run of new code; such a run prints no result line.
@@ -93,6 +108,7 @@ import hashlib
 import io
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -157,6 +173,19 @@ CUDA_START_PROBE = (
     "'is_available_s': round(t2 - t1, 3), "
     "'initialised_after_is_available': init, "
     "'first_context_s': round(t3 - t2, 3)}))\n")
+# The mesh runs of phase 3e: (key, corpus, world, how the ranks start, env).
+# "share": testing.run_ranks, gloo ranks on cuda:0; "cli": the CLI's own
+# --devices (its rank 0 writes the GFA); "torchrun": NCCL.
+MESH_RUNS = (
+    ("small_w2", "small", 2, "share", {}),
+    ("small_w3", "small", 3, "share", {}),
+    ("small_w2_rounds", "small", 2, "share", {"PANGENE_DEVICE_LOOP": "0"}),
+    ("small_w2_cli", "small", 2, "cli", {}),
+    ("big_w4", "big", 4, "share", {}),
+    ("big_w2", "big", 2, "share", {}),
+    ("big_w1_nccl", "big", 1, "torchrun", {}),
+)
+MESH_TIMEOUT = 300          # seconds, each rank of a mesh run
 # md5 of the toolkit's output on each corpus's GFA (the GFA of md5
 # CORPORA[name][3]), from the JAX package's toolkit (pangene_tpu.tools.cli)
 # on that GFA as the JAX package's --engine host builds it
@@ -447,6 +476,122 @@ def compare_reductions(stk, opt, d):
             raise AssertionError("post_reductions_sharded != host loops: %s"
                                  % name)
     return t1 - t0, t2 - t1
+
+
+def run_session(cmd, timeout, env):
+    """`cmd` from the checkout's root in a session of its own, killed whole
+    (every process it started) when it has not ended within `timeout`
+    seconds. Returns (exit code, stdout, stderr)."""
+    p = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True,
+                         start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+        raise AssertionError("%s: no end within %d s" % (" ".join(cmd[:8]),
+                                                         timeout))
+    return p.returncode, out, err
+
+
+def mesh_phase(corpora):
+    """Phase 3e: the MESH_RUNS whose corpus was built, each checked; returns
+    ({key: record}, batched launches summed over every rank of every run)."""
+    from pangene_tpu_torch.parallel.mesh import SHARE_DEVICE_ENV
+    from pangene_tpu_torch.testing import REPORT_TAG, run_ranks
+    runs = {}
+    launches = 0
+    for key, name, world, how, extra in MESH_RUNS:
+        if name not in corpora:
+            continue
+        want = CORPORA[name][3]
+        env = dict(os.environ, **extra)
+        if how != "torchrun":
+            env[SHARE_DEVICE_ENV] = "1"
+        args = ["--engine", "sharded", "--devices", str(world),
+                "-v", "3" if how == "cli" else "1"] + corpora[name]
+        t0 = time.monotonic()
+        if how == "share":
+            reports = run_ranks(world, args, env=env, timeout=MESH_TIMEOUT,
+                                cwd=ROOT)
+        elif how == "torchrun":
+            rc, _, err = run_session(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc-per-node", str(world), "-m",
+                 "pangene_tpu_torch.testing"] + args, MESH_TIMEOUT, env)
+            reports = sorted((json.loads(x[len(REPORT_TAG):])
+                              for x in err.splitlines()
+                              if x.startswith(REPORT_TAG)),
+                             key=lambda r: r["rank"])
+            if rc or len(reports) != world:
+                raise AssertionError("%s: torchrun exited %d with %d reports:"
+                                     " %s" % (key, rc, len(reports),
+                                              err[-3000:]))
+        else:
+            rc, out, err = run_session(
+                [sys.executable, "-m", "pangene_tpu_torch.cli"] + args,
+                MESH_TIMEOUT, env)
+            md5 = hashlib.md5(out.encode()).hexdigest()
+            mesh_lines = [x for x in err.splitlines() if "[M::pg_mesh" in x]
+            if rc or md5 != want or len(mesh_lines) != world:
+                raise AssertionError("%s: the CLI's ranks exited %d, md5 %s, "
+                                     "mesh lines %s: %s" % (
+                                         key, rc, md5, mesh_lines,
+                                         err[-3000:]))
+            reports = []
+        wall = time.monotonic() - t0
+        backend = "nccl" if how == "torchrun" else "gloo"
+        rec = {"corpus": name, "world": world, "how": how, "env": extra,
+               "wall_s": round(wall, 3), "ranks": []}
+        for rep in reports:
+            last, rounds = rep["LAST"], rep["rounds_LAST"]
+            bad = []
+            if rep["md5"] != want:
+                bad.append("md5 %s" % rep["md5"])
+            if rep["plain_calls"] or rep["kernel_launches"]:
+                bad.append("plain calls %d, per-genome launches %d" % (
+                    rep["plain_calls"], rep["kernel_launches"]))
+            if (rep["mesh"].get("backend"), rep["mesh"].get("device")) != (
+                    backend, "cuda:0"):
+                bad.append("mesh %s" % rep["mesh"])
+            if extra.get("PANGENE_DEVICE_LOOP") == "0":
+                if last or not (rounds.get("rounds") == 17
+                                == rep["batched_launches"]):
+                    bad.append("per-round path: %s, loop %s" % (rounds, last))
+            else:
+                if not (last.get("engaged") is True
+                        and last["shape"]["n_devices"] == world
+                        and rep["batched_launches"]
+                        == last["rounds_sweep_run"] > 0):
+                    bad.append("loop %s" % last)
+                if world > 2 and not last.get("shard_merge"):
+                    bad.append("no bucket exchange at world %d" % world)
+            if bad:
+                raise AssertionError("%s rank %d: %s" % (key, rep["rank"],
+                                                         "; ".join(bad)))
+            launches += rep["batched_launches"]
+            keep = ("pack_s", "upload_s", "run_s", "pull_s", "host_syncs",
+                    "collective_calls", "collective_s", "staged_bytes",
+                    "upload_bytes")
+            rec["ranks"].append(dict(
+                rank=rep["rank"], md5=rep["md5"], wall_s=rep["wall_s"],
+                batched_launches=rep["batched_launches"],
+                peak_device_bytes=rep["peak_device_bytes"],
+                mesh_calls=rep["mesh"]["calls"],
+                mesh_collective_s=round(rep["mesh"]["collective_s"], 3),
+                mesh_first_collective_s=round(
+                    rep["mesh"]["first_collective_s"], 3),
+                mesh_staged_bytes=rep["mesh"]["staged_bytes"],
+                stages={k: rep["stages"].get(k) for k in (
+                    "parse_s", "post_s", "graph_s", "emit_s")},
+                LAST={k: last[k] for k in keep if k in last},
+                rounds_LAST={k: rounds[k] for k in (
+                    "rounds", "step_s", "pull_s", "apply_s", "pull_bytes")
+                    if k in rounds}))
+        runs[key] = rec
+        log("mesh %s: %s" % (key, json.dumps(rec)))
+    return runs, launches
 
 
 def make_corpus(name):
@@ -956,6 +1101,13 @@ def main():
             raise AssertionError("toolkit call on C4.gfa != the golden")
     log("toolkit call on tests/golden/C4.gfa == tests/golden/bubble/"
         "C4.call.txt (%.3f s)" % wall)
+
+    # 3e. the genome mesh, every rank a process of its own
+    t0 = time.monotonic()
+    mesh_runs, mesh_launches = mesh_phase(corpora)
+    runs["mesh"] = mesh_runs
+    log("mesh phase: %d runs, %d batched launches over every rank, %.1f s"
+        % (len(mesh_runs), mesh_launches, time.monotonic() - t0))
     if "big" not in names:
         log("partial run (--corpora %s): phase 4 and the result lines are "
             "left out" % ",".join(names))
@@ -1044,7 +1196,9 @@ def main():
     rec = {"name": "shadow_sweep_batched", "route": "cuda",
            "source": "pangene_tpu_torch/csrc/shadow_sweep.cu",
            "replaces": "pangene_tpu/ops/device.py:232",
-           "launches": batched_launches, "max_abs_err": 0,
+           "launches": batched_launches + mesh_launches,
+           "launches_in_process": batched_launches,
+           "launches_mesh_ranks": mesh_launches, "max_abs_err": 0,
            "library_ms": None}
     G, H = bc.cid.shape
     for state, flt, weak in (
@@ -1089,6 +1243,37 @@ def main():
                        bound_by=b_by)
         else:
             rec["ms_final"] = ms
+
+    # the same entry at the shard shapes of the mesh runs: rank 0's genomes
+    # of the big loop's columns at world 4 and 2, entry state
+    for g_loc in (G // 4, G // 2):
+        scols, sbc = dl.unpack_blocks(*[b[:, :g_loc].contiguous()
+                                        for b in kept["blocks"]])
+        sflt = scols["flt"].contiguous()
+        sweak = scols["weak_br"].contiguous()
+        got = sk.shadow_sweep_batched(sbc, sflt, sweak, cfg.W,
+                                      cfg.check_strand, cfg.min_ov_ratio)
+        want = sk.shadow_sweep_batched_plain(sbc, sflt, sweak, cfg.W,
+                                             cfg.check_strand,
+                                             cfg.min_ov_ratio)
+        for a, b in zip(got, want):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError("batched kernel != plain at the shard "
+                                     "shape G_loc %d" % g_loc)
+
+        def kernel():
+            sk.shadow_sweep_batched(sbc, sflt, sweak, cfg.W, cfg.check_strand,
+                                    cfg.min_ov_ratio)
+        ms = graph_ms(kernel, TIMED_LAUNCHES)
+        b_ms, b_by, ops, nbytes = bound_batched_ms(sbc, sflt, cfg.W,
+                                                   cfg.check_strand)
+        log("BATCHED shard G_loc %d: H %d rows %d W %d ms %.5f bound_ms %.6f "
+            "(%s; %d ops, %d bytes) marked %d; kernel == plain" % (
+                g_loc, H, int(sbc.n_rows.sum()), cfg.W, ms, b_ms, b_by, ops,
+                nbytes, int(got[0].sum())))
+        rec.update({"ms_shard%d" % g_loc: ms,
+                    "bound_ms_shard%d" % g_loc: b_ms})
+        del got, want
 
     # the same entry at the per-round path's shape: the full [G, H] stack of
     # the big run, filtered rows in place, with every row unfiltered (the

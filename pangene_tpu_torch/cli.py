@@ -1,6 +1,6 @@
 """CLI with flag-for-flag compatibility with the reference binary
-(main.c:5-113) plus the port's own flags (--device, --engine, --profile,
---save-hits, --load-hits).
+(main.c:5-113) plus the port's own flags (--device, --engine, --devices,
+--profile, --save-hits, --load-hits).
 
     python -m pangene_tpu_torch.cli [options] *.paf.gz > graph.gfa
 """
@@ -71,8 +71,11 @@ Options:
                   per genome on the device; or all on the host: native C
                   (host), NumPy (host-vec), scalar oracle (host-ref)
                   [sharded]
+    --devices INT shard genomes over INT devices, one rank each (sharded
+                  engine; 0 = every rank of a torchrun launch, else one) [0]
     --profile DIR write a torch.profiler chrome trace of the whole run into
-                  DIR (the parse workers are other processes: not traced)
+                  DIR (the parse workers are other processes: not traced;
+                  with several ranks, rank 0 only)
     --save-hits F checkpoint post-ingest hit tensors to F (.npz)
     --load-hits F resume from a checkpoint instead of parsing PAFs
 """
@@ -120,6 +123,8 @@ def parse_args(argv: List[str]) -> Optional[tuple]:
             if opt.engine not in ENGINES:
                 raise SystemExit("ERROR: unknown --engine %r; expected %s"
                                  % (opt.engine, "|".join(ENGINES)))
+        elif a == "--devices":
+            opt.n_devices = int(need_arg())
         elif a == "--profile":
             extras["profile"] = need_arg()
         elif a == "--save-hits":
@@ -211,9 +216,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     if parsed is None:
         return 0
     opt, files, extras = parsed
+    if opt.engine == "sharded" and opt.n_devices > 1 and not util.launched():
+        from .parallel.mesh import launch_cli
+        return launch_cli(argv, opt.n_devices)
     from . import pipeline
     from .util import cputime, peakrss, realtime
     pipeline.run(opt, files, **extras)
+    if opt.engine == "sharded" and util.launched():
+        from .parallel.mesh import shutdown
+        shutdown()
     if util.verbose >= 3:
         sys.stderr.write("[M::main] Version: %s\n" % PG_VERSION)
         sys.stderr.write("[M::main] CMD: pangene-tpu-torch %s\n"

@@ -13,9 +13,10 @@ from ..util import log_msg, timestamp
 
 
 def n_genome_shards(opt: PgOpt) -> int:
-    """The number of devices that shard the genomes: one, until the
-    multi-device mesh is ported."""
-    return 1
+    """The number of devices that shard the genomes: the world of the
+    genome mesh (parallel/mesh.py)."""
+    from ..parallel.mesh import make_mesh
+    return make_mesh(opt.n_devices, opt.device).world
 
 
 def post_process(opt: PgOpt, d: DataSet) -> None:
@@ -24,7 +25,7 @@ def post_process(opt: PgOpt, d: DataSet) -> None:
     if opt.engine == "sharded" and d.n_genome and n_genome_shards(opt) > 1:
         # the protein-keyed reductions run on the devices only when more
         # than one shards the genomes (sums across devices); on one device
-        # the host loops below are taken
+        # the host loops below win, as in the JAX package
         from ..parallel.stacked import post_reductions_sharded
         mx, z, acc = post_reductions_sharded(opt, d)
     pseudo_ops.cap_score_dom(d, mx)

@@ -71,6 +71,10 @@ class PgOpt:
     # package's --engine jax); HOST_ENGINES: everything on the host, as the
     # JAX package's engines of the same names, and opt.device is not read
     engine: str = "sharded"
+    # devices that shard the genome axis under "sharded": 0 = every rank of
+    # the launch (one device without one); N > 1 without a launch: the CLI
+    # starts N ranks (parallel/mesh.py). The other engines do not read it
+    n_devices: int = 0
 
     @property
     def check_strand(self) -> bool:

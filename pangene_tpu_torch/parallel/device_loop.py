@@ -1,7 +1,7 @@
 """Device-resident graph-round schedule: phases 2+3 of pg_graph_gen
-(reference graph.c:280-322) on one torch device.
+(reference graph.c:280-322) on the genome mesh.
 
-The counterpart of pangene_tpu/parallel/device_loop.py at one device. After
+The counterpart of pangene_tpu/parallel/device_loop.py. After
 the host runs phase 1 (which also settles the physical sort order into its
 steady cycle), the remaining (1 + n_branch_flt) rounds run on the device
 from one upload to one pull: branch marking (branch.c:48-106), weak
@@ -17,6 +17,19 @@ genomes is one launch a round of the hand-written CUDA kernel
 forms of ops/device.py). Three values a round may be read on the host
 (counted in LAST["host_syncs"]): whether the round changed anything, which
 gives the convergence skip, and the branching arcs' count and largest group.
+
+On a mesh of several ranks (parallel/mesh.py) each rank holds G_loc of the
+Gp padded genomes; the arc table, the segment state and the round's
+counters are replicated, and collectives join the ranks where the JAX
+schedule has lax.psum / all_gather / all_to_all: the segment counters, the
+merge's keys (gathered, or at more than two ranks exchanged by v-range: the
+bucket exchange), the branch block's locality bits and the round's change
+bit. A value read on the host decides a branch of the Python loop, so it
+must be the same on every rank, or one rank would enter a collective that
+another skips: the change bit is summed over the ranks before it is read;
+the branching count and group size come from the replicated arc table; the
+overflow flag is reduced once more at the end, so a fallback by one rank is
+a fallback by all.
 
 Bit-exactness:
   * Every in-loop IEEE-double expression of the reference runs through
@@ -60,6 +73,7 @@ from ..ops import device as dev
 from ..ops import softfloat as sf
 from ..ops import sweep_kernel as sk
 from ..util import log_msg
+from . import mesh as M
 
 I64 = torch.int64
 I32 = torch.int32
@@ -85,7 +99,7 @@ BLOCKS = ("branch", "prop", "occ", "sweep", "walk_merge")
 
 class Cfg(NamedTuple):
     """Static configuration of the device schedule (the JAX package's Cfg
-    less the fields that only a mesh of several devices reads)."""
+    less its columnsort switches, which are not ported)."""
     H: int          # hit capacity per genome
     K: int          # exon capacity per hit
     W: int          # sweep band width
@@ -98,6 +112,7 @@ class Cfg(NamedTuple):
                     # sort key (0 = disabled: 2B+GB+JB would exceed 62)
     n_gene: int
     R: int          # device rounds: 1 (phase 2) + n_branch_flt
+    G_loc: int      # genomes per rank
     coord32: bool   # cs/ce/cm uploaded as int32
     check_strand: bool
     use_ori: bool
@@ -108,6 +123,11 @@ class Cfg(NamedTuple):
     branch_diff_cut: float
     local_dist: int
     local_count: int
+    # more than two ranks only: the per-round merge as a bucket exchange
+    # (keys partitioned by out-vertex range) in place of the replicated
+    # all_gather and full sort; 0 = off. The per-(source, destination)
+    # all_to_all chunk capacity; a count above it sets the overflow flag
+    a2a_cap: int
 
 
 def cfg_from(other) -> Cfg:
@@ -199,23 +219,28 @@ def _prev_row(x: torch.Tensor, first) -> torch.Tensor:
 def schedule(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
              arc0_vw, arc0_s1, seg_tot0, seg_ng0, occ_cut, deg_cut, loci_cut,
              do_branch, do_occ, do_sweep, do_walk, no_skip, *, cfg: Cfg,
-             device):
+             device=None, mesh: Optional[M.Mesh] = None):
     """The round schedule on numpy inputs, exactly those of the JAX
-    package's _schedule (the five packed blocks, blk_ps as the int64 view of
-    the raw uint64 scores; the segment and arc tables of phase 1; the
-    per-round cuts and block switches), returning its 20 outputs as numpy
-    arrays: flt, weak, shadow, pid_dom [G, H]; alive, seg_tot, seg_ng [S];
-    arc_vw, arc_s1, arc_ng, arc_tot, arc_ad, arc_s2 [A]; loci [S, 2]; logs
-    [R, 10]; the four #del capture planes; overflow."""
-    device = torch.device(device)
-    t = lambda a: torch.from_numpy(np.array(a)).to(device)   # a copy
+    package's _schedule (the five packed blocks [n_col, Gp, ...], blk_ps as
+    the int64 view of the raw uint64 scores; the segment and arc tables of
+    phase 1; the per-round cuts and block switches), returning its 20
+    outputs as numpy arrays: flt, weak, shadow, pid_dom [Gp, H]; alive,
+    seg_tot, seg_ng [S]; arc_vw, arc_s1, arc_ng, arc_tot, arc_ad, arc_s2
+    [A]; loci [S, 2]; logs [R, 10]; the four #del capture planes; overflow.
+    On `device`, or over the ranks of `mesh` (each takes its genomes of the
+    blocks; every rank returns the whole result)."""
+    mesh = mesh or M.local(torch.device(device))
+    t = lambda a: torch.from_numpy(np.array(a)).to(mesh.device)   # a copy
+    blocks = [M.put_sharded(np.array(b), mesh, 1) for b in (
+        blk_i32, blk_c, np.asarray(blk_ps).view(np.int64), blk_u8, blk_ex)]
     outs = schedule_device(
-        t(blk_i32), t(blk_c), t(np.asarray(blk_ps).view(np.int64)),
-        t(blk_u8), t(blk_ex), t(seg_gid), t(sid_of), t(arc0_vw), t(arc0_s1),
+        *blocks, t(seg_gid), t(sid_of), t(arc0_vw), t(arc0_s1),
         t(seg_tot0), t(seg_ng0), np.asarray(occ_cut), np.asarray(deg_cut),
         np.asarray(loci_cut), np.asarray(do_branch), np.asarray(do_occ),
-        np.asarray(do_sweep), np.asarray(do_walk), bool(no_skip), cfg=cfg)
-    return tuple(o.cpu().numpy() for o in outs)
+        np.asarray(do_sweep), np.asarray(do_walk), bool(no_skip), cfg=cfg,
+        mesh=mesh)
+    return tuple(M.pull_global(o, mesh) if i < 4 else o.cpu().numpy()
+                 for i, o in enumerate(outs))
 
 
 def unpack_blocks(blk_i32, blk_c, blk_ps, blk_u8, blk_ex):
@@ -237,21 +262,28 @@ def unpack_blocks(blk_i32, blk_c, blk_ps, blk_u8, blk_ex):
 def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
                     arc0_vw, arc0_s1, seg_tot0, seg_ng0, occ_cut, deg_cut,
                     loci_cut, do_branch, do_occ, do_sweep, do_walk, no_skip,
-                    *, cfg: Cfg, stats: Optional[dict] = None):
-    """schedule() on tensors that already lie on the device (the per-round
-    cuts and switches stay host arrays); returns device tensors. `stats`,
-    when given, receives host_syncs, block_ms and sweep_launches."""
+                    *, cfg: Cfg, stats: Optional[dict] = None,
+                    mesh: Optional[M.Mesh] = None):
+    """schedule() on tensors that already lie on the device, the five blocks
+    holding this rank's genomes of `mesh` (the per-round cuts and switches
+    stay host arrays); returns device tensors, the first four of them this
+    rank's genomes. `stats`, when given, receives host_syncs, block_ms and
+    sweep_launches."""
     device = blk_i32.device
+    mesh = mesh or M.local(device)
+    nd, rank = mesh.world, mesh.rank
     cols, batch = unpack_blocks(blk_i32, blk_c, blk_ps, blk_u8, blk_ex)
     valid = cols["valid"] != 0
     ev1 = cols["ev1"] != 0
     ordcm = cols.pop("ordcm").to(I64)
-    G, H = valid.shape
+    G, H = valid.shape            # this rank's genomes
     S, A, D, B, GB = cfg.S, cfg.A, cfg.D, cfg.B, cfg.GB
     ng = cfg.n_gene
+    NL = G * 2 * H                # this rank's merge keys
     iotaH = torch.arange(H, dtype=I32, device=device)
     iotaA = torch.arange(A, dtype=I64, device=device)
-    jglob = torch.arange(G, dtype=I64, device=device)
+    jglob = rank * G + torch.arange(G, dtype=I64, device=device)
+    ga = lambda x: M.all_gather(x.reshape(-1), mesh)
     wmask = (1 << B) - 1
     sid_of = sid_of.to(I32)
     seg_gid = seg_gid.to(I64)
@@ -302,9 +334,83 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
         sc = so_cm if cfg.use_ori else torch.where(use_ori_vec, so_cm, sd_cm)
         return kept, pair_ok, prevc, v, w_cm, dist, take(sc), sc
 
+    def exchange_merge(keys, ok2, s1_2, prevc, pair_ok, seg_tot, seg_ng):
+        """The in-loop merge at more than two ranks as a bucket exchange
+        (JAX device_loop.py:301-409). Keys are monotone in the out-vertex v
+        (their top bits), so cutting the key space into nd contiguous
+        v-ranges keeps every out-group (vw) and in-group (vw, g) whole, and
+        the ranks' sorted ranges concatenated are the global sort. Each rank
+        sorts its NL keys, sends each destination's run (at most C = a2a_cap
+        keys, with their s1) by all_to_all, sorts and reduces the range it
+        receives, and writes its arcs into the replicated [A] table at its
+        global offset (a sum over ranks of disjoint windows). Each pair
+        slot's arc row goes back to its origin by a second all_to_all
+        aligned with the send slots. A destination count above C sets the
+        overflow flag (n_out = A + 1)."""
+        C, JB = cfg.a2a_cap, cfg.JB
+        base = rank * NL
+        jo = base + torch.arange(NL, dtype=I64, device=device)
+        kps = torch.sort(torch.where(ok2.reshape(-1),
+                                     (keys.reshape(-1) << JB) | jo,
+                                     KSENT_I)).values
+        dest = ((kps >> (JB + GB + B)) * nd // (2 * S)).clamp(0, nd - 1)
+        cnt = _seg_sum((kps != KSENT_I).to(I32), dest, nd)
+        start = torch.cumsum(cnt, 0) - cnt
+        ovf_x = (cnt > C).any()
+        cc = torch.arange(C, dtype=I32, device=device)[None, :]
+        k_g = kps[(start[:, None] + cc).clamp(0, NL - 1)]
+        smask = cc < cnt[:, None]                         # [nd, C]
+        orig_row = ((k_g & ((1 << JB) - 1)) - base).clamp(0, NL - 1)
+        sent = torch.stack([torch.where(smask, k_g, KSENT_I),
+                            torch.where(smask, s1_2[orig_row], 0).to(I64)],
+                           dim=1)                         # [nd, 2, C]
+        got = M.all_to_all(sent, mesh)
+        RL = nd * C
+        rk, rpos = torch.sort(got[:, 0].reshape(-1), stable=True)
+        rs1 = got[:, 1].reshape(-1)[rpos].to(I32)
+        keys_r = rk >> JB
+        va = keys_r != (KSENT_I >> JB)
+        in_new = va & (keys_r != _prev_row(keys_r, KSENT_I))
+        in_id = (torch.cumsum(in_new, 0) - 1).clamp(0, RL - 1)
+        s1_in = _seg_max(torch.where(va, rs1, 0), in_id, RL)
+        vw_row = keys_r >> GB
+        out_new = va & (vw_row != _prev_row(vw_row, KSENT_I))
+        out_id = (torch.cumsum(out_new, 0) - 1).clamp(0, RL - 1)
+        ng_f = _seg_sum(in_new.to(I32), out_id, RL)
+        s1s_f = _seg_sum(torch.where(in_new, s1_in[in_id].to(I64), 0),
+                         out_id, RL)
+        vw_f = _seg_max(torch.where(va, vw_row, 0), out_id, RL)
+        n_out_l = out_new.sum()
+        per_rank = M.all_gather(torch.stack([n_out_l, ovf_x.to(I64)]),
+                                mesh).reshape(nd, 2)
+        nouts = per_rank[:, 0]
+        off = nouts[:rank].sum()
+        n_out = torch.where(per_rank[:, 1].sum() > 0, A + 1, nouts.sum())
+        # this rank's rows at [off, off + RL) of the table, the window held
+        # inside [0, A + RL) as the JAX dynamic_update_slice holds it
+        lv = torch.arange(RL, device=device) < n_out_l
+        at = off.clamp(0, A) + torch.arange(RL, device=device)
+        put = lambda x: torch.zeros(A + RL, dtype=I64, device=device) \
+            .index_copy_(0, at, torch.where(lv, x, 0).to(I64))[:A]
+        s1_loc = _plus499_i32(s1s_f, ng_f.to(I64))
+        vw_gl, s1_gl = M.psum(torch.stack([put(vw_f), put(s1_loc)]), mesh)
+        live = iotaA < n_out
+        arc_vw = torch.where(live, vw_gl, SENT_I)
+        arc_s1 = torch.where(live, s1_gl.to(I32), 0)
+        out_gl = (off + out_id).to(I32)
+        reply = torch.zeros(RL, dtype=I32, device=device).scatter_(
+            0, rpos, torch.where(va, out_gl, 0))
+        reply = M.all_to_all(reply, mesh)                 # [nd * C]
+        pair_loc = torch.zeros(NL + 1, dtype=I32, device=device).scatter_(
+            0, torch.where(smask, orig_row, NL).reshape(-1), reply)
+        mine = pair_loc[:NL].reshape(G, 2 * H)
+        tgt_prev = torch.gather(ordcm, 1, prevc)
+        return (arc_vw, arc_s1, n_out, seg_tot, seg_ng,
+                (mine[:, :H], mine[:, H:], tgt_prev, pair_ok))
+
     def walk_merge(flt_b, shadow_b, alive, full: bool):
         """Walk + two-level merge (graph.c:87-177) from one global sort of
-        (vw, genome) keys. full=False (in the loop) computes only what the
+        (vw, genome) keys, gathered from every rank. full=False (in the loop) computes only what the
         rounds consume (group structure + the exact s1 average) and
         records, per pair slot, the arc row its key landed in: the next
         round's weak propagation (branch.c:108-145) is then two gathers
@@ -315,40 +421,44 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
             flt_b, shadow_b, alive)
         cnts = torch.zeros((G, S), dtype=I32, device=device) \
             .scatter_add_(1, sidc_cm, kept.to(I32))
-        seg_tot = cnts.sum(0, dtype=I32)
-        seg_ng = (cnts > 0).sum(0, dtype=I32)
+        seg_tot, seg_ng = M.psum(torch.stack([
+            cnts.sum(0, dtype=I32), (cnts > 0).sum(0, dtype=I32)]), mesh)
 
         kf = (v << B) | w
         kr = ((w ^ 1) << B) | (v ^ 1)
         keys = torch.cat([kf, kr], dim=1)                 # [G, 2H]
         keys = (keys << GB) | jglob[:, None]
         ok2 = torch.cat([pair_ok, pair_ok], dim=1)
-        N = G * 2 * H
+        N = nd * NL                                       # all ranks' keys
         s1_2 = torch.cat([s1w, s2w], dim=1).reshape(-1)
         JB = cfg.JB
+        if not full and JB and cfg.a2a_cap:
+            return exchange_merge(keys, ok2, s1_2, prevc, pair_ok, seg_tot,
+                                  seg_ng)
         if full:
             keys, so = torch.sort(
-                torch.where(ok2, keys, KSENT_I).reshape(-1), stable=True)
-            d2 = torch.cat([dist, dist], dim=1).reshape(-1)[so]
-            s2_2 = torch.cat([s2w, s1w], dim=1).reshape(-1)[so]
-            s1_2 = s1_2[so]
+                ga(torch.where(ok2, keys, KSENT_I)), stable=True)
+            d2 = ga(torch.cat([dist, dist], dim=1))[so]
+            s2_2 = ga(torch.cat([s2w, s1w], dim=1))[so]
+            s1_2 = ga(s1_2)[so]
             va = keys != KSENT_I
         elif JB:
             # JB low bits of the lean sort key carry the global row index:
             # the merge sorts one int64 tensor of distinct keys and
             # recovers the permutation and s1 by mask and gather
-            jo = torch.arange(N, dtype=I64, device=device).reshape(G, 2 * H)
-            kps = torch.sort(torch.where(ok2, (keys << JB) | jo, KSENT_I)
-                             .reshape(-1)).values
+            jo = (rank * NL + torch.arange(NL, dtype=I64, device=device)) \
+                .reshape(G, 2 * H)
+            kps = torch.sort(ga(torch.where(ok2, (keys << JB) | jo,
+                                            KSENT_I))).values
             keys = kps >> JB                    # (vw<<GB)|g rows
             va = keys != (KSENT_I >> JB)
             so = torch.where(va, kps & ((1 << JB) - 1), N)
-            s1_2 = s1_2[so.clamp(0, N - 1)]
+            s1_2 = ga(s1_2)[so.clamp(0, N - 1)]
         else:
             # co-sorted form: equal keys keep their row order
             keys, so = torch.sort(
-                torch.where(ok2, keys, KSENT_I).reshape(-1), stable=True)
-            s1_2 = s1_2[so]
+                ga(torch.where(ok2, keys, KSENT_I)), stable=True)
+            s1_2 = ga(s1_2)[so]
             va = keys != KSENT_I
         in_new = va & (keys != _prev_row(keys, KSENT_I))
         in_id = (torch.cumsum(in_new, 0) - 1).clamp(0, N - 1)
@@ -373,7 +483,7 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
             # and land in a spare slot; their pair slots have pair_ok False
             pair_arc = torch.zeros(N + 1, dtype=I32, device=device) \
                 .scatter_(0, so, out_id.to(I32))
-            mine = pair_arc[:N].reshape(G, 2 * H)
+            mine = pair_arc[rank * NL:(rank + 1) * NL].reshape(G, 2 * H)
             tgt_prev = torch.gather(ordcm, 1, prevc)
             return lean + ((mine[:, :H], mine[:, H:], tgt_prev, pair_ok),)
         cnt_in = _seg_sum(va.to(I64), in_id, N)
@@ -455,7 +565,9 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
             r_cid = torch.gather(cols["cid"], 1, lastc)
             r_rank = torch.gather(krank, 1, lastc)
             r_cm = torch.gather(cols["cm"], 1, lastc)
-            # pairwise any-genome locality within each group. Members of a
+            # pairwise any-genome locality within each group (nb and max_n
+            # come from the replicated arc table: equal on every rank).
+            # Members of a
             # group are contiguous in the v-sorted arc table and stay so
             # among the branching arcs alone, so the partner at in-group
             # offset d is index a + d of the compacted planes. Locality is
@@ -490,6 +602,9 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
                     he_b[l] |= lp                         # an earlier local
                 aml[bidx] = aml_b
                 he[bidx] = he_b
+            if mesh.group is not None:
+                # a genome of any rank: OR over the ranks
+                aml, he = M.psum(torch.stack([aml, he]).to(I32), mesh) > 0
             rm, rk = sf.one_minus_div(arc_s1.clamp(min=0).to(I64),
                                       mx.clamp(min=1).to(I64))
             cand = branching & (mx > 0) \
@@ -566,10 +681,14 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
 
             # ===== convergence detection =====
             # weak is untouched after prop and flt after occ, so counting
-            # here matches the reference's post-propagation log exactly
-            n_prop = ((weak != 0) & valid).sum()
-            ch = bool(host((flt != flt_in).any() | (weak != weak_in).any()
-                           | (alive != alive_in).any()))
+            # here matches the reference's post-propagation log exactly.
+            # The hit state is this rank's, alive is replicated: the change
+            # bit is summed over the ranks before the host reads it
+            n_prop, changed = M.psum(torch.stack([
+                ((weak != 0) & valid).sum(),
+                ((flt != flt_in).any() | (weak != weak_in).any()).to(I64)]),
+                mesh)
+            ch = bool(host((changed > 0) | (alive != alive_in).any()))
             # #del replay capture
             dcap_mask[r] = newdel.to(torch.uint8)
             dcap_deg[r] = deg_v.reshape(S, 2)
@@ -621,6 +740,9 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     with timer("walk_merge"):
         (arc_vw, arc_s1, n_out, seg_tot, seg_ng, arc_ng, arc_tot, arc_ad,
          arc_s2) = walk_merge(flt != 0, shadow != 0, alive, full=True)
+    # replicated by construction; reduced once more so that every rank
+    # falls back, or none
+    overflow = M.pmax(overflow.to(I32), mesh) > 0
     if stats is not None:
         stats.update(host_syncs=syncs[0], block_ms=timer.result(),
                      sweep_launches=sk.n_batched["kernel"] - launches0)
@@ -668,10 +790,13 @@ def _host_array(shape, dtype, pin: bool) -> np.ndarray:
 
 def pack_host(opt: PgOpt, q, pin: bool = False):
     """Size and pack the schedule's inputs from the graph after phase 1, in
-    NumPy (into pinned memory when `pin`). Returns a Pack, or the reason (a
-    string) why the device loop cannot take this graph."""
+    NumPy (into pinned memory when `pin`), for the genome mesh of the run:
+    the genome axis padded to a multiple of its world. Returns a Pack, or
+    the reason (a string) why the device loop cannot take this graph."""
     d = q.d
     G = d.n_genome
+    nd = M.make_mesh(opt.n_devices, opt.device).world
+    Gp = ((G + nd - 1) // nd) * nd
     views = _steady_cm_views(d)
     if views is None:
         log_msg("pg_device_loop", "cm/cs sort order not in steady cycle; "
@@ -680,9 +805,9 @@ def pack_host(opt: PgOpt, q, pin: bool = False):
     S = q.n_seg
     ngene = d.n_gene
     B = max(int(2 * S - 1).bit_length(), 2)
-    GB = max((G - 1).bit_length(), 1)
+    GB = max((Gp - 1).bit_length(), 1)
     if 2 * B + GB > 62:
-        return "2B+GB=%d > 62 (S=%d, Gp=%d)" % (2 * B + GB, S, G)
+        return "2B+GB=%d > 62 (S=%d, Gp=%d)" % (2 * B + GB, S, Gp)
     # Kept-row compaction: an entry-filtered hit never takes part in any
     # round block (the reference skips flt rows on both sides of every
     # sweep/walk/rep evaluation), so only flt==0 rows are packed. Dropped
@@ -718,7 +843,7 @@ def pack_host(opt: PgOpt, q, pin: bool = False):
     # falls back to the host rounds. PANGENE_DEVLOOP_MAX_A caps device
     # memory on huge graphs (and lets tests exercise the fallback).
     A = ((q.n_arc + q.n_arc // 4 + 4095) // 4096 + 1) * 4096
-    A = min(max(A, 4096), G * 2 * H)
+    A = min(max(A, 4096), Gp * 2 * H)
     max_a = int(os.environ.get("PANGENE_DEVLOOP_MAX_A", "0"))
     if max_a > 0:
         A = min(A, max_a)
@@ -743,21 +868,21 @@ def pack_host(opt: PgOpt, q, pin: bool = False):
     cdt = np.int32 if coord32 else np.int64
     I = {n: i for i, n in enumerate(PACK_I32)}
     U8 = {n: i for i, n in enumerate(PACK_U8)}
-    blk_i32 = _host_array((len(PACK_I32), G, H), np.int32, pin)
+    blk_i32 = _host_array((len(PACK_I32), Gp, H), np.int32, pin)
     blk_i32.fill(0)
     blk_i32[I["cid"]].fill(dev.PAD_CID)
     blk_i32[I["dom_gid"]].fill(-1)
     blk_i32[I["pid_dom"]].fill(-1)
     blk_i32[I["cds_len"]].fill(1)
     blk_i32[I["ordcm"]] = np.arange(H, dtype=np.int32)
-    blk_c = _host_array((len(PACK_C), G, H), cdt, pin)
+    blk_c = _host_array((len(PACK_C), Gp, H), cdt, pin)
     blk_c.fill(0)
     blk_c[1].fill(-1)                       # ce pad
-    blk_ps = _host_array((1, G, H), np.uint64, pin)
+    blk_ps = _host_array((1, Gp, H), np.uint64, pin)
     blk_ps.fill(0)
-    blk_u8 = _host_array((len(PACK_U8), G, H), np.uint8, pin)
+    blk_u8 = _host_array((len(PACK_U8), Gp, H), np.uint8, pin)
     blk_u8.fill(0)
-    blk_ex = _host_array((2, G, E), np.int32, pin)
+    blk_ex = _host_array((2, Gp, E), np.int32, pin)
     blk_ex.fill(0)
     prot_gid = np.asarray(d.prot_gid, np.int32)
     pref = np.asarray(d.gene_preferred, np.uint8)
@@ -875,11 +1000,24 @@ def pack_host(opt: PgOpt, q, pin: bool = False):
     if coord32:
         ld = min(ld, 2**31 - 1)
     lc = min(int(opt.local_count), 2**31 - 1)
-    JB = max((G * 2 * H - 1).bit_length(), 1)
+    JB = max((Gp * 2 * H - 1).bit_length(), 1)
     if 2 * B + GB + JB > 62 or os.environ.get("PANGENE_DEVLOOP_NO_JB"):
         JB = 0          # lean merge falls back to co-sorted payloads
+    # bucket-exchange capacity (more than two ranks; 0 = off): a per-
+    # (source, destination) chunk holds up to slack * NL / nd keys, padded
+    # to 128. A rank that sends more to one destination sets the overflow
+    # flag and the host rounds take over. At two ranks the exchange sorts
+    # ~slack * N / 2 received + N / 2 local keys a rank against the
+    # replicated form's N (net-negative on the JAX CPU mesh), so it starts
+    # at three
+    a2a_cap = 0
+    if nd > 2 and JB and os.environ.get(
+            "PANGENE_DEVLOOP_SHARD_MERGE", "1") != "0":
+        NL = (Gp // nd) * 2 * H
+        slack = float(os.environ.get("PANGENE_DEVLOOP_A2A_SLACK", "1.5"))
+        a2a_cap = min(((int(NL * slack) // nd + 127) // 128) * 128, NL)
     cfg = Cfg(H=H, K=K, W=W, S=S, A=A, D=D, B=B, GB=GB, JB=JB,
-              n_gene=ngene, R=R, coord32=coord32,
+              n_gene=ngene, R=R, G_loc=Gp // nd, coord32=coord32,
               check_strand=bool(opt.check_strand),
               use_ori=bool(opt.use_ori_for_branch),
               frag_mode=bool(opt.frag_mode),
@@ -887,7 +1025,7 @@ def pack_host(opt: PgOpt, q, pin: bool = False):
               branch_diff=float(opt.branch_diff),
               branch_diff_dist=float(opt.branch_diff_dist),
               branch_diff_cut=float(opt.branch_diff_cut),
-              local_dist=ld, local_count=lc)
+              local_dist=ld, local_count=lc, a2a_cap=a2a_cap)
     inputs = (blk_i32, blk_c, blk_ps.view(np.int64), blk_u8, blk_ex,
               np.asarray(q.seg_gid), np.asarray(q.g2s), arc0_vw, arc0_s1,
               q.seg_tot_cnt.astype(np.int32), q.seg_n_genome.astype(np.int32),
@@ -900,42 +1038,51 @@ N_DEVICE_INPUTS = 11   # leading inputs of schedule() that live on the device
 
 
 def graph_gen_device(opt: PgOpt, q) -> bool:
-    """Run phases 2+3 of the schedule on opt.device. Returns True when the
-    results were applied (bit-identical to the host rounds); False when a
-    precondition or capacity check failed and the caller must run the host
-    rounds instead. Assumes phase 1 (gen_vtx + first gen_arc) already ran.
-    Raises when opt.device is "cuda" and there is no CUDA device."""
+    """Run phases 2+3 of the schedule on opt.device, over the ranks of the
+    genome mesh (parallel/mesh.py; one device without a launch). Returns
+    True when the results were applied (bit-identical to the host rounds);
+    False, on every rank alike, when a precondition or capacity check failed
+    and the caller must run the host rounds instead. Assumes phase 1
+    (gen_vtx + first gen_arc) already ran. Raises when opt.device is "cuda"
+    and there is no CUDA device."""
     from .. import util
     from ..graph.graphdata import ArcTable
-    from ..ops.device_engine import resolve_device
 
-    device = resolve_device(opt.device)
+    mesh = M.make_mesh(opt.n_devices, opt.device)
+    device = mesh.device
     d = q.d
     G = d.n_genome
     if G == 0 or q.n_seg == 0 or q.n_arc == 0:
         return _fallback("empty graph")
     cuda = device.type == "cuda"
     t_pack0 = time.monotonic()
+    # every rank packs the same host data and uploads its genomes
     pk = pack_host(opt, q, pin=cuda)
     if isinstance(pk, str):
         return _fallback(pk)
     cfg = pk.cfg
+    coll0 = (sum(M.LAST["calls"].values()), M.LAST["collective_s"],
+             M.LAST["staged_bytes"])
     t_up0 = time.monotonic()
     # one copy per block, from pinned memory on cuda
-    on_dev = [torch.from_numpy(a).to(device, non_blocking=True)
-              for a in pk.inputs[:N_DEVICE_INPUTS]]
+    on_dev = [M.put_sharded(a, mesh, 1) for a in pk.inputs[:5]] \
+        + [torch.from_numpy(a).to(device, non_blocking=True)
+           for a in pk.inputs[5:N_DEVICE_INPUTS]]
     if cuda:
         torch.cuda.synchronize(device)
     t_run0 = time.monotonic()
     stats: dict = {}
     outs = schedule_device(*on_dev, *pk.inputs[N_DEVICE_INPUTS:-1],
-                           bool(pk.inputs[-1]), cfg=cfg, stats=stats)
+                           bool(pk.inputs[-1]), cfg=cfg, stats=stats,
+                           mesh=mesh)
     overflow_flag = bool(outs[-1].item())
     t_pull0 = time.monotonic()
+    # the first four outputs are this rank's genomes, the rest replicated;
     # the #del capture planes (outs[15:19], O(R*S)) are pulled only when
     # the verbosity will replay them
     pull_dcap = util.verbose >= 3
-    host = [o.cpu().numpy() if pull_dcap or not 15 <= i < 19
+    host = [M.pull_global(o, mesh) if i < 4
+            else o.cpu().numpy() if pull_dcap or not 15 <= i < 19
             else np.zeros((0,) + tuple(o.shape[1:]), np.int32)
             for i, o in enumerate(outs)]
     t_pull1 = time.monotonic()
@@ -947,8 +1094,11 @@ def graph_gen_device(opt: PgOpt, q) -> bool:
     LAST.update(
         engaged=not overflow_flag,
         device=str(device),
-        shape=dict(G=G, Gp=G, H=H, E=pk.E, K=cfg.K, W=cfg.W, S=S, A=cfg.A,
-                   D=cfg.D, R=R, n_devices=1),
+        shape=dict(G=G, Gp=cfg.G_loc * mesh.world, H=H, E=pk.E, K=cfg.K,
+                   W=cfg.W, S=S, A=cfg.A, D=cfg.D, R=R,
+                   n_devices=mesh.world),
+        rank=mesh.rank,
+        shard_merge=bool(cfg.a2a_cap),
         coord32=cfg.coord32,
         kept_frac=round(sum(len(k) for k in pk.kept_idx)
                         / max(1, sum(g.n_hit for g in d.genomes)), 3),
@@ -961,6 +1111,11 @@ def graph_gen_device(opt: PgOpt, q) -> bool:
         rounds_branch_run=int(logs[:, 8].sum()),
         rounds_sweep_run=int(logs[:, 9].sum()),
         rounds_total=R,
+        # collectives of this run: calls, host seconds in them, bytes
+        # staged through host memory (gloo with CUDA tensors)
+        collective_calls=sum(M.LAST["calls"].values()) - coll0[0],
+        collective_s=round(M.LAST["collective_s"] - coll0[1], 3),
+        staged_bytes=M.LAST["staged_bytes"] - coll0[2],
         **stats)
     if overflow_flag:
         LAST["reason"] = "capacity overflow (arcs or branch window)"

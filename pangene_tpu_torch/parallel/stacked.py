@@ -1,6 +1,6 @@
 """The per-round device path: one fused step per arc round over all genomes.
 
-The counterpart of pangene_tpu/parallel/stacked.py at one device. It is what
+The counterpart of pangene_tpu/parallel/stacked.py. It is what
 ``--engine sharded`` runs when the device-resident loop
 (parallel/device_loop.py) is switched off (PANGENE_DEVICE_LOOP=0) or cannot
 take the graph (a branch group wider than its window, an arc table over its
@@ -21,6 +21,13 @@ reference's +.499 rounding, graph.c:141,170-172). The host DataSet stays
 the source of truth: after each step the host applies the same stable
 permutations (cm then cs) to its tables, so tie orders track the
 reference's physical re-sorts.
+
+On a genome mesh of several ranks (parallel/mesh.py) each rank steps its
+G_loc of the Gp padded genomes; the occurrence counters are summed over
+the ranks, and the per-genome outputs are gathered to every rank, which
+merges and applies them alike. The protein-keyed reductions of
+post_process (reduction_step) are the same sums and a maximum over the
+ranks.
 
 The constant columns (coordinates, scores, exon pools, packed score keys:
 frozen after ingest) are uploaded once and stay on the card across the ~17
@@ -50,6 +57,7 @@ import torch
 from ..options import PgOpt
 from ..ops import sweep_kernel as sk
 from ..ops.device import PAD_CID
+from . import mesh as M
 from .device_loop import _BlockTimer, _host_array, _seg_max, _seg_sum
 
 KEY_B = 44                      # composite sort key: cid << KEY_B | coord
@@ -126,14 +134,15 @@ def band_over_genomes(d) -> int:
     return W
 
 
-def build_stacked(d, pin: bool = False) -> HostStack:
-    """Stack the per-genome tables into [G, H] / [G, E] host blocks (pinned
-    memory when `pin`), padded to the longest genome and the largest exon
-    pool and no further: the kernel's tiles need no padding of their own.
-    Padding rows read cid PAD_CID, ce -1, dom_gid -1, cds_len 1, no score."""
+def build_stacked(d, pin: bool = False, Gp: Optional[int] = None) -> HostStack:
+    """Stack the per-genome tables into [Gp, H] / [Gp, E] host blocks
+    (pinned memory when `pin`), padded to the longest genome and the
+    largest exon pool and no further: the kernel's tiles need no padding of
+    their own. Padding rows, and the genomes past G up to Gp (default G),
+    read cid PAD_CID, ce -1, dom_gid -1, cds_len 1, no score."""
     from ..ops.device_engine import hash_u32_np
     from ..ops.overlap import cds_len_all
-    G = d.n_genome
+    G = d.n_genome if Gp is None else Gp
     H = max(max((g.n_hit for g in d.genomes), default=1), 1)
     E = max(max((len(g.exon_os) for g in d.genomes), default=1), 1)
     prot_gid = np.asarray(d.prot_gid, np.int32)
@@ -145,7 +154,7 @@ def build_stacked(d, pin: bool = False) -> HostStack:
     i64 = _host_array((len(STACK_I64), G, H), np.int64, pin)
     u8 = _host_array((len(STACK_U8), G, H), np.uint8, pin)
     ex = _host_array((2, G, E), np.int32, pin)
-    for blk in (i32, i64, u8, ex):
+    for blk in (n_rows, i32, i64, u8, ex):
         blk.fill(0)
     i32[I["cid"]].fill(PAD_CID)
     i32[I["dom_gid"]].fill(-1)
@@ -197,17 +206,17 @@ def stack_mutable(d, out: np.ndarray) -> np.ndarray:
 # the device step
 # ---------------------------------------------------------------------------
 
-def sum_over_genomes(x: torch.Tensor) -> torch.Tensor:
-    """Sum of a [G, ...] tensor over the genome axis. On one device every
-    genome is local; with the genomes sharded over several devices this is
-    where the sum across devices goes."""
-    return x.sum(0, dtype=I32)
+def sum_over_genomes(x: torch.Tensor, mesh: Optional[M.Mesh] = None):
+    """Sum of a [G_loc, ...] tensor over the genome axis of every rank."""
+    s = x.sum(0, dtype=I32)
+    return s if mesh is None else M.psum(s, mesh)
 
 
 def round_step(st: StackCols, flt: torch.Tensor, shadow: torch.Tensor,
                weak_br: torch.Tensor, g2s: torch.Tensor, *, W: int,
                min_ov_ratio: float, check_strand: bool, use_ori: bool,
-               geo: Optional[dict] = None, sweep=None, timer=None):
+               geo: Optional[dict] = None, sweep=None, timer=None,
+               mesh: Optional[M.Mesh] = None):
     """One arc round over all genomes on the device of `st` (the JAX
     package's round_step over _genome_round, batched over the genome axis).
 
@@ -224,7 +233,8 @@ def round_step(st: StackCols, flt: torch.Tensor, shadow: torch.Tensor,
     `sweep` replaces sk.shadow_sweep_batched (the kernel on cuda, the plain
     version on the CPU), e.g. by sk.shadow_sweep_batched_plain; `geo` is the
     plain version's cache for this `st`; `timer`, a device_loop._BlockTimer
-    over STEP_BLOCKS, times the parts."""
+    over STEP_BLOCKS, times the parts. Over a `mesh`, `st` and the flags
+    hold this rank's genomes and tot_cnt / n_genome sum over every rank's."""
     bc = st.batch
     dev = flt.device
     G, H = flt.shape
@@ -315,30 +325,40 @@ def round_step(st: StackCols, flt: torch.Tensor, shadow: torch.Tensor,
     with span("counters"):
         cnts = torch.zeros((G, n_gene), dtype=I32, device=dev) \
             .scatter_add_(1, sid.clamp(0, n_gene - 1), kept.to(I32))
-        tot_cnt = sum_over_genomes(cnts)
-        n_genome = sum_over_genomes(cnts > 0)
+        tot_cnt, n_genome = sum_over_genomes(
+            torch.stack([cnts, (cnts > 0).to(I32)], dim=1), mesh)
     sh = lambda a: a.reshape(G, A)
     return (shadow, b_score, b_other, sh(uniq_x), sh(cnt), sh(dsum), sh(m1),
             sh(m2), tot_cnt, n_genome)
 
 
-def _pull(tensors, host: Optional[torch.Tensor]):
-    """The tensors packed into one byte buffer on their device and copied
-    to the host once (into the pinned buffer `host` when it fits). Returns
-    (numpy views of the host copy, the host buffer)."""
+def _pull(tensors, host: Optional[torch.Tensor], mesh: M.Mesh,
+          n_sharded: int):
+    """The tensors packed into one byte buffer on their device, gathered
+    from every rank (one collective) and copied to the host once (into the
+    pinned buffer `host` when it fits). The first `n_sharded` hold this
+    rank's genomes and come back as every rank's, concatenated; the others
+    are replicated and come back as this rank's. Returns (numpy arrays,
+    the host buffer)."""
     cd = [(t.numel(), t.dtype) for t in tensors]
     offs, total = sk._layout(cd)
-    buf = sk._pack([t.reshape(-1) for t in tensors], offs, total)
+    buf = M.all_gather(sk._pack([t.reshape(-1) for t in tensors], offs,
+                                total), mesh)
     if buf.device.type == "cuda":
-        if host is None or host.shape[0] != total:
-            host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+        if host is None or host.shape[0] != buf.shape[0]:
+            host = torch.empty(buf.shape[0], dtype=torch.uint8,
+                               pin_memory=True)
         host.copy_(buf, non_blocking=True)
         torch.cuda.synchronize(buf.device)
     else:
         host = buf
-    views = [v.numpy().reshape(t.shape)
-             for v, t in zip(sk._views(host, offs, cd), tensors)]
-    return views, host
+    ranks = [[v.numpy().reshape(t.shape) for v, t in zip(
+        sk._views(host[r * total:(r + 1) * total], offs, cd), tensors)]
+        for r in range(mesh.world)]
+    if mesh.world == 1:
+        return ranks[0], host
+    return [np.concatenate([rk[k] for rk in ranks]) if k < n_sharded
+            else ranks[mesh.rank][k] for k in range(len(tensors))], host
 
 
 # ---------------------------------------------------------------------------
@@ -366,18 +386,21 @@ def _sort_orders(d):
     return caches, orders
 
 
-def _upload_const(d, device: torch.device) -> dict:
-    hs = build_stacked(d, pin=device.type == "cuda")
-    blocks = [torch.from_numpy(a).to(device, non_blocking=True)
+def _upload_const(d, mesh: M.Mesh) -> dict:
+    device = mesh.device
+    Gp = M.pad_genomes(d.n_genome, mesh)
+    hs = build_stacked(d, pin=device.type == "cuda", Gp=Gp)
+    # this rank's genomes of each block (n_rows [Gp]; the others [n, Gp, .])
+    blocks = [M.put_sharded(a, mesh, 1 if a.ndim == 3 else 0)
               for a in hs[:5]]
     _sync(device)
-    G, H = hs.i32.shape[1:]
+    H = hs.i32.shape[2]
     caches, orders = _sort_orders(d)
-    mut = _host_array((len(MUTABLE_COLS), G, H), np.uint8,
+    mut = _host_array((len(MUTABLE_COLS), Gp, H), np.uint8,
                       device.type == "cuda")
     mut.fill(0)
-    return {"tags": _sort_tags(d), "G": G, "H": H, "E": hs.ex.shape[2],
-            "W": hs.W, "device": device, "blocks": blocks,
+    return {"tags": _sort_tags(d), "G": d.n_genome, "Gp": Gp, "H": H,
+            "E": hs.ex.shape[2], "W": hs.W, "mesh": mesh, "blocks": blocks,
             "cols": stack_views(*blocks), "geo": {}, "mut_host": mut,
             "pull_host": None, "sort_caches": caches, "orders": orders,
             "n_ex": [len(g.exon_os) for g in d.genomes]}
@@ -392,7 +415,7 @@ def _repermute(cache: dict, d) -> bool:
     if d.n_genome != G:
         return False
     caches, orders = _sort_orders(d)
-    perm = np.tile(np.arange(H, dtype=np.int64), (G, 1))
+    perm = np.tile(np.arange(H, dtype=np.int64), (cache["Gp"], 1))
     for j, g in enumerate(d.genomes):
         old, new = cache["orders"][j], orders[j]
         if (old is None or new is None or g.n_hit != len(old)
@@ -403,8 +426,7 @@ def _repermute(cache: dict, d) -> bool:
             inv = np.empty(len(old), np.int64)
             inv[old] = np.arange(len(old))
             perm[j, :len(old)] = inv[new]
-    device = cache["device"]
-    p = torch.from_numpy(perm).to(device)
+    p = M.put_sharded(perm, cache["mesh"])
     n_rows, i32, i64, u8, ex = cache["blocks"]
     blocks = [n_rows] + [b.gather(2, p.expand(b.shape[0], -1, -1))
                          for b in (i32, i64, u8)] + [ex]
@@ -432,11 +454,11 @@ def gen_arc_sharded(opt: PgOpt, q) -> None:
     """pg_gen_arc as one device step plus the exact host merge:
     byte-equivalent to ops/arcs.gen_arc_loop. Fills LAST."""
     from ..ops import arcs as arcs_host
-    from ..ops.device_engine import resolve_device
     from ..ops.sort import cm_cycle_view, hit_sort
 
     d = q.d
-    device = resolve_device(opt.device)
+    mesh = M.make_mesh(opt.n_devices, opt.device)
+    device = mesh.device
     G = d.n_genome
     cache = getattr(q, "_stacked_dev_cache", None)
     if cache is None:
@@ -447,7 +469,7 @@ def gen_arc_sharded(opt: PgOpt, q) -> None:
         q.arcs = arcs_host.merge_arcs([])
         return
     t = time.monotonic()
-    if cache is not None and (cache["device"] != device or cache["G"] != G):
+    if cache is not None and (cache["mesh"] != mesh or cache["G"] != G):
         cache = None
     if cache is not None and cache["tags"] != _sort_tags(d):
         # a genome's physical order changed: the cached rows are stale
@@ -456,14 +478,14 @@ def gen_arc_sharded(opt: PgOpt, q) -> None:
         else:
             cache = None
     if cache is None:
-        cache = q._stacked_dev_cache = _upload_const(d, device)
+        cache = q._stacked_dev_cache = _upload_const(d, mesh)
         LAST["const_uploads"] += 1
     H, W = cache["H"], cache["W"]
-    LAST["shape"] = dict(G=G, H=H, E=cache["E"], W=W)
+    LAST["shape"] = dict(G=G, Gp=cache["Gp"], H=H, E=cache["E"], W=W,
+                         n_devices=mesh.world)
     mut = stack_mutable(d, cache["mut_host"])
     t = _add("stack_s", t)
-    flt, shadow, weak_br = torch.from_numpy(mut).to(device,
-                                                    non_blocking=True)
+    flt, shadow, weak_br = M.put_sharded(mut, mesh, 1)
     # gene -> segment map, at least one entry so that clipping has a range
     g2s_host = np.full(max(d.n_gene, 1), -1, np.int32)
     g2s_host[:d.n_gene] = q.g2s
@@ -477,12 +499,12 @@ def gen_arc_sharded(opt: PgOpt, q) -> None:
         cache["cols"], flt, shadow, weak_br, g2s, W=W,
         min_ov_ratio=float(opt.min_ov_ratio),
         check_strand=opt.check_strand, use_ori=opt.use_ori_for_branch,
-        geo=cache["geo"], timer=timer)
+        geo=cache["geo"], timer=timer, mesh=mesh)
     for name, ms in timer.result().items():     # synchronises
         LAST["block_ms"][name] = round(LAST["block_ms"][name] + ms, 3)
     LAST["sweep_launches"] += sk.n_batched["kernel"] - launches0
     t = _add("step_s", t)
-    host, cache["pull_host"] = _pull(outs, cache["pull_host"])
+    host, cache["pull_host"] = _pull(outs, cache["pull_host"], mesh, 8)
     LAST["pull_bytes"] = int(cache["pull_host"].shape[0])
     t = _add("pull_s", t)
     (shadow, b_score, b_other, uniq_x, cnt, dsum, m1, m2, tot_cnt,
@@ -539,7 +561,8 @@ REDUCTION_COLS = ("pid", "score_ori", "score_adj", "n_exon", "rank")
 def reduction_step(pid: torch.Tensor, score_ori: torch.Tensor,
                    score_adj: torch.Tensor, n_exon: torch.Tensor,
                    rank: torch.Tensor, flt: torch.Tensor,
-                   n_rows: torch.Tensor, *, n_prot: int):
+                   n_rows: torch.Tensor, *, n_prot: int,
+                   mesh: Optional[M.Mesh] = None):
     """The protein-keyed reductions feeding pg_cap_score_dom /
     pg_flag_representative / pg_flag_pseudo_joint (hit.c:148-247) over
     stacked [G, H] columns (int32; flt uint8; n_rows int32 [G]). Returns
@@ -547,7 +570,8 @@ def reduction_step(pid: torch.Tensor, score_ori: torch.Tensor,
     unfiltered hits, the counts and score_ori sums of single-exon and of
     multi-exon hits (cnt0, cnt1, sum0, sum1) and the representative's
     score_adj sum and count. Integer sums and maxima: bit-equal to the host
-    loops in any order."""
+    loops in any order. Over a `mesh` the columns are this rank's genomes
+    and the results are over every rank's (a pmax and one psum)."""
     dev = pid.device
     H = pid.shape[1]
     va = (torch.arange(H, dtype=I32, device=dev)[None, :]
@@ -564,28 +588,29 @@ def reduction_step(pid: torch.Tensor, score_ori: torch.Tensor,
                                                           0)
         return _seg_sum(x, pidc, n_prot)
 
-    outs = (max_so, total(r0 & ~multi), total(r0 & multi),
-            total(r0 & ~multi, so), total(r0 & multi, so),
-            total(r0, score_adj.reshape(-1)), total(r0))
-    # over several devices: the maximum of the first and the sums of the
-    # others across devices go here
-    return outs
+    sums = (total(r0 & ~multi), total(r0 & multi), total(r0 & ~multi, so),
+            total(r0 & multi, so), total(r0, score_adj.reshape(-1)),
+            total(r0))
+    if mesh is None:
+        return (max_so,) + sums
+    return (M.pmax(max_so, mesh),) + tuple(M.psum(torch.stack(sums), mesh))
 
 
 def post_reductions_sharded(opt: PgOpt, d):
     """The protein-keyed cross-genome reductions of post_process on the
     device: (mx, z, (c, s)) in the formats ops/pseudo.py's cap_score_dom,
     flag_representative and flag_pseudo_joint take, bit-equal to their host
-    loops. One upload per column block, one pull.
+    loops. One upload per column block, one pull; over the ranks of the
+    genome mesh, each with its genomes.
 
-    On one device graph/post.py keeps the host loops, as the JAX package
-    does below two devices, so the main path does not reach this function
-    yet: the tests and chip_smoke.py hold it against the host loops, and it
-    joins the main path with the multi-device mesh."""
-    from ..ops.device_engine import resolve_device
-    device = resolve_device(opt.device)
+    graph/post.py takes it on the main path when more than one device
+    shards the genomes, as the JAX package does; on one device it keeps the
+    host loops (the tests and chip_smoke.py hold the two against each
+    other)."""
+    mesh = M.make_mesh(opt.n_devices, opt.device)
+    device = mesh.device
     pin = device.type == "cuda"
-    G = d.n_genome
+    G = M.pad_genomes(d.n_genome, mesh)
     H = max(max((g.n_hit for g in d.genomes), default=1), 1)
     n_prot = max(d.n_prot, 1)
     i32 = _host_array((len(REDUCTION_COLS), G, H), np.int32, pin)
@@ -593,6 +618,7 @@ def post_reductions_sharded(opt: PgOpt, d):
     flt = _host_array((G, H), np.uint8, pin)
     flt.fill(1)
     n_rows = _host_array((G,), np.int32, pin)
+    n_rows.fill(0)
     for j, g in enumerate(d.genomes):
         h = g.hits
         n = len(h)
@@ -600,8 +626,9 @@ def post_reductions_sharded(opt: PgOpt, d):
         for k, name in enumerate(REDUCTION_COLS):
             i32[k, j, :n] = h.cols[name]
         flt[j, :n] = h.flt
-    up = lambda a: torch.from_numpy(a).to(device, non_blocking=True)
-    outs = reduction_step(*up(i32), up(flt), up(n_rows), n_prot=n_prot)
+    outs = reduction_step(*M.put_sharded(i32, mesh, 1),
+                          M.put_sharded(flt, mesh), M.put_sharded(n_rows, mesh),
+                          n_prot=n_prot, mesh=mesh)
     arr = torch.cat([o.to(I64) for o in outs]).cpu().numpy()    # one pull
     P = n_prot
     max_so, cnt0, cnt1, sum0, sum1, rep_sum, rep_cnt = (

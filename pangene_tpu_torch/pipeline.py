@@ -56,15 +56,18 @@ def _n_parse_workers(files: List[str]) -> int:
     """Parallel-parse worker count: PANGENE_PARSE_WORKERS, else one per
     available core (capped at 8 and at the file count); 0/1 = sequential.
     The reference is single-threaded — per-genome parsing is the
-    embarrassingly parallel axis it never exploits (SURVEY §2.4(1))."""
+    embarrassingly parallel axis it never exploits (SURVEY §2.4(1)). Every
+    rank of a launch parses every file, so the ranks on one host share its
+    cores (util.local_world)."""
     import os
+    from . import util
     env = os.environ.get("PANGENE_PARSE_WORKERS")
     if env is not None:
         n = int(env)
     else:
-        n = min(len(os.sched_getaffinity(0))
-                if hasattr(os, "sched_getaffinity") else os.cpu_count() or 1,
-                8)
+        cores = (len(os.sched_getaffinity(0))
+                 if hasattr(os, "sched_getaffinity") else os.cpu_count() or 1)
+        n = min(max(cores // util.local_world(), 1), 8)
     return min(n, len(files))
 
 
@@ -134,6 +137,13 @@ def _read_all_parallel(opt: PgOpt, files: List[str], d: DataSet,
 TRACE_NAME = "pangene_trace.json"
 
 
+class _Discard:
+    """The output of a rank other than 0."""
+
+    def write(self, s: str) -> int:
+        return len(s)
+
+
 def run(opt: PgOpt, files: List[str], out: Optional[IO[str]] = None,
         save_hits: Optional[str] = None,
         load_hits: Optional[str] = None,
@@ -147,6 +157,11 @@ def run(opt: PgOpt, files: List[str], out: Optional[IO[str]] = None,
     (util.trace_device_summary reads the device's busy time from it). The
     parse workers are other processes and are not traced.
 
+    Under a launch of several ranks (parallel/mesh.py) every rank builds
+    the graph; only rank 0 writes it (to `out`, default stdout), saves
+    save_hits and traces --profile. The other ranks write to `out` only
+    when it is given.
+
     Raises RuntimeError when a card engine runs with opt.device "cuda" and
     no CUDA device exists: the CPU is used only when the caller asks for it,
     by --device cpu or by a host engine (which reads no opt.device).
@@ -157,13 +172,25 @@ def run(opt: PgOpt, files: List[str], out: Optional[IO[str]] = None,
     read-phase options (-d/-e/-l/-m/-S/-X/-I/-P) are unchanged. The file
     format is the JAX package's, so either package resumes the other's.
     """
+    from . import util
     on_cuda = False
     if opt.engine not in HOST_ENGINES:
         from .ops.device_engine import resolve_device
         on_cuda = resolve_device(opt.device).type == "cuda"
+    rank = util.launch_rank()
+    if rank:
+        # every rank of a launch builds the same graph; rank 0 writes it
+        out = out or _Discard()
+        save_hits = None
+        if profile:
+            log_msg("pg_profile", "rank %d not traced: --profile traces rank "
+                    "0 only", rank)
+            profile = None
     out = out or sys.stdout
     if not profile:
         return _run_inner(opt, files, out, save_hits, load_hits)
+    if util.launched():
+        log_msg("pg_profile", "tracing rank 0 only")
     import os
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile

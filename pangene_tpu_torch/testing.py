@@ -1,5 +1,7 @@
 """Synthetic inputs for the tests and chip_smoke.py: miniprot-PAF corpora
-and random single genomes for the sweep.
+and random single genomes for the sweep; and the rank of a launch that
+reports what it built (`python -m pangene_tpu_torch.testing <CLI args>`,
+run_ranks).
 
 Generates structurally realistic inputs: orthologous gene loci shared across
 genomes, multiple isoforms per gene (driving the overlap sweeps), occasional
@@ -9,7 +11,12 @@ CIGAR strings with introns, and PanSN contig names (driving W-line parsing).
 from __future__ import annotations
 
 import gzip
+import json
 import os
+import subprocess
+import sys
+import tempfile
+import time
 from typing import List
 
 import numpy as np
@@ -341,3 +348,90 @@ def stacked_edge_cases():
     tile = [c for c in cases if band_width(
         c[1].hits.cid, c[1].hits.cs, c[1].hits.ce) <= band_tile]
     return {"tile": tile + extra, "wide": cases + extra}
+
+
+REPORT_TAG = "RANK_REPORT="
+
+
+def rank_report_main(argv: List[str]) -> int:
+    """One rank of a launch (parallel/mesh.launch, torchrun): the CLI on
+    `argv`, with the output this rank would write hashed instead of written
+    (every rank builds the graph; the CLI writes only rank 0's). Then one
+    line on stderr, REPORT_TAG and a JSON object: rank, world, the md5 of
+    the output, the CLI's exit code, the wall of the CLI call, the device
+    loop's and the per-round path's LAST, the mesh's collective counts, the
+    kernel's launches and plain calls, the peak device bytes on cuda, the
+    stage walls, and the modules of other packages the rank loaded."""
+    import hashlib
+    import torch
+    from . import cli, pipeline, util
+    from .ops import sweep_kernel as sk
+    from .parallel import device_loop, mesh, stacked
+    md5 = hashlib.md5()
+
+    class Sink:
+        def write(self, text: str) -> int:
+            md5.update(text.encode())
+            return len(text)
+
+    run = pipeline.run
+    pipeline.run = lambda opt, files, out=None, **kw: run(opt, files,
+                                                         out=Sink(), **kw)
+    sk.reset_counts()
+    mesh.reset_counts()
+    t0 = time.monotonic()
+    rc = cli.main(argv)
+    wall = time.monotonic() - t0
+    rep = {
+        "rank": util.launch_rank(), "world": int(os.environ.get(
+            "WORLD_SIZE", "1")), "rc": rc, "md5": md5.hexdigest(),
+        "wall_s": round(wall, 3), "LAST": device_loop.LAST,
+        "rounds_LAST": stacked.LAST, "mesh": mesh.LAST,
+        "kernel_launches": sum(sk.n_kernel_launches.values()),
+        "batched_launches": sk.n_batched["kernel"],
+        "plain_calls": sum(sk.n_plain_calls.values()) + sk.n_batched["plain"],
+        "peak_device_bytes": (torch.cuda.max_memory_allocated()
+                              if torch.cuda.is_initialized() else None),
+        "stages": util.stage_stats,
+        "foreign_modules": sorted(m for m in sys.modules if m.split(".")[0]
+                                  in ("jax", "jaxlib", "pangene_tpu"))}
+    sys.stderr.write(REPORT_TAG + json.dumps(rep, default=str) + "\n")
+    return rc
+
+
+def run_ranks(world: int, argv: List[str], env=None, timeout=120.0,
+              cwd=None) -> List[dict]:
+    """`world` ranks of rank_report_main on `argv`, started as torchrun
+    would start them (parallel/mesh.launch), each killed after `timeout`
+    seconds. Returns each rank's report, in rank order, with its exit code
+    ("exit") and its stderr ("stderr"); raises AssertionError when a rank
+    failed, hung or did not report."""
+    from .parallel.mesh import launch
+    cmd = [sys.executable, "-m", "pangene_tpu_torch.testing"] + list(argv)
+    with tempfile.TemporaryDirectory() as tmp:
+        errs = [open(os.path.join(tmp, "rank%d.err" % r), "w+")
+                for r in range(world)]
+        try:
+            rcs = launch(cmd, world, env=env, stdouts=[subprocess.DEVNULL] * world,
+                          stderrs=errs, timeout=timeout, cwd=cwd)
+            texts = []
+            for f in errs:
+                f.seek(0)
+                texts.append(f.read())
+        finally:
+            for f in errs:
+                f.close()
+    reports = []
+    for r, (rc, text) in enumerate(zip(rcs, texts)):
+        lines = [x for x in text.splitlines() if x.startswith(REPORT_TAG)]
+        if rc or not lines:
+            raise AssertionError("rank %d of %d exited %s (timeout %s s): %s"
+                                 % (r, world, rc, timeout, text[-3000:]))
+        rep = json.loads(lines[-1][len(REPORT_TAG):])
+        rep.update(exit=rc, stderr=text)
+        reports.append(rep)
+    return reports
+
+
+if __name__ == "__main__":
+    sys.exit(rank_report_main(sys.argv[1:]))

@@ -57,6 +57,23 @@ def log_msg(func: str, fmt: str, *args, min_verbose: int = 3,
         sys.stderr.write(f"[M::{func}] {msg}\n")
 
 
+def launched() -> bool:
+    """Whether this process is a rank of a launch: torchrun's variables, or
+    the CLI's own --devices N (parallel/mesh.launch), are set."""
+    return "WORLD_SIZE" in os.environ and "RANK" in os.environ
+
+
+def launch_rank() -> int:
+    """This process's rank in its launch; 0 without one. Only rank 0 writes
+    output."""
+    return int(os.environ["RANK"]) if launched() else 0
+
+
+def local_world() -> int:
+    """The ranks of this launch on this host; 1 without one."""
+    return int(os.environ.get("LOCAL_WORLD_SIZE", "1")) if launched() else 1
+
+
 def trace_device_summary(path: str, top: int = 5) -> dict:
     """What a chrome trace written by ``--profile`` says of the device:
     busy_s (the union of the intervals in which a kernel, copy or memset

@@ -237,3 +237,33 @@ def test_reduction_step_on_card(cuda_device):
                             n_prot=P)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_mesh_two_ranks_share_the_card(cuda_device, tmp_path):
+    """Two gloo ranks on cuda:0 (PANGENE_MESH_SHARE_DEVICE=1), each a process
+    of its own, build the small corpus's GFA of one rank on the card, and
+    both launch the batched kernel on their shard."""
+    import hashlib
+    import io
+    import os
+    import pathlib
+    from pangene_tpu_torch import pipeline, util
+    from pangene_tpu_torch.options import PgOpt
+    from pangene_tpu_torch.testing import run_ranks, synth_paf_files
+    files = synth_paf_files(str(tmp_path), n_genome=8, n_gene=300, n_iso=3,
+                            seed=11)
+    util.verbose = 0
+    out = io.StringIO()
+    pipeline.run(PgOpt(device="cuda"), files, out=out)
+    util.verbose = 3
+    reports = run_ranks(
+        2, ["--engine", "sharded", "--devices", "2", "-v", "1"] + files,
+        env=dict(os.environ, PANGENE_MESH_SHARE_DEVICE="1"),
+        cwd=str(pathlib.Path(__file__).resolve().parent.parent))
+    for rep in reports:
+        assert rep["md5"] == hashlib.md5(out.getvalue().encode()).hexdigest()
+        assert rep["LAST"]["engaged"] is True
+        assert rep["mesh"]["backend"] == "gloo"
+        assert rep["mesh"]["staged_bytes"] > 0
+        assert rep["batched_launches"] > 0 and rep["plain_calls"] == 0

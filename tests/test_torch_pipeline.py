@@ -12,6 +12,7 @@ unless the caller names the CPU.
 import ast
 import contextlib
 import gzip
+import hashlib
 import io
 import json
 import os
@@ -269,6 +270,24 @@ def test_run_loads_neither_jax_nor_pangene_tpu(corpus, tmp_path):
         assert (tmp_path / ("host.gfa." + cmd)).read_text() == out.getvalue()
 
 
+def test_ranks_load_neither_jax_nor_pangene_tpu(corpus):
+    """Two ranks of a launch (as torchrun, or the CLI's --devices 2, starts
+    them), each a fresh process that builds the graph over the gloo mesh:
+    neither loads jax or pangene_tpu, and both build the JAX package's
+    bytes."""
+    from pangene_tpu_torch.testing import run_ranks
+    reports = run_ranks(2, ["--device", "cpu", "--devices", "2", "-v", "1"]
+                        + corpus, env=dict(os.environ, OMP_NUM_THREADS="1"),
+                        cwd=str(REPO))
+    want = hashlib.md5(run_jax(corpus, "host").encode()).hexdigest()
+    for r, rep in enumerate(reports):
+        assert rep["rank"] == r and rep["world"] == 2
+        assert rep["foreign_modules"] == []
+        assert rep["LAST"]["engaged"] is True
+        assert rep["LAST"]["shape"]["n_devices"] == 2
+        assert rep["md5"] == want
+
+
 def test_no_module_imports_jax_or_pangene_tpu():
     files = sorted((REPO / "pangene_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
@@ -276,6 +295,7 @@ def test_no_module_imports_jax_or_pangene_tpu():
     rel = {str(p.relative_to(REPO)) for p in files}
     assert {"pangene_tpu_torch/parallel/device_loop.py",
             "pangene_tpu_torch/parallel/stacked.py",
+            "pangene_tpu_torch/parallel/mesh.py",
             "pangene_tpu_torch/ops/softfloat.py",
             "pangene_tpu_torch/ops/device.py",
             "pangene_tpu_torch/ops/sweep_native.py",
