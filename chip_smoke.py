@@ -5,8 +5,9 @@ GPU. Run from the root of a checkout:
     python3 chip_smoke.py
 
 Phases (each one passes or raises, so any failure exits nonzero):
-  1. the card's name and power limit (nvidia-smi); the CUDA kernel is built
-     from pangene_tpu_torch/csrc/ with nvcc, and the native host runtime
+  1. the card's name and power limit (nvidia-smi); the CUDA kernels are
+     built from pangene_tpu_torch/csrc/ (shadow_sweep.cu, loop_blocks.cu),
+     one nvcc for each source, started together, and the native host runtime
      (native/pgsweep.c, ops/sweep_native.py) with the host's C compiler:
      it must load, since the host rounds' branch marking, the phase-1 walk,
      the vertex scan and the L-line renderer take it on every card path.
@@ -26,6 +27,11 @@ Phases (each one passes or raises, so any failure exits nonzero):
      dedupe, the counters) on the card against the same step with the plain
      sweep and against the whole step on the CPU, on random genome sets and
      on the stacked edge cases: every output equal.
+     Then (2e) the device loop's block kernels (ops/loop_kernels.py:
+     branch_locality, merge_fold) against their plain versions on random
+     arc tables (groups up to the window and one past it, 1 to 70 genomes,
+     frag mode on and off) and merge keys (the loop's three call shapes, the
+     arc table smaller and larger than the out-groups, no valid row).
   3. the main paths: the CLI on cuda over the small (32 genomes x 2,000
      genes, seed 11) and the big (64 x 10,000, seed 7) synthetic corpora:
      --engine device (one sweep launch per genome, host rounds; small corpus
@@ -37,7 +43,9 @@ Phases (each one passes or raises, so any failure exits nonzero):
      zeroed before and read after each run: no plain call; the per-genome
      kernel launched in both modes under --engine device and never under
      sharded, whose single-genome sweeps run in C as in the JAX package;
-     the loop engaged and launched the batched kernel once per sweep round;
+     the loop engaged and launched the batched kernel once per sweep round,
+     branch_locality once per branch round and merge_fold once per in-loop
+     merge (no other path launches those two);
      the per-round path launched it once per round (17), uploaded its
      constant columns once, and the loop did not run; every path called the
      native entries it must take (NATIVE_ENTRIES), so a run that quietly
@@ -77,8 +85,10 @@ Phases (each one passes or raises, so any failure exits nonzero):
      own --devices 2 on the small corpus; and the big corpus at world 1
      under torchrun (python -m torch.distributed.run --nproc-per-node 1):
      NCCL on the card. Every rank's md5 must be the reference's, no rank may
-     fall back, launch the per-genome kernel or call a plain version, and a
-     rank that does not end within its own timeout fails the run.
+     fall back, launch the per-genome kernel or call a plain version, each
+     rank of a loop run launches the block kernels as the in-process loop
+     does, and a rank that does not end within its own timeout fails the
+     run.
   4. the kernel against the plain version on the largest genome of the big
      corpus (the main path's shapes), unfiltered and in the run's final
      filter state. Kernel time is the device time per launch of 200
@@ -94,6 +104,10 @@ Phases (each one passes or raises, so any failure exits nonzero):
      download, finalize), best of five each. The batched entry also at the
      shard shapes of the mesh runs (the first G_loc = 16 and 32 genomes of
      the big loop's columns) against its plain version, and timed.
+     Then (4d) branch_locality and merge_fold on the arguments of their
+     first call in the big default loop (captured through schedule_device's
+     `capture`): kernel == plain exactly, device time from 200 launches in
+     one CUDA graph, the plain version's time, the bound.
 
 ``--corpora small`` leaves the big corpus and what needs it out, for a short
 first run of new code; such a run prints no result line.
@@ -112,6 +126,7 @@ import signal
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -131,6 +146,13 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 EXON_BYTES = 8              # exon_os + exon_oe, int32 each
 TIMED_LAUNCHES = 200
+# Least integer operations branch_locality needs to find one genome of an
+# arc pair not local, each test short-circuited and the cheapest first: a
+# target absent, one presence test (1); both present on two contigs, the two
+# tests and the contig compare (3); else also the int64 cm difference,
+# absolute value and compare (6) and the rank difference, absolute value and
+# compare (3): 12, or 11 with no contig compare (frag_mode).
+LOC_ABSENT_OPS, LOC_OFF_CONTIG_OPS, LOC_FAR_OPS = 1, 3, 12
 # The native runtime's entries (ops/sweep_native.py) each path must call:
 # every card path marks branches, selects vertices and renders L lines in
 # C; the loop's phase 1 and a fallback walk in C; sharded and the host
@@ -150,12 +172,19 @@ NATIVE_ENTRIES = {
 }
 # A build as a user runs it, in a process of its own whose __main__
 # imports no torch before the build: the CLI's arguments, the GFA on
-# stdout, util.stage_stats as one JSON line on stderr.
+# stdout, util.stage_stats as one JSON line on stderr, and when the build
+# ran the device loop (the loop's first run in a process: cold) its run_s,
+# host_syncs and block_ms.
 BUILD_SCRIPT = (
     "import json, sys\n"
     "from pangene_tpu_torch import cli, util\n"
     "rc = cli.main(sys.argv[1:])\n"
-    "sys.stderr.write('STAGES=' + json.dumps(util.stage_stats) + '\\n')\n"
+    "st = dict(util.stage_stats)\n"
+    "dl = sys.modules.get('pangene_tpu_torch.parallel.device_loop')\n"
+    "if dl is not None and dl.LAST.get('engaged'):\n"
+    "    st['loop'] = {k: dl.LAST.get(k) for k in "
+    "('run_s', 'host_syncs', 'block_ms')}\n"
+    "sys.stderr.write('STAGES=' + json.dumps(st) + '\\n')\n"
     "sys.exit(rc)\n")
 # The start of a card engine's process, timed from inside it.
 CUDA_START_PROBE = (
@@ -308,6 +337,82 @@ def bound_ms(sk, cols, W, mode, check_strand):
     t_ops = ops / INT32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations"), ops, nbytes
+
+
+def compare_loop_kernel(lk, name, args, kw):
+    """The kernel `name` of ops/loop_kernels through its wrapper against its
+    plain version on the same arguments on the card; returns the largest
+    absolute difference over the outputs (must be 0) and the outputs."""
+    got = getattr(lk, name)(*args, **kw)
+    want = getattr(lk, name + "_plain")(*args, **kw)
+    torch.cuda.synchronize()
+    err = 0
+    for a, b in zip(got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError("%s: %s %s vs plain %s %s" % (
+                name, a.shape, a.dtype, b.shape, b.dtype))
+        diff = (a.long() - b.long()).abs()
+        err = max(err, int(diff.max()) if diff.numel() else 0)
+    if err:
+        raise AssertionError("%s kernel != plain: max abs err %d"
+                             % (name, err))
+    return err, got
+
+
+def locality_bound_ms(args, kw, aml, he):
+    """Least time of one branch_locality call on these arguments, whose
+    result is (aml, he): the bytes it must move (the branching plane in
+    full, 1 byte an arc; for each branching arc its target, group and max
+    flag, 17 bytes; the four representative planes of the genes those arcs
+    target, 17 bytes a genome a gene; the two bit planes out, 2 bytes an
+    arc) over the memory rate, or the operations this data forces over the
+    INT32 rate, whichever is larger. A bit that stays 0 is known only once
+    every partner that could set it is found not local in every genome:
+    for aml[a] each partner that is a max arc, for he[a] each earlier
+    partner. Those pairs, each once, cost the LOC_*_OPS of each genome's
+    outcome. The set bits' witnesses (one local genome of one pair each)
+    are left out, so the count is a lower bound."""
+    r_pres, r_cid, _, _, tgt, gs, branching, is_max = args
+    G = r_pres.shape[1]
+    A = tgt.shape[0]
+    nb = int(branching.sum())
+    n_tg = int(torch.unique(tgt[branching]).numel())
+    nbytes = A + 17 * nb + 17 * n_tg * G + 2 * A
+    far = LOC_FAR_OPS - (1 if kw["frag_mode"] else 0)
+    ops = 0
+    for d in range(1, min(kw["D"], A)):
+        e, l = slice(0, A - d), slice(d, A)     # earlier, later member
+        need = (branching[e] & branching[l] & (gs[e] == gs[l])
+                & ((~aml[l] & is_max[e]) | (~aml[e] & is_max[l]) | ~he[l]))
+        ie = torch.nonzero(need).squeeze(1)
+        if not ie.numel():
+            continue
+        te, tl = tgt[ie], tgt[ie + d]
+        both = r_pres[te] & r_pres[tl]
+        cost = torch.where(both, far, LOC_ABSENT_OPS)
+        if not kw["frag_mode"]:
+            cost = torch.where(both & (r_cid[te] != r_cid[tl]),
+                               LOC_OFF_CONTIG_OPS, cost)
+        ops += int(cost.sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations"), ops, nbytes, nb
+
+
+def fold_bound_ms(args, kw):
+    """Least time of one merge_fold call: the sorted int64 keys (and the
+    permutation, when given) read once, each valid row's s1 read once, the
+    int32 pair plane and the [cap] arc rows (8 + 4 bytes) and n_out written
+    once, over the memory rate (its few integer operations a row are far
+    below the bytes' time)."""
+    keys, _ = args
+    N = keys.shape[0]
+    jb = kw["jb"]
+    n_valid = int(((keys >> jb) != ((1 << 62) >> jb)).sum())
+    nbytes = (8 * N * (2 if kw.get("perm") is not None else 1)
+              + 4 * n_valid + 4 * N + 12 * kw["cap"] + 8)
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes, n_valid
 
 
 def compare_batched(sk, de, genomes, dev, check_strand, f, split_form):
@@ -497,11 +602,13 @@ def run_session(cmd, timeout, env):
 
 def mesh_phase(corpora):
     """Phase 3e: the MESH_RUNS whose corpus was built, each checked; returns
-    ({key: record}, batched launches summed over every rank of every run)."""
+    ({key: record}, batched launches and {loop kernel: launches}, summed
+    over every rank of every run)."""
     from pangene_tpu_torch.parallel.mesh import SHARE_DEVICE_ENV
     from pangene_tpu_torch.testing import REPORT_TAG, run_ranks
     runs = {}
     launches = 0
+    loop_launches = {"branch_locality": 0, "merge_fold": 0}
     for key, name, world, how, extra in MESH_RUNS:
         if name not in corpora:
             continue
@@ -555,11 +662,18 @@ def mesh_phase(corpora):
             if (rep["mesh"].get("backend"), rep["mesh"].get("device")) != (
                     backend, "cuda:0"):
                 bad.append("mesh %s" % rep["mesh"])
+            ll = rep["loop_launches"]
             if extra.get("PANGENE_DEVICE_LOOP") == "0":
                 if last or not (rounds.get("rounds") == 17
-                                == rep["batched_launches"]):
-                    bad.append("per-round path: %s, loop %s" % (rounds, last))
+                                == rep["batched_launches"]) or any(
+                                    ll.values()):
+                    bad.append("per-round path: %s, loop %s, loop kernels "
+                               "%s" % (rounds, last, ll))
             else:
+                if (ll["branch_locality"], ll["merge_fold"]) != (
+                        last.get("rounds_branch_run"),
+                        last.get("rounds_sweep_run")):
+                    bad.append("loop kernels %s" % ll)
                 if not (last.get("engaged") is True
                         and last["shape"]["n_devices"] == world
                         and rep["batched_launches"]
@@ -571,12 +685,15 @@ def mesh_phase(corpora):
                 raise AssertionError("%s rank %d: %s" % (key, rep["rank"],
                                                          "; ".join(bad)))
             launches += rep["batched_launches"]
+            for k in loop_launches:
+                loop_launches[k] += ll[k]
             keep = ("pack_s", "upload_s", "run_s", "pull_s", "host_syncs",
                     "collective_calls", "collective_s", "staged_bytes",
                     "upload_bytes")
             rec["ranks"].append(dict(
                 rank=rep["rank"], md5=rep["md5"], wall_s=rep["wall_s"],
                 batched_launches=rep["batched_launches"],
+                loop_launches=ll,
                 peak_device_bytes=rep["peak_device_bytes"],
                 mesh_calls=rep["mesh"]["calls"],
                 mesh_collective_s=round(rep["mesh"]["collective_s"], 3),
@@ -591,7 +708,7 @@ def mesh_phase(corpora):
                     if k in rounds}))
         runs[key] = rec
         log("mesh %s: %s" % (key, json.dumps(rec)))
-    return runs, launches
+    return runs, launches, loop_launches
 
 
 def make_corpus(name):
@@ -643,13 +760,16 @@ def main():
     from pangene_tpu_torch.options import PgOpt
     from pangene_tpu_torch.ops import device_engine as de
     from pangene_tpu_torch.ops import dispatch
+    from pangene_tpu_torch.ops import loop_kernels as lk
+    from pangene_tpu_torch.ops import softfloat as sf
     from pangene_tpu_torch.ops import sweep_kernel as sk
     from pangene_tpu_torch.ops import sweep_native as sn
     from pangene_tpu_torch.ops.sort import hit_sort
     from pangene_tpu_torch.ops import device as tdev
     from pangene_tpu_torch.parallel import device_loop as dl
     from pangene_tpu_torch.parallel import stacked as stk
-    from pangene_tpu_torch.testing import (SWEEP_EDGE_CASES, random_genome,
+    from pangene_tpu_torch.testing import (SWEEP_EDGE_CASES, fold_inputs,
+                                           locality_table, random_genome,
                                            stacked_edge_cases,
                                            sweep_edge_case)
     dev = torch.device(DEVICE)
@@ -661,11 +781,20 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     log("card: %s | torch %s cuda %s" % (smi, torch.__version__,
                                          torch.version.cuda))
-    build_s, ptxas = sk.build(force=True)
-    log("build: nvcc %.2f s" % build_s)
-    for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas: " + line.strip())
+    # one nvcc for each kernel source, all started together
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(2) as pool:
+        builds = {src: pool.submit(mod.build, True) for src, mod in (
+            ("shadow_sweep.cu", sk), ("loop_blocks.cu", lk))}
+        builds = {src: f.result() for src, f in builds.items()}
+    log("build: both kernel sources in %.2f s" % (time.monotonic() - t0))
+    for src, (build_s, ptxas) in builds.items():
+        log("build: nvcc %s %.2f s" % (src, build_s))
+        for line in ptxas.splitlines():
+            if "entry function" in line:
+                log("  ptxas: " + line.strip().split("'")[1][-60:])
+            if "registers" in line or "spill" in line:
+                log("  ptxas: " + line.strip())
     # the native host runtime, built anew from the checkout's source
     so = os.path.join(util.build_dir(), sn.SO_NAME)
     if os.path.exists(so):
@@ -762,6 +891,36 @@ def main():
     log("per-round step: %d cases, card == plain sweep == CPU, every output "
         "(%.1f s)" % (n_cases, time.monotonic() - t0))
 
+    # 2e. the device loop's block kernels: random arc tables (every group
+    # size up to the window D = 64 and one past it) and merge keys in the
+    # loop's three call shapes
+    t0 = time.monotonic()
+    n_cases = 0
+    on_dev = lambda x: None if x is None else \
+        torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    for G in (1, 33, 70):
+        rng = np.random.default_rng(G)
+        sizes = list(rng.permutation(np.arange(1, 65))) + [65]
+        t, _ = locality_table(rng, G, sizes, n_gene=300)
+        for frag in (False, True):
+            compare_loop_kernel(lk, "branch_locality",
+                                [on_dev(v) for v in t.values()],
+                                dict(D=64, frag_mode=frag, local_dist=1000,
+                                     local_count=3))
+            n_cases += 1
+    for form in ("jb", "cosorted", "exchange"):
+        for N, cap, p_valid in ((3000, 100, 0.7), (3000, 3077, 0.7),
+                                (600000, 400000, 0.7), (500, 64, 0.0)):
+            keys, s1, jb, gb, perm = fold_inputs(
+                np.random.default_rng(N + cap), form, N,
+                n_vw=max(N // 8, 1), p_valid=p_valid)
+            compare_loop_kernel(lk, "merge_fold", [on_dev(keys), on_dev(s1)],
+                                dict(jb=jb, gb=gb, cap=cap,
+                                     perm=on_dev(perm)))
+            n_cases += 1
+    log("loop block kernels: %d cases, branch_locality and merge_fold == "
+        "plain (%.1f s)" % (n_cases, time.monotonic() - t0))
+
     # 3. the main paths, counts zeroed just before and read just after
     # wall and count of the single-genome sweep calls through ops/dispatch
     # (the kernel under --engine device, C under sharded)
@@ -781,14 +940,16 @@ def main():
     dispatch.shadow, dispatch.flt_ov_isoform = (timed(f) for f in untimed)
     launches = {m: 0 for m in sk.MODE_NAMES}
     batched_launches = 0
+    loop_launches = {k: 0 for k in lk.n_calls}
     runs = {}
     # the loop's device tensors of the last sharded run, for phase 4
     kept = {}
     schedule_device = dl.schedule_device
 
     def keep_schedule(*a, **kw):
-        outs = schedule_device(*a, **kw)
-        kept.update(blocks=a[:5], cfg=kw["cfg"], outs=outs)
+        capture = {}
+        outs = schedule_device(*a, capture=capture, **kw)
+        kept.update(blocks=a[:5], cfg=kw["cfg"], outs=outs, capture=capture)
         return outs
 
     dl.schedule_device = keep_schedule
@@ -804,6 +965,7 @@ def main():
         os.environ.update(env)
         sweep_s.update(s=0.0, calls=0)
         sk.reset_counts()
+        lk.reset_counts()
         sn.reset_counts()
         dl.LAST.clear()
         stk.LAST.clear()
@@ -823,6 +985,7 @@ def main():
         counts = dict(sk.n_kernel_launches)
         plain = dict(sk.n_plain_calls)
         batched = dict(sk.n_batched)
+        loop = {k: c["kernel"] for k, c in lk.n_calls.items()}
         native = {k: v for k, v in sn.n_calls.items() if v}
         calls = max(sweep_s["calls"], 1)
         rec = {
@@ -834,7 +997,9 @@ def main():
             "sweep_ms_per_call": round(1e3 * sweep_s["s"] / calls, 4),
             "launches": {sk.MODE_NAMES[m]: counts[m] for m in counts},
             "batched_launches": batched["kernel"],
-            "plain_calls": sum(plain.values()) + batched["plain"],
+            "loop_launches": loop,
+            "plain_calls": (sum(plain.values()) + batched["plain"]
+                            + sum(c["plain"] for c in lk.n_calls.values())),
             "native_calls": native,
             "peak_device_bytes": torch.cuda.max_memory_allocated(),
             "env": env}
@@ -851,8 +1016,19 @@ def main():
             raise AssertionError("%s: GFA md5 %s != %s"
                                  % (key, rec["md5"], CORPORA[name][3]))
         if rec["plain_calls"]:
-            raise AssertionError("%s: plain calls on the card path: %s %s"
-                                 % (key, plain, batched))
+            raise AssertionError("%s: plain calls on the card path: %s %s %s"
+                                 % (key, plain, batched, lk.n_calls))
+        # the block kernels: once a branch round and once an in-loop merge
+        # of an engaged loop, never elsewhere
+        last = rec.get("LAST", {})
+        want = ((last["rounds_branch_run"], last["rounds_sweep_run"])
+                if last.get("engaged") else (0, 0))
+        if (loop["branch_locality"], loop["merge_fold"]) != want:
+            raise AssertionError("%s: loop kernel launches %s, expected "
+                                 "branch_locality %d, merge_fold %d"
+                                 % ((key, loop) + want))
+        for k in loop_launches:
+            loop_launches[k] += loop[k]
         missing = [e for e in NATIVE_ENTRIES[path] if not native.get(e)]
         if missing:
             raise AssertionError("%s: the native runtime was not called for "
@@ -1104,10 +1280,12 @@ def main():
 
     # 3e. the genome mesh, every rank a process of its own
     t0 = time.monotonic()
-    mesh_runs, mesh_launches = mesh_phase(corpora)
+    mesh_runs, mesh_launches, mesh_loop_launches = mesh_phase(corpora)
     runs["mesh"] = mesh_runs
-    log("mesh phase: %d runs, %d batched launches over every rank, %.1f s"
-        % (len(mesh_runs), mesh_launches, time.monotonic() - t0))
+    log("mesh phase: %d runs, %d batched launches and loop kernel launches "
+        "%s over every rank, %.1f s" % (len(mesh_runs), mesh_launches,
+                                        json.dumps(mesh_loop_launches),
+                                        time.monotonic() - t0))
     if "big" not in names:
         log("partial run (--corpora %s): phase 4 and the result lines are "
             "left out" % ",".join(names))
@@ -1340,6 +1518,10 @@ def main():
         log("loop block %s: %d calls, %.3f ms measured, least %.6f ms a call "
             "= %.6f ms (bytes)" % (block, n, loop["block_ms"][block], least,
                                    least * n))
+    log("loop, big corpus: run_s %.3f, host_syncs %d over %d rounds (%d "
+        "branch rounds), loop kernel launches %s" % (
+            loop["run_s"], loop["host_syncs"], loop["rounds_total"],
+            loop["rounds_branch_run"], json.dumps(loop["loop_launches"])))
     red = runs["big_rounds"]["reductions_s"]
     log("reductions, big corpus: card %.4f s, host loops %.4f s"
         % (red["card"], red["host_loops"]))
@@ -1364,6 +1546,56 @@ def main():
             "columnsort has no valid column count here" % (
                 n_keys, stream_ms(lambda: torch.sort(keys), 20),
                 sort_bound_ms))
+
+    # 4d. the loop's block kernels on the arguments of their first call in
+    # the big default loop
+    for name, replaces in (
+            ("branch_locality", "pangene_tpu/parallel/device_loop.py:525"),
+            ("merge_fold", "pangene_tpu/parallel/device_loop.py:264")):
+        args, kw = kept["capture"][name]
+        err, got = compare_loop_kernel(lk, name, args, kw)
+        kernel_fn = getattr(lk, name)
+        plain_fn = getattr(lk, name + "_plain")
+        ms = graph_ms(lambda: kernel_fn(*args, **kw), TIMED_LAUNCHES)
+        eager_ms = stream_ms(lambda: kernel_fn(*args, **kw), TIMED_LAUNCHES)
+        plain_ms = stream_ms(lambda: plain_fn(*args, **kw), 5)
+        if name == "branch_locality":
+            b_ms, b_by, ops, nbytes, nb = locality_bound_ms(args, kw, *got)
+            shape = "A %d, branching %d, G %d, genes %d, %d forced ops" % (
+                args[4].shape[0], nb, args[0].shape[1], args[0].shape[0],
+                ops)
+        else:
+            b_ms, b_by, nbytes, n_valid = fold_bound_ms(args, kw)
+            shape = "N %d, valid %d, cap %d, jb %d, perm %s" % (
+                args[0].shape[0], n_valid, kw["cap"], kw["jb"],
+                kw.get("perm") is not None)
+        log("LOOP KERNEL %s (%s): ms %.5f (eager back-to-back %.5f) "
+            "plain_ms %.3f bound_ms %.6f (%s; %d bytes); kernel == plain" % (
+                name, shape, ms, eager_ms, plain_ms, b_ms, b_by, nbytes))
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "pangene_tpu_torch/csrc/loop_blocks.cu",
+            "replaces": replaces,
+            "launches": loop_launches[name] + mesh_loop_launches[name],
+            "launches_in_process": loop_launches[name],
+            "launches_mesh_ranks": mesh_loop_launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    # what the branch block runs beside its kernel: the softfloat deficit
+    # classification (branch.c:72-78) over the [A] arc table, back to back
+    s1 = torch.randint(0, 1 << 20, (cfg.A,), device=dev, dtype=torch.int64)
+    mx = s1 + torch.randint(1, 1 << 10, (cfg.A,), device=dev,
+                            dtype=torch.int64)
+
+    def deficit():
+        rm, rk = sf.one_minus_div(s1, mx)
+        for c in (cfg.branch_diff, cfg.branch_diff_dist, cfg.branch_diff_cut):
+            sf.gt_const(rm, rk, c)
+    log("branch block beside its kernel: the softfloat deficit over A %d "
+        "arcs %.3f ms a call back to back; the block %.3f ms a call (%d "
+        "calls)" % (cfg.A, stream_ms(deficit, 20),
+                    loop["block_ms"]["branch"] / loop["rounds_branch_run"],
+                    loop["rounds_branch_run"]))
     kept.clear()
 
     log(smi)

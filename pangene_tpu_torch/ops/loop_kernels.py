@@ -1,0 +1,335 @@
+"""Two blocks of the device-resident pruning loop as hand-written CUDA
+kernels (csrc/loop_blocks.cu), each beside its plain PyTorch version.
+
+branch_locality: the branch block's pairwise any-genome locality
+(reference branch.c:48-106; JAX pangene_tpu/parallel/device_loop.py:525
+branch_block, its loc_chunk loop). For every branching arc a (valid, in a
+group of >= 2 arcs of one source vertex) and every other branching member
+p of its group with 0 < |a - p| < D, the pair is local when some genome has
+both targets' representatives present, on the same contig unless
+frag_mode, within local_dist bp of cm or local_count kept-hit ranks. Then
+aml[a] |= is_max[p], and he[a] is set when p < a (an earlier local
+partner). The self pair is never counted. The arc table is the loop's:
+v-sorted, so the members of a group are contiguous, and gs_of is the
+index of the group's first arc.
+
+merge_fold: the in-loop lean merge after its sort (graph.c:87-177; JAX
+device_loop.py:264 walk_merge and its bucket exchange). Over sorted int64
+keys ((vw << GB | g) << jb) | low, invalid rows holding KSENT_I at the end,
+an in-group is a run of equal (vw, g) and an out-group a run of equal vw.
+Per out-group, in order: the arc row (vw, plus499(sum of the in-groups'
+largest s1, number of in-groups)); past n_out the rows read (SENT_I, 0).
+Each valid row's out-group rank goes to pair[src], src being its origin
+row: the low jb key bits, or perm[i] when the keys were sorted with a
+permutation; every other pair slot reads 0. s1 values are scores (>= 0).
+
+On cuda each wrapper launches its kernel or raises; on the CPU it takes the
+plain version. Neither reads a value on the host on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..util import build_dir
+from . import softfloat as sf
+from .sweep_kernel import build_so
+
+I64 = torch.int64
+I32 = torch.int32
+SENT_I = (1 << 62) - 1                   # empty arc-table slot
+KSENT_I = (1 << 62)                      # sort key of an invalid row
+_LONG_MAX = (1 << 63) - 1
+
+# Launches of each kernel and calls of its plain version. reset_counts()
+# zeroes them; the loop's LAST and chip_smoke.py read them.
+n_calls = {"branch_locality": {"kernel": 0, "plain": 0},
+           "merge_fold": {"kernel": 0, "plain": 0}}
+
+
+def reset_counts() -> None:
+    for c in n_calls.values():
+        for k in c:
+            c[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# segment helpers (also the loop's and the per-round step's)
+# ---------------------------------------------------------------------------
+
+def seg_sum(vals: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.zeros(n, dtype=vals.dtype, device=vals.device) \
+        .index_add_(0, ids, vals)
+
+
+def seg_max(vals: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-segment maximum; a segment with no member reads 0 (unread)."""
+    return torch.zeros(n, dtype=vals.dtype, device=vals.device) \
+        .scatter_reduce_(0, ids, vals, "amax", include_self=False)
+
+
+def seg_min(vals: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.zeros(n, dtype=vals.dtype, device=vals.device) \
+        .scatter_reduce_(0, ids, vals, "amin", include_self=False)
+
+
+def plus499_i32(S: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    return sf.plus499_trunc(S, n.clamp(min=1)).to(I32)
+
+
+def prev_row(x: torch.Tensor, first) -> torch.Tensor:
+    """[first, x[0], ..., x[-2]]."""
+    return torch.cat([x.new_full((1,), first), x[:-1]])
+
+
+# ---------------------------------------------------------------------------
+# building and loading the kernels
+# ---------------------------------------------------------------------------
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "loop_blocks.cu")
+SO_NAME = "libloop_blocks.so"
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def build(force: bool = False) -> Tuple[float, str]:
+    """build_so of csrc/loop_blocks.cu."""
+    return build_so(_SRC, SO_NAME, force)
+
+
+def load(path: str) -> ctypes.CDLL:
+    """The built library with its entry points' C signatures."""
+    lib = ctypes.CDLL(path)
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = lib.pg_branch_locality
+    fn.restype = i
+    fn.argtypes = [vp] * 4 + [i] + [vp] * 4 + [ll, i, i, ll, ll] + [vp] * 3
+    fn = lib.pg_merge_fold_blocks
+    fn.restype = ll
+    fn.argtypes = [ll]
+    fn = lib.pg_merge_fold
+    fn.restype = i
+    fn.argtypes = [vp] * 3 + [ll, i, i, ll] + [vp] * 7
+    return lib
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            build()
+            _lib = load(os.path.join(build_dir(), SO_NAME))
+        return _lib
+
+
+def _check(named, dev: torch.device) -> None:
+    """Each (name, tensor, dtype, shape) contiguous on `dev`."""
+    for name, t, dtype, shape in named:
+        if t.dtype != dtype:
+            raise ValueError("%s: dtype %s, expected %s"
+                             % (name, t.dtype, dtype))
+        if t.device != dev or tuple(t.shape) != tuple(shape) or \
+                not t.is_contiguous():
+            raise ValueError("%s must be a contiguous %s tensor on %s, got "
+                             "%s on %s" % (name, tuple(shape), dev,
+                                           tuple(t.shape), t.device))
+
+
+def _launch_device(dev: torch.device, what: str) -> bool:
+    """True on cuda (launch), False on the CPU (plain); raises elsewhere."""
+    if dev.type == "cpu":
+        n_calls[what]["plain"] += 1
+        return False
+    if dev.type != "cuda":
+        raise ValueError("%s runs on cuda or cpu, not %s" % (what, dev))
+    return True
+
+
+# ---------------------------------------------------------------------------
+# branch_locality
+# ---------------------------------------------------------------------------
+
+def branch_locality(r_pres, r_cid, r_cm, r_rank, tgt_gid, gs_of, branching,
+                    is_max, *, D: int, frag_mode: bool, local_dist: int,
+                    local_count: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(aml, he), bool [A]. The representative planes are gene-major
+    [n_gene, G]: presence (bool), contig (int32), cm (int64) and kept-hit
+    rank (int32) of each gene's last kept hit in genome g. Per arc of the
+    v-sorted table [A]: the target's gene tgt_gid (int64, in [0, n_gene)),
+    the group's first arc gs_of (int64), branching and is_max (bool)."""
+    dev = r_pres.device
+    ng, G = r_pres.shape
+    A = tgt_gid.shape[0]
+    _check([("r_pres", r_pres, torch.bool, (ng, G)),
+            ("r_cid", r_cid, I32, (ng, G)), ("r_cm", r_cm, I64, (ng, G)),
+            ("r_rank", r_rank, I32, (ng, G)),
+            ("tgt_gid", tgt_gid, I64, (A,)), ("gs_of", gs_of, I64, (A,)),
+            ("branching", branching, torch.bool, (A,)),
+            ("is_max", is_max, torch.bool, (A,))], dev)
+    if D < 1:
+        raise ValueError("branch window D must be >= 1, got %d" % D)
+    if not _launch_device(dev, "branch_locality"):
+        return branch_locality_plain(
+            r_pres, r_cid, r_cm, r_rank, tgt_gid, gs_of, branching, is_max,
+            D=D, frag_mode=frag_mode, local_dist=local_dist,
+            local_count=local_count)
+    aml = torch.empty(A, dtype=torch.bool, device=dev)
+    he = torch.empty(A, dtype=torch.bool, device=dev)
+    if A == 0:
+        return aml, he
+    lib = _kernel_lib()
+    clip = lambda x: max(min(int(x), _LONG_MAX), -_LONG_MAX)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pg_branch_locality(
+            r_pres.data_ptr(), r_cid.data_ptr(), r_cm.data_ptr(),
+            r_rank.data_ptr(), G, tgt_gid.data_ptr(), gs_of.data_ptr(),
+            branching.data_ptr(), is_max.data_ptr(), A, int(D),
+            int(bool(frag_mode)), clip(local_dist), clip(local_count),
+            aml.data_ptr(), he.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("branch_locality kernel launch failed: CUDA "
+                           "error %d" % err)
+    n_calls["branch_locality"]["kernel"] += 1
+    return aml, he
+
+
+def branch_locality_plain(r_pres, r_cid, r_cm, r_rank, tgt_gid, gs_of,
+                          branching, is_max, *, D: int, frag_mode: bool,
+                          local_dist: int, local_count: int):
+    """Plain PyTorch version of branch_locality: the branching arcs
+    compacted (a group's members stay contiguous, so its partner at
+    in-group offset d is index + d), then one pass per offset d <
+    min(largest group, D), each evaluated once for both members."""
+    A = tgt_gid.shape[0]
+    dev = tgt_gid.device
+    aml = torch.zeros(A, dtype=torch.bool, device=dev)
+    he = torch.zeros(A, dtype=torch.bool, device=dev)
+    bidx = torch.nonzero(branching).squeeze(1)
+    nb = bidx.numel()
+    if nb < 2:
+        return aml, he
+    tg = tgt_gid[bidx]
+    pa, ca, ma, ra = r_pres[tg], r_cid[tg], r_cm[tg], r_rank[tg].to(I64)
+    gs_b = gs_of[bidx]
+    im_b = is_max[bidx]
+    max_n = int(torch.unique_consecutive(gs_b, return_counts=True)[1].max())
+    aml_b = torch.zeros(nb, dtype=torch.bool, device=dev)
+    he_b = torch.zeros(nb, dtype=torch.bool, device=dev)
+    for d in range(1, min(max_n, D)):
+        e, l = slice(0, nb - d), slice(d, nb)     # earlier, later
+        ok = pa[e] & pa[l]
+        if not frag_mode:
+            ok &= ca[e] == ca[l]
+        loc = ok & (((ma[e] - ma[l]).abs() <= local_dist)
+                    | ((ra[e] - ra[l]).abs() <= local_count))
+        lp = loc.any(dim=1) & (gs_b[e] == gs_b[l])
+        aml_b[e] |= lp & im_b[l]                  # a later max
+        aml_b[l] |= lp & im_b[e]                  # an earlier max
+        he_b[l] |= lp                             # an earlier local
+    aml[bidx] = aml_b
+    he[bidx] = he_b
+    return aml, he
+
+
+# ---------------------------------------------------------------------------
+# merge_fold
+# ---------------------------------------------------------------------------
+
+def merge_fold(keys: torch.Tensor, s1: torch.Tensor, *, jb: int, gb: int,
+               cap: int, perm: Optional[torch.Tensor] = None):
+    """(arc_vw int64 [cap], arc_s1 int32 [cap], n_out int64 scalar, pair
+    int32 [N]) of N sorted int64 keys, the rows' s1 (int32 [N], indexed by
+    origin row) and, for keys whose low bits hold no origin, the sort's
+    permutation (int64 [N])."""
+    dev = keys.device
+    N = keys.shape[0]
+    named = [("keys", keys, I64, (N,)), ("s1", s1, I32, (N,))]
+    if perm is not None:
+        named.append(("perm", perm, I64, (N,)))
+    _check(named, dev)
+    if not (jb >= 0 and gb >= 0 and jb + gb < 62 and cap >= 1):
+        raise ValueError("merge_fold: jb %d gb %d cap %d" % (jb, gb, cap))
+    if not _launch_device(dev, "merge_fold"):
+        return merge_fold_plain(keys, s1, jb=jb, gb=gb, cap=cap, perm=perm)
+    arc_vw = torch.empty(cap, dtype=I64, device=dev)
+    arc_s1 = torch.empty(cap, dtype=I32, device=dev)
+    n_out = torch.empty((), dtype=I64, device=dev)
+    pair = torch.empty(N, dtype=I32, device=dev)
+    lib = _kernel_lib()
+    nblk = max(int(lib.pg_merge_fold_blocks(N)), 1)
+    blk_cnt = torch.empty(nblk, dtype=I32, device=dev)
+    blk_off = torch.empty(nblk, dtype=I64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pg_merge_fold(
+            keys.data_ptr(), None if perm is None else perm.data_ptr(),
+            s1.data_ptr(), N, jb, gb, cap, blk_cnt.data_ptr(),
+            blk_off.data_ptr(), arc_vw.data_ptr(), arc_s1.data_ptr(),
+            n_out.data_ptr(), pair.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("merge_fold kernel launch failed: CUDA error %d"
+                           % err)
+    n_calls["merge_fold"]["kernel"] += 1
+    return arc_vw, arc_s1, n_out, pair
+
+
+def merge_fold_plain(keys: torch.Tensor, s1: torch.Tensor, *, jb: int,
+                     gb: int, cap: int, perm: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of merge_fold: fold_sorted over the keys with
+    their origin bits shifted out, then each row's out-group rank scattered
+    to its origin."""
+    N = keys.shape[0]
+    k = keys >> jb
+    va = k != (KSENT_I >> jb)
+    src = perm if perm is not None else \
+        torch.where(va, keys & ((1 << jb) - 1), 0)
+    f = fold_sorted(k, va, s1[src], gb, cap)
+    pair = torch.zeros(N + 1, dtype=I32, device=keys.device).scatter_(
+        0, torch.where(va, src, N), f.out_id.to(I32))[:N]
+    return f.arc_vw, f.arc_s1, f.n_out, pair
+
+
+class Fold(NamedTuple):
+    va: torch.Tensor        # [N] valid row
+    in_new: torch.Tensor    # [N] first row of an in-group
+    in_id: torch.Tensor     # [N] in-group rank of each row
+    out_id: torch.Tensor    # [N] out-group rank of each row
+    n_out: torch.Tensor     # int64 scalar: number of out-groups
+    live: torch.Tensor      # [cap] row < n_out
+    arc_vw: torch.Tensor    # [cap] int64, SENT_I past n_out
+    arc_s1: torch.Tensor    # [cap] int32, 0 past n_out
+    arc_ng: torch.Tensor    # [cap] int32 in-groups an out-group, 0 past n_out
+
+
+def fold_sorted(k: torch.Tensor, va: torch.Tensor, s: torch.Tensor, gb: int,
+                cap: int) -> Fold:
+    """The two-level fold in torch ops over N sorted keys k = (vw << gb) | g
+    (valid rows `va` first) and the rows' s1 `s` in that order: head flags,
+    cumsum ids, the in-group maximum and the sums per out-group. The
+    in-loop plain version and the loop's full=True tail share it."""
+    N = k.shape[0]
+    last = max(N - 1, 0)
+    in_new = va & (k != prev_row(k, KSENT_I))
+    in_id = (torch.cumsum(in_new, 0) - 1).clamp(0, last)
+    s1_in = seg_max(torch.where(va, s, 0), in_id, N)
+    vw = k >> gb
+    out_new = va & (vw != prev_row(vw, KSENT_I))
+    out_id = (torch.cumsum(out_new, 0) - 1).clamp(0, last)
+    ng = seg_sum(in_new.to(I32), out_id, N)
+    s1s = seg_sum(torch.where(in_new, s1_in[in_id].to(I64), 0), out_id, N)
+    vw_f = seg_max(torch.where(va, vw, 0), out_id, N)
+    n_out = out_new.sum()
+    fit = lambda x: x[:cap] if cap <= N else \
+        torch.cat([x, x.new_zeros(cap - N)])
+    live = torch.arange(cap, device=k.device) < n_out
+    arc_ng = torch.where(live, fit(ng), 0)
+    return Fold(va, in_new, in_id, out_id, n_out, live,
+                torch.where(live, fit(vw_f), SENT_I),
+                torch.where(live, plus499_i32(fit(s1s), arc_ng.to(I64)), 0),
+                arc_ng)

@@ -509,17 +509,19 @@ def nvcc_command(src: str, out: str) -> list:
             "-Xptxas", "-v", "-o", out, src]
 
 
-def build(force: bool = False) -> Tuple[float, str]:
-    """Compile csrc/shadow_sweep.cu for sm_90a into build/pangene_tpu_torch/
-    (skipped when the library is newer than the source, unless `force`).
-    Returns (seconds spent, ptxas report). Raises when nvcc fails."""
-    so = os.path.join(build_dir(), "libshadow_sweep.so")
+def build_so(src: str, name: str, force: bool = False
+             ) -> Tuple[float, str]:
+    """Compile the CUDA source `src` for sm_90a into the shared library
+    build/pangene_tpu_torch/`name` (skipped when the library is newer than
+    the source, unless `force`). Returns (seconds spent, ptxas report).
+    Raises when nvcc fails."""
+    so = os.path.join(build_dir(), name)
     if not force and os.path.exists(so) and \
-            os.path.getmtime(so) >= os.path.getmtime(_SRC):
+            os.path.getmtime(so) >= os.path.getmtime(src):
         return 0.0, ""
     tmp = "%s.%d.tmp" % (so, os.getpid())
     t0 = time.monotonic()
-    r = subprocess.run(nvcc_command(_SRC, tmp), capture_output=True,
+    r = subprocess.run(nvcc_command(src, tmp), capture_output=True,
                        text=True)
     dt = time.monotonic() - t0
     if r.returncode != 0:
@@ -527,6 +529,11 @@ def build(force: bool = False) -> Tuple[float, str]:
                            % (r.returncode, r.stdout, r.stderr))
     os.replace(tmp, so)
     return dt, r.stderr
+
+
+def build(force: bool = False) -> Tuple[float, str]:
+    """build_so of csrc/shadow_sweep.cu."""
+    return build_so(_SRC, "libshadow_sweep.so", force)
 
 
 def load(path: str) -> ctypes.CDLL:

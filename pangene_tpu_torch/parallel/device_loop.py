@@ -14,9 +14,11 @@ only flt, weak, shadow, pid_dom, alive and the arc table change.
 The rounds are a Python loop over torch ops. The shadow sweep of all
 genomes is one launch a round of the hand-written CUDA kernel
 (sweep_kernel.shadow_sweep_batched; on the CPU its plain version, the split
-forms of ops/device.py). Three values a round may be read on the host
-(counted in LAST["host_syncs"]): whether the round changed anything, which
-gives the convergence skip, and the branching arcs' count and largest group.
+forms of ops/device.py); the branch block's pairwise locality and the
+in-loop merge's fold after its sort are hand-written kernels too
+(ops/loop_kernels.py: branch_locality, merge_fold). One value a round is
+read on the host (counted in LAST["host_syncs"]): whether the round changed
+anything, which gives the convergence skip.
 
 On a mesh of several ranks (parallel/mesh.py) each rank holds G_loc of the
 Gp padded genomes; the arc table, the segment state and the round's
@@ -27,9 +29,8 @@ bucket exchange), the branch block's locality bits and the round's change
 bit. A value read on the host decides a branch of the Python loop, so it
 must be the same on every rank, or one rank would enter a collective that
 another skips: the change bit is summed over the ranks before it is read;
-the branching count and group size come from the replicated arc table; the
-overflow flag is reduced once more at the end, so a fallback by one rank is
-a fallback by all.
+the overflow flag is reduced once more at the end, so a fallback by one rank
+is a fallback by all.
 
 Bit-exactness:
   * Every in-loop IEEE-double expression of the reference runs through
@@ -70,15 +71,16 @@ import torch
 
 from ..options import PgOpt
 from ..ops import device as dev
+from ..ops import loop_kernels as lk
 from ..ops import softfloat as sf
 from ..ops import sweep_kernel as sk
+from ..ops.loop_kernels import (KSENT_I, SENT_I, plus499_i32, prev_row,
+                                seg_max, seg_min, seg_sum)
 from ..util import log_msg
 from . import mesh as M
 
 I64 = torch.int64
 I32 = torch.int32
-SENT_I = (1 << 62) - 1                   # empty arc-table slot
-KSENT_I = (1 << 62)                      # merge-sort key for invalid rows
 _BIAS = -(1 << 63)                       # uint64 -> biased int64 (xor)
 
 # upload layout, the JAX package's: the per-hit columns ship as five stacked
@@ -187,31 +189,6 @@ def _steady_cm_views(d):
     return views
 
 
-def _seg_sum(vals: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
-    return torch.zeros(n, dtype=vals.dtype, device=vals.device) \
-        .index_add_(0, ids, vals)
-
-
-def _seg_max(vals: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
-    """Per-segment maximum; a segment with no member reads 0 (unread)."""
-    return torch.zeros(n, dtype=vals.dtype, device=vals.device) \
-        .scatter_reduce_(0, ids, vals, "amax", include_self=False)
-
-
-def _seg_min(vals: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
-    return torch.zeros(n, dtype=vals.dtype, device=vals.device) \
-        .scatter_reduce_(0, ids, vals, "amin", include_self=False)
-
-
-def _plus499_i32(S: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
-    return sf.plus499_trunc(S, n.clamp(min=1)).to(I32)
-
-
-def _prev_row(x: torch.Tensor, first) -> torch.Tensor:
-    """[first, x[0], ..., x[-2]]."""
-    return torch.cat([x.new_full((1,), first), x[:-1]])
-
-
 # ---------------------------------------------------------------------------
 # the schedule
 # ---------------------------------------------------------------------------
@@ -263,12 +240,15 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
                     arc0_vw, arc0_s1, seg_tot0, seg_ng0, occ_cut, deg_cut,
                     loci_cut, do_branch, do_occ, do_sweep, do_walk, no_skip,
                     *, cfg: Cfg, stats: Optional[dict] = None,
-                    mesh: Optional[M.Mesh] = None):
+                    mesh: Optional[M.Mesh] = None,
+                    capture: Optional[dict] = None):
     """schedule() on tensors that already lie on the device, the five blocks
     holding this rank's genomes of `mesh` (the per-round cuts and switches
     stay host arrays); returns device tensors, the first four of them this
-    rank's genomes. `stats`, when given, receives host_syncs, block_ms and
-    sweep_launches."""
+    rank's genomes. `stats`, when given, receives host_syncs, block_ms,
+    sweep_launches and loop_launches (the launches of each kernel of
+    ops/loop_kernels). `capture`, when given, receives the arguments of the
+    first call of each of those kernels, by name."""
     device = blk_i32.device
     mesh = mesh or M.local(device)
     nd, rank = mesh.world, mesh.rank
@@ -282,6 +262,7 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     NL = G * 2 * H                # this rank's merge keys
     iotaH = torch.arange(H, dtype=I32, device=device)
     iotaA = torch.arange(A, dtype=I64, device=device)
+    iotaG = torch.arange(G, dtype=I64, device=device)[None, :]
     jglob = rank * G + torch.arange(G, dtype=I64, device=device)
     ga = lambda x: M.all_gather(x.reshape(-1), mesh)
     wmask = (1 << B) - 1
@@ -289,6 +270,11 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     seg_gid = seg_gid.to(I64)
     syncs = [0]
     timer = _BlockTimer(device)
+
+    def captured(fn, *args, **kw):
+        if capture is not None:
+            capture.setdefault(fn.__name__, (args, kw))
+        return fn(*args, **kw)
 
     def host(x: torch.Tensor):
         """One read of a small tensor on the host (a synchronisation)."""
@@ -314,6 +300,7 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
 
     geo: dict = {}                # the plain sweep's round-invariant planes
     launches0 = sk.n_batched["kernel"]
+    loop0 = {k: c["kernel"] for k, c in lk.n_calls.items()}
 
     def kept_pairs(flt_b, shadow_b, alive):
         """Adjacent kept pairs in cm order: (kept, pair_ok, prev, v, w,
@@ -354,7 +341,7 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
                                      (keys.reshape(-1) << JB) | jo,
                                      KSENT_I)).values
         dest = ((kps >> (JB + GB + B)) * nd // (2 * S)).clamp(0, nd - 1)
-        cnt = _seg_sum((kps != KSENT_I).to(I32), dest, nd)
+        cnt = seg_sum((kps != KSENT_I).to(I32), dest, nd)
         start = torch.cumsum(cnt, 0) - cnt
         ovf_x = (cnt > C).any()
         cc = torch.arange(C, dtype=I32, device=device)[None, :]
@@ -366,21 +353,13 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
                            dim=1)                         # [nd, 2, C]
         got = M.all_to_all(sent, mesh)
         RL = nd * C
-        rk, rpos = torch.sort(got[:, 0].reshape(-1), stable=True)
-        rs1 = got[:, 1].reshape(-1)[rpos].to(I32)
-        keys_r = rk >> JB
-        va = keys_r != (KSENT_I >> JB)
-        in_new = va & (keys_r != _prev_row(keys_r, KSENT_I))
-        in_id = (torch.cumsum(in_new, 0) - 1).clamp(0, RL - 1)
-        s1_in = _seg_max(torch.where(va, rs1, 0), in_id, RL)
-        vw_row = keys_r >> GB
-        out_new = va & (vw_row != _prev_row(vw_row, KSENT_I))
-        out_id = (torch.cumsum(out_new, 0) - 1).clamp(0, RL - 1)
-        ng_f = _seg_sum(in_new.to(I32), out_id, RL)
-        s1s_f = _seg_sum(torch.where(in_new, s1_in[in_id].to(I64), 0),
-                         out_id, RL)
-        vw_f = _seg_max(torch.where(va, vw_row, 0), out_id, RL)
-        n_out_l = out_new.sum()
+        got_k = got[:, 0].reshape(-1)
+        rk, rpos = torch.sort(got_k, stable=True)
+        # the received range's arcs in rows [0, n_out_l), each received
+        # slot's local out-group row in `reply`
+        vw_f, s1_loc, n_out_l, reply = captured(
+            lk.merge_fold, rk, got[:, 1].reshape(-1).to(I32), jb=JB, gb=GB,
+            cap=RL, perm=rpos)
         per_rank = M.all_gather(torch.stack([n_out_l, ovf_x.to(I64)]),
                                 mesh).reshape(nd, 2)
         nouts = per_rank[:, 0]
@@ -392,14 +371,11 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
         at = off.clamp(0, A) + torch.arange(RL, device=device)
         put = lambda x: torch.zeros(A + RL, dtype=I64, device=device) \
             .index_copy_(0, at, torch.where(lv, x, 0).to(I64))[:A]
-        s1_loc = _plus499_i32(s1s_f, ng_f.to(I64))
         vw_gl, s1_gl = M.psum(torch.stack([put(vw_f), put(s1_loc)]), mesh)
         live = iotaA < n_out
         arc_vw = torch.where(live, vw_gl, SENT_I)
         arc_s1 = torch.where(live, s1_gl.to(I32), 0)
-        out_gl = (off + out_id).to(I32)
-        reply = torch.zeros(RL, dtype=I32, device=device).scatter_(
-            0, rpos, torch.where(va, out_gl, 0))
+        reply = torch.where(got_k != KSENT_I, reply + off, 0).to(I32)
         reply = M.all_to_all(reply, mesh)                 # [nd * C]
         pair_loc = torch.zeros(NL + 1, dtype=I32, device=device).scatter_(
             0, torch.where(smask, orig_row, NL).reshape(-1), reply)
@@ -435,75 +411,58 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
         if not full and JB and cfg.a2a_cap:
             return exchange_merge(keys, ok2, s1_2, prevc, pair_ok, seg_tot,
                                   seg_ng)
-        if full:
-            keys, so = torch.sort(
-                ga(torch.where(ok2, keys, KSENT_I)), stable=True)
-            d2 = ga(torch.cat([dist, dist], dim=1))[so]
-            s2_2 = ga(torch.cat([s2w, s1w], dim=1))[so]
-            s1_2 = ga(s1_2)[so]
-            va = keys != KSENT_I
-        elif JB:
-            # JB low bits of the lean sort key carry the global row index:
-            # the merge sorts one int64 tensor of distinct keys and
-            # recovers the permutation and s1 by mask and gather
-            jo = (rank * NL + torch.arange(NL, dtype=I64, device=device)) \
-                .reshape(G, 2 * H)
-            kps = torch.sort(ga(torch.where(ok2, (keys << JB) | jo,
-                                            KSENT_I))).values
-            keys = kps >> JB                    # (vw<<GB)|g rows
-            va = keys != (KSENT_I >> JB)
-            so = torch.where(va, kps & ((1 << JB) - 1), N)
-            s1_2 = ga(s1_2)[so.clamp(0, N - 1)]
-        else:
-            # co-sorted form: equal keys keep their row order
-            keys, so = torch.sort(
-                ga(torch.where(ok2, keys, KSENT_I)), stable=True)
-            s1_2 = ga(s1_2)[so]
-            va = keys != KSENT_I
-        in_new = va & (keys != _prev_row(keys, KSENT_I))
-        in_id = (torch.cumsum(in_new, 0) - 1).clamp(0, N - 1)
-        s1_in = _seg_max(torch.where(va, s1_2, 0), in_id, N)
-        vw_row = keys >> GB
-        out_new = va & (vw_row != _prev_row(vw_row, KSENT_I))
-        out_id = (torch.cumsum(out_new, 0) - 1).clamp(0, N - 1)
-        ng_f = _seg_sum(in_new.to(I32), out_id, N)
-        s1s_f = _seg_sum(torch.where(in_new, s1_in[in_id].to(I64), 0),
-                         out_id, N)
-        vw_f = _seg_max(torch.where(va, vw_row, 0), out_id, N)
-        n_out = out_new.sum()
-        live = iotaA < n_out
-        arc_vw = torch.where(live, vw_f[:A], SENT_I)
-        arc_ng = torch.where(live, ng_f[:A], 0)
-        arc_s1s = torch.where(live, s1s_f[:A], 0)
-        arc_s1 = torch.where(live, _plus499_i32(arc_s1s, arc_ng.to(I64)), 0)
-        lean = (arc_vw, arc_s1, n_out, seg_tot, seg_ng)
         if not full:
-            # scatter each pair slot's arc row back through the sort
-            # permutation; invalid rows of the packed path carry so == N
-            # and land in a spare slot; their pair slots have pair_ok False
-            pair_arc = torch.zeros(N + 1, dtype=I32, device=device) \
-                .scatter_(0, so, out_id.to(I32))
+            if JB:
+                # JB low bits of the lean sort key carry the global row
+                # index: the merge sorts one int64 tensor of distinct keys
+                # and the fold finds each row's origin in them
+                jo = (rank * NL
+                      + torch.arange(NL, dtype=I64, device=device)) \
+                    .reshape(G, 2 * H)
+                kps = torch.sort(ga(torch.where(ok2, (keys << JB) | jo,
+                                                KSENT_I))).values
+                arc_vw, arc_s1, n_out, pair_arc = captured(
+                    lk.merge_fold, kps, ga(s1_2), jb=JB, gb=GB, cap=A)
+            else:
+                # co-sorted form: equal keys keep their row order
+                keys, so = torch.sort(
+                    ga(torch.where(ok2, keys, KSENT_I)), stable=True)
+                arc_vw, arc_s1, n_out, pair_arc = captured(
+                    lk.merge_fold, keys, ga(s1_2), jb=0, gb=GB, cap=A,
+                    perm=so)
+            # each pair slot's arc row, this rank's window of the
+            # replicated plane
             mine = pair_arc[rank * NL:(rank + 1) * NL].reshape(G, 2 * H)
             tgt_prev = torch.gather(ordcm, 1, prevc)
-            return lean + ((mine[:, :H], mine[:, H:], tgt_prev, pair_ok),)
-        cnt_in = _seg_sum(va.to(I64), in_id, N)
-        ds_in = _seg_sum(torch.where(va, d2.to(I64), 0), in_id, N)
+            return (arc_vw, arc_s1, n_out, seg_tot, seg_ng,
+                    (mine[:, :H], mine[:, H:], tgt_prev, pair_ok))
+        keys, so = torch.sort(
+            ga(torch.where(ok2, keys, KSENT_I)), stable=True)
+        d2 = ga(torch.cat([dist, dist], dim=1))[so]
+        s2_2 = ga(torch.cat([s2w, s1w], dim=1))[so]
+        s1_2 = ga(s1_2)[so]
+        f = lk.fold_sorted(keys, keys != KSENT_I, s1_2, GB, A)
+        va, in_new, in_id, out_id, live = (f.va, f.in_new, f.in_id,
+                                           f.out_id, f.live)
+        lean = (f.arc_vw, f.arc_s1, f.n_out, seg_tot, seg_ng)
+        cnt_in = seg_sum(va.to(I64), in_id, N)
+        ds_in = seg_sum(torch.where(va, d2.to(I64), 0), in_id, N)
         dr_in = sf.plus499_trunc(ds_in, cnt_in.clamp(min=1))
-        s2_in = _seg_max(torch.where(va, s2_2, 0), in_id, N)
-        tot_f = _seg_sum(torch.where(in_new, cnt_in[in_id], 0).to(I32),
-                         out_id, N)
-        ds_f = _seg_sum(torch.where(in_new, dr_in[in_id] * cnt_in[in_id], 0),
+        s2_in = seg_max(torch.where(va, s2_2, 0), in_id, N)
+        tot_f = seg_sum(torch.where(in_new, cnt_in[in_id], 0).to(I32),
                         out_id, N)
-        s2s_f = _seg_sum(torch.where(in_new, s2_in[in_id].to(I64), 0),
-                         out_id, N)
+        ds_f = seg_sum(torch.where(in_new, dr_in[in_id] * cnt_in[in_id], 0),
+                       out_id, N)
+        s2s_f = seg_sum(torch.where(in_new, s2_in[in_id].to(I64), 0),
+                        out_id, N)
         arc_tot = torch.where(live, tot_f[:A], 0)
         # exact output averages (graph.c:170-172) via softfloat
         arc_ad = torch.where(live, sf.plus499_trunc(
             torch.where(live, ds_f[:A], 0),
             arc_tot.clamp(min=1).to(I64)), 0).to(I32)
-        arc_s2 = torch.where(live, _plus499_i32(
-            torch.where(live, s2s_f[:A], 0), arc_ng.to(I64)), 0)
-        return lean + (arc_ng, arc_tot, arc_ad, arc_s2)
+        arc_s2 = torch.where(live, plus499_i32(
+            torch.where(live, s2s_f[:A], 0), f.arc_ng.to(I64)), 0)
+        return lean + (f.arc_ng, arc_tot, arc_ad, arc_s2)
 
     # ---- round state ----
     flt = cols["flt"]
@@ -535,9 +494,9 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
         with timer("branch"):
             valid_a = arc_vw != SENT_I
             v_a = arc_vw >> B
-            g_new = valid_a & (v_a != _prev_row(v_a, -1))
+            g_new = valid_a & (v_a != prev_row(v_a, -1))
             g_id = (torch.cumsum(g_new, 0) - 1).clamp(0, A - 1)
-            n_in_g = _seg_sum(valid_a.to(I32), g_id, A)[g_id]
+            n_in_g = seg_sum(valid_a.to(I32), g_id, A)[g_id]
 
         def branch_block():
             """Branch marking (branch.c:48-106): for every arc of a
@@ -545,63 +504,34 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
             to a max arc's target of the group (aml), and to an earlier
             member's (he); then the softfloat classification and the
             n_dist_loci greedy."""
-            gs_of = _seg_min(torch.where(valid_a, iotaA, A), g_id, A)[g_id]
-            mx = _seg_max(torch.where(valid_a, arc_s1, 0), g_id, A)[g_id] \
+            gs_of = seg_min(torch.where(valid_a, iotaA, A), g_id, A)[g_id]
+            mx = seg_max(torch.where(valid_a, arc_s1, 0), g_id, A)[g_id] \
                 .clamp(min=0)
             branching = valid_a & (n_in_g >= 2)
             tgt_gid = seg_gid[((arc_vw & wmask) >> 1).clamp(0, S - 1)] \
                 .clamp(0, ng - 1)
             ovf = (branching & (n_in_g > D)).any()
             # rep positions (branch.c:6-29): last kept hit per gene in the
-            # current cs order, with its kept-rank and cm
+            # current cs order, with its kept-rank and cm, as gene-major
+            # [ng, G] planes of this rank's genomes
             keptc = (flt == 0) & (shadow == 0) & valid
-            krank = torch.cumsum(keptc, dim=1) - 1
+            krank = torch.cumsum(keptc, dim=1, dtype=I32) - 1
             pos = torch.where(keptc, iotaH[None, :], -1)
             gidc = cols["gid"].clamp(0, ng - 1).long()
-            last = torch.full((G, ng), -1, dtype=I32, device=device) \
-                .scatter_reduce_(1, gidc, pos, "amax", include_self=True)
+            last = torch.full((ng, G), -1, dtype=I32, device=device) \
+                .scatter_reduce_(0, gidc.t(), pos.t(), "amax",
+                                 include_self=True)
             lastc = last.clamp(0, H - 1).long()
-            r_pres = last >= 0
-            r_cid = torch.gather(cols["cid"], 1, lastc)
-            r_rank = torch.gather(krank, 1, lastc)
-            r_cm = torch.gather(cols["cm"], 1, lastc)
-            # pairwise any-genome locality within each group (nb and max_n
-            # come from the replicated arc table: equal on every rank).
-            # Members of a
-            # group are contiguous in the v-sorted arc table and stay so
-            # among the branching arcs alone, so the partner at in-group
-            # offset d is index a + d of the compacted planes. Locality is
-            # symmetric: each offset is evaluated once and feeds both
-            # members. The self pair is unobservable (it only affects arcs
-            # that are themselves max, which are never weak candidates).
-            nb, max_n = host(torch.stack([
-                branching.sum(), torch.where(branching, n_in_g, 0).max()]))
-            aml = torch.zeros(A, dtype=torch.bool, device=device)
-            he = torch.zeros(A, dtype=torch.bool, device=device)
-            if nb:
-                syncs[0] += 1                 # nonzero sizes its result
-                bidx = torch.nonzero(branching).squeeze(1)
-                tg = tgt_gid[bidx]
-                pa, ca = r_pres[:, tg], r_cid[:, tg]      # [G, nb]
-                ma, ra = r_cm[:, tg], r_rank[:, tg]
-                gs_b = gs_of[bidx]
-                im_b = (arc_s1 == mx)[bidx]
-                aml_b = torch.zeros(nb, dtype=torch.bool, device=device)
-                he_b = torch.zeros(nb, dtype=torch.bool, device=device)
-                for d in range(1, min(max_n, D)):
-                    e, l = slice(0, nb - d), slice(d, nb)  # earlier, later
-                    ok = pa[:, e] & pa[:, l]
-                    if not cfg.frag_mode:
-                        ok &= ca[:, e] == ca[:, l]
-                    loc = ok & (
-                        ((ma[:, e] - ma[:, l]).abs() <= cfg.local_dist)
-                        | ((ra[:, e] - ra[:, l]).abs() <= cfg.local_count))
-                    lp = loc.any(dim=0) & (gs_b[e] == gs_b[l])
-                    aml_b[e] |= lp & im_b[l]              # a later max
-                    aml_b[l] |= lp & im_b[e]              # an earlier max
-                    he_b[l] |= lp                         # an earlier local
-                aml[bidx] = aml_b
-                he[bidx] = he_b
+            # pairwise any-genome locality within each group, one kernel
+            # over the arc table (no host read)
+            loc_args = (last >= 0, cols["cid"][iotaG, lastc],
+                        cols["cm"][iotaG, lastc], krank[iotaG, lastc],
+                        tgt_gid, gs_of, branching,
+                        branching & (arc_s1 == mx))
+            loc_kw = dict(D=D, frag_mode=cfg.frag_mode,
+                          local_dist=cfg.local_dist,
+                          local_count=cfg.local_count)
+            aml, he = captured(lk.branch_locality, *loc_args, **loc_kw)
             if mesh.group is not None:
                 # a genome of any rank: OR over the ranks
                 aml, he = M.psum(torch.stack([aml, he]).to(I32), mesh) > 0
@@ -615,11 +545,11 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
             # n_dist_loci (branch.c:82-90): count group members with no
             # earlier local partner (the greedy marks j from every earlier
             # i regardless of i's own group)
-            n_grp = _seg_sum((branching & ~he).to(I32), g_id, A)
+            n_grp = seg_sum((branching & ~he).to(I32), g_id, A)
             head = g_new & (n_in_g >= 2)
             slot = (v_a >> 1).clamp(0, S - 1) * 2 + (v_a & 1)
-            loci = _seg_sum(torch.where(head, n_grp[g_id], 0), slot,
-                            2 * S).reshape(S, 2)
+            loci = seg_sum(torch.where(head, n_grp[g_id], 0), slot,
+                           2 * S).reshape(S, 2)
             return aw, loci, (cand & ~cut).sum(), cut.sum(), ovf
 
         if run_br:
@@ -659,9 +589,9 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
             if do_occ[r]:
                 occ_del = alive & (seg_tot.to(I64) > int(occ_cut[r]))
                 vc = v_a.clamp(0, 2 * S - 1)
-                deg_v = _seg_sum(torch.where(g_new, n_in_g, 0), vc, 2 * S)
-                degd = _seg_sum((g_new & (n_in_g > int(deg_cut[r])))
-                                .to(I32), vc >> 1, S) > 0
+                deg_v = seg_sum(torch.where(g_new, n_in_g, 0), vc, 2 * S)
+                degd = seg_sum((g_new & (n_in_g > int(deg_cut[r])))
+                               .to(I32), vc >> 1, S) > 0
                 degd &= alive
                 locid = alive & (loci.max(dim=1).values > int(loci_cut[r]))
                 n_occ = occ_del.sum()
@@ -745,7 +675,9 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     overflow = M.pmax(overflow.to(I32), mesh) > 0
     if stats is not None:
         stats.update(host_syncs=syncs[0], block_ms=timer.result(),
-                     sweep_launches=sk.n_batched["kernel"] - launches0)
+                     sweep_launches=sk.n_batched["kernel"] - launches0,
+                     loop_launches={k: c["kernel"] - loop0[k]
+                                    for k, c in lk.n_calls.items()})
     return (flt, weak, shadow, pid_dom, alive, seg_tot, seg_ng, arc_vw,
             arc_s1, arc_ng, arc_tot, arc_ad, arc_s2, loci_st, logs,
             dcap_mask, dcap_deg, dcap_loci, dcap_tot, overflow)

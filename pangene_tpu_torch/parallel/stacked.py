@@ -57,8 +57,9 @@ import torch
 from ..options import PgOpt
 from ..ops import sweep_kernel as sk
 from ..ops.device import PAD_CID
+from ..ops.loop_kernels import seg_max, seg_sum
 from . import mesh as M
-from .device_loop import _BlockTimer, _host_array, _seg_max, _seg_sum
+from .device_loop import _BlockTimer, _host_array
 
 KEY_B = 44                      # composite sort key: cid << KEY_B | coord
 I64 = torch.int64
@@ -308,12 +309,12 @@ def round_step(st: StackCols, flt: torch.Tensor, shadow: torch.Tensor,
                ).reshape(-1)
         flat = lambda a: a.reshape(-1)
         N = G * A
-        cnt = _seg_sum(flat(vs.to(I32)), seg, N)
-        dsum = _seg_sum(flat(torch.where(vs, ga(ad), 0)), seg, N)
-        m1 = _seg_max(flat(torch.where(vs, ga(a1), _SCORE_FLOOR).to(I32)),
-                      seg, N)
-        m2 = _seg_max(flat(torch.where(vs, ga(a2), _SCORE_FLOOR).to(I32)),
-                      seg, N)
+        cnt = seg_sum(flat(vs.to(I32)), seg, N)
+        dsum = seg_sum(flat(torch.where(vs, ga(ad), 0)), seg, N)
+        m1 = seg_max(flat(torch.where(vs, ga(a1), _SCORE_FLOOR).to(I32)),
+                     seg, N)
+        m2 = seg_max(flat(torch.where(vs, ga(a2), _SCORE_FLOOR).to(I32)),
+                     seg, N)
         # the group's key: the unsigned maximum over its valid members
         uniq_x = torch.full((N,), _BIAS, dtype=I64, device=dev) \
             .scatter_reduce_(0, seg, flat(torch.where(vs, xs, _BIAS)),
@@ -586,7 +587,7 @@ def reduction_step(pid: torch.Tensor, score_ori: torch.Tensor,
     def total(mask, vals=None):
         x = mask.to(I64) if vals is None else torch.where(mask, vals.to(I64),
                                                           0)
-        return _seg_sum(x, pidc, n_prot)
+        return seg_sum(x, pidc, n_prot)
 
     sums = (total(r0 & ~multi), total(r0 & multi), total(r0 & ~multi, so),
             total(r0 & multi, so), total(r0, score_adj.reshape(-1)),

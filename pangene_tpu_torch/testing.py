@@ -350,6 +350,71 @@ def stacked_edge_cases():
     return {"tile": tile + extra, "wide": cases + extra}
 
 
+def locality_table(rng, G, sizes, n_invalid=5, n_gene=40, p_absent=0.3,
+                   local_dist=1000, local_count=3):
+    """Inputs of ops/loop_kernels.branch_locality as numpy arrays, a v-sorted
+    arc table as the device loop holds it: groups of `sizes` arcs in order
+    (gs_of the group's first arc; the members of a group of >= 2 branch,
+    is_max where s1 is the group's largest), then `n_invalid` empty slots
+    (their group id stays the last group's, as the loop's cumsum leaves it),
+    and random gene-major representative planes [n_gene, G] (a gene absent
+    from a genome with probability p_absent). Returns (dict in argument
+    order, the groups as lists of arc indices)."""
+    A = int(sum(sizes)) + n_invalid
+    gs_of = np.zeros(A, np.int64)
+    branching = np.zeros(A, bool)
+    s1 = rng.integers(0, 5, A)
+    is_max = np.zeros(A, bool)
+    groups, start = [], 0
+    for n in sizes:
+        idx = list(range(start, start + n))
+        gs_of[idx] = start
+        if n >= 2:
+            branching[idx] = True
+            is_max[idx] = s1[idx] == s1[idx].max()
+        groups.append(idx)
+        start += n
+    gs_of[start:] = groups[-1][0] if groups else A
+    t = dict(r_pres=rng.random((n_gene, G)) >= p_absent,
+             r_cid=rng.integers(0, 2, (n_gene, G)).astype(np.int32),
+             r_cm=rng.integers(0, 8 * local_dist, (n_gene, G)),
+             r_rank=rng.integers(0, 6 * local_count,
+                                 (n_gene, G)).astype(np.int32),
+             tgt_gid=rng.integers(0, n_gene, A).astype(np.int64),
+             gs_of=gs_of, branching=branching, is_max=is_max)
+    return t, groups
+
+
+def fold_inputs(rng, form, N, n_vw, n_g=8, p_valid=0.7, smax=1000):
+    """Inputs of ops/loop_kernels.merge_fold as numpy arrays (keys, s1, jb,
+    gb, perm) in the device loop's three call shapes: "jb" (each row's index
+    in the low key bits, keys sorted alone), "cosorted" (keys sorted with a
+    stable permutation), "exchange" (a received range: keys with origin
+    bits, sorted with a permutation; s1 by received position). A row is
+    valid with probability p_valid; s1 in [0, smax)."""
+    from .ops.loop_kernels import KSENT_I
+    gb = max(int(n_g - 1).bit_length(), 1)
+    vw = rng.integers(0, n_vw, N)
+    g = rng.integers(0, n_g, N)
+    valid = rng.random(N) < p_valid
+    key = (vw << gb) | g
+    s1 = rng.integers(0, smax, N).astype(np.int32)
+    jb = max(int(N - 1).bit_length(), 1)
+    if form == "jb":
+        keys = np.sort(np.where(valid, (key << jb) | np.arange(N), KSENT_I))
+        perm = None
+    elif form == "cosorted":
+        jb = 0
+        k = np.where(valid, key, KSENT_I)
+        perm = np.argsort(k, kind="stable")
+        keys = k[perm]
+    else:
+        k = np.where(valid, (key << jb) | rng.permutation(N), KSENT_I)
+        perm = np.argsort(k, kind="stable")
+        keys = k[perm]
+    return keys.astype(np.int64), s1, jb, gb, perm
+
+
 REPORT_TAG = "RANK_REPORT="
 
 
@@ -360,11 +425,12 @@ def rank_report_main(argv: List[str]) -> int:
     line on stderr, REPORT_TAG and a JSON object: rank, world, the md5 of
     the output, the CLI's exit code, the wall of the CLI call, the device
     loop's and the per-round path's LAST, the mesh's collective counts, the
-    kernel's launches and plain calls, the peak device bytes on cuda, the
+    kernels' launches and plain calls, the peak device bytes on cuda, the
     stage walls, and the modules of other packages the rank loaded."""
     import hashlib
     import torch
     from . import cli, pipeline, util
+    from .ops import loop_kernels as lk
     from .ops import sweep_kernel as sk
     from .parallel import device_loop, mesh, stacked
     md5 = hashlib.md5()
@@ -378,6 +444,7 @@ def rank_report_main(argv: List[str]) -> int:
     pipeline.run = lambda opt, files, out=None, **kw: run(opt, files,
                                                          out=Sink(), **kw)
     sk.reset_counts()
+    lk.reset_counts()
     mesh.reset_counts()
     t0 = time.monotonic()
     rc = cli.main(argv)
@@ -389,7 +456,9 @@ def rank_report_main(argv: List[str]) -> int:
         "rounds_LAST": stacked.LAST, "mesh": mesh.LAST,
         "kernel_launches": sum(sk.n_kernel_launches.values()),
         "batched_launches": sk.n_batched["kernel"],
-        "plain_calls": sum(sk.n_plain_calls.values()) + sk.n_batched["plain"],
+        "loop_launches": {k: c["kernel"] for k, c in lk.n_calls.items()},
+        "plain_calls": (sum(sk.n_plain_calls.values()) + sk.n_batched["plain"]
+                        + sum(c["plain"] for c in lk.n_calls.values())),
         "peak_device_bytes": (torch.cuda.max_memory_allocated()
                               if torch.cuda.is_initialized() else None),
         "stages": util.stage_stats,

@@ -1,5 +1,6 @@
 """The CUDA sweep kernel and its batched entry against their plain PyTorch
-versions, and the per-round device step that launches the batched entry, on
+versions, the per-round device step that launches the batched entry, and
+the device loop's two block kernels (ops/loop_kernels.py) against theirs, on
 the card.
 
 These tests need an NVIDIA GPU (the kernel has no CPU mode) and skip
@@ -15,9 +16,11 @@ import pytest
 import torch
 
 from pangene_tpu_torch.ops import device_engine as de
+from pangene_tpu_torch.ops import loop_kernels as lk
 from pangene_tpu_torch.ops import sweep_kernel as sk
 from pangene_tpu_torch.parallel import stacked as st
 from pangene_tpu_torch.testing import (SWEEP_EDGE_CASES, batch_cols,
+                                       fold_inputs, locality_table,
                                        random_genome, stack_cols,
                                        stacked_edge_cases, sweep_edge_case)
 
@@ -267,3 +270,144 @@ def test_mesh_two_ranks_share_the_card(cuda_device, tmp_path):
         assert rep["mesh"]["backend"] == "gloo"
         assert rep["mesh"]["staged_bytes"] > 0
         assert rep["batched_launches"] > 0 and rep["plain_calls"] == 0
+        assert all(n > 0 for n in rep["loop_launches"].values())
+
+
+# ---------------------------------------------------------------------------
+# the device loop's block kernels (csrc/loop_blocks.cu)
+# ---------------------------------------------------------------------------
+
+def locality_both(t, device, **kw):
+    """branch_locality through its wrapper (the kernel) and its plain
+    version, on the same tensors on the card."""
+    args = [torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for v in t.values()]
+    kw = dict(dict(D=64, frag_mode=False, local_dist=1000, local_count=3),
+              **kw)
+    before = dict(lk.n_calls["branch_locality"])
+    got = lk.branch_locality(*args, **kw)
+    want = lk.branch_locality_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert lk.n_calls["branch_locality"] == dict(
+        before, kernel=before["kernel"] + 1)
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frag_mode", [False, True])
+@pytest.mark.parametrize("G", [1, 8, 33, 64, 70])
+def test_branch_locality_kernel_vs_plain(cuda_device, G, frag_mode):
+    """Groups of every size 1..64 and one of 65, genomes in one, two and
+    three lane passes."""
+    rng = np.random.default_rng(G)
+    sizes = list(rng.permutation(np.arange(1, 65))) + [65]
+    t, _ = locality_table(rng, G, sizes, n_gene=300)
+    got, want = locality_both(t, cuda_device, frag_mode=frag_mode)
+    assert got[0].any() and got[1].any()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == torch.bool and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["no_branching", "all_absent", "one_pair",
+                                  "window_8"])
+def test_branch_locality_kernel_edges(cuda_device, case):
+    rng = np.random.default_rng(5)
+    sizes = {"no_branching": [1] * 40, "all_absent": [3, 5, 2],
+             "one_pair": [1, 2, 1], "window_8": [20, 9, 8, 3]}[case]
+    t, _ = locality_table(rng, 5, sizes,
+                          p_absent=1.0 if case == "all_absent" else 0.3)
+    got, want = locality_both(t, cuda_device,
+                              D=8 if case == "window_8" else 64)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def fold_both(keys, s1, jb, gb, cap, perm, device):
+    on = lambda x: None if x is None else torch.from_numpy(x).to(device)
+    args = (on(keys), on(s1))
+    kw = dict(jb=jb, gb=gb, cap=cap, perm=on(perm))
+    before = lk.n_calls["merge_fold"]["kernel"]
+    got = lk.merge_fold(*args, **kw)
+    want = lk.merge_fold_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert lk.n_calls["merge_fold"]["kernel"] == before + 1
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,cap", [(3000, 3000), (3000, 100), (3000, 3077),
+                                   (600000, 400000)])
+@pytest.mark.parametrize("form", ["jb", "cosorted", "exchange"])
+def test_merge_fold_kernel_vs_plain(cuda_device, form, N, cap):
+    """cap below n_out (the overflow the loop falls back on), above N, and
+    more row blocks than the scan's threads."""
+    rng = np.random.default_rng(N + cap)
+    keys, s1, jb, gb, perm = fold_inputs(rng, form, N, n_vw=N // 8)
+    got, want = fold_both(keys, s1, jb, gb, cap, perm, cuda_device)
+    assert int(got[2]) > 0
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all_sentinel", "one_row", "large_s1",
+                                  "one_group", "long_groups"])
+@pytest.mark.parametrize("form", ["jb", "cosorted", "exchange"])
+def test_merge_fold_kernel_edges(cuda_device, form, case):
+    rng = np.random.default_rng(9)
+    N = {"one_row": 1, "long_groups": 20000}.get(case, 500)
+    kw = dict(n_vw={"one_group": 1, "long_groups": 3}.get(case, 60),
+              p_valid={"all_sentinel": 0.0, "one_row": 1.0}.get(case, 0.8),
+              smax=(1 << 31) - 1 if case == "large_s1" else 1000)
+    keys, s1, jb, gb, perm = fold_inputs(rng, form, N, **kw)
+    got, want = fold_both(keys, s1, jb, gb, 64, perm, cuda_device)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_plus499_equals_softfloat(cuda_device):
+    """The fold's IEEE (int)((double)s / n + .499) against softfloat's
+    integer form (the plain version's), on out-groups of 1 to ~100
+    in-groups whose s1 reach the int32 maximum."""
+    rng = np.random.default_rng(11)
+    n = 200000
+    vw = rng.integers(0, n // 50, n)
+    g = rng.integers(0, 1024, n)
+    keys = np.sort((((vw << 10) | g) << 18) | np.arange(n)).astype(np.int64)
+    s1 = rng.integers(0, (1 << 31) - 1, n).astype(np.int32)
+    s1[rng.random(n) < 0.2] = (1 << 31) - 1
+    got, want = fold_both(keys, s1, 18, 10, n, None, cuda_device)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_loop_kernel_wrappers_raise_on_bad_inputs(cuda_device):
+    """A CUDA tensor of the wrong type, shape or layout, or on the CPU
+    beside CUDA tensors, raises; the plain version is never taken."""
+    t, _ = locality_table(np.random.default_rng(2), 4, [3, 2, 5])
+    args = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda_device)
+            for k, v in t.items()}
+    kw = dict(D=64, frag_mode=False, local_dist=10, local_count=3)
+    lk.reset_counts()
+    for bad in (dict(args, r_rank=args["r_rank"].long()),
+                dict(args, tgt_gid=args["tgt_gid"][:-1]),
+                dict(args, r_cm=args["r_cm"].t()),
+                dict(args, is_max=args["is_max"].cpu())):
+        with pytest.raises(ValueError):
+            lk.branch_locality(*bad.values(), **kw)
+    keys = torch.zeros(8, dtype=torch.int64, device=cuda_device)
+    s1 = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    for bad in (dict(s1=s1.long()), dict(s1=s1[:7]),
+                dict(perm=torch.zeros(8, dtype=torch.int32,
+                                      device=cuda_device)),
+                dict(keys=keys.cpu())):
+        a = dict(dict(keys=keys, s1=s1, perm=None), **bad)
+        with pytest.raises(ValueError):
+            lk.merge_fold(a["keys"], a["s1"], jb=3, gb=1, cap=4,
+                          perm=a["perm"])
+    assert all(c["plain"] == 0 and c["kernel"] == 0
+               for c in lk.n_calls.values())

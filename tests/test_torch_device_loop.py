@@ -387,6 +387,24 @@ def test_last_diagnostics(corpus):
     assert set(last["block_ms"]) == set(dl.BLOCKS)
 
 
+def test_host_syncs_one_a_round(corpus):
+    """The branch block and the in-loop merge read nothing on the host (their
+    kernels' plain versions ran once per branch round and once per in-loop
+    merge): the one host read a round is the change bit."""
+    from pangene_tpu_torch.ops import loop_kernels as lk
+    lk.reset_counts()
+    run_port(corpus)
+    last = dl.LAST
+    assert last["engaged"] is True
+    assert last["host_syncs"] == last["rounds_total"] == 16
+    assert last["loop_launches"] == {"branch_locality": 0, "merge_fold": 0}
+    assert lk.n_calls == {
+        "branch_locality": {"kernel": 0, "plain": last["rounds_branch_run"]},
+        "merge_fold": {"kernel": 0, "plain": last["rounds_sweep_run"]}}
+    assert last["rounds_branch_run"] > 0
+    lk.reset_counts()
+
+
 def test_sharded_plain_sweep_calls_equal_sweep_rounds(corpus):
     from pangene_tpu_torch.ops import sweep_kernel as sk
     sk.reset_counts()

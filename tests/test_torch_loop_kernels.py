@@ -1,0 +1,251 @@
+"""The plain versions of the device loop's two hand-written kernels
+(pangene_tpu_torch/ops/loop_kernels.py) against independent numpy oracles,
+on the CPU. Every output is an integer or a bit: tolerance 0 (exact).
+
+  branch_locality  a scalar walk of branch.c:48-106 over explicit group
+                   lists: for each arc of a branching group and each other
+                   member within the branch window, pg_n_local (branch.c:
+                   31-46) over the genomes; aml = a local max partner, he =
+                   an earlier local partner.
+  merge_fold       a dict of out-groups (vw) of in-groups ((vw, g)) with
+                   their largest s1, in key order: the arc rows, n_out and
+                   each row's out-group rank, in the three call shapes of
+                   the loop (row index in the key's low bits; keys sorted
+                   with a permutation; the bucket exchange's received range,
+                   low bits and a permutation).
+
+The loop itself goes through these functions in
+tests/test_torch_device_loop.py and tests/test_torch_mesh.py, which hold its
+outputs against the JAX package's schedule bit for bit; the kernels are held
+against these plain versions on the card (tests/test_torch_cuda.py,
+chip_smoke.py).
+"""
+import numpy as np
+import pytest
+import torch
+
+from pangene_tpu_torch.ops import loop_kernels as lk
+from pangene_tpu_torch.testing import fold_inputs, locality_table
+
+torch.set_num_threads(1)
+
+KSENT = lk.KSENT_I
+SENT = lk.SENT_I
+D = 64
+
+
+# ---------------------------------------------------------------------------
+# branch_locality
+# ---------------------------------------------------------------------------
+
+def n_local(t, ga, gb, frag_mode, local_dist, local_count):
+    """pg_n_local (branch.c:31-46): genomes in which genes ga and gb are
+    local."""
+    n = 0
+    for g in range(t["r_pres"].shape[1]):
+        if not (t["r_pres"][ga, g] and t["r_pres"][gb, g]):
+            continue
+        if not frag_mode and t["r_cid"][ga, g] != t["r_cid"][gb, g]:
+            continue
+        if abs(int(t["r_cm"][ga, g]) - int(t["r_cm"][gb, g])) <= local_dist \
+                or abs(int(t["r_rank"][ga, g])
+                       - int(t["r_rank"][gb, g])) <= local_count:
+            n += 1
+    return n
+
+
+def oracle_locality(t, groups, frag_mode, local_dist, local_count):
+    A = len(t["tgt_gid"])
+    aml = np.zeros(A, bool)
+    he = np.zeros(A, bool)
+    memo = {}
+    for grp in groups:
+        if len(grp) < 2:
+            continue
+        for a in grp:
+            for p in grp:
+                if p == a or abs(p - a) >= D:
+                    continue
+                key = (min(a, p), max(a, p))
+                if key not in memo:
+                    memo[key] = n_local(t, t["tgt_gid"][a], t["tgt_gid"][p],
+                                        frag_mode, local_dist, local_count)
+                if memo[key]:
+                    aml[a] |= t["is_max"][p]
+                    he[a] |= p < a
+    return aml, he
+
+
+def run_locality(t, frag_mode, local_dist, local_count):
+    args = [torch.from_numpy(np.ascontiguousarray(t[k])) for k in (
+        "r_pres", "r_cid", "r_cm", "r_rank", "tgt_gid", "gs_of",
+        "branching", "is_max")]
+    aml, he = lk.branch_locality(*args, D=D, frag_mode=frag_mode,
+                                 local_dist=local_dist,
+                                 local_count=local_count)
+    assert aml.dtype == he.dtype == torch.bool
+    return aml.numpy(), he.numpy()
+
+
+@pytest.mark.parametrize("frag_mode", [False, True])
+@pytest.mark.parametrize("G,seed", [(1, 0), (3, 1), (8, 2)])
+def test_branch_locality_plain_equals_oracle(G, seed, frag_mode):
+    """Groups of every size 1..D and one of D + 1 (its run falls back; the
+    window must still give the oracle's bits), absent targets."""
+    rng = np.random.default_rng(seed)
+    sizes = list(rng.permutation(np.arange(1, D + 1))) + [D + 1]
+    t, groups = locality_table(rng, G, sizes)
+    kw = dict(frag_mode=frag_mode, local_dist=1000, local_count=3)
+    got = run_locality(t, **kw)
+    want = oracle_locality(t, groups, **kw)
+    assert got[0].any() and got[1].any() and not got[1].all()
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("case", ["no_branching", "all_absent",
+                                  "one_pair"])
+def test_branch_locality_plain_edges(case):
+    rng = np.random.default_rng(7)
+    sizes = {"no_branching": [1] * 30, "all_absent": [3, 5, 2],
+             "one_pair": [1, 2, 1]}[case]
+    t, groups = locality_table(rng, 4, sizes,
+                               p_absent=1.0 if case == "all_absent" else 0.0)
+    if case == "one_pair":
+        t["r_cid"][:] = 0
+        t["r_cm"][:] = 0               # every pair local in every genome
+    kw = dict(frag_mode=False, local_dist=1000, local_count=3)
+    got = run_locality(t, **kw)
+    want = oracle_locality(t, groups, **kw)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    if case == "one_pair":
+        assert got[1].tolist() == [False, False, True, False, False, False,
+                                   False, False, False]
+    else:
+        assert not got[0].any() and not got[1].any()
+
+
+# ---------------------------------------------------------------------------
+# merge_fold
+# ---------------------------------------------------------------------------
+
+def oracle_fold(keys, s1, jb, gb, cap, perm=None):
+    """Out-groups (vw) of in-groups ((vw, g)) with their largest s1, in key
+    order; each valid row's out-group rank at its origin."""
+    groups = {}
+    rows = []
+    for i, k in enumerate(int(x) for x in keys):
+        if k >> jb == KSENT >> jb:
+            continue
+        src = int(perm[i]) if perm is not None else k & ((1 << jb) - 1)
+        vw = (k >> jb) >> gb
+        ins = groups.setdefault(vw, {})
+        ins[k >> jb] = max(ins.get(k >> jb, -1), int(s1[src]))
+        rows.append((src, vw))
+    rank = {vw: i for i, vw in enumerate(groups)}
+    arc_vw = np.full(cap, SENT, np.int64)
+    arc_s1 = np.zeros(cap, np.int32)
+    for vw, i in rank.items():
+        if i < cap:
+            ins = groups[vw]
+            arc_vw[i] = vw
+            # (int)((double)s / ng + .499): Python's int / int is the
+            # correctly rounded double quotient
+            arc_s1[i] = int(sum(ins.values()) / len(ins) + 0.499)
+    pair = np.zeros(len(keys), np.int32)
+    for src, vw in rows:
+        pair[src] = rank[vw]
+    return arc_vw, arc_s1, len(groups), pair
+
+
+def run_fold(keys, s1, jb, gb, cap, perm):
+    out = lk.merge_fold(torch.from_numpy(keys), torch.from_numpy(s1), jb=jb,
+                        gb=gb, cap=cap,
+                        perm=None if perm is None else torch.from_numpy(perm))
+    arc_vw, arc_s1, n_out, pair = out
+    assert (arc_vw.dtype, arc_s1.dtype, n_out.dtype, pair.dtype) == (
+        torch.int64, torch.int32, torch.int64, torch.int32)
+    assert n_out.shape == ()
+    return arc_vw.numpy(), arc_s1.numpy(), int(n_out), pair.numpy()
+
+
+@pytest.mark.parametrize("cap", ["A", "small", "large"])
+@pytest.mark.parametrize("form", ["jb", "cosorted", "exchange"])
+def test_merge_fold_plain_equals_oracle(form, cap):
+    """cap "small" leaves n_out > cap (the overflow the loop falls back on);
+    "large" is more rows than keys."""
+    rng = np.random.default_rng(["jb", "cosorted", "exchange"].index(form))
+    N = 3000
+    keys, s1, jb, gb, perm = fold_inputs(rng, form, N, n_vw=400)
+    c = {"A": N, "small": 100, "large": N + 77}[cap]
+    got = run_fold(keys, s1, jb, gb, c, perm)
+    want = oracle_fold(keys, s1, jb, gb, c, perm)
+    assert got[2] == want[2] > 100
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("case", ["all_sentinel", "one_row", "large_s1",
+                                  "one_group"])
+@pytest.mark.parametrize("form", ["jb", "cosorted", "exchange"])
+def test_merge_fold_plain_edges(form, case):
+    rng = np.random.default_rng(3)
+    N = {"one_row": 1}.get(case, 500)
+    kw = dict(n_vw=1 if case == "one_group" else 60,
+              p_valid=0.0 if case == "all_sentinel" else 0.8,
+              smax=(1 << 31) - 1 if case == "large_s1" else 1000)
+    if case == "one_row":
+        kw["p_valid"] = 1.0
+    keys, s1, jb, gb, perm = fold_inputs(rng, form, N, **kw)
+    got = run_fold(keys, s1, jb, gb, 64, perm)
+    want = oracle_fold(keys, s1, jb, gb, 64, perm)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    if case == "all_sentinel":
+        assert got[2] == 0 and (got[0] == SENT).all() and not got[3].any()
+
+
+# ---------------------------------------------------------------------------
+# the wrappers
+# ---------------------------------------------------------------------------
+
+def test_wrappers_count_plain_calls_on_cpu():
+    rng = np.random.default_rng(0)
+    lk.reset_counts()
+    t, _ = locality_table(rng, 2, [3, 1, 4])
+    run_locality(t, False, 1000, 3)
+    keys, s1, jb, gb, perm = fold_inputs(rng, "jb", 100, n_vw=10)
+    run_fold(keys, s1, jb, gb, 50, perm)
+    run_fold(keys, s1, jb, gb, 50, perm)
+    assert lk.n_calls == {"branch_locality": {"kernel": 0, "plain": 1},
+                          "merge_fold": {"kernel": 0, "plain": 2}}
+    lk.reset_counts()
+    assert all(v == 0 for c in lk.n_calls.values() for v in c.values())
+
+
+def test_wrappers_reject_bad_inputs():
+    rng = np.random.default_rng(1)
+    t, _ = locality_table(rng, 2, [3, 2])
+    args = {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in t.items()}
+    kw = dict(D=D, frag_mode=False, local_dist=10, local_count=3)
+    bad = dict(args, r_cid=args["r_cid"].long())
+    with pytest.raises(ValueError, match="r_cid"):
+        lk.branch_locality(*bad.values(), **kw)
+    bad = dict(args, gs_of=args["gs_of"][:-1])
+    with pytest.raises(ValueError, match="gs_of"):
+        lk.branch_locality(*bad.values(), **kw)
+    bad = dict(args, r_cm=args["r_cm"].t())
+    with pytest.raises(ValueError, match="r_cm"):
+        lk.branch_locality(*bad.values(), **kw)
+    keys = torch.zeros(8, dtype=torch.int64)
+    with pytest.raises(ValueError, match="s1"):
+        lk.merge_fold(keys, torch.zeros(8, dtype=torch.int64), jb=3, gb=1,
+                      cap=4)
+    with pytest.raises(ValueError, match="perm"):
+        lk.merge_fold(keys, torch.zeros(8, dtype=torch.int32), jb=0, gb=1,
+                      cap=4, perm=torch.zeros(7, dtype=torch.int64))
+    with pytest.raises(ValueError, match="cap"):
+        lk.merge_fold(keys, torch.zeros(8, dtype=torch.int32), jb=3, gb=1,
+                      cap=0)

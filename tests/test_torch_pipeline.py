@@ -297,6 +297,7 @@ def test_no_module_imports_jax_or_pangene_tpu():
             "pangene_tpu_torch/parallel/stacked.py",
             "pangene_tpu_torch/parallel/mesh.py",
             "pangene_tpu_torch/ops/softfloat.py",
+            "pangene_tpu_torch/ops/loop_kernels.py",
             "pangene_tpu_torch/ops/device.py",
             "pangene_tpu_torch/ops/sweep_native.py",
             "pangene_tpu_torch/ops/sweep_vec.py",
