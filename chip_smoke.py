@@ -28,10 +28,12 @@ Phases (each one passes or raises, so any failure exits nonzero):
      sweep and against the whole step on the CPU, on random genome sets and
      on the stacked edge cases: every output equal.
      Then (2e) the device loop's block kernels (ops/loop_kernels.py:
-     branch_locality, merge_fold) against their plain versions on random
-     arc tables (groups up to the window and one past it, 1 to 70 genomes,
-     frag mode on and off) and merge keys (the loop's three call shapes, the
-     arc table smaller and larger than the out-groups, no valid row).
+     branch_block and the mesh's branch_locality + branch_classify,
+     merge_fold) against their plain versions on random arc tables (groups
+     up to the window and one past it, 1 to 70 genomes, frag mode on and
+     off, deficits on and beside the branch constants) and merge keys (the
+     loop's three call shapes, the arc table smaller and larger than the
+     out-groups, no valid row).
   3. the main paths: the CLI on cuda over the small (32 genomes x 2,000
      genes, seed 11) and the big (64 x 10,000, seed 7) synthetic corpora:
      --engine device (one sweep launch per genome, host rounds; small corpus
@@ -44,8 +46,9 @@ Phases (each one passes or raises, so any failure exits nonzero):
      kernel launched in both modes under --engine device and never under
      sharded, whose single-genome sweeps run in C as in the JAX package;
      the loop engaged and launched the batched kernel once per sweep round,
-     branch_locality once per branch round and merge_fold once per in-loop
-     merge (no other path launches those two);
+     branch_block once per branch round and merge_fold once per in-loop
+     merge (no other path launches those; the mesh's split entries are not
+     launched at one rank);
      the per-round path launched it once per round (17), uploaded its
      constant columns once, and the loop did not run; every path called the
      native entries it must take (NATIVE_ENTRIES), so a run that quietly
@@ -87,8 +90,9 @@ Phases (each one passes or raises, so any failure exits nonzero):
      NCCL on the card. Every rank's md5 must be the reference's, no rank may
      fall back, launch the per-genome kernel or call a plain version, each
      rank of a loop run launches the block kernels as the in-process loop
-     does, and a rank that does not end within its own timeout fails the
-     run.
+     does (at world > 1 branch_locality and branch_classify once a branch
+     round in place of branch_block), and a rank that does not end within
+     its own timeout fails the run.
   4. the kernel against the plain version on the largest genome of the big
      corpus (the main path's shapes), unfiltered and in the run's final
      filter state. Kernel time is the device time per launch of 200
@@ -104,10 +108,12 @@ Phases (each one passes or raises, so any failure exits nonzero):
      download, finalize), best of five each. The batched entry also at the
      shard shapes of the mesh runs (the first G_loc = 16 and 32 genomes of
      the big loop's columns) against its plain version, and timed.
-     Then (4d) branch_locality and merge_fold on the arguments of their
-     first call in the big default loop (captured through schedule_device's
-     `capture`): kernel == plain exactly, device time from 200 launches in
-     one CUDA graph, the plain version's time, the bound.
+     Then (4d) branch_block and merge_fold on the arguments of their first
+     call in the big default loop (captured through schedule_device's
+     `capture`), and the mesh's branch_locality and branch_classify on the
+     same arc table (its groups by loop_kernels.arc_groups): kernel ==
+     plain exactly, device time from 200 launches in one CUDA graph, the
+     plain version's time, the bound.
 
 ``--corpora small`` leaves the big corpus and what needs it out, for a short
 first run of new code; such a run prints no result line.
@@ -415,14 +421,81 @@ def fold_bound_ms(args, kw):
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes, n_valid
 
 
-def compare_batched(sk, de, genomes, dev, check_strand, f, split_form):
-    """The batched kernel on `genomes` stacked into one batch: against its
-    plain version (the split sweep forms) on the whole batch when
-    `split_form`, and against the per-genome plain version genome by
-    genome; rows past a genome's end must come back empty. Returns the
-    number of marked rows; raises on any difference."""
+# The loop's block kernels (ops/loop_kernels.n_calls): at one rank the
+# branch block is branch_block, at world > 1 branch_locality then
+# branch_classify.
+LOOP_KERNELS = ("branch_block", "branch_locality", "branch_classify",
+                "merge_fold")
+
+
+def loop_kernel_counts(ll, world):
+    """(launches of the branch block, of merge_fold) of a loop run at
+    `world` ranks, from its n_calls kernel counts; (-1, -1) when an entry
+    of the other world ran or the split entries disagree."""
+    split = (ll["branch_locality"], ll["branch_classify"])
+    if world == 1:
+        return (ll["branch_block"], ll["merge_fold"]) if split == (0, 0) \
+            else (-1, -1)
+    if ll["branch_block"] or split[0] != split[1]:
+        return (-1, -1)
+    return split[0], ll["merge_fold"]
+
+
+def branch_split_args(args, kw):
+    """The mesh's entries on branch_block's arguments: (branch_locality
+    args, kw), and branch_classify's args and kw given (aml, he)."""
+    import pangene_tpu_torch.ops.loop_kernels as lk
+    r_pres, r_cid, r_cm, r_rank, tgt, vw, s1 = args
+    gs_of, mx, branching, is_max = lk.arc_groups(vw, s1, kw["B"])
+    loc_kw = {k: kw[k] for k in ("D", "frag_mode", "local_dist",
+                                 "local_count")}
+    cls_kw = {k: kw[k] for k in ("branch_diff", "branch_diff_dist",
+                                 "branch_diff_cut")}
+    loc = ([r_pres, r_cid, r_cm, r_rank, tgt, gs_of, branching, is_max],
+           loc_kw)
+    cls = lambda aml, he: ([s1, mx, branching, aml, he, gs_of], cls_kw)
+    return loc, cls
+
+
+def branch_block_bound_ms(args, loc_args, loc_kw, aml, he):
+    """Least time of one branch_block call: the bytes it must move (vw 8
+    bytes an arc; for each branching arc its target and s1, 12 bytes; the
+    four representative planes of the genes those arcs target, 17 bytes a
+    genome a gene; aw 1 and n_grp 4 bytes an arc and the two counts out)
+    over the memory rate, or the operations the locality's data forces
+    (locality_bound_ms on the same groups) over the INT32 rate, whichever
+    is larger. The classification's f64 division per branching arc is left
+    out, so the count is a lower bound."""
+    _, _, ops, _, nb = locality_bound_ms(loc_args, loc_kw, aml, he)
+    r_pres, tgt, branching = args[0], args[4], loc_args[6]
+    A, G = tgt.shape[0], r_pres.shape[1]
+    n_tg = int(torch.unique(tgt[branching]).numel())
+    nbytes = 8 * A + 12 * nb + 17 * n_tg * G + 5 * A + 16
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations"), ops, nbytes, nb
+
+
+def classify_bound_ms(args):
+    """Least time of one branch_classify call: per arc s1 and mx 4 + 4,
+    branching, aml and he 1 each, gs_of 8 read, aw 1 and n_grp 4 written,
+    and the two counts (bytes; the f64 division per branching arc is far
+    below them)."""
+    A = args[0].shape[0]
+    nbytes = 24 * A + 16
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes
+
+
+def compare_batched(sk, de, genomes, dev, check_strand, f, split_form,
+                    H=None):
+    """The batched kernel on `genomes` stacked into one batch (rows padded
+    to H): against its plain version (the split sweep forms) on the whole
+    batch when `split_form`, and against the per-genome plain version
+    genome by genome; rows past a genome's end must come back empty.
+    Returns the number of marked rows; raises on any difference."""
     from pangene_tpu_torch.testing import batch_cols
-    bc, flt, weak, W = batch_cols(genomes, dev)
+    bc, flt, weak, W = batch_cols(genomes, dev, H)
     got = sk.shadow_sweep_batched(bc, flt, weak, W, check_strand, f)
     if split_form:
         want = sk.shadow_sweep_batched_plain(bc, flt, weak, W, check_strand,
@@ -608,7 +681,7 @@ def mesh_phase(corpora):
     from pangene_tpu_torch.testing import REPORT_TAG, run_ranks
     runs = {}
     launches = 0
-    loop_launches = {"branch_locality": 0, "merge_fold": 0}
+    loop_launches = {k: 0 for k in LOOP_KERNELS}
     for key, name, world, how, extra in MESH_RUNS:
         if name not in corpora:
             continue
@@ -670,7 +743,7 @@ def mesh_phase(corpora):
                     bad.append("per-round path: %s, loop %s, loop kernels "
                                "%s" % (rounds, last, ll))
             else:
-                if (ll["branch_locality"], ll["merge_fold"]) != (
+                if loop_kernel_counts(ll, world) != (
                         last.get("rounds_branch_run"),
                         last.get("rounds_sweep_run")):
                     bad.append("loop kernels %s" % ll)
@@ -761,15 +834,16 @@ def main():
     from pangene_tpu_torch.ops import device_engine as de
     from pangene_tpu_torch.ops import dispatch
     from pangene_tpu_torch.ops import loop_kernels as lk
-    from pangene_tpu_torch.ops import softfloat as sf
     from pangene_tpu_torch.ops import sweep_kernel as sk
     from pangene_tpu_torch.ops import sweep_native as sn
     from pangene_tpu_torch.ops.sort import hit_sort
     from pangene_tpu_torch.ops import device as tdev
     from pangene_tpu_torch.parallel import device_loop as dl
     from pangene_tpu_torch.parallel import stacked as stk
-    from pangene_tpu_torch.testing import (SWEEP_EDGE_CASES, fold_inputs,
-                                           locality_table, random_genome,
+    from pangene_tpu_torch.testing import (BRANCH_B, EXACT_BRANCH_DIFFS,
+                                           SWEEP_EDGE_CASES, band_genome,
+                                           branch_table, deficit_ratios,
+                                           fold_inputs, random_genome,
                                            stacked_edge_cases,
                                            sweep_edge_case)
     dev = torch.device(DEVICE)
@@ -864,6 +938,20 @@ def main():
         n_cases += 2
         log("  stacked edge cases '%s': %d genomes, batched kernel == plain"
             % (which, len(genomes)))
+    # the batched tile's own edges: bands of exactly W (the loop's 8, the
+    # per-round path's 21, the staged halo's 32, the large-W path's 33),
+    # genomes at the tile's edges, empty genomes, rows padded past the
+    # longest genome (tiles of padding only)
+    rows = sk.tile_shape(batched=True)[0]
+    for W in (1, 8, 21, 32, 33):
+        genomes = [band_genome(np.random.default_rng(10 * W + k), n, W)
+                   for k, n in enumerate((rows - 1, 0, rows, rows + 1,
+                                          2 * rows + W, 0, 700, 5))]
+        compare_batched(sk, de, genomes, dev, False, 0.3, True,
+                        H=5 * rows + 3)
+        n_cases += 1
+        log("  batched band W %d: launch %s" % (W, json.dumps(
+            sk.launch_shape_batched(len(genomes), 5 * rows + 3, W))))
     log("batched entry: %d cases, kernel == plain (%.1f s)"
         % (n_cases, time.monotonic() - t0))
 
@@ -901,13 +989,25 @@ def main():
     for G in (1, 33, 70):
         rng = np.random.default_rng(G)
         sizes = list(rng.permutation(np.arange(1, 65))) + [65]
-        t, _ = locality_table(rng, G, sizes, n_gene=300)
         for frag in (False, True):
-            compare_loop_kernel(lk, "branch_locality",
-                                [on_dev(v) for v in t.values()],
-                                dict(D=64, frag_mode=frag, local_dist=1000,
-                                     local_count=3))
-            n_cases += 1
+            for diffs in ((0.02, 0.05, 0.5), EXACT_BRANCH_DIFFS):
+                t, _ = branch_table(rng, G, sizes, n_gene=300,
+                                    ratios=deficit_ratios(diffs))
+                kw = dict(zip(("branch_diff", "branch_diff_dist",
+                               "branch_diff_cut"), diffs),
+                          B=BRANCH_B, D=64, frag_mode=frag, local_dist=1000,
+                          local_count=3)
+                args = [on_dev(v) for v in t.values()]
+                _, got = compare_loop_kernel(lk, "branch_block", args, kw)
+                (la, lkw), cls = branch_split_args(args, kw)
+                _, (aml, he) = compare_loop_kernel(lk, "branch_locality", la,
+                                                   lkw)
+                _, split = compare_loop_kernel(lk, "branch_classify",
+                                               *cls(aml, he))
+                if not all(torch.equal(a, b) for a, b in zip(got, split)):
+                    raise AssertionError("branch_block != branch_locality "
+                                         "+ branch_classify")
+                n_cases += 3
     for form in ("jb", "cosorted", "exchange"):
         for N, cap, p_valid in ((3000, 100, 0.7), (3000, 3077, 0.7),
                                 (600000, 400000, 0.7), (500, 64, 0.0)):
@@ -918,8 +1018,9 @@ def main():
                                 dict(jb=jb, gb=gb, cap=cap,
                                      perm=on_dev(perm)))
             n_cases += 1
-    log("loop block kernels: %d cases, branch_locality and merge_fold == "
-        "plain (%.1f s)" % (n_cases, time.monotonic() - t0))
+    log("loop block kernels: %d cases, branch_block, branch_locality, "
+        "branch_classify and merge_fold == plain (%.1f s)"
+        % (n_cases, time.monotonic() - t0))
 
     # 3. the main paths, counts zeroed just before and read just after
     # wall and count of the single-genome sweep calls through ops/dispatch
@@ -1023,9 +1124,9 @@ def main():
         last = rec.get("LAST", {})
         want = ((last["rounds_branch_run"], last["rounds_sweep_run"])
                 if last.get("engaged") else (0, 0))
-        if (loop["branch_locality"], loop["merge_fold"]) != want:
+        if loop_kernel_counts(loop, 1) != want:
             raise AssertionError("%s: loop kernel launches %s, expected "
-                                 "branch_locality %d, merge_fold %d"
+                                 "branch_block %d, merge_fold %d"
                                  % ((key, loop) + want))
         for k in loop_launches:
             loop_launches[k] += loop[k]
@@ -1407,12 +1508,12 @@ def main():
             bc, flt, weak, cfg.W, cfg.check_strand, cfg.min_ov_ratio, geo), 5)
         b_ms, b_by, ops, nbytes = bound_batched_ms(bc, flt, cfg.W,
                                                    cfg.check_strand)
-        log("BATCHED %s: G %d H %d rows %d W %d blocks %d ms %.5f (eager "
+        log("BATCHED %s: G %d H %d rows %d W %d launch %s ms %.5f (eager "
             "back-to-back %.5f) plain_ms %.3f (geometry pass + round pass; "
             "round pass alone %.3f) bound_ms %.6f (%s; %d ops, %d bytes) "
             "marked %d" % (state, G, H, int(bc.n_rows.sum()), cfg.W,
-                           G * -(-H // sk.tile_shape()[0]), ms, eager_ms,
-                           plain_first_ms,
+                           json.dumps(sk.launch_shape_batched(G, H, cfg.W)),
+                           ms, eager_ms, plain_first_ms,
                            plain_round_ms, b_ms, b_by, ops, nbytes,
                            int(got[0].sum())))
         if state == "entry":
@@ -1483,12 +1584,12 @@ def main():
         b_ms, b_by, ops, nbytes = bound_batched_ms(sbc, sflt, sW, False)
         rows = int(sbc.n_rows.sum())
         log("BATCHED per-round stack %s: G %d H %d rows %d (unfiltered %d) "
-            "W %d E %d blocks %d ms %.5f plain_ms %.3f bound_ms %.6f (%s; "
+            "W %d E %d launch %s ms %.5f plain_ms %.3f bound_ms %.6f (%s; "
             "%d ops, %d bytes) marked %d" % (
                 state, sG, sH, rows,
                 int((sflt == 0).sum()) - (sG * sH - rows), sW, cache["E"],
-                sG * -(-sH // sk.tile_shape()[0]), ms, plain_ms, b_ms, b_by,
-                ops, nbytes, int(got[0].sum())))
+                json.dumps(sk.launch_shape_batched(sG, sH, sW)), ms,
+                plain_ms, b_ms, b_by, ops, nbytes, int(got[0].sum())))
         if state == "unfiltered":
             if not got[0].any():
                 raise AssertionError("the unfiltered stack marked nothing")
@@ -1548,27 +1649,54 @@ def main():
                 sort_bound_ms))
 
     # 4d. the loop's block kernels on the arguments of their first call in
-    # the big default loop
-    for name, replaces in (
-            ("branch_locality", "pangene_tpu/parallel/device_loop.py:525"),
-            ("merge_fold", "pangene_tpu/parallel/device_loop.py:264")):
-        args, kw = kept["capture"][name]
+    # the big default loop; the mesh's branch entries on the same table
+    args, kw = kept["capture"]["branch_block"]
+    (loc_args, loc_kw), cls = branch_split_args(args, kw)
+    aml, he = lk.branch_locality_plain(*loc_args, **loc_kw)
+    cases = (
+        ("branch_block", "pangene_tpu/parallel/device_loop.py:525", args,
+         kw),
+        ("branch_locality", "pangene_tpu/parallel/device_loop.py:578",
+         loc_args, loc_kw),
+        ("branch_classify", "pangene_tpu/parallel/device_loop.py:627")
+        + cls(aml, he),
+        ("merge_fold", "pangene_tpu/parallel/device_loop.py:264")
+        + tuple(kept["capture"]["merge_fold"]))
+    A = args[4].shape[0]
+    for name, replaces, args, kw in cases:
         err, got = compare_loop_kernel(lk, name, args, kw)
         kernel_fn = getattr(lk, name)
         plain_fn = getattr(lk, name + "_plain")
         ms = graph_ms(lambda: kernel_fn(*args, **kw), TIMED_LAUNCHES)
         eager_ms = stream_ms(lambda: kernel_fn(*args, **kw), TIMED_LAUNCHES)
         plain_ms = stream_ms(lambda: plain_fn(*args, **kw), 5)
-        if name == "branch_locality":
-            b_ms, b_by, ops, nbytes, nb = locality_bound_ms(args, kw, *got)
-            shape = "A %d, branching %d, G %d, genes %d, %d forced ops" % (
-                args[4].shape[0], nb, args[0].shape[1], args[0].shape[0],
-                ops)
-        else:
+        if name == "merge_fold":
             b_ms, b_by, nbytes, n_valid = fold_bound_ms(args, kw)
             shape = "N %d, valid %d, cap %d, jb %d, perm %s" % (
                 args[0].shape[0], n_valid, kw["cap"], kw["jb"],
                 kw.get("perm") is not None)
+        elif name == "branch_classify":
+            b_ms, b_by, nbytes = classify_bound_ms(args)
+            shape = "A %d, branching %d, counts %s" % (
+                A, int(args[2].sum()), got[2].tolist())
+        else:
+            if name == "branch_block":
+                b_ms, b_by, ops, nbytes, nb = branch_block_bound_ms(
+                    args, loc_args, loc_kw, aml, he)
+            else:
+                b_ms, b_by, ops, nbytes, nb = locality_bound_ms(
+                    args, kw, *got)
+            shape = "A %d, branching %d, G %d, genes %d, %d forced ops" % (
+                A, nb, args[0].shape[1], args[0].shape[0], ops)
+            if name == "branch_block":
+                n = torch.unique_consecutive(loc_args[5][loc_args[6]],
+                                             return_counts=True)[1]
+                shape += ("; %d groups of %.2f members on average, %d at "
+                          "most, %d past 16" % (n.numel(),
+                                                nb / max(n.numel(), 1),
+                                                int(n.max()) if n.numel()
+                                                else 0,
+                                                int((n > 16).sum())))
         log("LOOP KERNEL %s (%s): ms %.5f (eager back-to-back %.5f) "
             "plain_ms %.3f bound_ms %.6f (%s; %d bytes); kernel == plain" % (
                 name, shape, ms, eager_ms, plain_ms, b_ms, b_by, nbytes))
@@ -1581,21 +1709,10 @@ def main():
             "launches_mesh_ranks": mesh_loop_launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    # what the branch block runs beside its kernel: the softfloat deficit
-    # classification (branch.c:72-78) over the [A] arc table, back to back
-    s1 = torch.randint(0, 1 << 20, (cfg.A,), device=dev, dtype=torch.int64)
-    mx = s1 + torch.randint(1, 1 << 10, (cfg.A,), device=dev,
-                            dtype=torch.int64)
-
-    def deficit():
-        rm, rk = sf.one_minus_div(s1, mx)
-        for c in (cfg.branch_diff, cfg.branch_diff_dist, cfg.branch_diff_cut):
-            sf.gt_const(rm, rk, c)
-    log("branch block beside its kernel: the softfloat deficit over A %d "
-        "arcs %.3f ms a call back to back; the block %.3f ms a call (%d "
-        "calls)" % (cfg.A, stream_ms(deficit, 20),
-                    loop["block_ms"]["branch"] / loop["rounds_branch_run"],
-                    loop["rounds_branch_run"]))
+    log("branch block: %.3f ms a call in the big loop (%d calls), its "
+        "kernel branch_block above" % (
+            loop["block_ms"]["branch"] / max(loop["rounds_branch_run"], 1),
+            loop["rounds_branch_run"]))
     kept.clear()
 
     log(smi)

@@ -68,13 +68,29 @@
 // pack_layout, out_layout): every column at a 16-byte-aligned byte offset.
 //
 // The batched entry (pg_shadow_sweep_batched) runs mode SHADOW over the
-// H-padded [G, H] columns that the device-resident pruning loop keeps on the
-// card (parallel/device_loop.py), all genomes in one launch: the grid is
-// (tile, genome), genome g's hits are rows [0, n_rows[g]) of its plane and
-// its exons row g of the [G, E] pools, so no tile crosses a genome. It is the
-// same tile code (sweep_tile) on column pointers moved to the genome's rows;
-// rows past n_rows[g] come back unmarked with no dominator. It replaces the
-// XLA pair pangene_tpu/ops/device.py:sweep_geo_planes + shadow_round_kernel.
+// H-padded [G, H] columns that the device-resident pruning loop and the
+// per-round step keep on the card (parallel/device_loop.py,
+// parallel/stacked.py), all genomes in one launch; genome g's hits are rows
+// [0, n_rows[g]) of its plane and its exons row g of the [G, E] pools, so no
+// tile crosses a genome; rows past n_rows[g] come back unmarked with no
+// dominator. It replaces the XLA pair pangene_tpu/ops/device.py:
+// sweep_geo_planes + shadow_round_kernel. The per-genome tile (64 owned
+// rows) was shaped for one wave of one genome; on the loop's 64 x 10,240
+// columns it made 26 waves of blocks, each a latency chain (stage rows,
+// exon prefix, stage exons, four barriers) for about 512 pairs. So the
+// batched entry runs the same tile code (sweep_tile) on its own shape:
+//  * kBatchRows = 256 owned rows a tile, 384 threads, the band in passes of
+//    at most kBatchChunk offsets (the slots stay small): the staging, the
+//    prefix and the barriers are paid over four times the pairs;
+//  * a persistent grid (the blocks resident at once) loops over the
+//    (genome, tile) items; an item past its genome's rows stages nothing;
+//  * two row buffers: while one item's band passes run, the next item's
+//    rows are copied into the other by cp.async (the byte columns through
+//    registers), so its first global round trip is off the chain.
+// The pairs, the gates, the int32 / int64 exon paths, the large-W path
+// and the argmax are the per-genome tile's, so the exactness argument is
+// the same.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -82,7 +98,7 @@ namespace {
 
 constexpr int kShadow = 0;
 constexpr int kIsoform = 1;
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;      // per-genome entry: threads a block
 constexpr int kRows = 64;          // owned loser rows per block
 constexpr int kBandTile = 32;      // largest W whose halo is staged
 constexpr int kExonsPerRow = 12;   // staged-exon room per staged row
@@ -90,12 +106,29 @@ constexpr int kRegExons = 8;       // exon lists held in registers
 // 3 resident blocks of 256 threads a SM (<= 85 registers a thread): 396
 // block slots on 132 SMs, one wave for genomes up to 25k hits.
 constexpr int kMinBlocksPerSM = 3;
+// The batched entry: a tile of four times the owned rows, band offsets in
+// passes of at most kBatchChunk, 2 resident blocks of 384 threads a SM
+// (<= 85 registers a thread), each looping over (genome, tile) items.
+constexpr int kBatchThreads = 384;
+constexpr int kBatchRows = 256;
+constexpr int kBatchChunk = 8;
+constexpr int kBatchBlocksPerSM = 2;
 constexpr int kNarrow = 1 << 29;
 constexpr int64_t kScoreNone = -9223372036854775807LL - 1;  // biased raw 0
 constexpr int32_t kOtherNone = 2147483647;
-static_assert(kRows + 2 * kBandTile < kThreads,
-              "one staged row per thread in the exon prefix, plus its end");
-static_assert(kRows <= kThreads, "one thread per owned row in phase 2");
+
+// The launch shape of one entry: owned rows of a tile, threads of a block.
+template <int kRowsT, int kThreadsT>
+struct Shape {
+  static constexpr int rows = kRowsT;
+  static constexpr int threads = kThreadsT;
+  static_assert(kRowsT + 2 * kBandTile < kThreadsT,
+                "one staged row per thread in the exon prefix, plus its end");
+  static_assert(kRowsT <= kThreadsT, "one thread per owned row in phase 2");
+  static_assert(kThreadsT % 32 == 0, "whole warps");
+};
+using GenomeShape = Shape<kRows, kThreads>;
+using BatchShape = Shape<kBatchRows, kBatchThreads>;
 
 // Column order of the packed input (ops/sweep_kernel.py: SweepCols).
 enum {
@@ -281,16 +314,17 @@ __device__ __forceinline__ bool pair_outcome(const Cols& c, const Tile& t,
   return true;
 }
 
-// Item `it` of a band chunk (offsets d0 + 1 .. d0 + dn, n0 = dn * kRows):
+// Item `it` of a band chunk (offsets d0 + 1 .. d0 + dn, n0 = dn * kR):
 // items [0, n0) are the pairs whose i is owned, the rest those whose j
-// alone is owned (j = r0 + kRows - 1 - m, i = j + d >= r0 + kRows, m < d).
+// alone is owned (j = r0 + kR - 1 - m, i = j + d >= r0 + kR, m < d).
 // Sets the pair and its offset index k; false when the item has no pair.
+template <int kR>
 __device__ __forceinline__ bool item_pair(int it, int n0, int m1, int d0,
                                           int r0, int nown, int n, int* k,
                                           int* j, int* i) {
   if (it < n0) {
-    *k = it / kRows;
-    const int l = it - *k * kRows;
+    *k = it / kR;
+    const int l = it - *k * kR;
     *i = r0 + l;
     *j = *i - (d0 + 1 + *k);
     return l < nown && *j >= 0;
@@ -299,36 +333,119 @@ __device__ __forceinline__ bool item_pair(int it, int n0, int m1, int d0,
   *k = q / m1;
   const int m = q - *k * m1;
   const int d = d0 + 1 + *k;
-  *j = r0 + kRows - 1 - m;
+  *j = r0 + kR - 1 - m;
   *i = *j + d;
   return m < d && *i < n;
 }
 
-// Dynamic shared memory of one block: the staged rows, their exons, the
-// candidate slots and the queue of pairs past the cheap gates. Must match
-// the carving in the kernel.
-constexpr size_t smem_bytes(int halo, int chunk) {
-  return (size_t)(kRows + 2 * halo) *
-             (3 * sizeof(int64_t) + 6 * sizeof(int32_t) + 3 +
-              kExonsPerRow * 2 * sizeof(int32_t)) +
-         (size_t)2 * chunk * kRows *
-             (sizeof(int32_t) + 1 + sizeof(uint16_t));
+// Dynamic shared memory of one block, carved in this order, each array at
+// a 16-byte boundary: the staged rows (one range, or two for the batched
+// entry's prefetch), their exons, the candidate slots and the queue of
+// pairs past the cheap gates.
+__host__ __device__ constexpr size_t r16(size_t x) {
+  return (x + 15) / 16 * 16;
 }
-constexpr size_t kStaticSmem =
-    (kThreads + 1) * sizeof(int32_t) + (kThreads / 32) * sizeof(int64_t) +
-    sizeof(int);
-static_assert(smem_bytes(kBandTile, kBandTile) + kStaticSmem <= 48 * 1024,
+constexpr size_t rows_bytes(int rmax) {
+  return 3 * r16((size_t)rmax * 8) + 6 * r16((size_t)rmax * 4) +
+         3 * r16((size_t)rmax);
+}
+constexpr size_t scratch_bytes(int rmax, int chunk, int rows) {
+  return 2 * r16((size_t)rmax * kExonsPerRow * 4) +
+         r16((size_t)2 * chunk * rows * 4) +
+         r16((size_t)2 * chunk * rows * 2) + r16((size_t)2 * chunk * rows);
+}
+template <class S>
+constexpr size_t smem_bytes(int halo, int chunk, int nbuf) {
+  return nbuf * rows_bytes(S::rows + 2 * halo) +
+         scratch_bytes(S::rows + 2 * halo, chunk, S::rows);
+}
+template <class S>
+constexpr size_t static_smem() {
+  return (S::threads + 1) * sizeof(int32_t) +
+         (S::threads / 32) * sizeof(int64_t) + sizeof(int);
+}
+static_assert(smem_bytes<GenomeShape>(kBandTile, kBandTile, 1) +
+                      static_smem<GenomeShape>() <= 48 * 1024,
               "shared memory beyond 48 KB needs an opt-in per launch");
 
-// One block's work: tile `blk` of a genome of n hits whose output planes have
-// nout >= n rows. Rows [n, nout) of the tile get "no candidate"; best_ov may
-// be null.
-template <bool kTile>
+// One staged row range [s0, s0 + R) in shared memory.
+struct RowSmem {
+  int64_t *cs, *ce, *ps;
+  int32_t *cid, *gid, *rank, *cds, *ne, *off;
+  uint8_t *flt, *rev, *weak;
+};
+// The exons staged for it, the candidate slots [2 * chunk][rows] (ov and
+// a flag) and the queue.
+struct Scratch {
+  int32_t *eos, *eoe, *slot_ov;
+  uint16_t* queue;
+  uint8_t* slot;
+};
+
+struct Carve {
+  unsigned char* p;
+  template <typename T>
+  __device__ T* take(size_t count) {
+    T* r = reinterpret_cast<T*>(p);
+    p += r16(count * sizeof(T));
+    return r;
+  }
+};
+
+__device__ __forceinline__ RowSmem carve_rows(Carve& cv, int rmax) {
+  RowSmem b;
+  b.cs = cv.take<int64_t>(rmax);
+  b.ce = cv.take<int64_t>(rmax);
+  b.ps = cv.take<int64_t>(rmax);
+  b.cid = cv.take<int32_t>(rmax);
+  b.gid = cv.take<int32_t>(rmax);
+  b.rank = cv.take<int32_t>(rmax);
+  b.cds = cv.take<int32_t>(rmax);
+  b.ne = cv.take<int32_t>(rmax);
+  b.off = cv.take<int32_t>(rmax);
+  b.flt = cv.take<uint8_t>(rmax);
+  b.rev = cv.take<uint8_t>(rmax);
+  b.weak = cv.take<uint8_t>(rmax);
+  return b;
+}
+
+__device__ __forceinline__ Scratch carve_scratch(Carve& cv, int rmax,
+                                                 int chunk, int rows) {
+  Scratch sc;
+  sc.eos = cv.take<int32_t>((size_t)rmax * kExonsPerRow);
+  sc.eoe = cv.take<int32_t>((size_t)rmax * kExonsPerRow);
+  sc.slot_ov = cv.take<int32_t>((size_t)2 * chunk * rows);
+  sc.queue = cv.take<uint16_t>((size_t)2 * chunk * rows);
+  sc.slot = cv.take<uint8_t>((size_t)2 * chunk * rows);
+  return sc;
+}
+
+// The rows a tile stages: [s0, s0 + R) around its owned [r0, r0 + rows)
+// of a genome of n hits (R <= 0: the tile owns no row).
+struct TileRows {
+  int r0, s0, R;
+};
+__device__ __forceinline__ TileRows tile_rows(int blk, int rows, int n,
+                                              int halo) {
+  TileRows t;
+  t.r0 = blk * rows;
+  t.s0 = max(t.r0 - halo, 0);
+  t.R = min(t.r0 + rows + halo, n) - t.s0;
+  return t;
+}
+
+// One block's work: tile `blk` (S::rows owned rows) of a genome of n hits
+// whose output planes have nout >= n rows. Rows [n, nout) of the tile get
+// "no candidate"; best_ov may be null. kStaged: the tile's rows are already
+// in `rb` (the batched entry's prefetch), else they are staged here.
+template <bool kTile, class S, bool kStaged>
 __device__ __forceinline__ void sweep_tile(
     const Cols& c, int n, int nout, int blk, int W, int halo, int chunk,
-    int mode, int check_strand, double f, uint8_t* marks,
-    int64_t* best_score, int32_t* best_other, int32_t* best_ov) {
-  extern __shared__ __align__(16) unsigned char smem[];
+    int mode, int check_strand, double f, const RowSmem& rb,
+    const Scratch& sc, uint8_t* marks, int64_t* best_score,
+    int32_t* best_other, int32_t* best_ov) {
+  constexpr int kRows = S::rows;
+  constexpr int kThreads = S::threads;
   __shared__ int32_t s_pref[kThreads + 1];
   __shared__ int64_t s_warp[kThreads / 32];
   __shared__ int s_qn;
@@ -349,42 +466,45 @@ __device__ __forceinline__ void sweep_tile(
   const int rmax = kRows + 2 * halo;
   const int exon_cap = rmax * kExonsPerRow;
 
-  int64_t* s_cs = reinterpret_cast<int64_t*>(smem);
-  int64_t* s_ce = s_cs + rmax;
-  int64_t* s_ps = s_ce + rmax;
-  int32_t* s_cid = reinterpret_cast<int32_t*>(s_ps + rmax);
-  int32_t* s_gid = s_cid + rmax;
-  int32_t* s_rank = s_gid + rmax;
-  int32_t* s_cds = s_rank + rmax;
-  int32_t* s_ne = s_cds + rmax;
-  int32_t* s_off = s_ne + rmax;
-  int32_t* s_eos = s_off + rmax;
-  int32_t* s_eoe = s_eos + exon_cap;
-  int32_t* s_slot_ov = s_eoe + exon_cap;  // [2 * chunk][kRows]
-  uint16_t* s_queue =                     // items past the cheap gates
-      reinterpret_cast<uint16_t*>(s_slot_ov + 2 * chunk * kRows);
-  uint8_t* s_flt = reinterpret_cast<uint8_t*>(s_queue + 2 * chunk * kRows);
-  uint8_t* s_rev = s_flt + rmax;
-  uint8_t* s_weak = s_rev + rmax;
-  uint8_t* s_slot = s_weak + rmax;        // [2 * chunk][kRows], 1 = candidate
+  int64_t* s_cs = rb.cs;
+  int64_t* s_ce = rb.ce;
+  int64_t* s_ps = rb.ps;
+  int32_t* s_cid = rb.cid;
+  int32_t* s_gid = rb.gid;
+  int32_t* s_rank = rb.rank;
+  int32_t* s_cds = rb.cds;
+  int32_t* s_ne = rb.ne;
+  int32_t* s_off = rb.off;
+  int32_t* s_eos = sc.eos;
+  int32_t* s_eoe = sc.eoe;
+  int32_t* s_slot_ov = sc.slot_ov;        // [2 * chunk][kRows]
+  uint16_t* s_queue = sc.queue;           // items past the cheap gates
+  uint8_t* s_flt = rb.flt;
+  uint8_t* s_rev = rb.rev;
+  uint8_t* s_weak = rb.weak;
+  uint8_t* s_slot = sc.slot;              // [2 * chunk][kRows], 1 = candidate
 
   // stage the rows (R <= kThreads: one row a thread)
   int64_t ne = 0;
   if (tid < R) {
-    const int r = s0 + tid;
-    s_cs[tid] = c.cs[r];
-    s_ce[tid] = c.ce[r];
-    s_ps[tid] = c.pscore[r];
-    s_cid[tid] = c.cid[r];
-    s_gid[tid] = c.gid[r];
-    s_rank[tid] = c.rank[r];
-    s_cds[tid] = c.cds_len[r];
-    s_off[tid] = c.off_exon[r];
-    s_flt[tid] = c.flt[r];
-    s_rev[tid] = c.rev[r];
-    s_weak[tid] = c.weak[r];
-    ne = c.n_exon[r];
-    s_ne[tid] = (int32_t)ne;
+    if (kStaged) {
+      ne = s_ne[tid];
+    } else {
+      const int r = s0 + tid;
+      s_cs[tid] = c.cs[r];
+      s_ce[tid] = c.ce[r];
+      s_ps[tid] = c.pscore[r];
+      s_cid[tid] = c.cid[r];
+      s_gid[tid] = c.gid[r];
+      s_rank[tid] = c.rank[r];
+      s_cds[tid] = c.cds_len[r];
+      s_off[tid] = c.off_exon[r];
+      s_flt[tid] = c.flt[r];
+      s_rev[tid] = c.rev[r];
+      s_weak[tid] = c.weak[r];
+      ne = c.n_exon[r];
+      s_ne[tid] = (int32_t)ne;
+    }
   }
   // exclusive prefix over n_exon of the staged rows
   const int lane = tid & 31, warp = tid >> 5;
@@ -484,7 +604,8 @@ __device__ __forceinline__ void sweep_tile(
       const int it = b0 + tid;
       int k, i, j;
       const bool pass =
-          it < n01 && item_pair(it, n0, m1, d0, r0, nown, n, &k, &j, &i) &&
+          it < n01 &&
+          item_pair<kRows>(it, n0, m1, d0, r0, nown, n, &k, &j, &i) &&
           cheap_gates<kTile>(c, t, j, i, mode, check_strand);
       const unsigned ballot = __ballot_sync(0xffffffffu, pass);
       int at = 0;
@@ -497,7 +618,7 @@ __device__ __forceinline__ void sweep_tile(
     const int qn = s_qn;
     for (int q = tid; q < qn; q += kThreads) {
       int k, i, j;
-      item_pair(s_queue[q], n0, m1, d0, r0, nown, n, &k, &j, &i);
+      item_pair<kRows>(s_queue[q], n0, m1, d0, r0, nown, n, &k, &j, &i);
       int64_t ov;
       bool i_loses;
       if (!pair_outcome<kTile>(c, t, j, i, mode, f, &ov, &i_loses)) continue;
@@ -548,20 +669,19 @@ shadow_sweep_kernel(Cols c, int n, int W, int halo, int chunk, int mode,
                     int check_strand, double f, uint8_t* marks,
                     int64_t* best_score, int32_t* best_other,
                     int32_t* best_ov) {
-  sweep_tile<kTile>(c, n, n, blockIdx.x, W, halo, chunk, mode, check_strand,
-                    f, marks, best_score, best_other, best_ov);
+  extern __shared__ __align__(16) unsigned char smem[];
+  Carve cv{smem};
+  const int rmax = kRows + 2 * halo;
+  const RowSmem rb = carve_rows(cv, rmax);
+  const Scratch sc = carve_scratch(cv, rmax, chunk, kRows);
+  sweep_tile<kTile, GenomeShape, false>(
+      c, n, n, blockIdx.x, W, halo, chunk, mode, check_strand, f, rb, sc,
+      marks, best_score, best_other, best_ov);
 }
 
-// Grid (tiles of H rows, genomes): block (x, g) is tile x of genome g, whose
-// columns start at row g * H of every [G, H] plane and whose exon pool is
-// row g of the [G, E] pools.
-template <bool kTile>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
-shadow_sweep_batched_kernel(Cols c, const int32_t* n_rows, int H, int E,
-                            int W, int halo, int chunk, int check_strand,
-                            double f, uint8_t* marks, int64_t* best_score,
-                            int32_t* best_other) {
-  const int g = blockIdx.y;
+// The columns of genome g: rows [g * H, (g + 1) * H) of every [G, H] plane,
+// row g of the [G, E] exon pools.
+__device__ __forceinline__ Cols genome_cols(Cols c, int g, int H, int E) {
   const size_t ro = (size_t)g * H, eo = (size_t)g * E;
   c.cid += ro;
   c.cs += ro;
@@ -577,17 +697,135 @@ shadow_sweep_batched_kernel(Cols c, const int32_t* n_rows, int H, int E,
   c.n_exon += ro;
   c.exon_os += eo;
   c.exon_oe += eo;
-  int n = n_rows[g];
-  n = n < 0 ? 0 : (n > H ? H : n);
-  sweep_tile<kTile>(c, n, H, blockIdx.x, W, halo, chunk, kShadow,
-                    check_strand, f, marks + ro, best_score + ro,
-                    best_other + ro, nullptr);
+  return c;
+}
+
+__device__ __forceinline__ int genome_rows(const int32_t* n_rows, int g,
+                                           int H) {
+  const int n = n_rows[g];
+  return n < 0 ? 0 : (n > H ? H : n);
+}
+
+// Start the copy of tile x's staged rows (genome columns c, n hits) into
+// b: the 4- and 8-byte columns by cp.async, the three byte columns into
+// registers (flt, rev, weak), stored by land_rows once the copy is waited
+// for.
+__device__ __forceinline__ void prefetch_rows(const Cols& c, int n, int x,
+                                              int halo, const RowSmem& b,
+                                              uint8_t* bytes) {
+  const TileRows t = tile_rows(x, kBatchRows, n, halo);
+  const int k = threadIdx.x;
+  if (k < t.R) {
+    const int r = t.s0 + k;
+    __pipeline_memcpy_async(&b.cs[k], &c.cs[r], sizeof(int64_t));
+    __pipeline_memcpy_async(&b.ce[k], &c.ce[r], sizeof(int64_t));
+    __pipeline_memcpy_async(&b.ps[k], &c.pscore[r], sizeof(int64_t));
+    __pipeline_memcpy_async(&b.cid[k], &c.cid[r], sizeof(int32_t));
+    __pipeline_memcpy_async(&b.gid[k], &c.gid[r], sizeof(int32_t));
+    __pipeline_memcpy_async(&b.rank[k], &c.rank[r], sizeof(int32_t));
+    __pipeline_memcpy_async(&b.cds[k], &c.cds_len[r], sizeof(int32_t));
+    __pipeline_memcpy_async(&b.ne[k], &c.n_exon[r], sizeof(int32_t));
+    __pipeline_memcpy_async(&b.off[k], &c.off_exon[r], sizeof(int32_t));
+    bytes[0] = c.flt[r];
+    bytes[1] = c.rev[r];
+    bytes[2] = c.weak[r];
+  }
+  __pipeline_commit();
+}
+
+// The batched entry, persistent: block b takes the (genome, tile) items
+// b, b + gridDim.x, ... (genome-major, so neighbouring blocks share halos
+// in L2). While an item's band passes run, the next item's rows are on
+// their way into the other row buffer. An item past its genome's n_rows
+// stages nothing and writes its rows as unmarked with no dominator.
+template <bool kTile>
+__global__ void __launch_bounds__(kBatchThreads, kBatchBlocksPerSM)
+shadow_sweep_batched_kernel(Cols c, const int32_t* __restrict__ n_rows,
+                            int G, int H, int E, int W, int halo, int chunk,
+                            int check_strand, double f, uint8_t* marks,
+                            int64_t* best_score, int32_t* best_other) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Carve cv{smem};
+  const int rmax = kBatchRows + 2 * halo;
+  const RowSmem buf0 = carve_rows(cv, rmax);
+  const RowSmem buf1 = carve_rows(cv, rmax);
+  const Scratch sc = carve_scratch(cv, rmax, chunk, kBatchRows);
+  const int tiles = (H + kBatchRows - 1) / kBatchRows;
+  const long long items = (long long)G * tiles;
+  uint8_t bytes[3] = {0, 0, 0};
+  long long it = blockIdx.x;
+  if (it < items) {
+    const int g = (int)(it / tiles);
+    prefetch_rows(genome_cols(c, g, H, E), genome_rows(n_rows, g, H),
+                  (int)(it % tiles), halo, buf0, bytes);
+  }
+  for (int k = 0; it < items; it += gridDim.x, k ^= 1) {
+    const int g = (int)(it / tiles), x = (int)(it % tiles);
+    const int n = genome_rows(n_rows, g, H);
+    const RowSmem rb = k ? buf1 : buf0;
+    __pipeline_wait_prior(0);
+    if ((int)threadIdx.x < tile_rows(x, kBatchRows, n, halo).R) {
+      rb.flt[threadIdx.x] = bytes[0];
+      rb.rev[threadIdx.x] = bytes[1];
+      rb.weak[threadIdx.x] = bytes[2];
+    }
+    __syncthreads();
+    const long long next = it + gridDim.x;
+    if (next < items) {
+      const int g2 = (int)(next / tiles);
+      prefetch_rows(genome_cols(c, g2, H, E), genome_rows(n_rows, g2, H),
+                    (int)(next % tiles), halo, k ? buf0 : buf1, bytes);
+    }
+    const size_t ro = (size_t)g * H;
+    sweep_tile<kTile, BatchShape, true>(
+        genome_cols(c, g, H, E), n, H, x, W, halo, chunk, kShadow,
+        check_strand, f, rb, sc, marks + ro, best_score + ro,
+        best_other + ro, nullptr);
+    __syncthreads();  // rb is the prefetch's after next
+  }
 }
 
 // Band chunk and staged halo of a launch. W is already clipped to n - 1.
 void tile_shape(int W, int* halo, int* chunk) {
   *halo = W <= kBandTile ? W : 0;
   *chunk = W < kBandTile ? W : kBandTile;
+}
+
+void batch_tile_shape(int W, int* halo, int* chunk) {
+  *halo = W <= kBandTile ? W : 0;
+  *chunk = W < kBatchChunk ? W : kBatchChunk;
+}
+
+// The batched launch for band W over G genomes of H rows: the kernel, its
+// dynamic shared memory (opted in above 48 KB), the (genome, tile) items
+// and the persistent grid (the blocks resident on every SM at once).
+struct BatchLaunch {
+  void (*kernel)(Cols, const int32_t*, int, int, int, int, int, int, int,
+                 double, uint8_t*, int64_t*, int32_t*);
+  size_t smem;
+  int halo, chunk, per_sm, blocks;
+  long long items;
+};
+
+cudaError_t batch_launch(int G, int H, int W, BatchLaunch* L) {
+  batch_tile_shape(W, &L->halo, &L->chunk);
+  L->kernel = L->halo == W ? shadow_sweep_batched_kernel<true>
+                           : shadow_sweep_batched_kernel<false>;
+  L->smem = smem_bytes<BatchShape>(L->halo, L->chunk, 2);
+  L->items = (long long)G * ((H + kBatchRows - 1) / kBatchRows);
+  cudaError_t e = cudaFuncSetAttribute(
+      L->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L->smem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&L->per_sm, L->kernel,
+                                                    kBatchThreads, L->smem);
+  if (e != cudaSuccess) return e;
+  const long long slots = (long long)sms * (L->per_sm > 0 ? L->per_sm : 1);
+  L->blocks = (int)(L->items < slots ? L->items : slots);
+  return cudaSuccess;
 }
 
 Cols unpack(const void* in, const long long* in_off) {
@@ -629,7 +867,7 @@ extern "C" int pg_shadow_sweep(const void* in, const long long* in_off,
   const int blocks = (n + kRows - 1) / kRows;
   auto kernel = halo == W ? shadow_sweep_kernel<true>
                           : shadow_sweep_kernel<false>;
-  kernel<<<blocks, kThreads, smem_bytes(halo, chunk),
+  kernel<<<blocks, kThreads, smem_bytes<GenomeShape>(halo, chunk, 1),
            static_cast<cudaStream_t>(stream)>>>(
       unpack(in, in_off), n, W, halo, chunk, mode, check_strand, f,
       reinterpret_cast<uint8_t*>(o + out_off[kOutMarks]),
@@ -652,8 +890,9 @@ extern "C" int pg_shadow_sweep_batched(const void* const* cols,
                                        void* stream) {
   if (G <= 0 || H <= 0) return 0;
   W = clip_band(H, W);
-  int halo, chunk;
-  tile_shape(W, &halo, &chunk);
+  BatchLaunch L;
+  const cudaError_t e = batch_launch(G, H, W, &L);
+  if (e != cudaSuccess) return static_cast<int>(e);
   Cols c;
   c.cid = static_cast<const int32_t*>(cols[kCid]);
   c.cs = static_cast<const int64_t*>(cols[kCs]);
@@ -669,15 +908,30 @@ extern "C" int pg_shadow_sweep_batched(const void* const* cols,
   c.n_exon = static_cast<const int32_t*>(cols[kNExon]);
   c.exon_os = static_cast<const int32_t*>(cols[kExonOs]);
   c.exon_oe = static_cast<const int32_t*>(cols[kExonOe]);
-  const dim3 grid((H + kRows - 1) / kRows, G);
-  auto kernel = halo == W ? shadow_sweep_batched_kernel<true>
-                          : shadow_sweep_batched_kernel<false>;
-  kernel<<<grid, kThreads, smem_bytes(halo, chunk),
-           static_cast<cudaStream_t>(stream)>>>(
-      c, static_cast<const int32_t*>(n_rows), H, E, W, halo, chunk,
+  L.kernel<<<L.blocks, kBatchThreads, L.smem,
+             static_cast<cudaStream_t>(stream)>>>(
+      c, static_cast<const int32_t*>(n_rows), G, H, E, W, L.halo, L.chunk,
       check_strand, f, static_cast<uint8_t*>(marks),
       static_cast<int64_t*>(best_score), static_cast<int32_t*>(best_other));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch shape of the batched entry for G genomes of H rows and band W:
+// info = {items, blocks, threads, dynamic shared bytes, resident blocks per
+// SM, registers per thread, halo, chunk}. Returns a CUDA error code.
+extern "C" int pg_shadow_sweep_batched_shape(int G, int H, int W,
+                                             long long* info) {
+  BatchLaunch L;
+  cudaError_t e = batch_launch(G, H, clip_band(H, W), &L);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, L.kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long v[8] = {L.items, L.blocks, kBatchThreads,
+                          (long long)L.smem, L.per_sm, attr.numRegs, L.halo,
+                          L.chunk};
+  for (int k = 0; k < 8; ++k) info[k] = v[k];
+  return 0;
 }
 
 // Launch shape for n hits and band W: info = {blocks, threads, dynamic
@@ -687,7 +941,7 @@ extern "C" int pg_shadow_sweep_shape(int n, int W, int* info) {
   W = clip_band(n, W);
   int halo, chunk;
   tile_shape(W, &halo, &chunk);
-  const size_t smem = smem_bytes(halo, chunk);
+  const size_t smem = smem_bytes<GenomeShape>(halo, chunk, 1);
   auto kernel = halo == W ? shadow_sweep_kernel<true>
                           : shadow_sweep_kernel<false>;
   int per_sm = 0;

@@ -1,17 +1,25 @@
 """Two blocks of the device-resident pruning loop as hand-written CUDA
 kernels (csrc/loop_blocks.cu), each beside its plain PyTorch version.
 
-branch_locality: the branch block's pairwise any-genome locality
-(reference branch.c:48-106; JAX pangene_tpu/parallel/device_loop.py:525
-branch_block, its loc_chunk loop). For every branching arc a (valid, in a
-group of >= 2 arcs of one source vertex) and every other branching member
-p of its group with 0 < |a - p| < D, the pair is local when some genome has
-both targets' representatives present, on the same contig unless
-frag_mode, within local_dist bp of cm or local_count kept-hit ranks. Then
-aml[a] |= is_max[p], and he[a] is set when p < a (an earlier local
-partner). The self pair is never counted. The arc table is the loop's:
-v-sorted, so the members of a group are contiguous, and gs_of is the
-index of the group's first arc.
+The branch block (reference branch.c:48-106; JAX
+pangene_tpu/parallel/device_loop.py:525 branch_block, its loc_chunk loop at
+:578, the deficit at :627-634, n_dist_loci at :636). The arc table is the
+loop's: v-sorted, so the arcs of one source vertex (a group) are
+contiguous; a group of >= 2 valid arcs branches, gs_of is its first arc, mx
+its largest s1 (at least 0) and is_max marks the members whose s1 is mx.
+For every branching arc a and every other member p with 0 < |a - p| < D,
+the pair is local when some genome has both targets' representatives
+present, on the same contig unless frag_mode, within local_dist bp of cm
+or local_count kept-hit ranks. Then aml[a] |= is_max[p], and he[a] is set
+when p < a (an earlier local partner). The self pair is never counted.
+Each branching arc is then classified by the reference's double deficit
+1 - s1 / mx (branch.c:72-78): aw 1 when it exceeds branch_diff, 2 when it
+also exceeds branch_diff_cut, or branch_diff_dist without a local max
+partner; n_grp, at a group's first arc, counts its members with no earlier
+local partner (branch.c:82-90), and counts = (#aw == 1, #aw == 2). Three
+entries: branch_block (one rank: the groups found in the arc table,
+locality and classification in one launch), and for the mesh
+branch_locality (its bits are OR'd over the ranks) then branch_classify.
 
 merge_fold: the in-loop lean merge after its sort (graph.c:87-177; JAX
 device_loop.py:264 walk_merge and its bucket exchange). Over sorted int64
@@ -47,8 +55,8 @@ _LONG_MAX = (1 << 63) - 1
 
 # Launches of each kernel and calls of its plain version. reset_counts()
 # zeroes them; the loop's LAST and chip_smoke.py read them.
-n_calls = {"branch_locality": {"kernel": 0, "plain": 0},
-           "merge_fold": {"kernel": 0, "plain": 0}}
+n_calls = {name: {"kernel": 0, "plain": 0} for name in (
+    "branch_block", "branch_locality", "branch_classify", "merge_fold")}
 
 
 def reset_counts() -> None:
@@ -106,9 +114,17 @@ def load(path: str) -> ctypes.CDLL:
     """The built library with its entry points' C signatures."""
     lib = ctypes.CDLL(path)
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    d = ctypes.c_double
     fn = lib.pg_branch_locality
     fn.restype = i
     fn.argtypes = [vp] * 4 + [i] + [vp] * 4 + [ll, i, i, ll, ll] + [vp] * 3
+    fn = lib.pg_branch_block
+    fn.restype = i
+    fn.argtypes = ([vp] * 4 + [i] + [vp] * 3 + [i, ll, i, i, ll, ll]
+                   + [d] * 3 + [vp] * 4)
+    fn = lib.pg_branch_classify
+    fn.restype = i
+    fn.argtypes = [vp] * 6 + [ll] + [d] * 3 + [vp] * 4
     fn = lib.pg_merge_fold_blocks
     fn.restype = ll
     fn.argtypes = [ll]
@@ -151,26 +167,120 @@ def _launch_device(dev: torch.device, what: str) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# branch_locality
+# the branch block
 # ---------------------------------------------------------------------------
 
-def branch_locality(r_pres, r_cid, r_cm, r_rank, tgt_gid, gs_of, branching,
-                    is_max, *, D: int, frag_mode: bool, local_dist: int,
-                    local_count: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(aml, he), bool [A]. The representative planes are gene-major
-    [n_gene, G]: presence (bool), contig (int32), cm (int64) and kept-hit
-    rank (int32) of each gene's last kept hit in genome g. Per arc of the
-    v-sorted table [A]: the target's gene tgt_gid (int64, in [0, n_gene)),
-    the group's first arc gs_of (int64), branching and is_max (bool)."""
-    dev = r_pres.device
+def _clip(x) -> int:
+    return max(min(int(x), _LONG_MAX), -_LONG_MAX)
+
+
+def _launch(name: str, fn, *args) -> None:
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError("%s kernel launch failed: CUDA error %d"
+                           % (name, err))
+    n_calls[name]["kernel"] += 1
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _check_planes(r_pres, r_cid, r_cm, r_rank, tgt_gid, named, dev):
     ng, G = r_pres.shape
     A = tgt_gid.shape[0]
     _check([("r_pres", r_pres, torch.bool, (ng, G)),
             ("r_cid", r_cid, I32, (ng, G)), ("r_cm", r_cm, I64, (ng, G)),
             ("r_rank", r_rank, I32, (ng, G)),
-            ("tgt_gid", tgt_gid, I64, (A,)), ("gs_of", gs_of, I64, (A,)),
-            ("branching", branching, torch.bool, (A,)),
-            ("is_max", is_max, torch.bool, (A,))], dev)
+            ("tgt_gid", tgt_gid, I64, (A,))]
+           + [(n, t, dt, (A,)) for n, t, dt in named], dev)
+    return G, A
+
+
+def arc_groups(arc_vw: torch.Tensor, arc_s1: torch.Tensor, B: int):
+    """(gs_of int64, mx int32, branching bool, is_max bool), [A] each, of
+    the v-sorted arc table: a group is a run of valid arcs (vw != SENT_I)
+    of one source vertex v = vw >> B."""
+    A = arc_vw.shape[0]
+    valid = arc_vw != SENT_I
+    v = arc_vw >> B
+    g_new = valid & (v != prev_row(v, -1))
+    g_id = (torch.cumsum(g_new, 0) - 1).clamp(0, max(A - 1, 0))
+    n_in_g = seg_sum(valid.to(I32), g_id, A)[g_id]
+    iota = torch.arange(A, dtype=I64, device=arc_vw.device)
+    gs_of = seg_min(torch.where(valid, iota, A), g_id, A)[g_id]
+    mx = seg_max(torch.where(valid, arc_s1, 0), g_id, A)[g_id].clamp(min=0)
+    branching = valid & (n_in_g >= 2)
+    return gs_of, mx, branching, branching & (arc_s1 == mx)
+
+
+def branch_block(r_pres, r_cid, r_cm, r_rank, tgt_gid, arc_vw, arc_s1, *,
+                 B: int, D: int, frag_mode: bool, local_dist: int,
+                 local_count: int, branch_diff: float,
+                 branch_diff_dist: float, branch_diff_cut: float):
+    """(aw uint8 [A], n_grp int32 [A], counts int64 [2]) of the arc table
+    (arc_vw int64, arc_s1 int32 [A]) with the groups found in it. The
+    representative planes are gene-major [n_gene, G]: presence (bool),
+    contig (int32), cm (int64) and kept-hit rank (int32) of each gene's last
+    kept hit in genome g; tgt_gid (int64 [A], in [0, n_gene)) is each arc's
+    target gene."""
+    dev = r_pres.device
+    G, A = _check_planes(r_pres, r_cid, r_cm, r_rank, tgt_gid,
+                         [("arc_vw", arc_vw, I64), ("arc_s1", arc_s1, I32)],
+                         dev)
+    if D < 1 or not 0 <= B < 62:
+        raise ValueError("branch_block: D %d, B %d" % (D, B))
+    kw = dict(D=D, frag_mode=frag_mode, local_dist=local_dist,
+              local_count=local_count, branch_diff=branch_diff,
+              branch_diff_dist=branch_diff_dist,
+              branch_diff_cut=branch_diff_cut)
+    if not _launch_device(dev, "branch_block"):
+        return branch_block_plain(r_pres, r_cid, r_cm, r_rank, tgt_gid,
+                                  arc_vw, arc_s1, B=B, **kw)
+    aw = torch.empty(A, dtype=torch.uint8, device=dev)
+    n_grp = torch.empty(A, dtype=I32, device=dev)
+    counts = torch.zeros(2, dtype=I64, device=dev)
+    if A == 0:
+        return aw, n_grp, counts
+    with torch.cuda.device(dev):
+        _launch("branch_block", _kernel_lib().pg_branch_block,
+                r_pres.data_ptr(), r_cid.data_ptr(), r_cm.data_ptr(),
+                r_rank.data_ptr(), G, tgt_gid.data_ptr(), arc_vw.data_ptr(),
+                arc_s1.data_ptr(), B, A, int(D), int(bool(frag_mode)),
+                _clip(local_dist), _clip(local_count), float(branch_diff),
+                float(branch_diff_dist), float(branch_diff_cut),
+                aw.data_ptr(), n_grp.data_ptr(), counts.data_ptr(),
+                _stream(dev))
+    return aw, n_grp, counts
+
+
+def branch_block_plain(r_pres, r_cid, r_cm, r_rank, tgt_gid, arc_vw, arc_s1,
+                       *, B: int, D: int, frag_mode: bool, local_dist: int,
+                       local_count: int, branch_diff: float,
+                       branch_diff_dist: float, branch_diff_cut: float):
+    """Plain PyTorch version of branch_block: arc_groups, then
+    branch_locality_plain and branch_classify_plain."""
+    gs_of, mx, branching, is_max = arc_groups(arc_vw, arc_s1, B)
+    aml, he = branch_locality_plain(
+        r_pres, r_cid, r_cm, r_rank, tgt_gid, gs_of, branching, is_max, D=D,
+        frag_mode=frag_mode, local_dist=local_dist, local_count=local_count)
+    return branch_classify_plain(
+        arc_s1, mx, branching, aml, he, gs_of, branch_diff=branch_diff,
+        branch_diff_dist=branch_diff_dist, branch_diff_cut=branch_diff_cut)
+
+
+def branch_locality(r_pres, r_cid, r_cm, r_rank, tgt_gid, gs_of, branching,
+                    is_max, *, D: int, frag_mode: bool, local_dist: int,
+                    local_count: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(aml, he), bool [A], of the groups given per arc of the v-sorted
+    table: the group's first arc gs_of (int64), branching and is_max (bool);
+    a group's branching members are contiguous. The planes and tgt_gid are
+    branch_block's."""
+    dev = r_pres.device
+    G, A = _check_planes(r_pres, r_cid, r_cm, r_rank, tgt_gid,
+                         [("gs_of", gs_of, I64),
+                          ("branching", branching, torch.bool),
+                          ("is_max", is_max, torch.bool)], dev)
     if D < 1:
         raise ValueError("branch window D must be >= 1, got %d" % D)
     if not _launch_device(dev, "branch_locality"):
@@ -182,20 +292,13 @@ def branch_locality(r_pres, r_cid, r_cm, r_rank, tgt_gid, gs_of, branching,
     he = torch.empty(A, dtype=torch.bool, device=dev)
     if A == 0:
         return aml, he
-    lib = _kernel_lib()
-    clip = lambda x: max(min(int(x), _LONG_MAX), -_LONG_MAX)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pg_branch_locality(
-            r_pres.data_ptr(), r_cid.data_ptr(), r_cm.data_ptr(),
-            r_rank.data_ptr(), G, tgt_gid.data_ptr(), gs_of.data_ptr(),
-            branching.data_ptr(), is_max.data_ptr(), A, int(D),
-            int(bool(frag_mode)), clip(local_dist), clip(local_count),
-            aml.data_ptr(), he.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("branch_locality kernel launch failed: CUDA "
-                           "error %d" % err)
-    n_calls["branch_locality"]["kernel"] += 1
+        _launch("branch_locality", _kernel_lib().pg_branch_locality,
+                r_pres.data_ptr(), r_cid.data_ptr(), r_cm.data_ptr(),
+                r_rank.data_ptr(), G, tgt_gid.data_ptr(), gs_of.data_ptr(),
+                branching.data_ptr(), is_max.data_ptr(), A, int(D),
+                int(bool(frag_mode)), _clip(local_dist), _clip(local_count),
+                aml.data_ptr(), he.data_ptr(), _stream(dev))
     return aml, he
 
 
@@ -235,6 +338,56 @@ def branch_locality_plain(r_pres, r_cid, r_cm, r_rank, tgt_gid, gs_of,
     aml[bidx] = aml_b
     he[bidx] = he_b
     return aml, he
+
+
+def branch_classify(arc_s1, mx, branching, aml, he, gs_of, *,
+                    branch_diff: float, branch_diff_dist: float,
+                    branch_diff_cut: float):
+    """branch_block's outputs from the groups (mx int32, branching bool,
+    gs_of int64) and the locality bits (aml, he bool), [A] each."""
+    dev = arc_s1.device
+    A = arc_s1.shape[0]
+    _check([("arc_s1", arc_s1, I32, (A,)), ("mx", mx, I32, (A,)),
+            ("branching", branching, torch.bool, (A,)),
+            ("aml", aml, torch.bool, (A,)), ("he", he, torch.bool, (A,)),
+            ("gs_of", gs_of, I64, (A,))], dev)
+    kw = dict(branch_diff=branch_diff, branch_diff_dist=branch_diff_dist,
+              branch_diff_cut=branch_diff_cut)
+    if not _launch_device(dev, "branch_classify"):
+        return branch_classify_plain(arc_s1, mx, branching, aml, he, gs_of,
+                                     **kw)
+    aw = torch.empty(A, dtype=torch.uint8, device=dev)
+    n_grp = torch.zeros(A, dtype=I32, device=dev)
+    counts = torch.zeros(2, dtype=I64, device=dev)
+    if A == 0:
+        return aw, n_grp, counts
+    with torch.cuda.device(dev):
+        _launch("branch_classify", _kernel_lib().pg_branch_classify,
+                arc_s1.data_ptr(), mx.data_ptr(), branching.data_ptr(),
+                aml.data_ptr(), he.data_ptr(), gs_of.data_ptr(), A,
+                float(branch_diff), float(branch_diff_dist),
+                float(branch_diff_cut), aw.data_ptr(), n_grp.data_ptr(),
+                counts.data_ptr(), _stream(dev))
+    return aw, n_grp, counts
+
+
+def branch_classify_plain(arc_s1, mx, branching, aml, he, gs_of, *,
+                          branch_diff: float, branch_diff_dist: float,
+                          branch_diff_cut: float):
+    """Plain PyTorch version of branch_classify: the deficit in softfloat
+    (ops/softfloat.py, exact for 0 <= s1 <= mx), n_grp by a segment sum
+    over the groups' first arcs."""
+    A = arc_s1.shape[0]
+    rm, rk = sf.one_minus_div(arc_s1.clamp(min=0).to(I64),
+                              mx.clamp(min=1).to(I64))
+    cand = branching & (mx > 0) & sf.gt_const(rm, rk, branch_diff)
+    cut = cand & ((~aml & sf.gt_const(rm, rk, branch_diff_dist))
+                  | sf.gt_const(rm, rk, branch_diff_cut))
+    aw = cand.to(torch.uint8) + cut.to(torch.uint8)
+    n_grp = seg_sum((branching & ~he).to(I32),
+                    gs_of.clamp(0, max(A - 1, 0)), A)
+    counts = torch.stack([(cand & ~cut).sum(), cut.sum()])
+    return aw, n_grp, counts
 
 
 # ---------------------------------------------------------------------------

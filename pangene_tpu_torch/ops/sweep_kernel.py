@@ -132,15 +132,17 @@ OUT_DTYPES = (("marks", torch.uint8), ("best_score", torch.int64),
               ("best_other", torch.int32), ("best_ov", torch.int32))
 
 
-def tile_shape() -> Tuple[int, int]:
+def tile_shape(batched: bool = False) -> Tuple[int, int]:
     """(kRows, kBandTile) as csrc/shadow_sweep.cu defines them: the owned
-    rows of a block and the largest W whose halo is staged. Read from the
-    source, so the kernel alone owns its tile shape."""
+    rows of a tile (kBatchRows for the batched entry) and the largest W
+    whose halo is staged. Read from the source, so the kernel alone owns
+    its tile shape."""
     with open(_SRC) as fp:
         src = fp.read()
     return tuple(int(re.search(r"constexpr int %s = (\d+);" % name,
                                src).group(1))
-                 for name in ("kRows", "kBandTile"))
+                 for name in ("kBatchRows" if batched else "kRows",
+                              "kBandTile"))
 
 
 def _layout(counts_dtypes):
@@ -415,6 +417,20 @@ def launch_shape(n: int, W: int) -> dict:
                      "registers", "halo", "chunk"), info))
 
 
+def launch_shape_batched(G: int, H: int, W: int) -> dict:
+    """The batched entry's launch for G genomes of H rows and band W, from
+    the CUDA runtime: (genome, tile) items, persistent blocks, threads,
+    dynamic shared bytes, resident blocks per SM, registers per thread,
+    staged halo and band chunk."""
+    info = (ctypes.c_longlong * 8)()
+    err = _kernel_lib().pg_shadow_sweep_batched_shape(G, H, W, info)
+    if err != 0:
+        raise RuntimeError("batched shadow_sweep shape query failed: CUDA "
+                           "error %d" % err)
+    return dict(zip(("items", "blocks", "threads", "smem_bytes",
+                     "blocks_per_sm", "registers", "halo", "chunk"), info))
+
+
 def shadow_sweep_plain(c: SweepCols, W: int, mode: int, check_strand: bool,
                        min_ov_ratio: float = 0.0):
     """Plain PyTorch version: vectorised over hits, one step per band
@@ -552,6 +568,9 @@ def load(path: str) -> ctypes.CDLL:
     fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
                    + [ctypes.c_int] * 5 + [ctypes.c_double]
                    + [ctypes.c_void_p] * 4)
+    fn = lib.pg_shadow_sweep_batched_shape
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [i64p]
     return lib
 
 

@@ -75,7 +75,7 @@ from ..ops import loop_kernels as lk
 from ..ops import softfloat as sf
 from ..ops import sweep_kernel as sk
 from ..ops.loop_kernels import (KSENT_I, SENT_I, plus499_i32, prev_row,
-                                seg_max, seg_min, seg_sum)
+                                seg_max, seg_sum)
 from ..util import log_msg
 from . import mesh as M
 
@@ -502,15 +502,14 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
             """Branch marking (branch.c:48-106): for every arc of a
             branching group, is there a genome in which its target is local
             to a max arc's target of the group (aml), and to an earlier
-            member's (he); then the softfloat classification and the
-            n_dist_loci greedy."""
-            gs_of = seg_min(torch.where(valid_a, iotaA, A), g_id, A)[g_id]
-            mx = seg_max(torch.where(valid_a, arc_s1, 0), g_id, A)[g_id] \
-                .clamp(min=0)
-            branching = valid_a & (n_in_g >= 2)
+            member's (he); then the deficit classification and the
+            n_dist_loci greedy (branch.c:82-90: count group members with no
+            earlier local partner; the greedy marks j from every earlier i
+            regardless of i's own group)."""
             tgt_gid = seg_gid[((arc_vw & wmask) >> 1).clamp(0, S - 1)] \
                 .clamp(0, ng - 1)
-            ovf = (branching & (n_in_g > D)).any()
+            # a branching group (n_in_g >= 2) past the window
+            ovf = (valid_a & (n_in_g > max(D, 1))).any()
             # rep positions (branch.c:6-29): last kept hit per gene in the
             # current cs order, with its kept-rank and cm, as gene-major
             # [ng, G] planes of this rank's genomes
@@ -522,35 +521,34 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
                 .scatter_reduce_(0, gidc.t(), pos.t(), "amax",
                                  include_self=True)
             lastc = last.clamp(0, H - 1).long()
-            # pairwise any-genome locality within each group, one kernel
-            # over the arc table (no host read)
-            loc_args = (last >= 0, cols["cid"][iotaG, lastc],
-                        cols["cm"][iotaG, lastc], krank[iotaG, lastc],
-                        tgt_gid, gs_of, branching,
-                        branching & (arc_s1 == mx))
+            planes = (last >= 0, cols["cid"][iotaG, lastc],
+                      cols["cm"][iotaG, lastc], krank[iotaG, lastc], tgt_gid)
             loc_kw = dict(D=D, frag_mode=cfg.frag_mode,
                           local_dist=cfg.local_dist,
                           local_count=cfg.local_count)
-            aml, he = captured(lk.branch_locality, *loc_args, **loc_kw)
-            if mesh.group is not None:
-                # a genome of any rank: OR over the ranks
+            cls_kw = dict(branch_diff=cfg.branch_diff,
+                          branch_diff_dist=cfg.branch_diff_dist,
+                          branch_diff_cut=cfg.branch_diff_cut)
+            if nd == 1:
+                # one kernel: the groups, the locality, the classification
+                # (no host read)
+                aw, n_grp, cnt = captured(lk.branch_block, *planes, arc_vw,
+                                          arc_s1, B=B, **loc_kw, **cls_kw)
+            else:
+                # a genome of any rank: the locality bits OR'd over the
+                # ranks before the classification
+                gs_of, mx, branching, is_max = lk.arc_groups(arc_vw, arc_s1,
+                                                             B)
+                aml, he = captured(lk.branch_locality, *planes, gs_of,
+                                   branching, is_max, **loc_kw)
                 aml, he = M.psum(torch.stack([aml, he]).to(I32), mesh) > 0
-            rm, rk = sf.one_minus_div(arc_s1.clamp(min=0).to(I64),
-                                      mx.clamp(min=1).to(I64))
-            cand = branching & (mx > 0) \
-                & sf.gt_const(rm, rk, cfg.branch_diff)
-            cut = cand & ((~aml & sf.gt_const(rm, rk, cfg.branch_diff_dist))
-                          | sf.gt_const(rm, rk, cfg.branch_diff_cut))
-            aw = cand.to(torch.uint8) + cut.to(torch.uint8)
-            # n_dist_loci (branch.c:82-90): count group members with no
-            # earlier local partner (the greedy marks j from every earlier
-            # i regardless of i's own group)
-            n_grp = seg_sum((branching & ~he).to(I32), g_id, A)
-            head = g_new & (n_in_g >= 2)
+                aw, n_grp, cnt = captured(lk.branch_classify, arc_s1, mx,
+                                          branching, aml, he, gs_of,
+                                          **cls_kw)
+            # n_grp sits at each branching group's first arc, 0 elsewhere
             slot = (v_a >> 1).clamp(0, S - 1) * 2 + (v_a & 1)
-            loci = seg_sum(torch.where(head, n_grp[g_id], 0), slot,
-                           2 * S).reshape(S, 2)
-            return aw, loci, (cand & ~cut).sum(), cut.sum(), ovf
+            loci = seg_sum(n_grp, slot, 2 * S).reshape(S, 2)
+            return aw, loci, cnt[0], cnt[1], ovf
 
         if run_br:
             with timer("branch"):

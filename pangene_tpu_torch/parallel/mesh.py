@@ -54,13 +54,23 @@ LAST: dict = {"calls": {}, "collective_s": 0.0, "first_collective_s": 0.0,
               "staged_bytes": 0}
 
 
+# What a Mesh holds for its process group: its name, never the group object.
+# The collectives run on the default group, and destroy_process_group
+# (shutdown) then drops the group's last reference while the interpreter
+# runs. A reference that outlived it (a Mesh the caller still held) left
+# gloo's group to be destroyed during the interpreter's exit, which aborted
+# the rank about one exit in twenty under load ("terminate called without
+# an active exception", SIGABRT after the rank's work was done).
+WORLD = "world"
+
+
 class Mesh(NamedTuple):
     """The ranks that shard the genome axis, as this rank sees them."""
     world: int
     rank: int
     device: torch.device
     backend: Optional[str]    # "nccl" | "gloo"; None: no process group
-    group: Optional[object]   # the process group; None at one device
+    group: Optional[str]      # WORLD: the default group; None: one device
 
 
 def local(device: torch.device) -> Mesh:
@@ -125,16 +135,16 @@ def make_mesh(n_devices: int, device: str) -> Mesh:
         from ..ops.device_engine import resolve_device
         return local(resolve_device(device))
     dev, backend = joined
-    return Mesh(dist.get_world_size(), dist.get_rank(), dev, backend,
-                dist.group.WORLD)
+    return Mesh(dist.get_world_size(), dist.get_rank(), dev, backend, WORLD)
 
 
 def shutdown() -> None:
     """The end of a rank's work: wait for every rank, then leave the
-    process group. A rank that tore its connections down while another
-    still used them could abort that rank's exit (seen with gloo); without
-    a launch, nothing to do. On an error path the process group is left at
-    exit without the wait (a failed rank must not wait for the others)."""
+    process group, which destroys it (see WORLD). A rank that tore its
+    connections down while another still used them could abort that rank's
+    exit (seen with gloo); without a launch, nothing to do. On an error path
+    the process group is left at exit without the wait (a failed rank must
+    not wait for the others)."""
     if dist.is_initialized():
         dist.barrier()
         dist.destroy_process_group()
@@ -195,7 +205,7 @@ def _reduce(name: str, op, t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
     def run(x):
         y = x.clone()
-        dist.all_reduce(y, op=op, group=mesh.group)
+        dist.all_reduce(y, op=op)
         return y
     return _collective(name, mesh, t, run)
 
@@ -222,7 +232,7 @@ def all_gather(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
     def run(x):
         out = x.new_empty((mesh.world * x.shape[0],) + tuple(x.shape[1:]))
-        _gather_into(out, x, group=mesh.group)
+        _gather_into(out, x)
         return out
     return _collective("all_gather", mesh, t, run)
 
@@ -235,7 +245,7 @@ def all_to_all(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
     def run(x):
         out = torch.empty_like(x)
-        dist.all_to_all_single(out, x, group=mesh.group)
+        dist.all_to_all_single(out, x)
         return out
     return _collective("all_to_all", mesh, t, run)
 

@@ -385,6 +385,58 @@ def locality_table(rng, G, sizes, n_invalid=5, n_gene=40, p_absent=0.3,
     return t, groups
 
 
+BRANCH_B = 20          # bits of the target below v in branch_table's arc_vw
+
+
+# Branch constants that are deficits of ratios: 1 - 49/50, 1 - 19/20 and
+# 1 - 1/2 in double, near the defaults 0.02, 0.05 and 0.5.
+EXACT_BRANCH_DIFFS = (1.0 - 49 / 50, 1.0 - 19 / 20, 1.0 - 1 / 2)
+
+
+def deficit_ratios(consts=(0.02, 0.05, 0.5)):
+    """(s1, mx) pairs, 0 <= s1 <= mx, whose double deficit 1 - s1 / mx lies
+    on or next to each constant c (s1 = round((1 - c) mx) and one either
+    side, at several mx), the ratios of EXACT_BRANCH_DIFFS at several mx,
+    then s1 == mx, s1 == 0 and 1 of 1."""
+    out = []
+    for c in consts:
+        for mx in (50, 100, 1000, 4999, 99991):
+            s1 = round((1.0 - c) * mx)
+            out += [(x, mx) for x in (s1 - 1, s1, s1 + 1) if 0 <= x <= mx]
+    for num, den in ((49, 50), (19, 20), (1, 2)):
+        out += [(num * k, den * k) for k in (1, 2, 20, 1000)]
+    return out + [(900, 900), (0, 900), (1, 1)]
+
+
+def branch_table(rng, G, sizes, ratios=(), **kw):
+    """Inputs of ops/loop_kernels.branch_block as numpy arrays: the planes
+    and targets of locality_table(rng, G, sizes, **kw), the v-sorted arc
+    table arc_vw (group k's source vertex v = 3k + 1 above BRANCH_B bits of
+    target; SENT_I in the empty slots) and arc_s1. The (s1, mx) pairs of
+    `ratios` go in order to the groups of >= 2 members (first member mx,
+    second s1); other members draw s1 in [0, mx]. Returns (dict in argument
+    order, the groups as lists of arc indices)."""
+    from .ops.loop_kernels import SENT_I
+    t, groups = locality_table(rng, G, sizes, **kw)
+    A = len(t["tgt_gid"])
+    vw = np.full(A, SENT_I, np.int64)
+    s1 = np.zeros(A, np.int32)
+    todo = list(ratios)
+    for k, idx in enumerate(groups):
+        vw[idx] = ((3 * k + 1) << BRANCH_B) | rng.integers(
+            0, 1 << BRANCH_B, len(idx))
+        mx = int(rng.integers(1, 3000))
+        s1[idx] = rng.integers(0, mx + 1, len(idx))
+        s1[idx[0]] = mx
+        if len(idx) >= 2 and todo:
+            r, mx = todo.pop(0)
+            s1[idx] = np.minimum(s1[idx], mx)
+            s1[idx[0]], s1[idx[1]] = mx, r
+    out = {k: t[k] for k in ("r_pres", "r_cid", "r_cm", "r_rank", "tgt_gid")}
+    out.update(arc_vw=vw, arc_s1=s1)
+    return out, groups
+
+
 def fold_inputs(rng, form, N, n_vw, n_g=8, p_valid=0.7, smax=1000):
     """Inputs of ops/loop_kernels.merge_fold as numpy arrays (keys, s1, jb,
     gb, perm) in the device loop's three call shapes: "jb" (each row's index

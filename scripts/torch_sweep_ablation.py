@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Ablation of the CUDA sweep kernel's exon intersection, on one NVIDIA GPU.
-Run from the root of a checkout:
+"""Ablation of the CUDA sweep kernel, on one NVIDIA GPU. Run from the root
+of a checkout:
 
-    python3 scripts/torch_sweep_ablation.py [--rounds 5]
+    python3 scripts/torch_sweep_ablation.py [--rounds 5] [--batched]
 
 Builds pangene_tpu_torch/csrc/shadow_sweep.cu as it is and in variants made
-by textual substitution of its source (VARIANTS; all built at once into
-build/ablation/), holds every variant against the plain PyTorch version on
-the kernel's edge cases and on the largest genome of chip_smoke.py's big
-corpus (every hit unfiltered), then times the variants in turns (a, b, c,
-a, b, c, ...): device time per launch of 200 launches replayed from one
-CUDA graph, both modes. Prints the card, each variant's ptxas lines, one
-JSON line a reading and a summary line of each variant's readings.
+by textual substitution of its source (all built at once into
+build/ablation/), holds every variant against the plain PyTorch version,
+then times the variants in turns (a, b, c, a, b, c, ...): device time per
+launch of 200 launches replayed from one CUDA graph. Without --batched:
+the per-genome entry's exon intersection (VARIANTS), on the kernel's edge
+cases and on the largest genome of chip_smoke.py's big corpus (every hit
+unfiltered), both modes. With --batched: the batched entry's launch shape
+(BATCHED_VARIANTS), on the big corpus's device-loop columns (entry state)
+and on the per-round path's full stack (every row unfiltered). Prints the
+card, each variant's ptxas lines, one JSON line a reading and a summary
+line of each variant's readings.
 """
 import argparse
 import json
@@ -35,16 +39,44 @@ VARIANTS = {
     "int64_regs": [(NARROW, "t.narrow = false;"),
                    (REG_INT32, "if (nb <= kRegExons)")],
 }
+_ROWS = "constexpr int kBatchRows = 256;"
+_THREADS = "constexpr int kBatchThreads = 384;"
+_PER_SM = "constexpr int kBatchBlocksPerSM = 2;"
+_CHUNK = "constexpr int kBatchChunk = 8;"
+BATCHED_VARIANTS = {
+    "committed": [],
+    # half the owned rows a tile, 3 blocks a SM
+    "rows128": [(_ROWS, "constexpr int kBatchRows = 128;"),
+                (_THREADS, "constexpr int kBatchThreads = 256;"),
+                (_PER_SM, "constexpr int kBatchBlocksPerSM = 3;")],
+    # the same, 4 blocks a SM (<= 64 registers a thread)
+    "rows128_4": [(_ROWS, "constexpr int kBatchRows = 128;"),
+                  (_THREADS, "constexpr int kBatchThreads = 256;"),
+                  (_PER_SM, "constexpr int kBatchBlocksPerSM = 4;")],
+    # the per-genome tile's 64 rows, 192 threads, 5 blocks a SM
+    "rows64_5": [(_ROWS, "constexpr int kBatchRows = 64;"),
+                 (_THREADS, "constexpr int kBatchThreads = 192;"),
+                 (_PER_SM, "constexpr int kBatchBlocksPerSM = 5;")],
+    # twice the owned rows, 1 block a SM
+    "rows512": [(_ROWS, "constexpr int kBatchRows = 512;"),
+                (_THREADS, "constexpr int kBatchThreads = 640;"),
+                (_PER_SM, "constexpr int kBatchBlocksPerSM = 1;")],
+    # 1 block a SM: no register cap below 168
+    "one_block_a_sm": [(_PER_SM, "constexpr int kBatchBlocksPerSM = 1;")],
+    # the band in passes of 16 or 32 offsets
+    "chunk16": [(_CHUNK, "constexpr int kBatchChunk = 16;")],
+    "chunk32": [(_CHUNK, "constexpr int kBatchChunk = 32;")],
+}
 
 
-def build_variants(sk, out_dir):
+def build_variants(sk, out_dir, variants):
     """Build every variant at once; returns {name: (library path, ptxas
     lines)}. Raises when a substitution finds no text or nvcc fails."""
     with open(sk._SRC) as fp:
         src = fp.read()
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in variants.items():
         text = src
         for old, new in subs:
             if text.count(old) != 1:
@@ -71,6 +103,7 @@ def build_variants(sk, out_dir):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--batched", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.stderr.write("torch_sweep_ablation: no CUDA device\n")
@@ -89,13 +122,16 @@ def main():
     print("card: %s" % smi, flush=True)
 
     t0 = time.monotonic()
-    built = build_variants(sk, os.path.join(ROOT, "build", "ablation"))
+    built = build_variants(sk, os.path.join(ROOT, "build", "ablation"),
+                           BATCHED_VARIANTS if args.batched else VARIANTS)
     print("build: %d variants in %.1f s" % (len(built),
                                             time.monotonic() - t0))
     for name, (_, ptxas) in built.items():
         for ln in ptxas:
             print("  %s ptxas: %s" % (name, ln))
     libs = {name: sk.load(so) for name, (so, _) in built.items()}
+    if args.batched:
+        return batched(args, cs, sk, libs, smi, dev)
 
     _, graph = cs.run_cli(cs.make_corpus("big"))
     g = max(graph.d.genomes, key=lambda x: x.n_hit)
@@ -135,6 +171,72 @@ def main():
         {"variant": v, "mode": sk.MODE_NAMES[m], "ms": ms,
          "median_ms": float(np.median(ms)), "min_ms": min(ms),
          "max_ms": max(ms)} for (v, m), ms in readings.items()]}))
+    return 0
+
+
+def batched(args, cs, sk, libs, smi, dev):
+    """The batched entry's variants on the big loop's columns (W 8) and the
+    per-round path's full stack (W 21)."""
+    from pangene_tpu_torch.parallel import device_loop as dl
+    from pangene_tpu_torch.parallel import stacked as stk
+    files = cs.make_corpus("big")
+    kept = {}
+    schedule_device = dl.schedule_device
+
+    def keep(*a, **kw):
+        kept.update(blocks=a[:5], cfg=kw["cfg"])
+        return schedule_device(*a, **kw)
+
+    dl.schedule_device = keep
+    try:
+        cs.run_cli(files, "sharded")
+    finally:
+        dl.schedule_device = schedule_device
+    cols, bc = dl.unpack_blocks(*kept["blocks"])
+    cfg = kept["cfg"]
+    os.environ["PANGENE_DEVICE_LOOP"] = "0"
+    _, rounds_graph = cs.run_cli(files, "sharded")
+    del os.environ["PANGENE_DEVICE_LOOP"]
+    cache = rounds_graph._stacked_dev_cache
+    sG, sH = cache["G"], cache["H"]
+    cases = {
+        "loop": (bc, cols["flt"].contiguous(), cols["weak_br"].contiguous(),
+                 cfg.W, cfg.check_strand, cfg.min_ov_ratio),
+        "full_stack": (cache["cols"].batch,
+                       torch.zeros((sG, sH), dtype=torch.uint8, device=dev),
+                       torch.from_numpy(stk.stack_mutable(
+                           rounds_graph.d, np.zeros((3, sG, sH), np.uint8))
+                           [2]).to(dev), cache["W"], False, 0.5)}
+    for case, a in cases.items():
+        want = sk.shadow_sweep_batched_plain(*a)
+        for name, lib in libs.items():
+            sk._lib = lib
+            got = sk.shadow_sweep_batched(*a)
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError("variant %s != plain on %s"
+                                     % (name, case))
+            print("%s %s: launch %s" % (name, case, json.dumps(
+                sk.launch_shape_batched(a[0].cid.shape[0],
+                                        a[0].cid.shape[1], a[3]))))
+        del want
+    print("every variant == plain on the loop's columns and the full stack",
+          flush=True)
+    readings = {(v, c): [] for v in libs for c in cases}
+    for r in range(args.rounds):
+        for name, lib in libs.items():
+            sk._lib = lib
+            for case, a in cases.items():
+                ms = cs.graph_ms(lambda: sk.shadow_sweep_batched(*a),
+                                 cs.TIMED_LAUNCHES)
+                readings[(name, case)].append(ms)
+                print(json.dumps({"round": r, "variant": name, "case": case,
+                                  "ms": ms}))
+    sk._lib = None
+    print(smi)
+    print(json.dumps({"ablation": [
+        {"variant": v, "case": c, "ms": ms,
+         "median_ms": float(np.median(ms)), "min_ms": min(ms),
+         "max_ms": max(ms)} for (v, c), ms in readings.items()]}))
     return 0
 
 

@@ -19,10 +19,13 @@ from pangene_tpu_torch.ops import device_engine as de
 from pangene_tpu_torch.ops import loop_kernels as lk
 from pangene_tpu_torch.ops import sweep_kernel as sk
 from pangene_tpu_torch.parallel import stacked as st
-from pangene_tpu_torch.testing import (SWEEP_EDGE_CASES, batch_cols,
-                                       fold_inputs, locality_table,
-                                       random_genome, stack_cols,
-                                       stacked_edge_cases, sweep_edge_case)
+from pangene_tpu_torch.testing import (BRANCH_B, EXACT_BRANCH_DIFFS,
+                                       SWEEP_EDGE_CASES, band_genome,
+                                       batch_cols, branch_table,
+                                       deficit_ratios, fold_inputs,
+                                       locality_table, random_genome,
+                                       stack_cols, stacked_edge_cases,
+                                       sweep_edge_case)
 
 
 @pytest.fixture
@@ -108,11 +111,11 @@ def test_kernel_counts(cuda_device):
 
 
 def assert_batched_equals_per_genome(genomes, device, check_strand, f,
-                                     split_form):
+                                     split_form, H=None):
     """The batched kernel against the per-genome plain version, genome by
     genome, and (split_form) against its own plain version, the split
-    forms of ops/device.py, on the whole batch."""
-    bc, flt, weak, W = batch_cols(genomes, device)
+    forms of ops/device.py, on the whole batch (rows padded to H)."""
+    bc, flt, weak, W = batch_cols(genomes, device, H)
     sk.reset_counts()
     marks, score, other = sk.shadow_sweep_batched(bc, flt, weak, W,
                                                   check_strand, f)
@@ -162,6 +165,25 @@ def test_batched_kernel_stacked_edge_cases(cuda_device, which):
         initial=0)) < 100]
     assert len(small) == len(genomes) - 1
     assert_batched_equals_per_genome(small, cuda_device, False, 0.3, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 8, 21, 32, 33])
+def test_batched_kernel_band_widths(cuda_device, W):
+    """Genomes whose band is exactly W (the loop's 8, the per-round path's
+    21, the staged halo's 32, the large-W path past it) at the batched
+    tile's edges, empty genomes, and rows padded past the longest genome:
+    tiles of padding only."""
+    rows = sk.tile_shape(batched=True)[0]
+    sizes = (rows - 1, 0, rows, rows + 1, 2 * rows + W, 0, 700, 5)
+    genomes = [band_genome(np.random.default_rng(10 * W + k), n, W)
+               for k, n in enumerate(sizes)]
+    marks = assert_batched_equals_per_genome(genomes, cuda_device, False,
+                                             0.3, True, H=5 * rows + 3)
+    assert marks.any()
+    shape = sk.launch_shape_batched(len(sizes), 5 * rows + 3, W)
+    assert shape["items"] == len(sizes) * 6 and shape["blocks"] >= 1
+    assert shape["halo"] == (W if W <= sk.tile_shape()[1] else 0)
 
 
 @pytest.mark.cuda
@@ -270,7 +292,10 @@ def test_mesh_two_ranks_share_the_card(cuda_device, tmp_path):
         assert rep["mesh"]["backend"] == "gloo"
         assert rep["mesh"]["staged_bytes"] > 0
         assert rep["batched_launches"] > 0 and rep["plain_calls"] == 0
-        assert all(n > 0 for n in rep["loop_launches"].values())
+        ll = rep["loop_launches"]
+        assert ll["branch_block"] == 0 and ll["merge_fold"] > 0
+        assert ll["branch_locality"] == ll["branch_classify"] \
+            == rep["LAST"]["rounds_branch_run"] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -321,6 +346,78 @@ def test_branch_locality_kernel_edges(cuda_device, case):
                               D=8 if case == "window_8" else 64)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+DIFFS = {"default": (0.02, 0.05, 0.5), "exact": EXACT_BRANCH_DIFFS}
+
+
+def branch_block_both(t, device, diffs="default", **kw):
+    """branch_block through its wrapper (the kernel) and its plain version,
+    and the mesh's split entries (branch_locality, branch_classify
+    kernels), on the same tensors on the card: (kernel, plain, split)."""
+    args = [torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for v in t.values()]
+    kw = dict(dict(D=64, frag_mode=False, local_dist=1000, local_count=3),
+              **kw)
+    cls = dict(zip(("branch_diff", "branch_diff_dist", "branch_diff_cut"),
+                   DIFFS[diffs]))
+    before = {k: dict(lk.n_calls[k]) for k in lk.n_calls}
+    got = lk.branch_block(*args, B=BRANCH_B, **kw, **cls)
+    want = lk.branch_block_plain(*args, B=BRANCH_B, **kw, **cls)
+    gs_of, mx, branching, is_max = lk.arc_groups(args[5], args[6], BRANCH_B)
+    aml, he = lk.branch_locality(*args[:5], gs_of, branching, is_max, **kw)
+    split = lk.branch_classify(args[6], mx, branching, aml, he, gs_of, **cls)
+    torch.cuda.synchronize()
+    for k in ("branch_block", "branch_locality", "branch_classify"):
+        assert lk.n_calls[k] == dict(before[k],
+                                     kernel=before[k]["kernel"] + 1)
+    return got, want, split
+
+
+def assert_branch_equal(got, want, split):
+    for a, b, c in zip(got, want, split):
+        assert a.dtype == b.dtype == c.dtype and a.shape == b.shape
+        assert torch.equal(a, b) and torch.equal(c, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("diffs", list(DIFFS))
+@pytest.mark.parametrize("frag_mode", [False, True])
+@pytest.mark.parametrize("G", [1, 8, 33, 64, 70])
+def test_branch_block_kernel_vs_plain(cuda_device, G, frag_mode, diffs):
+    """Groups of every size 1..64 (the warp's, the block's) and one of 65
+    (the walk); ratios on and beside each branch constant, s1 == mx, s1 ==
+    0; genomes in one, two and three chunks."""
+    rng = np.random.default_rng(G)
+    sizes = list(rng.permutation(np.arange(1, 65))) + [65]
+    t, _ = branch_table(rng, G, sizes, n_gene=300,
+                        ratios=deficit_ratios(DIFFS[diffs]))
+    got, want, split = branch_block_both(t, cuda_device, diffs,
+                                         frag_mode=frag_mode)
+    assert int(got[2][0]) > 0 and int(got[2][1]) > 0
+    assert_branch_equal(got, want, split)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["no_branching", "pairs", "one_group_D",
+                                  "all_equal_s1", "all_absent", "window_8",
+                                  "many_groups"])
+def test_branch_block_kernel_edges(cuda_device, case):
+    """No branching arc; groups of two; one group of D; one s1 for all;
+    no representative present; a window of 8 over groups past it; and
+    20,000 groups of 2-20 members (many blocks, many warps' heads)."""
+    rng = np.random.default_rng(6)
+    sizes = {"no_branching": [1] * 40, "pairs": [2] * 50,
+             "one_group_D": [64], "all_equal_s1": [5, 7, 3, 17],
+             "all_absent": [3, 5, 2], "window_8": [20, 9, 8, 3],
+             "many_groups": list(rng.integers(2, 21, 20000))}[case]
+    t, _ = branch_table(rng, 64, sizes, n_gene=2000,
+                        p_absent=1.0 if case == "all_absent" else 0.3)
+    if case == "all_equal_s1":
+        t["arc_s1"][:] = 77
+    got, want, split = branch_block_both(
+        t, cuda_device, D=8 if case == "window_8" else 64)
+    assert_branch_equal(got, want, split)
 
 
 def fold_both(keys, s1, jb, gb, cap, perm, device):
@@ -399,6 +496,23 @@ def test_loop_kernel_wrappers_raise_on_bad_inputs(cuda_device):
                 dict(args, is_max=args["is_max"].cpu())):
         with pytest.raises(ValueError):
             lk.branch_locality(*bad.values(), **kw)
+    bt, _ = branch_table(np.random.default_rng(3), 4, [3, 2, 5])
+    bargs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda_device)
+             for k, v in bt.items()}
+    cls = dict(branch_diff=0.02, branch_diff_dist=0.05, branch_diff_cut=0.5)
+    for bad in (dict(bargs, arc_s1=bargs["arc_s1"].long()),
+                dict(bargs, arc_vw=bargs["arc_vw"][:-1]),
+                dict(bargs, r_pres=bargs["r_pres"].cpu())):
+        with pytest.raises(ValueError):
+            lk.branch_block(*bad.values(), B=BRANCH_B, **kw, **cls)
+    gs_of, mx, branching, is_max = lk.arc_groups(bargs["arc_vw"],
+                                                 bargs["arc_s1"], BRANCH_B)
+    ok = dict(arc_s1=bargs["arc_s1"], mx=mx, branching=branching,
+              aml=is_max, he=is_max, gs_of=gs_of)
+    for bad in (dict(ok, mx=mx.long()), dict(ok, he=is_max.cpu()),
+                dict(ok, gs_of=gs_of[:-1])):
+        with pytest.raises(ValueError):
+            lk.branch_classify(*bad.values(), **cls)
     keys = torch.zeros(8, dtype=torch.int64, device=cuda_device)
     s1 = torch.zeros(8, dtype=torch.int32, device=cuda_device)
     for bad in (dict(s1=s1.long()), dict(s1=s1[:7]),

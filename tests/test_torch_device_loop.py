@@ -168,6 +168,35 @@ def test_schedule_equals_jax(corpus, optset, variant):
     assert_outputs_equal(got, want)
 
 
+@pytest.mark.parametrize("optset", list(OPTION_SETS))
+def test_schedule_split_branch_entries_equal_jax(corpus, optset, monkeypatch):
+    """The branch block through the mesh's split entries (arc_groups, then
+    branch_locality and branch_classify, between which the ranks OR their
+    locality bits) in place of the one-rank branch_block: all 20 outputs
+    still equal the JAX schedule's."""
+    from pangene_tpu_torch.ops import loop_kernels as lk
+    cap = jax_capture(corpus, optset)
+    calls = []
+
+    def split(r_pres, r_cid, r_cm, r_rank, tgt_gid, arc_vw, arc_s1, *, B,
+              D, frag_mode, local_dist, local_count, **cls):
+        calls.append(1)
+        gs_of, mx, branching, is_max = lk.arc_groups(arc_vw, arc_s1, B)
+        aml, he = lk.branch_locality(
+            r_pres, r_cid, r_cm, r_rank, tgt_gid, gs_of, branching, is_max,
+            D=D, frag_mode=frag_mode, local_dist=local_dist,
+            local_count=local_count)
+        return lk.branch_classify(arc_s1, mx, branching, aml, he, gs_of,
+                                  **cls)
+
+    monkeypatch.setattr(lk, "branch_block", split)
+    want = cap["outputs"]
+    got = dl.schedule(*cap["inputs"], cfg=dl.cfg_from(cap["cfg"]),
+                      device="cpu")
+    assert_outputs_equal(got, want)
+    assert len(calls) == int(want[14][:, 8].sum()) > 1
+
+
 def test_block_variants_change_the_outputs(corpus):
     """The switches do isolate blocks: each variant's JAX outputs differ
     from the run's own."""
@@ -397,9 +426,12 @@ def test_host_syncs_one_a_round(corpus):
     last = dl.LAST
     assert last["engaged"] is True
     assert last["host_syncs"] == last["rounds_total"] == 16
-    assert last["loop_launches"] == {"branch_locality": 0, "merge_fold": 0}
+    assert last["loop_launches"] == {"branch_block": 0, "branch_locality": 0,
+                                     "branch_classify": 0, "merge_fold": 0}
     assert lk.n_calls == {
-        "branch_locality": {"kernel": 0, "plain": last["rounds_branch_run"]},
+        "branch_block": {"kernel": 0, "plain": last["rounds_branch_run"]},
+        "branch_locality": {"kernel": 0, "plain": 0},
+        "branch_classify": {"kernel": 0, "plain": 0},
         "merge_fold": {"kernel": 0, "plain": last["rounds_sweep_run"]}}
     assert last["rounds_branch_run"] > 0
     lk.reset_counts()

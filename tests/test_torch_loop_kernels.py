@@ -7,6 +7,14 @@ on the CPU. Every output is an integer or a bit: tolerance 0 (exact).
                    member within the branch window, pg_n_local (branch.c:
                    31-46) over the genomes; aml = a local max partner, he =
                    an earlier local partner.
+  branch_block     the same walk plus the reference's classification of
+                   every branching arc in Python doubles (1 - s1 / mx against
+                   the three branch constants, branch.c:72-78) and the
+                   n_dist_loci count of each group (branch.c:82-90); the
+                   split entries (arc_groups, branch_locality,
+                   branch_classify) give the same. The softfloat deficit of
+                   the JAX package (pangene_tpu/ops/softfloat.py) is held
+                   against the same doubles on the same ratios.
   merge_fold       a dict of out-groups (vw) of in-groups ((vw, g)) with
                    their largest s1, in key order: the arc rows, n_out and
                    each row's out-group rank, in the three call shapes of
@@ -20,12 +28,16 @@ outputs against the JAX package's schedule bit for bit; the kernels are held
 against these plain versions on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from pangene_tpu.ops import softfloat as jsf
 from pangene_tpu_torch.ops import loop_kernels as lk
-from pangene_tpu_torch.testing import fold_inputs, locality_table
+from pangene_tpu_torch.testing import (BRANCH_B, EXACT_BRANCH_DIFFS,
+                                       branch_table, deficit_ratios,
+                                       fold_inputs, locality_table)
 
 torch.set_num_threads(1)
 
@@ -127,6 +139,145 @@ def test_branch_locality_plain_edges(case):
 
 
 # ---------------------------------------------------------------------------
+# branch_block: the locality, the classification, n_grp
+# ---------------------------------------------------------------------------
+
+DEFAULT_DIFFS = (0.02, 0.05, 0.5)
+DIFFS = {"default": DEFAULT_DIFFS, "exact": EXACT_BRANCH_DIFFS}
+
+
+def classify_double(s1, mx, aml, diffs):
+    """branch.c:72-78 in Python doubles: 0 kept, 1 weak candidate, 2 cut."""
+    bd, bdd, bdc = diffs
+    d = 1.0 - max(s1, 0) / max(mx, 1)      # correctly rounded, as in C
+    cand = mx > 0 and d > bd
+    cut = cand and ((not aml and d > bdd) or d > bdc)
+    return int(cand) + int(cut)
+
+
+def oracle_branch(t, groups, frag_mode, local_dist, local_count, diffs):
+    """(aw, n_grp, counts) of branch_table's arc table: each group's max,
+    the locality walk, the classification in doubles, n_dist_loci at each
+    group's first arc."""
+    A = len(t["arc_s1"])
+    is_max = np.zeros(A, bool)
+    mx = np.zeros(A, np.int64)
+    for grp in groups:
+        m = max(0, max(int(t["arc_s1"][a]) for a in grp))
+        mx[grp] = m
+        if len(grp) >= 2:
+            is_max[grp] = t["arc_s1"][grp] == m
+    aml, he = oracle_locality(dict(t, is_max=is_max), groups, frag_mode,
+                              local_dist, local_count)
+    aw = np.zeros(A, np.uint8)
+    n_grp = np.zeros(A, np.int32)
+    for grp in groups:
+        if len(grp) < 2:
+            continue
+        for a in grp:
+            aw[a] = classify_double(int(t["arc_s1"][a]), int(mx[a]), aml[a],
+                                    diffs)
+        n_grp[grp[0]] = sum(1 for a in grp if not he[a])
+    return aw, n_grp, np.array([(aw == 1).sum(), (aw == 2).sum()])
+
+
+def run_branch(t, frag_mode, diffs, split=False, **kw):
+    args = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in t.items()}
+    kw = dict(dict(D=D, frag_mode=frag_mode, local_dist=1000, local_count=3),
+              **kw)
+    cls = dict(zip(("branch_diff", "branch_diff_dist", "branch_diff_cut"),
+                   diffs))
+    if split:
+        gs_of, mx, branching, is_max = lk.arc_groups(
+            args["arc_vw"], args["arc_s1"], BRANCH_B)
+        planes = [args[k] for k in ("r_pres", "r_cid", "r_cm", "r_rank",
+                                    "tgt_gid")]
+        aml, he = lk.branch_locality(*planes, gs_of, branching, is_max, **kw)
+        out = lk.branch_classify(args["arc_s1"], mx, branching, aml, he,
+                                 gs_of, **cls)
+    else:
+        out = lk.branch_block(*args.values(), B=BRANCH_B, **kw, **cls)
+    aw, n_grp, counts = out
+    assert (aw.dtype, n_grp.dtype, counts.dtype) == (
+        torch.uint8, torch.int32, torch.int64) and counts.shape == (2,)
+    return aw.numpy(), n_grp.numpy(), counts.numpy()
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("diffs", list(DIFFS))
+@pytest.mark.parametrize("frag_mode", [False, True])
+@pytest.mark.parametrize("G,seed", [(1, 0), (3, 1), (8, 2)])
+def test_branch_block_plain_equals_oracle(G, seed, frag_mode, diffs, split):
+    """Groups of every size 1..D and one of D + 1 (its run falls back; the
+    window must still give the oracle's bits); ratios whose deficit lies on
+    or beside each branch constant, s1 == mx, s1 == 0; the fused entry and
+    the mesh's split entries."""
+    rng = np.random.default_rng(seed)
+    sizes = list(rng.permutation(np.arange(1, D + 1))) + [D + 1]
+    t, groups = branch_table(rng, G, sizes,
+                             ratios=deficit_ratios(DIFFS[diffs]))
+    got = run_branch(t, frag_mode, DIFFS[diffs], split)
+    want = oracle_branch(t, groups, frag_mode, 1000, 3, DIFFS[diffs])
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    aw, n_grp, counts = got
+    assert counts[0] > 0 and counts[1] > 0 and (aw == 0).sum() > 0
+    assert n_grp.sum() > 0
+
+
+@pytest.mark.parametrize("case", ["no_branching", "pairs", "one_group_D",
+                                  "all_equal_s1", "all_zero_s1"])
+def test_branch_block_plain_edges(case):
+    rng = np.random.default_rng(11)
+    sizes = {"no_branching": [1] * 30, "pairs": [2] * 40,
+             "one_group_D": [D], "all_equal_s1": [5, 7, 3],
+             "all_zero_s1": [5, 7, 3]}[case]
+    t, groups = branch_table(rng, 4, sizes)
+    if case == "all_equal_s1":
+        t["arc_s1"][:] = 77
+    if case == "all_zero_s1":
+        t["arc_s1"][:] = 0
+    for diffs in DIFFS.values():
+        got = run_branch(t, False, diffs)
+        want = oracle_branch(t, groups, False, 1000, 3, diffs)
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w)
+        if case in ("no_branching", "all_equal_s1", "all_zero_s1"):
+            assert not got[0].any()
+
+
+def test_deficit_softfloat_equals_doubles():
+    """On every ratio of the tests and 20,000 random ones: the port's
+    classification (softfloat), the JAX package's softfloat predicates and
+    the reference's double arithmetic agree, under both constant sets and
+    a negative and a zero constant."""
+    rng = np.random.default_rng(5)
+    mx = rng.integers(1, 1 << 31, 20000)
+    s1 = (mx * rng.random(20000)).astype(np.int64)
+    small = rng.integers(1, 100, 2000)
+    r = np.array(deficit_ratios(DEFAULT_DIFFS)
+                 + deficit_ratios(EXACT_BRANCH_DIFFS), np.int64)
+    s1 = np.concatenate([r[:, 0], s1, small - rng.integers(0, 2, 2000)])
+    mx = np.concatenate([r[:, 1], mx, small])
+    rm, rk = jsf.one_minus_div(jnp.asarray(s1), jnp.asarray(mx))
+    A = len(s1)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
+    for diffs in (DEFAULT_DIFFS, EXACT_BRANCH_DIFFS, (-1.0, 0.0, 0.0)):
+        for c in diffs:
+            want = np.array([1.0 - a / b > c for a, b in zip(s1, mx)])
+            assert np.array_equal(np.asarray(jsf.gt_const(rm, rk, c)), want)
+        aml = rng.random(A) < 0.5
+        aw, _, _ = lk.branch_classify(
+            t(s1.astype(np.int32)), t(mx.astype(np.int32)),
+            torch.ones(A, dtype=torch.bool), t(aml), t(aml),
+            torch.arange(A), branch_diff=diffs[0],
+            branch_diff_dist=diffs[1], branch_diff_cut=diffs[2])
+        want = [classify_double(int(a), int(b), m, diffs)
+                for a, b, m in zip(s1, mx, aml)]
+        assert aw.tolist() == want
+
+
+# ---------------------------------------------------------------------------
 # merge_fold
 # ---------------------------------------------------------------------------
 
@@ -218,7 +369,9 @@ def test_wrappers_count_plain_calls_on_cpu():
     keys, s1, jb, gb, perm = fold_inputs(rng, "jb", 100, n_vw=10)
     run_fold(keys, s1, jb, gb, 50, perm)
     run_fold(keys, s1, jb, gb, 50, perm)
-    assert lk.n_calls == {"branch_locality": {"kernel": 0, "plain": 1},
+    assert lk.n_calls == {"branch_block": {"kernel": 0, "plain": 0},
+                          "branch_locality": {"kernel": 0, "plain": 1},
+                          "branch_classify": {"kernel": 0, "plain": 0},
                           "merge_fold": {"kernel": 0, "plain": 2}}
     lk.reset_counts()
     assert all(v == 0 for c in lk.n_calls.values() for v in c.values())

@@ -262,6 +262,7 @@ def jax_capture(corpus, nd, slack=None):
 SCHEDULE = r"""
 import json, sys
 import numpy as np
+from pangene_tpu_torch.ops import loop_kernels as lk
 from pangene_tpu_torch.parallel import device_loop as dl
 from pangene_tpu_torch.parallel import mesh as M
 d = sys.argv[1]
@@ -270,6 +271,7 @@ cfg = dl.Cfg(**json.load(open(d + "/cfg.json")))
 m = M.make_mesh(0, "cpu")
 outs = dl.schedule(*[z["a%d" % i] for i in range(19)], cfg=cfg, mesh=m)
 np.savez(d + "/out%d.npz" % m.rank, *outs)
+json.dump(lk.n_calls, open(d + "/calls%d.json" % m.rank, "w"))
 M.shutdown()
 """
 
@@ -280,17 +282,19 @@ def run_schedule(tmp_path, cap, world):
     cfg = dl.cfg_from(cap["cfg"])
     (tmp_path / "cfg.json").write_text(json.dumps(cfg._asdict()))
     launch_script(SCHEDULE, world, [str(tmp_path)])
-    outs = []
+    outs, calls = [], []
     for r in range(world):
         z = np.load(tmp_path / ("out%d.npz" % r))
         outs.append([z["arr_%d" % i] for i in range(len(OUT_NAMES))])
-    return cfg, outs
+        calls.append(json.loads((tmp_path / ("calls%d.json" % r))
+                                .read_text()))
+    return cfg, outs, calls
 
 
 @pytest.mark.parametrize("world", [2, 3, 4])
 def test_schedule_equals_jax_mesh(corpus, tmp_path, world):
     cap = jax_capture(corpus, world)
-    cfg, outs = run_schedule(tmp_path, cap, world)
+    cfg, outs, calls = run_schedule(tmp_path, cap, world)
     want = cap["outputs"]
     assert cfg.G_loc * world == want[0].shape[0] >= 10
     # the exchange merge from three ranks on, on both sides
@@ -301,6 +305,12 @@ def test_schedule_equals_jax_mesh(corpus, tmp_path, world):
         for name, g, w in zip(OUT_NAMES, got, want):
             assert g.shape == w.shape and g.dtype == w.dtype, (r, name)
             assert np.array_equal(g, w), (r, name)
+    # every branch round went through the split entries on every rank
+    n_branch = int(want[14][:, 8].sum())
+    for c in calls:
+        assert c["branch_block"]["plain"] == 0
+        assert c["branch_locality"]["plain"] == c["branch_classify"][
+            "plain"] == n_branch > 0
 
 
 def test_schedule_overflow_alike(corpus, tmp_path):
@@ -308,7 +318,7 @@ def test_schedule_overflow_alike(corpus, tmp_path):
     on every rank (the host rounds then take over), and every output of the
     run past the overflow is still equal."""
     cap = jax_capture(corpus, 4, slack="0.05")
-    cfg, outs = run_schedule(tmp_path, cap, 4)
+    cfg, outs, _ = run_schedule(tmp_path, cap, 4)
     assert 0 < cfg.a2a_cap < jax_capture(corpus, 4)["cfg"].a2a_cap
     assert cap["outputs"][19] and cap["last"]["engaged"] is False
     for r, got in enumerate(outs):
