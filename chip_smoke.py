@@ -31,9 +31,12 @@ Phases (each one passes or raises, so any failure exits nonzero):
      branch_block and the mesh's branch_locality + branch_classify,
      merge_fold) against their plain versions on random arc tables (groups
      up to the window and one past it, 1 to 70 genomes, frag mode on and
-     off, deficits on and beside the branch constants) and merge keys (the
-     loop's three call shapes, the arc table smaller and larger than the
-     out-groups, no valid row).
+     off, deficits on and beside the branch constants; branch_classify
+     also alone on groups over several warps, its bit planes unaligned) and
+     merge keys (the loop's three call shapes, the arc table smaller and
+     larger than the out-groups, no valid row, out-groups over several
+     tiles, dist sums past 2^31 and below 0), merge_fold lean and in its
+     full mode (the full=True tail's statistics).
   3. the main paths: the CLI on cuda over the small (32 genomes x 2,000
      genes, seed 11) and the big (64 x 10,000, seed 7) synthetic corpora:
      --engine device (one sweep launch per genome, host rounds; small corpus
@@ -47,8 +50,8 @@ Phases (each one passes or raises, so any failure exits nonzero):
      sharded, whose single-genome sweeps run in C as in the JAX package;
      the loop engaged and launched the batched kernel once per sweep round,
      branch_block once per branch round and merge_fold once per in-loop
-     merge (no other path launches those; the mesh's split entries are not
-     launched at one rank);
+     merge and once for the full=True tail (no other path launches those;
+     the mesh's split entries are not launched at one rank);
      the per-round path launched it once per round (17), uploaded its
      constant columns once, and the loop did not run; every path called the
      native entries it must take (NATIVE_ENTRIES), so a run that quietly
@@ -108,8 +111,9 @@ Phases (each one passes or raises, so any failure exits nonzero):
      download, finalize), best of five each. The batched entry also at the
      shard shapes of the mesh runs (the first G_loc = 16 and 32 genomes of
      the big loop's columns) against its plain version, and timed.
-     Then (4d) branch_block and merge_fold on the arguments of their first
-     call in the big default loop (captured through schedule_device's
+     Then (4d) branch_block, merge_fold (lean: the first in-loop merge) and
+     merge_fold's full mode (the full=True tail) on the arguments of their
+     first call in the big default loop (captured through schedule_device's
      `capture`), and the mesh's branch_locality and branch_classify on the
      same arc table (its groups by loop_kernels.arc_groups): kernel ==
      plain exactly, device time from 200 launches in one CUDA graph, the
@@ -410,35 +414,57 @@ def fold_bound_ms(args, kw):
     """Least time of one merge_fold call: the sorted int64 keys (and the
     permutation, when given) read once, each valid row's s1 read once, the
     int32 pair plane and the [cap] arc rows (8 + 4 bytes) and n_out written
-    once, over the memory rate (its few integer operations a row are far
-    below the bytes' time)."""
+    once; in the full mode each valid row's s2 and dist (4 + 4) more read
+    and four int32 planes of [cap] (16 bytes a row) more written; over the
+    memory rate (its few integer operations a row are far below the bytes'
+    time)."""
     keys, _ = args
     N = keys.shape[0]
     jb = kw["jb"]
+    full = kw.get("full") is not None
     n_valid = int(((keys >> jb) != ((1 << 62) >> jb)).sum())
     nbytes = (8 * N * (2 if kw.get("perm") is not None else 1)
-              + 4 * n_valid + 4 * N + 12 * kw["cap"] + 8)
+              + (12 if full else 4) * n_valid + 4 * N
+              + (28 if full else 12) * kw["cap"] + 8)
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes, n_valid
 
 
 # The loop's block kernels (ops/loop_kernels.n_calls): at one rank the
 # branch block is branch_block, at world > 1 branch_locality then
-# branch_classify.
+# branch_classify. merge_fold counts both of its modes, merge_fold_full the
+# full mode's launches alone.
 LOOP_KERNELS = ("branch_block", "branch_locality", "branch_classify",
-                "merge_fold")
+                "merge_fold", "merge_fold_full")
+
+
+def add_loop_launches(total, ll):
+    """Adds a loop run's kernel counts `ll` to `total`."""
+    for k in LOOP_KERNELS:
+        total[k] += ll[k]
 
 
 def loop_kernel_counts(ll, world):
-    """(launches of the branch block, of merge_fold) of a loop run at
-    `world` ranks, from its n_calls kernel counts; (-1, -1) when an entry
-    of the other world ran or the split entries disagree."""
+    """(launches of the branch block, of merge_fold, of its full mode) of a
+    loop run at `world` ranks, from its n_calls kernel counts; (-1, -1, -1)
+    when an entry of the other world ran or the split entries disagree. An
+    engaged loop launches the branch block once a branch round, merge_fold
+    once an in-loop merge and once for its full=True tail, and the full
+    mode for that tail alone (loop_kernels_want)."""
     split = (ll["branch_locality"], ll["branch_classify"])
+    fold = (ll["merge_fold"], ll["merge_fold_full"])
     if world == 1:
-        return (ll["branch_block"], ll["merge_fold"]) if split == (0, 0) \
-            else (-1, -1)
+        return (ll["branch_block"],) + fold if split == (0, 0) \
+            else (-1, -1, -1)
     if ll["branch_block"] or split[0] != split[1]:
-        return (-1, -1)
-    return split[0], ll["merge_fold"]
+        return (-1, -1, -1)
+    return (split[0],) + fold
+
+
+def loop_kernels_want(last):
+    """loop_kernel_counts of the loop run whose LAST is `last`."""
+    if not last.get("engaged"):
+        return 0, 0, 0
+    return last["rounds_branch_run"], last["rounds_sweep_run"] + 1, 1
 
 
 def branch_split_args(args, kw):
@@ -478,12 +504,14 @@ def branch_block_bound_ms(args, loc_args, loc_kw, aml, he):
 
 
 def classify_bound_ms(args):
-    """Least time of one branch_classify call: per arc s1 and mx 4 + 4,
-    branching, aml and he 1 each, gs_of 8 read, aw 1 and n_grp 4 written,
-    and the two counts (bytes; the f64 division per branching arc is far
-    below them)."""
+    """Least time of one branch_classify call: the branching, aml and he
+    planes (a byte an arc each) read, s1 and mx (4 + 4) and gs_of (8) read
+    for each branching arc (the only arcs whose class or group they
+    decide), aw 1 and n_grp 4 bytes an arc and the two counts written
+    (bytes; the f64 division per branching arc is far below them)."""
     A = args[0].shape[0]
-    nbytes = 24 * A + 16
+    nb = int(args[2].sum())
+    nbytes = 8 * A + 16 * nb + 16
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes
 
 
@@ -743,9 +771,7 @@ def mesh_phase(corpora):
                     bad.append("per-round path: %s, loop %s, loop kernels "
                                "%s" % (rounds, last, ll))
             else:
-                if loop_kernel_counts(ll, world) != (
-                        last.get("rounds_branch_run"),
-                        last.get("rounds_sweep_run")):
+                if loop_kernel_counts(ll, world) != loop_kernels_want(last):
                     bad.append("loop kernels %s" % ll)
                 if not (last.get("engaged") is True
                         and last["shape"]["n_devices"] == world
@@ -758,8 +784,7 @@ def mesh_phase(corpora):
                 raise AssertionError("%s rank %d: %s" % (key, rep["rank"],
                                                          "; ".join(bad)))
             launches += rep["batched_launches"]
-            for k in loop_launches:
-                loop_launches[k] += ll[k]
+            add_loop_launches(loop_launches, ll)
             keep = ("pack_s", "upload_s", "run_s", "pull_s", "host_syncs",
                     "collective_calls", "collective_s", "staged_bytes",
                     "upload_bytes")
@@ -1008,16 +1033,40 @@ def main():
                     raise AssertionError("branch_block != branch_locality "
                                          "+ branch_classify")
                 n_cases += 3
+    # branch_classify alone: groups over several warps (past the window),
+    # its bit planes as the mesh passes them (he the second row of one
+    # [2, A] tensor, unaligned)
+    rng = np.random.default_rng(5)
+    vw = np.concatenate([np.full(n, (2 * k + 1) << BRANCH_B, np.int64)
+                         for k, n in enumerate(rng.integers(1, 700, 300))]
+                        + [np.full(3, (1 << 62) - 1, np.int64)])
+    s1 = rng.integers(0, 3000, len(vw)).astype(np.int32)
+    gs_of, mx, branching, _ = lk.arc_groups(on_dev(vw), on_dev(s1),
+                                            BRANCH_B)
+    aml, he = torch.from_numpy(rng.random((2, len(vw))) < 0.4).to(dev)
+    compare_loop_kernel(lk, "branch_classify",
+                        [on_dev(s1), mx, branching, aml, he, gs_of],
+                        dict(zip(("branch_diff", "branch_diff_dist",
+                                  "branch_diff_cut"), (0.02, 0.05, 0.5))))
+    n_cases += 1
+    # merge_fold lean and full: (N, cap, valid share, out-groups, dist)
+    wide = (0, 1 << 20)
     for form in ("jb", "cosorted", "exchange"):
-        for N, cap, p_valid in ((3000, 100, 0.7), (3000, 3077, 0.7),
-                                (600000, 400000, 0.7), (500, 64, 0.0)):
-            keys, s1, jb, gb, perm = fold_inputs(
-                np.random.default_rng(N + cap), form, N,
-                n_vw=max(N // 8, 1), p_valid=p_valid)
-            compare_loop_kernel(lk, "merge_fold", [on_dev(keys), on_dev(s1)],
-                                dict(jb=jb, gb=gb, cap=cap,
-                                     perm=on_dev(perm)))
-            n_cases += 1
+        for N, cap, p_valid, n_vw, dist in (
+                (3000, 100, 0.7, 375, wide), (3000, 3077, 0.7, 375, wide),
+                (600000, 400000, 0.7, 75000, wide), (500, 64, 0.0, 62, wide),
+                (60000, 4000, 0.8, 3, wide), (60000, 4000, 0.8, 47, wide),
+                (20000, 20000, 0.8, 2500, ((1 << 30) - 50, (1 << 30) + 50)),
+                (20000, 20000, 0.8, 2500, (-(1 << 31), 1 << 31))):
+            keys, s1, jb, gb, perm, st = fold_inputs(
+                np.random.default_rng(N + cap + n_vw), form, N, n_vw=n_vw,
+                p_valid=p_valid, full=True, dist=dist)
+            for full in (None, tuple(map(on_dev, st))):
+                compare_loop_kernel(
+                    lk, "merge_fold", [on_dev(keys), on_dev(s1)],
+                    dict(jb=jb, gb=gb, cap=cap, perm=on_dev(perm),
+                         full=full))
+                n_cases += 1
     log("loop block kernels: %d cases, branch_block, branch_locality, "
         "branch_classify and merge_fold == plain (%.1f s)"
         % (n_cases, time.monotonic() - t0))
@@ -1041,7 +1090,7 @@ def main():
     dispatch.shadow, dispatch.flt_ov_isoform = (timed(f) for f in untimed)
     launches = {m: 0 for m in sk.MODE_NAMES}
     batched_launches = 0
-    loop_launches = {k: 0 for k in lk.n_calls}
+    loop_launches = {k: 0 for k in LOOP_KERNELS}
     runs = {}
     # the loop's device tensors of the last sharded run, for phase 4
     kept = {}
@@ -1119,17 +1168,16 @@ def main():
         if rec["plain_calls"]:
             raise AssertionError("%s: plain calls on the card path: %s %s %s"
                                  % (key, plain, batched, lk.n_calls))
-        # the block kernels: once a branch round and once an in-loop merge
-        # of an engaged loop, never elsewhere
+        # the block kernels: once a branch round, once an in-loop merge and
+        # once for the full tail of an engaged loop, never elsewhere
         last = rec.get("LAST", {})
-        want = ((last["rounds_branch_run"], last["rounds_sweep_run"])
-                if last.get("engaged") else (0, 0))
+        want = loop_kernels_want(last)
         if loop_kernel_counts(loop, 1) != want:
             raise AssertionError("%s: loop kernel launches %s, expected "
-                                 "branch_block %d, merge_fold %d"
+                                 "branch_block %d, merge_fold %d, "
+                                 "merge_fold_full %d"
                                  % ((key, loop) + want))
-        for k in loop_launches:
-            loop_launches[k] += loop[k]
+        add_loop_launches(loop_launches, loop)
         missing = [e for e in NATIVE_ENTRIES[path] if not native.get(e)]
         if missing:
             raise AssertionError("%s: the native runtime was not called for "
@@ -1661,24 +1709,28 @@ def main():
         ("branch_classify", "pangene_tpu/parallel/device_loop.py:627")
         + cls(aml, he),
         ("merge_fold", "pangene_tpu/parallel/device_loop.py:264")
-        + tuple(kept["capture"]["merge_fold"]))
+        + tuple(kept["capture"]["merge_fold"]),
+        ("merge_fold_full", "pangene_tpu/parallel/device_loop.py:410")
+        + tuple(kept["capture"]["merge_fold_full"]))
     A = args[4].shape[0]
     for name, replaces, args, kw in cases:
-        err, got = compare_loop_kernel(lk, name, args, kw)
-        kernel_fn = getattr(lk, name)
-        plain_fn = getattr(lk, name + "_plain")
+        fn = "merge_fold" if name == "merge_fold_full" else name
+        err, got = compare_loop_kernel(lk, fn, args, kw)
+        kernel_fn = getattr(lk, fn)
+        plain_fn = getattr(lk, fn + "_plain")
         ms = graph_ms(lambda: kernel_fn(*args, **kw), TIMED_LAUNCHES)
         eager_ms = stream_ms(lambda: kernel_fn(*args, **kw), TIMED_LAUNCHES)
         plain_ms = stream_ms(lambda: plain_fn(*args, **kw), 5)
-        if name == "merge_fold":
+        if fn == "merge_fold":
             b_ms, b_by, nbytes, n_valid = fold_bound_ms(args, kw)
             shape = "N %d, valid %d, cap %d, jb %d, perm %s" % (
                 args[0].shape[0], n_valid, kw["cap"], kw["jb"],
                 kw.get("perm") is not None)
         elif name == "branch_classify":
             b_ms, b_by, nbytes = classify_bound_ms(args)
-            shape = "A %d, branching %d, counts %s" % (
-                A, int(args[2].sum()), got[2].tolist())
+            shape = "A %d, branching %d, counts %s, aml/he %s" % (
+                A, int(args[2].sum()), got[2].tolist(),
+                "aligned" if args[4].data_ptr() % 4 == 0 else "unaligned")
         else:
             if name == "branch_block":
                 b_ms, b_by, ops, nbytes, nb = branch_block_bound_ms(

@@ -15,33 +15,40 @@
 // classification of each branching arc is the reference's double test of
 // its deficit RN(1 - RN(s1 / mx)) against branch_diff, branch_diff_dist and
 // branch_diff_cut: 0 kept, 1 a weak candidate, 2 cut; n_grp, at a group's
-// first arc, counts its members with no earlier local partner. Three
-// entries of one kernel: pg_branch_block (one rank: the groups found in the
-// arc table, locality and classification in one launch), and for the mesh
-// pg_branch_locality (the groups given; its bits are OR'd over the ranks)
-// then pg_branch_classify.
+// first arc, counts its members with no earlier local partner. Two entries
+// of one kernel: pg_branch_block (one rank: the groups found in the arc
+// table, locality and classification in one launch), and for the mesh
+// pg_branch_locality (the groups given; its bits are OR'd over the ranks),
+// then pg_branch_classify, a kernel of its own.
 //
-// merge_fold replaces the in-loop lean merge after its sort (JAX
-// device_loop.py:264 walk_merge, the fold at :436-471, and the bucket
-// exchange's fold at :360-391; reference graph.c:87-177). Over sorted keys
-// (vw << GB | g) << jb | low bits, an in-group is a run of equal (vw, g), an
-// out-group a run of equal vw. Per out-group: the sum over its in-groups of
-// the in-group's largest s1, the number of in-groups ng, and the arc row
-// (vw, (int)((double)sum / ng + .499)) at the out-group's rank; each valid
-// row writes that rank into pair[src], src being the row's origin (the low
-// jb key bits, or perm[i] when a permutation is given).
+// merge_fold replaces the merge's fold after its sort (JAX
+// device_loop.py:264 walk_merge: the in-loop fold at :436-471, the bucket
+// exchange's at :360-391, and the full=True tail at :410-415 and :471-500;
+// reference graph.c:87-177). Over N sorted keys (vw << GB | g) << jb | low
+// bits, an in-group is a run of equal (vw, g), an out-group a run of equal
+// vw. Per out-group, at its rank: the arc row (vw, (int)((double)S1 / ng +
+// .499)), S1 the sum over its ng in-groups of the in-group's largest s1;
+// each valid row writes that rank into pair[src], src being the row's
+// origin (the low jb key bits, or perm[i] when a permutation is given). The
+// full mode (s2 and dist given by origin) adds ng, tot (the rows), the dist
+// average plus499(sum of plus499(in-group dist sum, rows) * rows, tot) and
+// the s2 average plus499(sum of in-group largest s2, ng).
 //
 // What bounds them on the H100: the branch kernels by their bytes (the
 // representative planes of the genes the branching arcs target and the [A]
 // arc planes: 16 MB, 0.005 ms, on the 64-genome, 10,000-gene synthetic
 // corpus) or by the integer operations their data forces (each pair that
-// must be found not local in every genome; chip_smoke.py counts them),
-// merge_fold by its bytes (8-16 a sorted row read, 4 written: 25 MB, 0.007
-// ms, on that corpus). The plain PyTorch forms cost launch latency: the
-// locality was up to ~900 small launches a call and two host reads, the
-// softfloat deficit ~200 int64 launches over the arc table, the fold ~15
-// launches over every row. So each block is here one pass (three small
-// launches for the fold), with no host read.
+// must be found not local in every genome; chip_smoke.py counts them);
+// branch_classify by its bytes (3 planes of a byte an arc, 16 bytes a
+// branching arc read, 5 bytes an arc written: 6.7 MB, 0.002 ms);
+// merge_fold by its bytes (8-16 a sorted row read, 4 a valid row's s1, 4
+// the pair plane, 12 an arc row written; the full mode 8 more a valid row
+// and 16 more an arc row: 25 MB, 0.007 ms). The plain PyTorch forms cost
+// launch latency: the locality was up to ~900 small launches a call and two
+// host reads, the softfloat deficit ~200 int64 launches over the arc table,
+// the fold ~15 launches over every row and the full tail ~20 more. So each
+// block is here one launch (merge_fold: after one memset), with no host
+// read.
 //
 // Design:
 //  * the branch kernels: each warp owns 32 arcs of the table as group
@@ -67,19 +74,35 @@
 //    written by the warp or block that owns its head: deterministic. What
 //    is left is latency: each warp's chain of round trips (the members,
 //    each chunk's rows) for its ~2.5 groups, at 24 warps a SM.
-//  * merge_fold: (1) per row the out-head flag, counted per block with
-//    __syncthreads_count, and the pair plane zeroed; (2) one block scans the
-//    block counts (exclusive) and writes n_out; (3) each out-head row learns
-//    its rank from its block's offset and a ballot prefix, then walks its
-//    out-group's contiguous rows alone: running in-group maximum, sum,
-//    count, the pair write of each row, and the arc row. The same launch
-//    fills the arc rows past n_out (SENT, 0). Sums are int64 in one thread
-//    in row order: exact.
+//  * branch_classify (the mesh's classification once the bits are OR'd):
+//    kClsArcs arcs a thread, the byte planes read four arcs in one load,
+//    s1, mx and the group start read for branching arcs only; n_grp at a
+//    group's first arc by a reverse scan over the warp's lanes (no atomic,
+//    every n_grp written, 0 off the heads), a group running past the warp's
+//    arcs finished by the warp reading on; one atomic a block a count.
+//  * merge_fold: one pass. Persistent blocks (as many as are resident) take
+//    tiles of kFoldTile sorted rows in order from an atomic ticket, so a
+//    tile's decoupled look-back (Merrill and Garland 2016) only ever waits
+//    on tiles that running blocks hold. Each thread loads kFoldRows
+//    consecutive keys (and perm) with 16-byte loads and gathers its valid
+//    rows' s1 (s2, dist) by origin, all loads in flight at once. A row's
+//    out-group rank is the tile's look-back prefix plus the block's scan of
+//    out-head flags, so every valid row writes its own pair slot. The fold
+//    is two block-wide segmented scans (warp shuffles with head flags, then
+//    the warps' totals in shared memory): rows into in-groups, then closed
+//    in-groups into out-groups; an out-group's last row writes its arc row
+//    when its head lies in the tile, and the tile's last warp reads on,
+//    coalesced, through an out-group that runs past the tile (its next
+//    tile skips those rows: they have no head there). Once every tile is
+//    taken, each block waits for the last tile's prefix (n_out) and fills
+//    its share of the rows past it with (SENT, 0, ...). Sums are int64:
+//    exact and deterministic, whatever order the blocks run in.
 //
 // Exactness: (double)sum is exact (sum < 2^53), the division and the add are
 // IEEE round-to-nearest (__ddiv_rn, __dadd_rn) as in the reference; do not
 // build with --use_fast_math. For sum >= 0 (scores are non-negative) this
-// is ops/softfloat.py:plus499_trunc bit for bit.
+// is ops/softfloat.py:plus499_trunc bit for bit; a dist sum below 0 (an
+// int32 gap that wrapped) takes plus499_trunc's own value there (plus499).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -94,8 +117,18 @@ constexpr int kBrChunk = 32;             // genomes staged at a time
 // (each spans more than half of a warp's 32)
 constexpr int kBrBig = kBrWarps * 2;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kFoldThreads = 256;        // rows a block in merge_fold
-constexpr int kScanThreads = 1024;
+constexpr int kClsThreads = 256;         // branch_classify
+constexpr int kClsArcs = 4;              // arcs a thread (one int4 of n_grp)
+static_assert(kClsArcs == 4, "branch_classify stores n_grp as one int4");
+constexpr int kFoldThreads = 256;        // merge_fold
+constexpr int kFoldWarps = kFoldThreads / 32;
+constexpr int kFoldRows = 4;             // sorted rows a thread
+constexpr int kFoldTile = kFoldThreads * kFoldRows;
+// a tile's look-back word: its state in the top two bits, its count of
+// out-group heads below (its own, or all up to its end)
+constexpr unsigned long long kTileAgg = 1ull << 62;
+constexpr unsigned long long kTilePre = 2ull << 62;
+constexpr unsigned long long kTileCount = (1ull << 62) - 1;
 constexpr long long kKeySent = 1LL << 62;         // KSENT_I
 constexpr long long kArcSent = (1LL << 62) - 1;   // SENT_I
 
@@ -564,30 +597,134 @@ branch_kernel(BranchArgs p) {
   }
 }
 
-// The classification alone, after the locality bits were OR'd over the
-// ranks: one thread an arc.
-__global__ void __launch_bounds__(kFoldThreads)
+// ---------------------------------------------------------------------------
+// branch_classify: the classification alone, after the locality bits were
+// OR'd over the ranks
+// ---------------------------------------------------------------------------
+
+// Four consecutive bytes of a plane from arc a: one 32-bit load where they
+// lie inside the table on a 4-byte boundary, 0 past A.
+__device__ __forceinline__ void cls_load4(const uint8_t* x, long long a,
+                                          long long A, uint8_t (&v)[kClsArcs]) {
+  if (a + kClsArcs <= A && (reinterpret_cast<uintptr_t>(x + a) & 3) == 0) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(x + a);
+#pragma unroll
+    for (int q = 0; q < kClsArcs; ++q) v[q] = (w >> (8 * q)) & 0xff;
+  } else {
+#pragma unroll
+    for (int q = 0; q < kClsArcs; ++q) v[q] = a + q < A ? x[a + q] : 0;
+  }
+}
+
+// Arc a continues a branching group: branching and not the group's first.
+__device__ __forceinline__ bool cls_cont(const BranchArgs& p, long long a) {
+  return a < p.A && p.branching[a] && p.gs[a] != a;
+}
+
+// Each thread classifies kClsArcs consecutive arcs; each warp owns its
+// kClsWarpArcs arcs as group heads. n_grp at a head is the number of its
+// group's members with no earlier local partner: a reverse scan of that
+// 0/1 count, reset where an arc does not continue the group (warp
+// shuffles), the group that runs past the warp's arcs finished by the warp
+// reading on.
+__global__ void __launch_bounds__(kClsThreads)
 branch_classify_kernel(BranchArgs p, const int32_t* __restrict__ mx) {
   __shared__ int s_sum[2];
+  const int lane = threadIdx.x & 31;
   if (threadIdx.x == 0) s_sum[0] = s_sum[1] = 0;
-  __syncthreads();
-  const long long a =
-      static_cast<long long>(blockIdx.x) * kFoldThreads + threadIdx.x;
+  const long long a0 =
+      (static_cast<long long>(blockIdx.x) * kClsThreads + threadIdx.x)
+      * kClsArcs;
+  const long long wend = a0 + (32 - lane) * kClsArcs;   // past the warp's
+  uint8_t br[kClsArcs], am[kClsArcs], hh[kClsArcs];
+  cls_load4(p.branching, a0, p.A, br);
+  cls_load4(p.aml, a0, p.A, am);
+  cls_load4(p.he, a0, p.A, hh);
   BranchCounts cnt;
-  if (a < p.A) {
-    int w = 0;
-    if (p.branching[a]) {
-      w = br_classify(p, p.s1[a], mx[a], p.aml[a] != 0);
-      if (!p.he[a]) atomicAdd(&p.n_grp[p.gs[a]], 1);
+  uint8_t aw[kClsArcs];
+  int c[kClsArcs];
+  bool head[kClsArcs], cont[kClsArcs];
+#pragma unroll
+  for (int q = 0; q < kClsArcs; ++q) {
+    const long long a = a0 + q;
+    aw[q] = 0;
+    c[q] = 0;
+    head[q] = cont[q] = false;
+    if (br[q]) {
+      head[q] = p.gs[a] == a;
+      cont[q] = !head[q];
+      aw[q] = static_cast<uint8_t>(br_classify(p, p.s1[a], mx[a], am[q]));
+      c[q] = !hh[q];
+      cnt.add(aw[q]);
     }
-    p.aw[a] = static_cast<uint8_t>(w);
-    cnt.add(w);
+  }
+  // the count from each arc to its group's end, as ra + (rb ? x : 0), x
+  // being that of the next thread's first arc
+  const bool next_cont = __shfl_down_sync(kFull, cont[0], 1);
+  const bool gate = lane == 31 ? cls_cont(p, wend) : next_cont;
+  int ra[kClsArcs];
+  bool rb[kClsArcs];
+  int A = 0;
+  bool B = true;
+#pragma unroll
+  for (int q = kClsArcs - 1; q >= 0; --q) {
+    const bool g = q == kClsArcs - 1 ? gate : cont[q + 1];
+    A = c[q] + (g ? A : 0);
+    B = g && B;
+    ra[q] = A;
+    rb[q] = B;
+  }
+  // composed over the lanes above: x of this thread's first arc as
+  // A + (B ? rest : 0), rest being that of the warp's end
+  for (int d = 1; d < 32; d <<= 1) {
+    const int A2 = __shfl_down_sync(kFull, A, d);
+    const bool B2 = __shfl_down_sync(kFull, B, d);
+    if (lane + d < 32) {
+      A += B ? A2 : 0;
+      B = B && B2;
+    }
+  }
+  int rest = 0;
+  if (__shfl_sync(kFull, gate, 31)) {
+    // the warp's last group runs on past its arcs
+    for (long long b = wend;; b += 32) {
+      const long long a = b + lane;
+      const unsigned run = __ballot_sync(kFull, cls_cont(p, a));
+      const int n = run == kFull ? 32 : __ffs(~run) - 1;
+      rest += __popc(__ballot_sync(kFull, lane < n && !p.he[a]));
+      if (n < 32) break;
+    }
+  }
+  const int x = A + (B ? rest : 0);
+  const int up = __shfl_down_sync(kFull, x, 1);
+  const int x_next = lane == 31 ? rest : up;
+  int ng[kClsArcs];
+#pragma unroll
+  for (int q = 0; q < kClsArcs; ++q)
+    ng[q] = head[q] ? ra[q] + (rb[q] ? x_next : 0) : 0;
+  if (a0 + kClsArcs <= p.A
+      && (reinterpret_cast<uintptr_t>(p.aw + a0) & 3) == 0) {
+    uint32_t w = 0;
+#pragma unroll
+    for (int q = 0; q < kClsArcs; ++q)
+      w |= static_cast<uint32_t>(aw[q]) << (8 * q);
+    *reinterpret_cast<uint32_t*>(p.aw + a0) = w;
+    *reinterpret_cast<int4*>(p.n_grp + a0) = make_int4(ng[0], ng[1], ng[2],
+                                                       ng[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < kClsArcs; ++q)
+      if (a0 + q < p.A) {
+        p.aw[a0 + q] = aw[q];
+        p.n_grp[a0 + q] = ng[q];
+      }
   }
   for (int o = 16; o; o >>= 1) {
     cnt.n1 += __shfl_xor_sync(kFull, cnt.n1, o);
     cnt.n2 += __shfl_xor_sync(kFull, cnt.n2, o);
   }
-  if ((threadIdx.x & 31) == 0) {
+  __syncthreads();
+  if (lane == 0) {
     atomicAdd(&s_sum[0], cnt.n1);
     atomicAdd(&s_sum[1], cnt.n2);
   }
@@ -598,120 +735,525 @@ branch_classify_kernel(BranchArgs p, const int32_t* __restrict__ mx) {
   }
 }
 
-__device__ __forceinline__ long long row_key(const int64_t* keys,
-                                             long long i, int jb) {
-  return keys[i] >> jb;
-}
+// ---------------------------------------------------------------------------
+// merge_fold
+// ---------------------------------------------------------------------------
 
-// out-head flag of sorted row i < N: valid and its vw differs from row i-1's
-__device__ __forceinline__ bool out_head(const int64_t* keys, long long i,
-                                         int jb, int gb) {
-  const long long k = row_key(keys, i, jb);
-  if (k == (kKeySent >> jb)) return false;
-  return i == 0 || (row_key(keys, i - 1, jb) >> gb) != (k >> gb);
-}
+// The arguments of merge_fold (one struct, passed by value). s2, dist and
+// the four statistics' planes are null in the lean mode.
+struct FoldArgs {
+  const int64_t* keys;
+  const int64_t* perm;
+  const int32_t* s1;
+  const int32_t* s2;
+  const int32_t* dist;
+  long long N, cap, ntiles;
+  int jb, gb;
+  int64_t* arc_vw;
+  int32_t* arc_s1;
+  int32_t* arc_ng;
+  int32_t* arc_tot;
+  int32_t* arc_ad;
+  int32_t* arc_s2;
+  int64_t* n_out;
+  int32_t* pair;
+  // [ntiles] look-back words, then the tile ticket; zeroed by the caller
+  unsigned long long* tiles;
+};
 
-__global__ void __launch_bounds__(kFoldThreads)
-fold_count_kernel(const int64_t* __restrict__ keys, long long N, int jb,
-                  int gb, int32_t* __restrict__ blk_cnt,
-                  int32_t* __restrict__ pair) {
-  const long long i = static_cast<long long>(blockIdx.x) * kFoldThreads
-                      + threadIdx.x;
-  bool head = false;
-  if (i < N) {
-    pair[i] = 0;
-    head = out_head(keys, i, jb, gb);
-  }
-  const int cnt = __syncthreads_count(head);
-  if (threadIdx.x == 0) blk_cnt[blockIdx.x] = cnt;
-}
-
-// exclusive scan of nblk block counts in one block; n_out = the total
-__global__ void __launch_bounds__(kScanThreads)
-fold_scan_kernel(const int32_t* __restrict__ blk_cnt, long long nblk,
-                 long long* __restrict__ blk_off,
-                 int64_t* __restrict__ n_out) {
-  __shared__ long long part[kScanThreads];
-  const int t = threadIdx.x;
-  const long long per = (nblk + kScanThreads - 1) / kScanThreads;
-  const long long b0 = t * per;
-  long long b1 = b0 + per;
-  if (b1 > nblk) b1 = nblk;
-  long long s = 0;
-  for (long long b = b0; b < b1; ++b) s += blk_cnt[b];
-  part[t] = s;
-  __syncthreads();
-  for (int off = 1; off < kScanThreads; off <<= 1) {   // inclusive scan
-    const long long v = t >= off ? part[t - off] : 0;
-    __syncthreads();
-    part[t] += v;
-    __syncthreads();
-  }
-  long long run = part[t] - s;                          // exclusive
-  for (long long b = b0; b < b1; ++b) {
-    blk_off[b] = run;
-    run += blk_cnt[b];
-  }
-  if (t == kScanThreads - 1) *n_out = part[t];
-}
-
-__device__ __forceinline__ int plus499(long long s, long long n) {
-  return static_cast<int>(__dadd_rn(
+// (int64)((double)s / n + .499) as the reference rounds it (IEEE double,
+// round-to-nearest: exact for 0 <= s < 2^53, n >= 1). Below 0, the plain
+// version's integer form (ops/softfloat.py plus499_trunc, stated for s >= 0)
+// gives the low 11 bits of s sign-extended for n == 1 and 0 otherwise;
+// the kernel follows it there.
+__device__ __forceinline__ long long plus499(long long s, long long n) {
+  if (s < 0)
+    return n == 1 ? static_cast<long long>(
+                        static_cast<unsigned long long>(s) << 53) >> 53
+                  : 0;
+  return static_cast<long long>(__dadd_rn(
       __ddiv_rn(static_cast<double>(s), static_cast<double>(n)), 0.499));
 }
 
-__global__ void __launch_bounds__(kFoldThreads)
-fold_walk_kernel(const int64_t* __restrict__ keys,
-                 const int64_t* __restrict__ perm,
-                 const int32_t* __restrict__ s1, long long N, int jb, int gb,
-                 long long nblk, const long long* __restrict__ blk_off,
-                 const int64_t* __restrict__ n_out, long long cap,
-                 int64_t* __restrict__ arc_vw, int32_t* __restrict__ arc_s1,
-                 int32_t* __restrict__ pair) {
-  __shared__ int warp_cnt[kFoldThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long i = static_cast<long long>(blockIdx.x) * kFoldThreads
-                      + threadIdx.x;
-  if (blockIdx.x < nblk) {                 // uniform in the block
-    const bool head = i < N && out_head(keys, i, jb, gb);
-    const unsigned bal = __ballot_sync(0xffffffffu, head);
-    if (lane == 0) warp_cnt[warp] = __popc(bal);
-    __syncthreads();
-    long long id = blk_off[blockIdx.x] + __popc(bal & ((1u << lane) - 1u));
-    for (int w = 0; w < warp; ++w) id += warp_cnt[w];
-    if (head) {
-      const long long mask = (1LL << jb) - 1;
-      const long long sent = kKeySent >> jb;
-      const long long k0 = row_key(keys, i, jb);
-      const long long vw = k0 >> gb;
-      long long cur = k0, sum = 0, ng = 0;
-      int mx = INT32_MIN;
-      for (long long j = i; j < N; ++j) {
-        const long long k = row_key(keys, j, jb);
-        if (k == sent || (k >> gb) != vw) break;
-        const long long src = perm ? perm[j] : (keys[j] & mask);
-        const int v = s1[src];
-        pair[src] = static_cast<int32_t>(id);
-        if (k != cur) {
-          sum += mx;
-          ++ng;
-          cur = k;
-          mx = v;
-        } else {
-          mx = v > mx ? v : mx;
-        }
-      }
-      sum += mx;
-      ++ng;
-      if (id < cap) {
-        arc_vw[id] = vw;
-        arc_s1[id] = plus499(sum, ng);
-      }
+// A run of rows of one in-group (equal (vw, g)): its largest s1 and s2, its
+// rows and the sum of their dist.
+struct InAgg {
+  int m1, m2, cnt;
+  long long ds;
+};
+
+// In-groups of one out-group (equal vw): their number, rows, and the sums
+// of their largest s1 and s2 and of their rounded dist averages times rows.
+struct OutAgg {
+  int ng, tot;
+  long long s1, s2, ad;
+};
+
+__device__ __forceinline__ InAgg in_zero() {
+  return {INT32_MIN, INT32_MIN, 0, 0};
+}
+__device__ __forceinline__ OutAgg out_zero() { return {0, 0, 0, 0, 0}; }
+
+__device__ __forceinline__ InAgg add(const InAgg& a, const InAgg& b) {
+  return {max(a.m1, b.m1), max(a.m2, b.m2), a.cnt + b.cnt, a.ds + b.ds};
+}
+__device__ __forceinline__ OutAgg add(const OutAgg& a, const OutAgg& b) {
+  return {a.ng + b.ng, a.tot + b.tot, a.s1 + b.s1, a.s2 + b.s2,
+          a.ad + b.ad};
+}
+
+// Shuffles of the fields the mode uses (kStats: the full=True statistics).
+template <bool kStats>
+__device__ __forceinline__ InAgg shfl_up(const InAgg& v, int d) {
+  InAgg r = v;
+  r.m1 = __shfl_up_sync(kFull, v.m1, d);
+  if (kStats) {
+    r.m2 = __shfl_up_sync(kFull, v.m2, d);
+    r.cnt = __shfl_up_sync(kFull, v.cnt, d);
+    r.ds = __shfl_up_sync(kFull, v.ds, d);
+  }
+  return r;
+}
+template <bool kStats>
+__device__ __forceinline__ OutAgg shfl_up(const OutAgg& v, int d) {
+  OutAgg r = v;
+  r.ng = __shfl_up_sync(kFull, v.ng, d);
+  r.s1 = __shfl_up_sync(kFull, v.s1, d);
+  if (kStats) {
+    r.tot = __shfl_up_sync(kFull, v.tot, d);
+    r.s2 = __shfl_up_sync(kFull, v.s2, d);
+    r.ad = __shfl_up_sync(kFull, v.ad, d);
+  }
+  return r;
+}
+template <bool kStats>
+__device__ __forceinline__ InAgg shfl_idx(const InAgg& v, int l) {
+  InAgg r = v;
+  r.m1 = __shfl_sync(kFull, v.m1, l);
+  if (kStats) {
+    r.m2 = __shfl_sync(kFull, v.m2, l);
+    r.cnt = __shfl_sync(kFull, v.cnt, l);
+    r.ds = __shfl_sync(kFull, v.ds, l);
+  }
+  return r;
+}
+template <bool kStats>
+__device__ __forceinline__ OutAgg shfl_idx(const OutAgg& v, int l) {
+  OutAgg r = v;
+  r.ng = __shfl_sync(kFull, v.ng, l);
+  r.s1 = __shfl_sync(kFull, v.s1, l);
+  if (kStats) {
+    r.tot = __shfl_sync(kFull, v.tot, l);
+    r.s2 = __shfl_sync(kFull, v.s2, l);
+    r.ad = __shfl_sync(kFull, v.ad, l);
+  }
+  return r;
+}
+
+// One row of a segmented fold, in row order: a head starts the segment
+// anew (f: a head was seen), any other row adds to it.
+template <class V>
+__device__ __forceinline__ void seg_step(V& v, bool& f, const V& x,
+                                         bool head) {
+  if (head) {
+    v = x;
+    f = true;
+  } else {
+    v = add(v, x);
+  }
+}
+
+// A segmented scan's element: the value since the last segment start, and
+// whether a segment starts inside the range it covers.
+template <class V>
+struct Seg {
+  V v;
+  bool f;
+};
+
+// Inclusive segmented scan over the warp's lanes, in place.
+template <bool kStats, class V>
+__device__ __forceinline__ void warp_seg_scan(V& v, bool& f, int lane) {
+  for (int d = 1; d < 32; d <<= 1) {
+    const V pv = shfl_up<kStats>(v, d);
+    const bool pf = __shfl_up_sync(kFull, f, d);
+    if (lane >= d) {
+      if (!f) v = add(pv, v);
+      f = f || pf;
     }
   }
-  if (i < cap && i >= *n_out) {
-    arc_vw[i] = kArcSent;
-    arc_s1[i] = 0;
+}
+
+// Exclusive segmented scan over the block's threads (warp shuffles, then
+// the warps' totals in shared memory); thread 0 gets (zero, false). One
+// barrier: s_warp is written again only after the next tile's ticket
+// barrier, which every reader has passed.
+template <bool kStats, class V>
+__device__ Seg<V> block_seg_excl(V v, bool f, Seg<V>* s_warp,
+                                 const V& zero) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  warp_seg_scan<kStats>(v, f, lane);
+  if (lane == 31) s_warp[warp] = {v, f};
+  V ev = shfl_up<kStats>(v, 1);
+  bool ef = __shfl_up_sync(kFull, f, 1);
+  if (lane == 0) {
+    ev = zero;
+    ef = false;
+  }
+  __syncthreads();
+  Seg<V> w = {zero, false};
+  for (int k = 0; k < warp; ++k) {
+    const Seg<V> s = s_warp[k];
+    if (s.f) w = s;
+    else w.v = add(w.v, s.v);
+  }
+  if (!ef) {
+    ev = add(w.v, ev);
+    ef = w.f;
+  }
+  return {ev, ef};
+}
+
+// Exclusive sum of c over the block's threads, and the block's total (one
+// barrier, as block_seg_excl).
+__device__ int block_excl_sum(int c, int* s_warp, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int v = c;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int u = __shfl_up_sync(kFull, v, d);
+    if (lane >= d) v += u;
+  }
+  if (lane == 31) s_warp[warp] = v;
+  __syncthreads();
+  int before = v - c, all = 0;
+  for (int k = 0; k < kFoldWarps; ++k) {
+    if (k < warp) before += s_warp[k];
+    all += s_warp[k];
+  }
+  *total = all;
+  return before;
+}
+
+// A closed in-group's share of its out-group.
+template <bool kStats>
+__device__ __forceinline__ OutAgg out_of(const InAgg& g) {
+  OutAgg o = {1, 0, g.m1, 0, 0};
+  if (kStats) {
+    o.tot = g.cnt;
+    o.s2 = g.m2;
+    o.ad = plus499(g.ds, g.cnt > 1 ? g.cnt : 1) * g.cnt;
+  }
+  return o;
+}
+
+template <bool kStats>
+__device__ __forceinline__ InAgg in_row(const FoldArgs& p, long long src) {
+  InAgg r = {p.s1[src], 0, 1, 0};
+  if (kStats) {
+    r.m2 = p.s2[src];
+    r.ds = p.dist[src];
+  }
+  return r;
+}
+
+// The arc row of out-group `id` (dropped past cap).
+template <bool kStats>
+__device__ void fold_write(const FoldArgs& p, long long id, long long vw,
+                           const OutAgg& o) {
+  if (id >= p.cap) return;
+  p.arc_vw[id] = vw;
+  p.arc_s1[id] = static_cast<int32_t>(plus499(o.s1, o.ng));
+  if (kStats) {
+    p.arc_ng[id] = o.ng;
+    p.arc_tot[id] = o.tot;
+    p.arc_ad[id] = static_cast<int32_t>(plus499(o.ad, o.tot > 1 ? o.tot : 1));
+    p.arc_s2[id] = static_cast<int32_t>(plus499(o.s2, o.ng));
+  }
+}
+
+__device__ __forceinline__ void tile_store(unsigned long long* t,
+                                           unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(t) = v;
+}
+__device__ __forceinline__ unsigned long long tile_load(
+    const unsigned long long* t) {
+  return *reinterpret_cast<const volatile unsigned long long*>(t);
+}
+
+// The out-group heads of the tiles before `tile` (one warp): windows of 32
+// predecessors, nearest first, their aggregates summed down to the nearest
+// inclusive prefix. Tiles are taken in order, so each predecessor is held
+// by a running block that publishes its own count before it looks back.
+__device__ long long tile_look_back(const unsigned long long* tiles,
+                                    long long tile, int lane) {
+  long long excl = 0;
+  for (long long t = tile - 1; t >= 0; t -= 32) {
+    const long long j = t - lane;
+    unsigned long long s;
+    do {
+      s = j >= 0 ? tile_load(tiles + j) : kTilePre;
+    } while (__any_sync(kFull, (s & ~kTileCount) == 0));
+    const unsigned pre = __ballot_sync(kFull, (s & ~kTileCount) == kTilePre);
+    const int stop = pre ? __ffs(pre) - 1 : 31;
+    long long v = lane <= stop ? static_cast<long long>(s & kTileCount) : 0;
+    for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+    excl += v;
+    if (pre) break;
+  }
+  return excl;
+}
+
+// The out-group `id` of vw = klast >> gb ran past its tile, whose last row
+// had key klast: one warp reads on from row i0, 32 rows at a time, until vw
+// changes, folding the rows' in-groups into co (ci: the in-group open at
+// the tile's end when `open`), then writes the arc row.
+template <bool kStats>
+__device__ void fold_read_on(const FoldArgs& p, long long i0,
+                             long long klast, InAgg ci, bool open,
+                             OutAgg co, long long id, int lane) {
+  const long long sent = kKeySent >> p.jb;
+  const long long mask = (1LL << p.jb) - 1;
+  const long long vw = klast >> p.gb;
+  long long kprev = klast;
+  for (long long b = i0;; b += 32) {
+    const long long i = b + lane;
+    const long long raw = i < p.N ? p.keys[i] : kKeySent;
+    const long long k = raw >> p.jb;
+    const bool in = k != sent && (k >> p.gb) == vw;
+    const unsigned run = __ballot_sync(kFull, in);
+    const int n = run == kFull ? 32 : __ffs(~run) - 1;
+    // does the chunk's first row continue the open in-group?
+    const bool first_cont = n > 0 && __shfl_sync(kFull, k, 0) == kprev;
+    if (open && !first_cont) co = add(co, out_of<kStats>(ci));
+    const long long up = __shfl_up_sync(kFull, k, 1);
+    const long long down = __shfl_down_sync(kFull, k, 1);
+    InAgg v = in_zero();
+    bool f = false;
+    if (lane < n) {
+      v = in_row<kStats>(p, p.perm ? p.perm[i] : (raw & mask));
+      f = (lane ? up : kprev) != k;
+    }
+    warp_seg_scan<kStats>(v, f, lane);
+    if (!f && first_cont) v = add(ci, v);
+    // an in-group closes where the next row's key differs; the chunk's
+    // last in-group stays open while the out-group may go on
+    const bool closes = lane < n && (lane + 1 < n ? down != k : n < 32);
+    OutAgg o = closes ? out_of<kStats>(v) : out_zero();
+    for (int d = 16; d; d >>= 1) {
+      OutAgg u = o;
+      u.ng = __shfl_xor_sync(kFull, o.ng, d);
+      u.s1 = __shfl_xor_sync(kFull, o.s1, d);
+      if (kStats) {
+        u.tot = __shfl_xor_sync(kFull, o.tot, d);
+        u.s2 = __shfl_xor_sync(kFull, o.s2, d);
+        u.ad = __shfl_xor_sync(kFull, o.ad, d);
+      }
+      o = add(o, u);
+    }
+    co = add(co, o);
+    if (n < 32) {
+      if (lane == 0) fold_write<kStats>(p, id, vw, co);
+      return;
+    }
+    ci = shfl_idx<kStats>(v, 31);
+    open = true;
+    kprev = __shfl_sync(kFull, k, 31);
+  }
+}
+
+// One pass over the sorted keys. Persistent blocks take tiles of kFoldTile
+// rows in order from a ticket. Each thread holds kFoldRows consecutive rows:
+// their keys, origins and values, and their in-/out-group head and last
+// flags. The block's scan of out-head counts and the tile's decoupled
+// look-back give every row its out-group rank (the pair write); two
+// block-wide segmented scans fold the rows into in-groups and the closed
+// in-groups into out-groups, whose last row writes the arc row when the
+// out-group's head is in the tile. An out-group that runs past the tile is
+// finished by the tile's last warp. Once every tile is taken, the blocks
+// wait for the last tile's prefix (n_out) and fill the rows past it.
+template <bool kStats>
+__global__ void __launch_bounds__(kFoldThreads)
+merge_fold_kernel(FoldArgs p) {
+  __shared__ Seg<InAgg> s_in[kFoldWarps];
+  __shared__ Seg<OutAgg> s_out[kFoldWarps];
+  __shared__ int s_cnt[kFoldWarps];
+  __shared__ long long s_tile, s_pre;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long sent = kKeySent >> p.jb;
+  const long long mask = (1LL << p.jb) - 1;
+  const bool vec = (reinterpret_cast<uintptr_t>(p.keys) & 15) == 0
+                   && (!p.perm
+                       || (reinterpret_cast<uintptr_t>(p.perm) & 15) == 0);
+  for (;;) {
+    if (threadIdx.x == 0)
+      s_tile = static_cast<long long>(atomicAdd(p.tiles + p.ntiles, 1ull));
+    __syncthreads();
+    const long long tile = s_tile;
+    if (tile >= p.ntiles) break;
+    const long long r0 = tile * kFoldTile
+                         + static_cast<long long>(threadIdx.x) * kFoldRows;
+    long long k[kFoldRows], src[kFoldRows];
+    if (vec && r0 + kFoldRows <= p.N) {
+      // 16-byte loads
+      const longlong2* kv = reinterpret_cast<const longlong2*>(p.keys + r0);
+#pragma unroll
+      for (int h = 0; h < kFoldRows / 2; ++h) {
+        const longlong2 x = kv[h];
+        k[2 * h] = x.x;
+        k[2 * h + 1] = x.y;
+      }
+      if (p.perm) {
+        const longlong2* pv =
+            reinterpret_cast<const longlong2*>(p.perm + r0);
+#pragma unroll
+        for (int h = 0; h < kFoldRows / 2; ++h) {
+          const longlong2 y = pv[h];
+          src[2 * h] = y.x;
+          src[2 * h + 1] = y.y;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < kFoldRows; ++q) {
+        const long long i = r0 + q;
+        k[q] = i < p.N ? p.keys[i] : kKeySent;
+        if (p.perm) src[q] = i < p.N ? p.perm[i] : 0;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kFoldRows; ++q) {
+      if (!p.perm) src[q] = k[q] & mask;
+      k[q] >>= p.jb;
+    }
+    const long long kp = r0 > 0 && r0 - 1 < p.N ? p.keys[r0 - 1] >> p.jb
+                                                : sent;
+    const long long kn = r0 + kFoldRows < p.N
+                             ? p.keys[r0 + kFoldRows] >> p.jb : sent;
+    // valid rows, in-/out-group heads and last rows, a bit a row
+    unsigned vm = 0, ih = 0, oh = 0, il = 0, ol = 0;
+#pragma unroll
+    for (int q = 0; q < kFoldRows; ++q) {
+      const long long x = k[q];
+      const long long pr = q ? k[q - 1] : kp;
+      const long long nx = q + 1 < kFoldRows ? k[q + 1] : kn;
+      if (x == sent) continue;
+      const unsigned bit = 1u << q;
+      vm |= bit;
+      if (pr != x) ih |= bit;
+      if (pr == sent || (pr >> p.gb) != (x >> p.gb)) oh |= bit;
+      if (nx != x) il |= bit;
+      if (nx == sent || (nx >> p.gb) != (x >> p.gb)) ol |= bit;
+    }
+    InAgg r[kFoldRows];
+#pragma unroll
+    for (int q = 0; q < kFoldRows; ++q)
+      r[q] = (vm >> q) & 1 ? in_row<kStats>(p, src[q]) : in_zero();
+
+    // the rows' out-group ranks: the block's scan of out-heads, the tile's
+    // own count published at once, its look-back after the fold's scans
+    int heads;
+    const int before = block_excl_sum(__popc(oh), s_cnt, &heads);
+    if (threadIdx.x == 0)
+      tile_store(p.tiles + tile, (tile ? kTileAgg : kTilePre) | heads);
+    // the out-group of the tile's last row runs on past the tile, its head
+    // inside: the last warp reads on at the tile's end
+    constexpr int kLast = kFoldRows - 1;
+    bool read_on = false;
+    if (warp == kFoldWarps - 1)
+      read_on = heads > 0 && __shfl_sync(kFull, ((vm >> kLast) & 1)
+                                                    && !((ol >> kLast) & 1),
+                                         31);
+
+    // in-groups: the one open at each thread's start (its head inside the
+    // tile when f) ...
+    InAgg ci = in_zero();
+    bool cf = false;
+#pragma unroll
+    for (int q = 0; q < kFoldRows; ++q) {
+      if (!((vm >> q) & 1)) continue;
+      seg_step(ci, cf, r[q], (ih >> q) & 1);
+    }
+    const Seg<InAgg> pin = block_seg_excl<kStats>(ci, cf, s_in, in_zero());
+    // ... then the closed in-groups folded into out-groups
+    OutAgg co = out_zero();
+    bool of = false;
+    ci = pin.v;
+    cf = pin.f;
+#pragma unroll
+    for (int q = 0; q < kFoldRows; ++q) {
+      if (!((vm >> q) & 1)) continue;
+      seg_step(ci, cf, r[q], (ih >> q) & 1);
+      seg_step(co, of,
+               (il >> q) & 1 && cf ? out_of<kStats>(ci) : out_zero(),
+               (oh >> q) & 1);
+    }
+    const Seg<OutAgg> pout =
+        block_seg_excl<kStats>(co, of, s_out, out_zero());
+    if (warp == 0) {
+      const long long excl = tile_look_back(p.tiles, tile, lane);
+      if (lane == 0) {
+        if (tile) tile_store(p.tiles + tile, kTilePre | (excl + heads));
+        s_pre = excl;
+        if (tile == p.ntiles - 1) *p.n_out = excl + heads;
+      }
+    }
+    __syncthreads();
+    // the writes: each valid row's rank at its origin, each out-group
+    // whose head is in the tile at its last row
+    long long id = s_pre + before - 1;
+    ci = pin.v;
+    cf = pin.f;
+    co = pout.v;
+    of = pout.f;
+#pragma unroll
+    for (int q = 0; q < kFoldRows; ++q) {
+      if (!((vm >> q) & 1)) continue;
+      if ((oh >> q) & 1) ++id;
+      p.pair[src[q]] = static_cast<int32_t>(id);
+      seg_step(ci, cf, r[q], (ih >> q) & 1);
+      seg_step(co, of,
+               (il >> q) & 1 && cf ? out_of<kStats>(ci) : out_zero(),
+               (oh >> q) & 1);
+      if ((ol >> q) & 1 && of) fold_write<kStats>(p, id, k[q] >> p.gb, co);
+    }
+    // the out-group open at the tile's end, its head inside: read on
+    if (read_on)
+      fold_read_on<kStats>(p, (tile + 1) * kFoldTile,
+                           __shfl_sync(kFull, k[kLast], 31),
+                           shfl_idx<kStats>(ci, 31),
+                           __shfl_sync(kFull, !((il >> kLast) & 1), 31),
+                           shfl_idx<kStats>(co, 31),
+                           __shfl_sync(kFull, id, 31), lane);
+  }
+  // every tile is taken: the arc rows past n_out once the last tile's
+  // prefix is published
+  __shared__ long long s_nout;
+  if (threadIdx.x == 0) {
+    long long n = 0;
+    if (p.ntiles > 0) {
+      unsigned long long s;
+      do {
+        s = tile_load(p.tiles + p.ntiles - 1);
+      } while ((s & ~kTileCount) != kTilePre);
+      n = static_cast<long long>(s & kTileCount);
+    } else if (blockIdx.x == 0) {
+      *p.n_out = 0;
+    }
+    s_nout = n;
+  }
+  __syncthreads();
+  const long long step = static_cast<long long>(gridDim.x) * kFoldThreads;
+  for (long long i = s_nout + static_cast<long long>(blockIdx.x) * kFoldThreads
+                     + threadIdx.x;
+       i < p.cap; i += step) {
+    p.arc_vw[i] = kArcSent;
+    p.arc_s1[i] = 0;
+    if (kStats) {
+      p.arc_ng[i] = 0;
+      p.arc_tot[i] = 0;
+      p.arc_ad[i] = 0;
+      p.arc_s2[i] = 0;
+    }
   }
 }
 
@@ -795,7 +1337,7 @@ extern "C" int pg_branch_block(const void* pres, const void* cid,
 }
 
 // The classification of arcs whose (aml, he) are known: aw [A], n_grp [A]
-// and counts [2], the last two zeroed by the caller.
+// (0 off the groups' first arcs) and counts [2], zeroed by the caller.
 extern "C" int pg_branch_classify(const void* s1, const void* mx,
                                   const void* branching, const void* aml,
                                   const void* he, const void* gs,
@@ -816,42 +1358,83 @@ extern "C" int pg_branch_classify(const void* s1, const void* mx,
   p.aw = static_cast<uint8_t*>(aw);
   p.n_grp = static_cast<int32_t*>(n_grp);
   p.counts = static_cast<unsigned long long*>(counts);
-  const long long blocks = (A + kFoldThreads - 1) / kFoldThreads;
-  branch_classify_kernel<<<static_cast<unsigned>(blocks), kFoldThreads, 0,
+  constexpr long long per = static_cast<long long>(kClsThreads) * kClsArcs;
+  branch_classify_kernel<<<static_cast<unsigned>((A + per - 1) / per),
+                           kClsThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       p, static_cast<const int32_t*>(mx));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Scratch: blk_cnt int32 and blk_off int64, pg_merge_fold_blocks(N) each.
-extern "C" long long pg_merge_fold_blocks(long long N) {
-  return (N + kFoldThreads - 1) / kFoldThreads;
+// Tiles of merge_fold's look-back over N keys; its scratch is that many
+// 64-bit words and one more (the ticket).
+extern "C" long long pg_merge_fold_tiles(long long N) {
+  return (N + kFoldTile - 1) / kFoldTile;
 }
 
+namespace {
+
+// Blocks of merge_fold a launch: as many as are resident at once on the
+// device (each takes tiles until none is left), cached per device and mode.
+template <bool kStats>
+int fold_grid() {
+  static int cached[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+  int* c = dev >= 0 && dev < 64 ? &cached[dev] : nullptr;
+  if (c && *c) return *c;
+  int sms = 1, per_sm = 1;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, merge_fold_kernel<kStats>, kFoldThreads, 0);
+  const int g = sms * (per_sm > 0 ? per_sm : 1);
+  if (c) *c = g;
+  return g;
+}
+
+}  // namespace
+
+// The fold of N sorted keys (merge_fold in ops/loop_kernels.py): one
+// launch after one memset of `zero_bytes` from `pair` (the pair plane, then
+// the look-back words and the ticket at `tiles`, pg_merge_fold_tiles(N) + 1
+// words). s2 and dist (by origin) select the full mode, whose four
+// statistics' planes are then written too.
 extern "C" int pg_merge_fold(const void* keys, const void* perm,
-                             const void* s1, long long N, int jb, int gb,
-                             long long cap, void* blk_cnt, void* blk_off,
-                             void* arc_vw, void* arc_s1, void* n_out,
-                             void* pair, void* stream) {
+                             const void* s1, const void* s2,
+                             const void* dist, long long N, int jb, int gb,
+                             long long cap, void* arc_vw, void* arc_s1,
+                             void* arc_ng, void* arc_tot, void* arc_ad,
+                             void* arc_s2, void* n_out, void* pair,
+                             void* tiles, long long zero_bytes,
+                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long nblk = pg_merge_fold_blocks(N);
-  const int64_t* k = static_cast<const int64_t*>(keys);
-  if (nblk > 0)
-    fold_count_kernel<<<static_cast<unsigned>(nblk), kFoldThreads, 0, st>>>(
-        k, N, jb, gb, static_cast<int32_t*>(blk_cnt),
-        static_cast<int32_t*>(pair));
-  fold_scan_kernel<<<1, kScanThreads, 0, st>>>(
-      static_cast<const int32_t*>(blk_cnt), nblk,
-      static_cast<long long*>(blk_off), static_cast<int64_t*>(n_out));
-  const long long rows = N > cap ? N : cap;
-  const long long grid = (rows + kFoldThreads - 1) / kFoldThreads;
-  if (grid > 0)
-    fold_walk_kernel<<<static_cast<unsigned>(grid), kFoldThreads, 0, st>>>(
-        k, static_cast<const int64_t*>(perm),
-        static_cast<const int32_t*>(s1), N, jb, gb, nblk,
-        static_cast<const long long*>(blk_off),
-        static_cast<const int64_t*>(n_out), cap,
-        static_cast<int64_t*>(arc_vw), static_cast<int32_t*>(arc_s1),
-        static_cast<int32_t*>(pair));
+  const cudaError_t err = cudaMemsetAsync(pair, 0, zero_bytes, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  FoldArgs p = {};
+  p.keys = static_cast<const int64_t*>(keys);
+  p.perm = static_cast<const int64_t*>(perm);
+  p.s1 = static_cast<const int32_t*>(s1);
+  p.s2 = static_cast<const int32_t*>(s2);
+  p.dist = static_cast<const int32_t*>(dist);
+  p.N = N;
+  p.cap = cap;
+  p.ntiles = pg_merge_fold_tiles(N);
+  p.jb = jb;
+  p.gb = gb;
+  p.arc_vw = static_cast<int64_t*>(arc_vw);
+  p.arc_s1 = static_cast<int32_t*>(arc_s1);
+  p.arc_ng = static_cast<int32_t*>(arc_ng);
+  p.arc_tot = static_cast<int32_t*>(arc_tot);
+  p.arc_ad = static_cast<int32_t*>(arc_ad);
+  p.arc_s2 = static_cast<int32_t*>(arc_s2);
+  p.n_out = static_cast<int64_t*>(n_out);
+  p.pair = static_cast<int32_t*>(pair);
+  p.tiles = static_cast<unsigned long long*>(tiles);
+  if (s2) {
+    merge_fold_kernel<true><<<fold_grid<true>(), kFoldThreads, 0, st>>>(p);
+  } else {
+    merge_fold_kernel<false><<<fold_grid<false>(), kFoldThreads, 0, st>>>(
+        p);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,15 +21,21 @@ entries: branch_block (one rank: the groups found in the arc table,
 locality and classification in one launch), and for the mesh
 branch_locality (its bits are OR'd over the ranks) then branch_classify.
 
-merge_fold: the in-loop lean merge after its sort (graph.c:87-177; JAX
-device_loop.py:264 walk_merge and its bucket exchange). Over sorted int64
-keys ((vw << GB | g) << jb) | low, invalid rows holding KSENT_I at the end,
-an in-group is a run of equal (vw, g) and an out-group a run of equal vw.
+merge_fold: the merge's fold after its sort (graph.c:87-177; JAX
+device_loop.py:264 walk_merge, its bucket exchange and its full tail).
+Over sorted int64 keys ((vw << GB | g) << jb) | low, invalid rows holding
+KSENT_I at the end, an in-group is a run of equal (vw, g) and an out-group
+a run of equal vw.
 Per out-group, in order: the arc row (vw, plus499(sum of the in-groups'
 largest s1, number of in-groups)); past n_out the rows read (SENT_I, 0).
 Each valid row's out-group rank goes to pair[src], src being its origin
 row: the low jb key bits, or perm[i] when the keys were sorted with a
 permutation; every other pair slot reads 0. s1 values are scores (>= 0).
+The full mode (the loop's full=True tail, JAX device_loop.py:410-415 and
+:471-500) also takes each origin's s2 (a score) and int32 dist and adds,
+per out-group, ng (its in-groups), tot (its rows), the dist average
+plus499(sum over its in-groups of plus499(in-group dist sum, rows) * rows,
+tot) and the s2 average plus499(sum of the in-groups' largest s2, ng).
 
 On cuda each wrapper launches its kernel or raises; on the CPU it takes the
 plain version. Neither reads a value on the host on the card.
@@ -54,9 +60,11 @@ KSENT_I = (1 << 62)                      # sort key of an invalid row
 _LONG_MAX = (1 << 63) - 1
 
 # Launches of each kernel and calls of its plain version. reset_counts()
-# zeroes them; the loop's LAST and chip_smoke.py read them.
+# zeroes them; the loop's LAST and chip_smoke.py read them. merge_fold
+# counts both modes, merge_fold_full the full mode's alone.
 n_calls = {name: {"kernel": 0, "plain": 0} for name in (
-    "branch_block", "branch_locality", "branch_classify", "merge_fold")}
+    "branch_block", "branch_locality", "branch_classify", "merge_fold",
+    "merge_fold_full")}
 
 
 def reset_counts() -> None:
@@ -125,12 +133,12 @@ def load(path: str) -> ctypes.CDLL:
     fn = lib.pg_branch_classify
     fn.restype = i
     fn.argtypes = [vp] * 6 + [ll] + [d] * 3 + [vp] * 4
-    fn = lib.pg_merge_fold_blocks
+    fn = lib.pg_merge_fold_tiles
     fn.restype = ll
     fn.argtypes = [ll]
     fn = lib.pg_merge_fold
     fn.restype = i
-    fn.argtypes = [vp] * 3 + [ll, i, i, ll] + [vp] * 7
+    fn.argtypes = [vp] * 5 + [ll, i, i, ll] + [vp] * 9 + [ll, vp]
     return lib
 
 
@@ -156,13 +164,15 @@ def _check(named, dev: torch.device) -> None:
                                            tuple(t.shape), t.device))
 
 
-def _launch_device(dev: torch.device, what: str) -> bool:
-    """True on cuda (launch), False on the CPU (plain); raises elsewhere."""
+def _launch_device(dev: torch.device, *what: str) -> bool:
+    """True on cuda (launch), False on the CPU (plain, counted under each
+    name of `what`); raises elsewhere."""
     if dev.type == "cpu":
-        n_calls[what]["plain"] += 1
+        for name in what:
+            n_calls[name]["plain"] += 1
         return False
     if dev.type != "cuda":
-        raise ValueError("%s runs on cuda or cpu, not %s" % (what, dev))
+        raise ValueError("%s runs on cuda or cpu, not %s" % (what[0], dev))
     return True
 
 
@@ -174,12 +184,16 @@ def _clip(x) -> int:
     return max(min(int(x), _LONG_MAX), -_LONG_MAX)
 
 
-def _launch(name: str, fn, *args) -> None:
+def _launch(names, fn, *args) -> None:
+    """Calls fn(*args), a launch; raises on its error, else counts one
+    launch under `names` (a name or a tuple of them)."""
+    names = (names,) if isinstance(names, str) else names
     err = fn(*args)
     if err != 0:
         raise RuntimeError("%s kernel launch failed: CUDA error %d"
-                           % (name, err))
-    n_calls[name]["kernel"] += 1
+                           % (names[0], err))
+    for name in names:
+        n_calls[name]["kernel"] += 1
 
 
 def _stream(dev: torch.device) -> int:
@@ -357,7 +371,7 @@ def branch_classify(arc_s1, mx, branching, aml, he, gs_of, *,
         return branch_classify_plain(arc_s1, mx, branching, aml, he, gs_of,
                                      **kw)
     aw = torch.empty(A, dtype=torch.uint8, device=dev)
-    n_grp = torch.zeros(A, dtype=I32, device=dev)
+    n_grp = torch.empty(A, dtype=I32, device=dev)
     counts = torch.zeros(2, dtype=I64, device=dev)
     if A == 0:
         return aw, n_grp, counts
@@ -395,48 +409,60 @@ def branch_classify_plain(arc_s1, mx, branching, aml, he, gs_of, *,
 # ---------------------------------------------------------------------------
 
 def merge_fold(keys: torch.Tensor, s1: torch.Tensor, *, jb: int, gb: int,
-               cap: int, perm: Optional[torch.Tensor] = None):
+               cap: int, perm: Optional[torch.Tensor] = None,
+               full: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """(arc_vw int64 [cap], arc_s1 int32 [cap], n_out int64 scalar, pair
     int32 [N]) of N sorted int64 keys, the rows' s1 (int32 [N], indexed by
     origin row) and, for keys whose low bits hold no origin, the sort's
-    permutation (int64 [N])."""
+    permutation (int64 [N]). full = (s2, dist), int32 [N] by origin, adds
+    the output-only statistics (arc_ng, arc_tot, arc_ad, arc_s2), int32
+    [cap] each."""
     dev = keys.device
     N = keys.shape[0]
     named = [("keys", keys, I64, (N,)), ("s1", s1, I32, (N,))]
     if perm is not None:
         named.append(("perm", perm, I64, (N,)))
+    if full is not None:
+        named += [("s2", full[0], I32, (N,)), ("dist", full[1], I32, (N,))]
     _check(named, dev)
     if not (jb >= 0 and gb >= 0 and jb + gb < 62 and cap >= 1):
         raise ValueError("merge_fold: jb %d gb %d cap %d" % (jb, gb, cap))
-    if not _launch_device(dev, "merge_fold"):
-        return merge_fold_plain(keys, s1, jb=jb, gb=gb, cap=cap, perm=perm)
+    names = ("merge_fold",) + (("merge_fold_full",) if full is not None
+                               else ())
+    if not _launch_device(dev, *names):
+        return merge_fold_plain(keys, s1, jb=jb, gb=gb, cap=cap, perm=perm,
+                                full=full)
     arc_vw = torch.empty(cap, dtype=I64, device=dev)
     arc_s1 = torch.empty(cap, dtype=I32, device=dev)
+    stats = [torch.empty(cap, dtype=I32, device=dev)
+             for _ in range(4 if full is not None else 0)]
     n_out = torch.empty((), dtype=I64, device=dev)
-    pair = torch.empty(N, dtype=I32, device=dev)
     lib = _kernel_lib()
-    nblk = max(int(lib.pg_merge_fold_blocks(N)), 1)
-    blk_cnt = torch.empty(nblk, dtype=I32, device=dev)
-    blk_off = torch.empty(nblk, dtype=I64, device=dev)
+    # the pair plane, then the tiles' look-back words and the ticket: one
+    # buffer, zeroed by one memset
+    n_pair = N + (N & 1)
+    n_words = int(lib.pg_merge_fold_tiles(N)) + 1
+    zeroed = torch.empty(n_pair + 2 * n_words, dtype=I32, device=dev)
+    pair = zeroed[:N]
+    ptr = lambda t: None if t is None else t.data_ptr()
+    s2, dist = full if full is not None else (None, None)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pg_merge_fold(
-            keys.data_ptr(), None if perm is None else perm.data_ptr(),
-            s1.data_ptr(), N, jb, gb, cap, blk_cnt.data_ptr(),
-            blk_off.data_ptr(), arc_vw.data_ptr(), arc_s1.data_ptr(),
-            n_out.data_ptr(), pair.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("merge_fold kernel launch failed: CUDA error %d"
-                           % err)
-    n_calls["merge_fold"]["kernel"] += 1
-    return arc_vw, arc_s1, n_out, pair
+        _launch(names, lib.pg_merge_fold, keys.data_ptr(), ptr(perm),
+                s1.data_ptr(), ptr(s2), ptr(dist), N, jb, gb, cap,
+                arc_vw.data_ptr(), arc_s1.data_ptr(),
+                *([t.data_ptr() for t in stats] or [None] * 4),
+                n_out.data_ptr(), zeroed.data_ptr(),
+                zeroed.data_ptr() + 4 * n_pair, 4 * zeroed.numel(),
+                _stream(dev))
+    return (arc_vw, arc_s1, n_out, pair) + tuple(stats)
 
 
 def merge_fold_plain(keys: torch.Tensor, s1: torch.Tensor, *, jb: int,
-                     gb: int, cap: int, perm: Optional[torch.Tensor] = None):
+                     gb: int, cap: int, perm: Optional[torch.Tensor] = None,
+                     full: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Plain PyTorch version of merge_fold: fold_sorted over the keys with
     their origin bits shifted out, then each row's out-group rank scattered
-    to its origin."""
+    to its origin; in the full mode fold_stats on the same fold."""
     N = keys.shape[0]
     k = keys >> jb
     va = k != (KSENT_I >> jb)
@@ -445,7 +471,10 @@ def merge_fold_plain(keys: torch.Tensor, s1: torch.Tensor, *, jb: int,
     f = fold_sorted(k, va, s1[src], gb, cap)
     pair = torch.zeros(N + 1, dtype=I32, device=keys.device).scatter_(
         0, torch.where(va, src, N), f.out_id.to(I32))[:N]
-    return f.arc_vw, f.arc_s1, f.n_out, pair
+    out = (f.arc_vw, f.arc_s1, f.n_out, pair)
+    if full is None:
+        return out
+    return out + fold_stats(f, full[0][src], full[1][src], cap)
 
 
 class Fold(NamedTuple):
@@ -460,12 +489,17 @@ class Fold(NamedTuple):
     arc_ng: torch.Tensor    # [cap] int32 in-groups an out-group, 0 past n_out
 
 
+def _fit(x: torch.Tensor, cap: int) -> torch.Tensor:
+    """The first cap rows of x, zeros past its end."""
+    N = x.shape[0]
+    return x[:cap] if cap <= N else torch.cat([x, x.new_zeros(cap - N)])
+
+
 def fold_sorted(k: torch.Tensor, va: torch.Tensor, s: torch.Tensor, gb: int,
                 cap: int) -> Fold:
     """The two-level fold in torch ops over N sorted keys k = (vw << gb) | g
     (valid rows `va` first) and the rows' s1 `s` in that order: head flags,
-    cumsum ids, the in-group maximum and the sums per out-group. The
-    in-loop plain version and the loop's full=True tail share it."""
+    cumsum ids, the in-group maximum and the sums per out-group."""
     N = k.shape[0]
     last = max(N - 1, 0)
     in_new = va & (k != prev_row(k, KSENT_I))
@@ -478,11 +512,37 @@ def fold_sorted(k: torch.Tensor, va: torch.Tensor, s: torch.Tensor, gb: int,
     s1s = seg_sum(torch.where(in_new, s1_in[in_id].to(I64), 0), out_id, N)
     vw_f = seg_max(torch.where(va, vw, 0), out_id, N)
     n_out = out_new.sum()
-    fit = lambda x: x[:cap] if cap <= N else \
-        torch.cat([x, x.new_zeros(cap - N)])
     live = torch.arange(cap, device=k.device) < n_out
-    arc_ng = torch.where(live, fit(ng), 0)
+    arc_ng = torch.where(live, _fit(ng, cap), 0)
     return Fold(va, in_new, in_id, out_id, n_out, live,
-                torch.where(live, fit(vw_f), SENT_I),
-                torch.where(live, plus499_i32(fit(s1s), arc_ng.to(I64)), 0),
+                torch.where(live, _fit(vw_f, cap), SENT_I),
+                torch.where(live, plus499_i32(_fit(s1s, cap),
+                                              arc_ng.to(I64)), 0),
                 arc_ng)
+
+
+def fold_stats(f: Fold, s2: torch.Tensor, d: torch.Tensor, cap: int):
+    """The full mode's output-only statistics (graph.c:160-172) of the fold
+    f, from the rows' s2 and int32 dist in sorted order: (arc_ng, arc_tot,
+    arc_ad, arc_s2), int32 [cap] each, 0 past n_out. The averages are
+    softfloat's exact plus499_trunc: of each in-group's dist sum over its
+    rows, of the out-group's sum of those times the rows over its rows, and
+    of the in-groups' largest s2 over their number."""
+    N = s2.shape[0]
+    va, in_new, in_id, out_id, live = (f.va, f.in_new, f.in_id, f.out_id,
+                                       f.live)
+    cnt_in = seg_sum(va.to(I64), in_id, N)
+    ds_in = seg_sum(torch.where(va, d.to(I64), 0), in_id, N)
+    dr_in = sf.plus499_trunc(ds_in, cnt_in.clamp(min=1))
+    s2_in = seg_max(torch.where(va, s2, 0), in_id, N)
+    tot_f = seg_sum(torch.where(in_new, cnt_in[in_id], 0).to(I32), out_id, N)
+    ds_f = seg_sum(torch.where(in_new, dr_in[in_id] * cnt_in[in_id], 0),
+                   out_id, N)
+    s2s_f = seg_sum(torch.where(in_new, s2_in[in_id].to(I64), 0), out_id, N)
+    arc_tot = torch.where(live, _fit(tot_f, cap), 0)
+    arc_ad = torch.where(live, sf.plus499_trunc(
+        torch.where(live, _fit(ds_f, cap), 0),
+        arc_tot.clamp(min=1).to(I64)), 0).to(I32)
+    arc_s2 = torch.where(live, plus499_i32(
+        torch.where(live, _fit(s2s_f, cap), 0), f.arc_ng.to(I64)), 0)
+    return f.arc_ng, arc_tot, arc_ad, arc_s2

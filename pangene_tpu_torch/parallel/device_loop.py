@@ -72,10 +72,8 @@ import torch
 from ..options import PgOpt
 from ..ops import device as dev
 from ..ops import loop_kernels as lk
-from ..ops import softfloat as sf
 from ..ops import sweep_kernel as sk
-from ..ops.loop_kernels import (KSENT_I, SENT_I, plus499_i32, prev_row,
-                                seg_max, seg_sum)
+from ..ops.loop_kernels import KSENT_I, SENT_I, prev_row, seg_sum
 from ..util import log_msg
 from . import mesh as M
 
@@ -271,9 +269,9 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     syncs = [0]
     timer = _BlockTimer(device)
 
-    def captured(fn, *args, **kw):
+    def captured(fn, *args, key=None, **kw):
         if capture is not None:
-            capture.setdefault(fn.__name__, (args, kw))
+            capture.setdefault(key or fn.__name__, (args, kw))
         return fn(*args, **kw)
 
     def host(x: torch.Tensor):
@@ -411,58 +409,37 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
         if not full and JB and cfg.a2a_cap:
             return exchange_merge(keys, ok2, s1_2, prevc, pair_ok, seg_tot,
                                   seg_ng)
-        if not full:
-            if JB:
-                # JB low bits of the lean sort key carry the global row
-                # index: the merge sorts one int64 tensor of distinct keys
-                # and the fold finds each row's origin in them
-                jo = (rank * NL
-                      + torch.arange(NL, dtype=I64, device=device)) \
-                    .reshape(G, 2 * H)
-                kps = torch.sort(ga(torch.where(ok2, (keys << JB) | jo,
-                                                KSENT_I))).values
-                arc_vw, arc_s1, n_out, pair_arc = captured(
-                    lk.merge_fold, kps, ga(s1_2), jb=JB, gb=GB, cap=A)
-            else:
-                # co-sorted form: equal keys keep their row order
-                keys, so = torch.sort(
-                    ga(torch.where(ok2, keys, KSENT_I)), stable=True)
-                arc_vw, arc_s1, n_out, pair_arc = captured(
-                    lk.merge_fold, keys, ga(s1_2), jb=0, gb=GB, cap=A,
-                    perm=so)
-            # each pair slot's arc row, this rank's window of the
-            # replicated plane
-            mine = pair_arc[rank * NL:(rank + 1) * NL].reshape(G, 2 * H)
-            tgt_prev = torch.gather(ordcm, 1, prevc)
-            return (arc_vw, arc_s1, n_out, seg_tot, seg_ng,
-                    (mine[:, :H], mine[:, H:], tgt_prev, pair_ok))
-        keys, so = torch.sort(
-            ga(torch.where(ok2, keys, KSENT_I)), stable=True)
-        d2 = ga(torch.cat([dist, dist], dim=1))[so]
-        s2_2 = ga(torch.cat([s2w, s1w], dim=1))[so]
-        s1_2 = ga(s1_2)[so]
-        f = lk.fold_sorted(keys, keys != KSENT_I, s1_2, GB, A)
-        va, in_new, in_id, out_id, live = (f.va, f.in_new, f.in_id,
-                                           f.out_id, f.live)
-        lean = (f.arc_vw, f.arc_s1, f.n_out, seg_tot, seg_ng)
-        cnt_in = seg_sum(va.to(I64), in_id, N)
-        ds_in = seg_sum(torch.where(va, d2.to(I64), 0), in_id, N)
-        dr_in = sf.plus499_trunc(ds_in, cnt_in.clamp(min=1))
-        s2_in = seg_max(torch.where(va, s2_2, 0), in_id, N)
-        tot_f = seg_sum(torch.where(in_new, cnt_in[in_id], 0).to(I32),
-                        out_id, N)
-        ds_f = seg_sum(torch.where(in_new, dr_in[in_id] * cnt_in[in_id], 0),
-                       out_id, N)
-        s2s_f = seg_sum(torch.where(in_new, s2_in[in_id].to(I64), 0),
-                        out_id, N)
-        arc_tot = torch.where(live, tot_f[:A], 0)
-        # exact output averages (graph.c:170-172) via softfloat
-        arc_ad = torch.where(live, sf.plus499_trunc(
-            torch.where(live, ds_f[:A], 0),
-            arc_tot.clamp(min=1).to(I64)), 0).to(I32)
-        arc_s2 = torch.where(live, plus499_i32(
-            torch.where(live, s2s_f[:A], 0), f.arc_ng.to(I64)), 0)
-        return lean + (f.arc_ng, arc_tot, arc_ad, arc_s2)
+        if full or not JB:
+            # co-sorted form: equal keys keep their row order. The full
+            # tail adds the output-only statistics (the reverse key's s2
+            # is the pair's s1) and reads no pair plane.
+            keys, so = torch.sort(
+                ga(torch.where(ok2, keys, KSENT_I)), stable=True)
+            stats = dict(full=(ga(torch.cat([s2w, s1w], dim=1)),
+                               ga(torch.cat([dist, dist], dim=1))),
+                         key="merge_fold_full") if full else {}
+            out = captured(lk.merge_fold, keys, ga(s1_2), jb=0, gb=GB, cap=A,
+                           perm=so, **stats)
+            if full:
+                return out[:3] + (seg_tot, seg_ng) + out[4:]
+            arc_vw, arc_s1, n_out, pair_arc = out
+        else:
+            # JB low bits of the lean sort key carry the global row index:
+            # the merge sorts one int64 tensor of distinct keys and the
+            # fold finds each row's origin in them
+            jo = (rank * NL
+                  + torch.arange(NL, dtype=I64, device=device)) \
+                .reshape(G, 2 * H)
+            kps = torch.sort(ga(torch.where(ok2, (keys << JB) | jo,
+                                            KSENT_I))).values
+            arc_vw, arc_s1, n_out, pair_arc = captured(
+                lk.merge_fold, kps, ga(s1_2), jb=JB, gb=GB, cap=A)
+        # each pair slot's arc row, this rank's window of the replicated
+        # plane
+        mine = pair_arc[rank * NL:(rank + 1) * NL].reshape(G, 2 * H)
+        tgt_prev = torch.gather(ordcm, 1, prevc)
+        return (arc_vw, arc_s1, n_out, seg_tot, seg_ng,
+                (mine[:, :H], mine[:, H:], tgt_prev, pair_ok))
 
     # ---- round state ----
     flt = cols["flt"]

@@ -437,13 +437,16 @@ def branch_table(rng, G, sizes, ratios=(), **kw):
     return out, groups
 
 
-def fold_inputs(rng, form, N, n_vw, n_g=8, p_valid=0.7, smax=1000):
+def fold_inputs(rng, form, N, n_vw, n_g=8, p_valid=0.7, smax=1000,
+                full=False, dist=(0, 1 << 20)):
     """Inputs of ops/loop_kernels.merge_fold as numpy arrays (keys, s1, jb,
     gb, perm) in the device loop's three call shapes: "jb" (each row's index
     in the low key bits, keys sorted alone), "cosorted" (keys sorted with a
     stable permutation), "exchange" (a received range: keys with origin
     bits, sorted with a permutation; s1 by received position). A row is
-    valid with probability p_valid; s1 in [0, smax)."""
+    valid with probability p_valid; s1 in [0, smax). With `full`, a sixth
+    item (s2, dist) for the full mode, by origin as s1: s2 in [0, smax),
+    dist int32 in [dist[0], dist[1])."""
     from .ops.loop_kernels import KSENT_I
     gb = max(int(n_g - 1).bit_length(), 1)
     vw = rng.integers(0, n_vw, N)
@@ -464,7 +467,11 @@ def fold_inputs(rng, form, N, n_vw, n_g=8, p_valid=0.7, smax=1000):
         k = np.where(valid, (key << jb) | rng.permutation(N), KSENT_I)
         perm = np.argsort(k, kind="stable")
         keys = k[perm]
-    return keys.astype(np.int64), s1, jb, gb, perm
+    out = (keys.astype(np.int64), s1, jb, gb, perm)
+    if full:
+        out += ((rng.integers(0, smax, N).astype(np.int32),
+                 rng.integers(dist[0], dist[1], N).astype(np.int32)),)
+    return out
 
 
 REPORT_TAG = "RANK_REPORT="

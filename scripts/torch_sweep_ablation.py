@@ -69,10 +69,12 @@ BATCHED_VARIANTS = {
 }
 
 
-def build_variants(sk, out_dir, variants):
-    """Build every variant at once; returns {name: (library path, ptxas
-    lines)}. Raises when a substitution finds no text or nvcc fails."""
-    with open(sk._SRC) as fp:
+def build_variants(src_path, out_dir, variants):
+    """Build every variant of the CUDA source `src_path` at once; returns
+    {name: (library path, ptxas lines)}. Raises when a substitution finds
+    no text or nvcc fails."""
+    from pangene_tpu_torch.ops.sweep_kernel import nvcc_command
+    with open(src_path) as fp:
         src = fp.read()
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
@@ -88,7 +90,7 @@ def build_variants(sk, out_dir, variants):
             fp.write(text)
         so = os.path.join(out_dir, "lib%s.so" % name)
         procs[name] = (so, subprocess.Popen(
-            sk.nvcc_command(cu, so), stdout=subprocess.PIPE,
+            nvcc_command(cu, so), stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True))
     built = {}
     for name, (so, p) in procs.items():
@@ -122,7 +124,7 @@ def main():
     print("card: %s" % smi, flush=True)
 
     t0 = time.monotonic()
-    built = build_variants(sk, os.path.join(ROOT, "build", "ablation"),
+    built = build_variants(sk._SRC, os.path.join(ROOT, "build", "ablation"),
                            BATCHED_VARIANTS if args.batched else VARIANTS)
     print("build: %d variants in %.1f s" % (len(built),
                                             time.monotonic() - t0))

@@ -19,6 +19,7 @@ from pangene_tpu_torch.ops import device_engine as de
 from pangene_tpu_torch.ops import loop_kernels as lk
 from pangene_tpu_torch.ops import sweep_kernel as sk
 from pangene_tpu_torch.parallel import stacked as st
+from pangene_tpu_torch.ops.loop_kernels import SENT_I
 from pangene_tpu_torch.testing import (BRANCH_B, EXACT_BRANCH_DIFFS,
                                        SWEEP_EDGE_CASES, band_genome,
                                        batch_cols, branch_table,
@@ -294,6 +295,7 @@ def test_mesh_two_ranks_share_the_card(cuda_device, tmp_path):
         assert rep["batched_launches"] > 0 and rep["plain_calls"] == 0
         ll = rep["loop_launches"]
         assert ll["branch_block"] == 0 and ll["merge_fold"] > 0
+        assert ll["merge_fold_full"] == 1
         assert ll["branch_locality"] == ll["branch_classify"] \
             == rep["LAST"]["rounds_branch_run"] > 0
 
@@ -420,47 +422,128 @@ def test_branch_block_kernel_edges(cuda_device, case):
     assert_branch_equal(got, want, split)
 
 
-def fold_both(keys, s1, jb, gb, cap, perm, device):
+def fold_both(keys, s1, jb, gb, cap, perm, device, full=None):
+    """merge_fold through its wrapper (the kernel, exactly one launch) and
+    its plain version on the same tensors on the card."""
     on = lambda x: None if x is None else torch.from_numpy(x).to(device)
     args = (on(keys), on(s1))
-    kw = dict(jb=jb, gb=gb, cap=cap, perm=on(perm))
-    before = lk.n_calls["merge_fold"]["kernel"]
+    kw = dict(jb=jb, gb=gb, cap=cap, perm=on(perm),
+              full=None if full is None else tuple(map(on, full)))
+    names = ("merge_fold", "merge_fold_full")
+    before = {k: dict(lk.n_calls[k]) for k in names}
     got = lk.merge_fold(*args, **kw)
+    after = {k: dict(lk.n_calls[k]) for k in names}
     want = lk.merge_fold_plain(*args, **kw)
     torch.cuda.synchronize()
-    assert lk.n_calls["merge_fold"]["kernel"] == before + 1
+    assert after["merge_fold"] == dict(
+        before["merge_fold"], kernel=before["merge_fold"]["kernel"] + 1)
+    assert after["merge_fold_full"] == dict(
+        before["merge_fold_full"], kernel=before["merge_fold_full"]["kernel"]
+        + (full is not None))
+    assert len(got) == len(want) == (4 if full is None else 8)
     return got, want
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("N,cap", [(3000, 3000), (3000, 100), (3000, 3077),
-                                   (600000, 400000)])
-@pytest.mark.parametrize("form", ["jb", "cosorted", "exchange"])
-def test_merge_fold_kernel_vs_plain(cuda_device, form, N, cap):
-    """cap below n_out (the overflow the loop falls back on), above N, and
-    more row blocks than the scan's threads."""
-    rng = np.random.default_rng(N + cap)
-    keys, s1, jb, gb, perm = fold_inputs(rng, form, N, n_vw=N // 8)
-    got, want = fold_both(keys, s1, jb, gb, cap, perm, cuda_device)
-    assert int(got[2]) > 0
+def assert_fold_equal(got, want):
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["all_sentinel", "one_row", "large_s1",
-                                  "one_group", "long_groups"])
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("N,cap", [(1000, 1000), (3000, 3000), (3000, 100),
+                                   (3000, 3077), (600000, 400000),
+                                   (1310720, 327680)])
 @pytest.mark.parametrize("form", ["jb", "cosorted", "exchange"])
-def test_merge_fold_kernel_edges(cuda_device, form, case):
+def test_merge_fold_kernel_vs_plain(cuda_device, form, N, cap, full):
+    """N below one tile (1,024 rows), not a multiple of the tile, and the
+    big loop's 1,310,720 keys; cap below n_out (the overflow the loop falls
+    back on) and above N; out-groups of ~8 rows, many crossing a tile's
+    end."""
+    rng = np.random.default_rng(N + cap)
+    keys, s1, jb, gb, perm, st = fold_inputs(rng, form, N, n_vw=N // 8,
+                                             full=True)
+    got, want = fold_both(keys, s1, jb, gb, cap, perm, cuda_device,
+                          st if full else None)
+    assert int(got[2]) > 0
+    assert_fold_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("case", ["all_sentinel", "one_row", "large_s1",
+                                  "one_group", "long_groups",
+                                  "tile_edge_groups", "every_row_one_group",
+                                  "dist_near_2_31", "dist_wrapped"])
+@pytest.mark.parametrize("form", ["jb", "cosorted", "exchange"])
+def test_merge_fold_kernel_edges(cuda_device, form, case, full):
+    """long_groups: out-groups of ~6,700 rows, each over several tiles;
+    tile_edge_groups: out-groups of ~1,020 rows (near one tile's 1,024),
+    nearly all crossing a tile's end, their in-groups of ~130 rows too;
+    every_row_one_group: one out-group of 40,000 rows over 20 tiles;
+    dist_near_2_31: sums near and past 2^31; dist_wrapped: int32 gaps of
+    either sign, sums below 0."""
     rng = np.random.default_rng(9)
-    N = {"one_row": 1, "long_groups": 20000}.get(case, 500)
-    kw = dict(n_vw={"one_group": 1, "long_groups": 3}.get(case, 60),
-              p_valid={"all_sentinel": 0.0, "one_row": 1.0}.get(case, 0.8),
-              smax=(1 << 31) - 1 if case == "large_s1" else 1000)
-    keys, s1, jb, gb, perm = fold_inputs(rng, form, N, **kw)
-    got, want = fold_both(keys, s1, jb, gb, 64, perm, cuda_device)
+    N = {"one_row": 1, "long_groups": 20000, "tile_edge_groups": 60000,
+         "every_row_one_group": 40000}.get(case, 500)
+    kw = dict(n_vw={"one_group": 1, "every_row_one_group": 1,
+                    "long_groups": 3, "tile_edge_groups": 47}.get(case, 60),
+              p_valid={"all_sentinel": 0.0, "one_row": 1.0,
+                       "every_row_one_group": 1.0}.get(case, 0.8),
+              smax=(1 << 31) - 1 if case == "large_s1" else 1000,
+              dist={"dist_near_2_31": ((1 << 30) - 50, (1 << 30) + 50),
+                    "dist_wrapped": (-(1 << 31), 1 << 31)}.get(
+                        case, (0, 1 << 20)))
+    if case.startswith("dist") or case == "tile_edge_groups":
+        kw["n_g"] = 2 if case.startswith("dist") else 8
+    keys, s1, jb, gb, perm, st = fold_inputs(rng, form, N, full=True, **kw)
+    got, want = fold_both(keys, s1, jb, gb, 64, perm, cuda_device,
+                          st if full else None)
+    assert_fold_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("sizes", ["random", "warp_edges", "past_D"])
+def test_branch_classify_kernel_vs_plain(cuda_device, sizes, aligned):
+    """branch_classify alone on groups of every size up to D = 64 (random),
+    groups crossing the warps' 128-arc boundaries (warp_edges), and groups
+    of 100-700 members over several warps (past_D, which the loop falls
+    back on); the bit planes as the mesh passes them (he the second row
+    of one [2, A] tensor, so unaligned unless A % 4 == 0) or fresh.
+    Exactly one launch a call."""
+    rng = np.random.default_rng(len(sizes) + aligned)
+    sz = {"random": list(rng.integers(1, 65, 3000)),
+          "warp_edges": [125, 3, 1, 126, 130, 2, 127, 129] * 40,
+          "past_D": list(rng.integers(100, 700, 60))}[sizes]
+    vw, s1 = [], []
+    for k, n in enumerate(sz):
+        vw += [(2 * k + 1) << BRANCH_B] * int(n)
+        mx = int(rng.integers(1, 3000))
+        s1 += list(rng.integers(0, mx + 1, int(n)))
+    vw = np.array(vw + [SENT_I] * 7, np.int64)
+    s1 = np.array(s1 + [0] * 7, np.int32)
+    if aligned:
+        vw, s1 = vw[:len(vw) // 4 * 4], s1[:len(s1) // 4 * 4]
+    A = len(vw)
+    assert (A % 4 == 0) == aligned
+    on = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)
+    gs_of, mx, branching, is_max = lk.arc_groups(on(vw), on(s1), BRANCH_B)
+    bits = torch.from_numpy(rng.random((2, A)) < 0.4).to(cuda_device)
+    aml, he = (bits[0].clone(), bits[1].clone()) if aligned else bits
+    cls = dict(zip(("branch_diff", "branch_diff_dist", "branch_diff_cut"),
+                   DIFFS["default"]))
+    args = (on(s1), mx, branching, aml, he, gs_of)
+    before = dict(lk.n_calls["branch_classify"])
+    got = lk.branch_classify(*args, **cls)
+    after = dict(lk.n_calls["branch_classify"])
+    want = lk.branch_classify_plain(*args, **cls)
+    torch.cuda.synchronize()
+    assert after == dict(before, kernel=before["kernel"] + 1)
+    assert int(want[1].sum()) > 0
     for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
         assert torch.equal(a, b)
 
 

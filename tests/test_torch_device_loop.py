@@ -418,8 +418,9 @@ def test_last_diagnostics(corpus):
 
 def test_host_syncs_one_a_round(corpus):
     """The branch block and the in-loop merge read nothing on the host (their
-    kernels' plain versions ran once per branch round and once per in-loop
-    merge): the one host read a round is the change bit."""
+    kernels' plain versions ran once per branch round, and once per in-loop
+    merge plus once for the full=True tail): the one host read a round is
+    the change bit."""
     from pangene_tpu_torch.ops import loop_kernels as lk
     lk.reset_counts()
     run_port(corpus)
@@ -427,12 +428,14 @@ def test_host_syncs_one_a_round(corpus):
     assert last["engaged"] is True
     assert last["host_syncs"] == last["rounds_total"] == 16
     assert last["loop_launches"] == {"branch_block": 0, "branch_locality": 0,
-                                     "branch_classify": 0, "merge_fold": 0}
+                                     "branch_classify": 0, "merge_fold": 0,
+                                     "merge_fold_full": 0}
     assert lk.n_calls == {
         "branch_block": {"kernel": 0, "plain": last["rounds_branch_run"]},
         "branch_locality": {"kernel": 0, "plain": 0},
         "branch_classify": {"kernel": 0, "plain": 0},
-        "merge_fold": {"kernel": 0, "plain": last["rounds_sweep_run"]}}
+        "merge_fold": {"kernel": 0, "plain": last["rounds_sweep_run"] + 1},
+        "merge_fold_full": {"kernel": 0, "plain": 1}}
     assert last["rounds_branch_run"] > 0
     lk.reset_counts()
 

@@ -16,11 +16,13 @@ on the CPU. Every output is an integer or a bit: tolerance 0 (exact).
                    the JAX package (pangene_tpu/ops/softfloat.py) is held
                    against the same doubles on the same ratios.
   merge_fold       a dict of out-groups (vw) of in-groups ((vw, g)) with
-                   their largest s1, in key order: the arc rows, n_out and
-                   each row's out-group rank, in the three call shapes of
-                   the loop (row index in the key's low bits; keys sorted
-                   with a permutation; the bucket exchange's received range,
-                   low bits and a permutation).
+                   their rows' s1 (s2, dist), in key order: the arc rows,
+                   n_out and each row's out-group rank, in the three call
+                   shapes of the loop (row index in the key's low bits; keys
+                   sorted with a permutation; the bucket exchange's received
+                   range, low bits and a permutation), and in the full mode
+                   the statistics of the loop's full=True tail, averages in
+                   Python doubles.
 
 The loop itself goes through these functions in
 tests/test_torch_device_loop.py and tests/test_torch_mesh.py, which hold its
@@ -281,80 +283,148 @@ def test_deficit_softfloat_equals_doubles():
 # merge_fold
 # ---------------------------------------------------------------------------
 
-def oracle_fold(keys, s1, jb, gb, cap, perm=None):
-    """Out-groups (vw) of in-groups ((vw, g)) with their largest s1, in key
-    order; each valid row's out-group rank at its origin."""
+def avg499(S, n):
+    """(int)((double)S / n + .499): Python's int / int is the correctly
+    rounded double quotient. Below 0 (a dist sum of int32 gaps that
+    wrapped) the value the plain version's softfloat gives there (see
+    test_plus499_below_zero)."""
+    if S < 0:
+        return ((S & 0x7ff) ^ 0x400) - 0x400 if n == 1 else 0
+    return int(S / n + 0.499)
+
+
+def oracle_fold(keys, s1, jb, gb, cap, perm=None, full=None):
+    """Out-groups (vw) of in-groups ((vw, g)) with their rows' (s1, s2,
+    dist), in key order: the arc rows with their largest-s1 average, n_out,
+    each valid row's out-group rank at its origin; with full = (s2, dist)
+    also each out-group's in-groups, rows, dist average (of the in-groups'
+    rounded averages times their rows) and largest-s2 average."""
     groups = {}
     rows = []
+    s2, dist = full if full is not None else (s1, np.zeros_like(s1))
     for i, k in enumerate(int(x) for x in keys):
         if k >> jb == KSENT >> jb:
             continue
         src = int(perm[i]) if perm is not None else k & ((1 << jb) - 1)
         vw = (k >> jb) >> gb
-        ins = groups.setdefault(vw, {})
-        ins[k >> jb] = max(ins.get(k >> jb, -1), int(s1[src]))
+        groups.setdefault(vw, {}).setdefault(k >> jb, []).append(
+            (int(s1[src]), int(s2[src]), int(dist[src])))
         rows.append((src, vw))
     rank = {vw: i for i, vw in enumerate(groups)}
     arc_vw = np.full(cap, SENT, np.int64)
-    arc_s1 = np.zeros(cap, np.int32)
+    stats = np.zeros((5, cap), np.int64)     # s1, ng, tot, ad, s2
     for vw, i in rank.items():
         if i < cap:
-            ins = groups[vw]
+            ins = list(groups[vw].values())
+            ng = len(ins)
+            tot = sum(len(r) for r in ins)
+            ad = sum(avg499(sum(x[2] for x in r), len(r)) * len(r)
+                     for r in ins)
             arc_vw[i] = vw
-            # (int)((double)s / ng + .499): Python's int / int is the
-            # correctly rounded double quotient
-            arc_s1[i] = int(sum(ins.values()) / len(ins) + 0.499)
+            stats[:, i] = (avg499(sum(max(x[0] for x in r) for r in ins), ng),
+                           ng, tot, avg499(ad, tot),
+                           avg499(sum(max(x[1] for x in r) for r in ins), ng))
+    stats = stats.astype(np.int32)    # the int32 planes wrap as the cast
     pair = np.zeros(len(keys), np.int32)
     for src, vw in rows:
         pair[src] = rank[vw]
-    return arc_vw, arc_s1, len(groups), pair
+    out = (arc_vw, stats[0], len(groups), pair)
+    return out if full is None else out + tuple(stats[1:])
 
 
-def run_fold(keys, s1, jb, gb, cap, perm):
-    out = lk.merge_fold(torch.from_numpy(keys), torch.from_numpy(s1), jb=jb,
-                        gb=gb, cap=cap,
-                        perm=None if perm is None else torch.from_numpy(perm))
-    arc_vw, arc_s1, n_out, pair = out
+def run_fold(keys, s1, jb, gb, cap, perm, full=None):
+    t = lambda x: None if x is None else torch.from_numpy(x)
+    out = lk.merge_fold(t(keys), t(s1), jb=jb, gb=gb, cap=cap, perm=t(perm),
+                        full=None if full is None else tuple(map(t, full)))
+    assert len(out) == (4 if full is None else 8)
+    arc_vw, arc_s1, n_out, pair = out[:4]
     assert (arc_vw.dtype, arc_s1.dtype, n_out.dtype, pair.dtype) == (
         torch.int64, torch.int32, torch.int64, torch.int32)
     assert n_out.shape == ()
-    return arc_vw.numpy(), arc_s1.numpy(), int(n_out), pair.numpy()
+    assert all(x.dtype == torch.int32 and x.shape == (cap,)
+               for x in out[4:])
+    return (arc_vw.numpy(), arc_s1.numpy(), int(n_out), pair.numpy()) \
+        + tuple(x.numpy() for x in out[4:])
 
 
+@pytest.mark.parametrize("full", [False, True])
 @pytest.mark.parametrize("cap", ["A", "small", "large"])
 @pytest.mark.parametrize("form", ["jb", "cosorted", "exchange"])
-def test_merge_fold_plain_equals_oracle(form, cap):
+def test_merge_fold_plain_equals_oracle(form, cap, full):
     """cap "small" leaves n_out > cap (the overflow the loop falls back on);
-    "large" is more rows than keys."""
+    "large" is more rows than keys; full adds the statistics."""
     rng = np.random.default_rng(["jb", "cosorted", "exchange"].index(form))
     N = 3000
-    keys, s1, jb, gb, perm = fold_inputs(rng, form, N, n_vw=400)
+    keys, s1, jb, gb, perm, st = fold_inputs(rng, form, N, n_vw=400,
+                                             full=True)
+    st = st if full else None
     c = {"A": N, "small": 100, "large": N + 77}[cap]
-    got = run_fold(keys, s1, jb, gb, c, perm)
-    want = oracle_fold(keys, s1, jb, gb, c, perm)
+    got = run_fold(keys, s1, jb, gb, c, perm, st)
+    want = oracle_fold(keys, s1, jb, gb, c, perm, st)
     assert got[2] == want[2] > 100
+    assert len(got) == len(want)
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
 
 
-@pytest.mark.parametrize("case", ["all_sentinel", "one_row", "large_s1",
-                                  "one_group"])
+FOLD_EDGES = ["all_sentinel", "one_row", "large_s1", "one_group",
+              "every_row_one_group", "dist_near_2_31", "dist_wrapped"]
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("case", FOLD_EDGES)
 @pytest.mark.parametrize("form", ["jb", "cosorted", "exchange"])
-def test_merge_fold_plain_edges(form, case):
+def test_merge_fold_plain_edges(form, case, full):
+    """large_s1: s1 and s2 up to 2^31 - 1; every_row_one_group: one
+    out-group holds every row; dist_near_2_31: gaps near 2^30, so in-group
+    and out-group dist sums near and past 2^31; dist_wrapped: int32 gaps of
+    either sign (gaps that wrapped), so sums below 0."""
     rng = np.random.default_rng(3)
     N = {"one_row": 1}.get(case, 500)
-    kw = dict(n_vw=1 if case == "one_group" else 60,
-              p_valid=0.0 if case == "all_sentinel" else 0.8,
-              smax=(1 << 31) - 1 if case == "large_s1" else 1000)
-    if case == "one_row":
-        kw["p_valid"] = 1.0
-    keys, s1, jb, gb, perm = fold_inputs(rng, form, N, **kw)
-    got = run_fold(keys, s1, jb, gb, 64, perm)
-    want = oracle_fold(keys, s1, jb, gb, 64, perm)
+    kw = dict(n_vw=1 if "one_group" in case else 60,
+              p_valid={"all_sentinel": 0.0, "one_row": 1.0,
+                       "every_row_one_group": 1.0}.get(case, 0.8),
+              smax=(1 << 31) - 1 if case == "large_s1" else 1000,
+              dist={"dist_near_2_31": ((1 << 30) - 50, (1 << 30) + 50),
+                    "dist_wrapped": (-(1 << 31), 1 << 31)}.get(
+                        case, (0, 1 << 20)))
+    if case in ("dist_near_2_31", "dist_wrapped"):
+        kw["n_g"] = 2       # in-groups of several rows
+    keys, s1, jb, gb, perm, st = fold_inputs(rng, form, N, full=True, **kw)
+    st = st if full else None
+    got = run_fold(keys, s1, jb, gb, 64, perm, st)
+    want = oracle_fold(keys, s1, jb, gb, 64, perm, st)
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
     if case == "all_sentinel":
         assert got[2] == 0 and (got[0] == SENT).all() and not got[3].any()
+        assert all(not x.any() for x in got[4:])
+    if case == "every_row_one_group":
+        assert got[2] == 1 and not got[3].any()
+        if full:
+            assert got[5][0] == N
+    if case == "large_s1" and full:
+        assert got[1].max() > (1 << 30) and got[7].max() > (1 << 30)
+
+
+def test_plus499_below_zero():
+    """softfloat's plus499_trunc, stated for S >= 0, below 0 (a dist sum
+    of int32 gaps that wrapped): the low 11 bits of S sign-extended for
+    n == 1, else 0, in the port and in the JAX package alike. The fold's
+    kernel (csrc/loop_blocks.cu plus499) and the oracle (avg499) follow it
+    there; the reference's double would give other values."""
+    rng = np.random.default_rng(12)
+    S = -np.concatenate([rng.integers(1, 1 << 11, 3000),
+                         rng.integers(1, 1 << 33, 3000),
+                         rng.integers(1, 1 << 52, 3000)]).astype(np.int64)
+    n = np.concatenate([np.ones(4500, np.int64),
+                        rng.integers(2, 1 << 31, 4500)])
+    want = np.array([avg499(int(a), int(b)) for a, b in zip(S, n)])
+    got = lk.sf.plus499_trunc(torch.from_numpy(S), torch.from_numpy(n))
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(np.asarray(jsf.plus499_trunc(jnp.asarray(S),
+                                                       jnp.asarray(n))), want)
+    assert (want[:4500] != 0).any() and not want[4500:].any()
 
 
 # ---------------------------------------------------------------------------
@@ -369,10 +439,14 @@ def test_wrappers_count_plain_calls_on_cpu():
     keys, s1, jb, gb, perm = fold_inputs(rng, "jb", 100, n_vw=10)
     run_fold(keys, s1, jb, gb, 50, perm)
     run_fold(keys, s1, jb, gb, 50, perm)
+    keys, s1, jb, gb, perm, st = fold_inputs(rng, "cosorted", 100, n_vw=10,
+                                             full=True)
+    run_fold(keys, s1, jb, gb, 50, perm, st)
     assert lk.n_calls == {"branch_block": {"kernel": 0, "plain": 0},
                           "branch_locality": {"kernel": 0, "plain": 1},
                           "branch_classify": {"kernel": 0, "plain": 0},
-                          "merge_fold": {"kernel": 0, "plain": 2}}
+                          "merge_fold": {"kernel": 0, "plain": 3},
+                          "merge_fold_full": {"kernel": 0, "plain": 1}}
     lk.reset_counts()
     assert all(v == 0 for c in lk.n_calls.values() for v in c.values())
 

@@ -311,6 +311,7 @@ def test_schedule_equals_jax_mesh(corpus, tmp_path, world):
         assert c["branch_block"]["plain"] == 0
         assert c["branch_locality"]["plain"] == c["branch_classify"][
             "plain"] == n_branch > 0
+        assert c["merge_fold_full"] == {"kernel": 0, "plain": 1}
 
 
 def test_schedule_overflow_alike(corpus, tmp_path):
