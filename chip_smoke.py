@@ -37,50 +37,65 @@ Phases (each one passes or raises, so any failure exits nonzero):
      larger than the out-groups, no valid row, out-groups over several
      tiles, dist sums past 2^31 and below 0), merge_fold lean and in its
      full mode (the full=True tail's statistics).
-  3. the main paths: the CLI on cuda over the small (32 genomes x 2,000
-     genes, seed 11) and the big (64 x 10,000, seed 7) synthetic corpora:
-     --engine device (one sweep launch per genome, host rounds; small corpus
-     only), --engine sharded (the device-resident pruning loop), and
-     --engine sharded with PANGENE_DEVICE_LOOP=0 (the per-round device
-     step), and --engine host (everything on the host in the native
-     runtime: no launch at all). Each GFA's md5 must be the reference
-     binary's. Launch counts and the native runtime's call counts are
-     zeroed before and read after each run: no plain call; the per-genome
-     kernel launched in both modes under --engine device and never under
-     sharded, whose single-genome sweeps run in C as in the JAX package;
-     the loop engaged and launched the batched kernel once per sweep round,
-     branch_block once per branch round and merge_fold once per in-loop
-     merge and once for the full=True tail (no other path launches those;
-     the mesh's split entries are not launched at one rank);
-     the per-round path launched it once per round (17), uploaded its
-     constant columns once, and the loop did not run; every path called the
-     native entries it must take (NATIVE_ENTRIES), so a run that quietly
-     fell back to NumPy fails. Each path prints its diagnostics
+  3. the main paths: the CLI on cuda over four synthetic corpora (CORPORA):
+     small (32 genomes x 2,000 genes, seed 11), the bacterial shape (150 x
+     4,000, seed 13, one isoform, every hit one exon, built with -J), the
+     north star (100 x 19,000, seed 42, 3,898,385 records) and big (64 x
+     10,000, seed 7), in that order. Each corpus is drawn in a process of
+     its own, all started with the run and cached under build/chip_smoke/;
+     each draw's seconds are logged. Once its draw has ended, each corpus
+     takes its in-process runs (IN_PROCESS): small's and bact's, then the
+     genome mesh (3e), beside the north star's draw (BESIDE_DRAW); then the
+     north star's and big's, then every corpus's builds in processes of
+     their own (3c), so no draw runs beside those. In process: --engine device
+     (one sweep launch per genome, host rounds; small and bact), --engine
+     sharded (the device-resident pruning loop; big and northstar, whose
+     device tensors phase 4 reads), --engine sharded with
+     PANGENE_DEVICE_LOOP=0 (the per-round device step; bact and big) and a
+     forced loop fallback (PANGENE_DEVLOOP_MAX_A=1; bact).
+     Each GFA's md5 must be the reference binary's (bact: pangene_tpu's
+     --engine host -J GFA of that draw). Launch counts and the native
+     runtime's call counts are zeroed before and read after each run: no
+     plain call; the per-genome kernel launched in both modes under
+     --engine device and never under sharded, whose single-genome sweeps
+     run in C as in the JAX package; the loop engaged and launched the
+     batched kernel once per sweep round, branch_block once per branch
+     round and merge_fold once per in-loop merge and once for the full=True
+     tail (no other path launches those; the mesh's split entries are not
+     launched at one rank); the per-round path launched it once per round
+     (17), uploaded its constant columns once, and the loop did not run; a
+     fallback reported engaged false and ran 16 rounds; every path called
+     the native entries it must take (NATIVE_ENTRIES), so a run that
+     quietly fell back to NumPy fails. Each path prints its diagnostics
      (device_loop.LAST, stacked.LAST, the native call counts, the host
      rounds' split rounds_branch_host_s / rounds_gen_arc_s, peak device
-     memory). After each
-     corpus, the protein-keyed reductions on the card
-     (stacked.post_reductions_sharded) against the host loops of
-     ops/pseudo.py. Then the small corpus once more with the loop forced to
-     fall back (PANGENE_DEVLOOP_MAX_A=1): it must report engaged false and
-     the per-round path must have run its 16 rounds.
-  3b. one --profile run (--engine sharded, big corpus): the chrome trace
-     exists; from its device events, the device's busy seconds, the build
-     wall, the idle share and the five device operations with most time.
+     memory). After each per-round run, the protein-keyed reductions on
+     the card (stacked.post_reductions_sharded) against the host loops of
+     ops/pseudo.py.
   3c. the builds as a user runs them, each in a process of its own that
      imports no torch before the build (BUILD_SCRIPT): the default engine
-     and --engine host on each corpus, and the last corpus with --profile
-     (the idle share of a user's traced build). Each GFA's md5; the wall
-     measured outside the process, its parse_s beside the in-process
-     parse_s of the same path, and the parse pool's start method ("fork"
-     unless CUDA was initialised before parsing). Before them, the start
-     of a card engine's process, timed from inside (CUDA_START_PROBE).
+     and --engine host on each corpus, and after the last corpus big with
+     --profile (the idle share of a user's traced build, the five device
+     operations with most time). Each GFA's md5; the wall measured outside
+     the process, split into the script's import, cli.main outside the
+     stages (a card engine's torch import) and the interpreter's start and
+     exit; its parse_s beside the in-process parse_s of the same path, and
+     the parse pool's start method ("fork" unless CUDA was initialised
+     before parsing); no draw may still run beside it. Each process
+     reports the path it took, held as in phase 3: a default build engaged
+     the loop (its shape, cold run_s, host_syncs, block_ms and peak device
+     memory are printed) and launched its kernels as the in-process loop
+     does, with no plain call; a host build never imported torch and called
+     the host's native entries. Before the first, the start of a card
+     engine's process, timed from inside (CUDA_START_PROBE).
   3d. the toolkit on the card's host: `call` and `gfa2matrix` of
-     python -m pangene_tpu_torch.tools.cli on the GFA of the last corpus
+     python -m pangene_tpu_torch.tools.cli on the GFA of the big corpus
      built by the default engine, each output's md5 against TOOL_MD5 (the
      JAX package's toolkit on the same GFA), each wall; and `call` on
      tests/golden/C4.gfa against tests/golden/bubble/C4.call.txt.
-  3e. the genome mesh (parallel/mesh.py), each run through the CLI in
+  3e. (run before the north star's in-process run, beside its draw) the
+     genome mesh (parallel/mesh.py) on the small and big corpora, each
+     run through the CLI in
      processes of its own, one per rank (testing.run_ranks, as torchrun
      starts them; every rank reports the md5 of the GFA it built, its
      device_loop.LAST, the mesh's collectives and staged bytes, its batched
@@ -113,14 +128,16 @@ Phases (each one passes or raises, so any failure exits nonzero):
      the big loop's columns) against its plain version, and timed.
      Then (4d) branch_block, merge_fold (lean: the first in-loop merge) and
      merge_fold's full mode (the full=True tail) on the arguments of their
-     first call in the big default loop (captured through schedule_device's
-     `capture`), and the mesh's branch_locality and branch_classify on the
-     same arc table (its groups by loop_kernels.arc_groups): kernel ==
-     plain exactly, device time from 200 launches in one CUDA graph, the
-     plain version's time, the bound.
+     first call in the default loop of the big corpus and of the north
+     star (captured through schedule_device's `capture`), and the mesh's
+     branch_locality and branch_classify on the same arc tables (their
+     groups by loop_kernels.arc_groups); the batched entry on the north
+     star loop's columns: kernel == plain exactly, device time from 200
+     launches in one CUDA graph, the plain version's time, the bound.
 
-``--corpora small`` leaves the big corpus and what needs it out, for a short
-first run of new code; such a run prints no result line.
+``--corpora NAME[,NAME]`` runs only those corpora and what needs them, for
+a short first run of new code (``--corpora small`` takes about two
+minutes); such a run prints no result line.
 
 Before the last line it prints the nvidia-smi line and one JSON line with a
 record per kernel; the last line is {"ok": true, "device": {...}}. Without
@@ -137,16 +154,68 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
-CORPORA = {  # name: (n_genome, n_gene, seed, md5 of the reference's GFA)
-    "small": (32, 2000, 11, "4e077812357fa691683bea45c7831a8c"),
-    "big": (64, 10000, 7, "b988fc85e7633316be354ab315a0449c"),
+
+
+class Corpus(NamedTuple):
+    """A synthetic corpus (testing.synth_paf_files' draw), the extra CLI
+    arguments every build of it takes, and the md5 of the GFA it must
+    give."""
+    n_genome: int
+    n_gene: int
+    seed: int
+    n_iso: int
+    single_exon: bool
+    args: tuple
+    md5: str
+
+
+CORPORA = {
+    # bench.py's corpora; md5 of the reference binary's GFA
+    "small": Corpus(32, 2000, 11, 3, False, (),
+                    "4e077812357fa691683bea45c7831a8c"),
+    "big": Corpus(64, 10000, 7, 3, False, (),
+                  "b988fc85e7633316be354ab315a0449c"),
+    # the north star of ROADMAP.md, 3,898,385 records; md5 as pinned in
+    # NORTHSTAR_MESH_northstar.json and scripts/tpu_gate.py
+    "northstar": Corpus(100, 19000, 42, 3, False, (),
+                        "9eccc87817f4450bab1ae54a0dac331a"),
+    # the bacterial shape of BASELINE.md, 615,492 single-exon records; md5
+    # of `python -m pangene_tpu.cli --engine host -J` on this draw (the
+    # same bytes without -J)
+    "bact": Corpus(150, 4000, 13, 1, True, ("-J",),
+                   "e8fa0e27654ad10c96d1e79a1701018b"),
 }
+# The in-process runs of phase 3 on each corpus, in the order the corpora
+# are taken. A default build of each corpus in its own process (phase 3c)
+# checks the loop's path as the in-process sharded runs do; those stay only
+# where phase 4 reads their device tensors (big, northstar).
+IN_PROCESS = {"small": ("device",),
+              "bact": ("device", "rounds", "fallback"),
+              "northstar": ("sharded",),
+              "big": ("sharded", "rounds")}
+# The north star's draw takes longest. Beside it run the in-process runs of
+# these corpora (their records list the draws still running) and then the
+# genome mesh (phase 3e) on MESH_CORPORA; the other in-process runs and
+# every build in a process of its own (3c) run once no draw runs.
+BESIDE_DRAW = ("small", "bact")
+# seconds a corpus's draw may take from when the run waits for it: about
+# twice the north star's (212-261 s on an H100 machine's host)
+DRAW_TIMEOUT = 600
+# A corpus's draw in a process of its own: the output directory and the
+# draw's keywords as JSON; prints the draw's seconds.
+DRAW_SCRIPT = (
+    "import json, sys, time\n"
+    "from pangene_tpu_torch.testing import synth_paf_files\n"
+    "t0 = time.monotonic()\n"
+    "synth_paf_files(sys.argv[1], **json.loads(sys.argv[2]))\n"
+    "print(round(time.monotonic() - t0, 3))\n")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 # Integer peak: the sweep's work is INT32 / INT64 compares, adds and
 # min/max. Hopper has 64 INT32 lanes per SM (against 128 FP32 lanes), so the
@@ -182,20 +251,47 @@ NATIVE_ENTRIES = {
 }
 # A build as a user runs it, in a process of its own whose __main__
 # imports no torch before the build: the CLI's arguments, the GFA on
-# stdout, util.stage_stats as one JSON line on stderr, and when the build
-# ran the device loop (the loop's first run in a process: cold) its run_s,
-# host_syncs and block_ms.
-BUILD_SCRIPT = (
-    "import json, sys\n"
-    "from pangene_tpu_torch import cli, util\n"
-    "rc = cli.main(sys.argv[1:])\n"
-    "st = dict(util.stage_stats)\n"
-    "dl = sys.modules.get('pangene_tpu_torch.parallel.device_loop')\n"
-    "if dl is not None and dl.LAST.get('engaged'):\n"
-    "    st['loop'] = {k: dl.LAST.get(k) for k in "
-    "('run_s', 'host_syncs', 'block_ms')}\n"
-    "sys.stderr.write('STAGES=' + json.dumps(st) + '\\n')\n"
-    "sys.exit(rc)\n")
+# stdout, and on stderr one JSON line with util.stage_stats and the path the
+# build took: whether it imported torch or initialised CUDA, the peak device
+# bytes, the native runtime's calls, the kernels' launches and plain calls,
+# and when the device loop ran (the loop's first run in a process: cold)
+# its LAST.
+BUILD_SCRIPT = """\
+import json, sys, time
+t0 = time.monotonic()
+from pangene_tpu_torch import cli, util
+t1 = time.monotonic()
+rc = cli.main(sys.argv[1:])
+t2 = time.monotonic()
+st = dict(util.stage_stats)
+st["import_s"] = round(t1 - t0, 3)
+st["main_s"] = round(t2 - t1, 3)
+m = sys.modules
+torch = m.get("torch")
+st["torch_imported"] = torch is not None
+st["cuda_initialized"] = bool(torch and torch.cuda.is_initialized())
+if st["cuda_initialized"]:
+    st["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+sn = m.get("pangene_tpu_torch.ops.sweep_native")
+if sn is not None:
+    st["native_calls"] = {k: v for k, v in sn.n_calls.items() if v}
+sk = m.get("pangene_tpu_torch.ops.sweep_kernel")
+lk = m.get("pangene_tpu_torch.ops.loop_kernels")
+if sk is not None and lk is not None:
+    st["launches"] = {
+        "per_genome": sum(sk.n_kernel_launches.values()),
+        "batched": sk.n_batched["kernel"],
+        "loop": {k: c["kernel"] for k, c in lk.n_calls.items()},
+        "plain": (sum(sk.n_plain_calls.values()) + sk.n_batched["plain"]
+                  + sum(c["plain"] for c in lk.n_calls.values()))}
+dl = m.get("pangene_tpu_torch.parallel.device_loop")
+if dl is not None and dl.LAST:
+    st["loop"] = {k: dl.LAST.get(k) for k in (
+        "engaged", "reason", "shape", "run_s", "host_syncs", "block_ms",
+        "rounds_branch_run", "rounds_sweep_run", "rounds_total")}
+sys.stderr.write("STAGES=" + json.dumps(st) + "\\n")
+sys.exit(rc)
+"""
 # The start of a card engine's process, timed from inside it.
 CUDA_START_PROBE = (
     "import json, time\n"
@@ -225,6 +321,7 @@ MESH_RUNS = (
     ("big_w1_nccl", "big", 1, "torchrun", {}),
 )
 MESH_TIMEOUT = 300          # seconds, each rank of a mesh run
+MESH_CORPORA = tuple(sorted({run[1] for run in MESH_RUNS}))
 # md5 of the toolkit's output on each corpus's GFA (the GFA of md5
 # CORPORA[name][3]), from the JAX package's toolkit (pangene_tpu.tools.cli)
 # on that GFA as the JAX package's --engine host builds it
@@ -411,19 +508,22 @@ def locality_bound_ms(args, kw, aml, he):
 
 
 def fold_bound_ms(args, kw):
-    """Least time of one merge_fold call: the sorted int64 keys (and the
-    permutation, when given) read once, each valid row's s1 read once, the
-    int32 pair plane and the [cap] arc rows (8 + 4 bytes) and n_out written
-    once; in the full mode each valid row's s2 and dist (4 + 4) more read
-    and four int32 planes of [cap] (16 bytes a row) more written; over the
-    memory rate (its few integer operations a row are far below the bytes'
+    """Least time of one merge_fold call: the valid rows' sorted int64 keys
+    (and permutation entries, when given) read once, with the reads of a
+    binary search for where the valid rows end (invalid keys sort last and
+    their pair slots read 0), each valid row's s1 read once, the int32 pair
+    plane and the [cap] arc rows (8 + 4 bytes) and n_out written once; in
+    the full mode each valid row's s2 and dist (4 + 4) more read and four
+    int32 planes of [cap] (16 bytes a row) more written; over the memory
+    rate (its few integer operations a row are far below the bytes'
     time)."""
     keys, _ = args
     N = keys.shape[0]
     jb = kw["jb"]
     full = kw.get("full") is not None
     n_valid = int(((keys >> jb) != ((1 << 62) >> jb)).sum())
-    nbytes = (8 * N * (2 if kw.get("perm") is not None else 1)
+    nbytes = (8 * n_valid * (2 if kw.get("perm") is not None else 1)
+              + 8 * max(N, 1).bit_length()
               + (12 if full else 4) * n_valid + 4 * N
               + (28 if full else 12) * kw["cap"] + 8)
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes, n_valid
@@ -633,6 +733,62 @@ def loop_block_bounds(shape, calls):
             for b, (r, a, sg) in LOOP_BLOCK_BYTES.items()}
 
 
+def batched_on_loop(sk, dl, k, label):
+    """The batched entry on a loop run's device-resident columns (`k`: the
+    blocks, cfg and outputs kept from its schedule_device call), in the
+    entry state (no kept row filtered) and the loop's final state: kernel
+    == plain, device time, the plain version's time, the bound. Returns
+    the kernel record's fields: ms, plain_ms, plain_round_ms, bound_ms,
+    bound_by of the entry state, ms_final."""
+    cfg = k["cfg"]
+    cols, bc = dl.unpack_blocks(*k["blocks"])
+    G, H = bc.cid.shape
+    rec = {}
+    for state, flt, weak in (
+            ("entry", cols["flt"].contiguous(), cols["weak_br"].contiguous()),
+            ("final", k["outs"][0].contiguous(), k["outs"][1].contiguous())):
+        got = sk.shadow_sweep_batched(bc, flt, weak, cfg.W, cfg.check_strand,
+                                      cfg.min_ov_ratio)
+        geo = {}
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        want = sk.shadow_sweep_batched_plain(
+            bc, flt, weak, cfg.W, cfg.check_strand, cfg.min_ov_ratio, geo)
+        torch.cuda.synchronize()
+        plain_first_ms = 1e3 * (time.monotonic() - t0)
+        for a, b in zip(got, want):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError("batched kernel != plain on the %s "
+                                     "run's columns (%s state)"
+                                     % (label, state))
+
+        def kernel():
+            sk.shadow_sweep_batched(bc, flt, weak, cfg.W, cfg.check_strand,
+                                    cfg.min_ov_ratio)
+        ms = graph_ms(kernel, TIMED_LAUNCHES)
+        eager_ms = stream_ms(kernel, TIMED_LAUNCHES)
+        # the plain version's round pass alone (its planes are in `geo`)
+        plain_round_ms = stream_ms(lambda: sk.shadow_sweep_batched_plain(
+            bc, flt, weak, cfg.W, cfg.check_strand, cfg.min_ov_ratio, geo), 5)
+        b_ms, b_by, ops, nbytes = bound_batched_ms(bc, flt, cfg.W,
+                                                   cfg.check_strand)
+        log("BATCHED %s %s: G %d H %d rows %d W %d launch %s ms %.5f (eager "
+            "back-to-back %.5f) plain_ms %.3f (geometry pass + round pass; "
+            "round pass alone %.3f) bound_ms %.6f (%s; %d ops, %d bytes) "
+            "marked %d; kernel == plain" % (
+                label, state, G, H, int(bc.n_rows.sum()), cfg.W,
+                json.dumps(sk.launch_shape_batched(G, H, cfg.W)), ms,
+                eager_ms, plain_first_ms, plain_round_ms, b_ms, b_by, ops,
+                nbytes, int(got[0].sum())))
+        if state == "entry":
+            rec.update(ms=ms, plain_ms=plain_first_ms,
+                       plain_round_ms=plain_round_ms, bound_ms=b_ms,
+                       bound_by=b_by)
+        else:
+            rec["ms_final"] = ms
+    return rec
+
+
 def compare_step(stk, sk, genomes, dev, check_strand, use_ori, f):
     """The per-round step on the card (one launch of the batched kernel, at
     filtered rows in place, weak_br set, one band over all rows) against
@@ -713,12 +869,13 @@ def mesh_phase(corpora):
     for key, name, world, how, extra in MESH_RUNS:
         if name not in corpora:
             continue
-        want = CORPORA[name][3]
+        want = CORPORA[name].md5
         env = dict(os.environ, **extra)
         if how != "torchrun":
             env[SHARE_DEVICE_ENV] = "1"
         args = ["--engine", "sharded", "--devices", str(world),
-                "-v", "3" if how == "cli" else "1"] + corpora[name]
+                "-v", "3" if how == "cli" else "1"] + list(
+                    CORPORA[name].args) + corpora[name]
         t0 = time.monotonic()
         if how == "share":
             reports = run_ranks(world, args, env=env, timeout=MESH_TIMEOUT,
@@ -809,19 +966,51 @@ def mesh_phase(corpora):
     return runs, launches, loop_launches
 
 
-def make_corpus(name):
-    from pangene_tpu_torch.testing import synth_paf_files
-    n_genome, n_gene, seed, _ = CORPORA[name]
-    out = os.path.join(ROOT, "build", "chip_smoke",
-                       "synth_%d_%d_%d" % (n_genome, n_gene, seed))
-    done = os.path.join(out, "done")
-    if not os.path.exists(done):
-        synth_paf_files(out, n_genome=n_genome, n_gene=n_gene, n_iso=3,
-                        seed=seed)
-        with open(done, "w") as fp:
+def corpus_dir(name):
+    c = CORPORA[name]
+    tag = "synth_%d_%d_%d" % (c.n_genome, c.n_gene, c.seed)
+    if (c.n_iso, c.single_exon) != (3, False):
+        tag += "_iso%d%s" % (c.n_iso, "_single_exon" if c.single_exon else "")
+    return os.path.join(ROOT, "build", "chip_smoke", tag)
+
+
+def start_draw(name):
+    """The draw of corpus `name` (DRAW_SCRIPT) in a process of its own, in
+    a session of its own; None when build/chip_smoke holds it already."""
+    out = corpus_dir(name)
+    if os.path.exists(os.path.join(out, "done")):
+        return None
+    c = CORPORA[name]
+    kw = dict(n_genome=c.n_genome, n_gene=c.n_gene, seed=c.seed,
+              n_iso=c.n_iso, single_exon=c.single_exon)
+    return subprocess.Popen(
+        [sys.executable, "-c", DRAW_SCRIPT, out, json.dumps(kw)], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+
+
+def make_corpus(name, draw):
+    """The PAF files of corpus `name` once its draw (start_draw's process,
+    or None) has ended; returns (files, the draw's seconds or None when it
+    was cached, the seconds waited here)."""
+    out = corpus_dir(name)
+    t0 = time.monotonic()
+    draw_s = None
+    if draw is not None:
+        try:
+            stdout, stderr = draw.communicate(timeout=DRAW_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            raise AssertionError("corpus %s: no draw within %d s"
+                                 % (name, DRAW_TIMEOUT))
+        if draw.returncode:
+            raise AssertionError("corpus %s: the draw exited %d: %s" % (
+                name, draw.returncode, stderr[-2000:]))
+        draw_s = float(stdout.split()[-1])
+        with open(os.path.join(out, "done"), "w") as fp:
             fp.write("ok\n")
-    return sorted(os.path.join(out, f) for f in os.listdir(out)
-                  if f.endswith(".paf.gz"))
+    files = sorted(os.path.join(out, f) for f in os.listdir(out)
+                   if f.endswith(".paf.gz"))
+    return files, draw_s, time.monotonic() - t0
 
 
 def run_cli(files, engine="device", args=()):
@@ -850,10 +1039,30 @@ def main():
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device\n")
         return 2
-    names = ("small", "big")
+    names = tuple(IN_PROCESS)
     if sys.argv[1:2] == ["--corpora"]:
-        names = tuple(sys.argv[2].split(","))
+        names = tuple(n for n in IN_PROCESS if n in sys.argv[2].split(","))
+        if set(sys.argv[2].split(",")) - set(names):
+            sys.stderr.write("chip_smoke: corpora are %s\n"
+                             % ",".join(IN_PROCESS))
+            return 2
     sys.path.insert(0, ROOT)
+    import pangene_tpu_torch.testing  # noqa: F401  (raises outside a checkout)
+    # every corpus is drawn in a process of its own, all at once, while the
+    # kernels build and the earlier phases run
+    draws = {name: start_draw(name) for name in names}
+    try:
+        return smoke(names, draws)
+    finally:
+        for p in draws.values():
+            if p is not None and p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+
+
+def smoke(names, draws):
+    """Phases 1-4 over the corpora `names` (module docstring); `draws`: the
+    corpora's draw processes (start_draw)."""
     from pangene_tpu_torch import pipeline, util
     from pangene_tpu_torch.options import PgOpt
     from pangene_tpu_torch.ops import device_engine as de
@@ -1092,24 +1301,31 @@ def main():
     batched_launches = 0
     loop_launches = {k: 0 for k in LOOP_KERNELS}
     runs = {}
-    # the loop's device tensors of the last sharded run, for phase 4
+    # the loop's device tensors of each corpus's sharded run, for phase 4
     kept = {}
     schedule_device = dl.schedule_device
+    driving = None
 
     def keep_schedule(*a, **kw):
         capture = {}
         outs = schedule_device(*a, capture=capture, **kw)
-        kept.update(blocks=a[:5], cfg=kw["cfg"], outs=outs, capture=capture)
+        kept[driving] = dict(blocks=a[:5], cfg=kw["cfg"], outs=outs,
+                             capture=capture)
         return outs
 
     dl.schedule_device = keep_schedule
 
-    def drive(key, name, engine, path, env=None, args=()):
+    def draws_running():
+        return [n for n, p in draws.items() if p is not None
+                and p.poll() is None]
+
+    def drive(key, name, engine, path, env=None):
         """One run of the CLI on cuda over corpus `name`, every count zeroed
         just before and read just after; checks the md5, that no plain
         version ran and that the native entries of `path`
         (NATIVE_ENTRIES) were called; returns (record, final graph)."""
-        nonlocal batched_launches
+        nonlocal batched_launches, driving
+        driving = name
         env = env or {}
         old = {k: os.environ.get(k) for k in env}
         os.environ.update(env)
@@ -1119,12 +1335,12 @@ def main():
         sn.reset_counts()
         dl.LAST.clear()
         stk.LAST.clear()
+        running = draws_running()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        mem0 = torch.cuda.memory_allocated()
         t0 = time.monotonic()
         try:
-            gfa, graph = run_cli(corpora[name], engine, args)
+            gfa, graph = run_cli(corpora[name], engine, CORPORA[name].args)
         finally:
             for k, v in old.items():
                 if v is None:
@@ -1152,7 +1368,7 @@ def main():
                             + sum(c["plain"] for c in lk.n_calls.values())),
             "native_calls": native,
             "peak_device_bytes": torch.cuda.max_memory_allocated(),
-            "env": env}
+            "env": env, "draws_running": running}
         if dl.LAST:
             rec["host_syncs_a_round"] = round(
                 dl.LAST.get("host_syncs", 0)
@@ -1162,9 +1378,9 @@ def main():
             rec["rounds_LAST"] = dict(stk.LAST)
         runs[key] = rec
         log("e2e %s: %s" % (key, json.dumps(rec)))
-        if rec["md5"] != CORPORA[name][3]:
+        if rec["md5"] != CORPORA[name].md5:
             raise AssertionError("%s: GFA md5 %s != %s"
-                                 % (key, rec["md5"], CORPORA[name][3]))
+                                 % (key, rec["md5"], CORPORA[name].md5))
         if rec["plain_calls"]:
             raise AssertionError("%s: plain calls on the card path: %s %s %s"
                                  % (key, plain, batched, lk.n_calls))
@@ -1187,14 +1403,6 @@ def main():
                 "%s graph_s %s" % (key, rec["stages"]["rounds_branch_host_s"],
                                    rec["stages"]["rounds_gen_arc_s"],
                                    rec["stages"]["graph_s"]))
-        if path == "host":
-            if sum(counts.values()) or batched["kernel"] or \
-                    rec["peak_device_bytes"] > mem0:
-                raise AssertionError("%s: the host engine used the card: %s "
-                                     "%s, peak bytes %d over %d" % (
-                                         key, counts, batched,
-                                         rec["peak_device_bytes"], mem0))
-            return rec, graph
         if path == "device":
             # the port of the JAX package's "jax" engine: every
             # single-genome sweep on the kernel, none in C
@@ -1228,129 +1436,129 @@ def main():
             raise AssertionError("%s: constant columns uploaded %d times"
                                  % (key, last["const_uploads"]))
 
-    corpora = {}
-    gen_s = {}
-    graph = rounds_graph = None
     opt_cuda = PgOpt(device=DEVICE)
     n_rounds = 2 + opt_cuda.n_branch_flt
-    for name in names:
-        t0 = time.monotonic()
-        corpora[name] = make_corpus(name)
-        gen_s[name] = round(time.monotonic() - t0, 3)
-        log("corpus %s: %.3f s" % (name, gen_s[name]))
-        if name == "small":
+
+    def run_path(name, path):
+        """The in-process run of `path` (IN_PROCESS) on corpus `name`, with
+        that path's checks; returns its final graph."""
+        key = "%s_%s" % (name, path)
+        if path == "device":
             # the per-genome engine: host rounds, one launch a sweep
-            rec, _ = drive(name, name, "device", "device")
+            rec, graph = drive(key, name, "device", "device")
             if rec["batched_launches"] or "LAST" in rec or \
                     "rounds_LAST" in rec:
-                raise AssertionError("the per-genome path ran a batched "
-                                     "sweep")
-
-        # the device-resident loop
-        key = name + "_sharded"
-        rec, graph = drive(key, name, "sharded", "sharded")
-        last = rec.get("LAST", {})
-        if last.get("engaged") is not True:
-            raise AssertionError("the device loop did not engage: %s" % last)
-        if rec["batched_launches"] == 0 or \
-                rec["batched_launches"] != last["rounds_sweep_run"] or \
-                rec["batched_launches"] != last["sweep_launches"]:
-            raise AssertionError("batched launches %d != sweep rounds run %d"
-                                 % (rec["batched_launches"],
-                                    last["rounds_sweep_run"]))
-        if "rounds_LAST" in rec:
-            raise AssertionError("the per-round path ran beside the loop")
-
-        # the per-round device step in place of the loop
-        key = name + "_rounds"
-        rec, rounds_graph = drive(key, name, "sharded", "rounds",
-                                  env={"PANGENE_DEVICE_LOOP": "0"})
-        if "LAST" in rec:
-            raise AssertionError("the device loop ran with "
-                                 "PANGENE_DEVICE_LOOP=0")
-        check_rounds(key, rec, n_rounds)
-
-        # the protein-keyed reductions on the card against the host loops
-        card_s, host_s = compare_reductions(stk, opt_cuda, rounds_graph.d)
-        red_ms, red_bytes = reduction_bound_ms(rounds_graph.d)
-        runs[key]["reductions_s"] = {"card": round(card_s, 4),
-                                     "host_loops": round(host_s, 4),
-                                     "bound_ms": red_ms}
-        log("reductions %s: post_reductions_sharded == host loops (%d "
-            "proteins); card %.4f s (stacking, upload, 7 reductions, one "
-            "pull), host loops %.4f s; reduction_step bound %.6f ms (%d "
-            "bytes)" % (name, rounds_graph.d.n_prot, card_s, host_s, red_ms,
-                        red_bytes))
-
-        # every stage on the host, in the native runtime
-        drive(name + "_host", name, "host", "host")
-
-    # the fallback a user gets: the loop refuses the graph after phase 1 (an
-    # arc table of one slot) and the host rounds take the per-round step
-    rec, _ = drive("small_fallback", "small", "sharded", "fallback",
-                   env={"PANGENE_DEVLOOP_MAX_A": "1"})
-    if rec.get("LAST", {}).get("engaged") is not False:
-        raise AssertionError("the loop did not report a fallback: %s"
-                             % rec.get("LAST"))
-    check_rounds("small_fallback", rec, n_rounds - 1)
-
-    # 3b. one traced run: the device's busy time from the profiler's events
-    prof_name = names[-1]
-    prof_dir = os.path.join(ROOT, "build", "chip_smoke", "profile")
-    rec, _ = drive(prof_name + "_profile", prof_name, "sharded", "sharded",
-                   args=("--profile", prof_dir))
-    trace = os.path.join(prof_dir, pipeline.TRACE_NAME)
-    trace_bytes = os.path.getsize(trace)
-    summary = util.trace_device_summary(trace)
-    if summary["n_events"] == 0 or summary["busy_s"] <= 0:
-        raise AssertionError("the trace holds no device event: %s" % summary)
-    # the build is the traced stages; writing the trace comes after them
-    build_s = sum(rec["stages"][k] for k in ("parse_s", "post_s", "graph_s",
-                                             "emit_s"))
-    idle = 1.0 - summary["busy_s"] / build_s
-    runs[prof_name + "_profile"].update(
-        trace_bytes=trace_bytes, device_busy_s=round(summary["busy_s"], 6),
-        device_events=summary["n_events"], build_s=round(build_s, 3),
-        idle_share=round(idle, 6))
-    log("profile (%s corpus, --engine sharded): trace %d bytes, %d device "
-        "events, device busy %.6f s of a %.3f s build (%.3f s with the "
-        "trace's export): idle share %.4f%%"
-        % (prof_name, trace_bytes, summary["n_events"], summary["busy_s"],
-           build_s, rec["wall_s"], 100 * idle))
-    for op, secs, n in summary["top"]:
-        log("  device op %.6f s in %d calls: %s" % (secs, n, op[:100]))
-    os.remove(trace)
-    dispatch.shadow, dispatch.flt_ov_isoform = untimed
-    dl.schedule_device = schedule_device
+                raise AssertionError("%s: the per-genome path ran a batched "
+                                     "sweep" % key)
+        elif path == "sharded":
+            # the device-resident loop
+            rec, graph = drive(key, name, "sharded", "sharded")
+            last = rec.get("LAST", {})
+            if last.get("engaged") is not True:
+                raise AssertionError("%s: the device loop did not engage: %s"
+                                     % (key, last))
+            if rec["batched_launches"] == 0 or \
+                    rec["batched_launches"] != last["rounds_sweep_run"] or \
+                    rec["batched_launches"] != last["sweep_launches"]:
+                raise AssertionError("%s: batched launches %d != sweep rounds"
+                                     " run %d" % (key, rec["batched_launches"],
+                                                  last["rounds_sweep_run"]))
+            if "rounds_LAST" in rec:
+                raise AssertionError("%s: the per-round path ran beside the "
+                                     "loop" % key)
+        elif path == "rounds":
+            # the per-round device step in place of the loop
+            rec, graph = drive(key, name, "sharded", "rounds",
+                               env={"PANGENE_DEVICE_LOOP": "0"})
+            if "LAST" in rec:
+                raise AssertionError("%s: the device loop ran with "
+                                     "PANGENE_DEVICE_LOOP=0" % key)
+            check_rounds(key, rec, n_rounds)
+        else:
+            # the fallback a user gets: the loop refuses the graph after
+            # phase 1 (an arc table of one slot) and the host rounds take the
+            # per-round step
+            rec, graph = drive(key, name, "sharded", "fallback",
+                               env={"PANGENE_DEVLOOP_MAX_A": "1"})
+            if rec.get("LAST", {}).get("engaged") is not False:
+                raise AssertionError("%s: the loop did not report a "
+                                     "fallback: %s" % (key, rec.get("LAST")))
+            check_rounds(key, rec, n_rounds - 1)
+        return graph
 
     # 3c. the builds as a user runs them, each in a process of its own
     out_dir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
 
-    def build_process(key, name, args, in_process):
-        """One build by BUILD_SCRIPT in a new process; checks the md5 and
-        returns the GFA's path and the build's util.stage_stats."""
+    def build_process(key, name, path, args=()):
+        """One build by BUILD_SCRIPT in a new process, of `path` ("sharded":
+        the default engine, or "host"); checks the md5, the parse pool's
+        start method and the path the build took, and returns the GFA's
+        path and the build's report."""
         gfa = os.path.join(out_dir, key + ".gfa")
+        if draws_running():
+            raise AssertionError("%s: the draws %s still run beside the "
+                                 "build" % (key, draws_running()))
         t0 = time.monotonic()
         with open(gfa, "wb") as fp:
             r = subprocess.run(
-                [sys.executable, "-c", BUILD_SCRIPT, "-v", "1"] + list(args)
-                + corpora[name], cwd=ROOT, stdout=fp, stderr=subprocess.PIPE,
-                text=True, timeout=900)
+                [sys.executable, "-c", BUILD_SCRIPT, "-v", "1"]
+                + list(CORPORA[name].args) + list(args) + corpora[name],
+                cwd=ROOT, stdout=fp, stderr=subprocess.PIPE, text=True,
+                timeout=900)
         wall = time.monotonic() - t0
         if r.returncode:
             raise AssertionError("%s: the build exited %d: %s"
                                  % (key, r.returncode, r.stderr[-2000:]))
-        stages = json.loads([x for x in r.stderr.splitlines()
-                             if x.startswith("STAGES=")][-1][len("STAGES="):])
+        st = json.loads([x for x in r.stderr.splitlines()
+                         if x.startswith("STAGES=")][-1][len("STAGES="):])
         with open(gfa, "rb") as fp:
             md5 = hashlib.md5(fp.read()).hexdigest()
-        rec = {"md5": md5, "wall_s": round(wall, 3), "stages": stages,
-               "in_process_parse_s": in_process, "args": list(args)}
+        in_process = runs.get("%s_%s" % (name, path), {}).get("stages", {})
+        stages_s = sum(st[k] for k in ("parse_s", "post_s", "graph_s",
+                                       "emit_s"))
+        rec = {"md5": md5, "wall_s": round(wall, 3), "stages": st,
+               # cli.main's wall outside the stages (a card engine's torch
+               # import and device check), and the wall outside the script's
+               # own clock (the interpreter's start and exit)
+               "main_outside_stages_s": round(st["main_s"] - stages_s, 3),
+               "outside_script_s": round(wall - st["import_s"]
+                                         - st["main_s"], 3),
+               "in_process_parse_s": in_process.get("parse_s"),
+               "args": list(CORPORA[name].args) + list(args)}
         log("process %s: %s" % (key, json.dumps(rec)))
-        if md5 != CORPORA[name][3]:
-            raise AssertionError("%s: GFA md5 %s != %s"
-                                 % (key, md5, CORPORA[name][3]))
-        return gfa, stages
+        bad = []
+        if md5 != CORPORA[name].md5:
+            bad.append("GFA md5 %s != %s" % (md5, CORPORA[name].md5))
+        if st.get("parse_pool") != "fork":
+            bad.append("the parse pool started by %r, not fork"
+                       % st.get("parse_pool"))
+        native = st.get("native_calls", {})
+        missing = [e for e in NATIVE_ENTRIES[path] if not native.get(e)]
+        if missing:
+            bad.append("the native runtime was not called for %s" % missing)
+        loop = st.get("loop", {})
+        if path == "host":
+            if st["torch_imported"] or loop:
+                bad.append("the host engine imported torch")
+        else:
+            n = st["launches"]
+            if loop.get("engaged") is not True:
+                bad.append("the device loop did not engage: %s" % loop)
+            elif (n["plain"] or n["per_genome"]
+                  or n["batched"] != loop["rounds_sweep_run"]
+                  or loop_kernel_counts(n["loop"], 1)
+                  != loop_kernels_want(loop)):
+                bad.append("launches %s" % n)
+            else:
+                log("  %s loop (cold): shape %s, run_s %.3f, host_syncs %d, "
+                    "block_ms %s, peak device bytes %d" % (
+                        key, json.dumps(loop["shape"]), loop["run_s"],
+                        loop["host_syncs"], json.dumps(loop["block_ms"]),
+                        st.get("peak_device_bytes", 0)))
+        if bad:
+            raise AssertionError("%s: %s" % (key, "; ".join(bad)))
+        return gfa, st
 
     # what a card engine's process pays before its build starts: the
     # torch import, torch.cuda.is_available() (which must leave torch's
@@ -1364,83 +1572,135 @@ def main():
     if probe["initialised_after_is_available"]:
         raise AssertionError("torch.cuda.is_available() initialised CUDA")
 
+    corpora = {}
+    big_graphs = {}   # the big corpus's final graph by path, for phase 4
     built = {}
+
+    def take(name):
+        """Corpus `name` once its draw has ended."""
+        corpora[name], draw_s, wait_s = make_corpus(name, draws[name])
+        log("corpus %s: %d files, %s, waited %.3f s here" % (
+            name, len(corpora[name]), "cached" if draw_s is None else
+            "drawn in %.3f s in a process of its own" % draw_s, wait_s))
+
+    def in_process(name):
+        """The in-process runs of corpus `name` (IN_PROCESS)."""
+        for path in IN_PROCESS[name]:
+            graph = run_path(name, path)
+            if name == "big":
+                big_graphs[path] = graph
+            if path == "rounds":
+                # the protein-keyed reductions on the card against the host
+                # loops
+                card_s, host_s = compare_reductions(stk, opt_cuda, graph.d)
+                red_ms, red_bytes = reduction_bound_ms(graph.d)
+                runs[name + "_rounds"]["reductions_s"] = {
+                    "card": round(card_s, 4), "host_loops": round(host_s, 4),
+                    "bound_ms": red_ms}
+                log("reductions %s: post_reductions_sharded == host loops (%d"
+                    " proteins); card %.4f s (stacking, upload, 7 reductions,"
+                    " one pull), host loops %.4f s; reduction_step bound %.6f"
+                    " ms (%d bytes)" % (name, graph.d.n_prot, card_s, host_s,
+                                        red_ms, red_bytes))
+            del graph
+
+    # beside the north star's draw: the in-process runs of the corpora
+    # BESIDE_DRAW, each once its draw has ended, then the genome mesh (3e)
     for name in names:
-        for kind, engine in (("default", "sharded"), ("host", "host")):
-            key = "%s_%s_process" % (name, kind)
-            args = () if kind == "default" else ("--engine", "host")
-            built[key], stages = build_process(
-                key, name, args,
-                runs["%s_%s" % (name, engine)]["stages"]["parse_s"])
-            if stages.get("parse_pool") != "fork":
-                raise AssertionError("%s: the parse pool started by %r, not "
-                                     "fork" % (key, stages.get("parse_pool")))
-    # a traced build as a user runs it: its start method says whether
-    # starting the profiler's CUDA activity initialised CUDA before parsing,
-    # and its idle share has no spawned parse in it
-    key = prof_name + "_profile_process"
-    prof_dir = os.path.join(out_dir, "profile_process")
-    _, stages = build_process(key, prof_name, ("--profile", prof_dir),
-                              runs[prof_name + "_profile"]["stages"]
-                              ["parse_s"])
-    trace = os.path.join(prof_dir, pipeline.TRACE_NAME)
-    summary = util.trace_device_summary(trace)
-    os.remove(trace)
-    if summary["n_events"] == 0:
-        raise AssertionError("%s: the trace holds no device event" % key)
-    build_s = sum(stages[k] for k in ("parse_s", "post_s", "graph_s",
-                                      "emit_s"))
-    log("%s: the parse pool started by %s; device busy %.6f s of a %.3f s "
-        "build: idle share %.4f%% (in-process traced build: %.4f%%)" % (
-            key, stages.get("parse_pool"), summary["busy_s"], build_s,
-            100 * (1.0 - summary["busy_s"] / build_s),
-            100 * runs[prof_name + "_profile"]["idle_share"]))
-
-    # 3d. the toolkit on the card's host, on the GFA the default engine
-    # built for the last corpus, and on the C4 golden
-    tool_name = names[-1]
-    tool_gfa = built[tool_name + "_default_process"]
-
-    def tool(args):
-        t0 = time.monotonic()
-        r = subprocess.run(
-            [sys.executable, "-m", "pangene_tpu_torch.tools.cli"]
-            + list(args), cwd=ROOT, capture_output=True, timeout=600)
-        if r.returncode:
-            raise AssertionError("toolkit %s exited %d: %s" % (
-                args, r.returncode, r.stderr.decode()[-2000:]))
-        return r.stdout, time.monotonic() - t0
-
-    for cmd in ("call", "gfa2matrix"):
-        out, wall = tool((cmd, tool_gfa))
-        md5 = hashlib.md5(out).hexdigest()
-        log("toolkit %s on the %s GFA: %d bytes, md5 %s, wall %.3f s"
-            % (cmd, tool_name, len(out), md5, wall))
-        if md5 != TOOL_MD5[tool_name][cmd]:
-            raise AssertionError("toolkit %s: md5 %s != %s" % (
-                cmd, md5, TOOL_MD5[tool_name][cmd]))
-    golden = os.path.join(ROOT, "tests", "golden")
-    out, wall = tool(("call", os.path.join(golden, "C4.gfa")))
-    with open(os.path.join(golden, "bubble", "C4.call.txt"), "rb") as fp:
-        if out != fp.read():
-            raise AssertionError("toolkit call on C4.gfa != the golden")
-    log("toolkit call on tests/golden/C4.gfa == tests/golden/bubble/"
-        "C4.call.txt (%.3f s)" % wall)
-
-    # 3e. the genome mesh, every rank a process of its own
+        if name in BESIDE_DRAW:
+            take(name)
+            in_process(name)
+    for name in MESH_CORPORA:
+        if name in names and name not in corpora:
+            take(name)
     t0 = time.monotonic()
+    log("mesh phase beside the draws %s" % draws_running())
     mesh_runs, mesh_launches, mesh_loop_launches = mesh_phase(corpora)
     runs["mesh"] = mesh_runs
     log("mesh phase: %d runs, %d batched launches and loop kernel launches "
         "%s over every rank, %.1f s" % (len(mesh_runs), mesh_launches,
                                         json.dumps(mesh_loop_launches),
                                         time.monotonic() - t0))
-    if "big" not in names:
+    # then, once no draw runs, the other corpora's in-process runs
+    for name in names:
+        if name not in BESIDE_DRAW:
+            if name not in corpora:
+                take(name)
+            in_process(name)
+    dispatch.shadow, dispatch.flt_ov_isoform = untimed
+    dl.schedule_device = schedule_device
+    # then the builds as a user runs them, every draw ended
+    for name in names:
+        for kind, path in (("default", "sharded"), ("host", "host")):
+            key = "%s_%s_process" % (name, kind)
+            built[key], _ = build_process(
+                key, name, path, () if kind == "default"
+                else ("--engine", "host"))
+
+    # a traced build as a user runs it: its start method says whether
+    # starting the profiler's CUDA activity initialised CUDA before parsing;
+    # from the trace's device events the device's busy seconds, the idle
+    # share of the build and the five device operations with most time
+    prof_name = "big" if "big" in names else names[0]
+    key = prof_name + "_profile_process"
+    prof_dir = os.path.join(out_dir, "profile_process")
+    _, st = build_process(key, prof_name, "sharded", ("--profile", prof_dir))
+    trace = os.path.join(prof_dir, pipeline.TRACE_NAME)
+    trace_bytes = os.path.getsize(trace)
+    summary = util.trace_device_summary(trace)
+    os.remove(trace)
+    if summary["n_events"] == 0 or summary["busy_s"] <= 0:
+        raise AssertionError("%s: the trace holds no device event: %s"
+                             % (key, summary))
+    build_s = sum(st[k] for k in ("parse_s", "post_s", "graph_s", "emit_s"))
+    log("%s: the parse pool started by %s; trace %d bytes, %d device events;"
+        " device busy %.6f s of a %.3f s build: idle share %.4f%%" % (
+            key, st.get("parse_pool"), trace_bytes, summary["n_events"],
+            summary["busy_s"], build_s,
+            100 * (1.0 - summary["busy_s"] / build_s)))
+    for op, secs, n in summary["top"]:
+        log("  device op %.6f s in %d calls: %s" % (secs, n, op[:100]))
+
+    # 3d. the toolkit on the card's host, on the GFA the default engine
+    # built for the big corpus (else the small one), and on the C4 golden
+    tool_name = [n for n in ("big", "small") if n in names][:1]
+    if tool_name:
+        tool_name = tool_name[0]
+        tool_gfa = built[tool_name + "_default_process"]
+
+        def tool(args):
+            t0 = time.monotonic()
+            r = subprocess.run(
+                [sys.executable, "-m", "pangene_tpu_torch.tools.cli"]
+                + list(args), cwd=ROOT, capture_output=True, timeout=600)
+            if r.returncode:
+                raise AssertionError("toolkit %s exited %d: %s" % (
+                    args, r.returncode, r.stderr.decode()[-2000:]))
+            return r.stdout, time.monotonic() - t0
+
+        for cmd in ("call", "gfa2matrix"):
+            out, wall = tool((cmd, tool_gfa))
+            md5 = hashlib.md5(out).hexdigest()
+            log("toolkit %s on the %s GFA: %d bytes, md5 %s, wall %.3f s"
+                % (cmd, tool_name, len(out), md5, wall))
+            if md5 != TOOL_MD5[tool_name][cmd]:
+                raise AssertionError("toolkit %s: md5 %s != %s" % (
+                    cmd, md5, TOOL_MD5[tool_name][cmd]))
+        golden = os.path.join(ROOT, "tests", "golden")
+        out, wall = tool(("call", os.path.join(golden, "C4.gfa")))
+        with open(os.path.join(golden, "bubble", "C4.call.txt"), "rb") as fp:
+            if out != fp.read():
+                raise AssertionError("toolkit call on C4.gfa != the golden")
+        log("toolkit call on tests/golden/C4.gfa == tests/golden/bubble/"
+            "C4.call.txt (%.3f s)" % wall)
+
+    if set(names) != set(CORPORA):
         log("partial run (--corpora %s): phase 4 and the result lines are "
             "left out" % ",".join(names))
         return 0
 
     # 4. the largest big-corpus genome: compare, time, bound
+    graph, rounds_graph = big_graphs["sharded"], big_graphs["rounds"]
     g = max(graph.d.genomes, key=lambda x: x.n_hit)
     hit_sort(g, by_cm=False)
     kernels = []
@@ -1518,8 +1778,6 @@ def main():
 
     # 4b. the batched entry on the big run's device-resident columns: entry
     # state (no kept row filtered) and the loop's final state
-    cfg = kept["cfg"]
-    cols, bc = dl.unpack_blocks(*kept["blocks"])
     rec = {"name": "shadow_sweep_batched", "route": "cuda",
            "source": "pangene_tpu_torch/csrc/shadow_sweep.cu",
            "replaces": "pangene_tpu/ops/device.py:232",
@@ -1527,55 +1785,16 @@ def main():
            "launches_in_process": batched_launches,
            "launches_mesh_ranks": mesh_launches, "max_abs_err": 0,
            "library_ms": None}
-    G, H = bc.cid.shape
-    for state, flt, weak in (
-            ("entry", cols["flt"].contiguous(), cols["weak_br"].contiguous()),
-            ("final", kept["outs"][0].contiguous(),
-             kept["outs"][1].contiguous())):
-        got = sk.shadow_sweep_batched(bc, flt, weak, cfg.W, cfg.check_strand,
-                                      cfg.min_ov_ratio)
-        geo = {}
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        want = sk.shadow_sweep_batched_plain(
-            bc, flt, weak, cfg.W, cfg.check_strand, cfg.min_ov_ratio, geo)
-        torch.cuda.synchronize()
-        plain_first_ms = 1e3 * (time.monotonic() - t0)
-        for a, b in zip(got, want):
-            if a.dtype != b.dtype or not torch.equal(a, b):
-                raise AssertionError("batched kernel != plain on the big "
-                                     "run's columns (%s state)" % state)
-
-        def kernel():
-            sk.shadow_sweep_batched(bc, flt, weak, cfg.W, cfg.check_strand,
-                                    cfg.min_ov_ratio)
-        ms = graph_ms(kernel, TIMED_LAUNCHES)
-        eager_ms = stream_ms(kernel, TIMED_LAUNCHES)
-        # the plain version's round pass alone (its planes are in `geo`)
-        plain_round_ms = stream_ms(lambda: sk.shadow_sweep_batched_plain(
-            bc, flt, weak, cfg.W, cfg.check_strand, cfg.min_ov_ratio, geo), 5)
-        b_ms, b_by, ops, nbytes = bound_batched_ms(bc, flt, cfg.W,
-                                                   cfg.check_strand)
-        log("BATCHED %s: G %d H %d rows %d W %d launch %s ms %.5f (eager "
-            "back-to-back %.5f) plain_ms %.3f (geometry pass + round pass; "
-            "round pass alone %.3f) bound_ms %.6f (%s; %d ops, %d bytes) "
-            "marked %d" % (state, G, H, int(bc.n_rows.sum()), cfg.W,
-                           json.dumps(sk.launch_shape_batched(G, H, cfg.W)),
-                           ms, eager_ms, plain_first_ms,
-                           plain_round_ms, b_ms, b_by, ops, nbytes,
-                           int(got[0].sum())))
-        if state == "entry":
-            rec.update(ms=ms, plain_ms=plain_first_ms,
-                       plain_round_ms=plain_round_ms, bound_ms=b_ms,
-                       bound_by=b_by)
-        else:
-            rec["ms_final"] = ms
+    batched_rec = rec
+    rec.update(batched_on_loop(sk, dl, kept["big"], "big"))
+    cfg = kept["big"]["cfg"]
+    G, H = kept["big"]["blocks"][0].shape[1:3]
 
     # the same entry at the shard shapes of the mesh runs: rank 0's genomes
     # of the big loop's columns at world 4 and 2, entry state
     for g_loc in (G // 4, G // 2):
         scols, sbc = dl.unpack_blocks(*[b[:, :g_loc].contiguous()
-                                        for b in kept["blocks"]])
+                                        for b in kept["big"]["blocks"]])
         sflt = scols["flt"].contiguous()
         sweak = scols["weak_br"].contiguous()
         got = sk.shadow_sweep_batched(sbc, sflt, sweak, cfg.W,
@@ -1659,18 +1878,6 @@ def main():
             STEP_ROW_BYTES, last["pull_bytes"], last["upload_s"],
             last["step_s"], last["pull_s"], last["apply_s"],
             last["stack_s"]))
-    loop = runs["big_sharded"]["LAST"]
-    calls = {"walk_merge": loop["rounds_sweep_run"] + 1,
-             "branch": loop["rounds_branch_run"],
-             "prop": loop["rounds_branch_run"], "occ": loop["rounds_total"]}
-    for block, (least, n) in loop_block_bounds(loop["shape"], calls).items():
-        log("loop block %s: %d calls, %.3f ms measured, least %.6f ms a call "
-            "= %.6f ms (bytes)" % (block, n, loop["block_ms"][block], least,
-                                   least * n))
-    log("loop, big corpus: run_s %.3f, host_syncs %d over %d rounds (%d "
-        "branch rounds), loop kernel launches %s" % (
-            loop["run_s"], loop["host_syncs"], loop["rounds_total"],
-            loop["rounds_branch_run"], json.dumps(loop["loop_launches"])))
     red = runs["big_rounds"]["reductions_s"]
     log("reductions, big corpus: card %.4f s, host loops %.4f s"
         % (red["card"], red["host_loops"]))
@@ -1697,74 +1904,103 @@ def main():
                 sort_bound_ms))
 
     # 4d. the loop's block kernels on the arguments of their first call in
-    # the big default loop; the mesh's branch entries on the same table
-    args, kw = kept["capture"]["branch_block"]
-    (loc_args, loc_kw), cls = branch_split_args(args, kw)
-    aml, he = lk.branch_locality_plain(*loc_args, **loc_kw)
-    cases = (
-        ("branch_block", "pangene_tpu/parallel/device_loop.py:525", args,
-         kw),
-        ("branch_locality", "pangene_tpu/parallel/device_loop.py:578",
-         loc_args, loc_kw),
-        ("branch_classify", "pangene_tpu/parallel/device_loop.py:627")
-        + cls(aml, he),
-        ("merge_fold", "pangene_tpu/parallel/device_loop.py:264")
-        + tuple(kept["capture"]["merge_fold"]),
-        ("merge_fold_full", "pangene_tpu/parallel/device_loop.py:410")
-        + tuple(kept["capture"]["merge_fold_full"]))
-    A = args[4].shape[0]
-    for name, replaces, args, kw in cases:
-        fn = "merge_fold" if name == "merge_fold_full" else name
-        err, got = compare_loop_kernel(lk, fn, args, kw)
-        kernel_fn = getattr(lk, fn)
-        plain_fn = getattr(lk, fn + "_plain")
-        ms = graph_ms(lambda: kernel_fn(*args, **kw), TIMED_LAUNCHES)
-        eager_ms = stream_ms(lambda: kernel_fn(*args, **kw), TIMED_LAUNCHES)
-        plain_ms = stream_ms(lambda: plain_fn(*args, **kw), 5)
-        if fn == "merge_fold":
-            b_ms, b_by, nbytes, n_valid = fold_bound_ms(args, kw)
-            shape = "N %d, valid %d, cap %d, jb %d, perm %s" % (
-                args[0].shape[0], n_valid, kw["cap"], kw["jb"],
-                kw.get("perm") is not None)
-        elif name == "branch_classify":
-            b_ms, b_by, nbytes = classify_bound_ms(args)
-            shape = "A %d, branching %d, counts %s, aml/he %s" % (
-                A, int(args[2].sum()), got[2].tolist(),
-                "aligned" if args[4].data_ptr() % 4 == 0 else "unaligned")
-        else:
-            if name == "branch_block":
-                b_ms, b_by, ops, nbytes, nb = branch_block_bound_ms(
-                    args, loc_args, loc_kw, aml, he)
+    # the default loop of the big corpus and of the north star; the mesh's
+    # branch entries on the same tables; the batched entry on the north
+    # star loop's columns (the big loop's were timed in 4b)
+    loop_recs = {}
+    for cname in ("big", "northstar"):
+        loop = runs[cname + "_sharded"]["LAST"]
+        calls = {"walk_merge": loop["rounds_sweep_run"] + 1,
+                 "branch": loop["rounds_branch_run"],
+                 "prop": loop["rounds_branch_run"],
+                 "occ": loop["rounds_total"]}
+        for block, (least, n) in loop_block_bounds(loop["shape"],
+                                                   calls).items():
+            log("loop block %s %s: %d calls, %.3f ms measured, least %.6f ms "
+                "a call = %.6f ms (bytes)" % (cname, block, n,
+                                              loop["block_ms"][block], least,
+                                              least * n))
+        log("loop, %s corpus: shape %s, run_s %.3f, host_syncs %d over %d "
+            "rounds (%d branch rounds), loop kernel launches %s; branch block"
+            " %.3f ms a call" % (
+                cname, json.dumps(loop["shape"]), loop["run_s"],
+                loop["host_syncs"], loop["rounds_total"],
+                loop["rounds_branch_run"], json.dumps(loop["loop_launches"]),
+                loop["block_ms"]["branch"]
+                / max(loop["rounds_branch_run"], 1)))
+        sfx = "" if cname == "big" else "_" + cname
+        if cname != "big":
+            batched_rec.update({k + sfx: v for k, v in batched_on_loop(
+                sk, dl, kept[cname], cname).items()})
+        capture = kept[cname]["capture"]
+        args, kw = capture["branch_block"]
+        (loc_args, loc_kw), cls = branch_split_args(args, kw)
+        aml, he = lk.branch_locality_plain(*loc_args, **loc_kw)
+        cases = (
+            ("branch_block", "pangene_tpu/parallel/device_loop.py:525", args,
+             kw),
+            ("branch_locality", "pangene_tpu/parallel/device_loop.py:578",
+             loc_args, loc_kw),
+            ("branch_classify", "pangene_tpu/parallel/device_loop.py:627")
+            + cls(aml, he),
+            ("merge_fold", "pangene_tpu/parallel/device_loop.py:264")
+            + tuple(capture["merge_fold"]),
+            ("merge_fold_full", "pangene_tpu/parallel/device_loop.py:410")
+            + tuple(capture["merge_fold_full"]))
+        A = args[4].shape[0]
+        for name, replaces, args, kw in cases:
+            fn = "merge_fold" if name == "merge_fold_full" else name
+            err, got = compare_loop_kernel(lk, fn, args, kw)
+            kernel_fn = getattr(lk, fn)
+            plain_fn = getattr(lk, fn + "_plain")
+            ms = graph_ms(lambda: kernel_fn(*args, **kw), TIMED_LAUNCHES)
+            eager_ms = stream_ms(lambda: kernel_fn(*args, **kw),
+                                 TIMED_LAUNCHES)
+            plain_ms = stream_ms(lambda: plain_fn(*args, **kw), 5)
+            if fn == "merge_fold":
+                b_ms, b_by, nbytes, n_valid = fold_bound_ms(args, kw)
+                shape = "N %d, valid %d, cap %d, jb %d, perm %s" % (
+                    args[0].shape[0], n_valid, kw["cap"], kw["jb"],
+                    kw.get("perm") is not None)
+            elif name == "branch_classify":
+                b_ms, b_by, nbytes = classify_bound_ms(args)
+                shape = "A %d, branching %d, counts %s, aml/he %s" % (
+                    A, int(args[2].sum()), got[2].tolist(),
+                    "aligned" if args[4].data_ptr() % 4 == 0
+                    else "unaligned")
             else:
-                b_ms, b_by, ops, nbytes, nb = locality_bound_ms(
-                    args, kw, *got)
-            shape = "A %d, branching %d, G %d, genes %d, %d forced ops" % (
-                A, nb, args[0].shape[1], args[0].shape[0], ops)
-            if name == "branch_block":
-                n = torch.unique_consecutive(loc_args[5][loc_args[6]],
-                                             return_counts=True)[1]
-                shape += ("; %d groups of %.2f members on average, %d at "
-                          "most, %d past 16" % (n.numel(),
-                                                nb / max(n.numel(), 1),
-                                                int(n.max()) if n.numel()
-                                                else 0,
-                                                int((n > 16).sum())))
-        log("LOOP KERNEL %s (%s): ms %.5f (eager back-to-back %.5f) "
-            "plain_ms %.3f bound_ms %.6f (%s; %d bytes); kernel == plain" % (
-                name, shape, ms, eager_ms, plain_ms, b_ms, b_by, nbytes))
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "pangene_tpu_torch/csrc/loop_blocks.cu",
-            "replaces": replaces,
-            "launches": loop_launches[name] + mesh_loop_launches[name],
-            "launches_in_process": loop_launches[name],
-            "launches_mesh_ranks": mesh_loop_launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    log("branch block: %.3f ms a call in the big loop (%d calls), its "
-        "kernel branch_block above" % (
-            loop["block_ms"]["branch"] / max(loop["rounds_branch_run"], 1),
-            loop["rounds_branch_run"]))
+                if name == "branch_block":
+                    b_ms, b_by, ops, nbytes, nb = branch_block_bound_ms(
+                        args, loc_args, loc_kw, aml, he)
+                else:
+                    b_ms, b_by, ops, nbytes, nb = locality_bound_ms(
+                        args, kw, *got)
+                shape = "A %d, branching %d, G %d, genes %d, %d forced ops" \
+                    % (A, nb, args[0].shape[1], args[0].shape[0], ops)
+                if name == "branch_block":
+                    n = torch.unique_consecutive(loc_args[5][loc_args[6]],
+                                                 return_counts=True)[1]
+                    shape += ("; %d groups of %.2f members on average, %d at "
+                              "most, %d past 16" % (
+                                  n.numel(), nb / max(n.numel(), 1),
+                                  int(n.max()) if n.numel() else 0,
+                                  int((n > 16).sum())))
+            log("LOOP KERNEL %s %s (%s): ms %.5f (eager back-to-back %.5f) "
+                "plain_ms %.3f bound_ms %.6f (%s; %d bytes); kernel == plain"
+                % (cname, name, shape, ms, eager_ms, plain_ms, b_ms, b_by,
+                   nbytes))
+            rec = loop_recs.setdefault(name, {
+                "name": name, "route": "cuda",
+                "source": "pangene_tpu_torch/csrc/loop_blocks.cu",
+                "replaces": replaces,
+                "launches": loop_launches[name] + mesh_loop_launches[name],
+                "launches_in_process": loop_launches[name],
+                "launches_mesh_ranks": mesh_loop_launches[name],
+                "max_abs_err": 0, "library_ms": None})
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec.update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms,
+                        "bound_ms" + sfx: b_ms, "bound_by" + sfx: b_by})
+    kernels.extend(loop_recs.values())
     kept.clear()
 
     log(smi)

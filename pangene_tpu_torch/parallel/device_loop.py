@@ -33,12 +33,16 @@ the overflow flag is reduced once more at the end, so a fallback by one rank
 is a fallback by all.
 
 Bit-exactness:
-  * Every in-loop IEEE-double expression of the reference runs through
-    ops/softfloat (exact integer emulation): the merged s1/s2/dist averages
+  * Every in-loop IEEE-double expression of the reference is rounded as
+    the reference rounds it: the merged s1/s2/dist averages
     ``(int)((double)S/n + .499)`` (graph.c:141,170-172) and the branch
     deficit ``1.0 - (double)s1/max`` compared against -b/-y/-B
-    (branch.c:72-78). The sweep's coverage gate is IEEE division in the
-    kernel and softfloat in its plain version.
+    (branch.c:72-78). On cuda they are IEEE double inside the block
+    kernels (branch_block / branch_classify and merge_fold,
+    csrc/loop_blocks.cu); the kernels' plain versions (ops/loop_kernels.py)
+    emulate them exactly in integers with ops/softfloat. The sweep's
+    coverage gate is IEEE division in the kernel and softfloat in its plain
+    version.
   * Physical hit order: the reference re-sorts every genome cm->cs each
     round; once that round trip is a cycle (ops/sort.py), the cs order is
     a fixed point and the cm order is a fixed gather view, both verified
@@ -641,7 +645,8 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
 
     # recompute the final arc table with its output-only stats from the
     # final state (identical kept pairs -> identical groups); all averages
-    # are rounded exactly on the device (softfloat)
+    # are rounded exactly: IEEE double in merge_fold's full mode on cuda,
+    # softfloat in its plain version
     with timer("walk_merge"):
         (arc_vw, arc_s1, n_out, seg_tot, seg_ng, arc_ng, arc_tot, arc_ad,
          arc_s2) = walk_merge(flt != 0, shadow != 0, alive, full=True)
@@ -1074,7 +1079,7 @@ def graph_gen_device(opt: PgOpt, q) -> bool:
     out.x = (newv.astype(np.uint64) << np.uint64(32)) | neww.astype(np.uint64)
     out.n_genome = arc_ng[:na].astype(np.int32)
     out.tot_cnt = arc_tot[:na].astype(np.int32)
-    # averages already rounded exactly on the device (softfloat +.499)
+    # averages already rounded exactly (+.499) by the full merge tail
     out.avg_dist = arc_ad[:na].astype(np.int32)
     out.s1 = arc_s1[:na].astype(np.int32)
     out.s2 = arc_s2[:na].astype(np.int32)

@@ -11,7 +11,9 @@ and "device"; the card engines on --device cpu (the kernels' plain
 versions). Runs that should take the native runtime (ops/sweep_native.py)
 must show calls in its counter: as in the JAX package, "sharded" sweeps
 single genomes in C, and only "device" sweeps them through the kernel's
-plain version. A host-engine run touches no CUDA state.
+plain version. A host-engine run touches no CUDA state. Options go through
+each package's own cli.parse_args; tests/test_torch_single_exon.py and
+tests/test_torch_pressure.py use the same runners (run_port, jax_outputs).
 """
 import gzip
 import io
@@ -20,11 +22,11 @@ import pathlib
 import pytest
 import torch
 
+from pangene_tpu import cli as jcli
 from pangene_tpu import pipeline as jpipeline
 from pangene_tpu import util as jutil
-from pangene_tpu.options import PG_F_ORI_FOR_BRANCH
 from pangene_tpu.options import PgOpt as JaxOpt
-from pangene_tpu_torch import pipeline, util
+from pangene_tpu_torch import cli, pipeline, util
 from pangene_tpu_torch.ops import sweep_kernel as sk
 from pangene_tpu_torch.ops import sweep_native as sn
 from pangene_tpu_torch.options import PgOpt
@@ -36,10 +38,13 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 
 torch.set_num_threads(1)
 
-OPTION_SETS = {"default": {}, "f0.3": {"min_ov_ratio": 0.3},
-               "ori-sc": {"flag": PgOpt().flag | PG_F_ORI_FOR_BRANCH}}
+# name: the CLI's options, through each package's own cli.parse_args
+OPTION_SETS = {"default": [], "f0.3": ["-f0.3"], "ori-sc": ["--ori-sc"]}
 # the single-genome sweeps in C
 NATIVE_SWEEPS = ("shadow", "flt_ov_isoform")
+# the native entries that only a graph with arcs reaches
+NATIVE_ARCS = ("mark_branch", "propagate_weak_hash", "format_arcs")
+EMPTY_GRAPH = {"engaged": False, "reason": "empty graph"}
 # name: (engine, environment, the native entries the run must call)
 CONFIGS = {
     "host": ("host", {}, NATIVE_SWEEPS + ("round_genome", "mark_branch")),
@@ -62,18 +67,28 @@ def corpus(tmp_path_factory):
     return synth_paf_files(str(d), n_genome=6, n_gene=300, n_iso=3, seed=3)
 
 
+def run_jax_host(argv, files):
+    """pangene_tpu's --engine host GFA, options through its cli.parse_args."""
+    opt, files, extras = jcli.parse_args(list(argv) + ["--engine", "host"]
+                                         + list(files))
+    jutil.verbose = 0
+    out = io.StringIO()
+    jpipeline.run(opt, files, out=out, **extras)
+    return out.getvalue()
+
+
+def jax_outputs(files, option_sets):
+    """run_jax_host's GFA by option set, parsing in the main process."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PANGENE_PARSE_WORKERS", "1")
+        return {name: run_jax_host(argv, files)
+                for name, argv in option_sets.items()}
+
+
 @pytest.fixture(scope="module")
 def jax_host(corpus):
     """The JAX package's "host" engine output, by option set."""
-    out = {}
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("PANGENE_PARSE_WORKERS", "1")
-        for name, kw in OPTION_SETS.items():
-            jutil.verbose = 0
-            buf = io.StringIO()
-            jpipeline.run(JaxOpt(engine="host", **kw), corpus, out=buf)
-            out[name] = buf.getvalue()
-    return out
+    return jax_outputs(corpus, OPTION_SETS)
 
 
 @pytest.fixture(autouse=True)
@@ -86,7 +101,16 @@ def _env(monkeypatch):
     jutil.verbose = 3
 
 
-def run_port(files, config, monkeypatch, **kw):
+def run_port(argv, files, config, monkeypatch, empty=False):
+    """pangene_tpu_torch's GFA on the CPU under `config` (CONFIGS), options
+    `argv` through its cli.parse_args; asserts the path the run took: the
+    native entries it must call, the per-genome sweep's plain version under
+    "device" alone, and which of the loop (device_loop.LAST) and the
+    per-round path (stacked.LAST) ran, with the per-round path's round count
+    (2 + -T, or 1 + -T after the loop's phase 1). `empty`: the options leave
+    a graph without segments, so the loop must report "empty graph", the
+    host rounds run, the arcs' native entries are not reached and the GFA is
+    empty."""
     engine, env, entries = CONFIGS[config]
     for k in ("PANGENE_DEVICE_LOOP", "PANGENE_DEVLOOP_MAX_A"):
         monkeypatch.delenv(k, raising=False)
@@ -96,10 +120,16 @@ def run_port(files, config, monkeypatch, **kw):
     sk.reset_counts()
     dl.LAST.clear()
     st.LAST.clear()
+    opt, files, extras = cli.parse_args(
+        list(argv) + ["--engine", engine, "--device", "cpu"] + list(files))
+    util.verbose = 0
     out = io.StringIO()
-    pipeline.run(PgOpt(engine=engine, device="cpu", **kw), files, out=out)
+    pipeline.run(opt, files, out=out, **extras)
+    gfa = out.getvalue()
+    assert (gfa == "") == empty, (config, argv, len(gfa))
     for e in entries:
-        assert sn.n_calls[e] > 0, (config, e, sn.n_calls)
+        if not (empty and e in NATIVE_ARCS):
+            assert sn.n_calls[e] > 0, (config, e, sn.n_calls)
     # the per-genome sweep: through the kernel's plain version under
     # "device" only, never in C there
     plain = list(sk.n_plain_calls.values())
@@ -108,20 +138,29 @@ def run_port(files, config, monkeypatch, **kw):
         assert [sn.n_calls[e] for e in NATIVE_SWEEPS] == [0, 0], sn.n_calls
     else:
         assert plain == [0, 0], (config, sk.n_plain_calls)
-    if config == "sharded":
-        assert dl.LAST["engaged"] is True and st.LAST == {}
-    if config == "rounds":
-        assert dl.LAST == {} and st.LAST["rounds"] == 17
-    if config == "fallback":
-        assert dl.LAST["engaged"] is False and st.LAST["rounds"] == 16
-    return out.getvalue()
+    rounds = 2 + opt.n_branch_flt
+    if config in ("host", "host-vec", "host-ref", "device"):
+        assert dl.LAST == {} and st.LAST == {}, (dl.LAST, st.LAST)
+    elif config == "rounds":
+        assert dl.LAST == {} and st.LAST["rounds"] == rounds, st.LAST
+    elif config == "sharded" and not empty:
+        assert dl.LAST["engaged"] is True and st.LAST == {}, dl.LAST
+    else:
+        # a fallback: the loop's reason, then the host rounds' device steps
+        if empty:
+            assert dl.LAST == EMPTY_GRAPH, dl.LAST
+        else:
+            assert dl.LAST["engaged"] is False, dl.LAST
+            assert dl.LAST["reason"].startswith("arc capacity 1 <"), dl.LAST
+        assert st.LAST["rounds"] == rounds - 1, st.LAST
+    return gfa
 
 
 @pytest.mark.parametrize("config", list(CONFIGS))
 @pytest.mark.parametrize("options", list(OPTION_SETS))
 def test_port_equals_jax_host(corpus, jax_host, monkeypatch, options,
                               config):
-    got = run_port(corpus, config, monkeypatch, **OPTION_SETS[options])
+    got = run_port(OPTION_SETS[options], corpus, config, monkeypatch)
     assert got == jax_host[options]
 
 
@@ -133,7 +172,7 @@ def test_synth16_golden(tmp_path_factory, monkeypatch, config):
     files = sorted(str(p) for p in d.iterdir() if p.name.endswith(".paf.gz"))
     want = gzip.open(REPO / "tests" / "golden" / "synth16.gfa.gz",
                      "rt").read()
-    assert run_port(files, config, monkeypatch) == want
+    assert run_port([], files, config, monkeypatch) == want
 
 
 def test_host_engine_touches_no_cuda(corpus, jax_host, monkeypatch):

@@ -476,3 +476,27 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="cap"):
         lk.merge_fold(keys, torch.zeros(8, dtype=torch.int32), jb=3, gb=1,
                       cap=0)
+
+
+@pytest.mark.parametrize("perm", [False, True])
+@pytest.mark.parametrize("full", [False, True])
+def test_fold_bound_counts_valid_rows_only(full, perm):
+    """chip_smoke.fold_bound_ms, merge_fold's least bytes: an invalid row
+    (its key sorts last, its pair slot reads 0) costs its 4-byte pair slot
+    and a binary search's reads, no key, permutation or score read."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    jb = 21
+    valid = torch.arange(1000, dtype=torch.int64) << jb
+    nbytes = []
+    for keys in (valid, torch.cat([valid, torch.full((3000,), lk.KSENT_I)])):
+        kw = dict(jb=jb, cap=500, full=(None, None) if full else None,
+                  perm=torch.arange(keys.numel()) if perm else None)
+        _, by, n, n_valid = cs.fold_bound_ms((keys, None), kw)
+        assert (by, n_valid) == ("bytes", 1000)
+        nbytes.append(n)
+    assert nbytes[1] - nbytes[0] == 4 * 3000 + 8 * (12 - 10)
