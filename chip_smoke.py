@@ -6,8 +6,9 @@ GPU. Run from the root of a checkout:
 
 Phases (each one passes or raises, so any failure exits nonzero):
   1. the card's name and power limit (nvidia-smi); the CUDA kernels are
-     built from pangene_tpu_torch/csrc/ (shadow_sweep.cu, loop_blocks.cu),
-     one nvcc for each source, started together, and the native host runtime
+     built from pangene_tpu_torch/csrc/ (shadow_sweep.cu, loop_blocks.cu,
+     loop_round.cu), one nvcc for each source, started together, and the
+     native host runtime
      (native/pgsweep.c, ops/sweep_native.py) with the host's C compiler:
      it must load, since the host rounds' branch marking, the phase-1 walk,
      the vertex scan and the L-line renderer take it on every card path.
@@ -36,7 +37,14 @@ Phases (each one passes or raises, so any failure exits nonzero):
      merge keys (the loop's three call shapes, the arc table smaller and
      larger than the out-groups, no valid row, out-groups over several
      tiles, dist sums past 2^31 and below 0), merge_fold lean and in its
-     full mode (the full=True tail's statistics).
+     full mode (the full=True tail's statistics); then the round kernels
+     (walk_pairs in its four key forms, branch_prep, prop_round with and
+     without propagation, occ_round with and without the cuts and the loci)
+     on random round states (testing.ROUND_STATES: random, cm gaps past
+     2^31, empty genomes, every hit filtered, hit 0 filtered, every segment
+     dead, a group at the window and one past it, 70 genomes over several
+     of the scan's tiles, one genome whose hit 0 is filtered), every output
+     exactly equal.
   3. the main paths: the CLI on cuda over four synthetic corpora (CORPORA):
      small (32 genomes x 2,000 genes, seed 11), the bacterial shape (150 x
      4,000, seed 13, one isoform, every hit one exon, built with -J), the
@@ -61,8 +69,9 @@ Phases (each one passes or raises, so any failure exits nonzero):
      run in C as in the JAX package; the loop engaged and launched the
      batched kernel once per sweep round, branch_block once per branch
      round and merge_fold once per in-loop merge and once for the full=True
-     tail (no other path launches those; the mesh's split entries are not
-     launched at one rank); the per-round path launched it once per round
+     tail, walk_pairs as merge_fold, branch_prep once per branch round,
+     prop_round and occ_round once a round (no other path launches those;
+     the mesh's split entries are not launched at one rank); the per-round path launched it once per round
      (17), uploaded its constant columns once, and the loop did not run; a
      fallback reported engaged false and ran 16 rounds; every path called
      the native entries it must take (NATIVE_ENTRIES), so a run that
@@ -131,9 +140,14 @@ Phases (each one passes or raises, so any failure exits nonzero):
      first call in the default loop of the big corpus and of the north
      star (captured through schedule_device's `capture`), and the mesh's
      branch_locality and branch_classify on the same arc tables (their
-     groups by loop_kernels.arc_groups); the batched entry on the north
-     star loop's columns: kernel == plain exactly, device time from 200
-     launches in one CUDA graph, the plain version's time, the bound.
+     groups by loop_kernels.arc_groups); the round kernels on their
+     captured arguments (walk_pairs: the first in-loop walk and the tail's;
+     prop_round: its first call that propagates; occ_round: its first with
+     the loci and the cuts), the in-place ones on copies; the batched entry
+     on the north star loop's columns: kernel == plain exactly, device time
+     from 200 launches in one CUDA graph (the in-place kernels from the
+     state their first launch leaves), the plain version's time, the
+     bound.
 
 ``--corpora NAME[,NAME]`` runs only those corpora and what needs them, for
 a short first run of new code (``--corpora small`` takes about two
@@ -466,6 +480,123 @@ def compare_loop_kernel(lk, name, args, kw):
     return err, got
 
 
+def compare_round_kernel(name, make):
+    """The round kernel `name` of ops/loop_kernels against its plain
+    version, each on its own arguments from make() (testing.round_outputs:
+    what it returns, then what it updates in place); returns the largest
+    absolute difference (must be 0) and the kernel's outputs."""
+    from pangene_tpu_torch.testing import round_outputs
+    args, kw = make()
+    got = round_outputs(name, args, kw)
+    args, kw = make()
+    want = round_outputs(name, args, kw, plain=True)
+    torch.cuda.synchronize()
+    if len(got) != len(want):
+        raise AssertionError("%s: %d outputs vs plain %d"
+                             % (name, len(got), len(want)))
+    err = 0
+    for a, b in zip(got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError("%s: %s %s vs plain %s %s" % (
+                name, a.shape, a.dtype, b.shape, b.dtype))
+        diff = (a.long() - b.long()).abs()
+        err = max(err, int(diff.max()) if diff.numel() else 0)
+    if err:
+        raise AssertionError("%s kernel != plain: max abs err %d"
+                             % (name, err))
+    return err, got
+
+
+def round_bound_ms(lk, name, make, got):
+    """Least time of one call of the round kernel `name` on the arguments
+    make() gives, whose outputs are `got` (compare_round_kernel): the bytes
+    it must move over the memory rate, each input read once and each output
+    written once; its scratch (branch_prep's last rows and kept ranks,
+    walk_pairs' genome bits) not counted, nor what a row reads again at its
+    previous row. Returns (ms, bytes, shape).
+      walk_pairs   every row: valid 1 in; keys 16, s12 8, pair_ok 1, nxt
+                   4 out (full: s21 8, dist2 8 more); a valid row also
+                   ordcm 4, flt and shadow (gathered) 2, the two scores 8,
+                   the dominant's gene and segment 8 = 22 in (full: cm 8
+                   more); a kept row (the only rows a pair or a segment
+                   counter reads) cid 4, w 8, the segment 4; a segment
+                   alive 1 in, its two counters 8 out.
+      branch_prep  every row flt, shadow, valid 3; a kept row its gene 4; a
+                   present (gene, genome) its row's cid and cm 12; the four
+                   planes 17 a (gene, genome) out; an arc vw 8 in, its
+                   target 8 out; the segments' genes 8 each that valid arcs
+                   reach.
+      prop_round   every row weak, flt, valid 3 (propagating also ordcm 4,
+                   pair_ok 1, nxt 4); a pair its two arc rows 8 and marks 2;
+                   a byte for each value it changes; the word 16 out.
+      occ_round    with the loci or the cuts every arc's vw 8 (the loci:
+                   n_grp 4 more); a segment seg_tot 4, alive 1, loci 8 (in,
+                   or out when rebuilt from n_grp), the capture rows 1 + 8 +
+                   8 + 4 out; with the cuts every row valid and flt 2, a live
+                   row's gene 4, sid_of, a byte for each value it changes;
+                   the log row and the word 48."""
+    args, kw = make()
+    if name == "walk_pairs":
+        planes, flt, shadow, alive = args
+        (G, H), S = flt.shape, alive.numel()
+        n_valid = int(planes.valid.sum())
+        kept = (flt == 0) & (shadow == 0)
+        n_kept = int((torch.gather(kept, 1, planes.ordcm.long())
+                      & planes.valid).sum())
+        full = kw["full"]
+        nbytes = (G * H * (30 + 16 * full) + n_valid * (22 + 8 * full)
+                  + 16 * n_kept + 9 * S)
+        shape = ("G %d, H %d, valid rows %d, kept %d, pairs %d, jb %d, "
+                 "full %s" % (G, H, n_valid, n_kept, int(got[2].sum()),
+                              kw["jb"], full))
+    elif name == "branch_prep":
+        flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid, _ = args
+        (G, H), ng = flt.shape, kw["n_gene"]
+        A, S = arc_vw.numel(), seg_gid.numel()
+        n_kept = int(((flt == 0) & (shadow == 0) & valid).sum())
+        n_present = int(got[0].sum())
+        n_arc = int((arc_vw != lk.SENT_I).sum())
+        nbytes = (3 * G * H + 4 * n_kept + 12 * n_present + 17 * ng * G
+                  + 16 * A + 8 * min(S, n_arc) + 1)
+        shape = "G %d, H %d, kept %d, genes %d, present %d, A %d" % (
+            G, H, n_kept, ng, n_present, A)
+    elif name == "prop_round":
+        weak, flt, _, _, _, _, pair_ok = args[:7]
+        (G, H), prop = weak.shape, kw["propagate"]
+        n_pairs = int(pair_ok.sum()) if prop else 0
+        n_changed = int((got[0] != weak).sum()) + int((got[1] != flt).sum())
+        nbytes = G * H * (12 if prop else 3) + 10 * n_pairs + n_changed + 16
+        shape = "G %d, H %d, pairs %d, changed %d, propagate %s" % (
+            G, H, n_pairs, n_changed, prop)
+    else:
+        alive, flt, valid, _, sid_of, arc_vw = args[:6]
+        (G, H), S, A = flt.shape, alive.numel(), arc_vw.numel()
+        loci, cuts = kw["n_grp"] is not None, kw["cuts"] is not None
+        nbytes = (A * (8 * (loci or cuts) + 4 * loci) + S * (1 + 4 + 8 + 21)
+                  + 48)
+        n_changed = int((got[1] != flt).sum()) + int((got[0] != alive).sum())
+        if cuts:
+            nbytes += (2 * G * H + 4 * int((valid & (flt == 0)).sum())
+                       + 4 * sid_of.numel() + n_changed)
+        shape = "G %d, H %d, S %d, A %d, loci %s, cuts %s, changed %d" % (
+            G, H, S, A, loci, kw["cuts"], n_changed)
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes, shape
+
+
+def time_round_kernel(lk, make, name):
+    """Device ms a call of the round kernel `name` (200 launches in one
+    CUDA graph, the in-place kernels from the state their first launch
+    leaves), the same back to back, and the plain version's ms, each on
+    its own arguments from make()."""
+    a, k = make()
+    fn = getattr(lk, name)
+    ms = graph_ms(lambda: fn(*a, **k), TIMED_LAUNCHES)
+    eager_ms = stream_ms(lambda: fn(*a, **k), TIMED_LAUNCHES)
+    a, k = make()
+    plain = getattr(lk, name + "_plain")
+    return ms, eager_ms, stream_ms(lambda: plain(*a, **k), 5)
+
+
 def locality_bound_ms(args, kw, aml, he):
     """Least time of one branch_locality call on these arguments, whose
     result is (aml, he): the bytes it must move (the branching plane in
@@ -532,9 +663,10 @@ def fold_bound_ms(args, kw):
 # The loop's block kernels (ops/loop_kernels.n_calls): at one rank the
 # branch block is branch_block, at world > 1 branch_locality then
 # branch_classify. merge_fold counts both of its modes, merge_fold_full the
-# full mode's launches alone.
+# full mode's launches alone. The round kernels run at every world.
+ROUND_KERNELS = ("walk_pairs", "branch_prep", "prop_round", "occ_round")
 LOOP_KERNELS = ("branch_block", "branch_locality", "branch_classify",
-                "merge_fold", "merge_fold_full")
+                "merge_fold", "merge_fold_full") + ROUND_KERNELS
 
 
 def add_loop_launches(total, ll):
@@ -544,27 +676,34 @@ def add_loop_launches(total, ll):
 
 
 def loop_kernel_counts(ll, world):
-    """(launches of the branch block, of merge_fold, of its full mode) of a
-    loop run at `world` ranks, from its n_calls kernel counts; (-1, -1, -1)
-    when an entry of the other world ran or the split entries disagree. An
-    engaged loop launches the branch block once a branch round, merge_fold
-    once an in-loop merge and once for its full=True tail, and the full
-    mode for that tail alone (loop_kernels_want)."""
+    """{launches of the branch block, of merge_fold, of its full mode, of
+    each round kernel} of a loop run at `world` ranks, from its n_calls
+    kernel counts; the branch block's count is -1 when an entry of the
+    other world ran or the split entries disagree. An engaged loop launches
+    the branch block and branch_prep once a branch round, merge_fold and
+    walk_pairs once an in-loop merge and once for its full=True tail, the
+    full mode for that tail alone, prop_round and occ_round once a round
+    (loop_kernels_want)."""
     split = (ll["branch_locality"], ll["branch_classify"])
-    fold = (ll["merge_fold"], ll["merge_fold_full"])
     if world == 1:
-        return (ll["branch_block"],) + fold if split == (0, 0) \
-            else (-1, -1, -1)
-    if ll["branch_block"] or split[0] != split[1]:
-        return (-1, -1, -1)
-    return (split[0],) + fold
+        branch = ll["branch_block"] if split == (0, 0) else -1
+    else:
+        branch = -1 if ll["branch_block"] or split[0] != split[1] \
+            else split[0]
+    return dict({k: ll[k] for k in ("merge_fold", "merge_fold_full")
+                 + ROUND_KERNELS}, branch=branch)
 
 
 def loop_kernels_want(last):
     """loop_kernel_counts of the loop run whose LAST is `last`."""
     if not last.get("engaged"):
-        return 0, 0, 0
-    return last["rounds_branch_run"], last["rounds_sweep_run"] + 1, 1
+        return dict.fromkeys(("branch", "merge_fold", "merge_fold_full")
+                             + ROUND_KERNELS, 0)
+    merges, rb = last["rounds_sweep_run"] + 1, last["rounds_branch_run"]
+    return dict(branch=rb, merge_fold=merges, merge_fold_full=1,
+                walk_pairs=merges, branch_prep=rb,
+                prop_round=last["rounds_total"],
+                occ_round=last["rounds_total"])
 
 
 def branch_split_args(args, kw):
@@ -1075,9 +1214,11 @@ def smoke(names, draws):
     from pangene_tpu_torch.parallel import device_loop as dl
     from pangene_tpu_torch.parallel import stacked as stk
     from pangene_tpu_torch.testing import (BRANCH_B, EXACT_BRANCH_DIFFS,
-                                           SWEEP_EDGE_CASES, band_genome,
+                                           ROUND_STATES, SWEEP_EDGE_CASES,
+                                           WALK_FORMS, band_genome,
                                            branch_table, deficit_ratios,
-                                           fold_inputs, random_genome,
+                                           fold_inputs, make_state,
+                                           random_genome, round_calls,
                                            stacked_edge_cases,
                                            sweep_edge_case)
     dev = torch.device(DEVICE)
@@ -1091,11 +1232,13 @@ def smoke(names, draws):
                                          torch.version.cuda))
     # one nvcc for each kernel source, all started together
     t0 = time.monotonic()
-    with ThreadPoolExecutor(2) as pool:
-        builds = {src: pool.submit(mod.build, True) for src, mod in (
-            ("shadow_sweep.cu", sk), ("loop_blocks.cu", lk))}
+    with ThreadPoolExecutor(3) as pool:
+        builds = {src: pool.submit(build, True) for src, build in (
+            ("shadow_sweep.cu", sk.build), ("loop_blocks.cu", lk.build),
+            ("loop_round.cu", lk.build_round))}
         builds = {src: f.result() for src, f in builds.items()}
-    log("build: both kernel sources in %.2f s" % (time.monotonic() - t0))
+    log("build: the three kernel sources in %.2f s"
+        % (time.monotonic() - t0))
     for src, (build_s, ptxas) in builds.items():
         log("build: nvcc %s %.2f s" % (src, build_s))
         for line in ptxas.splitlines():
@@ -1276,9 +1419,28 @@ def smoke(names, draws):
                     dict(jb=jb, gb=gb, cap=cap, perm=on_dev(perm),
                          full=full))
                 n_cases += 1
+    # the round kernels on testing.ROUND_STATES: the edge cases, then 70
+    # genomes over several of the scan's tiles and one genome whose hit 0
+    # is filtered
+    for k, which in enumerate(ROUND_STATES):
+        state = make_state(which, 200 + k)
+        for form in WALK_FORMS:
+            compare_round_kernel("walk_pairs", round_calls(
+                state, dev, form=form, use_ori=form == "cosorted")[
+                    "walk_pairs"])
+        calls = round_calls(state, dev)
+        compare_round_kernel("branch_prep", calls["branch_prep"])
+        for propagate in (True, False):
+            compare_round_kernel("prop_round", round_calls(
+                state, dev, propagate=propagate)["prop_round"])
+        for cuts in ((60, 3, 2), None):
+            for loci in (True, False):
+                compare_round_kernel("occ_round", round_calls(
+                    state, dev, cuts=cuts, loci=loci)["occ_round"])
+        n_cases += len(WALK_FORMS) + 7
     log("loop block kernels: %d cases, branch_block, branch_locality, "
-        "branch_classify and merge_fold == plain (%.1f s)"
-        % (n_cases, time.monotonic() - t0))
+        "branch_classify, merge_fold, walk_pairs, branch_prep, prop_round "
+        "and occ_round == plain (%.1f s)" % (n_cases, time.monotonic() - t0))
 
     # 3. the main paths, counts zeroed just before and read just after
     # wall and count of the single-genome sweep calls through ops/dispatch
@@ -1389,10 +1551,8 @@ def smoke(names, draws):
         last = rec.get("LAST", {})
         want = loop_kernels_want(last)
         if loop_kernel_counts(loop, 1) != want:
-            raise AssertionError("%s: loop kernel launches %s, expected "
-                                 "branch_block %d, merge_fold %d, "
-                                 "merge_fold_full %d"
-                                 % ((key, loop) + want))
+            raise AssertionError("%s: loop kernel launches %s, expected %s"
+                                 % (key, loop, want))
         add_loop_launches(loop_launches, loop)
         missing = [e for e in NATIVE_ENTRIES[path] if not native.get(e)]
         if missing:
@@ -2000,6 +2160,45 @@ def smoke(names, draws):
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             rec.update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms,
                         "bound_ms" + sfx: b_ms, "bound_by" + sfx: b_by})
+        # the round kernels: the first in-loop walk and the tail's (its
+        # numbers under "_full"), branch_prep's first call, prop_round's
+        # first that propagates, occ_round's first with the loci and cuts
+        for key, name, replaces in (
+                ("walk_pairs", "walk_pairs",
+                 "pangene_tpu/parallel/device_loop.py:222"),
+                ("walk_pairs_full", "walk_pairs",
+                 "pangene_tpu/parallel/device_loop.py:222"),
+                ("branch_prep", "branch_prep",
+                 "pangene_tpu/parallel/device_loop.py:512"),
+                ("prop_round", "prop_round",
+                 "pangene_tpu/parallel/device_loop.py:673"),
+                ("occ_round", "occ_round",
+                 "pangene_tpu/parallel/device_loop.py:693")):
+            if key == "occ_round" and key not in capture:
+                key = "occ_round_partial"
+            args, kw = capture[key]
+
+            def make(args=args, kw=kw):
+                return list(dl.copy_args(args)), kw
+            err, got = compare_round_kernel(name, make)
+            ms, eager_ms, plain_ms = time_round_kernel(lk, make, name)
+            b_ms, nbytes, shape = round_bound_ms(lk, name, make, got)
+            log("LOOP KERNEL %s %s (%s; %s): ms %.5f (eager back-to-back "
+                "%.5f) plain_ms %.3f bound_ms %.6f (bytes; %d bytes); "
+                "kernel == plain" % (cname, name, key, shape, ms, eager_ms,
+                                     plain_ms, b_ms, nbytes))
+            rec = loop_recs.setdefault(name, {
+                "name": name, "route": "cuda",
+                "source": "pangene_tpu_torch/csrc/loop_round.cu",
+                "replaces": replaces,
+                "launches": loop_launches[name] + mesh_loop_launches[name],
+                "launches_in_process": loop_launches[name],
+                "launches_mesh_ranks": mesh_loop_launches[name],
+                "max_abs_err": 0, "library_ms": None})
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            ksfx = sfx + ("_full" if key == "walk_pairs_full" else "")
+            rec.update({"ms" + ksfx: ms, "plain_ms" + ksfx: plain_ms,
+                        "bound_ms" + ksfx: b_ms, "bound_by" + ksfx: "bytes"})
     kernels.extend(loop_recs.values())
     kept.clear()
 

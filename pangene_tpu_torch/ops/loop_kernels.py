@@ -1,5 +1,8 @@
-"""Two blocks of the device-resident pruning loop as hand-written CUDA
-kernels (csrc/loop_blocks.cu), each beside its plain PyTorch version.
+"""The blocks of the device-resident pruning loop as hand-written CUDA
+kernels (csrc/loop_blocks.cu: the branch block and the merge's fold;
+csrc/loop_round.cu: the walk, the branch block's prelude, weak propagation
+and the occ block with the convergence count), each beside its plain
+PyTorch version.
 
 The branch block (reference branch.c:48-106; JAX
 pangene_tpu/parallel/device_loop.py:525 branch_block, its loc_chunk loop at
@@ -37,6 +40,11 @@ per out-group, ng (its in-groups), tot (its rows), the dist average
 plus499(sum over its in-groups of plus499(in-group dist sum, rows) * rows,
 tot) and the s2 average plus499(sum of the in-groups' largest s2, ng).
 
+walk_pairs, branch_prep, prop_round, occ_round: the rest of a round
+(JAX device_loop.py:222 kept_pairs and :264-300, :512-537, :673-690, :693
+and :724-740), described at each wrapper and in csrc/loop_round.cu.
+prop_round and occ_round update the round state in place.
+
 On cuda each wrapper launches its kernel or raises; on the CPU it takes the
 plain version. Neither reads a value on the host on the card.
 """
@@ -64,7 +72,8 @@ _LONG_MAX = (1 << 63) - 1
 # counts both modes, merge_fold_full the full mode's alone.
 n_calls = {name: {"kernel": 0, "plain": 0} for name in (
     "branch_block", "branch_locality", "branch_classify", "merge_fold",
-    "merge_fold_full")}
+    "merge_fold_full", "walk_pairs", "branch_prep", "prop_round",
+    "occ_round")}
 
 
 def reset_counts() -> None:
@@ -106,16 +115,25 @@ def prev_row(x: torch.Tensor, first) -> torch.Tensor:
 # building and loading the kernels
 # ---------------------------------------------------------------------------
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "loop_blocks.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc")
+_SRC = os.path.join(_CSRC, "loop_blocks.cu")
 SO_NAME = "libloop_blocks.so"
+_SRC_ROUND = os.path.join(_CSRC, "loop_round.cu")
+SO_ROUND = "libloop_round.so"
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_round: Optional[ctypes.CDLL] = None
 
 
 def build(force: bool = False) -> Tuple[float, str]:
     """build_so of csrc/loop_blocks.cu."""
     return build_so(_SRC, SO_NAME, force)
+
+
+def build_round(force: bool = False) -> Tuple[float, str]:
+    """build_so of csrc/loop_round.cu."""
+    return build_so(_SRC_ROUND, SO_ROUND, force)
 
 
 def load(path: str) -> ctypes.CDLL:
@@ -142,6 +160,27 @@ def load(path: str) -> ctypes.CDLL:
     return lib
 
 
+def load_round(path: str) -> ctypes.CDLL:
+    """The built csrc/loop_round.cu with its entry points' C signatures."""
+    lib = ctypes.CDLL(path)
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = lib.pg_walk_pairs
+    fn.restype = i
+    fn.argtypes = ([vp] * 13 + [i] * 6 + [ll, i] + [vp] * 5 + [i, ll]
+                   + [vp] * 3)
+    fn = lib.pg_branch_prep
+    fn.restype = i
+    fn.argtypes = [vp] * 6 + [i] * 3 + [vp, ll, vp] + [i] * 3 + [vp] * 9
+    fn = lib.pg_prop_round
+    fn.restype = i
+    fn.argtypes = [vp] * 3 + [ll, i, i] + [vp] * 5 + [ll, vp, vp]
+    fn = lib.pg_occ_round
+    fn.restype = i
+    fn.argtypes = ([vp] * 5 + [i, ll, vp, ll, i, i] + [vp] * 3
+                   + [i, ll, i, i] + [vp] * 7)
+    return lib
+
+
 def _kernel_lib() -> ctypes.CDLL:
     global _lib
     with _lock:
@@ -149,6 +188,15 @@ def _kernel_lib() -> ctypes.CDLL:
             build()
             _lib = load(os.path.join(build_dir(), SO_NAME))
         return _lib
+
+
+def _round_lib() -> ctypes.CDLL:
+    global _round
+    with _lock:
+        if _round is None:
+            build_round()
+            _round = load_round(os.path.join(build_dir(), SO_ROUND))
+        return _round
 
 
 def _check(named, dev: torch.device) -> None:
@@ -211,16 +259,24 @@ def _check_planes(r_pres, r_cid, r_cm, r_rank, tgt_gid, named, dev):
     return G, A
 
 
-def arc_groups(arc_vw: torch.Tensor, arc_s1: torch.Tensor, B: int):
-    """(gs_of int64, mx int32, branching bool, is_max bool), [A] each, of
-    the v-sorted arc table: a group is a run of valid arcs (vw != SENT_I)
-    of one source vertex v = vw >> B."""
+def arc_heads(arc_vw: torch.Tensor, B: int):
+    """(valid, v, g_new, g_id, n_in_g), [A] each, of the v-sorted arc
+    table: a group is a run of valid arcs (vw != SENT_I) of one source
+    vertex v = vw >> B; g_new marks its first arc, g_id numbers the groups
+    and n_in_g is each arc's group's count of valid arcs."""
     A = arc_vw.shape[0]
     valid = arc_vw != SENT_I
     v = arc_vw >> B
     g_new = valid & (v != prev_row(v, -1))
     g_id = (torch.cumsum(g_new, 0) - 1).clamp(0, max(A - 1, 0))
-    n_in_g = seg_sum(valid.to(I32), g_id, A)[g_id]
+    return valid, v, g_new, g_id, seg_sum(valid.to(I32), g_id, A)[g_id]
+
+
+def arc_groups(arc_vw: torch.Tensor, arc_s1: torch.Tensor, B: int):
+    """(gs_of int64, mx int32, branching bool, is_max bool), [A] each, of
+    the v-sorted arc table's groups (arc_heads)."""
+    A = arc_vw.shape[0]
+    valid, _, _, g_id, n_in_g = arc_heads(arc_vw, B)
     iota = torch.arange(A, dtype=I64, device=arc_vw.device)
     gs_of = seg_min(torch.where(valid, iota, A), g_id, A)[g_id]
     mx = seg_max(torch.where(valid, arc_s1, 0), g_id, A)[g_id].clamp(min=0)
@@ -546,3 +602,372 @@ def fold_stats(f: Fold, s2: torch.Tensor, d: torch.Tensor, cap: int):
     arc_s2 = torch.where(live, plus499_i32(
         torch.where(live, _fit(s2s_f, cap), 0), f.arc_ng.to(I64)), 0)
     return f.arc_ng, arc_tot, arc_ad, arc_s2
+
+
+# ---------------------------------------------------------------------------
+# the rest of a round: walk_pairs, branch_prep, prop_round, occ_round
+# ---------------------------------------------------------------------------
+
+U8 = torch.uint8
+BOOL = torch.bool
+
+
+class WalkPlanes(NamedTuple):
+    """The walk's round-invariant planes of this rank's genomes in cm order,
+    [G, H] each (walk_planes)."""
+    ordcm: torch.Tensor      # int32: the cs row of each cm position
+    valid: torch.Tensor      # bool
+    cid: torch.Tensor        # int32
+    cm: torch.Tensor         # int64
+    w: torch.Tensor          # int64: the oriented vertex (sid << 1) | rev
+    seg: torch.Tensor        # int32: the segment, clamped into [0, S)
+    score_ori: torch.Tensor  # int32
+    score_dom: torch.Tensor  # int32
+    dom_gid: torch.Tensor    # int32
+    dom_sid: torch.Tensor    # int32: the dominant gene's segment
+
+
+WALK_TYPES = (I32, BOOL, I32, I64, I64, I32, I32, I32, I32, I32)
+
+
+def walk_planes(cols: dict, ordcm: torch.Tensor, sid_of: torch.Tensor,
+                S: int) -> WalkPlanes:
+    """WalkPlanes from the loop's [G, H] cs-order columns (cid, cm, gid,
+    rev, valid, score_ori, score_dom, dom_gid), the cm order `ordcm` and
+    each gene's segment `sid_of` (int32 [n_gene])."""
+    o = ordcm.long()
+    ng = sid_of.shape[0]
+    g = lambda n: torch.gather(cols[n], 1, o)
+    gid = g("gid")
+    dg = g("dom_gid")
+    sid = sid_of[gid.clamp(0, ng - 1).long()]
+    return WalkPlanes(
+        ordcm.to(I32).contiguous(), g("valid") != 0, g("cid"), g("cm"),
+        (sid.to(I64) << 1) | g("rev").to(I64), sid.clamp(0, S - 1),
+        g("score_ori"), g("score_dom"), dg,
+        sid_of[dg.clamp(0, ng - 1).long()])
+
+
+def walk_pairs(planes: WalkPlanes, flt: torch.Tensor, shadow: torch.Tensor,
+               alive: torch.Tensor, *, B: int, GB: int, jb: int, rank: int,
+               use_ori: bool, full: bool = False):
+    """The merge's input from the round state (flt, shadow uint8 [G, H] in
+    cs order, alive bool [S]): (keys int64 [G, 2H], s12 int32 [G, 2H],
+    pair_ok bool [G, H], nxt int32 [G, H], seg int32 [2, S]) and in the
+    full mode (s21, dist2) int32 [G, 2H]. Per cm position i with previous
+    kept row p (kept: valid, flt and shadow 0): pair_ok when p exists on
+    i's contig; slot i holds the forward key ((w_p << B | w_i) << GB | g),
+    slot H + i the reverse ((w_i ^ 1) << B | w_p ^ 1, likewise), each
+    further << jb | its global slot when jb > 0, KSENT_I where the pair is
+    not ok; s12 the slots' s1 (score of p, then of i), s21 the swap, dist2
+    the int32-truncated cm gap in both; nxt[p] = i (-1 where no kept row
+    follows); seg this rank's (kept rows, genomes with a kept row) a
+    segment. g is the global genome rank * G + row, a slot rank * G * 2H +
+    its index."""
+    dev = flt.device
+    G, H = flt.shape
+    S = alive.shape[0]
+    _check([(n, t, dt, (G, H)) for n, t, dt in zip(
+        WalkPlanes._fields, planes, WALK_TYPES)]
+        + [("flt", flt, U8, (G, H)), ("shadow", shadow, U8, (G, H)),
+           ("alive", alive, BOOL, (S,))], dev)
+    if not (B >= 1 and GB >= 1 and jb >= 0 and 2 * B + GB + jb <= 62
+            and S >= 1 and rank >= 0):
+        raise ValueError("walk_pairs: B %d GB %d jb %d S %d rank %d"
+                         % (B, GB, jb, S, rank))
+    kw = dict(B=B, GB=GB, jb=jb, rank=rank, use_ori=use_ori, full=full)
+    if not _launch_device(dev, "walk_pairs"):
+        return walk_pairs_plain(planes, flt, shadow, alive, **kw)
+    new = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)
+    keys, s12 = new((G, 2 * H), I64), new((G, 2 * H), I32)
+    pair_ok, nxt = new((G, H), BOOL), new((G, H), I32)
+    words = (G + 31) // 32
+    zeroed = new(2 * S + S * words, I32)
+    stats = [new((G, 2 * H), I32) for _ in range(2 if full else 0)]
+    with torch.cuda.device(dev):
+        _launch("walk_pairs", _round_lib().pg_walk_pairs,
+                *[t.data_ptr() for t in planes], flt.data_ptr(),
+                shadow.data_ptr(), alive.data_ptr(), G, H, S, B, GB, jb,
+                rank, int(bool(use_ori)), keys.data_ptr(), s12.data_ptr(),
+                pair_ok.data_ptr(), nxt.data_ptr(), zeroed.data_ptr(),
+                words, 4 * zeroed.numel(),
+                *([t.data_ptr() for t in stats] or [None] * 2), _stream(dev))
+    return (keys, s12, pair_ok, nxt, zeroed[:2 * S].view(2, S)) \
+        + tuple(stats)
+
+
+def walk_pairs_plain(planes: WalkPlanes, flt, shadow, alive, *, B: int,
+                     GB: int, jb: int, rank: int, use_ori: bool,
+                     full: bool = False):
+    """Plain PyTorch version of walk_pairs: the running maximum by cummax,
+    the pair planes by gathers at the previous row, nxt by a scatter, the
+    segment counters through a [G, S] count plane."""
+    p = planes
+    dev = flt.device
+    G, H = flt.shape
+    S = alive.shape[0]
+    kept = torch.gather((flt == 0) & (shadow == 0), 1, p.ordcm.long()) \
+        & p.valid
+    iotaH = torch.arange(H, dtype=I32, device=dev)
+    run = torch.cummax(torch.where(kept, iotaH[None, :], -1), dim=1).values
+    prev = torch.cat([run.new_full((G, 1), -1), run[:, :-1]], dim=1)
+    prevc = prev.clamp(0, H - 1).long()
+    take = lambda a: torch.gather(a, 1, prevc)
+    pair_ok = kept & (prev >= 0) & (take(p.cid) == p.cid)
+    v, w = take(p.w), p.w
+    dom_alive = (p.dom_gid >= 0) & (p.dom_sid >= 0) \
+        & alive[p.dom_sid.clamp(0, S - 1).long()]
+    use = (p.score_ori > p.score_dom) | (p.dom_gid < 0) | dom_alive
+    sc = p.score_ori if use_ori else torch.where(use, p.score_ori,
+                                                 p.score_dom)
+    s1, s2 = take(sc), sc
+    keys = torch.cat([(v << B) | w, ((w ^ 1) << B) | (v ^ 1)], dim=1)
+    keys = (keys << GB) | (rank * G + torch.arange(
+        G, dtype=I64, device=dev))[:, None]
+    if jb:
+        keys = (keys << jb) | (rank * G * 2 * H + torch.arange(
+            G * 2 * H, dtype=I64, device=dev).reshape(G, 2 * H))
+    keys = torch.where(torch.cat([pair_ok, pair_ok], dim=1), keys, KSENT_I)
+    nxt = torch.full((G, H + 1), -1, dtype=I32, device=dev).scatter_(
+        1, torch.where(kept & (prev >= 0), prev, H).long(),
+        iotaH.repeat(G, 1))[:, :H].contiguous()
+    cnts = torch.zeros((G, S), dtype=I32, device=dev).scatter_add_(
+        1, p.seg.long(), kept.to(I32))
+    seg = torch.stack([cnts.sum(0, dtype=I32), (cnts > 0).sum(0, dtype=I32)])
+    out = (keys, torch.cat([s1, s2], dim=1), pair_ok, nxt, seg)
+    if not full:
+        return out
+    dist = (p.cm - take(p.cm)).to(I32)     # the int32 truncation
+    return out + (torch.cat([s2, s1], dim=1), torch.cat([dist, dist], dim=1))
+
+
+def branch_prep(flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid,
+                overflow, *, n_gene: int, B: int, D: int):
+    """branch_block's representative planes and targets from the round
+    state (flt, shadow uint8, valid bool, gid, cid int32, cm int64, [G, H]
+    in cs order), the v-sorted arc table (arc_vw int64 [A], valid arcs
+    first) and each segment's gene (seg_gid int64 [S]): (r_pres bool,
+    r_cid int32, r_cm int64, r_rank int32), gene-major [n_gene, G], of each
+    gene's last kept hit in a genome (its kept rank: kept rows before it;
+    row 0's cid, cm and rank where the gene has none), and tgt_gid int64
+    [A] (each arc's target gene, clamped into [0, n_gene)). Sets
+    `overflow` (a bool scalar, in place) when a group of one source vertex
+    holds more than max(D, 1) arcs."""
+    dev = flt.device
+    G, H = flt.shape
+    A, S = arc_vw.shape[0], seg_gid.shape[0]
+    _check([("flt", flt, U8, (G, H)), ("shadow", shadow, U8, (G, H)),
+            ("valid", valid, BOOL, (G, H)), ("gid", gid, I32, (G, H)),
+            ("cid", cid, I32, (G, H)), ("cm", cm, I64, (G, H)),
+            ("arc_vw", arc_vw, I64, (A,)), ("seg_gid", seg_gid, I64, (S,)),
+            ("overflow", overflow, BOOL, ())], dev)
+    if min(H, A, S, n_gene) < 1 or not 1 <= B < 62:
+        raise ValueError("branch_prep: H %d A %d S %d n_gene %d B %d"
+                         % (H, A, S, n_gene, B))
+    kw = dict(n_gene=n_gene, B=B, D=D)
+    if not _launch_device(dev, "branch_prep"):
+        return branch_prep_plain(flt, shadow, valid, gid, cid, cm, arc_vw,
+                                 seg_gid, overflow, **kw)
+    new = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)
+    out = (new((n_gene, G), BOOL), new((n_gene, G), I32),
+           new((n_gene, G), I64), new((n_gene, G), I32), new(A, I64))
+    last, krank = new((n_gene, G), I32), new((G, H), I32)
+    with torch.cuda.device(dev):
+        _launch("branch_prep", _round_lib().pg_branch_prep,
+                flt.data_ptr(), shadow.data_ptr(), valid.data_ptr(),
+                gid.data_ptr(), cid.data_ptr(), cm.data_ptr(), G, H, n_gene,
+                arc_vw.data_ptr(), A, seg_gid.data_ptr(), S, B, int(D),
+                *[t.data_ptr() for t in out], overflow.data_ptr(),
+                last.data_ptr(), krank.data_ptr(), _stream(dev))
+    return out
+
+
+def branch_prep_plain(flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid,
+                      overflow, *, n_gene: int, B: int, D: int):
+    """Plain PyTorch version of branch_prep: the groups by head flags and a
+    segment sum, the last kept hit by a scatter maximum, the planes by
+    gathers."""
+    dev = flt.device
+    G, H = flt.shape
+    S = seg_gid.shape[0]
+    valid_a, _, _, _, n_in_g = arc_heads(arc_vw, B)
+    overflow |= (valid_a & (n_in_g > max(D, 1))).any()
+    tgt_gid = seg_gid[((arc_vw & ((1 << B) - 1)) >> 1).clamp(0, S - 1)] \
+        .clamp(0, n_gene - 1)
+    keptc = (flt == 0) & (shadow == 0) & valid
+    krank = torch.cumsum(keptc, dim=1, dtype=I32) - 1
+    pos = torch.where(keptc, torch.arange(H, dtype=I32, device=dev)[None, :],
+                      -1)
+    last = torch.full((n_gene, G), -1, dtype=I32, device=dev) \
+        .scatter_reduce_(0, gid.clamp(0, n_gene - 1).long().t(), pos.t(),
+                         "amax", include_self=True)
+    lastc = last.clamp(0, H - 1).long()
+    iotaG = torch.arange(G, dtype=I64, device=dev)[None, :]
+    return (last >= 0, cid[iotaG, lastc], cm[iotaG, lastc],
+            krank[iotaG, lastc], tgt_gid)
+
+
+def prop_round(weak, flt, valid, ordcm, pair_arc, nxt, pair_ok, arc_weak,
+               word, *, propagate: bool) -> None:
+    """Weak propagation (branch.c:108-145) and the weak == 2 filter, in
+    place on weak and flt (uint8 [G, H], cs order). When `propagate`: each
+    cm position i takes the larger of its pair's reverse mark (arc_weak at
+    pair_arc[g, H + i], when pair_ok[i]) and the forward mark of the pair
+    whose previous row it is (at pair_arc[g, j], j = nxt[i], when
+    pair_ok[j]), and its cs row ordcm[i] keeps the larger of that and its
+    weak. Then every row with weak 2 is filtered. word (int64 [2]) is set
+    to (rows with weak != 0 that are valid, 1 if a value changed else 0).
+    ordcm, nxt (int32), pair_ok (bool) [G, H] and pair_arc (int32 [G, 2H])
+    are walk_pairs' pair state and merge_fold's pair plane; arc_weak is
+    uint8 [A]."""
+    dev = weak.device
+    G, H = weak.shape
+    A = arc_weak.shape[0]
+    _check([("weak", weak, U8, (G, H)), ("flt", flt, U8, (G, H)),
+            ("valid", valid, BOOL, (G, H)), ("ordcm", ordcm, I32, (G, H)),
+            ("pair_arc", pair_arc, I32, (G, 2 * H)),
+            ("nxt", nxt, I32, (G, H)), ("pair_ok", pair_ok, BOOL, (G, H)),
+            ("arc_weak", arc_weak, U8, (A,)), ("word", word, I64, (2,))],
+           dev)
+    if propagate and A < 1:
+        raise ValueError("prop_round: an empty arc table")
+    if not _launch_device(dev, "prop_round"):
+        return prop_round_plain(weak, flt, valid, ordcm, pair_arc, nxt,
+                                pair_ok, arc_weak, word, propagate=propagate)
+    with torch.cuda.device(dev):
+        _launch("prop_round", _round_lib().pg_prop_round, weak.data_ptr(),
+                flt.data_ptr(), valid.data_ptr(), G, H, int(bool(propagate)),
+                ordcm.data_ptr(), pair_arc.data_ptr(), nxt.data_ptr(),
+                pair_ok.data_ptr(), arc_weak.data_ptr(), A, word.data_ptr(),
+                _stream(dev))
+
+
+def prop_round_plain(weak, flt, valid, ordcm, pair_arc, nxt, pair_ok,
+                     arc_weak, word, *, propagate: bool) -> None:
+    """Plain PyTorch version of prop_round, in gather form: the marks by
+    gathers at the pair rows, scattered to the cs rows through ordcm (a
+    permutation: each row once)."""
+    weak0 = weak.clone()
+    if propagate:
+        H = weak.shape[1]
+        A = arc_weak.shape[0]
+        aw = arc_weak.to(I32)
+        rows = pair_arc.long().clamp(0, A - 1)
+        fwd = torch.where(pair_ok, aw[rows[:, :H]], 0)
+        rev = torch.where(pair_ok, aw[rows[:, H:]], 0)
+        nx = nxt.long()
+        nxt_fwd = torch.where(nx >= 0,
+                              torch.gather(fwd, 1, nx.clamp(0, H - 1)), 0)
+        o = ordcm.long()
+        mark = torch.maximum(torch.maximum(rev, nxt_fwd),
+                             torch.gather(weak, 1, o).to(I32))
+        weak.scatter_(1, o, mark.to(U8))
+    hit = (weak == 2) & (flt == 0)
+    changed = (weak != weak0).any() | hit.any()
+    flt.masked_fill_(hit, 1)
+    word.copy_(torch.stack([((weak != 0) & valid).sum(), changed.to(I64)]))
+
+
+def occ_round(alive, flt, valid, gid, sid_of, arc_vw, seg_tot, loci, logs,
+              dcap_mask, dcap_deg, dcap_loci, dcap_tot, word, *, r: int,
+              B: int, n_grp: Optional[torch.Tensor] = None,
+              cuts: Optional[Tuple[int, int, int]] = None) -> None:
+    """The occ block of round r (graph.c:237-263) with its #del capture, in
+    place. Given n_grp (int32 [A], a branch round), first loci (int32
+    [S, 2]) = n_grp summed by each arc's source vertex (segment, strand).
+    Given cuts = (occ_cut, deg_cut, loci_cut), an alive segment (alive
+    bool [S]) is deleted when its seg_tot (int32 [S]) exceeds occ_cut, a
+    strand's out-degree (valid arcs of the v-sorted arc_vw, int64 [A])
+    exceeds deg_cut, or its larger loci exceeds loci_cut; then the valid
+    hits (flt uint8, valid bool, gid int32 [G, H]) whose gene's segment
+    (sid_of int32 [n_gene]) is absent or dead are filtered. Writes
+    logs[r, 3:7] (int64 [R, 10]: the three deletion counts, each not
+    counted before, and the alive segments) and the capture rows
+    dcap_mask[r] (uint8 [R, S]: deleted), dcap_deg[r] (int32 [R, S, 2]:
+    the degrees, 0 without cuts), dcap_loci[r] (loci) and dcap_tot[r]
+    (seg_tot); sets word[1] (int64 [2]) to 1 when alive or flt changed."""
+    dev = alive.device
+    G, H = flt.shape
+    S, A, R = alive.shape[0], arc_vw.shape[0], logs.shape[0]
+    ng = sid_of.shape[0]
+    _check([("alive", alive, BOOL, (S,)), ("flt", flt, U8, (G, H)),
+            ("valid", valid, BOOL, (G, H)), ("gid", gid, I32, (G, H)),
+            ("sid_of", sid_of, I32, (ng,)), ("arc_vw", arc_vw, I64, (A,)),
+            ("seg_tot", seg_tot, I32, (S,)), ("loci", loci, I32, (S, 2)),
+            ("logs", logs, I64, (R, 10)),
+            ("dcap_mask", dcap_mask, U8, (R, S)),
+            ("dcap_deg", dcap_deg, I32, (R, S, 2)),
+            ("dcap_loci", dcap_loci, I32, (R, S, 2)),
+            ("dcap_tot", dcap_tot, I32, (R, S)), ("word", word, I64, (2,))]
+           + ([("n_grp", n_grp, I32, (A,))] if n_grp is not None else []),
+           dev)
+    if not (0 <= r < R and S >= 1 and A >= 1 and ng >= 1 and 1 <= B < 62):
+        raise ValueError("occ_round: r %d R %d S %d A %d n_gene %d B %d"
+                         % (r, R, S, A, ng, B))
+    kw = dict(r=r, B=B, n_grp=n_grp, cuts=cuts)
+    if not _launch_device(dev, "occ_round"):
+        return occ_round_plain(alive, flt, valid, gid, sid_of, arc_vw,
+                               seg_tot, loci, logs, dcap_mask, dcap_deg,
+                               dcap_loci, dcap_tot, word, **kw)
+    occ_cut, deg_cut, loci_cut = cuts if cuts is not None else (0, 0, 0)
+    with torch.cuda.device(dev):
+        _launch("occ_round", _round_lib().pg_occ_round, alive.data_ptr(),
+                flt.data_ptr(), valid.data_ptr(), gid.data_ptr(),
+                sid_of.data_ptr(), ng, G * H, arc_vw.data_ptr(), A, B, S,
+                seg_tot.data_ptr(), loci.data_ptr(),
+                None if n_grp is None else n_grp.data_ptr(),
+                int(cuts is not None), _clip(occ_cut),
+                max(min(int(deg_cut), 2**31 - 1), -2**31),
+                max(min(int(loci_cut), 2**31 - 1), -2**31),
+                logs.data_ptr() + 8 * (10 * r + 3),
+                dcap_mask.data_ptr() + r * S,
+                dcap_deg.data_ptr() + 8 * r * S,
+                dcap_loci.data_ptr() + 8 * r * S,
+                dcap_tot.data_ptr() + 4 * r * S, word.data_ptr(),
+                _stream(dev))
+
+
+def occ_round_plain(alive, flt, valid, gid, sid_of, arc_vw, seg_tot, loci,
+                    logs, dcap_mask, dcap_deg, dcap_loci, dcap_tot, word, *,
+                    r: int, B: int, n_grp: Optional[torch.Tensor] = None,
+                    cuts: Optional[Tuple[int, int, int]] = None) -> None:
+    """Plain PyTorch version of occ_round: segment sums over the arcs' head
+    flags, the deletion masks, the dead genes' hits by a gather through
+    sid_of."""
+    dev = alive.device
+    S = alive.shape[0]
+    ng = sid_of.shape[0]
+    v_a = arc_vw >> B
+    if n_grp is not None:
+        slot = (v_a >> 1).clamp(0, S - 1) * 2 + (v_a & 1)
+        loci.copy_(seg_sum(n_grp, slot, 2 * S).reshape(S, 2))
+    if cuts is None:
+        counts = [torch.zeros((), dtype=I64, device=dev)] * 3
+        newdel = torch.zeros(S, dtype=BOOL, device=dev)
+        deg_v = torch.zeros(2 * S, dtype=I32, device=dev)
+        changed = newdel.any()
+    else:
+        occ_cut, deg_cut, loci_cut = (int(c) for c in cuts)
+        _, _, g_new, _, n_in_g = arc_heads(arc_vw, B)
+        occ_del = alive & (seg_tot.to(I64) > occ_cut)
+        vc = v_a.clamp(0, 2 * S - 1)
+        deg_v = seg_sum(torch.where(g_new, n_in_g, 0), vc, 2 * S)
+        degd = seg_sum((g_new & (n_in_g > deg_cut)).to(I32), vc >> 1, S) > 0
+        degd &= alive
+        locid = alive & (loci.max(dim=1).values > loci_cut)
+        counts = [occ_del.sum(), (degd & ~occ_del).sum(),
+                  (locid & ~degd & ~occ_del).sum()]
+        newdel = occ_del | degd | locid
+        alive &= ~newdel
+        # hits of dead genes leave the walk (PG_SET_FILTER(vtx==0))
+        sid_h = sid_of[gid.clamp(0, ng - 1).long()]
+        dead = (sid_h < 0) | ~alive[sid_h.clamp(0, S - 1).long()]
+        hit = dead & valid & (flt == 0)
+        flt.masked_fill_(hit, 1)
+        changed = newdel.any() | hit.any()
+    logs[r, 3:7] = torch.stack(counts + [alive.sum()])
+    dcap_mask[r] = newdel.to(U8)
+    dcap_deg[r] = deg_v.reshape(S, 2)
+    dcap_loci[r] = loci
+    dcap_tot[r] = seg_tot
+    word[1] = torch.maximum(word[1], changed.to(I64))

@@ -11,14 +11,16 @@ high-occurrence filter (graph.c:237-263), the shadow sweep (overlap.c:
 (graph.c:87-177). The per-hit columns stay on the device; between rounds
 only flt, weak, shadow, pid_dom, alive and the arc table change.
 
-The rounds are a Python loop over torch ops. The shadow sweep of all
-genomes is one launch a round of the hand-written CUDA kernel
-(sweep_kernel.shadow_sweep_batched; on the CPU its plain version, the split
-forms of ops/device.py); the branch block's pairwise locality and the
-in-loop merge's fold after its sort are hand-written kernels too
-(ops/loop_kernels.py: branch_locality, merge_fold). One value a round is
-read on the host (counted in LAST["host_syncs"]): whether the round changed
-anything, which gives the convergence skip.
+The rounds are a Python loop over hand-written CUDA kernels (on the CPU
+their plain versions): the shadow sweep of all genomes is one launch a
+round (sweep_kernel.shadow_sweep_batched; its epilogue stays torch ops);
+the branch block is branch_prep then branch_block (at world > 1
+branch_locality and branch_classify), weak propagation prop_round, the occ
+block with the convergence count occ_round, the merge walk_pairs, then
+torch.sort, then merge_fold (ops/loop_kernels.py). The round state (flt,
+weak, alive, the loci and the logs) is updated in place. One value a round
+is read on the host (counted in LAST["host_syncs"]): whether the round
+changed anything, which gives the convergence skip.
 
 On a mesh of several ranks (parallel/mesh.py) each rank holds G_loc of the
 Gp padded genomes; the arc table, the segment state and the round's
@@ -77,7 +79,7 @@ from ..options import PgOpt
 from ..ops import device as dev
 from ..ops import loop_kernels as lk
 from ..ops import sweep_kernel as sk
-from ..ops.loop_kernels import KSENT_I, SENT_I, prev_row, seg_sum
+from ..ops.loop_kernels import KSENT_I, SENT_I, seg_sum
 from ..util import log_msg
 from . import mesh as M
 
@@ -238,6 +240,16 @@ def unpack_blocks(blk_i32, blk_c, blk_ps, blk_u8, blk_ex):
                                  for n, c in batch.items()})
 
 
+def copy_args(x):
+    """A copy of a call's tensor arguments, tuples of them included; a
+    NamedTuple (the walk's round-invariant planes) is kept as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple) and not hasattr(x, "_fields"):
+        return tuple(copy_args(v) for v in x)
+    return x
+
+
 def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
                     arc0_vw, arc0_s1, seg_tot0, seg_ng0, occ_cut, deg_cut,
                     loci_cut, do_branch, do_occ, do_sweep, do_walk, no_skip,
@@ -249,87 +261,51 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     stay host arrays); returns device tensors, the first four of them this
     rank's genomes. `stats`, when given, receives host_syncs, block_ms,
     sweep_launches and loop_launches (the launches of each kernel of
-    ops/loop_kernels). `capture`, when given, receives the arguments of the
-    first call of each of those kernels, by name."""
+    ops/loop_kernels). `capture`, when given, receives a copy of the
+    arguments of the first call of each of those kernels, by name (the
+    round state is updated in place): prop_round's first call that
+    propagates, occ_round's first with the loci and the cuts (its first
+    other one under "occ_round_partial"), and the full=True tail's calls
+    under "walk_pairs_full" and "merge_fold_full"."""
     device = blk_i32.device
     mesh = mesh or M.local(device)
     nd, rank = mesh.world, mesh.rank
     cols, batch = unpack_blocks(blk_i32, blk_c, blk_ps, blk_u8, blk_ex)
     valid = cols["valid"] != 0
     ev1 = cols["ev1"] != 0
-    ordcm = cols.pop("ordcm").to(I64)
     G, H = valid.shape            # this rank's genomes
     S, A, D, B, GB = cfg.S, cfg.A, cfg.D, cfg.B, cfg.GB
     ng = cfg.n_gene
     NL = G * 2 * H                # this rank's merge keys
-    iotaH = torch.arange(H, dtype=I32, device=device)
-    iotaA = torch.arange(A, dtype=I64, device=device)
-    iotaG = torch.arange(G, dtype=I64, device=device)[None, :]
-    jglob = rank * G + torch.arange(G, dtype=I64, device=device)
     ga = lambda x: M.all_gather(x.reshape(-1), mesh)
-    wmask = (1 << B) - 1
     sid_of = sid_of.to(I32)
     seg_gid = seg_gid.to(I64)
     syncs = [0]
     timer = _BlockTimer(device)
+    # the walk's round-invariant planes in cm order, once
+    planes = lk.walk_planes(cols, cols.pop("ordcm"), sid_of, S)
 
     def captured(fn, *args, key=None, **kw):
-        if capture is not None:
-            capture.setdefault(key or fn.__name__, (args, kw))
+        if capture is not None and (key or fn.__name__) not in capture:
+            capture[key or fn.__name__] = (copy_args(args), kw)
         return fn(*args, **kw)
-
     def host(x: torch.Tensor):
         """One read of a small tensor on the host (a synchronisation)."""
         syncs[0] += 1
         return x.tolist()
 
-    # ---- one-time device-side constant prep ----
-    def g_cm(a):  # gather a [G, H] column into cm order
-        return torch.gather(a, 1, ordcm)
-
-    cid_cm = g_cm(cols["cid"])
-    cm_cm = g_cm(cols["cm"])
-    gid_cm = g_cm(cols["gid"])
-    rev_cm = g_cm(cols["rev"]).to(I64)
-    so_cm = g_cm(cols["score_ori"])
-    sd_cm = g_cm(cols["score_dom"])
-    dg_cm = g_cm(cols["dom_gid"])
-    valid_cm = g_cm(valid)
-    sid_cm = sid_of[gid_cm.clamp(0, ng - 1).long()]
-    dsid_cm = sid_of[dg_cm.clamp(0, ng - 1).long()]
-    sidc_cm = sid_cm.clamp(0, S - 1).long()
-    w_cm = (sid_cm.to(I64) << 1) | rev_cm
-
     geo: dict = {}                # the plain sweep's round-invariant planes
     launches0 = sk.n_batched["kernel"]
     loop0 = {k: c["kernel"] for k, c in lk.n_calls.items()}
 
-    def kept_pairs(flt_b, shadow_b, alive):
-        """Adjacent kept pairs in cm order: (kept, pair_ok, prev, v, w,
-        dist, s1, s2) as [G, H] tensors (positions are cm-order)."""
-        kept = g_cm(~flt_b & ~shadow_b) & valid_cm
-        idxk = torch.where(kept, iotaH[None, :], -1)
-        run = torch.cummax(idxk, dim=1).values
-        prev = torch.cat([run.new_full((G, 1), -1), run[:, :-1]], dim=1)
-        prevc = prev.clamp(0, H - 1).long()
-        take = lambda a: torch.gather(a, 1, prevc)
-        pair_ok = kept & (prev >= 0) & (take(cid_cm) == cid_cm)
-        v = take(w_cm)
-        # dist truncates to int32 like the reference pg_tmparc_t
-        dist = (cm_cm - take(cm_cm)).to(I32)
-        dom_alive = (dg_cm >= 0) & (dsid_cm >= 0) \
-            & alive[dsid_cm.clamp(0, S - 1).long()]
-        use_ori_vec = (so_cm > sd_cm) | (dg_cm < 0) | dom_alive
-        sc = so_cm if cfg.use_ori else torch.where(use_ori_vec, so_cm, sd_cm)
-        return kept, pair_ok, prevc, v, w_cm, dist, take(sc), sc
-
-    def exchange_merge(keys, ok2, s1_2, prevc, pair_ok, seg_tot, seg_ng):
+    def exchange_merge(kps, s1_2, nxt, pair_ok, seg_tot, seg_ng):
         """The in-loop merge at more than two ranks as a bucket exchange
         (JAX device_loop.py:301-409). Keys are monotone in the out-vertex v
         (their top bits), so cutting the key space into nd contiguous
         v-ranges keeps every out-group (vw) and in-group (vw, g) whole, and
         the ranks' sorted ranges concatenated are the global sort. Each rank
-        sorts its NL keys, sends each destination's run (at most C = a2a_cap
+        sorts its NL keys (walk_pairs' lean form: the global slot in the
+        low JB bits), sends each destination's run (at most C = a2a_cap
         keys, with their s1) by all_to_all, sorts and reduces the range it
         receives, and writes its arcs into the replicated [A] table at its
         global offset (a sum over ranks of disjoint windows). Each pair
@@ -338,10 +314,7 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
         overflow flag (n_out = A + 1)."""
         C, JB = cfg.a2a_cap, cfg.JB
         base = rank * NL
-        jo = base + torch.arange(NL, dtype=I64, device=device)
-        kps = torch.sort(torch.where(ok2.reshape(-1),
-                                     (keys.reshape(-1) << JB) | jo,
-                                     KSENT_I)).values
+        kps = torch.sort(kps.reshape(-1)).values
         dest = ((kps >> (JB + GB + B)) * nd // (2 * S)).clamp(0, nd - 1)
         cnt = seg_sum((kps != KSENT_I).to(I32), dest, nd)
         start = torch.cumsum(cnt, 0) - cnt
@@ -374,235 +347,170 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
         put = lambda x: torch.zeros(A + RL, dtype=I64, device=device) \
             .index_copy_(0, at, torch.where(lv, x, 0).to(I64))[:A]
         vw_gl, s1_gl = M.psum(torch.stack([put(vw_f), put(s1_loc)]), mesh)
-        live = iotaA < n_out
+        live = torch.arange(A, dtype=I64, device=device) < n_out
         arc_vw = torch.where(live, vw_gl, SENT_I)
         arc_s1 = torch.where(live, s1_gl.to(I32), 0)
         reply = torch.where(got_k != KSENT_I, reply + off, 0).to(I32)
         reply = M.all_to_all(reply, mesh)                 # [nd * C]
         pair_loc = torch.zeros(NL + 1, dtype=I32, device=device).scatter_(
             0, torch.where(smask, orig_row, NL).reshape(-1), reply)
-        mine = pair_loc[:NL].reshape(G, 2 * H)
-        tgt_prev = torch.gather(ordcm, 1, prevc)
         return (arc_vw, arc_s1, n_out, seg_tot, seg_ng,
-                (mine[:, :H], mine[:, H:], tgt_prev, pair_ok))
+                (pair_loc[:NL].view(G, 2 * H), nxt, pair_ok))
 
-    def walk_merge(flt_b, shadow_b, alive, full: bool):
+    def walk_merge(full: bool):
         """Walk + two-level merge (graph.c:87-177) from one global sort of
-        (vw, genome) keys, gathered from every rank. full=False (in the loop) computes only what the
-        rounds consume (group structure + the exact s1 average) and
-        records, per pair slot, the arc row its key landed in: the next
-        round's weak propagation (branch.c:108-145) is then two gathers
-        (the pairs it walks are built from the same flt/shadow state this
-        merge consumed). full=True (after the loop) adds the output-only
-        stats (n_genome, tot_cnt, dist, s2)."""
-        kept, pair_ok, prevc, v, w, dist, s1w, s2w = kept_pairs(
-            flt_b, shadow_b, alive)
-        cnts = torch.zeros((G, S), dtype=I32, device=device) \
-            .scatter_add_(1, sidc_cm, kept.to(I32))
-        seg_tot, seg_ng = M.psum(torch.stack([
-            cnts.sum(0, dtype=I32), (cnts > 0).sum(0, dtype=I32)]), mesh)
-
-        kf = (v << B) | w
-        kr = ((w ^ 1) << B) | (v ^ 1)
-        keys = torch.cat([kf, kr], dim=1)                 # [G, 2H]
-        keys = (keys << GB) | jglob[:, None]
-        ok2 = torch.cat([pair_ok, pair_ok], dim=1)
-        N = nd * NL                                       # all ranks' keys
-        s1_2 = torch.cat([s1w, s2w], dim=1).reshape(-1)
+        (vw, genome) keys, gathered from every rank: walk_pairs builds the
+        keys from the round state, the sort stays torch.sort, merge_fold
+        folds. full=False (in the loop) computes only what the rounds
+        consume (group structure + the exact s1 average) and records, per
+        pair slot, the arc row its key landed in: the next round's weak
+        propagation (branch.c:108-145) is then a gather (the pairs it walks
+        are built from the same flt/shadow state this merge consumed).
+        full=True (after the loop) adds the output-only stats (n_genome,
+        tot_cnt, dist, s2)."""
         JB = cfg.JB
-        if not full and JB and cfg.a2a_cap:
-            return exchange_merge(keys, ok2, s1_2, prevc, pair_ok, seg_tot,
-                                  seg_ng)
-        if full or not JB:
+        lean = bool(JB) and not full
+        out = captured(lk.walk_pairs, planes, flt, shadow, alive, B=B,
+                       GB=GB, jb=JB if lean else 0, rank=rank,
+                       use_ori=cfg.use_ori, full=full,
+                       key="walk_pairs_full" if full else None)
+        keys, s1_2, pair_ok, nxt, seg = out[:5]
+        seg_tot, seg_ng = M.psum(seg, mesh)
+        if lean and cfg.a2a_cap:
+            return exchange_merge(keys, s1_2.reshape(-1), nxt, pair_ok,
+                                  seg_tot, seg_ng)
+        if not lean:
             # co-sorted form: equal keys keep their row order. The full
             # tail adds the output-only statistics (the reverse key's s2
             # is the pair's s1) and reads no pair plane.
-            keys, so = torch.sort(
-                ga(torch.where(ok2, keys, KSENT_I)), stable=True)
-            stats = dict(full=(ga(torch.cat([s2w, s1w], dim=1)),
-                               ga(torch.cat([dist, dist], dim=1))),
+            keys, so = torch.sort(ga(keys), stable=True)
+            stats = dict(full=(ga(out[5]), ga(out[6])),
                          key="merge_fold_full") if full else {}
-            out = captured(lk.merge_fold, keys, ga(s1_2), jb=0, gb=GB, cap=A,
-                           perm=so, **stats)
+            fo = captured(lk.merge_fold, keys, ga(s1_2), jb=0, gb=GB,
+                          cap=A, perm=so, **stats)
             if full:
-                return out[:3] + (seg_tot, seg_ng) + out[4:]
-            arc_vw, arc_s1, n_out, pair_arc = out
+                return fo[:3] + (seg_tot, seg_ng) + fo[4:]
+            arc_vw, arc_s1, n_out, pair_arc = fo
         else:
             # JB low bits of the lean sort key carry the global row index:
             # the merge sorts one int64 tensor of distinct keys and the
             # fold finds each row's origin in them
-            jo = (rank * NL
-                  + torch.arange(NL, dtype=I64, device=device)) \
-                .reshape(G, 2 * H)
-            kps = torch.sort(ga(torch.where(ok2, (keys << JB) | jo,
-                                            KSENT_I))).values
+            kps = torch.sort(ga(keys)).values
             arc_vw, arc_s1, n_out, pair_arc = captured(
                 lk.merge_fold, kps, ga(s1_2), jb=JB, gb=GB, cap=A)
         # each pair slot's arc row, this rank's window of the replicated
         # plane
-        mine = pair_arc[rank * NL:(rank + 1) * NL].reshape(G, 2 * H)
-        tgt_prev = torch.gather(ordcm, 1, prevc)
-        return (arc_vw, arc_s1, n_out, seg_tot, seg_ng,
-                (mine[:, :H], mine[:, H:], tgt_prev, pair_ok))
+        mine = pair_arc[rank * NL:(rank + 1) * NL].view(G, 2 * H)
+        return arc_vw, arc_s1, n_out, seg_tot, seg_ng, (mine, nxt, pair_ok)
 
-    # ---- round state ----
-    flt = cols["flt"]
-    weak = cols["weak_br"]
-    shadow = cols["shadow"]
+    # ---- round state (flt, weak, shadow, alive, loci_st and the logs are
+    # updated in place by the kernels) ----
+    flt = cols["flt"].clone()
+    weak = cols["weak_br"].clone()
+    shadow = cols["shadow"].clone()
     pid_dom = cols["pid_dom"]
     alive = torch.ones(S, dtype=torch.bool, device=device)
     seg_tot, seg_ng = seg_tot0.to(I32), seg_ng0.to(I32)
     arc_vw, arc_s1 = arc0_vw.to(I64), arc0_s1.to(I32)
-    zGH = torch.zeros((G, H), dtype=I32, device=device)
-    pair_st = (zGH, zGH, zGH.to(I64), zGH.to(torch.bool))
+    # the pair state (each pair slot's arc row, nxt, pair_ok): none yet
+    pair_st = (torch.zeros((G, 2 * H), dtype=I32, device=device),
+               torch.full((G, H), -1, dtype=I32, device=device),
+               torch.zeros((G, H), dtype=torch.bool, device=device))
     loci_st = torch.zeros((S, 2), dtype=I32, device=device)
     logs = torch.zeros((cfg.R, 10), dtype=I64, device=device)
     dcap_mask = torch.zeros((cfg.R, S), dtype=torch.uint8, device=device)
     dcap_deg = torch.zeros((cfg.R, S, 2), dtype=I32, device=device)
     dcap_loci = torch.zeros((cfg.R, S, 2), dtype=I32, device=device)
     dcap_tot = torch.zeros((cfg.R, S), dtype=I32, device=device)
-    zero = torch.zeros((), dtype=I64, device=device)
+    # each round's (n_prop, changed) word
+    words = torch.zeros((cfg.R, 2), dtype=I64, device=device)
     aw_c = torch.zeros(A, dtype=torch.uint8, device=device)
-    n1_c = n2_c = n_out_c = zero
+    cnt_c = torch.zeros(2, dtype=I64, device=device)
+    n_out_c = torch.zeros((), dtype=I64, device=device)
+    cnt_r, n_out_r, flags = [], [], []
     nc_in = False
     overflow = torch.zeros((), dtype=torch.bool, device=device)
+    loc_kw = dict(D=D, frag_mode=cfg.frag_mode, local_dist=cfg.local_dist,
+                  local_count=cfg.local_count)
+    cls_kw = dict(branch_diff=cfg.branch_diff,
+                  branch_diff_dist=cfg.branch_diff_dist,
+                  branch_diff_cut=cfg.branch_diff_cut)
 
     for r in range(cfg.R):
-        flt_in, weak_in, alive_in = flt, weak, alive
         run_br = bool(do_branch[r]) and (not nc_in or no_skip)
 
-        # ===== arc-group structure of the previous round's arcs =====
-        with timer("branch"):
-            valid_a = arc_vw != SENT_I
-            v_a = arc_vw >> B
-            g_new = valid_a & (v_a != prev_row(v_a, -1))
-            g_id = (torch.cumsum(g_new, 0) - 1).clamp(0, A - 1)
-            n_in_g = seg_sum(valid_a.to(I32), g_id, A)[g_id]
-
-        def branch_block():
-            """Branch marking (branch.c:48-106): for every arc of a
-            branching group, is there a genome in which its target is local
-            to a max arc's target of the group (aml), and to an earlier
-            member's (he); then the deficit classification and the
-            n_dist_loci greedy (branch.c:82-90: count group members with no
-            earlier local partner; the greedy marks j from every earlier i
-            regardless of i's own group)."""
-            tgt_gid = seg_gid[((arc_vw & wmask) >> 1).clamp(0, S - 1)] \
-                .clamp(0, ng - 1)
-            # a branching group (n_in_g >= 2) past the window
-            ovf = (valid_a & (n_in_g > max(D, 1))).any()
-            # rep positions (branch.c:6-29): last kept hit per gene in the
-            # current cs order, with its kept-rank and cm, as gene-major
-            # [ng, G] planes of this rank's genomes
-            keptc = (flt == 0) & (shadow == 0) & valid
-            krank = torch.cumsum(keptc, dim=1, dtype=I32) - 1
-            pos = torch.where(keptc, iotaH[None, :], -1)
-            gidc = cols["gid"].clamp(0, ng - 1).long()
-            last = torch.full((ng, G), -1, dtype=I32, device=device) \
-                .scatter_reduce_(0, gidc.t(), pos.t(), "amax",
-                                 include_self=True)
-            lastc = last.clamp(0, H - 1).long()
-            planes = (last >= 0, cols["cid"][iotaG, lastc],
-                      cols["cm"][iotaG, lastc], krank[iotaG, lastc], tgt_gid)
-            loc_kw = dict(D=D, frag_mode=cfg.frag_mode,
-                          local_dist=cfg.local_dist,
-                          local_count=cfg.local_count)
-            cls_kw = dict(branch_diff=cfg.branch_diff,
-                          branch_diff_dist=cfg.branch_diff_dist,
-                          branch_diff_cut=cfg.branch_diff_cut)
-            if nd == 1:
-                # one kernel: the groups, the locality, the classification
-                # (no host read)
-                aw, n_grp, cnt = captured(lk.branch_block, *planes, arc_vw,
-                                          arc_s1, B=B, **loc_kw, **cls_kw)
-            else:
-                # a genome of any rank: the locality bits OR'd over the
-                # ranks before the classification
-                gs_of, mx, branching, is_max = lk.arc_groups(arc_vw, arc_s1,
-                                                             B)
-                aml, he = captured(lk.branch_locality, *planes, gs_of,
-                                   branching, is_max, **loc_kw)
-                aml, he = M.psum(torch.stack([aml, he]).to(I32), mesh) > 0
-                aw, n_grp, cnt = captured(lk.branch_classify, arc_s1, mx,
-                                          branching, aml, he, gs_of,
-                                          **cls_kw)
-            # n_grp sits at each branching group's first arc, 0 elsewhere
-            slot = (v_a >> 1).clamp(0, S - 1) * 2 + (v_a & 1)
-            loci = seg_sum(n_grp, slot, 2 * S).reshape(S, 2)
-            return aw, loci, cnt[0], cnt[1], ovf
-
+        # ===== branch marking on the previous round's arcs =====
+        # (branch.c:48-106): for every arc of a branching group, is there a
+        # genome in which its target is local to a max arc's target of the
+        # group (aml), and to an earlier member's (he); then the deficit
+        # classification and the n_dist_loci greedy (branch.c:82-90)
+        n_grp = None
         if run_br:
             with timer("branch"):
-                arc_weak, loci, n_flt1, n_flt2, ovf_b = branch_block()
-            overflow = overflow | ovf_b
+                # the groups' window check (into overflow), each arc's
+                # target gene and the representatives (branch.c:6-29): last
+                # kept hit per gene in the current cs order, with its
+                # kept-rank and cm, as gene-major [ng, G] planes of this
+                # rank's genomes
+                rep = captured(lk.branch_prep, flt, shadow, valid,
+                               cols["gid"], cols["cid"], cols["cm"], arc_vw,
+                               seg_gid, overflow, n_gene=ng, B=B, D=D)
+                if nd == 1:
+                    # one kernel: the groups, the locality, the
+                    # classification (no host read)
+                    arc_weak, n_grp, cnt = captured(
+                        lk.branch_block, *rep, arc_vw, arc_s1, B=B,
+                        **loc_kw, **cls_kw)
+                else:
+                    # a genome of any rank: the locality bits OR'd over the
+                    # ranks before the classification
+                    gs_of, mx, branching, is_max = lk.arc_groups(
+                        arc_vw, arc_s1, B)
+                    aml, he = captured(lk.branch_locality, *rep, gs_of,
+                                       branching, is_max, **loc_kw)
+                    aml, he = M.psum(torch.stack([aml, he]).to(I32),
+                                     mesh) > 0
+                    arc_weak, n_grp, cnt = captured(
+                        lk.branch_classify, arc_s1, mx, branching, aml, he,
+                        gs_of, **cls_kw)
         else:
             # convergence skip: nc_in certifies the previous round had
             # do_branch and changed nothing in (flt, weak, alive), so this
-            # round's branch marking would reproduce the carried values. At
-            # r=0 (no branch round yet) the carries are all zeros.
-            arc_weak, loci, n_flt1, n_flt2 = aw_c, loci_st, n1_c, n2_c
-        if do_branch[r]:
-            loci_st = loci
+            # round's branch marking would reproduce the carried values
+            # (loci_st among them). At r=0 (no branch round yet) the
+            # carries are all zeros.
+            arc_weak, cnt = aw_c, cnt_c
 
         # ===== weak propagation onto hits (branch.c:108-145) =====
         # the pairs walked here are built from the same flt/shadow state as
         # the previous round's walk_merge, which recorded each pair's arc
-        # row: two gathers
+        # row; then the weak == 2 filter, n_prop and the change bit
+        word = words[r]
         with timer("prop"):
+            prop_args = (weak, flt, valid, planes.ordcm, *pair_st,
+                         arc_weak, word)
             if do_branch[r]:
-                idx_f, idx_r, tgt_prev, pair_ok = pair_st
-                aw32 = arc_weak.to(I32)
-                wk_f = torch.where(pair_ok,
-                                   aw32[idx_f.clamp(0, A - 1).long()], 0)
-                wk_r = torch.where(pair_ok,
-                                   aw32[idx_r.clamp(0, A - 1).long()], 0)
-                # earlier hit gets the forward arc's mark, later the rev's
-                weak = weak.to(I32) \
-                    .scatter_reduce(1, tgt_prev, wk_f, "amax") \
-                    .scatter_reduce(1, ordcm, wk_r, "amax").to(torch.uint8)
-            flt = torch.where((weak == 2) & (flt == 0), 1, flt) \
-                .to(torch.uint8)
+                captured(lk.prop_round, *prop_args, propagate=True)
+            else:
+                lk.prop_round(*prop_args, propagate=False)
 
         # ===== annealed high-occurrence filter (graph.c:237-263) =====
+        # with n_dist_loci from the branch round's n_grp, the #del capture
+        # rows and the convergence count
         with timer("occ"):
-            if do_occ[r]:
-                occ_del = alive & (seg_tot.to(I64) > int(occ_cut[r]))
-                vc = v_a.clamp(0, 2 * S - 1)
-                deg_v = seg_sum(torch.where(g_new, n_in_g, 0), vc, 2 * S)
-                degd = seg_sum((g_new & (n_in_g > int(deg_cut[r])))
-                               .to(I32), vc >> 1, S) > 0
-                degd &= alive
-                locid = alive & (loci.max(dim=1).values > int(loci_cut[r]))
-                n_occ = occ_del.sum()
-                n_deg = (degd & ~occ_del).sum()
-                n_loci = (locid & ~degd & ~occ_del).sum()
-                newdel = occ_del | degd | locid
-                alive = alive & ~newdel
-                # hits of dead genes leave the walk (PG_SET_FILTER(vtx==0))
-                sid_h = sid_of[cols["gid"].clamp(0, ng - 1).long()]
-                dead = (sid_h < 0) | ~alive[sid_h.clamp(0, S - 1).long()]
-                flt = torch.where(dead & valid & (flt == 0), 1, flt) \
-                    .to(torch.uint8)
-            else:
-                n_occ = n_deg = n_loci = zero
-                newdel = torch.zeros(S, dtype=torch.bool, device=device)
-                deg_v = torch.zeros(2 * S, dtype=I32, device=device)
-
-            # ===== convergence detection =====
-            # weak is untouched after prop and flt after occ, so counting
-            # here matches the reference's post-propagation log exactly.
-            # The hit state is this rank's, alive is replicated: the change
-            # bit is summed over the ranks before the host reads it
-            n_prop, changed = M.psum(torch.stack([
-                ((weak != 0) & valid).sum(),
-                ((flt != flt_in).any() | (weak != weak_in).any()).to(I64)]),
-                mesh)
-            ch = bool(host((changed > 0) | (alive != alive_in).any()))
-            # #del replay capture
-            dcap_mask[r] = newdel.to(torch.uint8)
-            dcap_deg[r] = deg_v.reshape(S, 2)
-            dcap_loci[r] = loci
-            dcap_tot[r] = seg_tot
+            cuts = (int(occ_cut[r]), int(deg_cut[r]), int(loci_cut[r])) \
+                if do_occ[r] else None
+            captured(lk.occ_round, alive, flt, valid, cols["gid"], sid_of,
+                     arc_vw, seg_tot, loci_st, logs, dcap_mask, dcap_deg,
+                     dcap_loci, dcap_tot, word, r=r, B=B, n_grp=n_grp,
+                     cuts=cuts, key=None if n_grp is not None and cuts
+                     else "occ_round_partial")
+            # The hit state is this rank's, alive is replicated: the word
+            # is summed over the ranks before the host reads it
+            if nd > 1:
+                word = M.psum(word, mesh)
+                words[r] = word
+            ch = host(word)[1] > 0
 
         # ===== arc regeneration (graph.c:87-177) =====
         # Skipped entirely when the round changed nothing: shadow, pid_dom
@@ -632,16 +540,15 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
         # exact s1 average and the seg counters)
         if recompute and do_walk[r]:
             with timer("walk_merge"):
-                arc_vw, arc_s1, n_out, seg_tot, seg_ng, pair_st = walk_merge(
-                    flt != 0, shadow != 0, alive, full=False)
+                arc_vw, arc_s1, n_out, seg_tot, seg_ng, pair_st = \
+                    walk_merge(full=False)
         else:
             n_out = n_out_c
-        overflow = overflow | (n_out > A)
         nc_in = bool(do_branch[r]) and not ch
-        logs[r] = torch.stack([
-            n_flt1, n_flt2, n_prop, n_occ, n_deg, n_loci, alive.sum(), n_out,
-            zero + int(run_br), zero + int(run_sw)])
-        aw_c, n1_c, n2_c, n_out_c = arc_weak, n_flt1, n_flt2, n_out
+        cnt_r.append(cnt)
+        n_out_r.append(n_out)
+        flags.append((int(run_br), int(run_sw)))
+        aw_c, cnt_c, n_out_c = arc_weak, cnt, n_out
 
     # recompute the final arc table with its output-only stats from the
     # final state (identical kept pairs -> identical groups); all averages
@@ -649,7 +556,15 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     # softfloat in its plain version
     with timer("walk_merge"):
         (arc_vw, arc_s1, n_out, seg_tot, seg_ng, arc_ng, arc_tot, arc_ad,
-         arc_s2) = walk_merge(flt != 0, shadow != 0, alive, full=True)
+         arc_s2) = walk_merge(full=True)
+    # the logs' columns the round kernels did not write (occ_round wrote
+    # 3-6): the branch counts, n_prop, the arc count, the two run flags
+    n_outs = torch.stack(n_out_r)
+    overflow |= (n_outs > A).any()
+    logs[:, 0:2] = torch.stack(cnt_r)
+    logs[:, 2] = words[:, 0]
+    logs[:, 7] = n_outs
+    logs[:, 8:] = torch.tensor(flags, dtype=I64, device=device)
     # replicated by construction; reduced once more so that every rank
     # falls back, or none
     overflow = M.pmax(overflow.to(I32), mesh) > 0

@@ -474,6 +474,167 @@ def fold_inputs(rng, form, N, n_vw, n_g=8, p_valid=0.7, smax=1000,
     return out
 
 
+def round_state(rng, G, H, S=40, n_gene=50, sizes=(3, 1, 5, 2, 1, 4),
+                n_invalid=7, p_flt=0.2, p_shadow=0.1, p_dead=0.2,
+                empty=(), far=False):
+    """A random state of the device loop's rounds as numpy arrays, the
+    inputs of ops/loop_kernels.walk_pairs, branch_prep, prop_round and
+    occ_round: G genomes of H rows in cs order (a genome's valid rows
+    first, sorted by contig; the genomes in `empty` have none): cid, cm
+    (beyond 2^31 on every third row with `far`, so cm gaps pass 2^31),
+    gid, dom_gid (-1 on some rows), score_ori, score_dom, rev, valid, flt
+    (p_flt; padding rows 0), shadow, weak (0, 1, 2), ordcm (the cm order of
+    the valid rows, then the padding rows in place: a permutation); sid_of
+    [n_gene] (some -1), alive [S] (dead with p_dead), seg_tot [S], loci
+    [S, 2], seg_gid [S]; the v-sorted arc table arc_vw [A] (groups of
+    `sizes` arcs of ascending source vertices above B bits of target, then
+    n_invalid empty slots; B, an int, the bits of a vertex: those of
+    2S - 1) with arc_weak (0, 1, 2) and n_grp (a small count at each group
+    of two or more's first arc, 0 elsewhere)."""
+    from .ops.loop_kernels import SENT_I
+    nk = rng.integers(0, H + 1, G)
+    nk[list(empty)] = 0
+    valid = np.arange(H)[None, :] < nk[:, None]
+    cid = np.sort(rng.integers(0, 3, (G, H)), axis=1).astype(np.int32)
+    cm = rng.integers(0, 5000, (G, H)).astype(np.int64)
+    if far:
+        cm[:, ::3] += 3 << 30
+    ordcm = np.tile(np.arange(H, dtype=np.int32), (G, 1))
+    for g in range(G):
+        k = int(nk[g])
+        ordcm[g, :k] = np.lexsort((cm[g, :k], cid[g, :k]))
+    rows = lambda p: (rng.random((G, H)) < p) & valid
+    gid = np.where(valid, rng.integers(0, n_gene, (G, H)), 0) \
+        .astype(np.int32)
+    dom_gid = np.where(rng.random((G, H)) < 0.3, -1,
+                       rng.integers(0, n_gene, (G, H))).astype(np.int32)
+    sid_of = np.where(rng.random(n_gene) < 0.1, -1,
+                      rng.integers(0, S, n_gene)).astype(np.int32)
+    B = max((2 * S - 1).bit_length(), 2)
+    vs = np.sort(rng.choice(2 * S, len(sizes), replace=False))
+    vw = [(int(v) << B) | int(w) for v, n in zip(vs, sizes)
+          for w in np.sort(rng.integers(0, 2 * S, n))]
+    A = len(vw) + n_invalid
+    heads = np.cumsum([0] + list(sizes))[:-1]
+    n_grp = np.zeros(A, np.int32)
+    n_grp[heads] = np.where(np.asarray(sizes) >= 2,
+                            rng.integers(1, 4, len(sizes)), 0)
+    return dict(
+        cid=cid, cm=cm, gid=gid, dom_gid=dom_gid,
+        score_ori=rng.integers(0, 1000, (G, H)).astype(np.int32),
+        score_dom=rng.integers(0, 1000, (G, H)).astype(np.int32),
+        rev=rng.integers(0, 2, (G, H)).astype(np.uint8), valid=valid,
+        flt=rows(p_flt).astype(np.uint8),
+        shadow=rows(p_shadow).astype(np.uint8),
+        weak=np.where(valid, rng.choice(3, (G, H), p=(0.7, 0.2, 0.1)), 0)
+        .astype(np.uint8),
+        ordcm=ordcm, sid_of=sid_of, alive=rng.random(S) >= p_dead,
+        seg_tot=rng.integers(0, 3 * G + 1, S).astype(np.int32),
+        loci=rng.integers(0, 4, (S, 2)).astype(np.int32),
+        seg_gid=rng.integers(0, n_gene, S).astype(np.int64),
+        arc_vw=np.array(vw + [SENT_I] * n_invalid, np.int64),
+        arc_weak=rng.choice(3, A).astype(np.uint8), n_grp=n_grp,
+        pair_arc=rng.integers(0, A + 3, (G, 2 * H)).astype(np.int32), B=B)
+
+
+# The round kernels' states: round_state keywords at G genomes of H rows,
+# and `hit0` to filter each genome's hit 0 at entry (the ev1 stale-flag
+# trap); first the edge cases (`far`: cm gaps past 2^31), then two that
+# span several of the scan's 1,024-row tiles.
+ROUND_STATES = {
+    "random": dict(G=5, H=40),
+    "far": dict(G=5, H=40, far=True),
+    "empty_genomes": dict(G=5, H=40, empty=(0, 2, 4)),
+    "all_filtered": dict(G=5, H=40, p_flt=1.0),
+    "hit0_filtered": dict(G=5, H=40, hit0=True),
+    "all_dead": dict(G=5, H=40, p_dead=1.0),
+    "window_D": dict(G=5, H=40, sizes=(3, 64, 2)),
+    "window_D+1": dict(G=5, H=40, sizes=(3, 65, 2)),
+    "tiles": dict(G=70, H=3077, S=3000, n_gene=4000,
+                  sizes=tuple(range(1, 300))),
+    "one_genome": dict(G=1, H=1025, S=500, n_gene=600, p_flt=0.02,
+                       hit0=True),
+}
+ROUND_EDGE_CASES = tuple(ROUND_STATES)[:-2]
+
+
+def make_state(which, seed):
+    """The round_state ROUND_STATES[which] drawn from `seed`."""
+    kw = dict(ROUND_STATES[which])
+    hit0 = kw.pop("hit0", False)
+    st = round_state(np.random.default_rng(seed), kw.pop("G"), kw.pop("H"),
+                     **kw)
+    if hit0:
+        st["flt"][:, 0] = st["valid"][:, 0]
+    return st
+
+
+# The walk's key forms: (rank, world, jb on, full): the lean in-loop key
+# with the global slot in its low bits, the co-sorted key, the full=True
+# tail's, and the bucket exchange's lean key at rank 2 of three.
+WALK_FORMS = {"lean": (0, 1, True, False), "cosorted": (0, 1, False, False),
+              "full": (0, 1, False, True), "exchange": (2, 3, True, False)}
+# positions of the arguments each round kernel updates in place
+ROUND_INPLACE = {"walk_pairs": (), "branch_prep": (8,), "prop_round": (0, 1, 8),
+                 "occ_round": (0, 1, 7, 8, 9, 10, 11, 12, 13)}
+
+
+def round_calls(st, device, form="lean", use_ori=False, D=64, r=1,
+                cuts=(60, 3, 2), propagate=True, loci=True):
+    """{kernel name: make} for the four round kernels of
+    ops/loop_kernels.py on the round_state `st` on `device`: make() returns
+    (args, kw) on fresh copies of the state. walk_pairs in WALK_FORMS[form];
+    prop_round's pair state is walk_pairs_plain's (nxt, pair_ok) with
+    st["pair_arc"]; occ_round in round r of 4 with `cuts` (None: no occ)
+    and, when `loci`, st["n_grp"]."""
+    import torch
+    from .ops import loop_kernels as lk
+    t = lambda k: torch.from_numpy(np.array(st[k])).to(device)   # a copy
+    G, H = st["cid"].shape
+    S, ng = len(st["alive"]), len(st["sid_of"])
+    rank, world, lean, full = WALK_FORMS[form]
+    GB = max((world * G - 1).bit_length(), 1)
+    jb = max((world * G * 2 * H - 1).bit_length(), 1) if lean else 0
+    cols = {k: t(k) for k in ("cid", "cm", "gid", "dom_gid", "score_ori",
+                              "score_dom", "rev", "valid")}
+    planes = lk.walk_planes(cols, t("ordcm"), t("sid_of"), S)
+    B = st["B"]
+    walk_kw = dict(B=B, GB=GB, jb=jb, rank=rank, use_ori=use_ori,
+                   full=full)
+    _, _, pair_ok, nxt = lk.walk_pairs_plain(
+        planes, t("flt"), t("shadow"), t("alive"), **walk_kw)[:4]
+    new = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
+    R = 4
+    return {
+        "walk_pairs": lambda: (
+            [planes, t("flt"), t("shadow"), t("alive")], dict(walk_kw)),
+        "branch_prep": lambda: (
+            [t(k) for k in ("flt", "shadow", "valid", "gid", "cid", "cm",
+                            "arc_vw", "seg_gid")]
+            + [new((), torch.bool)], dict(n_gene=ng, B=B, D=D)),
+        "prop_round": lambda: (
+            [t("weak"), t("flt"), t("valid"), planes.ordcm, t("pair_arc"),
+             nxt, pair_ok, t("arc_weak"), new(2, torch.int64)],
+            dict(propagate=propagate)),
+        "occ_round": lambda: (
+            [t(k) for k in ("alive", "flt", "valid", "gid", "sid_of",
+                            "arc_vw", "seg_tot", "loci")]
+            + [new((R, 10), torch.int64), new((R, S), torch.uint8),
+               new((R, S, 2), torch.int32), new((R, S, 2), torch.int32),
+               new((R, S), torch.int32), new(2, torch.int64)],
+            dict(r=r, B=B, n_grp=t("n_grp") if loci else None,
+                 cuts=cuts))}
+
+
+def round_outputs(name, args, kw, plain=False):
+    """Calls the round kernel `name` of ops/loop_kernels.py (or its plain
+    version) and returns its outputs: what it returns, then the arguments
+    it updates in place (ROUND_INPLACE)."""
+    from .ops import loop_kernels as lk
+    out = getattr(lk, name + ("_plain" if plain else ""))(*args, **kw)
+    return tuple(out or ()) + tuple(args[i] for i in ROUND_INPLACE[name])
+
+
 REPORT_TAG = "RANK_REPORT="
 
 

@@ -1,7 +1,8 @@
 """The CUDA sweep kernel and its batched entry against their plain PyTorch
 versions, the per-round device step that launches the batched entry, and
-the device loop's two block kernels (ops/loop_kernels.py) against theirs, on
-the card.
+the device loop's block kernels (ops/loop_kernels.py: the branch block,
+merge_fold, and the round kernels walk_pairs, branch_prep, prop_round and
+occ_round) against theirs, on the card.
 
 These tests need an NVIDIA GPU (the kernel has no CPU mode) and skip
 without one. The file imports neither jax nor pangene_tpu, so it runs on a
@@ -21,12 +22,14 @@ from pangene_tpu_torch.ops import sweep_kernel as sk
 from pangene_tpu_torch.parallel import stacked as st
 from pangene_tpu_torch.ops.loop_kernels import SENT_I
 from pangene_tpu_torch.testing import (BRANCH_B, EXACT_BRANCH_DIFFS,
-                                       SWEEP_EDGE_CASES, band_genome,
-                                       batch_cols, branch_table,
-                                       deficit_ratios, fold_inputs,
-                                       locality_table, random_genome,
-                                       stack_cols, stacked_edge_cases,
-                                       sweep_edge_case)
+                                       ROUND_STATES, SWEEP_EDGE_CASES,
+                                       WALK_FORMS, band_genome, batch_cols,
+                                       branch_table, deficit_ratios,
+                                       fold_inputs, locality_table,
+                                       make_state, random_genome,
+                                       round_calls, round_outputs,
+                                       round_state, stack_cols,
+                                       stacked_edge_cases, sweep_edge_case)
 
 
 @pytest.fixture
@@ -606,5 +609,92 @@ def test_loop_kernel_wrappers_raise_on_bad_inputs(cuda_device):
         with pytest.raises(ValueError):
             lk.merge_fold(a["keys"], a["s1"], jb=3, gb=1, cap=4,
                           perm=a["perm"])
+    assert all(c["plain"] == 0 and c["kernel"] == 0
+               for c in lk.n_calls.values())
+
+
+# ---------------------------------------------------------------------------
+# the round kernels (walk_pairs, branch_prep, prop_round, occ_round)
+# ---------------------------------------------------------------------------
+
+def round_both(name, which, form, seed, **kw):
+    """Kernel `name` and its plain version on one round_state on the card:
+    both outputs (returned values, then the arguments updated in place)."""
+    calls = round_calls(make_state(which, seed), torch.device("cuda"),
+                        form=form, **kw)
+    args, akw = calls[name]()
+    got = round_outputs(name, args, akw)
+    args, akw = calls[name]()
+    want = round_outputs(name, args, akw, plain=True)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(WALK_FORMS))
+@pytest.mark.parametrize("which", list(ROUND_STATES))
+def test_walk_pairs_kernel_vs_plain(cuda_device, which, form):
+    lk.reset_counts()
+    for use_ori in (False, True):
+        got, want = round_both("walk_pairs", which, form, 3,
+                               use_ori=use_ori)
+        assert len(got) == len(want) == (7 if form == "full" else 5)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert lk.n_calls["walk_pairs"] == {"kernel": 2, "plain": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 8])
+@pytest.mark.parametrize("which", list(ROUND_STATES))
+def test_branch_prep_kernel_vs_plain(cuda_device, which, D):
+    got, want = round_both("branch_prep", which, "lean", 5, D=D)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if which.startswith("window") and D == 64:
+        assert bool(got[5]) == (which == "window_D+1")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("propagate", [True, False])
+@pytest.mark.parametrize("which", list(ROUND_STATES))
+def test_prop_round_kernel_vs_plain(cuda_device, which, propagate):
+    got, want = round_both("prop_round", which, "lean", 7,
+                           propagate=propagate)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loci", [True, False])
+@pytest.mark.parametrize("cuts", [(60, 3, 2), (4, 50, 1), None])
+@pytest.mark.parametrize("which", list(ROUND_STATES))
+def test_occ_round_kernel_vs_plain(cuda_device, which, cuts, loci):
+    got, want = round_both("occ_round", which, "lean", 9, cuts=cuts,
+                           loci=loci, r=3)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_round_kernel_wrappers_raise_on_bad_inputs(cuda_device):
+    """A wrong type or shape, or a CPU tensor beside CUDA tensors, raises;
+    the plain version is never taken."""
+    state = round_state(np.random.default_rng(4), 3, 40)
+    calls = round_calls(state, cuda_device)
+    lk.reset_counts()
+    for name, pos, bad in (
+            ("walk_pairs", 1, lambda t: t.cpu()),
+            ("walk_pairs", 3, lambda t: t.to(torch.uint8)),
+            ("branch_prep", 5, lambda t: t.to(torch.int32)),
+            ("branch_prep", 8, lambda t: t.cpu()),
+            ("prop_round", 4, lambda t: t[:, :-1]),
+            ("prop_round", 7, lambda t: t.cpu()),
+            ("occ_round", 7, lambda t: t.reshape(-1)),
+            ("occ_round", 13, lambda t: t.cpu())):
+        args, kw = calls[name]()
+        args[pos] = bad(args[pos])
+        with pytest.raises(ValueError):
+            getattr(lk, name)(*args, **kw)
     assert all(c["plain"] == 0 and c["kernel"] == 0
                for c in lk.n_calls.values())

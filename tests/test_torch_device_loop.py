@@ -417,25 +417,29 @@ def test_last_diagnostics(corpus):
 
 
 def test_host_syncs_one_a_round(corpus):
-    """The branch block and the in-loop merge read nothing on the host (their
-    kernels' plain versions ran once per branch round, and once per in-loop
-    merge plus once for the full=True tail): the one host read a round is
-    the change bit."""
+    """The round's blocks read nothing on the host (their kernels' plain
+    versions ran: the branch block and its prelude once per branch round,
+    weak propagation and the occ block once a round, the walk and the
+    in-loop merge once per in-loop merge plus once for the full=True tail):
+    the one host read a round is the change bit."""
     from pangene_tpu_torch.ops import loop_kernels as lk
     lk.reset_counts()
     run_port(corpus)
     last = dl.LAST
     assert last["engaged"] is True
     assert last["host_syncs"] == last["rounds_total"] == 16
-    assert last["loop_launches"] == {"branch_block": 0, "branch_locality": 0,
-                                     "branch_classify": 0, "merge_fold": 0,
-                                     "merge_fold_full": 0}
+    assert last["loop_launches"] == {k: 0 for k in lk.n_calls}
+    merges = last["rounds_sweep_run"] + 1
     assert lk.n_calls == {
         "branch_block": {"kernel": 0, "plain": last["rounds_branch_run"]},
         "branch_locality": {"kernel": 0, "plain": 0},
         "branch_classify": {"kernel": 0, "plain": 0},
-        "merge_fold": {"kernel": 0, "plain": last["rounds_sweep_run"] + 1},
-        "merge_fold_full": {"kernel": 0, "plain": 1}}
+        "merge_fold": {"kernel": 0, "plain": merges},
+        "merge_fold_full": {"kernel": 0, "plain": 1},
+        "walk_pairs": {"kernel": 0, "plain": merges},
+        "branch_prep": {"kernel": 0, "plain": last["rounds_branch_run"]},
+        "prop_round": {"kernel": 0, "plain": last["rounds_total"]},
+        "occ_round": {"kernel": 0, "plain": last["rounds_total"]}}
     assert last["rounds_branch_run"] > 0
     lk.reset_counts()
 
@@ -467,3 +471,51 @@ def test_cli_engine_flag(corpus, capsys):
         run_port(corpus, engine="jax")
     # "host" is one of the port's host engines (the JAX package's names)
     assert run_port(corpus, engine="host") == run_jax(corpus)
+
+
+# the ceiling of aten operations a round that the loop dispatches outside
+# its kernels' wrappers (the batched sweep's and ops/loop_kernels'): the
+# sweep's epilogue, the sort, the pair plane's window, the round's word
+ROUND_OPS_CEILING = 40
+
+
+def test_loop_ops_a_round(corpus, monkeypatch):
+    """Counts the aten operations one engaged loop dispatches on the CPU
+    outside the kernels' wrappers (what the host enqueues one at a time on
+    the card), per round."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from pangene_tpu_torch.ops import loop_kernels as lk
+    from pangene_tpu_torch.ops import sweep_kernel as sk
+    count, inside = [0], [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not inside[0]:
+                count[0] += 1
+            return func(*args, **(kwargs or {}))
+
+    def wrapped(fn):
+        def call(*a, **kw):
+            inside[0] += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                inside[0] -= 1
+        return call
+
+    for name in lk.n_calls:
+        if name != "merge_fold_full":
+            monkeypatch.setattr(lk, name, wrapped(getattr(lk, name)))
+    monkeypatch.setattr(sk, "shadow_sweep_batched",
+                        wrapped(sk.shadow_sweep_batched))
+    schedule_device = dl.schedule_device
+
+    def counted(*a, **kw):
+        with Count():
+            return schedule_device(*a, **kw)
+    monkeypatch.setattr(dl, "schedule_device", counted)
+    run_port(corpus)
+    last = dl.LAST
+    assert last["engaged"] and last["rounds_sweep_run"] > 1
+    a_round = count[0] / last["rounds_total"]
+    assert 0 < a_round <= ROUND_OPS_CEILING, (count[0], a_round)

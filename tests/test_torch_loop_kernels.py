@@ -38,8 +38,11 @@ import torch
 from pangene_tpu.ops import softfloat as jsf
 from pangene_tpu_torch.ops import loop_kernels as lk
 from pangene_tpu_torch.testing import (BRANCH_B, EXACT_BRANCH_DIFFS,
+                                       ROUND_EDGE_CASES, WALK_FORMS,
                                        branch_table, deficit_ratios,
-                                       fold_inputs, locality_table)
+                                       fold_inputs, locality_table,
+                                       make_state, round_calls,
+                                       round_outputs, round_state)
 
 torch.set_num_threads(1)
 
@@ -442,11 +445,11 @@ def test_wrappers_count_plain_calls_on_cpu():
     keys, s1, jb, gb, perm, st = fold_inputs(rng, "cosorted", 100, n_vw=10,
                                              full=True)
     run_fold(keys, s1, jb, gb, 50, perm, st)
-    assert lk.n_calls == {"branch_block": {"kernel": 0, "plain": 0},
-                          "branch_locality": {"kernel": 0, "plain": 1},
-                          "branch_classify": {"kernel": 0, "plain": 0},
-                          "merge_fold": {"kernel": 0, "plain": 3},
-                          "merge_fold_full": {"kernel": 0, "plain": 1}}
+    assert lk.n_calls == dict(
+        {k: {"kernel": 0, "plain": 0} for k in lk.n_calls},
+        branch_locality={"kernel": 0, "plain": 1},
+        merge_fold={"kernel": 0, "plain": 3},
+        merge_fold_full={"kernel": 0, "plain": 1})
     lk.reset_counts()
     assert all(v == 0 for c in lk.n_calls.values() for v in c.values())
 
@@ -478,18 +481,24 @@ def test_wrappers_reject_bad_inputs():
                       cap=0)
 
 
-@pytest.mark.parametrize("perm", [False, True])
-@pytest.mark.parametrize("full", [False, True])
-def test_fold_bound_counts_valid_rows_only(full, perm):
-    """chip_smoke.fold_bound_ms, merge_fold's least bytes: an invalid row
-    (its key sorts last, its pair slot reads 0) costs its 4-byte pair slot
-    and a binary search's reads, no key, permutation or score read."""
+def chip_smoke():
+    """chip_smoke.py as a module (its bounds are plain functions)."""
     import importlib.util
     import pathlib
     path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    return cs
+
+
+@pytest.mark.parametrize("perm", [False, True])
+@pytest.mark.parametrize("full", [False, True])
+def test_fold_bound_counts_valid_rows_only(full, perm):
+    """chip_smoke.fold_bound_ms, merge_fold's least bytes: an invalid row
+    (its key sorts last, its pair slot reads 0) costs its 4-byte pair slot
+    and a binary search's reads, no key, permutation or score read."""
+    cs = chip_smoke()
     jb = 21
     valid = torch.arange(1000, dtype=torch.int64) << jb
     nbytes = []
@@ -500,3 +509,365 @@ def test_fold_bound_counts_valid_rows_only(full, perm):
         assert (by, n_valid) == ("bytes", 1000)
         nbytes.append(n)
     assert nbytes[1] - nbytes[0] == 4 * 3000 + 8 * (12 - 10)
+
+
+def round_bytes(cs, name, st, **kw):
+    make = round_calls(st, "cpu", **kw)[name]
+    return cs.round_bound_ms(lk, name, make, round_outputs(name, *make()))[1]
+
+
+@pytest.mark.parametrize("case", ["random", "far", "hit0_filtered"])
+def test_walk_bound_counts_what_is_read(case):
+    """chip_smoke.round_bound_ms of walk_pairs: cm is read only in the full
+    mode (8 bytes a valid row more, beside s21 and dist2's 16 a row out),
+    and cid, w and the segment (16 bytes) only at kept rows."""
+    cs = chip_smoke()
+    st = make_state(case, 3)
+    G, H = st["cid"].shape
+    n_valid = int(st["valid"].sum())
+    kept = (st["flt"] == 0) & (st["shadow"] == 0) & st["valid"]
+    assert kept.any() and not kept.all()
+    lean, full = (round_bytes(cs, "walk_pairs", st, form=f)
+                  for f in ("cosorted", "full"))
+    assert full - lean == 16 * G * H + 8 * n_valid
+    unkept = dict(st, flt=st["valid"].astype(np.uint8))
+    for form in ("cosorted", "full"):
+        assert (round_bytes(cs, "walk_pairs", st, form=form)
+                - round_bytes(cs, "walk_pairs", unkept, form=form)
+                == 16 * int(kept.sum()))
+
+
+@pytest.mark.parametrize("cuts", [(1 << 20,) * 3, None])
+def test_occ_bound_reads_loci_or_n_grp(cuts):
+    """chip_smoke.round_bound_ms of occ_round: with n_grp the loci plane is
+    rebuilt from it (4 bytes an arc, and its vw when the cuts do not read
+    it already) and written, not read. (Cuts that delete no segment: the
+    same values change with and without the loci.)"""
+    cs = chip_smoke()
+    st = make_state("random", 5)
+    A = len(st["arc_vw"])
+    got = [round_bytes(cs, "occ_round", st, cuts=cuts, loci=loci)
+           for loci in (False, True)]
+    assert got[1] - got[0] == 4 * A + (8 * A if cuts is None else 0)
+
+
+# ---------------------------------------------------------------------------
+# the rest of a round: walk_pairs, branch_prep, prop_round, occ_round
+# against numpy oracles written from the JAX blocks' formulas
+# (pangene_tpu/parallel/device_loop.py:222 kept_pairs and :264-300,
+# :512-537, :673-690 in its scatter form, :693 occ_block and :724-740),
+# row by row
+# ---------------------------------------------------------------------------
+
+def _clip(x, lo, hi):
+    return min(max(int(x), lo), hi)
+
+
+def _i64(x):
+    return ((int(x) + (1 << 63)) % (1 << 64)) - (1 << 63)
+
+
+def _i32(x):
+    return ((int(x) + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+
+def oracle_walk(st, B, GB, jb, rank, use_ori):
+    """The walk and key build row by row: (keys, s12, pair_ok, nxt, seg,
+    s21, dist2, prev), prev per cm position."""
+    G, H = st["cid"].shape
+    S, ng = len(st["alive"]), len(st["sid_of"])
+    keys = np.full((G, 2 * H), KSENT, np.int64)
+    s12, s21, dist2 = (np.zeros((G, 2 * H), np.int32) for _ in range(3))
+    pair_ok = np.zeros((G, H), bool)
+    nxt = np.full((G, H), -1, np.int32)
+    prevs = np.zeros((G, H), np.int64)
+    seg = np.zeros((2, S), np.int32)
+    sid = lambda gene: int(st["sid_of"][_clip(gene, 0, ng - 1)])
+    for g in range(G):
+        o = st["ordcm"][g]
+        col = lambda n, i: st[n][g, o[i]]
+
+        def score(i):
+            so, sd = int(col("score_ori", i)), int(col("score_dom", i))
+            dg = int(col("dom_gid", i))
+            ds = sid(dg)
+            dom_alive = dg >= 0 and ds >= 0 and st["alive"][_clip(ds, 0,
+                                                                  S - 1)]
+            return so if use_ori or so > sd or dg < 0 or dom_alive else sd
+
+        w = lambda i: (sid(col("gid", i)) << 1) | int(col("rev", i))
+        prev, present = -1, set()
+        for i in range(H):
+            h = o[i]
+            kept = bool(st["valid"][g, h] and st["flt"][g, h] == 0
+                        and st["shadow"][g, h] == 0)
+            pc = max(prev, 0)
+            ok = kept and prev >= 0 and col("cid", pc) == col("cid", i)
+            v, wi, jg = w(pc), w(i), rank * G + g
+            kf = (((v << B) | wi) << GB) | jg
+            kr = ((((wi ^ 1) << B) | (v ^ 1)) << GB) | jg
+            if jb:
+                slot = rank * G * 2 * H + g * 2 * H
+                kf, kr = (kf << jb) | (slot + i), (kr << jb) | (slot + H + i)
+            if ok:
+                keys[g, i], keys[g, H + i] = _i64(kf), _i64(kr)
+            s1, s2 = score(pc), score(i)
+            s12[g, i], s12[g, H + i] = s1, s2
+            s21[g, i], s21[g, H + i] = s2, s1
+            dist2[g, i] = dist2[g, H + i] = _i32(col("cm", i) - col("cm", pc))
+            pair_ok[g, i] = ok
+            prevs[g, i] = prev
+            if kept:
+                if prev >= 0:
+                    nxt[g, prev] = i
+                s = _clip(sid(col("gid", i)), 0, S - 1)
+                seg[0, s] += 1
+                present.add(s)
+                prev = i
+        for s in present:
+            seg[1, s] += 1
+    return keys, s12, pair_ok, nxt, seg, s21, dist2, prevs
+
+
+def as_np(outs):
+    return [o.numpy() for o in outs]
+
+
+@pytest.mark.parametrize("use_ori", [False, True])
+@pytest.mark.parametrize("form", list(WALK_FORMS))
+@pytest.mark.parametrize("case", ROUND_EDGE_CASES)
+def test_walk_pairs_plain_equals_oracle(case, form, use_ori):
+    st = make_state(case, 7)
+    args, kw = round_calls(st, "cpu", form=form,
+                           use_ori=use_ori)["walk_pairs"]()
+    got = as_np(lk.walk_pairs(*args, **kw))
+    want = oracle_walk(st, kw["B"], kw["GB"], kw["jb"], kw["rank"], use_ori)
+    names = ("keys", "s12", "pair_ok", "nxt", "seg", "s21", "dist2")
+    assert len(got) == (7 if kw["full"] else 5)
+    for name, a, b in zip(names, got, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+    if case == "all_filtered":
+        assert (got[0] == KSENT).all() and not got[4].any()
+    elif case != "empty_genomes":
+        assert got[2].any()
+    if case == "far" and kw["full"]:
+        gaps = [int(st["cm"][g, st["ordcm"][g, i]])
+                - int(st["cm"][g, st["ordcm"][g, want[7][g, i]]])
+                for g, i in zip(*np.nonzero(want[2]))]
+        assert max(abs(x) for x in gaps) >= 1 << 31
+
+
+def oracle_prep(st, B, D):
+    """The branch block's prelude: planes, targets, the window flag."""
+    G, H = st["cid"].shape
+    S, ng = len(st["alive"]), len(st["sid_of"])
+    r_pres = np.zeros((ng, G), bool)
+    r_cid = np.zeros((ng, G), np.int32)
+    r_cm = np.zeros((ng, G), np.int64)
+    r_rank = np.zeros((ng, G), np.int32)
+    for g in range(G):
+        kept = (st["flt"][g] == 0) & (st["shadow"][g] == 0) & st["valid"][g]
+        krank = np.cumsum(kept) - 1
+        last = {}
+        for h in np.flatnonzero(kept):
+            last[_clip(st["gid"][g, h], 0, ng - 1)] = h
+        for q in range(ng):
+            lc = last.get(q, 0)
+            r_pres[q, g] = q in last
+            r_cid[q, g], r_cm[q, g] = st["cid"][g, lc], st["cm"][g, lc]
+            r_rank[q, g] = krank[lc]
+    vw = [int(x) for x in st["arc_vw"]]
+    tgt = np.array([_clip(st["seg_gid"][_clip((x & ((1 << B) - 1)) >> 1, 0,
+                                               S - 1)], 0, ng - 1)
+                    for x in vw], np.int64)
+    runs = {}
+    for x in vw:
+        if x != SENT:
+            runs[x >> B] = runs.get(x >> B, 0) + 1
+    ovf = max(runs.values(), default=0) > max(D, 1)
+    return r_pres, r_cid, r_cm, r_rank, tgt, np.array(ovf)
+
+
+@pytest.mark.parametrize("D", [64, 8])
+@pytest.mark.parametrize("case", ROUND_EDGE_CASES)
+def test_branch_prep_plain_equals_oracle(case, D):
+    st = make_state(case, 11)
+    args, kw = round_calls(st, "cpu", D=D)["branch_prep"]()
+    got = as_np(round_outputs("branch_prep", args, kw))
+    want = oracle_prep(st, kw["B"], D)
+    for name, a, b in zip(("r_pres", "r_cid", "r_cm", "r_rank", "tgt_gid",
+                           "overflow"), got, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+    if case.startswith("window") and D == 64:
+        assert bool(got[5]) == (case == "window_D+1")
+    if case == "all_filtered":
+        assert not got[0].any()
+
+
+def test_branch_prep_keeps_overflow_set():
+    """overflow is OR'd: a set flag stays set on a table within the
+    window."""
+    st = make_state("random", 3)
+    args, kw = round_calls(st, "cpu")["branch_prep"]()
+    args[8].fill_(True)
+    assert bool(round_outputs("branch_prep", args, kw)[5])
+
+
+def oracle_prop(st, prevs, pair_ok, propagate):
+    """Weak propagation in the JAX block's scatter form (the earlier hit
+    of a pair takes the forward arc's mark, the later the reverse's), the
+    weak == 2 filter, (n_prop, changed)."""
+    G, H = st["cid"].shape
+    A = len(st["arc_weak"])
+    weak, flt = st["weak"].copy(), st["flt"].copy()
+    aw = lambda row: int(st["arc_weak"][_clip(row, 0, A - 1)])
+    if propagate:
+        for g, i in zip(*np.nonzero(pair_ok)):
+            o = st["ordcm"][g]
+            t = o[_clip(prevs[g, i], 0, H - 1)]
+            weak[g, t] = max(weak[g, t], aw(st["pair_arc"][g, i]))
+            weak[g, o[i]] = max(weak[g, o[i]], aw(st["pair_arc"][g, H + i]))
+    hit = (weak == 2) & (flt == 0)
+    flt[hit] = 1
+    changed = (weak != st["weak"]).any() or hit.any()
+    return weak, flt, np.array([((weak != 0) & st["valid"]).sum(),
+                                int(changed)], np.int64)
+
+
+@pytest.mark.parametrize("propagate", [True, False])
+@pytest.mark.parametrize("case", ROUND_EDGE_CASES)
+def test_prop_round_plain_equals_oracle(case, propagate):
+    st = make_state(case, 13)
+    calls = round_calls(st, "cpu", propagate=propagate)
+    _, wkw = calls["walk_pairs"]()
+    walk = oracle_walk(st, wkw["B"], wkw["GB"], wkw["jb"], 0, False)
+    pair_ok, prevs = walk[2], walk[7]
+    args, kw = calls["prop_round"]()
+    got = as_np(round_outputs("prop_round", args, kw))
+    want = oracle_prop(st, prevs, pair_ok, propagate)
+    for name, a, b in zip(("weak", "flt", "word"), got, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_prop_gather_form_claims(seed):
+    """prop_round's gather form rests on two claims, checked on random
+    states: each genome's ordcm is a permutation of its rows, and each kept
+    row is the previous row of at most one pair (nxt inverts prev), so the
+    scatter maximum of the JAX block has no two writers of one row but a
+    row's own reverse mark and its next pair's forward mark."""
+    st = round_state(np.random.default_rng(100 + seed), 6, 64,
+                     p_flt=0.1 * seed)
+    G, H = st["cid"].shape
+    for g in range(G):
+        assert np.array_equal(np.sort(st["ordcm"][g]), np.arange(H))
+    args, kw = round_calls(st, "cpu")["walk_pairs"]()
+    _, _, pair_ok, nxt = as_np(lk.walk_pairs(*args, **kw)[:4])
+    prevs = oracle_walk(st, kw["B"], kw["GB"], kw["jb"], 0, False)[7]
+    for g in range(G):
+        o = st["ordcm"][g]
+        kept = st["valid"][g, o] & (st["flt"][g, o] == 0) \
+            & (st["shadow"][g, o] == 0)
+        followers = [i for i in range(H) if kept[i] and prevs[g, i] >= 0]
+        targets = [prevs[g, i] for i in followers]
+        assert len(set(targets)) == len(targets)
+        assert all(kept[p] for p in targets)
+        assert all(nxt[g, prevs[g, i]] == i for i in followers)
+        assert (nxt[g][~np.isin(np.arange(H), targets)] == -1).all()
+        assert not (pair_ok[g] & ~kept).any()
+
+
+def oracle_occ(st, r, B, n_grp, cuts, R=4):
+    """The occ block of round r with the loci from n_grp, the degrees of
+    the arc table's runs, the capture rows and the change bit."""
+    G, H = st["cid"].shape
+    S, ng = len(st["alive"]), len(st["sid_of"])
+    alive, flt, loci = st["alive"].copy(), st["flt"].copy(), \
+        st["loci"].copy()
+    logs = np.zeros((R, 10), np.int64)
+    mask = np.zeros((R, S), np.uint8)
+    deg_r = np.zeros((R, S, 2), np.int32)
+    loci_r = np.zeros((R, S, 2), np.int32)
+    tot_r = np.zeros((R, S), np.int32)
+    vw = [int(x) for x in st["arc_vw"]]
+    if n_grp is not None:
+        loci[:] = 0
+        for x, n in zip(vw, n_grp):
+            v = x >> B
+            loci.reshape(-1)[_clip(v >> 1, 0, S - 1) * 2 + (v & 1)] += n
+    counts = [0, 0, 0]
+    newdel = np.zeros(S, bool)
+    changed = False
+    if cuts is not None:
+        occ_cut, deg_cut, loci_cut = cuts
+        runs = {}
+        for x in vw:
+            if x != SENT:
+                runs[x >> B] = runs.get(x >> B, 0) + 1
+        deg = np.zeros(2 * S, np.int32)
+        degd = np.zeros(S, bool)
+        for v, n in runs.items():
+            deg[_clip(v, 0, 2 * S - 1)] += n
+            if n > deg_cut:
+                degd[_clip(v >> 1, 0, S - 1)] = True
+        deg_r[r] = deg.reshape(S, 2)
+        occ_del = alive & (st["seg_tot"].astype(np.int64) > occ_cut)
+        degd &= alive
+        locid = alive & (loci.max(axis=1) > loci_cut)
+        counts = [occ_del.sum(), (degd & ~occ_del).sum(),
+                  (locid & ~degd & ~occ_del).sum()]
+        newdel = occ_del | degd | locid
+        alive &= ~newdel
+        for g, h in zip(*np.nonzero(st["valid"] & (flt == 0))):
+            sh = st["sid_of"][_clip(st["gid"][g, h], 0, ng - 1)]
+            if sh < 0 or not alive[_clip(sh, 0, S - 1)]:
+                flt[g, h] = 1
+                changed = True
+        changed |= newdel.any()
+    logs[r, 3:7] = counts + [alive.sum()]
+    mask[r] = newdel
+    loci_r[r] = loci
+    tot_r[r] = st["seg_tot"]
+    return (alive, flt, loci, logs, mask, deg_r, loci_r, tot_r,
+            np.array([0, int(changed)], np.int64))
+
+
+@pytest.mark.parametrize("loci", [True, False])
+@pytest.mark.parametrize("cuts", [(60, 3, 2), (4, 50, 1), None])
+@pytest.mark.parametrize("case", ROUND_EDGE_CASES)
+def test_occ_round_plain_equals_oracle(case, cuts, loci):
+    st = make_state(case, 17)
+    args, kw = round_calls(st, "cpu", r=2, cuts=cuts, loci=loci)[
+        "occ_round"]()
+    got = as_np(round_outputs("occ_round", args, kw))
+    want = oracle_occ(st, 2, kw["B"], st["n_grp"] if loci else None, cuts)
+    for name, a, b in zip(("alive", "flt", "loci", "logs", "dcap_mask",
+                           "dcap_deg", "dcap_loci", "dcap_tot", "word"),
+                          got, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+    if case == "window_D+1" and cuts is not None:
+        assert got[5].max() == 65
+
+
+def test_round_wrappers_reject_bad_inputs():
+    st = make_state("random", 1)
+    calls = round_calls(st, "cpu")
+    for name, pos, bad, match in (
+            ("walk_pairs", 1, lambda t: t.to(torch.int32), "flt"),
+            ("walk_pairs", 3, lambda t: t.to(torch.uint8), "alive"),
+            ("branch_prep", 6, lambda t: t.to(torch.int32), "arc_vw"),
+            ("branch_prep", 8, lambda t: t.reshape(1), "overflow"),
+            ("prop_round", 4, lambda t: t[:, :-1], "pair_arc"),
+            ("prop_round", 8, lambda t: t.to(torch.int32), "word"),
+            ("occ_round", 8, lambda t: t[:, :9], "logs"),
+            ("occ_round", 3, lambda t: t.t(), "gid")):
+        args, kw = calls[name]()
+        args[pos] = bad(args[pos])
+        with pytest.raises(ValueError, match=match):
+            getattr(lk, name)(*args, **kw)
+    args, kw = calls["occ_round"]()
+    with pytest.raises(ValueError, match="occ_round"):
+        lk.occ_round(*args, **dict(kw, r=4))
+    args, kw = calls["walk_pairs"]()
+    with pytest.raises(ValueError, match="walk_pairs"):
+        lk.walk_pairs(*args, **dict(kw, jb=50))
