@@ -43,8 +43,10 @@ Phases (each one passes or raises, so any failure exits nonzero):
      on random round states (testing.ROUND_STATES: random, cm gaps past
      2^31, empty genomes, every hit filtered, hit 0 filtered, every segment
      dead, a group at the window and one past it, 70 genomes over several
-     of the scan's tiles, one genome whose hit 0 is filtered), every output
-     exactly equal.
+     of the scans' tiles, one genome whose hit 0 is filtered, a
+     north-star-wide genome whose kept rows leave several tiles in a row
+     empty, kept rows only at the tiles' edges, groups of D and D + 1 arcs
+     across an arc block's end), every output exactly equal.
   3. the main paths: the CLI on cuda over four synthetic corpora (CORPORA):
      small (32 genomes x 2,000 genes, seed 11), the bacterial shape (150 x
      4,000, seed 13, one isoform, every hit one exon, built with -J), the
@@ -1419,9 +1421,7 @@ def smoke(names, draws):
                     dict(jb=jb, gb=gb, cap=cap, perm=on_dev(perm),
                          full=full))
                 n_cases += 1
-    # the round kernels on testing.ROUND_STATES: the edge cases, then 70
-    # genomes over several of the scan's tiles and one genome whose hit 0
-    # is filtered
+    # the round kernels on testing.ROUND_STATES
     for k, which in enumerate(ROUND_STATES):
         state = make_state(which, 200 + k)
         for form in WALK_FORMS:

@@ -46,12 +46,56 @@
 // microseconds. The plain PyTorch forms cost launch latency: ~20-70 small
 // operations each a round, enqueued one at a time by the host.
 //
-// Design: a simple kernel for each, no tensor cores and no TMA. The two
-// running scans over a genome's rows (walk_pairs' previous kept row,
-// branch_prep's kept rank) take one block of 1,024 threads a genome, in
-// tiles of 1,024 rows with a carry (a block-wide scan by warp shuffles);
-// every other phase is element-wise over rows, arcs or segments, its
-// counts reduced in the block before one atomic. Scatters are unique
+// Design. walk_pairs and branch_prep each run a scan over every genome's
+// rows (the previous kept row, a running maximum; the kept rank, a running
+// count). Both cut each genome into tiles of kScanTile rows, one block a
+// tile (G x tiles blocks: many more than the 132 SMs even at a mesh
+// shard's 16 genomes), each thread kScanRows rows kScanThreads apart, so
+// every load and store is a warp's 32 consecutive rows and all of a
+// thread's loads are in flight at once. The scan stays on the warp: a
+// ballot of the kept rows is a 32-row word, the previous and next kept
+// lanes are bit scans of it and the row values come by shuffle; the
+// words' own summaries (last and first kept row with their values, or
+// counts) sit in shared memory for the tile's other warps; the carry from
+// the genome's earlier tiles comes from a decoupled look-back (Merrill and
+// Garland 2016) over the tiles' status words: blocks take tiles in order
+// from an atomic ticket, so a tile only ever waits on tiles that running
+// blocks hold, and a walk tile that holds a kept row publishes its
+// inclusive value at once (the maximum is its own last row). A carry from
+// a thread-block cluster of a genome's tiles through distributed shared
+// memory was slower at every shape measured
+// (scripts/torch_round_ablation.py's cluster_rows8 rebuilds it).
+//  * walk_pairs writes every row's nxt once, in the same pass: a kept row's
+//    next kept row in its tile; the tile's last kept row's is written by
+//    the genome's next tile that holds a kept row (its carry is that row),
+//    or -1 by the genome's last tile; so no memset of the plane. A row's
+//    previous kept row's values come from a shuffle (in its word), from
+//    shared memory (in its tile) or, for the rows before the tile's first
+//    kept row, from global memory. The segment counters: a warp's kept
+//    rows of one segment (__match_any_sync) add once to seg_tot and set
+//    the genome's bit in a [words, S] plane (a warp's consecutive segments
+//    at consecutive words), whose old value says whether to count the
+//    genome in seg_ng: three atomics a kept row of a new segment, about
+//    half the kernel's time at the north star (1.8 million kept rows;
+//    scripts/torch_round_ablation.py's no_counters): on collinear genomes
+//    the tiles of every genome in flight hit the same segments at once
+//    (a [G, S] count plane summed after the tiles was no faster).
+//  * branch_prep is one launch over three kinds of ticket: the genomes'
+//    tiles, the arc blocks, the representative blocks. A tile writes its
+//    words' kept masks and the kept rows before each word (8 bytes a 32
+//    rows; a kept rank is the word's count plus a popcount) and each kept
+//    row's last + 1 into the genome-major [G, n_gene] scratch by atomicMax
+//    (it does not fit a block's shared memory once a genome's rows span
+//    many blocks), then counts itself done. An arc block writes its
+//    targets and the window flag: a group of one source vertex holds more
+//    than win = max(D, 1) arcs exactly when some valid arc a has the arc
+//    a + win of its vertex (the table is v-sorted, valid arcs first): one
+//    comparison an arc. A representative block (32 genes x 32 genomes)
+//    waits until every tile is done (they hold earlier tickets), reads its
+//    last rows and gathers their values genome-major, transposes them in
+//    shared memory and writes the gene-major planes coalesced.
+// prop_round and occ_round are element-wise over rows, arcs or segments,
+// their counts reduced in the block before one atomic. Scatters are unique
 // (nxt, the capture rows) or integer atomics (segment counters, degrees,
 // the representatives' atomicMax), so every output is deterministic.
 #include <cuda_runtime.h>
@@ -59,55 +103,72 @@
 
 namespace {
 
-constexpr int kScanThreads = 1024;       // one block a genome: walk, ranks
+constexpr int kScanThreads = 256;        // walk_pairs, branch_prep: a tile
+constexpr int kScanRows = 4;             // rows a thread, kScanThreads apart
+constexpr int kScanTile = kScanThreads * kScanRows;
+constexpr int kScanWarps = kScanThreads / 32;
+constexpr int kScanWords = kScanRows * kScanWarps;   // 32-row words a tile
+static_assert(kScanWords <= 64, "a tile's words are one 64-bit mask");
+constexpr int kWalkBlocksPerSm = 1;      // walk_pairs: no register cap
+constexpr int kArcRows = 4;              // branch_prep: arcs a thread
+constexpr int kRepChunk = 32;            // branch_prep: genes, genomes a block
 constexpr int kThreads = 256;            // the element-wise phases
 constexpr int kBlocksPerSm = 8;          // grid-stride phases: blocks a SM
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int64_t kSent = (int64_t(1) << 62) - 1;    // empty arc slot
 constexpr int64_t kKeySent = int64_t(1) << 62;       // invalid sort key
+// a tile's status word: its state in the top two bits (0: not published
+// yet), its value below: walk_pairs' last kept row + 1 (0: none), a
+// maximum; branch_prep's kept rows, a sum. Aggregate: the tile's own;
+// inclusive: over the genome's tiles up to this one.
+constexpr unsigned long long kTileAgg = 1ull << 62;
+constexpr unsigned long long kTilePre = 2ull << 62;
+constexpr unsigned long long kTileValue = (1ull << 62) - 1;
 
-struct MaxOp {
-  __device__ int operator()(int a, int b) const { return a > b ? a : b; }
+struct MaxU64 {
+  __device__ unsigned long long operator()(unsigned long long a,
+                                           unsigned long long b) const {
+    return a > b ? a : b;
+  }
 };
-struct AddOp {
-  __device__ int operator()(int a, int b) const { return a + b; }
+struct AddU64 {
+  __device__ unsigned long long operator()(unsigned long long a,
+                                           unsigned long long b) const {
+    return a + b;
+  }
 };
 
-// Exclusive scan of x over the block's threads in thread order (identity
-// id); *total gets the block's reduction. Safe to call again at once: the
-// warps' totals and their prefixes live in two arrays.
+__device__ __forceinline__ void tile_store(unsigned long long* t,
+                                           unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(t) = v;
+}
+__device__ __forceinline__ unsigned long long tile_load(
+    const unsigned long long* t) {
+  return *reinterpret_cast<const volatile unsigned long long*>(t);
+}
+
+// The reduction (op: a maximum or a sum, identity 0) of the values of the
+// tiles t0 .. t - 1 (t0: the genome's first tile), by one warp: windows of
+// 32 predecessors, nearest first, down to the nearest inclusive word.
 template <class Op>
-__device__ int block_exclusive(int x, Op op, int id, int* total) {
-  __shared__ int s_warp[32];
-  __shared__ int s_pre[33];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  int incl = x;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(kFull, incl, d);
-    if (lane >= d) incl = op(incl, y);
+__device__ unsigned long long look_back(const unsigned long long* tiles,
+                                        long long t, long long t0, int lane,
+                                        Op op) {
+  unsigned long long acc = 0;
+  for (long long b = t - 1; b >= t0; b -= 32) {
+    const long long j = b - lane;
+    unsigned long long s;
+    do {
+      s = j >= t0 ? tile_load(tiles + j) : kTilePre;
+    } while (__any_sync(kFull, s == 0));
+    const unsigned pre = __ballot_sync(kFull, (s & ~kTileValue) == kTilePre);
+    const int stop = pre ? __ffs(pre) - 1 : 31;
+    unsigned long long v = lane <= stop ? (s & kTileValue) : 0;
+    for (int o = 16; o; o >>= 1) v = op(v, __shfl_xor_sync(kFull, v, o));
+    acc = op(acc, v);
+    if (pre) break;
   }
-  int excl = __shfl_up_sync(kFull, incl, 1);
-  if (lane == 0) excl = id;
-  if (lane == 31) s_warp[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < nw ? s_warp[lane] : id;
-    int wi = w;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(kFull, wi, d);
-      if (lane >= d) wi = op(wi, y);
-    }
-    int we = __shfl_up_sync(kFull, wi, 1);
-    if (lane == 0) we = id;
-    s_pre[lane] = we;
-    if (lane == 31) s_pre[32] = wi;
-  }
-  __syncthreads();
-  *total = s_pre[32];
-  return op(s_pre[warp], excl);
+  return acc;
 }
 
 // Adds each thread's v to *dst: the warp's sum, the block's in shared
@@ -139,6 +200,11 @@ int stride_blocks(long long n) {
   return static_cast<int>(b < 1 ? 1 : (b > cap ? cap : b));
 }
 
+// Tiles of the scans over G genomes of H rows.
+long long scan_tiles(long long G, int H) {
+  return G * ((static_cast<long long>(H) + kScanTile - 1) / kScanTile);
+}
+
 // ---------------------------------------------------------------------------
 // walk_pairs
 // ---------------------------------------------------------------------------
@@ -159,7 +225,7 @@ struct WalkArgs {
   const uint8_t* flt;
   const uint8_t* shadow;
   const uint8_t* alive;
-  int H, S, B, GB, jb, use_ori;
+  int H, T, S, B, GB, jb, use_ori;   // T: tiles a genome
   long long g0;        // this rank's first genome (rank * G)
   long long slot0;     // this rank's first pair slot (rank * G * 2H)
   int64_t* keys;       // [G, 2H]
@@ -168,10 +234,11 @@ struct WalkArgs {
   int32_t* nxt;        // [G, H], -1 where no pair follows
   int32_t* seg_tot;    // [S]
   int32_t* seg_ng;     // [S]
-  uint32_t* seen;      // [S, words]: genome bits a segment
-  int words;
-  int32_t* s21;        // full mode: [G, 2H] or null
-  int32_t* dist2;      // full mode: [G, 2H] or null
+  uint32_t* seen;      // [(G + 31) / 32, S]: a segment's genome bits
+  long long ntiles;    // G * T
+  unsigned long long* tiles;   // [ntiles] status words, then the ticket
+  int32_t* s21;        // full mode: [G, 2H]
+  int32_t* dist2;      // full mode: [G, 2H]
 };
 
 // The score the merge averages for cm row r (the dominant's unless
@@ -183,33 +250,153 @@ __device__ __forceinline__ int32_t walk_score(const WalkArgs& p, long long r) {
   return (p.use_ori || so > sd || dg < 0 || dom_alive) ? so : sd;
 }
 
-__global__ void __launch_bounds__(kScanThreads)
+// One tile of a genome's cm rows a block, the tile from the ticket: the
+// kept rows by ballot, the tile's summary published and its carry looked
+// back, then every row's pair planes, nxt and counters.
+template <bool kFullMode>
+__global__ void __launch_bounds__(kScanThreads, kWalkBlocksPerSm)
 walk_pairs_kernel(WalkArgs p) {
-  const int g = blockIdx.x;
+  // each word's last kept row with its values, and its first kept row
+  __shared__ int s_last[kScanWords], s_first[kScanWords];
+  __shared__ int32_t s_cid[kScanWords], s_sc[kScanWords];
+  __shared__ int64_t s_w[kScanWords], s_cm[kScanWords];
+  __shared__ long long s_tile;
+  __shared__ int s_carry;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0)
+    s_tile = static_cast<long long>(atomicAdd(p.tiles + p.ntiles, 1ull));
+  __syncthreads();
+  const long long tile = s_tile;
+  const long long g = tile / p.T;
+  const int k = static_cast<int>(tile - g * p.T);
   const int H = p.H;
-  const long long base = static_cast<long long>(g) * H;
-  const long long base2 = 2 * base;
-  const uint64_t jg = static_cast<uint64_t>(p.g0 + g);
-  int carry = -1;
-  for (int t0 = 0; t0 < H; t0 += blockDim.x) {
-    const int i = t0 + threadIdx.x;
+  const int i0 = k * kScanTile;
+  const long long base = g * H, base2 = 2 * base;
+
+  // the rows: kept or not, the score, cm in the full mode, cid, w and
+  // the segment (read at every row, so that no load waits on another but
+  // the gathers through ordcm and dsid; nearly every row is kept)
+  bool kept[kScanRows];
+  int32_t cid[kScanRows], sc[kScanRows], seg[kScanRows];
+  int64_t w[kScanRows], cm[kScanRows];
+#pragma unroll
+  for (int q = 0; q < kScanRows; ++q) {
+    const int i = i0 + q * kScanThreads + threadIdx.x;
     const long long r = base + i;
-    bool kept = false;
-    if (i < H && p.valid[r]) {
-      const long long h = base + p.ordcm[r];
-      kept = p.flt[h] == 0 && p.shadow[h] == 0;
+    bool kp = false;
+    cid[q] = sc[q] = seg[q] = 0;
+    w[q] = cm[q] = 0;
+    if (i < H) {
+      const bool va = p.valid[r] != 0;
+      const long long h = base + p.ordcm[r];   // a permutation of the rows
+      kp = va & (p.flt[h] == 0) & (p.shadow[h] == 0);
+      sc[q] = walk_score(p, r);
+      if (kFullMode) cm[q] = p.cm[r];
+      cid[q] = p.cid[r];
+      w[q] = p.w[r];
+      seg[q] = p.seg[r];
     }
-    int total;
-    const int ex = block_exclusive(kept ? i : -1, MaxOp(), -1, &total);
-    const int prev = ex > carry ? ex : carry;
-    carry = total > carry ? total : carry;
+    kept[q] = kp;
+  }
+  // each word's kept lanes; its summary in shared memory
+  unsigned km[kScanRows];
+#pragma unroll
+  for (int q = 0; q < kScanRows; ++q) {
+    const unsigned m = __ballot_sync(kFull, kept[q]);
+    const int wd = q * kScanWarps + warp;
+    const int row0 = i0 + q * kScanThreads + warp * 32;
+    km[q] = m;
+    if (lane == 0) {
+      s_last[wd] = m ? row0 + 31 - __clz(m) : -1;
+      s_first[wd] = m ? row0 + __ffs(m) - 1 : H;
+    }
+    if (m && lane == 31 - __clz(m)) {
+      s_cid[wd] = cid[q];
+      s_sc[wd] = sc[q];
+      s_w[wd] = w[q];
+      s_cm[wd] = cm[q];
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // the tile's last and first kept rows; a tile with a kept row
+    // publishes its inclusive value at once
+    int lst = -1, fst = H;
+    for (int x = lane; x < kScanWords; x += 32) {
+      lst = max(lst, s_last[x]);
+      fst = min(fst, s_first[x]);
+    }
+    lst = __reduce_max_sync(kFull, lst);
+    fst = __reduce_min_sync(kFull, fst);
+    unsigned long long* st = p.tiles + tile;
+    if (lane == 0)
+      tile_store(st, (lst >= 0 || k == 0 ? kTilePre : kTileAgg)
+                         | static_cast<unsigned long long>(lst + 1));
+    const int carry = static_cast<int>(
+        look_back(p.tiles, tile, g * p.T, lane, MaxU64())) - 1;
+    if (lane == 0) {
+      if (lst < 0 && k > 0)
+        tile_store(st, kTilePre | static_cast<unsigned long long>(carry + 1));
+      // the carry is the last kept row of an earlier tile: its next kept
+      // row is this tile's first, or none when this is the genome's last
+      if (carry >= 0 && (fst < H || k == p.T - 1))
+        p.nxt[base + carry] = fst < H ? fst : -1;
+      s_carry = carry;
+    }
+  }
+  __syncthreads();
+  const int carry = s_carry;
+  // the tile's words that hold a kept row
+  unsigned long long has = __ballot_sync(
+      kFull, lane < kScanWords && s_last[lane] >= 0);
+  if (kScanWords > 32)
+    has |= static_cast<unsigned long long>(__ballot_sync(
+               kFull, lane + 32 < kScanWords && s_last[lane + 32] >= 0))
+           << 32;
+  const uint64_t jg = static_cast<uint64_t>(p.g0 + g);
+  const uint32_t bit = 1u << (g & 31);
+  uint32_t* bits = p.seen + static_cast<long long>(g >> 5) * p.S;
+#pragma unroll
+  for (int q = 0; q < kScanRows; ++q) {
+    const int i = i0 + q * kScanThreads + threadIdx.x;
+    const int wd = q * kScanWarps + warp;
+    const unsigned m = km[q];
+    // the previous kept row: in the word (by shuffle), in the tile (shared
+    // memory), else the carry (global memory; row 0's values without one)
+    const unsigned below = m & ((1u << lane) - 1u);
+    const int pl = below ? 31 - __clz(below) : lane;
+    int32_t pcid = __shfl_sync(kFull, cid[q], pl);
+    int32_t psc = __shfl_sync(kFull, sc[q], pl);
+    int64_t pw = __shfl_sync(kFull, w[q], pl);
+    int64_t pcm = kFullMode ? __shfl_sync(kFull, cm[q], pl) : 0;
+    int prev = i - lane + pl;
+    const unsigned long long before = has & ((1ull << wd) - 1ull);
+    if (!below && before) {
+      const int x = 63 - __clzll(static_cast<long long>(before));
+      prev = s_last[x];
+      pcid = s_cid[x];
+      psc = s_sc[x];
+      pw = s_w[x];
+      pcm = s_cm[x];
+    } else if (!below && i < H) {
+      prev = carry;
+      const long long rp = base + (carry < 0 ? 0 : carry);
+      psc = walk_score(p, rp);
+      if (kFullMode) pcm = p.cm[rp];
+      if (carry >= 0) {
+        pcid = p.cid[rp];
+        pw = p.w[rp];
+      }
+    }
+    const bool ok = kept[q] && prev >= 0 && pcid == cid[q];
+    // a kept row of a segment: the warp's rows of that segment add once
+    const unsigned peers =
+        __match_any_sync(kFull, kept[q] ? seg[q] : -1 - lane);
     if (i >= H) continue;
-    const long long rp = base + (prev < 0 ? 0 : prev);
-    const bool ok = kept && prev >= 0 && p.cid[rp] == p.cid[r];
-    const uint64_t w = static_cast<uint64_t>(p.w[r]);
-    const uint64_t v = static_cast<uint64_t>(p.w[rp]);
-    uint64_t kf = (((v << p.B) | w) << p.GB) | jg;
-    uint64_t kr = ((((w ^ 1) << p.B) | (v ^ 1)) << p.GB) | jg;
+    const uint64_t wv = static_cast<uint64_t>(w[q]);
+    const uint64_t v = static_cast<uint64_t>(pw);
+    uint64_t kf = (((v << p.B) | wv) << p.GB) | jg;
+    uint64_t kr = ((((wv ^ 1) << p.B) | (v ^ 1)) << p.GB) | jg;
     if (p.jb) {
       const uint64_t jo = static_cast<uint64_t>(p.slot0 + base2 + i);
       kf = (kf << p.jb) | jo;
@@ -217,27 +404,38 @@ walk_pairs_kernel(WalkArgs p) {
     }
     p.keys[base2 + i] = ok ? static_cast<int64_t>(kf) : kKeySent;
     p.keys[base2 + H + i] = ok ? static_cast<int64_t>(kr) : kKeySent;
-    const int32_t s1 = walk_score(p, rp), s2 = walk_score(p, r);
-    p.s12[base2 + i] = s1;
-    p.s12[base2 + H + i] = s2;
-    if (p.s21) {
+    p.s12[base2 + i] = psc;
+    p.s12[base2 + H + i] = sc[q];
+    if (kFullMode) {
       // the int32 truncation of the reference's pg_tmparc_t
       const int32_t d = static_cast<int32_t>(static_cast<uint32_t>(
-          static_cast<uint64_t>(p.cm[r]) - static_cast<uint64_t>(p.cm[rp])));
-      p.s21[base2 + i] = s2;
-      p.s21[base2 + H + i] = s1;
+          static_cast<uint64_t>(cm[q]) - static_cast<uint64_t>(pcm)));
+      p.s21[base2 + i] = sc[q];
+      p.s21[base2 + H + i] = psc;
       p.dist2[base2 + i] = d;
       p.dist2[base2 + H + i] = d;
     }
-    p.pair_ok[r] = ok;
-    if (kept && prev >= 0) p.nxt[base + prev] = i;
-    if (kept && p.S > 0) {
-      const int s = p.seg[r];
-      atomicAdd(&p.seg_tot[s], 1);
-      const uint32_t bit = 1u << (g & 31);
-      const uint32_t old = atomicOr(&p.seen[
-          static_cast<long long>(s) * p.words + (g >> 5)], bit);
-      if (!(old & bit)) atomicAdd(&p.seg_ng[s], 1);
+    p.pair_ok[base + i] = ok;
+    // nxt: -1 off the kept rows; a kept row's next kept row in the word,
+    // in the tile, or none in the genome's last tile; else a later tile
+    // writes it
+    int nx = -1;
+    bool write = true;
+    if (kept[q]) {
+      const unsigned above = m & ~((2u << lane) - 1u);
+      const unsigned long long after = has & ~((2ull << wd) - 1ull);
+      if (above)
+        nx = i - lane + __ffs(above) - 1;
+      else if (after)
+        nx = s_first[__ffsll(static_cast<long long>(after)) - 1];
+      else
+        write = k == p.T - 1;
+    }
+    if (write) p.nxt[base + i] = nx;
+    if (kept[q] && lane == __ffs(peers) - 1) {
+      const int s = seg[q];
+      atomicAdd(&p.seg_tot[s], __popc(peers));
+      if (!(atomicOr(bits + s, bit) & bit)) atomicAdd(&p.seg_ng[s], 1);
     }
   }
 }
@@ -264,70 +462,161 @@ struct PrepArgs {
   int32_t* r_rank;
   int64_t* tgt;            // [A]
   uint8_t* overflow;       // one byte, OR'd
-  int32_t* last;           // [ng, G] scratch, -1 filled
-  int32_t* krank;          // [G, H] scratch
+  int T, W;                // tiles and 32-row words a genome
+  long long n_tile, n_arc; // the ticket: tiles, then arc blocks, then reps
+  int rep_gc;              // representative blocks a gene chunk
+  unsigned long long* tiles;   // [n_tile] status words, ticket, tiles done
+  int32_t* last;           // [G, ng] zeroed: last kept row + 1
+  int2* words;             // [G, W]: kept mask, kept rows before the word
 };
 
-// Kept ranks (a running count a genome) and each gene's last kept row.
-__global__ void __launch_bounds__(kScanThreads)
-prep_rank_kernel(PrepArgs p) {
-  const int g = blockIdx.x;
-  const long long base = static_cast<long long>(g) * p.H;
-  int carry = 0;
-  for (int t0 = 0; t0 < p.H; t0 += blockDim.x) {
-    const int i = t0 + threadIdx.x;
+// A tile of a genome's cs rows: its kept words and the kept rows before
+// each (the look-back's sum), each kept row's last + 1 by atomicMax.
+__device__ void prep_tile(const PrepArgs& p, long long tile) {
+  __shared__ int s_cnt[kScanWords];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long g = tile / p.T;
+  const int k = static_cast<int>(tile - g * p.T);
+  const int i0 = k * kScanTile;
+  const long long base = g * p.H;
+  unsigned m[kScanRows];
+#pragma unroll
+  for (int q = 0; q < kScanRows; ++q) {
+    const int i = i0 + q * kScanThreads + threadIdx.x;
     const long long r = base + i;
-    const bool kept = i < p.H && p.flt[r] == 0 && p.shadow[r] == 0 &&
-                      p.valid[r] != 0;
-    int total;
-    const int ex = block_exclusive(kept ? 1 : 0, AddOp(), 0, &total);
-    if (i < p.H && (kept || i == 0)) p.krank[r] = carry + ex + kept - 1;
-    carry += total;
-    if (kept) {
+    bool kept = false;
+    if (i < p.H) {
+      kept = (p.flt[r] == 0) & (p.shadow[r] == 0) & (p.valid[r] != 0);
       const int q = clampi(p.gid[r], 0, p.ng - 1);
-      atomicMax(&p.last[static_cast<long long>(q) * p.G + g], i);
+      if (kept) atomicMax(&p.last[g * p.ng + q], i + 1);
     }
+    m[q] = __ballot_sync(kFull, kept);
+    if (lane == 0) s_cnt[q * kScanWarps + warp] = __popc(m[q]);
   }
+  __syncthreads();
+  if (warp == 0) {
+    // the words' exclusive counts: two a lane, a warp scan each
+    int c[2], e[2], tot[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int x = lane + 32 * h;
+      c[h] = x < kScanWords ? s_cnt[x] : 0;
+      int incl = c[h];
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, d);
+        if (lane >= d) incl += y;
+      }
+      e[h] = incl - c[h];
+      tot[h] = __shfl_sync(kFull, incl, 31);
+    }
+    const unsigned long long total = tot[0] + tot[1];
+    unsigned long long* st = p.tiles + tile;
+    if (lane == 0) tile_store(st, (k == 0 ? kTilePre : kTileAgg) | total);
+    const int excl = static_cast<int>(
+        look_back(p.tiles, tile, g * p.T, lane, AddU64()));
+    if (lane == 0 && k > 0) tile_store(st, kTilePre | (excl + total));
+    if (lane < kScanWords) s_cnt[lane] = excl + e[0];
+    if (lane + 32 < kScanWords) s_cnt[lane + 32] = excl + tot[0] + e[1];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < kScanRows; ++q) {
+    const int wd = q * kScanWarps + warp;
+    const int word = (i0 >> 5) + wd;
+    if (lane == 0 && word < p.W)
+      p.words[g * p.W + word] = make_int2(static_cast<int>(m[q]), s_cnt[wd]);
+  }
+  // the representative blocks read last and words once every tile is done
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) atomicAdd(p.tiles + p.n_tile + 1, 1ull);
 }
 
-// The representative planes, then the arcs' targets and window check.
-__global__ void __launch_bounds__(kThreads) prep_rep_kernel(PrepArgs p) {
-  const long long n_rep = static_cast<long long>(p.ng) * p.G;
-  const long long n = n_rep + p.A;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+// kArcRows x kScanThreads arcs: each target gene, the window check.
+__device__ void prep_arcs(const PrepArgs& p, long long c) {
   const int64_t wmask = (int64_t(1) << p.B) - 1;
   const int win = p.D > 1 ? p.D : 1;
   bool ovf = false;
-  for (long long k = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x; k < n; k += stride) {
-    if (k < n_rep) {
-      const int g = static_cast<int>(k % p.G);
-      const int l = p.last[k];
-      const long long b = static_cast<long long>(g) * p.H +
-                          (l < 0 ? 0 : (l > p.H - 1 ? p.H - 1 : l));
-      p.r_pres[k] = l >= 0;
-      p.r_cid[k] = p.cid[b];
-      p.r_cm[k] = p.cm[b];
-      p.r_rank[k] = p.krank[b];
-      continue;
-    }
-    const long long a = k - n_rep;
+#pragma unroll
+  for (int q = 0; q < kArcRows; ++q) {
+    const long long a = (c * kArcRows + q) * kScanThreads + threadIdx.x;
+    if (a >= p.A) continue;
     const int64_t vw = p.arc_vw[a];
     const int64_t tg = p.seg_gid[clampi((vw & wmask) >> 1, 0, p.S - 1)];
     p.tgt[a] = tg < 0 ? 0 : (tg > p.ng - 1 ? p.ng - 1 : tg);
-    if (vw == kSent) continue;
-    const int64_t v = vw >> p.B;
-    if (a > 0 && (p.arc_vw[a - 1] >> p.B) == v) continue;   // not a head
-    // a group head: more than `win` arcs of its vertex overflow
-    int cnt = 1;
-    for (long long j = a + 1; j < p.A && cnt <= win; ++j) {
-      const int64_t x = p.arc_vw[j];
-      if (x == kSent || (x >> p.B) != v) break;
-      ++cnt;
+    // more than win arcs of a vertex: its arc a and arc a + win
+    if (vw != kSent && a + win < p.A) {
+      const int64_t x = p.arc_vw[a + win];
+      ovf |= x != kSent && (x >> p.B) == (vw >> p.B);
     }
-    ovf |= cnt > win;
   }
-  if (ovf) *p.overflow = 1;
+  if (__syncthreads_or(ovf) && threadIdx.x == 0) *p.overflow = 1;
+}
+
+// kRepChunk genes x kRepChunk genomes of the representative planes: the
+// last rows read and their values gathered genome-major (a warp a genome,
+// lanes over the genes: nearby rows on collinear genomes), transposed in
+// shared memory, the planes written gene-major.
+__device__ void prep_reps(const PrepArgs& p, long long c) {
+  __shared__ int32_t s_l[kRepChunk][kRepChunk + 1];
+  __shared__ int32_t s_cid[kRepChunk][kRepChunk + 1];
+  __shared__ int32_t s_rank[kRepChunk][kRepChunk + 1];
+  __shared__ int64_t s_cm[kRepChunk][kRepChunk + 1];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    const unsigned long long* done = p.tiles + p.n_tile + 1;
+    while (tile_load(done) < static_cast<unsigned long long>(p.n_tile))
+      __nanosleep(128);
+    __threadfence();
+  }
+  __syncthreads();
+  const int q0 = static_cast<int>(c / p.rep_gc) * kRepChunk;
+  const int g0 = static_cast<int>(c % p.rep_gc) * kRepChunk;
+  for (int j = warp; j < kRepChunk; j += kScanWarps) {
+    const int g = g0 + j, q = q0 + lane;
+    if (g >= p.G || q >= p.ng) continue;
+    const int l = __ldcg(p.last + static_cast<long long>(g) * p.ng + q) - 1;
+    const int lc = l < 0 ? 0 : l;
+    const long long b = static_cast<long long>(g) * p.H + lc;
+    const int2 wd = __ldcg(p.words + static_cast<long long>(g) * p.W +
+                           (lc >> 5));
+    const unsigned mask = static_cast<unsigned>(wd.x);
+    const int bit = lc & 31;
+    s_l[j][lane] = l;
+    s_cid[j][lane] = p.cid[b];
+    s_cm[j][lane] = p.cm[b];
+    // the kept rows before lc (row 0's rank when absent: -1 unless kept)
+    s_rank[j][lane] = wd.y + __popc(mask & ((1u << bit) - 1u)) +
+                      static_cast<int>((mask >> bit) & 1u) - 1;
+  }
+  __syncthreads();
+  // a warp a gene, lanes over the genomes
+  const int g = g0 + lane;
+  for (int x = warp; x < kRepChunk; x += kScanWarps) {
+    const int q = q0 + x;
+    if (q >= p.ng || g >= p.G) continue;
+    const long long o = static_cast<long long>(q) * p.G + g;
+    p.r_pres[o] = s_l[lane][x] >= 0;
+    p.r_cid[o] = s_cid[lane][x];
+    p.r_cm[o] = s_cm[lane][x];
+    p.r_rank[o] = s_rank[lane][x];
+  }
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+branch_prep_kernel(PrepArgs p) {
+  __shared__ long long s_t;
+  if (threadIdx.x == 0)
+    s_t = static_cast<long long>(atomicAdd(p.tiles + p.n_tile, 1ull));
+  __syncthreads();
+  const long long t = s_t;
+  if (t < p.n_tile)
+    prep_tile(p, t);
+  else if (t < p.n_tile + p.n_arc)
+    prep_arcs(p, t - p.n_tile);
+  else
+    prep_reps(p, t - p.n_tile - p.n_arc);
 }
 
 // ---------------------------------------------------------------------------
@@ -503,22 +792,29 @@ inline int err_of(cudaError_t e) { return static_cast<int>(e); }
 
 }  // namespace
 
+// Bytes of walk_pairs' scratch, zeroed by pg_walk_pairs: the segment
+// counters (seg_tot, seg_ng [S] int32), the genome bits ([(G + 31) / 32,
+// S] uint32: a warp's consecutive segments at consecutive words), then at
+// the next 8 bytes the tiles' status words and the ticket.
+extern "C" long long pg_walk_pairs_scratch(long long G, int H, int S) {
+  const long long seg = (4 * S * (2 + (G + 31) / 32) + 7) / 8 * 8;
+  return seg + 8 * (scan_tiles(G, H) + 1);
+}
+
 // The walk of this rank's G genomes (walk_pairs in ops/loop_kernels.py):
-// memsets nxt to -1 and the `zero_bytes` from seg (seg_tot, seg_ng, then
-// the [S, words] genome bits), then one block a genome. s21 and dist2
-// (null or both given) select the full mode.
+// one memset of the scratch (pg_walk_pairs_scratch), then one block a tile
+// of a genome's rows. s21 and dist2 (null or both given) select the full
+// mode.
 extern "C" int pg_walk_pairs(
     const void* ordcm, const void* valid, const void* cid, const void* cm,
     const void* w, const void* seg, const void* so, const void* sd,
     const void* dg, const void* dsid, const void* flt, const void* shadow,
     const void* alive, int G, int H, int S, int B, int GB, int jb,
     long long rank, int use_ori, void* keys, void* s12, void* pair_ok,
-    void* nxt, void* seg_out, int words, long long zero_bytes, void* s21,
-    void* dist2, void* stream) {
+    void* nxt, void* scratch, void* s21, void* dist2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(seg_out, 0, zero_bytes, st);
-  if (e == cudaSuccess && G > 0 && H > 0)
-    e = cudaMemsetAsync(nxt, 0xff, static_cast<size_t>(G) * H * 4, st);
+  const cudaError_t e = cudaMemsetAsync(
+      scratch, 0, pg_walk_pairs_scratch(G, H, S), st);
   if (e != cudaSuccess) return err_of(e);
   if (G <= 0 || H <= 0) return 0;
   WalkArgs p = {};
@@ -536,6 +832,7 @@ extern "C" int pg_walk_pairs(
   p.shadow = static_cast<const uint8_t*>(shadow);
   p.alive = static_cast<const uint8_t*>(alive);
   p.H = H;
+  p.T = static_cast<int>(scan_tiles(1, H));
   p.S = S;
   p.B = B;
   p.GB = GB;
@@ -547,25 +844,51 @@ extern "C" int pg_walk_pairs(
   p.s12 = static_cast<int32_t*>(s12);
   p.pair_ok = static_cast<uint8_t*>(pair_ok);
   p.nxt = static_cast<int32_t*>(nxt);
-  p.seg_tot = static_cast<int32_t*>(seg_out);
+  p.seg_tot = static_cast<int32_t*>(scratch);
   p.seg_ng = p.seg_tot + S;
   p.seen = reinterpret_cast<uint32_t*>(p.seg_ng + S);
-  p.words = words;
+  p.ntiles = scan_tiles(G, H);
+  p.tiles = reinterpret_cast<unsigned long long*>(
+      static_cast<char*>(scratch) + pg_walk_pairs_scratch(G, H, S)) -
+      (p.ntiles + 1);
   p.s21 = static_cast<int32_t*>(s21);
   p.dist2 = static_cast<int32_t*>(dist2);
-  walk_pairs_kernel<<<G, kScanThreads, 0, st>>>(p);
+  if (s21)
+    walk_pairs_kernel<true><<<p.ntiles, kScanThreads, 0, st>>>(p);
+  else
+    walk_pairs_kernel<false><<<p.ntiles, kScanThreads, 0, st>>>(p);
   return err_of(cudaGetLastError());
 }
 
-// The branch block's prelude (branch_prep in ops/loop_kernels.py): two
-// launches after a memset of `last` (-1), the [ng, G] scratch; krank is a
-// [G, H] scratch. overflow (one byte) is set when a group is past D.
+namespace {
+
+// Bytes of branch_prep's zeroed scratch: the tiles' status words, the
+// ticket and the count of tiles done (8 bytes each), then the [G, n_gene]
+// last rows (int32).
+long long prep_scratch_words(long long G, int H, int ng) {
+  return 8 * (scan_tiles(G, H) + 2) + 4 * G * ng;
+}
+
+}  // namespace
+
+// Bytes of branch_prep's scratch: what pg_branch_prep zeroes (the status
+// words, the ticket, the counts of tiles done, the [G, n_gene] last rows),
+// then at the next 8 bytes the [G, (H + 31) / 32] words (mask, count).
+extern "C" long long pg_branch_prep_scratch(long long G, int H, int ng) {
+  return (prep_scratch_words(G, H, ng) + 7) / 8 * 8 +
+         8 * G * ((H + 31LL) / 32);
+}
+
+// The branch block's prelude (branch_prep in ops/loop_kernels.py): one
+// memset (pg_branch_prep_scratch), then one launch whose blocks take the
+// genomes' tiles, the arc blocks and the representative blocks in order
+// from a ticket. overflow (one byte) is set when a group is past D.
 extern "C" int pg_branch_prep(
     const void* flt, const void* shadow, const void* valid, const void* gid,
     const void* cid, const void* cm, int G, int H, int ng,
     const void* arc_vw, long long A, const void* seg_gid, int S, int B,
     int D, void* r_pres, void* r_cid, void* r_cm, void* r_rank, void* tgt,
-    void* overflow, void* last, void* krank, void* stream) {
+    void* overflow, void* scratch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   PrepArgs p = {};
   p.flt = static_cast<const uint8_t*>(flt);
@@ -589,16 +912,22 @@ extern "C" int pg_branch_prep(
   p.r_rank = static_cast<int32_t*>(r_rank);
   p.tgt = static_cast<int64_t*>(tgt);
   p.overflow = static_cast<uint8_t*>(overflow);
-  p.last = static_cast<int32_t*>(last);
-  p.krank = static_cast<int32_t*>(krank);
-  const long long n_rep = static_cast<long long>(ng) * G;
-  if (n_rep > 0) {
-    const cudaError_t e = cudaMemsetAsync(last, 0xff, n_rep * 4, st);
-    if (e != cudaSuccess) return err_of(e);
-    if (H > 0) prep_rank_kernel<<<G, kScanThreads, 0, st>>>(p);
-  }
-  if (n_rep + A > 0)
-    prep_rep_kernel<<<stride_blocks(n_rep + A), kThreads, 0, st>>>(p);
+  p.T = static_cast<int>(scan_tiles(1, H));
+  p.W = (H + 31) / 32;
+  p.n_tile = scan_tiles(G, H);
+  p.n_arc = (A + kArcRows * kScanThreads - 1) / (kArcRows * kScanThreads);
+  p.rep_gc = (G + kRepChunk - 1) / kRepChunk;
+  char* s = static_cast<char*>(scratch);
+  const long long words_at = prep_scratch_words(G, H, ng);
+  p.tiles = reinterpret_cast<unsigned long long*>(s);
+  p.last = reinterpret_cast<int32_t*>(s + words_at) - 1LL * G * ng;
+  p.words = reinterpret_cast<int2*>(s + (words_at + 7) / 8 * 8);
+  const cudaError_t e = cudaMemsetAsync(scratch, 0, words_at, st);
+  if (e != cudaSuccess) return err_of(e);
+  if (G <= 0 || H <= 0) return 0;
+  const long long blocks = p.n_tile + p.n_arc +
+      static_cast<long long>(p.rep_gc) * ((ng + kRepChunk - 1) / kRepChunk);
+  branch_prep_kernel<<<blocks, kScanThreads, 0, st>>>(p);
   return err_of(cudaGetLastError());
 }
 

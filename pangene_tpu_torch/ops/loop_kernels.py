@@ -166,11 +166,13 @@ def load_round(path: str) -> ctypes.CDLL:
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = lib.pg_walk_pairs
     fn.restype = i
-    fn.argtypes = ([vp] * 13 + [i] * 6 + [ll, i] + [vp] * 5 + [i, ll]
-                   + [vp] * 3)
+    fn.argtypes = [vp] * 13 + [i] * 6 + [ll, i] + [vp] * 8
     fn = lib.pg_branch_prep
     fn.restype = i
-    fn.argtypes = [vp] * 6 + [i] * 3 + [vp, ll, vp] + [i] * 3 + [vp] * 9
+    fn.argtypes = [vp] * 6 + [i] * 3 + [vp, ll, vp] + [i] * 3 + [vp] * 8
+    for fn in (lib.pg_walk_pairs_scratch, lib.pg_branch_prep_scratch):
+        fn.restype = ll
+        fn.argtypes = [ll, i, i]
     fn = lib.pg_prop_round
     fn.restype = i
     fn.argtypes = [vp] * 3 + [ll, i, i] + [vp] * 5 + [ll, vp, vp]
@@ -681,18 +683,19 @@ def walk_pairs(planes: WalkPlanes, flt: torch.Tensor, shadow: torch.Tensor,
     new = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)
     keys, s12 = new((G, 2 * H), I64), new((G, 2 * H), I32)
     pair_ok, nxt = new((G, H), BOOL), new((G, H), I32)
-    words = (G + 31) // 32
-    zeroed = new(2 * S + S * words, I32)
+    lib = _round_lib()
+    # the segment counters first, then the genome bits and the scan's
+    # status words
+    scratch = new((lib.pg_walk_pairs_scratch(G, H, S) + 3) // 4, I32)
     stats = [new((G, 2 * H), I32) for _ in range(2 if full else 0)]
     with torch.cuda.device(dev):
-        _launch("walk_pairs", _round_lib().pg_walk_pairs,
+        _launch("walk_pairs", lib.pg_walk_pairs,
                 *[t.data_ptr() for t in planes], flt.data_ptr(),
                 shadow.data_ptr(), alive.data_ptr(), G, H, S, B, GB, jb,
                 rank, int(bool(use_ori)), keys.data_ptr(), s12.data_ptr(),
-                pair_ok.data_ptr(), nxt.data_ptr(), zeroed.data_ptr(),
-                words, 4 * zeroed.numel(),
+                pair_ok.data_ptr(), nxt.data_ptr(), scratch.data_ptr(),
                 *([t.data_ptr() for t in stats] or [None] * 2), _stream(dev))
-    return (keys, s12, pair_ok, nxt, zeroed[:2 * S].view(2, S)) \
+    return (keys, s12, pair_ok, nxt, scratch[:2 * S].view(2, S)) \
         + tuple(stats)
 
 
@@ -771,14 +774,15 @@ def branch_prep(flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid,
     new = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)
     out = (new((n_gene, G), BOOL), new((n_gene, G), I32),
            new((n_gene, G), I64), new((n_gene, G), I32), new(A, I64))
-    last, krank = new((n_gene, G), I32), new((G, H), I32)
+    lib = _round_lib()
+    scratch = new(lib.pg_branch_prep_scratch(G, H, n_gene), U8)
     with torch.cuda.device(dev):
-        _launch("branch_prep", _round_lib().pg_branch_prep,
+        _launch("branch_prep", lib.pg_branch_prep,
                 flt.data_ptr(), shadow.data_ptr(), valid.data_ptr(),
                 gid.data_ptr(), cid.data_ptr(), cm.data_ptr(), G, H, n_gene,
                 arc_vw.data_ptr(), A, seg_gid.data_ptr(), S, B, int(D),
                 *[t.data_ptr() for t in out], overflow.data_ptr(),
-                last.data_ptr(), krank.data_ptr(), _stream(dev))
+                scratch.data_ptr(), _stream(dev))
     return out
 
 

@@ -476,15 +476,18 @@ def fold_inputs(rng, form, N, n_vw, n_g=8, p_valid=0.7, smax=1000,
 
 def round_state(rng, G, H, S=40, n_gene=50, sizes=(3, 1, 5, 2, 1, 4),
                 n_invalid=7, p_flt=0.2, p_shadow=0.1, p_dead=0.2,
-                empty=(), far=False):
+                empty=(), far=False, edges=0, min_valid=0):
     """A random state of the device loop's rounds as numpy arrays, the
     inputs of ops/loop_kernels.walk_pairs, branch_prep, prop_round and
     occ_round: G genomes of H rows in cs order (a genome's valid rows
-    first, sorted by contig; the genomes in `empty` have none): cid, cm
-    (beyond 2^31 on every third row with `far`, so cm gaps pass 2^31),
-    gid, dom_gid (-1 on some rows), score_ori, score_dom, rev, valid, flt
-    (p_flt; padding rows 0), shadow, weak (0, 1, 2), ordcm (the cm order of
-    the valid rows, then the padding rows in place: a permutation); sid_of
+    first, sorted by contig, at least `min_valid`; the genomes in `empty`
+    have none): cid, cm (beyond 2^31 on every third row with `far`, so cm
+    gaps pass 2^31; with `edges`, every row valid, cm ascending, so the cm
+    order is the cs order, and only the rows at either end of each `edges`
+    rows kept), gid, dom_gid (-1 on some rows), score_ori, score_dom, rev,
+    valid, flt (p_flt; padding rows 0), shadow, weak (0, 1, 2), ordcm (the
+    cm order of the valid rows, then the padding rows in place: a
+    permutation); sid_of
     [n_gene] (some -1), alive [S] (dead with p_dead), seg_tot [S], loci
     [S, 2], seg_gid [S]; the v-sorted arc table arc_vw [A] (groups of
     `sizes` arcs of ascending source vertices above B bits of target, then
@@ -492,11 +495,13 @@ def round_state(rng, G, H, S=40, n_gene=50, sizes=(3, 1, 5, 2, 1, 4),
     2S - 1) with arc_weak (0, 1, 2) and n_grp (a small count at each group
     of two or more's first arc, 0 elsewhere)."""
     from .ops.loop_kernels import SENT_I
-    nk = rng.integers(0, H + 1, G)
+    nk = np.full(G, H) if edges else rng.integers(min_valid, H + 1, G)
     nk[list(empty)] = 0
     valid = np.arange(H)[None, :] < nk[:, None]
     cid = np.sort(rng.integers(0, 3, (G, H)), axis=1).astype(np.int32)
     cm = rng.integers(0, 5000, (G, H)).astype(np.int64)
+    if edges:
+        cm.sort(axis=1)
     if far:
         cm[:, ::3] += 3 << 30
     ordcm = np.tile(np.arange(H, dtype=np.int32), (G, 1))
@@ -519,13 +524,16 @@ def round_state(rng, G, H, S=40, n_gene=50, sizes=(3, 1, 5, 2, 1, 4),
     n_grp = np.zeros(A, np.int32)
     n_grp[heads] = np.where(np.asarray(sizes) >= 2,
                             rng.integers(1, 4, len(sizes)), 0)
+    flt, shadow = rows(p_flt), rows(p_shadow)
+    if edges:
+        end = np.isin(np.arange(H) % edges, (0, edges - 1))[None, :]
+        flt, shadow = valid & ~end, shadow & ~end
     return dict(
         cid=cid, cm=cm, gid=gid, dom_gid=dom_gid,
         score_ori=rng.integers(0, 1000, (G, H)).astype(np.int32),
         score_dom=rng.integers(0, 1000, (G, H)).astype(np.int32),
         rev=rng.integers(0, 2, (G, H)).astype(np.uint8), valid=valid,
-        flt=rows(p_flt).astype(np.uint8),
-        shadow=rows(p_shadow).astype(np.uint8),
+        flt=flt.astype(np.uint8), shadow=shadow.astype(np.uint8),
         weak=np.where(valid, rng.choice(3, (G, H), p=(0.7, 0.2, 0.1)), 0)
         .astype(np.uint8),
         ordcm=ordcm, sid_of=sid_of, alive=rng.random(S) >= p_dead,
@@ -539,8 +547,12 @@ def round_state(rng, G, H, S=40, n_gene=50, sizes=(3, 1, 5, 2, 1, 4),
 
 # The round kernels' states: round_state keywords at G genomes of H rows,
 # and `hit0` to filter each genome's hit 0 at entry (the ev1 stale-flag
-# trap); first the edge cases (`far`: cm gaps past 2^31), then two that
-# span several of the scan's 1,024-row tiles.
+# trap): the edge cases (`far`: cm gaps past 2^31), states over several of
+# the scans' 1,024-row tiles (csrc/loop_round.cu kScanTile): 70 genomes;
+# one genome; a north-star-wide genome's kept rows so sparse that several
+# tiles in a row hold none; kept rows only at the tiles' first and last
+# rows (tiles start at a genome's row 0), and groups of exactly D = 64 and
+# D + 1 arcs across a branch_prep arc block's end (1,024 arcs a block).
 ROUND_STATES = {
     "random": dict(G=5, H=40),
     "far": dict(G=5, H=40, far=True),
@@ -554,8 +566,15 @@ ROUND_STATES = {
                   sizes=tuple(range(1, 300))),
     "one_genome": dict(G=1, H=1025, S=500, n_gene=600, p_flt=0.02,
                        hit0=True),
+    "sparse_tiles": dict(G=3, H=19000, S=500, n_gene=600, p_flt=0.999),
+    "tile_edges": dict(G=3, H=5000, S=500, n_gene=600, edges=1024),
+    "window_D_edge": dict(G=5, H=40, sizes=(50,) * 20 + (64, 3, 2)),
+    "window_D+1_edge": dict(G=5, H=40, sizes=(50,) * 20 + (65, 3, 2)),
 }
-ROUND_EDGE_CASES = tuple(ROUND_STATES)[:-2]
+# the states only the card tests and chip_smoke take (the CPU oracles'
+# row-by-row loops are slow there); the CPU oracle tests take the others
+ROUND_CARD_ONLY = ("tiles", "one_genome")
+ROUND_EDGE_CASES = tuple(n for n in ROUND_STATES if n not in ROUND_CARD_ONLY)
 
 
 def make_state(which, seed):

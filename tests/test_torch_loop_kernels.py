@@ -38,7 +38,8 @@ import torch
 from pangene_tpu.ops import softfloat as jsf
 from pangene_tpu_torch.ops import loop_kernels as lk
 from pangene_tpu_torch.testing import (BRANCH_B, EXACT_BRANCH_DIFFS,
-                                       ROUND_EDGE_CASES, WALK_FORMS,
+                                       ROUND_EDGE_CASES, ROUND_STATES,
+                                       WALK_FORMS,
                                        branch_table, deficit_ratios,
                                        fold_inputs, locality_table,
                                        make_state, round_calls,
@@ -699,9 +700,94 @@ def test_branch_prep_plain_equals_oracle(case, D):
                            "overflow"), got, want):
         assert a.dtype == b.dtype and np.array_equal(a, b), name
     if case.startswith("window") and D == 64:
-        assert bool(got[5]) == (case == "window_D+1")
+        assert bool(got[5]) == ("D+1" in case)
     if case == "all_filtered":
         assert not got[0].any()
+
+
+@pytest.mark.parametrize("D", [64, 1, 0, 5])
+@pytest.mark.parametrize("seed", range(4))
+def test_window_check_one_comparison_an_arc(seed, D):
+    """branch_prep's kernel flags a group of more than win = max(D, 1) arcs
+    by one comparison an arc: some valid arc a whose arc a + win is not
+    SENT_I and has a's source vertex. On random v-sorted tables (groups of
+    sizes around win, then 0-3 SENT_I slots) that flag equals
+    branch_prep_plain's overflow."""
+    rng = np.random.default_rng(300 + seed)
+    B = 8
+    win = max(D, 1)
+    for _ in range(40):
+        sizes = rng.integers(max(win - 2, 1), win + 3, rng.integers(1, 12))
+        vs = np.sort(rng.choice(1 << 10, len(sizes), replace=False))
+        vw = np.concatenate([(int(v) << B) | np.sort(rng.integers(
+            0, 1 << B, n)) for v, n in zip(vs, sizes)]).astype(np.int64)
+        vw = np.concatenate([vw, np.full(rng.integers(0, 4), SENT,
+                                         np.int64)])
+        A = len(vw)
+        nxt = np.concatenate([vw[win:], np.full(min(win, A), SENT,
+                                                np.int64)])[:A]
+        flag = bool(((vw != SENT) & (nxt != SENT)
+                     & ((nxt >> B) == (vw >> B))).any())
+        st = make_state("random", seed)
+        st.update(arc_vw=vw, B=B,
+                  seg_gid=np.zeros(len(st["alive"]), np.int64))
+        args, kw = round_calls(st, "cpu", D=D)["branch_prep"]()
+        got = bool(round_outputs("branch_prep", args, kw)[5])
+        assert flag == got == (int(sizes.max()) > win)
+
+
+
+# The scans' tile and the arc pass's block (csrc/loop_round.cu kScanTile,
+# kArcRows * kScanThreads), and the seeds the scans' edge states are drawn
+# from: the CPU oracle tests' and the card tests' (tests/test_torch_cuda.py);
+# chip_smoke's is 200 + the state's place in ROUND_STATES.
+SCAN_TILE = ARC_BLOCK = 1024
+SCAN_EDGE_STATES = ("sparse_tiles", "tile_edges", "window_D_edge",
+                    "window_D+1_edge")
+
+
+def empty_tile_run(kept):
+    """The most tiles in a row that hold no kept row and are followed, in
+    their genome, by a tile that holds one."""
+    G, H = kept.shape
+    best = 0
+    for g in range(G):
+        run = 0
+        for t in range(0, H, SCAN_TILE):
+            if kept[g, t:t + SCAN_TILE].any():
+                best, run = max(best, run), 0
+            else:
+                run += 1
+    return best
+
+
+@pytest.mark.parametrize("seed", [3, 5, 7, 9, 11, 13, 17, "chip_smoke"])
+@pytest.mark.parametrize("which", SCAN_EDGE_STATES)
+def test_scan_edge_states_hold_their_edges(which, seed):
+    """Each state of ROUND_STATES made for the tiled scans holds its edge on
+    every seed it is drawn from: sparse_tiles a genome whose kept rows skip
+    two or more tiles in a row, in cs order (branch_prep's tiles) and in cm
+    order (walk_pairs'); tile_edges kept rows only at tiles' first and last
+    rows, both in use; the window states a group of exactly D = 64 or
+    D + 1 arcs across an arc block's end."""
+    if seed == "chip_smoke":
+        seed = 200 + list(ROUND_STATES).index(which)
+    st = make_state(which, seed)
+    kept = (st["flt"] == 0) & (st["shadow"] == 0) & st["valid"]
+    kept_cm = np.take_along_axis(kept, st["ordcm"].astype(np.int64), 1)
+    if which == "sparse_tiles":
+        assert empty_tile_run(kept) >= 2 and empty_tile_run(kept_cm) >= 2
+    elif which == "tile_edges":
+        for k in (kept, kept_cm):
+            assert set(np.nonzero(k)[1] % SCAN_TILE) == {0, SCAN_TILE - 1}
+    else:
+        vw = st["arc_vw"]
+        v = vw[vw != SENT] >> st["B"]
+        heads = np.flatnonzero(np.r_[True, v[1:] != v[:-1]])
+        sizes = np.diff(np.r_[heads, len(v)])
+        n = 64 + ("D+1" in which)
+        assert any(size == n and a // ARC_BLOCK != (a + n - 1) // ARC_BLOCK
+                   for a, size in zip(heads, sizes))
 
 
 def test_branch_prep_keeps_overflow_set():
