@@ -148,8 +148,11 @@ Phases (each one passes or raises, so any failure exits nonzero):
      the loci and the cuts), the in-place ones on copies; the batched entry
      on the north star loop's columns: kernel == plain exactly, device time
      from 200 launches in one CUDA graph (the in-place kernels from the
-     state their first launch leaves), the plain version's time, the
-     bound.
+     state their first launch leaves; prop_round and occ_round with one
+     round_scratch, as the loop's), the plain version's time, the bound;
+     after prop_round's line, ORDCM LOCALITY: how local its reads are
+     (testing.ordcm_locality of its cm order, testing.sector_shares of its
+     arc rows).
 
 ``--corpora NAME[,NAME]`` runs only those corpora and what needs them, for
 a short first run of new code (``--corpora small`` takes about two
@@ -580,8 +583,9 @@ def round_bound_ms(lk, name, make, got):
         if cuts:
             nbytes += (2 * G * H + 4 * int((valid & (flt == 0)).sum())
                        + 4 * sid_of.numel() + n_changed)
-        shape = "G %d, H %d, S %d, A %d, loci %s, cuts %s, changed %d" % (
-            G, H, S, A, loci, kw["cuts"], n_changed)
+        shape = ("G %d, H %d, S %d, A %d, valid arcs %d, loci %s, cuts %s, "
+                 "changed %d" % (G, H, S, A, int((arc_vw != lk.SENT_I).sum()),
+                                 loci, kw["cuts"], n_changed))
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes, shape
 
 
@@ -592,6 +596,9 @@ def time_round_kernel(lk, make, name):
     its own arguments from make()."""
     a, k = make()
     fn = getattr(lk, name)
+    if name in ("prop_round", "occ_round"):
+        # the scratch they count through, one for all calls, as the loop's
+        k = dict(k, scratch=lk.round_scratch(a[0].device, a[0].numel()))
     ms = graph_ms(lambda: fn(*a, **k), TIMED_LAUNCHES)
     eager_ms = stream_ms(lambda: fn(*a, **k), TIMED_LAUNCHES)
     a, k = make()
@@ -1220,7 +1227,8 @@ def smoke(names, draws):
                                            WALK_FORMS, band_genome,
                                            branch_table, deficit_ratios,
                                            fold_inputs, make_state,
-                                           random_genome, round_calls,
+                                           ordcm_locality, random_genome,
+                                           round_calls, sector_shares,
                                            stacked_edge_cases,
                                            sweep_edge_case)
     dev = torch.device(DEVICE)
@@ -2187,6 +2195,15 @@ def smoke(names, draws):
                 "%.5f) plain_ms %.3f bound_ms %.6f (bytes; %d bytes); "
                 "kernel == plain" % (cname, name, key, shape, ms, eager_ms,
                                      plain_ms, b_ms, nbytes))
+            if name == "prop_round":
+                # how many sectors a warp's reads through ordcm and the
+                # pair slots' arc rows (forward, reverse) touch
+                H = args[0].shape[1]
+                log("ORDCM LOCALITY %s %s; arc rows one / two sectors: "
+                    "forward %s, reverse %s" % (
+                        cname, json.dumps(ordcm_locality(args[3])),
+                        sector_shares(args[4][:, :H]),
+                        sector_shares(args[4][:, H:])))
             rec = loop_recs.setdefault(name, {
                 "name": name, "route": "cuda",
                 "source": "pangene_tpu_torch/csrc/loop_round.cu",

@@ -35,9 +35,9 @@
 //
 // occ_round replaces the annealed high-occurrence filter (:693 occ_block;
 // graph.c:237-263) with the convergence count and the #del capture
-// (:724-740): in a branch round first the n_dist_loci plane from the
-// classification's n_grp; then the out-degrees (the arc table is v-sorted
-// with its valid arcs first, so a vertex's group size is its count of valid
+// (:724-740): in a branch round the n_dist_loci plane from the
+// classification's n_grp; the out-degrees (the arc table is v-sorted with
+// its valid arcs first, so a vertex's group size is its count of valid
 // arcs), the segments' deletion (occ, degree, loci; counted into the round's
 // log row), the capture rows, and the dead genes' hits filtered.
 //
@@ -94,10 +94,38 @@
 //    waits until every tile is done (they hold earlier tickets), reads its
 //    last rows and gathers their values genome-major, transposes them in
 //    shared memory and writes the gene-major planes coalesced.
-// prop_round and occ_round are element-wise over rows, arcs or segments,
-// their counts reduced in the block before one atomic. Scatters are unique
-// (nxt, the capture rows) or integer atomics (segment counters, degrees,
-// the representatives' atomicMax), so every output is deterministic.
+// prop_round and occ_round run just before the round's one host read, so
+// the host waits on their latency: each is one launch and no memset. Their
+// counts go through a scratch that every call leaves zeroed: each block
+// adds its count, its change bit and one to the blocks done in one 64-bit
+// atomic, and the block done last sets the word and the log row and
+// zeroes it (grid_done).
+//  * prop_round: one block a 1,024-row tile of a genome's cm positions,
+//    like the scans. Every load of the tile is issued first (the pair
+//    planes at its cm positions), then what they address: the arc marks,
+//    weak, flt and valid at the cs rows (read directly: ordcm is nearly
+//    the identity, so a warp's 32 cs rows fall in one or two sectors and
+//    the reads coalesce; testing.py's ordcm_locality measures it, PERF.md
+//    has the shares), each pair slot's forward mark once into shared
+//    memory, where a position's next pair (nxt) is read unless it lies
+//    past the tile (the tile's last kept row: one global lookup a tile,
+//    read ahead with the tile's loads for the next tile's first row).
+//    Two dependent reads a row, not four. The call without propagation is
+//    a row-wise pass, 16-byte loads.
+//  * occ_round: segment blocks, then hit blocks, by ticket. A vertex's
+//    arcs are one run of the v-sorted table and n_grp is non-zero only at
+//    a run's first arc (csrc/loop_blocks.cu), so a segment block finds its
+//    64 segments' arcs by two block-wide lower bounds (128 probes a step;
+//    the first step, the same for every block, read before the ticket)
+//    and reads each strand's degree (the run's length) and loci (n_grp at
+//    its first arc) from the runs it marks in shared memory: no atomic on
+//    a degree and no row to zero. A hit block reads its 16 rows (16-byte
+//    loads) and their genes' segments, then waits until every segment
+//    block is done (they hold earlier tickets, so the wait ends) and reads
+//    the segments' alive bits the segment blocks left in the scratch.
+// Scatters are unique (nxt, the capture rows, prop_round's cs rows) or
+// integer atomics (segment counters, the representatives' atomicMax, the
+// counts), so every output is deterministic.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -112,8 +140,6 @@ static_assert(kScanWords <= 64, "a tile's words are one 64-bit mask");
 constexpr int kWalkBlocksPerSm = 1;      // walk_pairs: no register cap
 constexpr int kArcRows = 4;              // branch_prep: arcs a thread
 constexpr int kRepChunk = 32;            // branch_prep: genes, genomes a block
-constexpr int kThreads = 256;            // the element-wise phases
-constexpr int kBlocksPerSm = 8;          // grid-stride phases: blocks a SM
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int64_t kSent = (int64_t(1) << 62) - 1;    // empty arc slot
 constexpr int64_t kKeySent = int64_t(1) << 62;       // invalid sort key
@@ -171,33 +197,8 @@ __device__ unsigned long long look_back(const unsigned long long* tiles,
   return acc;
 }
 
-// Adds each thread's v to *dst: the warp's sum, the block's in shared
-// memory, one global atomic a block. Every thread of the block calls it.
-__device__ void block_add(unsigned long long* dst, unsigned v) {
-  __shared__ unsigned s_sum;
-  if (threadIdx.x == 0) s_sum = 0;
-  __syncthreads();
-  const unsigned w = __reduce_add_sync(kFull, v);
-  if ((threadIdx.x & 31) == 0 && w) atomicAdd(&s_sum, w);
-  __syncthreads();
-  if (threadIdx.x == 0 && s_sum) atomicAdd(dst, (unsigned long long)s_sum);
-}
-
 __device__ __forceinline__ int clampi(int64_t x, int64_t lo, int64_t hi) {
   return static_cast<int>(x < lo ? lo : (x > hi ? hi : x));
-}
-
-// Blocks of a grid-stride phase over n items.
-int stride_blocks(long long n) {
-  static int cap = 0;
-  if (!cap) {
-    int dev = 0, sms = 132;
-    if (cudaGetDevice(&dev) == cudaSuccess)
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cap = sms * kBlocksPerSm;
-  }
-  const long long b = (n + kThreads - 1) / kThreads;
-  return static_cast<int>(b < 1 ? 1 : (b > cap ? cap : b));
 }
 
 // Tiles of the scans over G genomes of H rows.
@@ -620,69 +621,232 @@ branch_prep_kernel(PrepArgs p) {
 }
 
 // ---------------------------------------------------------------------------
+// prop_round and occ_round: the grid's counts without a memset
+// ---------------------------------------------------------------------------
+
+// The grid's end without a memset: each block adds, in one 64-bit atomic
+// on *done, one to the blocks done (bits 48-63), its change bit (bits
+// 32-47) and its count v (bits 0-31, its threads' sum). The block whose
+// addition completes the grid has the totals (what the atomic returned
+// plus its own) and sets *done back to zero, so the scratch is zeroed
+// once, when it is allocated (and again by the wrapper after a failed
+// launch), and holds zeros between calls and between a CUDA graph's
+// replays. No fence: one address carries it all. Returns true in that
+// block's thread 0 alone, with the total count and the change bit. Every
+// thread of the block calls it; at most 65,535 blocks (kMaxGrid).
+constexpr long long kMaxGrid = 65535;
+
+__device__ bool grid_done(unsigned long long* done, unsigned v, bool changed,
+                          unsigned long long& count, bool& any_changed) {
+  __shared__ unsigned s_sum;
+  __shared__ bool s_last;
+  if (threadIdx.x == 0) s_sum = 0;
+  __syncthreads();
+  const unsigned w = __reduce_add_sync(kFull, v);
+  if ((threadIdx.x & 31) == 0 && w) atomicAdd(&s_sum, w);
+  const bool ch = __syncthreads_or(changed);
+  if (threadIdx.x == 0) {
+    const unsigned long long mine =
+        (1ull << 48) | (static_cast<unsigned long long>(ch) << 32) | s_sum;
+    const unsigned long long old = atomicAdd(done, mine);
+    s_last = (old >> 48) == gridDim.x - 1;
+    if (s_last) {
+      const unsigned long long tot = old + mine;
+      count = tot & 0xffffffffull;
+      any_changed = ((tot >> 32) & 0xffffull) != 0;
+      atomicExch(done, 0ull);
+    }
+  }
+  __syncthreads();
+  return threadIdx.x == 0 && s_last;
+}
+
+// ---------------------------------------------------------------------------
 // prop_round
 // ---------------------------------------------------------------------------
+
+constexpr int kRowVec = 16;      // row-wise passes: rows a thread, 16 bytes
+constexpr int kPropBlocksPerSm = 5;   // prop_round: 48 registers
 
 struct PropArgs {
   uint8_t* weak;           // [G, H] cs order, in place
   uint8_t* flt;
   const uint8_t* valid;
   long long n;             // G * H
-  int H;
-  int propagate;
+  int H, T;                // T: tiles a genome
   const int32_t* ordcm;    // [G, H] cm order
   const int32_t* pair_arc; // [G, 2H]: each pair slot's arc row
   const int32_t* nxt;      // [G, H]
   const uint8_t* pair_ok;  // [G, H]
   const uint8_t* arc_weak; // [A]
   long long A;
-  unsigned long long* word;   // (n_prop, changed)
+  unsigned long long* word;   // (n_prop, changed), set
+  unsigned long long* acc;    // scratch: grid_done's word
 };
 
 __device__ __forceinline__ int arc_mark(const PropArgs& p, int32_t row) {
   return p.arc_weak[row < 0 ? 0 : (row > p.A - 1 ? p.A - 1 : row)];
 }
 
-__global__ void __launch_bounds__(kThreads) prop_round_kernel(PropArgs p) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+__device__ __forceinline__ void set_word(const PropArgs& p, unsigned n_prop,
+                                         bool changed) {
+  unsigned long long n = 0;
+  bool ch = false;
+  if (grid_done(p.acc, n_prop, changed, n, ch)) {
+    p.word[0] = n;
+    p.word[1] = ch;
+  }
+}
+
+// One tile of a genome's cm positions a block: every load of the tile
+// first (the pair planes at its cm positions), then what they address (the
+// arc marks, weak, flt and valid at the cs rows: ordcm is nearly the
+// identity, so a warp's 32 rows fall in one or two sectors and the reads
+// coalesce), each pair slot's forward mark once into shared memory; a
+// position's next pair nxt is read there when it falls in the tile (all but
+// the tile's last kept row), else from global memory.
+__global__ void __launch_bounds__(kScanThreads, kPropBlocksPerSm)
+prop_round_kernel(PropArgs p) {
+  __shared__ uint8_t s_fwd[kScanTile];
+  const long long tile = blockIdx.x;
+  const long long g = tile / p.T;
+  const int i0 = static_cast<int>(tile - g * p.T) * kScanTile;
+  const int H = p.H;
+  const long long base = g * H;
+  const int32_t* arc = p.pair_arc + 2 * base;
+  // the loads of the tile, into registers (none waits on another); the
+  // last thread also reads the next tile's first pair slot, the next pair
+  // of the tile's last row when that row and the next are kept
+  int r[kScanRows], j[kScanRows], af[kScanRows], ar[kScanRows];
+  bool ok[kScanRows];
+  const int i_next = i0 + kScanTile;
+  bool ok_next = false;
+  int arc_next = 0;
+  if (threadIdx.x == kScanThreads - 1 && i_next < H) {
+    ok_next = p.pair_ok[base + i_next] != 0;
+    arc_next = arc[i_next];
+  }
+#pragma unroll
+  for (int q = 0; q < kScanRows; ++q) {
+    const int i = i0 + q * kScanThreads + static_cast<int>(threadIdx.x);
+    r[q] = i;
+    j[q] = -1;
+    af[q] = ar[q] = 0;
+    ok[q] = false;
+    if (i < H) {
+      r[q] = p.ordcm[base + i];
+      ok[q] = p.pair_ok[base + i] != 0;
+      af[q] = arc[i];
+      ar[q] = arc[H + i];
+      j[q] = p.nxt[base + i];
+    }
+  }
+  // what they address: the arc marks, the state at the cs rows, a next
+  // pair past the tile
+  int mf[kScanRows], m[kScanRows];
+  uint8_t w0[kScanRows], f0[kScanRows], v0[kScanRows];
+#pragma unroll
+  for (int q = 0; q < kScanRows; ++q) {
+    const bool row = i0 + q * kScanThreads + static_cast<int>(threadIdx.x) < H;
+    mf[q] = ok[q] ? arc_mark(p, af[q]) : 0;
+    m[q] = ok[q] ? arc_mark(p, ar[q]) : 0;
+    w0[q] = f0[q] = v0[q] = 0;
+    if (row) {
+      w0[q] = p.weak[base + r[q]];
+      f0[q] = p.flt[base + r[q]];
+      v0[q] = p.valid[base + r[q]];
+    }
+    if (j[q] >= 0) {
+      const int jc = j[q] < H ? j[q] : H - 1;
+      if (static_cast<unsigned>(jc - i0) >= static_cast<unsigned>(kScanTile)) {
+        const bool okj = jc == i_next && threadIdx.x == kScanThreads - 1
+                             ? ok_next : p.pair_ok[base + jc] != 0;
+        const int aj = jc == i_next && threadIdx.x == kScanThreads - 1
+                           ? arc_next : arc[jc];
+        const int f = okj ? arc_mark(p, aj) : 0;
+        m[q] = f > m[q] ? f : m[q];
+        j[q] = -1;
+      } else {
+        j[q] = jc;
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kScanRows; ++q)
+    s_fwd[q * kScanThreads + threadIdx.x] = static_cast<uint8_t>(mf[q]);
+  __syncthreads();
   unsigned n_prop = 0;
   bool changed = false;
-  for (long long k = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x; k < p.n; k += stride) {
-    long long r = k;
-    int wk;
-    if (p.propagate) {
-      const long long g = k / p.H, i = k - g * p.H;
-      r = g * p.H + p.ordcm[k];
-      wk = p.weak[r];
-      int m = 0;
-      if (p.pair_ok[k]) m = arc_mark(p, p.pair_arc[2 * g * p.H + p.H + i]);
-      const int j = p.nxt[k];
-      if (j >= 0 && p.pair_ok[g * p.H + j]) {
-        const int f = arc_mark(p, p.pair_arc[2 * g * p.H + j]);
-        m = f > m ? f : m;
-      }
-      if (m > wk) {
-        p.weak[r] = static_cast<uint8_t>(m);
-        wk = m;
-        changed = true;
-      }
-    } else {
-      wk = p.weak[r];
+#pragma unroll
+  for (int q = 0; q < kScanRows; ++q) {
+    if (i0 + q * kScanThreads + static_cast<int>(threadIdx.x) >= H) continue;
+    int mk = m[q];
+    if (j[q] >= 0) {
+      const int fj = s_fwd[j[q] - i0];
+      mk = fj > mk ? fj : mk;
     }
-    if (wk == 2 && p.flt[r] == 0) {
-      p.flt[r] = 1;
+    int w = w0[q];
+    if (mk > w) {
+      p.weak[base + r[q]] = static_cast<uint8_t>(mk);
+      w = mk;
       changed = true;
     }
-    n_prop += wk != 0 && p.valid[r] != 0;
+    if (w == 2 && f0[q] == 0) {
+      p.flt[base + r[q]] = 1;
+      changed = true;
+    }
+    n_prop += (w != 0) & (v0[q] != 0);
   }
-  block_add(&p.word[0], n_prop);
-  if (changed) p.word[1] = 1;
+  set_word(p, n_prop, changed);
+}
+
+// The call without propagation (round 0): the weak == 2 filter and n_prop
+// row by row, kRowVec rows a thread, 16-byte loads when kVec.
+template <bool kVec>
+__global__ void __launch_bounds__(kScanThreads) prop_filter_kernel(PropArgs p) {
+  const long long r0 =
+      (static_cast<long long>(blockIdx.x) * kScanThreads + threadIdx.x) *
+      kRowVec;
+  unsigned n_prop = 0;
+  bool changed = false;
+  if (kVec && r0 + kRowVec <= p.n) {
+    const uint4 w4 = *reinterpret_cast<const uint4*>(p.weak + r0);
+    const uint4 v4 = *reinterpret_cast<const uint4*>(p.valid + r0);
+    uint4 f4 = *reinterpret_cast<const uint4*>(p.flt + r0);
+    const uint8_t* w = reinterpret_cast<const uint8_t*>(&w4);
+    const uint8_t* v = reinterpret_cast<const uint8_t*>(&v4);
+    uint8_t* f = reinterpret_cast<uint8_t*>(&f4);
+#pragma unroll
+    for (int b = 0; b < kRowVec; ++b) {
+      if (w[b] == 2 && f[b] == 0) {
+        f[b] = 1;
+        changed = true;
+      }
+      n_prop += (w[b] != 0) & (v[b] != 0);
+    }
+    if (changed) *reinterpret_cast<uint4*>(p.flt + r0) = f4;
+  } else {
+    const long long r1 = r0 + kRowVec < p.n ? r0 + kRowVec : p.n;
+    for (long long r = r0; r < r1; ++r) {
+      const int w = p.weak[r];
+      if (w == 2 && p.flt[r] == 0) {
+        p.flt[r] = 1;
+        changed = true;
+      }
+      n_prop += (w != 0) & (p.valid[r] != 0);
+    }
+  }
+  set_word(p, n_prop, changed);
 }
 
 // ---------------------------------------------------------------------------
 // occ_round
 // ---------------------------------------------------------------------------
+
+constexpr int kSegBlock = 64;    // segments a block (a multiple of 32)
+constexpr int kRunKeys = 4;      // arcs a thread reads a step of the runs
+constexpr int kRunChunk = kScanThreads * kRunKeys;
+constexpr int kOccBlocksPerSm = 4;        // occ_round: 64 registers
 
 struct OccArgs {
   uint8_t* alive;          // [S], in place
@@ -703,89 +867,292 @@ struct OccArgs {
   int deg_cut, loci_cut;
   unsigned long long* log_row;   // logs[r, 3:7]: n_occ n_deg n_loci alive
   uint8_t* mask_row;       // [S]
-  int32_t* deg_row;        // [2S], zeroed
+  int32_t* deg_row;        // [2S]
   int32_t* loci_row;       // [2S]
   int32_t* tot_row;        // [S]
-  unsigned long long* word;      // (n_prop, changed)
+  unsigned long long* word;      // (n_prop, changed): changed OR'd
+  // scratch: grid_done's word, the four counts, the ticket
+  unsigned long long* acc;
+  uint32_t* alive_bits;    // scratch: alive after the deletion, 32 a word
+  long long n_seg;         // segment blocks (the hit blocks follow)
 };
 
-// The loci plane from n_grp and the out-degrees: over the arcs.
-__global__ void __launch_bounds__(kThreads) occ_arc_kernel(OccArgs p) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  // every thread takes the same number of turns (the warp's match below)
-  for (long long b0 = static_cast<long long>(blockIdx.x) * blockDim.x;
-       b0 < p.A; b0 += stride) {
-    const long long a = b0 + threadIdx.x;
-    int key = -1;
-    if (a < p.A) {
-      const int64_t vw = p.arc_vw[a];
-      const int64_t v = vw >> p.B;
+// The source vertex of arc a, past every vertex for an empty slot.
+__device__ __forceinline__ long long arc_key(const OccArgs& p, long long a) {
+  const int64_t vw = p.arc_vw[a];
+  return vw == kSent ? (1ll << 62) : (vw >> p.B);
+}
+
+constexpr int kHalf = kScanThreads / 2;    // a lower bound's probes
+
+// This thread's first probe of block_lower_bounds, the same for every
+// block: read before the block has its ticket.
+__device__ __forceinline__ long long first_probe(const OccArgs& p) {
+  const int t = threadIdx.x % kHalf;
+  const long long step = (p.A + kHalf - 1) / kHalf;
+  const long long pos = step * t + step - 1;
+  return pos < p.A ? arc_key(p, pos) : 0;
+}
+
+// The first arcs of the v-sorted table (valid arcs first) whose source
+// vertices are >= x[0] and >= x[1] (A when none), into s_b[0], s_b[1]: half
+// the block's threads probe each bound, kHalf probes a step, so three
+// dependent reads at the north star's 831,488 arcs, the first (k1, this
+// thread's first_probe) made before the block's ticket. Every thread calls
+// it.
+__device__ void block_lower_bounds(const OccArgs& p, const long long (&x)[2],
+                                   long long k1, long long (&s_b)[2][2]) {
+  constexpr int kWarps = kHalf / 32;
+  __shared__ unsigned s_m[2][kWarps];
+  const int h = threadIdx.x >= kHalf, t = threadIdx.x - h * kHalf;
+  if (t == 0) {
+    s_b[h][0] = 0;
+    s_b[h][1] = p.A;
+  }
+  __syncthreads();
+  for (bool first = true;; first = false) {
+    const long long lo = s_b[h][0], hi = s_b[h][1];
+    const long long o_lo = s_b[!h][0], o_hi = s_b[!h][1];
+    if (hi <= lo && o_hi <= o_lo) break;    // both found: uniform
+    const long long step = (hi - lo + kHalf - 1) / kHalf;
+    const long long pos = lo + step * t + step - 1;
+    const bool ge = hi <= lo || pos >= hi ||
+                    (first ? k1 : arc_key(p, pos)) >= x[h];
+    const unsigned m = __ballot_sync(kFull, ge);
+    if ((t & 31) == 0) s_m[h][t >> 5] = m;
+    __syncthreads();
+    if (t == 0 && hi > lo) {
+      int f = -1;
+      for (int k = 0; k < kWarps && f < 0; ++k)
+        if (s_m[h][k]) f = 32 * k + __ffs(s_m[h][k]) - 1;
+      if (f < 0) {
+        s_b[h][0] = hi;                      // every probe below: hi
+      } else {
+        const long long pf = lo + step * f + step - 1;
+        s_b[h][0] = lo + step * f;
+        s_b[h][1] = pf < hi ? pf : hi;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// kSegBlock segments: each strand's degree and loci, the deletion, the
+// capture rows, the counts. A vertex's arcs are one run of the v-sorted
+// table and n_grp is non-zero only at a run's first arc, so its degree is
+// the run's length and its loci the n_grp there: the block finds its arcs
+// by two lower bounds, reads their vertices kRunChunk at a time into
+// shared memory and marks each run's first arc and end; no atomic,
+// nothing to zero.
+__device__ void occ_segs(const OccArgs& p, long long c, long long k1,
+                         unsigned (&v)[4], bool& changed) {
+  __shared__ int s_start[2 * kSegBlock], s_stop[2 * kSegBlock];
+  __shared__ int s_key[kRunChunk + 1];
+  __shared__ long long s_b[2][2];
+  const int s0 = static_cast<int>(c * kSegBlock);
+  const int ns = p.S - s0 < kSegBlock ? p.S - s0 : kSegBlock;
+  const int s = s0 + threadIdx.x;
+  const bool mine = static_cast<int>(threadIdx.x) < ns;
+  bool al = false;
+  int32_t tot = 0, l0 = 0, l1 = 0;
+  if (mine) {
+    al = p.alive[s] != 0;
+    tot = p.seg_tot[s];
+    if (!p.n_grp) {
+      l0 = p.loci[2 * s];
+      l1 = p.loci[2 * s + 1];
+    }
+  }
+  int d0 = 0, d1 = 0;
+  if (p.n_grp || p.do_occ) {
+    for (int x = threadIdx.x; x < 2 * kSegBlock; x += blockDim.x)
+      s_start[x] = s_stop[x] = 0;
+    const long long v0 = 2ll * s0, x[2] = {v0, v0 + 2 * ns};
+    block_lower_bounds(p, x, k1, s_b);
+    const long long lo = s_b[0][0], hi = s_b[1][0];
+    // each arc's vertex less v0, or -1 past the block's vertices
+    auto rel = [&](long long a) {
+      const long long k = a < hi ? arc_key(p, a) - v0 : -1;
+      return k >= 0 && k < 2 * ns ? static_cast<int>(k) : -1;
+    };
+    for (long long c0 = lo; c0 < hi; c0 += kRunChunk) {
+      int k[kRunKeys];
+#pragma unroll
+      for (int q = 0; q < kRunKeys; ++q)
+        k[q] = rel(c0 + q * kScanThreads + threadIdx.x);
+      const int kl = threadIdx.x == 0 ? rel(c0 + kRunChunk) : -1;
+#pragma unroll
+      for (int q = 0; q < kRunKeys; ++q)
+        s_key[q * kScanThreads + threadIdx.x] = k[q];
+      if (threadIdx.x == 0) s_key[kRunChunk] = kl;
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < kRunKeys; ++q) {
+        const int xi = q * kScanThreads + threadIdx.x;
+        const long long a = c0 + xi;
+        const int kn = s_key[xi + 1];
+        if (a >= hi || k[q] < 0) continue;   // not v-sorted: no run
+        if (a == lo) s_start[k[q]] = 0;
+        if (kn != k[q]) {
+          s_stop[k[q]] = static_cast<int>(a + 1 - lo);
+          if (kn >= 0) s_start[kn] = static_cast<int>(a + 1 - lo);
+        }
+      }
+      __syncthreads();
+    }
+    if (mine) {
+      const int xs = 2 * threadIdx.x;
+      d0 = s_stop[xs] - s_start[xs];
+      d1 = s_stop[xs + 1] - s_start[xs + 1];
       if (p.n_grp) {
-        const int n = p.n_grp[a];
-        if (n) atomicAdd(&p.loci[clampi(v >> 1, 0, p.S - 1) * 2 + (v & 1)],
-                         n);
-      }
-      if (p.do_occ && vw != kSent) key = clampi(v, 0, 2 * p.S - 1);
-    }
-    // a vertex's arcs are contiguous: one atomic a vertex a warp
-    const unsigned peers = __match_any_sync(kFull, key);
-    if (key >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1)
-      atomicAdd(&p.deg_row[key], __popc(peers));
-  }
-}
-
-// The segments: deletion, the capture rows, the counts.
-__global__ void __launch_bounds__(kThreads) occ_seg_kernel(OccArgs p) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  unsigned n_occ = 0, n_deg = 0, n_loci = 0, n_alive = 0;
-  bool changed = false;
-  for (long long s = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x; s < p.S; s += stride) {
-    bool al = p.alive[s] != 0;
-    const int32_t l0 = p.loci[2 * s], l1 = p.loci[2 * s + 1];
-    bool del = false;
-    if (p.do_occ) {
-      const bool od = al && static_cast<long long>(p.seg_tot[s]) > p.occ_cut;
-      const bool dd = al && (p.deg_row[2 * s] > p.deg_cut ||
-                             p.deg_row[2 * s + 1] > p.deg_cut);
-      const bool ld = al && (l0 > l1 ? l0 : l1) > p.loci_cut;
-      n_occ += od;
-      n_deg += dd && !od;
-      n_loci += ld && !dd && !od;
-      del = od || dd || ld;
-      if (del) {
-        p.alive[s] = 0;
-        al = false;
-        changed = true;
+        l0 = d0 > 0 ? p.n_grp[lo + s_start[xs]] : 0;
+        l1 = d1 > 0 ? p.n_grp[lo + s_start[xs + 1]] : 0;
+        p.loci[2 * s] = l0;
+        p.loci[2 * s + 1] = l1;
       }
     }
-    p.mask_row[s] = del;
-    p.loci_row[2 * s] = l0;
-    p.loci_row[2 * s + 1] = l1;
-    p.tot_row[s] = p.seg_tot[s];
-    n_alive += al;
   }
-  block_add(&p.log_row[0], n_occ);
-  block_add(&p.log_row[1], n_deg);
-  block_add(&p.log_row[2], n_loci);
-  block_add(&p.log_row[3], n_alive);
-  if (changed) p.word[1] = 1;
-}
-
-// Hits of dead genes leave the walk (PG_SET_FILTER(vtx == 0)).
-__global__ void __launch_bounds__(kThreads) occ_hit_kernel(OccArgs p) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  bool changed = false;
-  for (long long k = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x; k < p.n; k += stride) {
-    if (!p.valid[k] || p.flt[k]) continue;
-    const int32_t sh = p.sid_of[clampi(p.gid[k], 0, p.ng - 1)];
-    if (sh < 0 || !p.alive[clampi(sh, 0, p.S - 1)]) {
-      p.flt[k] = 1;
+  bool del = false;
+  if (mine && p.do_occ) {
+    const bool od = al && static_cast<long long>(tot) > p.occ_cut;
+    const bool dd = al && (d0 > p.deg_cut || d1 > p.deg_cut);
+    const bool ld = al && (l0 > l1 ? l0 : l1) > p.loci_cut;
+    v[0] += od;
+    v[1] += dd && !od;
+    v[2] += ld && !dd && !od;
+    del = od || dd || ld;
+    if (del) {
+      p.alive[s] = 0;
+      al = false;
       changed = true;
     }
+  } else if (!p.do_occ) {
+    d0 = d1 = 0;
   }
-  if (changed) p.word[1] = 1;
+  // the block's segments alive after the deletion, a word a warp, for the
+  // hit blocks (written once a call, read only after every segment block
+  // is done: plain cached reads see them)
+  if (static_cast<int>(threadIdx.x) < kSegBlock) {
+    const unsigned bits = __ballot_sync(kFull, al);
+    if ((threadIdx.x & 31) == 0) p.alive_bits[(s0 + threadIdx.x) >> 5] = bits;
+  }
+  if (!mine) return;
+  v[3] += al;
+  p.mask_row[s] = del;
+  p.deg_row[2 * s] = d0;
+  p.deg_row[2 * s + 1] = d1;
+  p.loci_row[2 * s] = l0;
+  p.loci_row[2 * s + 1] = l1;
+  p.tot_row[s] = tot;
+}
+
+// Hits of dead genes leave the walk (PG_SET_FILTER(vtx == 0)): kRowVec
+// rows a thread (16-byte loads of valid and flt, int4 of gid when kVec),
+// read with their genes' segments before the block waits for the segment
+// blocks (earlier tickets, so running or done blocks), then the segments'
+// alive bits.
+template <bool kVec>
+__device__ void occ_hits(const OccArgs& p, long long c, bool& changed) {
+  const long long r0 =
+      (c * kScanThreads + threadIdx.x) * static_cast<long long>(kRowVec);
+  const int nr = p.n - r0 < kRowVec ? static_cast<int>(p.n - r0) : kRowVec;
+  uint4 f4 = make_uint4(0, 0, 0, 0), v4 = make_uint4(0, 0, 0, 0);
+  int32_t sh[kRowVec];
+  uint8_t* f = reinterpret_cast<uint8_t*>(&f4);
+  uint8_t* va = reinterpret_cast<uint8_t*>(&v4);
+  if (kVec && nr == kRowVec) {
+    f4 = *reinterpret_cast<const uint4*>(p.flt + r0);
+    v4 = *reinterpret_cast<const uint4*>(p.valid + r0);
+#pragma unroll
+    for (int b = 0; b < kRowVec / 4; ++b) {
+      const int4 g = reinterpret_cast<const int4*>(p.gid + r0)[b];
+      sh[4 * b] = g.x;
+      sh[4 * b + 1] = g.y;
+      sh[4 * b + 2] = g.z;
+      sh[4 * b + 3] = g.w;
+    }
+  } else {
+#pragma unroll
+    for (int b = 0; b < kRowVec; ++b) {
+      const bool in = b < nr;
+      f[b] = in ? p.flt[r0 + b] : 1;
+      va[b] = in ? p.valid[r0 + b] : 0;
+      sh[b] = in ? p.gid[r0 + b] : 0;
+    }
+  }
+  // each live hit's gene's segment
+#pragma unroll
+  for (int b = 0; b < kRowVec; ++b)
+    sh[b] = va[b] && !f[b] ? p.sid_of[clampi(sh[b], 0, p.ng - 1)] : 0;
+  if (threadIdx.x == 0) {
+    while ((tile_load(p.acc) >> 48) < static_cast<unsigned long long>(p.n_seg))
+      __nanosleep(32);
+    __threadfence();
+  }
+  __syncthreads();
+  bool hit = false;
+#pragma unroll
+  for (int b = 0; b < kRowVec; ++b) {
+    if (!va[b] || f[b]) continue;
+    const int a = clampi(sh[b], 0, p.S - 1);
+    if (sh[b] < 0 || !((p.alive_bits[a >> 5] >> (a & 31)) & 1u)) {
+      f[b] = 1;
+      hit = true;
+    }
+  }
+  if (!hit) return;
+  changed = true;
+  if (kVec && nr == kRowVec) {
+    *reinterpret_cast<uint4*>(p.flt + r0) = f4;
+  } else {
+    for (int b = 0; b < nr; ++b) p.flt[r0 + b] = f[b];
+  }
+}
+
+// One launch: blocks take tickets, the segment blocks first, then the hit
+// blocks (do_occ), which wait until every segment block is done (grid_done's
+// count); a segment block adds its four counts (behind a fence, with its
+// stores to alive) before it counts itself done. The block done last sets
+// the log row and ORs the change bit into word[1].
+template <bool kVec>
+__global__ void __launch_bounds__(kScanThreads, kOccBlocksPerSm)
+occ_round_kernel(OccArgs p) {
+  __shared__ long long s_t;
+  if (threadIdx.x == 0)
+    s_t = static_cast<long long>(atomicAdd(p.acc + 5, 1ull));
+  const long long k1 = p.n_grp || p.do_occ ? first_probe(p) : 0;
+  __syncthreads();
+  const long long t = s_t;
+  unsigned v[4] = {0, 0, 0, 0};
+  bool changed = false;
+  if (t < p.n_seg) {
+    __shared__ unsigned s_v[4];
+    if (threadIdx.x < 4) s_v[threadIdx.x] = 0;
+    occ_segs(p, t, k1, v, changed);
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const unsigned w = __reduce_add_sync(kFull, v[q]);
+      if ((threadIdx.x & 31) == 0 && w) atomicAdd(&s_v[q], w);
+    }
+    __syncthreads();
+    if (threadIdx.x < 4 && s_v[threadIdx.x])
+      atomicAdd(p.acc + 1 + threadIdx.x,
+                static_cast<unsigned long long>(s_v[threadIdx.x]));
+    // the block's stores and counts, before it counts itself done
+    __threadfence();
+  } else {
+    occ_hits<kVec>(p, t - p.n_seg, changed);
+  }
+  unsigned long long n = 0;
+  bool ch = false;
+  if (grid_done(p.acc, 0, changed, n, ch)) {
+    __threadfence();
+#pragma unroll
+    for (int q = 0; q < 4; ++q) p.log_row[q] = atomicExch(p.acc + 1 + q, 0ull);
+    if (ch) p.word[1] = 1;
+    atomicExch(p.acc + 5, 0ull);
+  }
 }
 
 inline int err_of(cudaError_t e) { return static_cast<int>(e); }
@@ -931,25 +1298,50 @@ extern "C" int pg_branch_prep(
   return err_of(cudaGetLastError());
 }
 
+// Bytes of prop_round's and occ_round's scratch for S segments: zeroed
+// when allocated; its counters are left zeroed by every call that
+// completes. prop_round's grid_done word first; from the fifth word
+// occ_round's: its grid_done word, the four counts of the log row, the
+// ticket; from the seventeenth the segments' alive bits (rewritten by
+// every call).
+extern "C" long long pg_round_scratch(int S) {
+  return 16 * 8 + (S > 0 ? (S + 63) / 64 * 8 : 0);
+}
+
+namespace {
+
+constexpr int kPropWords = 0, kOccWords = 4;
+
+bool aligned16(const void* a, const void* b, const void* c) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+           reinterpret_cast<uintptr_t>(c)) & 15) == 0;
+}
+
+long long row_blocks(long long n) {
+  const long long b = (n + kScanThreads * kRowVec - 1) / (kScanThreads * kRowVec);
+  return b < 1 ? 1 : b;
+}
+
+}  // namespace
+
 // Weak propagation and the weak == 2 filter (prop_round in
-// ops/loop_kernels.py): zeroes word (n_prop, changed), then one launch.
-// Without `propagate` the pair state is not read.
+// ops/loop_kernels.py): one launch, no memset; word (n_prop, changed) is
+// set by the block done last. Without `propagate` the pair state is not
+// read: a row-wise pass.
 extern "C" int pg_prop_round(void* weak, void* flt, const void* valid,
                              long long G, int H, int propagate,
                              const void* ordcm, const void* pair_arc,
                              const void* nxt, const void* pair_ok,
                              const void* arc_weak, long long A, void* word,
-                             void* stream) {
+                             void* scratch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = cudaMemsetAsync(word, 0, 16, st);
-  if (e != cudaSuccess) return err_of(e);
   PropArgs p = {};
   p.weak = static_cast<uint8_t*>(weak);
   p.flt = static_cast<uint8_t*>(flt);
   p.valid = static_cast<const uint8_t*>(valid);
-  p.n = G * H;
+  p.n = G > 0 && H > 0 ? G * H : 0;
   p.H = H;
-  p.propagate = propagate && A > 0;
+  p.T = static_cast<int>(scan_tiles(1, H));
   p.ordcm = static_cast<const int32_t*>(ordcm);
   p.pair_arc = static_cast<const int32_t*>(pair_arc);
   p.nxt = static_cast<const int32_t*>(nxt);
@@ -957,29 +1349,31 @@ extern "C" int pg_prop_round(void* weak, void* flt, const void* valid,
   p.arc_weak = static_cast<const uint8_t*>(arc_weak);
   p.A = A;
   p.word = static_cast<unsigned long long*>(word);
-  if (p.n > 0)
-    prop_round_kernel<<<stride_blocks(p.n), kThreads, 0, st>>>(p);
+  p.acc = static_cast<unsigned long long*>(scratch) + kPropWords;
+  const bool prop = propagate && A > 0 && p.n > 0;
+  if ((prop ? G * p.T : row_blocks(p.n)) > kMaxGrid)
+    return err_of(cudaErrorInvalidConfiguration);
+  if (prop)
+    prop_round_kernel<<<G * p.T, kScanThreads, 0, st>>>(p);
+  else if (aligned16(weak, flt, valid))
+    prop_filter_kernel<true><<<row_blocks(p.n), kScanThreads, 0, st>>>(p);
+  else
+    prop_filter_kernel<false><<<row_blocks(p.n), kScanThreads, 0, st>>>(p);
   return err_of(cudaGetLastError());
 }
 
-// The occ block of round r (occ_round in ops/loop_kernels.py): memsets the
-// round's log words and degree row, then the arc phase (when n_grp is
-// given or do_occ), the segment phase, and the hit phase (do_occ). The
-// change bit goes to word[1].
+// The occ block of round r (occ_round in ops/loop_kernels.py): one launch,
+// no memset; the segment blocks (with the loci from n_grp when given, the
+// deletion when do_occ), then, when do_occ, the hit blocks. The log row is
+// set and the change bit OR'd into word[1] by the block done last.
 extern "C" int pg_occ_round(
     void* alive, void* flt, const void* valid, const void* gid,
     const void* sid_of, int ng, long long n, const void* arc_vw,
     long long A, int B, int S, const void* seg_tot, void* loci,
     const void* n_grp, int do_occ, long long occ_cut, int deg_cut,
     int loci_cut, void* log_row, void* mask_row, void* deg_row,
-    void* loci_row, void* tot_row, void* word, void* stream) {
+    void* loci_row, void* tot_row, void* word, void* scratch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(log_row, 0, 32, st);
-  if (e == cudaSuccess && S > 0)
-    e = cudaMemsetAsync(deg_row, 0, 8LL * S, st);
-  if (e == cudaSuccess && S > 0 && n_grp)
-    e = cudaMemsetAsync(loci, 0, 8LL * S, st);
-  if (e != cudaSuccess) return err_of(e);
   OccArgs p = {};
   p.alive = static_cast<uint8_t*>(alive);
   p.flt = static_cast<uint8_t*>(flt);
@@ -1005,10 +1399,16 @@ extern "C" int pg_occ_round(
   p.loci_row = static_cast<int32_t*>(loci_row);
   p.tot_row = static_cast<int32_t*>(tot_row);
   p.word = static_cast<unsigned long long*>(word);
-  if (A > 0 && S > 0 && (n_grp || do_occ))
-    occ_arc_kernel<<<stride_blocks(A), kThreads, 0, st>>>(p);
-  if (S > 0) occ_seg_kernel<<<stride_blocks(S), kThreads, 0, st>>>(p);
-  if (do_occ && n > 0)
-    occ_hit_kernel<<<stride_blocks(n), kThreads, 0, st>>>(p);
+  p.acc = static_cast<unsigned long long*>(scratch) + kOccWords;
+  p.alive_bits = reinterpret_cast<uint32_t*>(
+      static_cast<unsigned long long*>(scratch) + 16);
+  if (S <= 0 || A <= 0) return err_of(cudaErrorInvalidValue);
+  p.n_seg = (S + kSegBlock - 1) / kSegBlock;
+  const long long blocks = p.n_seg + (do_occ && n > 0 ? row_blocks(n) : 0);
+  if (blocks > kMaxGrid) return err_of(cudaErrorInvalidConfiguration);
+  if (aligned16(flt, valid, gid))
+    occ_round_kernel<true><<<blocks, kScanThreads, 0, st>>>(p);
+  else
+    occ_round_kernel<false><<<blocks, kScanThreads, 0, st>>>(p);
   return err_of(cudaGetLastError());
 }

@@ -175,11 +175,13 @@ def load_round(path: str) -> ctypes.CDLL:
         fn.argtypes = [ll, i, i]
     fn = lib.pg_prop_round
     fn.restype = i
-    fn.argtypes = [vp] * 3 + [ll, i, i] + [vp] * 5 + [ll, vp, vp]
+    fn.argtypes = [vp] * 3 + [ll, i, i] + [vp] * 5 + [ll, vp, vp, vp]
     fn = lib.pg_occ_round
     fn.restype = i
     fn.argtypes = ([vp] * 5 + [i, ll, vp, ll, i, i] + [vp] * 3
-                   + [i, ll, i, i] + [vp] * 7)
+                   + [i, ll, i, i] + [vp] * 8)
+    lib.pg_round_scratch.restype = ll
+    lib.pg_round_scratch.argtypes = [i]
     return lib
 
 
@@ -811,8 +813,47 @@ def branch_prep_plain(flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid,
             krank[iotaG, lastc], tgt_gid)
 
 
+def round_scratch(device, S: int = 1) -> torch.Tensor:
+    """The zeroed scratch of prop_round and occ_round on `device` (int64,
+    its size from pg_round_scratch) for up to S segments: their blocks'
+    counts and tickets, and occ_round's alive bits. Every call that
+    completes leaves its counters zeroed, so one serves every call on one
+    stream (the loop allocates one a schedule); calls on two streams at
+    once need one each."""
+    return torch.zeros(int(_round_lib().pg_round_scratch(max(int(S), 1)))
+                       // 8, dtype=I64, device=device)
+
+
+def _launch_round(name, fn, scratch, *args) -> None:
+    """_launch of a kernel that counts through `scratch`; after a failed
+    launch the scratch is zeroed again (a launch that did not complete
+    leaves it dirty), then the error is raised."""
+    try:
+        _launch(name, fn, *args)
+    except RuntimeError:
+        scratch.zero_()
+        raise
+
+
+def _round_scratch(scratch, dev, S: int = 1) -> torch.Tensor:
+    """`scratch`, checked to be a round_scratch for S segments on `dev`,
+    or a new one when None."""
+    if scratch is None:
+        return round_scratch(dev, S)
+    n = int(_round_lib().pg_round_scratch(max(int(S), 1))) // 8
+    if scratch.dtype != I64 or scratch.device != dev or scratch.dim() != 1 \
+            or not scratch.is_contiguous() or scratch.numel() < n:
+        raise ValueError("scratch must be a contiguous int64 tensor of at "
+                         "least %d on %s (round_scratch(device, %d)), got "
+                         "%s %s on %s" % (n, dev, S, scratch.dtype,
+                                          tuple(scratch.shape),
+                                          scratch.device))
+    return scratch
+
+
 def prop_round(weak, flt, valid, ordcm, pair_arc, nxt, pair_ok, arc_weak,
-               word, *, propagate: bool) -> None:
+               word, *, propagate: bool,
+               scratch: Optional[torch.Tensor] = None) -> None:
     """Weak propagation (branch.c:108-145) and the weak == 2 filter, in
     place on weak and flt (uint8 [G, H], cs order). When `propagate`: each
     cm position i takes the larger of its pair's reverse mark (arc_weak at
@@ -823,7 +864,7 @@ def prop_round(weak, flt, valid, ordcm, pair_arc, nxt, pair_ok, arc_weak,
     to (rows with weak != 0 that are valid, 1 if a value changed else 0).
     ordcm, nxt (int32), pair_ok (bool) [G, H] and pair_arc (int32 [G, 2H])
     are walk_pairs' pair state and merge_fold's pair plane; arc_weak is
-    uint8 [A]."""
+    uint8 [A]. On cuda `scratch` is a round_scratch (a new one when None)."""
     dev = weak.device
     G, H = weak.shape
     A = arc_weak.shape[0]
@@ -839,11 +880,13 @@ def prop_round(weak, flt, valid, ordcm, pair_arc, nxt, pair_ok, arc_weak,
         return prop_round_plain(weak, flt, valid, ordcm, pair_arc, nxt,
                                 pair_ok, arc_weak, word, propagate=propagate)
     with torch.cuda.device(dev):
-        _launch("prop_round", _round_lib().pg_prop_round, weak.data_ptr(),
-                flt.data_ptr(), valid.data_ptr(), G, H, int(bool(propagate)),
-                ordcm.data_ptr(), pair_arc.data_ptr(), nxt.data_ptr(),
-                pair_ok.data_ptr(), arc_weak.data_ptr(), A, word.data_ptr(),
-                _stream(dev))
+        scratch = _round_scratch(scratch, dev)
+        _launch_round("prop_round", _round_lib().pg_prop_round, scratch,
+                      weak.data_ptr(), flt.data_ptr(), valid.data_ptr(), G,
+                      H, int(bool(propagate)), ordcm.data_ptr(),
+                      pair_arc.data_ptr(), nxt.data_ptr(), pair_ok.data_ptr(),
+                      arc_weak.data_ptr(), A, word.data_ptr(),
+                      scratch.data_ptr(), _stream(dev))
 
 
 def prop_round_plain(weak, flt, valid, ordcm, pair_arc, nxt, pair_ok,
@@ -875,7 +918,8 @@ def prop_round_plain(weak, flt, valid, ordcm, pair_arc, nxt, pair_ok,
 def occ_round(alive, flt, valid, gid, sid_of, arc_vw, seg_tot, loci, logs,
               dcap_mask, dcap_deg, dcap_loci, dcap_tot, word, *, r: int,
               B: int, n_grp: Optional[torch.Tensor] = None,
-              cuts: Optional[Tuple[int, int, int]] = None) -> None:
+              cuts: Optional[Tuple[int, int, int]] = None,
+              scratch: Optional[torch.Tensor] = None) -> None:
     """The occ block of round r (graph.c:237-263) with its #del capture, in
     place. Given n_grp (int32 [A], a branch round), first loci (int32
     [S, 2]) = n_grp summed by each arc's source vertex (segment, strand).
@@ -889,7 +933,11 @@ def occ_round(alive, flt, valid, gid, sid_of, arc_vw, seg_tot, loci, logs,
     counted before, and the alive segments) and the capture rows
     dcap_mask[r] (uint8 [R, S]: deleted), dcap_deg[r] (int32 [R, S, 2]:
     the degrees, 0 without cuts), dcap_loci[r] (loci) and dcap_tot[r]
-    (seg_tot); sets word[1] (int64 [2]) to 1 when alive or flt changed."""
+    (seg_tot); sets word[1] (int64 [2]) to 1 when alive or flt changed.
+    The arc table is the loop's: v-sorted, its valid arcs first, each
+    valid arc's v < 2S, n_grp non-zero only at a vertex's first arc (the
+    kernel reads degrees and loci off the runs). On cuda `scratch` is a
+    round_scratch for S segments (a new one when None)."""
     dev = alive.device
     G, H = flt.shape
     S, A, R = alive.shape[0], arc_vw.shape[0], logs.shape[0]
@@ -915,20 +963,22 @@ def occ_round(alive, flt, valid, gid, sid_of, arc_vw, seg_tot, loci, logs,
                                dcap_loci, dcap_tot, word, **kw)
     occ_cut, deg_cut, loci_cut = cuts if cuts is not None else (0, 0, 0)
     with torch.cuda.device(dev):
-        _launch("occ_round", _round_lib().pg_occ_round, alive.data_ptr(),
-                flt.data_ptr(), valid.data_ptr(), gid.data_ptr(),
-                sid_of.data_ptr(), ng, G * H, arc_vw.data_ptr(), A, B, S,
-                seg_tot.data_ptr(), loci.data_ptr(),
-                None if n_grp is None else n_grp.data_ptr(),
-                int(cuts is not None), _clip(occ_cut),
-                max(min(int(deg_cut), 2**31 - 1), -2**31),
-                max(min(int(loci_cut), 2**31 - 1), -2**31),
-                logs.data_ptr() + 8 * (10 * r + 3),
-                dcap_mask.data_ptr() + r * S,
-                dcap_deg.data_ptr() + 8 * r * S,
-                dcap_loci.data_ptr() + 8 * r * S,
-                dcap_tot.data_ptr() + 4 * r * S, word.data_ptr(),
-                _stream(dev))
+        scratch = _round_scratch(scratch, dev, S)
+        _launch_round("occ_round", _round_lib().pg_occ_round, scratch,
+                      alive.data_ptr(), flt.data_ptr(), valid.data_ptr(),
+                      gid.data_ptr(), sid_of.data_ptr(), ng, G * H,
+                      arc_vw.data_ptr(), A, B, S, seg_tot.data_ptr(),
+                      loci.data_ptr(),
+                      None if n_grp is None else n_grp.data_ptr(),
+                      int(cuts is not None), _clip(occ_cut),
+                      max(min(int(deg_cut), 2**31 - 1), -2**31),
+                      max(min(int(loci_cut), 2**31 - 1), -2**31),
+                      logs.data_ptr() + 8 * (10 * r + 3),
+                      dcap_mask.data_ptr() + r * S,
+                      dcap_deg.data_ptr() + 8 * r * S,
+                      dcap_loci.data_ptr() + 8 * r * S,
+                      dcap_tot.data_ptr() + 4 * r * S, word.data_ptr(),
+                      scratch.data_ptr(), _stream(dev))
 
 
 def occ_round_plain(alive, flt, valid, gid, sid_of, arc_vw, seg_tot, loci,

@@ -266,7 +266,8 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     round state is updated in place): prop_round's first call that
     propagates, occ_round's first with the loci and the cuts (its first
     other one under "occ_round_partial"), and the full=True tail's calls
-    under "walk_pairs_full" and "merge_fold_full"."""
+    under "walk_pairs_full" and "merge_fold_full"; the round kernels'
+    scratch is not kept (a caller passes its own)."""
     device = blk_i32.device
     mesh = mesh or M.local(device)
     nd, rank = mesh.world, mesh.rank
@@ -287,7 +288,8 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
 
     def captured(fn, *args, key=None, **kw):
         if capture is not None and (key or fn.__name__) not in capture:
-            capture[key or fn.__name__] = (copy_args(args), kw)
+            capture[key or fn.__name__] = (copy_args(args), {
+                k: v for k, v in kw.items() if k != "scratch"})
         return fn(*args, **kw)
     def host(x: torch.Tensor):
         """One read of a small tensor on the host (a synchronisation)."""
@@ -422,8 +424,11 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     dcap_deg = torch.zeros((cfg.R, S, 2), dtype=I32, device=device)
     dcap_loci = torch.zeros((cfg.R, S, 2), dtype=I32, device=device)
     dcap_tot = torch.zeros((cfg.R, S), dtype=I32, device=device)
-    # each round's (n_prop, changed) word
+    # each round's (n_prop, changed) word; on the card the scratch that
+    # prop_round and occ_round count through (each call leaves its counters
+    # zeroed)
     words = torch.zeros((cfg.R, 2), dtype=I64, device=device)
+    round_sc = lk.round_scratch(device, S) if device.type == "cuda" else None
     aw_c = torch.zeros(A, dtype=torch.uint8, device=device)
     cnt_c = torch.zeros(2, dtype=I64, device=device)
     n_out_c = torch.zeros((), dtype=I64, device=device)
@@ -490,9 +495,10 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
             prop_args = (weak, flt, valid, planes.ordcm, *pair_st,
                          arc_weak, word)
             if do_branch[r]:
-                captured(lk.prop_round, *prop_args, propagate=True)
+                captured(lk.prop_round, *prop_args, propagate=True,
+                         scratch=round_sc)
             else:
-                lk.prop_round(*prop_args, propagate=False)
+                lk.prop_round(*prop_args, propagate=False, scratch=round_sc)
 
         # ===== annealed high-occurrence filter (graph.c:237-263) =====
         # with n_dist_loci from the branch round's n_grp, the #del capture
@@ -503,7 +509,8 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
             captured(lk.occ_round, alive, flt, valid, cols["gid"], sid_of,
                      arc_vw, seg_tot, loci_st, logs, dcap_mask, dcap_deg,
                      dcap_loci, dcap_tot, word, r=r, B=B, n_grp=n_grp,
-                     cuts=cuts, key=None if n_grp is not None and cuts
+                     cuts=cuts, scratch=round_sc,
+                     key=None if n_grp is not None and cuts
                      else "occ_round_partial")
             # The hit state is this rank's, alive is replicated: the word
             # is summed over the ranks before the host reads it

@@ -654,6 +654,47 @@ def round_outputs(name, args, kw, plain=False):
     return tuple(out or ()) + tuple(args[i] for i in ROUND_INPLACE[name])
 
 
+def sector_shares(idx) -> tuple:
+    """The shares of the 32-wide words of a [G, W] index plane (each row's
+    words from its column 0; a short last word repeats its last index)
+    whose indices into a byte array that starts on a sector fall within
+    one, and at most two, of its 32-byte sectors: how many sectors a
+    warp's byte gather through them touches."""
+    import torch
+    G, W = idx.shape
+    n = -(-W // 32)
+    sec = idx.long() // 32
+    sec = torch.cat([sec, sec[:, -1:].expand(G, n * 32 - W)], dim=1)
+    steps = sec.reshape(G, n, 32).sort(dim=-1).values.diff(dim=-1)
+    n_sec = 1 + (steps != 0).sum(dim=-1)
+    words = max(G * n, 1)
+    return (float((n_sec <= 1).sum()) / words,
+            float((n_sec <= 2).sum()) / words)
+
+
+def ordcm_locality(ordcm, tile: int = 1024) -> dict:
+    """How near the cm order of a [G, H] ordcm (each genome's cs row of
+    each cm position) is to the cs order, as prop_round reads it: "warps"
+    counts the 32-position words of the genomes (from each genome's row 0,
+    the last one of a genome short when H is not a multiple of 32);
+    "one_sector" and "two_sectors" are sector_shares of the cs rows in a
+    byte plane [G, H]; "identity" is the share of positions whose cs row
+    is their own, "in_tile" the share whose cs row lies in their own tile
+    of `tile` rows of the genome (the kernel's staged window), "max_shift"
+    the largest |cs row - cm position|."""
+    import torch
+    G, H = ordcm.shape
+    o = ordcm.long()
+    pos = torch.arange(H, device=o.device)[None, :]
+    one, two = sector_shares(torch.arange(G, device=o.device)[:, None] * H
+                             + o)
+    return {"warps": G * -(-H // 32), "one_sector": one, "two_sectors": two,
+            "identity": float((o == pos).sum()) / max(G * H, 1),
+            "in_tile": float((o // tile == pos // tile).sum())
+            / max(G * H, 1),
+            "max_shift": int((o - pos).abs().max()) if G * H else 0}
+
+
 REPORT_TAG = "RANK_REPORT="
 
 

@@ -27,7 +27,8 @@ from pangene_tpu_torch.testing import (BRANCH_B, EXACT_BRANCH_DIFFS,
                                        branch_table, deficit_ratios,
                                        fold_inputs, locality_table,
                                        make_state, random_genome,
-                                       round_calls, round_outputs,
+                                       ROUND_INPLACE, round_calls,
+                                       round_outputs,
                                        round_state, stack_cols,
                                        stacked_edge_cases, sweep_edge_case)
 
@@ -698,3 +699,178 @@ def test_round_kernel_wrappers_raise_on_bad_inputs(cuda_device):
             getattr(lk, name)(*args, **kw)
     assert all(c["plain"] == 0 and c["kernel"] == 0
                for c in lk.n_calls.values())
+
+
+# prop_round and occ_round: one launch each, counting through a scratch that
+# every completed call leaves zeroed
+
+def prop_occ_edge(name, which):
+    """make() of prop_round ("prop_*") or occ_round ("occ_*") on an edge
+    state: prop_nxt_none (no next pair anywhere), prop_ok_false_at_j
+    (pair_ok false at every next pair), prop_arc_rows_clamped (arc rows
+    below 0 and past A - 1), prop_A1 (a one-arc table), prop_H_tile+-1
+    (H = 1,024 +- 1, every row valid); occ_S1 (one segment), occ_v_edges
+    (arcs at vertices 0, 1, 2S - 2 and 2S - 1: the ends the plain
+    version's clamps hold), occ_A1 (a one-arc table)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(len(name) + 31)
+    if name in ("prop_H_tile-1", "prop_H_tile+1"):
+        H = 1023 if name.endswith("-1") else 1025
+        st = round_state(rng, 3, H, min_valid=H, p_flt=0.05, p_shadow=0.02)
+    elif name in ("prop_A1", "occ_A1"):
+        st = round_state(rng, 4, 70, sizes=(1,), n_invalid=0)
+    elif name == "occ_S1":
+        st = round_state(rng, 4, 40, S=1, n_gene=3, sizes=(2, 1),
+                         p_dead=0.0)
+    elif name == "occ_v_edges":
+        st = round_state(rng, 4, 40, S=30, n_gene=20, sizes=(3, 1, 2, 4))
+        B, S = st["B"], 30
+        vs = np.repeat([0, 1, 2 * S - 2, 2 * S - 1], (3, 1, 2, 4))
+        st["arc_vw"][:10] = np.sort((vs << B) | rng.integers(0, 2 * S, 10))
+    else:
+        st = make_state(which, 41)
+    st["sid_of"][:2] = (0, -1)
+    make = round_calls(st, dev, r=2)[
+        "occ_round" if name.startswith("occ") else "prop_round"]
+
+    def edged():
+        args, akw = make()
+        if name == "prop_nxt_none":
+            args[5] = torch.full_like(args[5], -1)
+        elif name == "prop_ok_false_at_j":
+            nxt = args[5].long()
+            ok = args[6].clone()
+            ok.scatter_(1, nxt.clamp(min=0), False)
+            args[6] = torch.where((nxt >= 0).any(1, keepdim=True), ok,
+                                  args[6])
+        elif name == "prop_arc_rows_clamped":
+            A = args[7].numel()
+            args[4][:, ::3] = -7
+            args[4][:, 1::3] = A + 11
+        return args, akw
+    return edged
+
+
+PROP_EDGES = ("prop_nxt_none", "prop_ok_false_at_j", "prop_arc_rows_clamped",
+              "prop_A1", "prop_H_tile-1", "prop_H_tile+1")
+OCC_EDGES = ("occ_S1", "occ_v_edges", "occ_A1")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("propagate", [True, False])
+@pytest.mark.parametrize("name", PROP_EDGES)
+def test_prop_round_edges_kernel_vs_plain(cuda_device, name, propagate):
+    make = prop_occ_edge(name, "tile_edges")
+    args, kw = make()
+    kw["propagate"] = propagate
+    got = round_outputs("prop_round", args, kw)
+    args, _ = make()
+    want = round_outputs("prop_round", args, kw, plain=True)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loci", [True, False])
+@pytest.mark.parametrize("cuts", [(60, 3, 2), (4, 1, 1), None])
+@pytest.mark.parametrize("name", OCC_EDGES)
+def test_occ_round_edges_kernel_vs_plain(cuda_device, name, cuts, loci):
+    make = prop_occ_edge(name, "random")
+    args, kw = make()
+    kw = dict(kw, cuts=cuts, n_grp=kw["n_grp"] if loci else None)
+    got = round_outputs("occ_round", args, kw)
+    args, _ = make()
+    want = round_outputs("occ_round", args, kw, plain=True)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+ROUND_COUNTERS = 16     # the scratch's counters (pg_round_scratch), zeroed
+
+
+def twice(name, which, plain, graph=False, scratch=None):
+    """The round kernel `name` (or its plain version) called three times
+    (graph: captured in one CUDA graph, then replayed twice) on one state:
+    the outputs after the first call and after the last."""
+    make = round_calls(make_state(which, 43), torch.device("cuda"), r=1)[
+        name]
+    args, kw = make()
+    fn = getattr(lk, name + ("_plain" if plain else ""))
+    if not plain:
+        kw = dict(kw, scratch=scratch)
+    pick = lambda: tuple(args[i].clone() for i in ROUND_INPLACE[name])
+    if not graph:
+        fn(*args, **kw)
+        first = pick()
+        fn(*args, **kw)
+        fn(*args, **kw)
+        return first, pick()
+    warm, _ = make()
+    fn(*warm, **kw)                 # builds and loads the library
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn(*args, **kw)
+    g.replay()
+    first = pick()
+    g.replay()
+    g.replay()
+    return first, pick()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("which", ["random", "tiles", "hit0_filtered"])
+@pytest.mark.parametrize("name", ["prop_round", "occ_round"])
+def test_round_kernels_called_again(cuda_device, name, which, graph):
+    """Called three times in a row on the state the calls before left
+    (eagerly, or as one call captured in a CUDA graph and replayed), each
+    kernel equals its plain version called as often, its word too: the
+    change bit is 0 after the first call and n_prop stays; the scratch's
+    counters are zero after every call."""
+    scratch = lk.round_scratch(cuda_device, ROUND_STATES[which].get("S", 40))
+    got = twice(name, which, False, graph, scratch)
+    want = twice(name, which, True)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert not bool(scratch[:ROUND_COUNTERS].any())
+    if name == "prop_round":
+        assert int(got[1][2][1]) == 0 and int(got[0][2][1]) == 1
+        assert int(got[1][2][0]) == int(got[0][2][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["prop_round", "occ_round"])
+def test_round_scratch_zeroed_after_failed_launch(cuda_device, name,
+                                                  monkeypatch):
+    """A launch that fails leaves its scratch dirty (an aborted launch); the
+    wrapper zeroes it again and raises, counts no launch, and the next
+    call on that scratch equals the plain version."""
+    make = round_calls(make_state("random", 47), cuda_device)[name]
+    lib = lk._round_lib()
+
+    class Failing:
+        def __getattr__(self, attr):
+            if attr == "pg_" + name:
+                return lambda *a: 700      # cudaErrorIllegalAddress
+            return getattr(lib, attr)
+
+    scratch = lk.round_scratch(cuda_device, 40)
+    scratch.fill_(5)
+    lk.reset_counts()
+    monkeypatch.setattr(lk, "_round", Failing())
+    args, kw = make()
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        getattr(lk, name)(*args, **dict(kw, scratch=scratch))
+    assert not bool(scratch.any())
+    assert lk.n_calls[name] == {"kernel": 0, "plain": 0}
+    monkeypatch.setattr(lk, "_round", lib)
+    args, kw = make()
+    got = round_outputs(name, args, dict(kw, scratch=scratch))
+    args, kw = make()
+    want = round_outputs(name, args, kw, plain=True)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert not bool(scratch[:ROUND_COUNTERS].any())

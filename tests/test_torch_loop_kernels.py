@@ -30,6 +30,8 @@ outputs against the JAX package's schedule bit for bit; the kernels are held
 against these plain versions on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
+import io
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -957,3 +959,301 @@ def test_round_wrappers_reject_bad_inputs():
     args, kw = calls["walk_pairs"]()
     with pytest.raises(ValueError, match="walk_pairs"):
         lk.walk_pairs(*args, **dict(kw, jb=50))
+
+
+# ---------------------------------------------------------------------------
+# prop_round and occ_round on Hopper: the preconditions their designs rest
+# on, held on every round state the CPU loop produces, and the designs'
+# claims on the plain tensors
+# ---------------------------------------------------------------------------
+
+# (genomes, genes, isoforms, seed, single exon, options): the small
+# synthetic corpus of tests/test_torch_device_loop.py, the single-exon
+# shape under -J (tests/test_torch_single_exon.py), and two option sets of
+# tests/test_torch_pressure.py
+LOOP_RUNS = {"small": (10, 250, 3, 17, False, []),
+             "single_exon_J": (20, 120, 1, 77, True, ["-J"]),
+             "pressure_c1": (16, 1200, 3, 5, False, ["-c1"]),
+             "pressure_T7-c3": (16, 1200, 3, 5, False, ["-T7", "-c3"])}
+_loop_calls = {}
+
+
+def loop_round_calls(run, tmp_path_factory, monkeypatch):
+    """Every call of prop_round and occ_round in one engaged run of the
+    port's loop on the CPU (--engine sharded --device cpu), by name: lists
+    of (args cloned before the call, kw)."""
+    if run in _loop_calls:
+        return _loop_calls[run]
+    from pangene_tpu_torch import cli, pipeline, util
+    from pangene_tpu_torch.parallel import device_loop as dl
+    from pangene_tpu_torch.testing import synth_paf_files
+    ng, ngene, n_iso, seed, single, argv = LOOP_RUNS[run]
+    files = synth_paf_files(str(tmp_path_factory.mktemp("loop_" + run)),
+                            n_genome=ng, n_gene=ngene, n_iso=n_iso,
+                            seed=seed, single_exon=single)
+    calls = {"prop_round": [], "occ_round": []}
+
+    def spy(name):
+        fn = getattr(lk, name)
+
+        def call(*a, **kw):
+            calls[name].append(([x.clone() if torch.is_tensor(x) else x
+                                 for x in a],
+                                {k: v for k, v in kw.items()
+                                 if k != "scratch"}))
+            return fn(*a, **kw)
+        return call
+
+    for name in calls:
+        monkeypatch.setattr(lk, name, spy(name))
+    monkeypatch.setenv("PANGENE_PARSE_WORKERS", "1")
+    opt, files, extras = cli.parse_args(
+        argv + ["--engine", "sharded", "--device", "cpu"] + files)
+    util.verbose = 0
+    try:
+        pipeline.run(opt, files, out=io.StringIO(), **extras)
+    finally:
+        util.verbose = 3
+    assert dl.LAST["engaged"], dl.LAST
+    assert len(calls["prop_round"]) == len(calls["occ_round"]) \
+        == dl.LAST["rounds_total"]
+    _loop_calls[run] = calls
+    return calls
+
+
+def state_calls(source, tmp_path_factory, monkeypatch):
+    """The prop_round and occ_round calls of a LOOP_RUNS run, or ("edge
+    states") of every state of ROUND_EDGE_CASES through round_calls."""
+    if source in LOOP_RUNS:
+        return loop_round_calls(source, tmp_path_factory, monkeypatch)
+    calls = {"prop_round": [], "occ_round": []}
+    for which in ROUND_EDGE_CASES:
+        c = round_calls(make_state(which, 21), "cpu")
+        for name in calls:
+            calls[name].append(c[name]())
+    return calls
+
+
+def check_arcs_sorted(prop, occ):
+    for args, kw in occ:
+        vw = args[5]
+        sent = vw == SENT
+        assert bool((vw[1:] >= vw[:-1]).all())
+        # the empty slots only at the end
+        assert not bool((sent[:-1] & ~sent[1:]).any())
+
+
+def check_v_below_2S(prop, occ):
+    for args, kw in occ:
+        vw, S = args[5], args[0].numel()
+        v = vw[vw != SENT] >> kw["B"]
+        assert bool(((v >= 0) & (v < 2 * S)).all())
+
+
+def check_n_grp_at_heads(prop, occ):
+    seen = 0
+    for args, kw in occ:
+        if kw["n_grp"] is None:
+            continue
+        seen += 1
+        _, _, g_new, _, _ = lk.arc_heads(args[5], kw["B"])
+        # zero off the groups' first arcs, the empty slots among them
+        assert not bool(((kw["n_grp"] != 0) & ~g_new).any())
+    assert seen
+
+
+def check_ordcm_permutation(prop, occ):
+    for args, kw in prop:
+        ordcm = args[3]
+        H = ordcm.shape[1]
+        assert torch.equal(ordcm.sort(dim=1).values,
+                           torch.arange(H, dtype=ordcm.dtype).expand_as(
+                               ordcm))
+
+
+def check_nxt_forward(prop, occ):
+    for args, kw in prop:
+        nxt = args[5]
+        G, H = nxt.shape
+        row = torch.arange(H, dtype=nxt.dtype)
+        assert bool(((nxt == -1) | (nxt > row)).all())
+        for g in range(G):
+            # over the kept rows that have a next pair: increasing
+            n = nxt[g][nxt[g] >= 0]
+            assert bool((n[1:] > n[:-1]).all())
+
+
+PRECONDITIONS = {"arcs_sorted": check_arcs_sorted,
+                 "v_below_2S": check_v_below_2S,
+                 "n_grp_at_heads": check_n_grp_at_heads,
+                 "ordcm_permutation": check_ordcm_permutation,
+                 "nxt_forward": check_nxt_forward}
+
+
+@pytest.mark.parametrize("check", list(PRECONDITIONS))
+@pytest.mark.parametrize("source", list(LOOP_RUNS) + ["edge_states"])
+def test_round_kernel_preconditions(source, check, tmp_path_factory,
+                                    monkeypatch):
+    """What the redesigned prop_round and occ_round rely on (the kernels
+    equal their plain versions only where it holds), on every round state
+    the CPU loop produces on four corpora and option sets, and on the
+    edge states the card tests take: the arc table v-sorted with its empty
+    slots at the end, every valid arc's v < 2S, n_grp zero off the groups'
+    first arcs, ordcm a permutation of each genome's rows, nxt -1 or
+    forward and increasing over the rows that have a next pair."""
+    calls = state_calls(source, tmp_path_factory, monkeypatch)
+    assert calls["prop_round"] and calls["occ_round"]
+    PRECONDITIONS[check](calls["prop_round"], calls["occ_round"])
+
+
+def run_lengths(arc_vw, n_grp, B, S):
+    """occ_round's design on the plain tensors: a vertex's arcs found by
+    lower bounds in the v-sorted table (the empty slots past every vertex);
+    its degree is the run's length, its loci the n_grp at the run's first
+    arc (0 without arcs). Returns (deg, loci), int32 [S, 2] each."""
+    vw = arc_vw.numpy()
+    key = np.where(vw == SENT, np.iinfo(np.int64).max, vw >> B)
+    lb = np.searchsorted(key, np.arange(2 * S + 1), side="left")
+    deg = (lb[1:] - lb[:-1]).astype(np.int32)
+    loci = np.zeros(2 * S, np.int32)
+    if n_grp is not None:
+        has = deg > 0
+        loci[has] = n_grp.numpy()[lb[:-1][has]]
+    return deg.reshape(S, 2), loci.reshape(S, 2)
+
+
+@pytest.mark.parametrize("source", list(LOOP_RUNS) + ["edge_states"])
+def test_run_lengths_equal_scatter_sums(source, tmp_path_factory,
+                                        monkeypatch):
+    """The run-length degrees and head loci equal occ_round_plain's
+    scatter sums (its dcap_deg row with the cuts, its loci with n_grp) on
+    every occ_round call of the source."""
+    calls = state_calls(source, tmp_path_factory, monkeypatch)
+    for args, kw in calls["occ_round"]:
+        args = [a.clone() for a in args]
+        r, S = kw["r"], args[0].numel()
+        deg, loci = run_lengths(args[5], kw["n_grp"], kw["B"], S)
+        lk.occ_round_plain(*args, **kw)
+        if kw["cuts"] is not None:
+            assert np.array_equal(args[10][r].numpy(), deg)
+        if kw["n_grp"] is not None:
+            assert np.array_equal(args[7].numpy(), loci)
+
+
+def prop_tiled(args, propagate, tile):
+    """prop_round's design on the plain tensors, tile by tile of `tile`
+    cm positions of a genome: the tile's forward marks and the state at its
+    own cs rows staged as the kernel stages them (from the state before
+    the call); nxt resolved from the tile when it falls inside it, else
+    from the whole plane; a cs row outside the window read from the whole
+    plane. Returns (weak, flt, word) as numpy."""
+    weak, flt, valid, ordcm, pair_arc, nxt, pair_ok, arc_weak, _ = \
+        [a.numpy() for a in args]
+    w0, f0 = weak.copy(), flt.copy()
+    weak, flt = weak.copy(), flt.copy()
+    G, H = weak.shape
+    A = len(arc_weak)
+    ok2 = np.concatenate([pair_ok, pair_ok], axis=1)
+    marks = np.where(ok2, arc_weak[np.clip(pair_arc, 0, A - 1)], 0)
+    if propagate:
+        for g in range(G):
+            for i0 in range(0, H, tile):
+                i = np.arange(i0, min(i0 + tile, H))
+                n = len(i)
+                s_fwd = marks[g, i]
+                s_w, s_f = w0[g, i], f0[g, i]
+                m = marks[g, H + i]
+                j = nxt[g, i]
+                jc = np.minimum(j, H - 1)
+                inside = (j >= 0) & (jc >= i0) & (jc < i0 + n)
+                outside = (j >= 0) & ~inside
+                m = np.maximum(m, np.where(
+                    inside, s_fwd[np.clip(jc - i0, 0, n - 1)], 0))
+                m = np.maximum(m, np.where(
+                    outside, marks[g, np.clip(jc, 0, H - 1)], 0))
+                r = ordcm[g, i]
+                x = r - i0
+                win = (x >= 0) & (x < n)
+                xc = np.clip(x, 0, n - 1)
+                w = np.where(win, s_w[xc], w0[g, r])
+                weak[g, r] = np.maximum(m, w)
+                flt[g, r] = np.where(win, s_f[xc], f0[g, r])
+    hit = (weak == 2) & (flt == 0)
+    flt[hit] = 1
+    changed = bool((weak != w0).any() or hit.any())
+    return weak, flt, np.array([((weak != 0) & valid).sum(), int(changed)],
+                               np.int64)
+
+
+@pytest.mark.parametrize("propagate", [True, False])
+@pytest.mark.parametrize("H_off", [-1, 0, 1])
+@pytest.mark.parametrize("tile", [32, 64, 1024])
+def test_prop_tile_resolution_equals_plain(tile, H_off, propagate):
+    """The tile-wise resolution of nxt (from the tile's forward marks when
+    the next pair falls inside it, else from the whole plane) and of the
+    cs rows (the tile's own window, else the whole plane) equals
+    prop_round_plain, at H = tile - 1, tile, tile + 1, with a cm order
+    that moves rows across tiles, next pairs that cross them, and clamped
+    arc rows."""
+    H = tile + H_off
+    rng = np.random.default_rng(tile + H_off + 7)
+    st = round_state(rng, 3, H, S=60, n_gene=80, p_flt=0.3,
+                     sizes=tuple(range(1, 12)), min_valid=H)
+    # a local cm order as the loop's, with some rows moved across tiles
+    for g in range(3):
+        o = np.arange(H, dtype=np.int32)
+        for a in rng.integers(0, H - 5, H // 8):
+            o[[a, a + int(rng.integers(1, 5))]] = \
+                o[[a + int(rng.integers(1, 5)), a]]
+        st["ordcm"][g] = o
+    st["pair_arc"][0, :5] = -3
+    args, kw = round_calls(st, "cpu", propagate=propagate)["prop_round"]()
+    # next pairs that cross a tile (the kept rows are a chain)
+    nxt = args[5].numpy()
+    crossing = ((nxt // tile) != (np.arange(H) // tile)) & (nxt >= 0)
+    assert crossing.any() == (H > tile)
+    want = as_np(round_outputs("prop_round", [a.clone() for a in args],
+                               kw, plain=True))
+    got = prop_tiled(args, propagate, tile)
+    for name, a, b in zip(("weak", "flt", "word"), got, want):
+        assert np.array_equal(a, b), name
+
+
+def test_ordcm_locality_helper():
+    """testing.ordcm_locality, which PERF.md quotes, on permutations with
+    known answers: the identity (every word one sector when H is a
+    multiple of 32; a genome that starts mid-sector takes two), a reversed
+    genome, rows swapped across a word's and a tile's edge."""
+    from pangene_tpu_torch.testing import ordcm_locality
+    ident = torch.arange(64, dtype=torch.int32).repeat(2, 1)
+    out = ordcm_locality(ident, tile=32)
+    assert out == {"warps": 4, "one_sector": 1.0, "two_sectors": 1.0,
+                   "identity": 1.0, "in_tile": 1.0, "max_shift": 0}
+    # genome 1 of 40 rows starts at byte 40: its words span two sectors
+    out = ordcm_locality(torch.arange(40, dtype=torch.int32).repeat(2, 1))
+    assert out["warps"] == 4 and out["one_sector"] == 0.75
+    assert out["two_sectors"] == 1.0
+    rev = torch.arange(63, -1, -1, dtype=torch.int32)[None, :]
+    out = ordcm_locality(rev, tile=32)
+    assert out["one_sector"] == 1.0 and out["identity"] == 0.0
+    assert out["in_tile"] == 0.0 and out["max_shift"] == 63
+    sw = torch.arange(96, dtype=torch.int32)
+    sw[[31, 32]] = sw[[32, 31]]       # across a word's and a tile's edge
+    out = ordcm_locality(sw[None, :], tile=32)
+    assert out["one_sector"] == pytest.approx(1 / 3)
+    assert out["two_sectors"] == 1.0
+    assert out["identity"] == pytest.approx(94 / 96)
+    assert out["in_tile"] == pytest.approx(94 / 96)
+    assert out["max_shift"] == 1
+
+
+def test_sector_shares_helper():
+    """testing.sector_shares, which chip_smoke.py prints for the arc rows
+    prop_round gathers through: a word of 32 indices in one sector, in two,
+    in 32, and a short last word."""
+    from pangene_tpu_torch.testing import sector_shares
+    rows = torch.tensor([list(range(32)) + list(range(16, 48))
+                         + [64 * k for k in range(32)] + [7, 9]])
+    assert sector_shares(rows) == (0.5, 0.75)
+    assert sector_shares(torch.zeros((3, 5), dtype=torch.int32)) == \
+        (1.0, 1.0)
