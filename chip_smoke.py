@@ -7,8 +7,8 @@ GPU. Run from the root of a checkout:
 Phases (each one passes or raises, so any failure exits nonzero):
   1. the card's name and power limit (nvidia-smi); the CUDA kernels are
      built from pangene_tpu_torch/csrc/ (shadow_sweep.cu, loop_blocks.cu,
-     loop_round.cu), one nvcc for each source, started together, and the
-     native host runtime
+     loop_round.cu, step_round.cu), one nvcc for each source, started
+     together, and the native host runtime
      (native/pgsweep.c, ops/sweep_native.py) with the host's C compiler:
      it must load, since the host rounds' branch marking, the phase-1 walk,
      the vertex scan and the L-line renderer take it on every card path.
@@ -22,12 +22,18 @@ Phases (each one passes or raises, so any failure exits nonzero):
      loop's [G, H] columns in one launch) against its plain version, the
      split sweep forms, on random genome sets and on the edge cases stacked
      as genomes of one batch (with an empty genome and one whose row 0 is
-     filtered).
+     filtered); the same launch with each fused epilogue (the loop's:
+     shadow and pid_dom in place; the per-round step's: shadow in place,
+     the dominators and the sort key) against shadow_sweep_batched_plain
+     then sweep_epilogue_plain, on random genome sets, the stacked edge
+     cases and the batched tile's band widths, every output equal.
      Then (2d) the per-round device step (parallel/stacked.round_step: the
      batched sweep with filtered rows in place, the sort, the walk, the
      dedupe, the counters) on the card against the same step with the plain
      sweep and against the whole step on the CPU, on random genome sets and
-     on the stacked edge cases: every output equal.
+     on the stacked edge cases: every output equal; and step_walk and
+     step_dedupe (ops/step_kernels.py) against their plain versions on the
+     step states (testing.STEP_STATES), use_ori on and off.
      Then (2e) the device loop's block kernels (ops/loop_kernels.py:
      branch_block and the mesh's branch_locality + branch_classify,
      merge_fold) against their plain versions on random arc tables (groups
@@ -73,8 +79,11 @@ Phases (each one passes or raises, so any failure exits nonzero):
      round and merge_fold once per in-loop merge and once for the full=True
      tail, walk_pairs as merge_fold, branch_prep once per branch round,
      prop_round and occ_round once a round (no other path launches those;
-     the mesh's split entries are not launched at one rank); the per-round path launched it once per round
-     (17), uploaded its constant columns once, and the loop did not run; a
+     the mesh's split entries are not launched at one rank), the batched
+     kernel always with the loop's fused epilogue; the per-round path
+     launched the fused sweep (STEP), step_walk and step_dedupe once per
+     round (17), uploaded its constant columns once, and the loop did not
+     run; a
      fallback reported engaged false and ran 16 rounds; every path called
      the native entries it must take (NATIVE_ENTRIES), so a run that
      quietly fell back to NumPy fails. Each path prints its diagnostics
@@ -136,7 +145,13 @@ Phases (each one passes or raises, so any failure exits nonzero):
      one CUDA dispatch of it (device_engine.shadow: pack, upload, kernel,
      download, finalize), best of five each. The batched entry also at the
      shard shapes of the mesh runs (the first G_loc = 16 and 32 genomes of
-     the big loop's columns) against its plain version, and timed.
+     the big loop's columns) against its plain version, and timed. The
+     fused sweep: LOOP on the big and north-star loops' columns (entry and
+     final state), STEP, step_walk and step_dedupe on the per-round path's
+     full big stack in its final state: kernel == plain, device time of
+     200 launches in one CUDA graph, the plain version's time, the bound
+     (least bytes over the memory rate); beside step_walk the counters'
+     PyTorch yardstick (scatter_add_ and the two sums).
      Then (4d) branch_block, merge_fold (lean: the first in-loop merge) and
      merge_fold's full mode (the full=True tail) on the arguments of their
      first call in the default loop of the big corpus and of the north
@@ -296,13 +311,18 @@ if sn is not None:
     st["native_calls"] = {k: v for k, v in sn.n_calls.items() if v}
 sk = m.get("pangene_tpu_torch.ops.sweep_kernel")
 lk = m.get("pangene_tpu_torch.ops.loop_kernels")
+stk = m.get("pangene_tpu_torch.ops.step_kernels")
 if sk is not None and lk is not None:
+    step = stk.n_calls if stk is not None else {}
     st["launches"] = {
         "per_genome": sum(sk.n_kernel_launches.values()),
         "batched": sk.n_batched["kernel"],
+        "fused": {k: c["kernel"] for k, c in sk.n_fused.items()},
         "loop": {k: c["kernel"] for k, c in lk.n_calls.items()},
+        "step": {k: c["kernel"] for k, c in step.items()},
         "plain": (sum(sk.n_plain_calls.values()) + sk.n_batched["plain"]
-                  + sum(c["plain"] for c in lk.n_calls.values()))}
+                  + sum(c["plain"] for c in lk.n_calls.values())
+                  + sum(c["plain"] for c in step.values()))}
 dl = m.get("pangene_tpu_torch.parallel.device_loop")
 if dl is not None and dl.LAST:
     st["loop"] = {k: dl.LAST.get(k) for k in (
@@ -678,9 +698,23 @@ LOOP_KERNELS = ("branch_block", "branch_locality", "branch_classify",
                 "merge_fold", "merge_fold_full") + ROUND_KERNELS
 
 
+# The fused sweep's two epilogues and the per-round step's kernels, by the
+# names of their kernel records.
+FUSED_KERNELS = ("sweep_round_loop", "sweep_round_step", "step_walk",
+                 "step_dedupe")
+
+
+def fused_counts(sk, stk):
+    """{FUSED_KERNELS name: kernel launches} from the wrappers' counts."""
+    return {"sweep_round_loop": sk.n_fused["loop"]["kernel"],
+            "sweep_round_step": sk.n_fused["step"]["kernel"],
+            "step_walk": stk.n_calls["step_walk"]["kernel"],
+            "step_dedupe": stk.n_calls["step_dedupe"]["kernel"]}
+
+
 def add_loop_launches(total, ll):
-    """Adds a loop run's kernel counts `ll` to `total`."""
-    for k in LOOP_KERNELS:
+    """Adds a run's kernel counts `ll` to `total` (the kernels it names)."""
+    for k in total:
         total[k] += ll[k]
 
 
@@ -799,20 +833,97 @@ def compare_batched(sk, de, genomes, dev, check_strand, f, split_form,
     return int(marks.sum())
 
 
-def bound_batched_ms(bc, flt, W, check_strand):
+# Bytes a [G, H] row of the batched sweep's outputs, by epilogue, padding
+# rows included since the kernel must write them: NONE the three planes
+# (marks 1, score 8, other 4); LOOP ev1 1 and shadow 1 read, shadow 1 and
+# pid_dom 4 written (and pid 4 read at each row with a dominator: `extra`);
+# STEP shadow 1 and cm 8 read, shadow 1, score 8, other 4, key 8 written.
+EPI_ROW_BYTES = {"none": 13, "loop": 7, "step": 30}
+
+
+def fused_pair(sk, args, epi, check_strand, f, cm=None):
+    """One fused sweep (`epi` "loop": loop_sweep_args' arguments; "step":
+    the same with `cm`) on the card and its plain version
+    (shadow_sweep_batched_plain then sweep_epilogue_plain) on copies of the
+    in-place planes; raises unless every output is equal. Returns the
+    kernel's outputs (the in-place planes first)."""
+    bc, flt, weak, W, shadow, pid_dom, ev1, pid = args
+    out = []
+    for kernel in (True, False):
+        sh = shadow.clone()
+        pd = None if pid_dom is None else pid_dom.clone()
+        if kernel and epi == "loop":
+            sk.sweep_round_loop(bc, flt, weak, W, check_strand, f, sh, pd,
+                                ev1, pid)
+            res = (sh, pd)
+        elif kernel:
+            res = (sh,) + sk.sweep_round_step(bc, flt, weak, W, check_strand,
+                                              f, sh, cm)
+        else:
+            marks, score, other = sk.shadow_sweep_batched_plain(
+                bc, flt, weak, W, check_strand, f)
+            if epi == "loop":
+                sk.sweep_epilogue_plain(marks, score, other, flt, sh,
+                                        bc.n_rows, ev1=ev1, pid=pid,
+                                        pid_dom=pd)
+                res = (sh, pd)
+            else:
+                res = (sh, score, other, sk.sweep_epilogue_plain(
+                    marks, score, other, flt, sh, bc.n_rows, cid=bc.cid,
+                    cm=cm))
+        out.append(res)
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip(*out)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError("fused sweep (%s) != plain: output %d "
+                                 "(strand %s, f %s)" % (epi, k, check_strand,
+                                                        f))
+    return out[0]
+
+
+def compare_fused(sk, genomes, dev, check_strand, f, H=None, seed=0):
+    """Both fused epilogues on `genomes` (testing.loop_sweep_args, rows
+    padded to H) against their plain versions; returns the rows the STEP
+    epilogue left shadowed."""
+    from pangene_tpu_torch.testing import loop_sweep_args
+    args = loop_sweep_args(genomes, dev, seed=seed, H=H)
+    fused_pair(sk, args, "loop", check_strand, f)
+    G, Hh = args[1].shape
+    cm = (torch.arange(G * Hh, dtype=torch.int64, device=dev)
+          .reshape(G, Hh) * 7919) % 100003
+    return int(fused_pair(sk, args, "step", check_strand, f, cm)[0].sum())
+
+
+def compare_step_kernels(stk, calls):
+    """step_walk and step_dedupe (testing.step_calls' arguments) against
+    their plain versions on the card; raises unless every output is
+    equal. Returns the arcs the dedupe found."""
+    got = None
+    for name, (args, kw) in calls.items():
+        got = getattr(stk, name)(*args, **kw)
+        want = getattr(stk, name + "_plain")(*args, **kw)
+        torch.cuda.synchronize()
+        for k, (a, b) in enumerate(zip(got, want)):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError("%s kernel != plain: output %d"
+                                     % (name, k))
+    return int((got[1] > 0).sum())
+
+
+def bound_batched_ms(bc, flt, W, check_strand, epi="none", extra=0):
     """Least time for one batched sweep on these inputs: the bytes it must
     move (for every hit row the SHADOW input columns, hit_bytes; 8 bytes an
-    exon of those rows; the three [G, H] output planes, 13 bytes a row,
-    padding included since the kernel must write it) over the memory rate,
-    or the integer operations these inputs need (as bound_ms counts them,
-    summed over genomes) over the INT32 rate, whichever is larger."""
+    exon of those rows; the [G, H] planes of its epilogue `epi`,
+    EPI_ROW_BYTES, and `extra`) over the memory rate, or the integer
+    operations these inputs need (as bound_ms counts them, summed over
+    genomes) over the INT32 rate, whichever is larger."""
     c = {k: v.cpu().numpy() for k, v in bc._asdict().items()}
     fl = flt.cpu().numpy() != 0
     G, H = c["cid"].shape
     rows = int(c["n_rows"].sum())
     n_exon = sum(int(c["n_exon"][g, :c["n_rows"][g]].sum()) for g in range(G))
     nbytes = (rows * (50 + (1 if check_strand else 0)) + 4 * G
-              + n_exon * EXON_BYTES + G * H * 13)
+              + n_exon * EXON_BYTES + G * H * EPI_ROW_BYTES[epi] + extra)
     ops = 0
     for g in range(G):
         n = int(c["n_rows"][g])
@@ -937,11 +1048,178 @@ def batched_on_loop(sk, dl, k, label):
     return rec
 
 
+def fused_on_loop(sk, dl, k, label):
+    """The fused LOOP sweep on a loop run's device-resident columns (`k`,
+    as batched_on_loop), in the entry state (the uploaded shadow and
+    pid_dom) and the loop's final state: kernel == plain, device time (200
+    launches in one CUDA graph: the epilogue is idempotent on its in-place
+    planes), the plain version's time (its geometry planes cached), the
+    bound. Returns the record's fields: ms, plain_ms, bound_ms, bound_by of
+    the entry state, ms_final, bound_ms_final."""
+    cfg = k["cfg"]
+    cols, bc = dl.unpack_blocks(*k["blocks"])
+    G, H = bc.cid.shape
+    ev1, pid = cols["ev1"].contiguous(), cols["pid"].contiguous()
+    rec = {}
+    for state, flt, weak, shadow, pid_dom in (
+            ("entry", cols["flt"], cols["weak_br"], cols["shadow"],
+             cols["pid_dom"]),
+            ("final",) + tuple(k["outs"][:4])):
+        args = (bc, flt.contiguous(), weak.contiguous(), cfg.W,
+                shadow.contiguous(), pid_dom.contiguous(), ev1, pid)
+        sh, pd = fused_pair(sk, args, "loop", cfg.check_strand,
+                            cfg.min_ov_ratio)
+
+        def kernel():
+            sk.sweep_round_loop(bc, args[1], args[2], cfg.W,
+                                cfg.check_strand, cfg.min_ov_ratio, sh, pd,
+                                ev1, pid)
+        ms = graph_ms(kernel, TIMED_LAUNCHES)
+        geo = {}
+
+        def plain():
+            marks, score, other = sk.shadow_sweep_batched_plain(
+                bc, args[1], args[2], cfg.W, cfg.check_strand,
+                cfg.min_ov_ratio, geo)
+            sk.sweep_epilogue_plain(marks, score, other, args[1], sh.clone(),
+                                    bc.n_rows, ev1=ev1, pid=pid,
+                                    pid_dom=pd.clone())
+            return score
+        score = plain()
+        plain_ms = stream_ms(plain, 5)
+        n_dom = int(((score > sk.SCORE_NONE) & (args[1] == 0)).sum())
+        b_ms, b_by, ops, nbytes = bound_batched_ms(
+            bc, args[1], cfg.W, cfg.check_strand, "loop", 4 * n_dom)
+        log("FUSED LOOP %s %s: G %d H %d rows %d W %d launch %s ms %.5f "
+            "plain_ms %.3f (round pass + epilogue) bound_ms %.6f (%s; %d "
+            "ops, %d bytes; %d rows with a dominator); kernel == plain" % (
+                label, state, G, H, int(bc.n_rows.sum()), cfg.W,
+                json.dumps(sk.launch_shape_batched(G, H, cfg.W,
+                                                   sk.EPI_LOOP)),
+                ms, plain_ms, b_ms, b_by, ops, nbytes, n_dom))
+        if state == "entry":
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        else:
+            rec.update(ms_final=ms, bound_ms_final=b_ms)
+    return rec
+
+
+def step_bound_bytes(cols, perm, flt, shadow, g2s, use_ori, pair_ok):
+    """The least bytes each step kernel moves on this data (each input read
+    once, each output written once): {"step_walk": n, "step_dedupe": n}.
+
+    step_walk reads perm at every position, flt below n_rows and shadow at
+    an unfiltered row below n_rows; a kept row's columns (cid, gid 4, rev
+    1, score_ori 4, cm 8; with use_ori off score_dom 4 and, where
+    score_ori <= score_dom, dom_gid 4); n_rows and g2s once; it writes the
+    two keys, pair_ok, dist, s1 and s2 (29 bytes) at every position and the
+    two counters. step_dedupe reads xs and aperm (16 bytes a key), pair_ok
+    at every row and dist, s1, s2 at a pair's row, and writes 28 bytes a
+    key (uniq_x, cnt, dsum, m1, m2)."""
+    bc = cols.batch
+    G, H = flt.shape
+    n_gene = g2s.shape[0]
+    valid = torch.arange(H, device=flt.device)[None, :] < bc.n_rows[:, None]
+    unflt = valid & (flt == 0)
+    kept = unflt & (shadow == 0)
+    n_kept = int(kept.sum())
+    col = 21 * n_kept
+    if not use_ori:
+        col += 4 * n_kept + 4 * int((kept & (cols.score_ori
+                                             <= cols.score_dom)).sum())
+    walk = (8 * G * H + int(valid.sum()) + int(unflt.sum()) + col
+            + 4 * G + 4 * n_gene + 29 * G * H + 8 * n_gene)
+    dedupe = 2 * H * G * (16 + 28) + G * H + 12 * int((pair_ok != 0).sum())
+    return {"step_walk": walk, "step_dedupe": dedupe}
+
+
+def step_on_stack(sk, stkk, cols, flt, weak, shadow, g2s, W, use_ori):
+    """The per-round step's kernels on its full stack (cols: StackCols, the
+    flags of one round, g2s), each against its plain version and timed
+    (200 launches in one CUDA graph; the plain version's time; the bound):
+    the fused STEP sweep, then, on the inputs the step hands them,
+    step_walk (beside it the counters' PyTorch yardstick: scatter_add_
+    into [G, n_gene] and the two sums) and step_dedupe. Returns {record
+    name: fields}."""
+    bc = cols.batch
+    G, H = flt.shape
+    n_gene = g2s.shape[0]
+    out = {}
+    args = (bc, flt, weak, W, shadow, None, None, None)
+    sh, score, other, key = fused_pair(sk, args, "step", False, 0.5, cols.cm)
+
+    def kernel():
+        sk.sweep_round_step(bc, flt, weak, W, False, 0.5, sh, cols.cm)
+    geo = {}
+
+    def plain():
+        marks, sc, ot = sk.shadow_sweep_batched_plain(bc, flt, weak, W,
+                                                      False, 0.5, geo)
+        sk.sweep_epilogue_plain(marks, sc, ot, flt, sh.clone(), bc.n_rows,
+                                cid=bc.cid, cm=cols.cm)
+    plain()
+    b_ms, b_by, ops, nbytes = bound_batched_ms(bc, flt, W, False, "step")
+    out["sweep_round_step"] = dict(
+        ms=graph_ms(kernel, TIMED_LAUNCHES), plain_ms=stream_ms(plain, 5),
+        bound_ms=b_ms, bound_by=b_by, nbytes=nbytes)
+    perm = torch.sort(key, dim=1, stable=True).indices
+    wargs = (cols, perm, flt, sh, g2s)
+    walk = stkk.step_walk(*wargs, use_ori=use_ori)
+    want = stkk.step_walk_plain(*wargs, use_ori=use_ori)
+    for k, (a, b) in enumerate(zip(walk, want)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError("step_walk != plain on the full stack: "
+                                 "output %d" % k)
+    # the counters alone in PyTorch, on the same kept rows and segments
+    gat = lambda a: torch.gather(a, 1, perm)
+    valid = torch.arange(H, device=flt.device)[None, :] < bc.n_rows[:, None]
+    kept = gat((flt == 0) & (sh == 0) & valid).to(torch.int32)
+    sid = g2s[gat(bc.gid).clamp(0, n_gene - 1).long()].long() \
+        .clamp(0, n_gene - 1)
+
+    def counters():
+        c = torch.zeros((G, n_gene), dtype=torch.int32,
+                        device=flt.device).scatter_add_(1, sid, kept)
+        return torch.stack([c.sum(0, dtype=torch.int32),
+                            (c > 0).sum(0, dtype=torch.int32)])
+    if not torch.equal(counters(), walk[5]):
+        raise AssertionError("the counters' yardstick != step_walk's")
+    least = step_bound_bytes(cols, perm, flt, sh, g2s, use_ori, walk[1])
+    nbytes = least["step_walk"]
+    out["step_walk"] = dict(
+        ms=graph_ms(lambda: stkk.step_walk(*wargs, use_ori=use_ori),
+                    TIMED_LAUNCHES),
+        plain_ms=stream_ms(lambda: stkk.step_walk_plain(
+            *wargs, use_ori=use_ori), 5),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        nbytes=nbytes, counters_torch_ms=graph_ms(counters, TIMED_LAUNCHES),
+        pairs=int(walk[1].sum()))
+    xs, aperm = torch.sort(walk[0], dim=1, stable=True)
+    dargs = (xs, aperm) + tuple(walk[1:5])
+    got = stkk.step_dedupe(*dargs)
+    want = stkk.step_dedupe_plain(*dargs)
+    for k, (a, b) in enumerate(zip(got, want)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError("step_dedupe != plain on the full stack: "
+                                 "output %d" % k)
+    nbytes = least["step_dedupe"]
+    out["step_dedupe"] = dict(
+        ms=graph_ms(lambda: stkk.step_dedupe(*dargs), TIMED_LAUNCHES),
+        plain_ms=stream_ms(lambda: stkk.step_dedupe_plain(*dargs), 5),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        nbytes=nbytes, arcs=int((got[1] > 0).sum()))
+    out["torch_sort_ms"] = dict(
+        cm_key=stream_ms(lambda: torch.sort(key, dim=1, stable=True), 20),
+        arc_key=stream_ms(lambda: torch.sort(walk[0], dim=1, stable=True),
+                          20))
+    return out
+
+
 def compare_step(stk, sk, genomes, dev, check_strand, use_ori, f):
-    """The per-round step on the card (one launch of the batched kernel, at
+    """The per-round step on the card (one launch of the fused sweep, at
     filtered rows in place, weak_br set, one band over all rows) against
-    the same step with the plain sweep, and against the whole step on the
-    CPU. Every output must be equal; returns the number of arcs found."""
+    the whole step on the CPU (the plain versions). Every output must be
+    equal; returns the number of arcs found."""
     from pangene_tpu_torch.testing import stack_cols
     cols, flt, shadow, weak, g2s, W = stack_cols(genomes, dev, seed=1)
     kw = dict(W=W, min_ov_ratio=f, check_strand=check_strand,
@@ -950,18 +1228,13 @@ def compare_step(stk, sk, genomes, dev, check_strand, use_ori, f):
     got = stk.round_step(cols, flt, shadow, weak, g2s, **kw)
     if sk.n_batched["kernel"] != before + 1:
         raise AssertionError("the step did not launch the batched kernel")
-    want = stk.round_step(cols, flt, shadow, weak, g2s,
-                          sweep=sk.shadow_sweep_batched_plain, **kw)
     c = stack_cols(genomes, torch.device("cpu"), seed=1)
     host = stk.round_step(*c[:5], **kw)
-    for name, a, b, h in zip(stk.STEP_OUTPUTS, got, want, host):
-        if not (a.dtype == b.dtype == h.dtype and torch.equal(a, b)
-                and torch.equal(a.cpu(), h)):
+    for name, a, h in zip(stk.STEP_OUTPUTS, got, host):
+        if not (a.dtype == h.dtype and torch.equal(a.cpu(), h)):
             raise AssertionError(
-                "per-round step: %s differs (card vs plain sweep %s, card "
-                "vs CPU %s; strand %s, ori %s, f %s)" % (
-                    name, torch.equal(a, b), torch.equal(a.cpu(), h),
-                    check_strand, use_ori, f))
+                "per-round step: %s differs, card vs CPU (strand %s, ori "
+                "%s, f %s)" % (name, check_strand, use_ori, f))
     return int((got[4] > 0).sum())
 
 
@@ -1007,13 +1280,15 @@ def run_session(cmd, timeout, env):
 
 def mesh_phase(corpora):
     """Phase 3e: the MESH_RUNS whose corpus was built, each checked; returns
-    ({key: record}, batched launches and {loop kernel: launches}, summed
-    over every rank of every run)."""
+    ({key: record}, batched launches, {loop kernel: launches} and
+    {FUSED_KERNELS name: launches}, summed over every rank of every
+    run)."""
     from pangene_tpu_torch.parallel.mesh import SHARE_DEVICE_ENV
     from pangene_tpu_torch.testing import REPORT_TAG, run_ranks
     runs = {}
     launches = 0
     loop_launches = {k: 0 for k in LOOP_KERNELS}
+    step_launches = {k: 0 for k in FUSED_KERNELS}
     for key, name, world, how, extra in MESH_RUNS:
         if name not in corpora:
             continue
@@ -1069,20 +1344,27 @@ def mesh_phase(corpora):
                     backend, "cuda:0"):
                 bad.append("mesh %s" % rep["mesh"])
             ll = rep["loop_launches"]
+            fl = rep["step_launches"]
             if extra.get("PANGENE_DEVICE_LOOP") == "0":
                 if last or not (rounds.get("rounds") == 17
-                                == rep["batched_launches"]) or any(
-                                    ll.values()):
+                                == rep["batched_launches"]
+                                == fl["sweep_round_step"] == fl["step_walk"]
+                                == fl["step_dedupe"]) or any(
+                                    ll.values()) or fl["sweep_round_loop"]:
                     bad.append("per-round path: %s, loop %s, loop kernels "
-                               "%s" % (rounds, last, ll))
+                               "%s, step kernels %s" % (rounds, last, ll,
+                                                        fl))
             else:
                 if loop_kernel_counts(ll, world) != loop_kernels_want(last):
                     bad.append("loop kernels %s" % ll)
                 if not (last.get("engaged") is True
                         and last["shape"]["n_devices"] == world
                         and rep["batched_launches"]
-                        == last["rounds_sweep_run"] > 0):
-                    bad.append("loop %s" % last)
+                        == fl["sweep_round_loop"]
+                        == last["rounds_sweep_run"] > 0) or any(
+                            v for k, v in fl.items()
+                            if k != "sweep_round_loop"):
+                    bad.append("loop %s, step kernels %s" % (last, fl))
                 if world > 2 and not last.get("shard_merge"):
                     bad.append("no bucket exchange at world %d" % world)
             if bad:
@@ -1090,13 +1372,14 @@ def mesh_phase(corpora):
                                                          "; ".join(bad)))
             launches += rep["batched_launches"]
             add_loop_launches(loop_launches, ll)
+            add_loop_launches(step_launches, fl)
             keep = ("pack_s", "upload_s", "run_s", "pull_s", "host_syncs",
                     "collective_calls", "collective_s", "staged_bytes",
                     "upload_bytes")
             rec["ranks"].append(dict(
                 rank=rep["rank"], md5=rep["md5"], wall_s=rep["wall_s"],
                 batched_launches=rep["batched_launches"],
-                loop_launches=ll,
+                loop_launches=ll, step_launches=fl,
                 peak_device_bytes=rep["peak_device_bytes"],
                 mesh_calls=rep["mesh"]["calls"],
                 mesh_collective_s=round(rep["mesh"]["collective_s"], 3),
@@ -1111,7 +1394,7 @@ def mesh_phase(corpora):
                     if k in rounds}))
         runs[key] = rec
         log("mesh %s: %s" % (key, json.dumps(rec)))
-    return runs, launches, loop_launches
+    return runs, launches, loop_launches, step_launches
 
 
 def corpus_dir(name):
@@ -1216,6 +1499,7 @@ def smoke(names, draws):
     from pangene_tpu_torch.ops import device_engine as de
     from pangene_tpu_torch.ops import dispatch
     from pangene_tpu_torch.ops import loop_kernels as lk
+    from pangene_tpu_torch.ops import step_kernels as stkk
     from pangene_tpu_torch.ops import sweep_kernel as sk
     from pangene_tpu_torch.ops import sweep_native as sn
     from pangene_tpu_torch.ops.sort import hit_sort
@@ -1223,14 +1507,15 @@ def smoke(names, draws):
     from pangene_tpu_torch.parallel import device_loop as dl
     from pangene_tpu_torch.parallel import stacked as stk
     from pangene_tpu_torch.testing import (BRANCH_B, EXACT_BRANCH_DIFFS,
-                                           ROUND_STATES, SWEEP_EDGE_CASES,
+                                           ROUND_STATES, STEP_STATES,
+                                           SWEEP_EDGE_CASES,
                                            WALK_FORMS, band_genome,
                                            branch_table, deficit_ratios,
                                            fold_inputs, make_state,
                                            ordcm_locality, random_genome,
                                            round_calls, sector_shares,
-                                           stacked_edge_cases,
-                                           sweep_edge_case)
+                                           stacked_edge_cases, step_calls,
+                                           step_state, sweep_edge_case)
     dev = torch.device(DEVICE)
 
     # 1. the card and the build
@@ -1242,12 +1527,13 @@ def smoke(names, draws):
                                          torch.version.cuda))
     # one nvcc for each kernel source, all started together
     t0 = time.monotonic()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         builds = {src: pool.submit(build, True) for src, build in (
             ("shadow_sweep.cu", sk.build), ("loop_blocks.cu", lk.build),
-            ("loop_round.cu", lk.build_round))}
+            ("loop_round.cu", lk.build_round),
+            ("step_round.cu", stkk.build))}
         builds = {src: f.result() for src, f in builds.items()}
-    log("build: the three kernel sources in %.2f s"
+    log("build: the four kernel sources in %.2f s"
         % (time.monotonic() - t0))
     for src, (build_s, ptxas) in builds.items():
         log("build: nvcc %s %.2f s" % (src, build_s))
@@ -1341,6 +1627,37 @@ def smoke(names, draws):
             sk.launch_shape_batched(len(genomes), 5 * rows + 3, W))))
     log("batched entry: %d cases, kernel == plain (%.1f s)"
         % (n_cases, time.monotonic() - t0))
+    # the fused epilogues on the same genome sets, edge cases and bands
+    t0 = time.monotonic()
+    n_cases = 0
+    for seed0 in (0, 100):
+        genomes = [random_genome(np.random.default_rng(seed0 + k), n_hits=n,
+                                 weak=True, max_exon=6, max_cs=30 * n + 100)
+                   for k, n in enumerate(sizes)]
+        for check_strand in (False, True):
+            for f in (0.5, 0.3):
+                if not compare_fused(sk, genomes, dev, check_strand, f,
+                                     H=3100, seed=seed0):
+                    raise AssertionError("the fused sweep shadowed nothing")
+                n_cases += 2
+    for which, genomes in stacked_edge_cases().items():
+        compare_fused(sk, [(d, g) for d, g in genomes
+                           if int(g.hits.n_exon.max(initial=0)) < 100],
+                      dev, False, 0.3, seed=3)
+        n_cases += 2
+    for W in (1, 8, 21, 32, 33):
+        genomes = [band_genome(np.random.default_rng(10 * W + k), n, W)
+                   for k, n in enumerate((rows - 1, 0, rows, rows + 1,
+                                          2 * rows + W, 0, 700, 5))]
+        compare_fused(sk, genomes, dev, False, 0.3, H=5 * rows + 3, seed=W)
+        n_cases += 2
+        log("  fused band W %d: launch LOOP %s STEP %s" % (W, json.dumps(
+            sk.launch_shape_batched(len(genomes), 5 * rows + 3, W,
+                                    sk.EPI_LOOP)), json.dumps(
+            sk.launch_shape_batched(len(genomes), 5 * rows + 3, W,
+                                    sk.EPI_STEP))))
+    log("fused sweep: %d cases, LOOP and STEP epilogues == plain (%.1f s)"
+        % (n_cases, time.monotonic() - t0))
 
     # 2d. the per-round device step: random genome sets (one genome's row 0
     # filtered), then the edge cases as one stack (without the 2,000-exon
@@ -1363,8 +1680,31 @@ def smoke(names, draws):
                                if int(g.hits.n_exon.max(initial=0)) < 100],
                      dev, False, False, 0.3)
         n_cases += 1
-    log("per-round step: %d cases, card == plain sweep == CPU, every output "
+    log("per-round step: %d cases, card == CPU, every output "
         "(%.1f s)" % (n_cases, time.monotonic() - t0))
+    # the step's kernels on the step states
+    t0 = time.monotonic()
+    n_cases = 0
+    for k, which in enumerate(STEP_STATES):
+        state = step_state(which, 300 + k, torch.device("cpu"))
+        for use_ori in (False, True):
+            if not compare_step_kernels(stkk, step_calls(state, dev,
+                                                         use_ori)):
+                raise AssertionError("step state %s: no arc" % which)
+            n_cases += 2
+    # the seen bits at the most genes shared memory holds, and one past it
+    # (a global scratch)
+    n_smem = stkk.smem_genes()
+    for n_gene in (n_smem, n_smem + 1):
+        state = step_state("many_genes", 330, torch.device("cpu"),
+                           n_gene=n_gene)
+        if not compare_step_kernels(stkk, step_calls(state, dev)):
+            raise AssertionError("%d genes: no arc" % n_gene)
+        n_cases += 2
+    log("step kernels: %d cases on %d states and %d / %d genes, step_walk "
+        "and step_dedupe == plain (%.1f s)" % (
+            n_cases, len(STEP_STATES), n_smem, n_smem + 1,
+            time.monotonic() - t0))
 
     # 2e. the device loop's block kernels: random arc tables (every group
     # size up to the window D = 64 and one past it) and merge keys in the
@@ -1470,6 +1810,8 @@ def smoke(names, draws):
     launches = {m: 0 for m in sk.MODE_NAMES}
     batched_launches = 0
     loop_launches = {k: 0 for k in LOOP_KERNELS}
+    # the fused sweep's launches by epilogue and the step kernels'
+    step_launches = {k: 0 for k in FUSED_KERNELS}
     runs = {}
     # the loop's device tensors of each corpus's sharded run, for phase 4
     kept = {}
@@ -1502,6 +1844,7 @@ def smoke(names, draws):
         sweep_s.update(s=0.0, calls=0)
         sk.reset_counts()
         lk.reset_counts()
+        stkk.reset_counts()
         sn.reset_counts()
         dl.LAST.clear()
         stk.LAST.clear()
@@ -1522,6 +1865,7 @@ def smoke(names, draws):
         plain = dict(sk.n_plain_calls)
         batched = dict(sk.n_batched)
         loop = {k: c["kernel"] for k, c in lk.n_calls.items()}
+        step = fused_counts(sk, stkk)
         native = {k: v for k, v in sn.n_calls.items() if v}
         calls = max(sweep_s["calls"], 1)
         rec = {
@@ -1534,8 +1878,11 @@ def smoke(names, draws):
             "launches": {sk.MODE_NAMES[m]: counts[m] for m in counts},
             "batched_launches": batched["kernel"],
             "loop_launches": loop,
+            "step_launches": step,
             "plain_calls": (sum(plain.values()) + batched["plain"]
-                            + sum(c["plain"] for c in lk.n_calls.values())),
+                            + sum(c["plain"] for c in lk.n_calls.values())
+                            + sum(c["plain"]
+                                  for c in stkk.n_calls.values())),
             "native_calls": native,
             "peak_device_bytes": torch.cuda.max_memory_allocated(),
             "env": env, "draws_running": running}
@@ -1562,6 +1909,21 @@ def smoke(names, draws):
             raise AssertionError("%s: loop kernel launches %s, expected %s"
                                  % (key, loop, want))
         add_loop_launches(loop_launches, loop)
+        add_loop_launches(step_launches, step)
+        # the batched kernel runs with the loop's epilogue in the loop, the
+        # step's in the per-round path, the step kernels only there
+        want = {"sweep_round_loop": batched["kernel"] if path == "sharded"
+                else 0}
+        if path in ("rounds", "fallback"):
+            n = stk.LAST.get("rounds", -1)
+            want.update(sweep_round_step=n, step_walk=n, step_dedupe=n)
+        if {k: v for k, v in step.items() if v} != \
+                {k: v for k, v in want.items() if v} or \
+                batched["kernel"] != step["sweep_round_loop"] \
+                + step["sweep_round_step"]:
+            raise AssertionError("%s: fused sweep and step kernel launches "
+                                 "%s, expected %s (batched %d)" % (
+                                     key, step, want, batched["kernel"]))
         missing = [e for e in NATIVE_ENTRIES[path] if not native.get(e)]
         if missing:
             raise AssertionError("%s: the native runtime was not called for "
@@ -1595,7 +1957,10 @@ def smoke(names, draws):
         each, on constant columns uploaded once."""
         last = rec.get("rounds_LAST", {})
         if not (last.get("rounds") == rounds == rec["batched_launches"]
-                == last.get("sweep_launches")):
+                == last.get("sweep_launches")
+                == rec["step_launches"]["sweep_round_step"]
+                == last["step_launches"]["step_walk"]
+                == last["step_launches"]["step_dedupe"]):
             raise AssertionError("%s: per-round steps %s, batched launches "
                                  "%d, expected %d" % (
                                      key, last.get("rounds"),
@@ -1713,8 +2078,9 @@ def smoke(names, draws):
             n = st["launches"]
             if loop.get("engaged") is not True:
                 bad.append("the device loop did not engage: %s" % loop)
-            elif (n["plain"] or n["per_genome"]
+            elif (n["plain"] or n["per_genome"] or any(n["step"].values())
                   or n["batched"] != loop["rounds_sweep_run"]
+                  or n["fused"] != {"loop": n["batched"], "step": 0}
                   or loop_kernel_counts(n["loop"], 1)
                   != loop_kernels_want(loop)):
                 bad.append("launches %s" % n)
@@ -1783,12 +2149,13 @@ def smoke(names, draws):
             take(name)
     t0 = time.monotonic()
     log("mesh phase beside the draws %s" % draws_running())
-    mesh_runs, mesh_launches, mesh_loop_launches = mesh_phase(corpora)
+    mesh_runs, mesh_launches, mesh_loop_launches, mesh_step_launches = \
+        mesh_phase(corpora)
     runs["mesh"] = mesh_runs
-    log("mesh phase: %d runs, %d batched launches and loop kernel launches "
-        "%s over every rank, %.1f s" % (len(mesh_runs), mesh_launches,
-                                        json.dumps(mesh_loop_launches),
-                                        time.monotonic() - t0))
+    log("mesh phase: %d runs, %d batched launches, loop kernel launches %s "
+        "and fused / step kernel launches %s over every rank, %.1f s" % (
+            len(mesh_runs), mesh_launches, json.dumps(mesh_loop_launches),
+            json.dumps(mesh_step_launches), time.monotonic() - t0))
     # then, once no draw runs, the other corpora's in-process runs
     for name in names:
         if name not in BESIDE_DRAW:
@@ -1955,6 +2322,28 @@ def smoke(names, draws):
            "library_ms": None}
     batched_rec = rec
     rec.update(batched_on_loop(sk, dl, kept["big"], "big"))
+    fused_recs = {name: {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces,
+        "launches": step_launches[name] + mesh_step_launches[name],
+        "launches_in_process": step_launches[name],
+        "launches_mesh_ranks": mesh_step_launches[name], "max_abs_err": 0,
+        "library_ms": None} for name, source, replaces in (
+            ("sweep_round_loop", "pangene_tpu_torch/csrc/shadow_sweep.cu",
+             "pangene_tpu/parallel/device_loop.py:758"),
+            ("sweep_round_step", "pangene_tpu_torch/csrc/shadow_sweep.cu",
+             "pangene_tpu/parallel/stacked.py:61"),
+            ("step_walk", "pangene_tpu_torch/csrc/step_round.cu",
+             "pangene_tpu/parallel/stacked.py:85"),
+            ("step_dedupe", "pangene_tpu_torch/csrc/step_round.cu",
+             "pangene_tpu/parallel/stacked.py:117"))}
+    fused_recs["sweep_round_loop"].update(
+        fused_on_loop(sk, dl, kept["big"], "big"))
+    # one kernel: its launches on the main path are all with an epilogue
+    by_epi = {e: fused_recs["sweep_round_" + e]["launches"]
+              for e in ("loop", "step")}
+    batched_rec["launches_by_epilogue"] = dict(
+        none=batched_rec["launches"] - sum(by_epi.values()), **by_epi)
     cfg = kept["big"]["cfg"]
     G, H = kept["big"]["blocks"][0].shape[1:3]
 
@@ -2033,6 +2422,35 @@ def smoke(names, draws):
         else:
             rec["ms_rounds_final"] = ms
     kernels.append(rec)
+    # the fused STEP sweep and the step's kernels on the same stack in the
+    # run's final state, with the round's shadow flags
+    fin_shadow = torch.from_numpy(stk.stack_mutable(
+        rounds_graph.d, np.zeros((3, sG, sH), np.uint8))[1]).to(dev)
+    g2s_host = np.full(max(rounds_graph.d.n_gene, 1), -1, np.int32)
+    g2s_host[:rounds_graph.d.n_gene] = rounds_graph.g2s
+    step_recs = step_on_stack(sk, stkk, cache["cols"], fin_flt, sweak,
+                              fin_shadow, torch.from_numpy(g2s_host).to(dev),
+                              sW, opt_cuda.use_ori_for_branch)
+    for name in ("sweep_round_step", "step_walk", "step_dedupe"):
+        r = step_recs[name]
+        log("STEP KERNEL %s, per-round stack final (G %d H %d n_gene %d): ms "
+            "%.5f plain_ms %.3f bound_ms %.6f (%s; %d bytes)%s; kernel == "
+            "plain" % (name, sG, sH, len(g2s_host), r["ms"], r["plain_ms"],
+                       r["bound_ms"], r["bound_by"], r["nbytes"],
+                       "; counters in PyTorch (scatter_add_ and two sums) "
+                       "%.5f ms, %d pairs" % (r["counters_torch_ms"],
+                                              r["pairs"])
+                       if name == "step_walk" else
+                       "; %d arcs" % r["arcs"] if name == "step_dedupe"
+                       else ""))
+        fused_recs[name].update({k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by")})
+    fused_recs["step_walk"]["counters_torch_ms"] = \
+        step_recs["step_walk"]["counters_torch_ms"]
+    log("torch.sort of the step, per-round stack final: (cid, cm) key %.5f "
+        "ms, arc key %.5f ms (stable, [G, H] and [G, 2H] int64)" % (
+            step_recs["torch_sort_ms"]["cm_key"],
+            step_recs["torch_sort_ms"]["arc_key"]))
 
     # the per-round step and the loop's blocks: measured device time beside
     # the least time their bytes allow
@@ -2100,6 +2518,9 @@ def smoke(names, draws):
         if cname != "big":
             batched_rec.update({k + sfx: v for k, v in batched_on_loop(
                 sk, dl, kept[cname], cname).items()})
+            fused_recs["sweep_round_loop"].update({
+                k + sfx: v for k, v in fused_on_loop(
+                    sk, dl, kept[cname], cname).items()})
         capture = kept[cname]["capture"]
         args, kw = capture["branch_block"]
         (loc_args, loc_kw), cls = branch_split_args(args, kw)
@@ -2217,6 +2638,7 @@ def smoke(names, draws):
             rec.update({"ms" + ksfx: ms, "plain_ms" + ksfx: plain_ms,
                         "bound_ms" + ksfx: b_ms, "bound_by" + ksfx: "bytes"})
     kernels.extend(loop_recs.values())
+    kernels.extend(fused_recs.values())
     kept.clear()
 
     log(smi)

@@ -90,6 +90,27 @@
 // The pairs, the gates, the int32 / int64 exon paths, the large-W path
 // and the argmax are the per-genome tile's, so the exactness argument is
 // the same.
+//
+// The batched entry's epilogue (pg_shadow_sweep_round), a compile-time
+// mode of the same kernel. Where one thread holds a row's final (mark,
+// best score, best other), the row's round update is applied there instead
+// of writing three [G, H] planes (13 bytes a row) that a chain of about a
+// dozen torch operations read back:
+//  * LOOP (the device loop's sweep block, JAX
+//    pangene_tpu/parallel/device_loop.py:758-775): the stale-flag merge
+//    shadow = evaluated ? mark : (shadow != 0) | mark, evaluated = unfiltered
+//    & ev1 & r < n, and pid_dom = pid[clamp(other)] where an unfiltered row
+//    has a dominator (biased score > kScoreNone, JAX's b_score > 0), -1
+//    where an unfiltered row has none, unchanged where it is filtered.
+//    Nothing else is written.
+//  * STEP (the per-round step, JAX pangene_tpu/parallel/stacked.py:72-75):
+//    the same stale-flag merge with evaluated = unfiltered & r >= 1 & r < n,
+//    the dominator's score and index (the host reads them), and the step's
+//    (cid, cm) sort key: cid << 44 | cm, 2^62 past n (stacked.py:78-79).
+// Rows past n (padding) get the update too, with no mark and no dominator,
+// as the JAX epilogue gives them. shadow and pid_dom are updated in place:
+// the sweep never reads either (its inputs are the columns, flt and weak),
+// and each row is read and written by the one thread that owns it.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -116,6 +137,12 @@ constexpr int kBatchBlocksPerSM = 2;
 constexpr int kNarrow = 1 << 29;
 constexpr int64_t kScoreNone = -9223372036854775807LL - 1;  // biased raw 0
 constexpr int32_t kOtherNone = 2147483647;
+// The batched entry's epilogue modes (ops/sweep_kernel.py: EPI_*).
+constexpr int kEpiNone = 0;   // the three planes: marks, score, other
+constexpr int kEpiLoop = 1;   // the device loop's shadow and pid_dom
+constexpr int kEpiStep = 2;   // the per-round step's shadow, score, other
+constexpr int kStepKeyBits = 44;                    // cid << 44 | cm
+constexpr int64_t kStepKeyPad = 4611686018427387904LL;  // 2^62: past n
 
 // The launch shape of one entry: owned rows of a tile, threads of a block.
 template <int kRowsT, int kThreadsT>
@@ -163,6 +190,23 @@ struct Tile {
   const uint8_t *flt, *rev, *weak;
   const int32_t *eos, *eoe;
   bool narrow;  // exons staged and every staged offset in (-2^29, 2^29)
+};
+
+// Where a tile's final rows go, by epilogue mode: NONE marks, score,
+// other (and best_ov for the per-genome entry); LOOP shadow and pid_dom in
+// place, reading ev1 and pid; STEP shadow in place, score, other and the
+// sort key, reading cm. Pointers a mode does not use are null.
+struct Epi {
+  uint8_t* marks;
+  int64_t* score;
+  int32_t* other;
+  int32_t* ov;
+  uint8_t* shadow;
+  const uint8_t* ev1;
+  const int32_t* pid;
+  int32_t* pid_dom;
+  const int64_t* cm;
+  int64_t* key;
 };
 
 // kTile: every row the block touches is staged (W <= kBandTile), so the
@@ -434,16 +478,48 @@ __device__ __forceinline__ TileRows tile_rows(int blk, int rows, int n,
   return t;
 }
 
+// Row r's final result (mark, best score bs, best other bo, best ov bv)
+// of a genome of n hits and nout rows, by epilogue mode (Epi); flt, cid:
+// the row's filter flag and contig id.
+template <int kEpi>
+__device__ __forceinline__ void put_row(const Epi& e, int r, int n,
+                                        int nout, uint8_t mark, int64_t bs,
+                                        int32_t bo, int32_t bv, uint8_t flt,
+                                        int32_t cid) {
+  if (kEpi == kEpiNone) {
+    e.marks[r] = mark;
+    e.score[r] = bs;
+    e.other[r] = bo;
+    if (e.ov) e.ov[r] = bv;
+    return;
+  }
+  const bool nonflt = flt == 0;
+  const bool ev = kEpi == kEpiLoop ? e.ev1[r] != 0 : r >= 1;
+  const uint8_t sh = e.shadow[r];
+  e.shadow[r] = (nonflt && ev && r < n) ? mark
+                                        : (uint8_t)((sh != 0) | mark);
+  if (kEpi == kEpiStep) {
+    e.score[r] = bs;
+    e.other[r] = bo;
+    e.key[r] = r < n ? (int64_t)(((uint64_t)(int64_t)cid << kStepKeyBits) |
+                                 (uint64_t)e.cm[r])
+                     : kStepKeyPad;
+  } else if (nonflt) {
+    // bo lies within the band of r when there is a dominator; the clamp
+    // is the plain version's, for OTHER_NONE
+    e.pid_dom[r] = bs > kScoreNone ? e.pid[min(max(bo, 0), nout - 1)] : -1;
+  }
+}
+
 // One block's work: tile `blk` (S::rows owned rows) of a genome of n hits
 // whose output planes have nout >= n rows. Rows [n, nout) of the tile get
-// "no candidate"; best_ov may be null. kStaged: the tile's rows are already
+// "no candidate"; e.ov may be null. kStaged: the tile's rows are already
 // in `rb` (the batched entry's prefetch), else they are staged here.
-template <bool kTile, class S, bool kStaged>
+template <bool kTile, class S, bool kStaged, int kEpi>
 __device__ __forceinline__ void sweep_tile(
     const Cols& c, int n, int nout, int blk, int W, int halo, int chunk,
     int mode, int check_strand, double f, const RowSmem& rb,
-    const Scratch& sc, uint8_t* marks, int64_t* best_score,
-    int32_t* best_other, int32_t* best_ov) {
+    const Scratch& sc, const Epi& e) {
   constexpr int kRows = S::rows;
   constexpr int kThreads = S::threads;
   __shared__ int32_t s_pref[kThreads + 1];
@@ -454,10 +530,8 @@ __device__ __forceinline__ void sweep_tile(
   const int r0 = blk * kRows;
   if (tid < kRows && r0 + tid >= n && r0 + tid < nout) {
     const int r = r0 + tid;
-    marks[r] = 0;
-    best_score[r] = kScoreNone;
-    best_other[r] = kOtherNone;
-    if (best_ov) best_ov[r] = 0;
+    put_row<kEpi>(e, r, n, nout, 0, kScoreNone, kOtherNone, 0,
+                  kEpi == kEpiNone ? 0 : c.flt[r], 0);
   }
   if (r0 >= n) return;  // the whole block: no barrier has been reached
   const int nown = min(kRows, n - r0);
@@ -656,10 +730,8 @@ __device__ __forceinline__ void sweep_tile(
   }
   if (tid < nown) {
     const int r = r0 + tid;
-    marks[r] = mark;
-    best_score[r] = bs;
-    best_other[r] = bo;
-    if (best_ov) best_ov[r] = bv;
+    put_row<kEpi>(e, r, n, nout, mark, bs, bo, bv, s_flt[r - s0],
+                  s_cid[r - s0]);
   }
 }
 
@@ -674,9 +746,14 @@ shadow_sweep_kernel(Cols c, int n, int W, int halo, int chunk, int mode,
   const int rmax = kRows + 2 * halo;
   const RowSmem rb = carve_rows(cv, rmax);
   const Scratch sc = carve_scratch(cv, rmax, chunk, kRows);
-  sweep_tile<kTile, GenomeShape, false>(
+  Epi e = {};
+  e.marks = marks;
+  e.score = best_score;
+  e.other = best_other;
+  e.ov = best_ov;
+  sweep_tile<kTile, GenomeShape, false, kEpiNone>(
       c, n, n, blockIdx.x, W, halo, chunk, mode, check_strand, f, rb, sc,
-      marks, best_score, best_other, best_ov);
+      e);
 }
 
 // The columns of genome g: rows [g * H, (g + 1) * H) of every [G, H] plane,
@@ -733,17 +810,36 @@ __device__ __forceinline__ void prefetch_rows(const Cols& c, int n, int x,
   __pipeline_commit();
 }
 
+template <typename T>
+__device__ __forceinline__ T* at_row(T* p, size_t ro) {
+  return p ? p + ro : p;
+}
+
+// Epi of genome g: every plane offset by its first row.
+__device__ __forceinline__ Epi genome_epi(Epi e, size_t ro) {
+  e.marks = at_row(e.marks, ro);
+  e.score = at_row(e.score, ro);
+  e.other = at_row(e.other, ro);
+  e.shadow = at_row(e.shadow, ro);
+  e.ev1 = at_row(e.ev1, ro);
+  e.pid = at_row(e.pid, ro);
+  e.pid_dom = at_row(e.pid_dom, ro);
+  e.cm = at_row(e.cm, ro);
+  e.key = at_row(e.key, ro);
+  return e;
+}
+
 // The batched entry, persistent: block b takes the (genome, tile) items
 // b, b + gridDim.x, ... (genome-major, so neighbouring blocks share halos
 // in L2). While an item's band passes run, the next item's rows are on
 // their way into the other row buffer. An item past its genome's n_rows
-// stages nothing and writes its rows as unmarked with no dominator.
-template <bool kTile>
+// stages nothing and gives its rows no mark and no dominator (through
+// the epilogue of kEpi).
+template <bool kTile, int kEpi>
 __global__ void __launch_bounds__(kBatchThreads, kBatchBlocksPerSM)
 shadow_sweep_batched_kernel(Cols c, const int32_t* __restrict__ n_rows,
                             int G, int H, int E, int W, int halo, int chunk,
-                            int check_strand, double f, uint8_t* marks,
-                            int64_t* best_score, int32_t* best_other) {
+                            int check_strand, double f, Epi e) {
   extern __shared__ __align__(16) unsigned char smem[];
   Carve cv{smem};
   const int rmax = kBatchRows + 2 * halo;
@@ -776,11 +872,9 @@ shadow_sweep_batched_kernel(Cols c, const int32_t* __restrict__ n_rows,
       prefetch_rows(genome_cols(c, g2, H, E), genome_rows(n_rows, g2, H),
                     (int)(next % tiles), halo, k ? buf0 : buf1, bytes);
     }
-    const size_t ro = (size_t)g * H;
-    sweep_tile<kTile, BatchShape, true>(
+    sweep_tile<kTile, BatchShape, true, kEpi>(
         genome_cols(c, g, H, E), n, H, x, W, halo, chunk, kShadow,
-        check_strand, f, rb, sc, marks + ro, best_score + ro,
-        best_other + ro, nullptr);
+        check_strand, f, rb, sc, genome_epi(e, (size_t)g * H));
     __syncthreads();  // rb is the prefetch's after next
   }
 }
@@ -799,18 +893,32 @@ void batch_tile_shape(int W, int* halo, int* chunk) {
 // The batched launch for band W over G genomes of H rows: the kernel, its
 // dynamic shared memory (opted in above 48 KB), the (genome, tile) items
 // and the persistent grid (the blocks resident on every SM at once).
+using BatchKernel = void (*)(Cols, const int32_t*, int, int, int, int, int,
+                             int, int, double, Epi);
 struct BatchLaunch {
-  void (*kernel)(Cols, const int32_t*, int, int, int, int, int, int, int,
-                 double, uint8_t*, int64_t*, int32_t*);
+  BatchKernel kernel;
   size_t smem;
   int halo, chunk, per_sm, blocks;
   long long items;
 };
 
-cudaError_t batch_launch(int G, int H, int W, BatchLaunch* L) {
+template <int kEpi>
+BatchKernel batch_kernel(bool tile) {
+  return tile ? shadow_sweep_batched_kernel<true, kEpi>
+              : shadow_sweep_batched_kernel<false, kEpi>;
+}
+
+cudaError_t batch_launch(int G, int H, int W, int epi, BatchLaunch* L) {
   batch_tile_shape(W, &L->halo, &L->chunk);
-  L->kernel = L->halo == W ? shadow_sweep_batched_kernel<true>
-                           : shadow_sweep_batched_kernel<false>;
+  const bool tile = L->halo == W;
+  if (epi == kEpiNone)
+    L->kernel = batch_kernel<kEpiNone>(tile);
+  else if (epi == kEpiLoop)
+    L->kernel = batch_kernel<kEpiLoop>(tile);
+  else if (epi == kEpiStep)
+    L->kernel = batch_kernel<kEpiStep>(tile);
+  else
+    return cudaErrorInvalidValue;
   L->smem = smem_bytes<BatchShape>(L->halo, L->chunk, 2);
   L->items = (long long)G * ((H + kBatchRows - 1) / kBatchRows);
   cudaError_t e = cudaFuncSetAttribute(
@@ -850,6 +958,42 @@ Cols unpack(const void* in, const long long* in_off) {
 
 int clip_band(int n, int W) { return W < n - 1 ? W : (n > 1 ? n - 1 : 1); }
 
+// Cols of the kNumCols device pointers, in the packed input's column order.
+Cols cols_of(const void* const* cols) {
+  Cols c;
+  c.cid = static_cast<const int32_t*>(cols[kCid]);
+  c.cs = static_cast<const int64_t*>(cols[kCs]);
+  c.ce = static_cast<const int64_t*>(cols[kCe]);
+  c.flt = static_cast<const uint8_t*>(cols[kFlt]);
+  c.rev = static_cast<const uint8_t*>(cols[kRev]);
+  c.gid = static_cast<const int32_t*>(cols[kGid]);
+  c.pscore = static_cast<const int64_t*>(cols[kPscore]);
+  c.rank = static_cast<const int32_t*>(cols[kRank]);
+  c.weak = static_cast<const uint8_t*>(cols[kWeak]);
+  c.cds_len = static_cast<const int32_t*>(cols[kCdsLen]);
+  c.off_exon = static_cast<const int32_t*>(cols[kOffExon]);
+  c.n_exon = static_cast<const int32_t*>(cols[kNExon]);
+  c.exon_os = static_cast<const int32_t*>(cols[kExonOs]);
+  c.exon_oe = static_cast<const int32_t*>(cols[kExonOe]);
+  return c;
+}
+
+// One launch of the batched kernel with epilogue mode `epi` on `stream`.
+int launch_batched(const void* const* cols, const void* n_rows, int G,
+                   int H, int E, int W, int check_strand, double f, int epi,
+                   const Epi& e, void* stream) {
+  if (G <= 0 || H <= 0) return 0;
+  W = clip_band(H, W);
+  BatchLaunch L;
+  const cudaError_t err = batch_launch(G, H, W, epi, &L);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  L.kernel<<<L.blocks, kBatchThreads, L.smem,
+             static_cast<cudaStream_t>(stream)>>>(
+      cols_of(cols), static_cast<const int32_t*>(n_rows), G, H, E, W,
+      L.halo, L.chunk, check_strand, f, e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // One launch on `stream` over the packed input `in` (byte offsets in_off,
@@ -888,41 +1032,54 @@ extern "C" int pg_shadow_sweep_batched(const void* const* cols,
                                        double f, void* marks,
                                        void* best_score, void* best_other,
                                        void* stream) {
-  if (G <= 0 || H <= 0) return 0;
-  W = clip_band(H, W);
-  BatchLaunch L;
-  const cudaError_t e = batch_launch(G, H, W, &L);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  Cols c;
-  c.cid = static_cast<const int32_t*>(cols[kCid]);
-  c.cs = static_cast<const int64_t*>(cols[kCs]);
-  c.ce = static_cast<const int64_t*>(cols[kCe]);
-  c.flt = static_cast<const uint8_t*>(cols[kFlt]);
-  c.rev = static_cast<const uint8_t*>(cols[kRev]);
-  c.gid = static_cast<const int32_t*>(cols[kGid]);
-  c.pscore = static_cast<const int64_t*>(cols[kPscore]);
-  c.rank = static_cast<const int32_t*>(cols[kRank]);
-  c.weak = static_cast<const uint8_t*>(cols[kWeak]);
-  c.cds_len = static_cast<const int32_t*>(cols[kCdsLen]);
-  c.off_exon = static_cast<const int32_t*>(cols[kOffExon]);
-  c.n_exon = static_cast<const int32_t*>(cols[kNExon]);
-  c.exon_os = static_cast<const int32_t*>(cols[kExonOs]);
-  c.exon_oe = static_cast<const int32_t*>(cols[kExonOe]);
-  L.kernel<<<L.blocks, kBatchThreads, L.smem,
-             static_cast<cudaStream_t>(stream)>>>(
-      c, static_cast<const int32_t*>(n_rows), G, H, E, W, L.halo, L.chunk,
-      check_strand, f, static_cast<uint8_t*>(marks),
-      static_cast<int64_t*>(best_score), static_cast<int32_t*>(best_other));
-  return static_cast<int>(cudaGetLastError());
+  Epi e = {};
+  e.marks = static_cast<uint8_t*>(marks);
+  e.score = static_cast<int64_t*>(best_score);
+  e.other = static_cast<int32_t*>(best_other);
+  return launch_batched(cols, n_rows, G, H, E, W, check_strand, f, kEpiNone,
+                        e, stream);
 }
 
-// Launch shape of the batched entry for G genomes of H rows and band W:
-// info = {items, blocks, threads, dynamic shared bytes, resident blocks per
-// SM, registers per thread, halo, chunk}. Returns a CUDA error code.
-extern "C" int pg_shadow_sweep_batched_shape(int G, int H, int W,
+// The same launch with the round's epilogue fused (mode 1 LOOP, 2 STEP;
+// see the top of this file); [G, H] planes: shadow uint8 (in place); LOOP:
+// ev1 uint8, pid int32, pid_dom int32 (in place); STEP: cm int64 read,
+// best_score int64, best_other int32 and key int64 written. The pointers
+// of the other mode may be null. Returns cudaGetLastError() (0 on
+// success).
+extern "C" int pg_shadow_sweep_round(const void* const* cols,
+                                     const void* n_rows, int G, int H, int E,
+                                     int W, int check_strand, double f,
+                                     int epi, void* shadow, const void* ev1,
+                                     const void* pid, void* pid_dom,
+                                     const void* cm, void* best_score,
+                                     void* best_other, void* key,
+                                     void* stream) {
+  if (epi != kEpiLoop && epi != kEpiStep)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Epi e = {};
+  e.shadow = static_cast<uint8_t*>(shadow);
+  if (epi == kEpiLoop) {
+    e.ev1 = static_cast<const uint8_t*>(ev1);
+    e.pid = static_cast<const int32_t*>(pid);
+    e.pid_dom = static_cast<int32_t*>(pid_dom);
+  } else {
+    e.cm = static_cast<const int64_t*>(cm);
+    e.score = static_cast<int64_t*>(best_score);
+    e.other = static_cast<int32_t*>(best_other);
+    e.key = static_cast<int64_t*>(key);
+  }
+  return launch_batched(cols, n_rows, G, H, E, W, check_strand, f, epi, e,
+                        stream);
+}
+
+// Launch shape of the batched entry with epilogue mode epi for G genomes
+// of H rows and band W: info = {items, blocks, threads, dynamic shared
+// bytes, resident blocks per SM, registers per thread, halo, chunk}.
+// Returns a CUDA error code.
+extern "C" int pg_shadow_sweep_batched_shape(int G, int H, int W, int epi,
                                              long long* info) {
   BatchLaunch L;
-  cudaError_t e = batch_launch(G, H, clip_band(H, W), &L);
+  cudaError_t e = batch_launch(G, H, clip_band(H, W), epi, &L);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaFuncAttributes attr;
   e = cudaFuncGetAttributes(&attr, L.kernel);

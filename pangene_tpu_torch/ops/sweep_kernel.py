@@ -21,7 +21,11 @@ chronological scan (ops/sweep.py:149-156 of the JAX package).
 shadow_sweep_batched is the same kernel in SHADOW mode over the H-padded
 columns of many genomes at once (the device-resident loop's layout,
 parallel/device_loop.py): one launch over (genome, tile). Its plain version
-is the split form of ops/device.py.
+is the split form of ops/device.py. sweep_round_loop and sweep_round_step
+are that launch with the round's epilogue fused into the kernel (the
+device loop's sweep block; the per-round step's sweep and sort key): their
+plain versions are shadow_sweep_batched_plain followed by
+sweep_epilogue_plain.
 
 The packed score is the reference's uint64 score_adj<<33 | pref<<32 |
 hash(pid). torch has poor uint64 support, so it travels as int64
@@ -49,21 +53,30 @@ ISOFORM = 1
 MODE_NAMES = {SHADOW: "SHADOW", ISOFORM: "ISOFORM"}
 SCORE_NONE = -(1 << 63)            # biased encoding of the raw score 0
 OTHER_NONE = (1 << 31) - 1
+# The batched entry's fused epilogues (csrc/shadow_sweep.cu: kEpi*)
+EPI_LOOP = 1
+EPI_STEP = 2
+STEP_KEY_B = 44                    # the step's sort key: cid << 44 | cm
+STEP_KEY_PAD = 1 << 62             # its key past a genome's rows
 
 # Launches of the CUDA kernel and calls of the plain version, per mode.
 # reset_counts() zeroes both; chip_smoke.py reads them around the main path.
 n_kernel_launches = {SHADOW: 0, ISOFORM: 0}
 n_plain_calls = {SHADOW: 0, ISOFORM: 0}
-# The same two counts for the batched entry (shadow_sweep_batched).
+# The same two counts for the batched entry, its fused forms included
+# (shadow_sweep_batched, sweep_round_loop, sweep_round_step): one a sweep
+# round. n_fused counts the fused forms alone, by epilogue.
 n_batched = {"kernel": 0, "plain": 0}
+n_fused = {e: {"kernel": 0, "plain": 0} for e in ("loop", "step")}
 
 
 def reset_counts() -> None:
     for m in (SHADOW, ISOFORM):
         n_kernel_launches[m] = 0
         n_plain_calls[m] = 0
-    for k in n_batched:
-        n_batched[k] = 0
+    for c in [n_batched] + list(n_fused.values()):
+        for k in c:
+            c[k] = 0
 
 
 class SweepCols(NamedTuple):
@@ -362,21 +375,26 @@ def shadow_sweep_batched(bc: BatchCols, flt: torch.Tensor,
     other = torch.empty((G, H), dtype=torch.int32, device=dev)
     if G == 0 or H == 0:
         return marks, score, other
-    by_name = dict(zip(BatchCols._fields, bc), flt=flt, weak=weak)
-    ptrs = (ctypes.c_void_p * len(SweepCols._fields))(
-        *[by_name[name].data_ptr() for name in SweepCols._fields])
     lib = _kernel_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pg_shadow_sweep_batched(
-            ptrs, bc.n_rows.data_ptr(), G, H, E, W, int(bool(check_strand)),
-            float(min_ov_ratio), marks.data_ptr(), score.data_ptr(),
-            other.data_ptr(), stream)
+            _col_ptrs(bc, flt, weak), bc.n_rows.data_ptr(), G, H, E, W,
+            int(bool(check_strand)), float(min_ov_ratio), marks.data_ptr(),
+            score.data_ptr(), other.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("batched shadow_sweep kernel launch failed: CUDA "
                            "error %d" % err)
     n_batched["kernel"] += 1
     return marks, score, other
+
+
+def _col_ptrs(bc: BatchCols, flt: torch.Tensor, weak: torch.Tensor):
+    """The kNumCols device pointers of the batched entry, in the packed
+    input's column order."""
+    by_name = dict(zip(BatchCols._fields, bc), flt=flt, weak=weak)
+    return (ctypes.c_void_p * len(SweepCols._fields))(
+        *[by_name[name].data_ptr() for name in SweepCols._fields])
 
 
 def shadow_sweep_batched_plain(bc: BatchCols, flt: torch.Tensor,
@@ -404,6 +422,144 @@ def shadow_sweep_batched_plain(bc: BatchCols, flt: torch.Tensor,
     return marks.to(torch.uint8), score, other
 
 
+def _check_planes(named, dev: torch.device, shape) -> None:
+    """Each (name, tensor, dtype) a contiguous `shape` tensor on `dev`."""
+    for name, t, dtype in named:
+        if t.dtype != dtype:
+            raise ValueError("%s: dtype %s, expected %s"
+                             % (name, t.dtype, dtype))
+        if t.device != dev or tuple(t.shape) != tuple(shape) or \
+                not t.is_contiguous():
+            raise ValueError("%s must be a contiguous %s tensor on %s"
+                             % (name, tuple(shape), dev))
+
+
+def _launch_round(epi: int, bc: BatchCols, flt, weak, W, check_strand,
+                  min_ov_ratio, shadow, ev1=None, pid=None, pid_dom=None,
+                  cm=None, score=None, other=None, key=None) -> None:
+    G, H = flt.shape
+    if G == 0 or H == 0:
+        return
+    dev = flt.device
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = _kernel_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pg_shadow_sweep_round(
+            _col_ptrs(bc, flt, weak), bc.n_rows.data_ptr(), G, H, bc.exon_os.shape[1], W,
+            int(bool(check_strand)), float(min_ov_ratio), epi, ptr(shadow),
+            ptr(ev1), ptr(pid), ptr(pid_dom), ptr(cm), ptr(score),
+            ptr(other), ptr(key), stream)
+    if err != 0:
+        raise RuntimeError("fused shadow_sweep kernel launch failed: CUDA "
+                           "error %d" % err)
+
+
+def sweep_round_loop(bc: BatchCols, flt: torch.Tensor, weak: torch.Tensor,
+                     W: int, check_strand: bool, min_ov_ratio: float,
+                     shadow: torch.Tensor, pid_dom: torch.Tensor,
+                     ev1: torch.Tensor, pid: torch.Tensor,
+                     geo: Optional[dict] = None) -> None:
+    """The device loop's sweep block (JAX pangene_tpu/parallel/
+    device_loop.py:758-775 sweep_block): the batched SHADOW sweep under the
+    round's flt and weak, then shadow's stale-flag merge and the dominators'
+    pid into pid_dom, both [G, H] planes updated in place (uint8, int32);
+    ev1 uint8 [G, H] (the hit's original index >= 1), pid int32 [G, H]. On
+    cuda one launch of the kernel with the LOOP epilogue, writing no other
+    plane, or it raises; on the CPU shadow_sweep_batched_plain then
+    sweep_epilogue_plain (`geo` as for shadow_sweep_batched)."""
+    dev, G, H, _ = _check_batched(bc, flt, weak, W)
+    _check_planes([("shadow", shadow, torch.uint8),
+                   ("pid_dom", pid_dom, torch.int32),
+                   ("ev1", ev1, torch.uint8), ("pid", pid, torch.int32)],
+                  dev, (G, H))
+    if dev.type == "cpu":
+        n_batched["plain"] += 1
+        n_fused["loop"]["plain"] += 1
+        marks, score, other = shadow_sweep_batched_plain(
+            bc, flt, weak, W, check_strand, min_ov_ratio, geo)
+        sweep_epilogue_plain(marks, score, other, flt, shadow, bc.n_rows,
+                             ev1=ev1, pid=pid, pid_dom=pid_dom)
+        return
+    if dev.type != "cuda":
+        raise ValueError("shadow_sweep runs on cuda or cpu, not %s" % dev)
+    _launch_round(EPI_LOOP, bc, flt, weak, W, check_strand, min_ov_ratio,
+                  shadow, ev1=ev1, pid=pid, pid_dom=pid_dom)
+    n_batched["kernel"] += 1
+    n_fused["loop"]["kernel"] += 1
+
+
+def sweep_round_step(bc: BatchCols, flt: torch.Tensor, weak: torch.Tensor,
+                     W: int, check_strand: bool, min_ov_ratio: float,
+                     shadow: torch.Tensor, cm: torch.Tensor,
+                     geo: Optional[dict] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The per-round step's sweep (JAX pangene_tpu/parallel/stacked.py:
+    61-79): the batched SHADOW sweep, shadow's stale-flag merge in place
+    (uint8 [G, H]; hit 0 is never evaluated) and the (cid, cm) sort key of
+    the step, from cm int64 [G, H]. Returns (best_score int64 biased,
+    best_other int32, key int64), [G, H] each; the key is cid << 44 | cm
+    below a genome's n_rows, 2^62 past it. On cuda one launch of the kernel
+    with the STEP epilogue or it raises; on the CPU
+    shadow_sweep_batched_plain then sweep_epilogue_plain."""
+    dev, G, H, _ = _check_batched(bc, flt, weak, W)
+    _check_planes([("shadow", shadow, torch.uint8),
+                   ("cm", cm, torch.int64)], dev, (G, H))
+    if dev.type == "cpu":
+        n_batched["plain"] += 1
+        n_fused["step"]["plain"] += 1
+        marks, score, other = shadow_sweep_batched_plain(
+            bc, flt, weak, W, check_strand, min_ov_ratio, geo)
+        key = sweep_epilogue_plain(marks, score, other, flt, shadow,
+                                   bc.n_rows, cid=bc.cid, cm=cm)
+        return score, other, key
+    if dev.type != "cuda":
+        raise ValueError("shadow_sweep runs on cuda or cpu, not %s" % dev)
+    score = torch.empty((G, H), dtype=torch.int64, device=dev)
+    other = torch.empty((G, H), dtype=torch.int32, device=dev)
+    key = torch.empty((G, H), dtype=torch.int64, device=dev)
+    _launch_round(EPI_STEP, bc, flt, weak, W, check_strand, min_ov_ratio,
+                  shadow, cm=cm, score=score, other=other, key=key)
+    n_batched["kernel"] += 1
+    n_fused["step"]["kernel"] += 1
+    return score, other, key
+
+
+def sweep_epilogue_plain(marks: torch.Tensor, b_score: torch.Tensor,
+                         b_other: torch.Tensor, flt: torch.Tensor,
+                         shadow: torch.Tensor, n_rows: torch.Tensor, *,
+                         ev1: Optional[torch.Tensor] = None,
+                         pid: Optional[torch.Tensor] = None,
+                         pid_dom: Optional[torch.Tensor] = None,
+                         cid: Optional[torch.Tensor] = None,
+                         cm: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of the fused epilogues, after a batched
+    sweep's (marks, b_score, b_other): shadow (uint8 [G, H]) takes the
+    reference's stale-flag merge in place (overlap.c:108-116: a row is
+    evaluated when unfiltered, below n_rows and, with `ev1`, ev1 != 0, else
+    its index >= 1); with `pid_dom` (the loop's) the unfiltered rows take
+    their dominator's pid (`pid`, at b_other clamped into the row range)
+    or -1, in place; with `cm` (the step's) it returns the sort key
+    cid << 44 | cm, 2^62 past n_rows."""
+    G, H = flt.shape
+    iota = torch.arange(H, dtype=torch.int32, device=flt.device)[None, :]
+    valid = iota < n_rows[:, None]
+    marks = marks != 0
+    nonflt = flt == 0
+    ev = (ev1 != 0) if ev1 is not None else iota >= 1
+    evaluated = nonflt & ev & valid
+    shadow.copy_(torch.where(evaluated, marks, (shadow != 0) | marks))
+    if pid_dom is not None:
+        has_dom = nonflt & (b_score > SCORE_NONE)
+        pid_o = torch.gather(pid, 1, b_other.clamp(0, H - 1).long())
+        pid_dom.copy_(torch.where(has_dom, pid_o,
+                                  torch.where(nonflt, -1, pid_dom)))
+    if cm is not None:
+        return torch.where(valid, (cid.to(torch.int64) << STEP_KEY_B) | cm,
+                           STEP_KEY_PAD)
+    return None
+
+
 def launch_shape(n: int, W: int) -> dict:
     """The kernel's launch shape for n hits and band W, from the CUDA
     runtime: blocks, threads, dynamic shared bytes, resident blocks per SM,
@@ -417,13 +573,14 @@ def launch_shape(n: int, W: int) -> dict:
                      "registers", "halo", "chunk"), info))
 
 
-def launch_shape_batched(G: int, H: int, W: int) -> dict:
-    """The batched entry's launch for G genomes of H rows and band W, from
-    the CUDA runtime: (genome, tile) items, persistent blocks, threads,
-    dynamic shared bytes, resident blocks per SM, registers per thread,
-    staged halo and band chunk."""
+def launch_shape_batched(G: int, H: int, W: int, epi: int = 0) -> dict:
+    """The batched entry's launch for G genomes of H rows and band W (with
+    the fused epilogue `epi`: 0, EPI_LOOP or EPI_STEP), from the CUDA
+    runtime: (genome, tile) items, persistent blocks, threads, dynamic
+    shared bytes, resident blocks per SM, registers per thread, staged halo
+    and band chunk."""
     info = (ctypes.c_longlong * 8)()
-    err = _kernel_lib().pg_shadow_sweep_batched_shape(G, H, W, info)
+    err = _kernel_lib().pg_shadow_sweep_batched_shape(G, H, W, epi, info)
     if err != 0:
         raise RuntimeError("batched shadow_sweep shape query failed: CUDA "
                            "error %d" % err)
@@ -568,9 +725,14 @@ def load(path: str) -> ctypes.CDLL:
     fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
                    + [ctypes.c_int] * 5 + [ctypes.c_double]
                    + [ctypes.c_void_p] * 4)
+    fn = lib.pg_shadow_sweep_round
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
+                   + [ctypes.c_int] * 5 + [ctypes.c_double, ctypes.c_int]
+                   + [ctypes.c_void_p] * 9)
     fn = lib.pg_shadow_sweep_batched_shape
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 3 + [i64p]
+    fn.argtypes = [ctypes.c_int] * 4 + [i64p]
     return lib
 
 

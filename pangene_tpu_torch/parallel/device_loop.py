@@ -13,7 +13,8 @@ only flt, weak, shadow, pid_dom, alive and the arc table change.
 
 The rounds are a Python loop over hand-written CUDA kernels (on the CPU
 their plain versions): the shadow sweep of all genomes is one launch a
-round (sweep_kernel.shadow_sweep_batched; its epilogue stays torch ops);
+round (sweep_kernel.sweep_round_loop, its epilogue fused: the stale-flag
+merge into shadow and the dominators into pid_dom, in place);
 the branch block is branch_prep then branch_block (at world > 1
 branch_locality and branch_classify), weak propagation prop_round, the occ
 block with the convergence count occ_round, the merge walk_pairs, then
@@ -273,7 +274,6 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     nd, rank = mesh.world, mesh.rank
     cols, batch = unpack_blocks(blk_i32, blk_c, blk_ps, blk_u8, blk_ex)
     valid = cols["valid"] != 0
-    ev1 = cols["ev1"] != 0
     G, H = valid.shape            # this rank's genomes
     S, A, D, B, GB = cfg.S, cfg.A, cfg.D, cfg.B, cfg.GB
     ng = cfg.n_gene
@@ -410,7 +410,7 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     flt = cols["flt"].clone()
     weak = cols["weak_br"].clone()
     shadow = cols["shadow"].clone()
-    pid_dom = cols["pid_dom"]
+    pid_dom = cols["pid_dom"].clone()
     alive = torch.ones(S, dtype=torch.bool, device=device)
     seg_tot, seg_ng = seg_tot0.to(I32), seg_ng0.to(I32)
     arc_vw, arc_s1 = arc0_vw.to(I64), arc0_s1.to(I32)
@@ -528,20 +528,13 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
         recompute = ch or r == 0 or no_skip
         run_sw = recompute and bool(do_sweep[r])
         if run_sw:
+            # shadow and pid_dom in place (rows past a genome's kept rows
+            # too, as the JAX epilogue: there ev1 & valid is false)
             with timer("sweep"):
-                marks, b_score, b_other = sk.shadow_sweep_batched(
-                    batch, flt, weak, cfg.W, cfg.check_strand,
-                    cfg.min_ov_ratio, geo)
-                marks = marks != 0
-                nonflt = flt == 0
-                evaluated = nonflt & ev1 & valid
-                shadow = torch.where(evaluated, marks, (shadow != 0) | marks) \
-                    .to(torch.uint8)
-                has_dom = nonflt & (b_score > sk.SCORE_NONE)
-                pid_o = torch.gather(cols["pid"], 1,
-                                     b_other.clamp(0, H - 1).long())
-                pid_dom = torch.where(has_dom, pid_o,
-                                      torch.where(nonflt, -1, pid_dom))
+                sk.sweep_round_loop(batch, flt, weak, cfg.W,
+                                    cfg.check_strand, cfg.min_ov_ratio,
+                                    shadow, pid_dom, cols["ev1"],
+                                    cols["pid"], geo)
 
         # walk + lean merge (the rounds only consume group structure, the
         # exact s1 average and the seg counters)

@@ -7,13 +7,17 @@ take the graph (a branch group wider than its window, an arc table over its
 capacity, an unsettled sort cycle): every pg_gen_arc (graph.c:87-177) of the
 host rounds becomes one device step over the stacked [G, H] hit tables:
 
-  a. the shadow sweep of every genome: one launch of the hand-written CUDA
-     kernel (sweep_kernel.shadow_sweep_batched; its plain version on the
-     CPU), then the reference's stale-flag merge (overlap.c:108-116);
-  b. the stable (cid, cm) sort of every genome;
-  c. the gene walk: the previous kept hit by a running max of kept indices;
-  d. the per-genome arc dedupe: sort by x, segment-reduce;
-  e. the gene-indexed occurrence counters and their sums over genomes.
+  a. the shadow sweep of every genome with the reference's stale-flag merge
+     (overlap.c:108-116) and the sort key: one launch of the hand-written
+     CUDA kernel (sweep_kernel.sweep_round_step; its plain version on the
+     CPU);
+  b. the stable (cid, cm) sort of every genome (torch.sort);
+  c. the gene walk, the previous kept hit by a running max of kept indices,
+     and the gene-indexed occurrence counters summed over genomes: one
+     launch (step_kernels.step_walk);
+  d. the per-genome arc dedupe: sort by x (torch.sort), then one launch
+     that reduces each group (step_kernels.step_dedupe);
+  e. over a mesh, the counters' sum over the ranks.
 
 The per-genome deduped arc lists return to the host through one pinned
 buffer for the exact global merge (all averaging in host IEEE f64 with the
@@ -55,18 +59,15 @@ import numpy as np
 import torch
 
 from ..options import PgOpt
+from ..ops import step_kernels as stk
 from ..ops import sweep_kernel as sk
 from ..ops.device import PAD_CID
-from ..ops.loop_kernels import seg_max, seg_sum
+from ..ops.loop_kernels import seg_sum
 from . import mesh as M
 from .device_loop import _BlockTimer, _host_array
 
-KEY_B = 44                      # composite sort key: cid << KEY_B | coord
 I64 = torch.int64
 I32 = torch.int32
-_BIAS = -(1 << 63)              # uint64 order as int64 order (xor)
-_I64_MAX = (1 << 63) - 1        # the all-ones uint64 key, biased
-_SCORE_FLOOR = -2**31 + 1       # m1 / m2 of a group's invalid members
 
 # host blocks of the constant columns, one upload each
 STACK_I32 = ("cid", "rank", "gid", "dom_gid", "score_ori", "score_dom",
@@ -84,8 +85,9 @@ STEP_OUTPUTS = ("shadow", "b_score", "b_other", "uniq_x", "cnt", "dsum",
 # constant columns; re-orderings of them on the card), shape (G, H, E, W),
 # seconds summed over the rounds (stack_s: host stacking; upload_s; step_s:
 # the device step; pull_s; apply_s: host apply and merge), pull_bytes (one
-# round's pull), sweep_launches (of the batched CUDA kernel), block_ms
-# (device time of the step's parts, summed over the rounds).
+# round's pull), sweep_launches (of the batched CUDA kernel, its fused STEP
+# form), step_launches (of step_walk and step_dedupe), block_ms (device
+# time of the step's parts, summed over the rounds).
 LAST: dict = {}
 
 
@@ -207,22 +209,17 @@ def stack_mutable(d, out: np.ndarray) -> np.ndarray:
 # the device step
 # ---------------------------------------------------------------------------
 
-def sum_over_genomes(x: torch.Tensor, mesh: Optional[M.Mesh] = None):
-    """Sum of a [G_loc, ...] tensor over the genome axis of every rank."""
-    s = x.sum(0, dtype=I32)
-    return s if mesh is None else M.psum(s, mesh)
-
-
 def round_step(st: StackCols, flt: torch.Tensor, shadow: torch.Tensor,
                weak_br: torch.Tensor, g2s: torch.Tensor, *, W: int,
                min_ov_ratio: float, check_strand: bool, use_ori: bool,
-               geo: Optional[dict] = None, sweep=None, timer=None,
+               geo: Optional[dict] = None, timer=None,
                mesh: Optional[M.Mesh] = None):
     """One arc round over all genomes on the device of `st` (the JAX
     package's round_step over _genome_round, batched over the genome axis).
 
     flt / shadow / weak_br: uint8 [G, H], the round's flags, filtered rows
-    in place; g2s: int32 [n_gene], gene -> segment or -1. Returns, as
+    in place; shadow takes the sweep's stale-flag merge in place and is
+    returned. g2s: int32 [n_gene], gene -> segment or -1. Returns, as
     STEP_OUTPUTS names them: shadow uint8 [G, H]; b_score int64 [G, H]
     (biased; sk.SCORE_NONE = no dominator) and b_other int32 [G, H], the
     sweep's dominators; per genome the deduped arcs in the leading rows of
@@ -231,106 +228,44 @@ def round_step(st: StackCols, flt: torch.Tensor, shadow: torch.Tensor,
     int32 [n_gene], the kept hits per clipped segment id summed over
     genomes and the genomes that have one.
 
-    `sweep` replaces sk.shadow_sweep_batched (the kernel on cuda, the plain
-    version on the CPU), e.g. by sk.shadow_sweep_batched_plain; `geo` is the
-    plain version's cache for this `st`; `timer`, a device_loop._BlockTimer
-    over STEP_BLOCKS, times the parts. Over a `mesh`, `st` and the flags
-    hold this rank's genomes and tot_cnt / n_genome sum over every rank's."""
+    On cuda three kernel launches and two torch.sort calls; on the CPU the
+    kernels' plain versions. `geo` is the plain sweep's cache for this
+    `st`; `timer`, a device_loop._BlockTimer over STEP_BLOCKS, times the
+    parts. Over a `mesh`, `st` and the flags hold this rank's genomes and
+    tot_cnt / n_genome sum over every rank's."""
     bc = st.batch
-    dev = flt.device
-    G, H = flt.shape
-    n_gene = g2s.shape[0]
     span = timer if timer is not None else \
         (lambda name: contextlib.nullcontext())
-    iota = torch.arange(H, dtype=I32, device=dev)
-    valid = iota[None, :] < bc.n_rows[:, None]
 
-    # a. shadow sweep on the cs-sorted state; hit 0 and filtered hits are
-    # never the evaluated side and keep their stale flag (overlap.c:108-116)
+    # a. shadow sweep on the cs-sorted state, the stale-flag merge (hit 0
+    # and filtered hits are never the evaluated side, overlap.c:108-116)
+    # and the (cid, cm) sort key
     with span("sweep"):
-        marks, b_score, b_other = (sweep or sk.shadow_sweep_batched)(
-            bc, flt, weak_br, W, check_strand, min_ov_ratio, geo)
-        marks = marks != 0
-        nonflt = flt == 0
-        evaluated = nonflt & (iota >= 1)[None, :] & valid
-        shadow = torch.where(evaluated, marks, (shadow != 0) | marks) \
-            .to(torch.uint8)
+        b_score, b_other, key = sk.sweep_round_step(
+            bc, flt, weak_br, W, check_strand, min_ov_ratio, shadow, st.cm,
+            geo)
 
     # b. stable (cid, cm) sort
     with span("sort"):
-        key = torch.where(valid, (bc.cid.to(I64) << KEY_B) | st.cm, 1 << 62)
         perm = torch.sort(key, dim=1, stable=True).indices
-        g = lambda a: torch.gather(a, 1, perm)
-        kept = g(nonflt & (shadow == 0) & valid)
-        sid = g2s[g(bc.gid).clamp(0, n_gene - 1).long()].to(I64)
-        w = (sid << 1) | g(bc.rev).to(I64)
-        so, sd = g(st.score_ori), g(st.score_dom)
-        if use_ori:
-            scsel = so.to(I64)
-        else:
-            dom = g(st.dom_gid)
-            use_ori_vec = (so > sd) | (dom < 0) \
-                | (g2s[dom.clamp(0, n_gene - 1).long()] >= 0)
-            scsel = torch.where(use_ori_vec, so, sd).to(I64)
-        cm_s = g(st.cm)
-        cid_s = g(bc.cid)
 
-    # c. walk: previous kept hit via inclusive running max of kept indices
+    # c. walk: previous kept hit, the pairs' keys; the gene counters
     with span("walk"):
-        idxk = torch.where(kept, iota[None, :], -1)
-        run = torch.cummax(idxk, dim=1).values
-        prev = torch.cat([run.new_full((G, 1), -1), run[:, :-1]], dim=1)
-        prevc = prev.clamp(0, H - 1).long()
-        take = lambda a: torch.gather(a, 1, prevc)
-        pair_ok = kept & (prev >= 0) & (take(cid_s) == cid_s)
-        v = take(w)
-        # dist truncates to int32 like the reference pg_tmparc_t
-        dist = (cm_s - take(cm_s)).to(I32).to(I64)
-        s1, s2 = take(scsel), scsel
-        # v << 32 | w on the full 64 bits: a negative w (a kept hit of a
-        # non-vertex gene) sets the high bits as the reference's uint64 does
-        ax = torch.cat([(v << 32) | w, ((w ^ 1) << 32) | (v ^ 1)], dim=1)
-        ad = torch.cat([dist, dist], dim=1)
-        a1 = torch.cat([s1, s2], dim=1)
-        a2 = torch.cat([s2, s1], dim=1)
-        avalid = torch.cat([pair_ok, pair_ok], dim=1)
+        akey, pair_ok, dist, s1, s2, counts = stk.step_walk(
+            st, perm, flt, shadow, g2s, use_ori=use_ori)
 
-    # d. per-genome dedupe: sort by x (unsigned order), segment-reduce
+    # d. per-genome dedupe: sort by x (unsigned order), reduce the groups
     with span("dedupe"):
-        A = 2 * H
-        xs, aperm = torch.sort(torch.where(avalid, ax ^ _BIAS, _I64_MAX),
-                               dim=1, stable=True)
-        ga = lambda a: torch.gather(a, 1, aperm)
-        vs = ga(avalid)
-        newgrp = torch.cat([xs.new_ones((G, 1), dtype=torch.bool),
-                            xs[:, 1:] != xs[:, :-1]], dim=1)
-        seg = (torch.cumsum(newgrp, dim=1) - 1
-               + A * torch.arange(G, dtype=I64, device=dev)[:, None]
-               ).reshape(-1)
-        flat = lambda a: a.reshape(-1)
-        N = G * A
-        cnt = seg_sum(flat(vs.to(I32)), seg, N)
-        dsum = seg_sum(flat(torch.where(vs, ga(ad), 0)), seg, N)
-        m1 = seg_max(flat(torch.where(vs, ga(a1), _SCORE_FLOOR).to(I32)),
-                     seg, N)
-        m2 = seg_max(flat(torch.where(vs, ga(a2), _SCORE_FLOOR).to(I32)),
-                     seg, N)
-        # the group's key: the unsigned maximum over its valid members
-        uniq_x = torch.full((N,), _BIAS, dtype=I64, device=dev) \
-            .scatter_reduce_(0, seg, flat(torch.where(vs, xs, _BIAS)),
-                             "amax", include_self=True) ^ _BIAS
+        xs, aperm = torch.sort(akey, dim=1, stable=True)
+        uniq_x, cnt, dsum, m1, m2 = stk.step_dedupe(xs, aperm, pair_ok,
+                                                    dist, s1, s2)
 
-    # e. gene-indexed occurrence counters. sid is clipped, not dropped: a
-    # kept hit of a non-vertex gene counts towards segment 0, as in the JAX
-    # package (the rounds filter such hits before they get here)
+    # e. the counters over every rank's genomes
     with span("counters"):
-        cnts = torch.zeros((G, n_gene), dtype=I32, device=dev) \
-            .scatter_add_(1, sid.clamp(0, n_gene - 1), kept.to(I32))
-        tot_cnt, n_genome = sum_over_genomes(
-            torch.stack([cnts, (cnts > 0).to(I32)], dim=1), mesh)
-    sh = lambda a: a.reshape(G, A)
-    return (shadow, b_score, b_other, sh(uniq_x), sh(cnt), sh(dsum), sh(m1),
-            sh(m2), tot_cnt, n_genome)
+        if mesh is not None:
+            counts = M.psum(counts, mesh)
+    return (shadow, b_score, b_other, uniq_x, cnt, dsum, m1, m2, counts[0],
+            counts[1])
 
 
 def _pull(tensors, host: Optional[torch.Tensor], mesh: M.Mesh,
@@ -442,7 +377,9 @@ def _new_last(device: torch.device) -> None:
     LAST.update(device=str(device), rounds=0, const_uploads=0,
                 const_permutes=0, shape={}, stack_s=0.0, upload_s=0.0,
                 step_s=0.0, pull_s=0.0, apply_s=0.0, pull_bytes=0,
-                sweep_launches=0, block_ms={b: 0.0 for b in STEP_BLOCKS})
+                sweep_launches=0,
+                step_launches={k: 0 for k in stk.n_calls},
+                block_ms={b: 0.0 for b in STEP_BLOCKS})
 
 
 def _add(key: str, t0: float) -> float:
@@ -496,6 +433,7 @@ def gen_arc_sharded(opt: PgOpt, q) -> None:
 
     timer = _BlockTimer(device, STEP_BLOCKS)
     launches0 = sk.n_batched["kernel"]
+    step0 = {k: c["kernel"] for k, c in stk.n_calls.items()}
     outs = round_step(
         cache["cols"], flt, shadow, weak_br, g2s, W=W,
         min_ov_ratio=float(opt.min_ov_ratio),
@@ -504,6 +442,8 @@ def gen_arc_sharded(opt: PgOpt, q) -> None:
     for name, ms in timer.result().items():     # synchronises
         LAST["block_ms"][name] = round(LAST["block_ms"][name] + ms, 3)
     LAST["sweep_launches"] += sk.n_batched["kernel"] - launches0
+    for k, c in stk.n_calls.items():
+        LAST["step_launches"][k] += c["kernel"] - step0[k]
     t = _add("step_s", t)
     host, cache["pull_host"] = _pull(outs, cache["pull_host"], mesh, 8)
     LAST["pull_bytes"] = int(cache["pull_host"].shape[0])

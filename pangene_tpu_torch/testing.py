@@ -304,17 +304,18 @@ def batch_cols(genomes, device, H=None):
     return bc, stack("flt"), stack("weak"), W
 
 
-def stack_cols(genomes, device, seed=0):
+def stack_cols(genomes, device, seed=0, H=None):
     """batch_cols plus what parallel/stacked.round_step takes beside it:
     (StackCols, flt, shadow, weak, g2s, W). cm and score_ori are the
     genomes'; score_dom, dom_gid (-1 for a third of the hits), the stale
     shadow flags (a tenth of the hits) and g2s (a quarter of the genes are
     no vertices, so some kept hits are a non-vertex gene's) are drawn from
-    `seed`. The genomes' gene ids share one id space."""
+    `seed`. The genomes' gene ids share one id space. Rows padded to H as
+    batch_cols pads them."""
     import torch
 
     from .parallel.stacked import StackCols
-    bc, flt, weak, W = batch_cols(genomes, device)
+    bc, flt, weak, W = batch_cols(genomes, device, H)
     G, H = flt.shape
     rng = np.random.default_rng(seed)
     n_gene = max([1] + [d.n_gene for d, _ in genomes])
@@ -332,6 +333,131 @@ def stack_cols(genomes, device, seed=0):
     t = lambda a: torch.from_numpy(a).to(device)
     cols = StackCols(bc, t(cm), t(dom_gid), t(score_ori), t(score_dom))
     return cols, flt, t(shadow), weak, t(g2s), W
+
+
+# The per-round step's states (step_state): random genome sets of the sizes
+# STEP_SIZES (one past the step kernels' 1,024-position chunks, its arc
+# keys past two), and edges: most genes no vertex (kept hits of sid -1:
+# keys past 2^63); cm gaps past 2^31 (int32-truncated distances); two empty
+# genomes; one genome all filtered; every genome's hit 0 filtered; one
+# genome of 2,500 kept hits on one contig and strand alternating between
+# two genes (four groups of ~1,250 equal arcs, across warps and chunks);
+# 300,000 genes (the counters' seen bits past 48 KB of shared memory; with
+# step_state's n_gene, any number: past ops/step_kernels.smem_genes() they
+# go to a global scratch).
+STEP_SIZES = (700, 0, 120, 64, 1, 1300)
+STEP_STATES = ("random", "non_vertex", "cm_gap", "empty", "all_filtered",
+               "hit0_filtered", "repeats", "many_genes")
+
+
+def step_state(which, seed, device, H=None, n_gene=300000):
+    """The step state STEP_STATES[which] drawn from `seed` on `device`, as
+    stack_cols returns it: (StackCols, flt, shadow, weak, g2s, W); n_gene
+    is the gene count of "many_genes"."""
+    import torch
+    cpu = torch.device("cpu")
+    sizes = list(STEP_SIZES)
+    if which == "empty":
+        sizes[0] = sizes[3] = 0
+    genomes = [random_genome(np.random.default_rng(100 * seed + k),
+                             n_hits=n, weak=True, max_cs=30 * n + 100)
+               for k, n in enumerate(sizes)]
+    if which == "repeats":
+        genomes[2] = random_genome(np.random.default_rng(seed), n_hits=2500,
+                                   n_ctg=1, max_cs=10 ** 8)
+        genomes[2][1].hits.flt[:] = 0
+    for d, g in genomes:
+        if which == "hit0_filtered" and g.n_hit:
+            g.hits.flt[0] = 1
+    if which == "all_filtered":
+        genomes[0][1].hits.flt[:] = 1
+    cols, flt, shadow, weak, g2s, W = stack_cols(genomes, cpu, seed, H)
+    rng = np.random.default_rng(seed + 7)
+    n_rows = cols.batch.n_rows.numpy()
+    valid = np.arange(flt.shape[1])[None, :] < n_rows[:, None]
+    if which == "non_vertex":
+        g2s[torch.from_numpy(rng.random(g2s.shape[0]) < 0.8)] = -1
+    if which == "cm_gap":
+        cols.cm[:, ::3] += 3 << 30
+    if which == "repeats":
+        # genes 0 and 1 in turn along the cm order, none stale-shadowed
+        n = int(n_rows[2])
+        order = np.argsort(cols.cm[2, :n].numpy(), kind="stable")
+        gid = np.empty(n, np.int32)
+        gid[order] = np.arange(n) % 2
+        cols.batch.gid[2, :n] = torch.from_numpy(gid)
+        cols.batch.rev[2] = 0
+        shadow[2] = 0
+        g2s[:2] = torch.tensor([0, 1], dtype=g2s.dtype)
+    if which == "many_genes":
+        g2s = torch.from_numpy(np.where(
+            rng.random(n_gene) < 0.25, -1,
+            rng.integers(0, n_gene, n_gene)).astype(np.int32))
+        gid = rng.integers(0, n_gene, flt.shape)
+        cols.batch.gid.copy_(torch.from_numpy(np.where(valid, gid, 0)))
+        cols.dom_gid.copy_(torch.from_numpy(np.where(
+            rng.random(flt.shape) < 1 / 3, -1,
+            rng.integers(0, n_gene, flt.shape))))
+    to = lambda t: t.to(device)
+    cols = type(cols)(type(cols.batch)(*map(to, cols.batch)),
+                      *map(to, cols[1:]))
+    return (cols, to(flt), to(shadow), to(weak), to(g2s), W)
+
+
+def step_calls(state, device, use_ori=False):
+    """{kernel name: (args, kw)} for ops/step_kernels.step_walk and
+    step_dedupe on the step state `state` (step_state's tuple), on
+    `device`: the inputs the step hands each, made by the plain versions on
+    the CPU (the fused sweep, the sorts, the walk)."""
+    import torch
+
+    from .ops import step_kernels as stk
+    from .ops import sweep_kernel as sk
+    cpu = torch.device("cpu")
+    cols, flt, shadow, weak, g2s, W = [
+        x.to(cpu) if isinstance(x, torch.Tensor) else x for x in state]
+    cols = type(cols)(type(cols.batch)(*[t.cpu() for t in cols.batch]),
+                      *[t.cpu() for t in cols[1:]])
+    shadow = shadow.clone()
+    marks, score, other = sk.shadow_sweep_batched_plain(
+        cols.batch, flt, weak, W, False, 0.3)
+    key = sk.sweep_epilogue_plain(marks, score, other, flt, shadow,
+                                  cols.batch.n_rows, cid=cols.batch.cid,
+                                  cm=cols.cm)
+    perm = torch.sort(key, dim=1, stable=True).indices
+    walk = stk.step_walk_plain(cols, perm, flt, shadow, g2s,
+                               use_ori=use_ori)
+    xs, aperm = torch.sort(walk[0], dim=1, stable=True)
+    to = lambda t: t.to(device)
+    dcols = type(cols)(type(cols.batch)(*map(to, cols.batch)),
+                       *map(to, cols[1:]))
+    return {"step_walk": ([dcols, to(perm), to(flt), to(shadow), to(g2s)],
+                          dict(use_ori=use_ori)),
+            "step_dedupe": ([to(xs), to(aperm)] + [to(t) for t in walk[1:5]],
+                            {})}
+
+
+def loop_sweep_args(genomes, device, seed=0, H=None):
+    """batch_cols plus the device loop's epilogue planes, drawn from
+    `seed`: (BatchCols, flt, weak, W, shadow, pid_dom, ev1, pid). A tenth
+    of the rows filtered anew (padding rows stay unfiltered), shadow in
+    {0, 1, 2}, pid_dom -1 or a row's pid, ev1 0 at each genome's row 0 and
+    a twentieth of the others, pid distinct per row."""
+    import torch
+    bc, flt, weak, W = batch_cols(genomes, torch.device("cpu"), H)
+    G, H = flt.shape
+    rng = np.random.default_rng(seed)
+    valid = np.arange(H)[None, :] < bc.n_rows.numpy()[:, None]
+    more = torch.from_numpy((rng.random((G, H)) < 0.1) & valid)
+    flt = flt | more.to(torch.uint8)
+    shadow = rng.choice(3, (G, H), p=(0.8, 0.15, 0.05)).astype(np.uint8)
+    pid = rng.permutation(G * H).reshape(G, H).astype(np.int32)
+    pid_dom = np.where(rng.random((G, H)) < 0.5, -1, pid)
+    ev1 = (rng.random((G, H)) >= 0.05) & (np.arange(H)[None, :] >= 1)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return (type(bc)(*[t.to(device) for t in bc]), flt.to(device),
+            weak.to(device), W, to(shadow), to(pid_dom.astype(np.int32)),
+            to(ev1.astype(np.uint8)), to(pid))
 
 
 def stacked_edge_cases():
@@ -705,12 +831,14 @@ def rank_report_main(argv: List[str]) -> int:
     line on stderr, REPORT_TAG and a JSON object: rank, world, the md5 of
     the output, the CLI's exit code, the wall of the CLI call, the device
     loop's and the per-round path's LAST, the mesh's collective counts, the
-    kernels' launches and plain calls, the peak device bytes on cuda, the
+    kernels' launches (the fused sweep's by epilogue and the step kernels'
+    under step_launches) and plain calls, the peak device bytes on cuda, the
     stage walls, and the modules of other packages the rank loaded."""
     import hashlib
     import torch
     from . import cli, pipeline, util
     from .ops import loop_kernels as lk
+    from .ops import step_kernels as stk
     from .ops import sweep_kernel as sk
     from .parallel import device_loop, mesh, stacked
     md5 = hashlib.md5()
@@ -725,6 +853,7 @@ def rank_report_main(argv: List[str]) -> int:
                                                          out=Sink(), **kw)
     sk.reset_counts()
     lk.reset_counts()
+    stk.reset_counts()
     mesh.reset_counts()
     t0 = time.monotonic()
     rc = cli.main(argv)
@@ -737,8 +866,13 @@ def rank_report_main(argv: List[str]) -> int:
         "kernel_launches": sum(sk.n_kernel_launches.values()),
         "batched_launches": sk.n_batched["kernel"],
         "loop_launches": {k: c["kernel"] for k, c in lk.n_calls.items()},
+        "step_launches": {
+            "sweep_round_loop": sk.n_fused["loop"]["kernel"],
+            "sweep_round_step": sk.n_fused["step"]["kernel"],
+            **{k: c["kernel"] for k, c in stk.n_calls.items()}},
         "plain_calls": (sum(sk.n_plain_calls.values()) + sk.n_batched["plain"]
-                        + sum(c["plain"] for c in lk.n_calls.values())),
+                        + sum(c["plain"] for c in lk.n_calls.values())
+                        + sum(c["plain"] for c in stk.n_calls.values())),
         "peak_device_bytes": (torch.cuda.max_memory_allocated()
                               if torch.cuda.is_initialized() else None),
         "stages": util.stage_stats,

@@ -1,5 +1,6 @@
-"""The CUDA sweep kernel and its batched entry against their plain PyTorch
-versions, the per-round device step that launches the batched entry, and
+"""The CUDA sweep kernel and its batched entry (its fused LOOP and STEP
+epilogues too) against their plain PyTorch versions, the per-round device
+step and its kernels (ops/step_kernels.py: step_walk, step_dedupe), and
 the device loop's block kernels (ops/loop_kernels.py: the branch block,
 merge_fold, and the round kernels walk_pairs, branch_prep, prop_round and
 occ_round) against theirs, on the card.
@@ -18,6 +19,7 @@ import torch
 
 from pangene_tpu_torch.ops import device_engine as de
 from pangene_tpu_torch.ops import loop_kernels as lk
+from pangene_tpu_torch.ops import step_kernels as stk
 from pangene_tpu_torch.ops import sweep_kernel as sk
 from pangene_tpu_torch.parallel import stacked as st
 from pangene_tpu_torch.ops.loop_kernels import SENT_I
@@ -30,7 +32,9 @@ from pangene_tpu_torch.testing import (BRANCH_B, EXACT_BRANCH_DIFFS,
                                        ROUND_INPLACE, round_calls,
                                        round_outputs,
                                        round_state, stack_cols,
-                                       stacked_edge_cases, sweep_edge_case)
+                                       stacked_edge_cases, sweep_edge_case,
+                                       STEP_STATES, loop_sweep_args,
+                                       step_calls, step_state)
 
 
 @pytest.fixture
@@ -203,25 +207,22 @@ def test_batched_wrapper_raises_on_bad_columns(cuda_device):
 
 
 def assert_step_equals_plain(genomes, device, check_strand, use_ori, f):
-    """The per-round step on the card (one launch of the batched kernel)
-    against the same step with the plain sweep, and against the whole step
-    on the CPU: every output equal."""
+    """The per-round step on the card (one launch of the fused sweep)
+    against the whole step on the CPU (the plain versions): every output
+    equal."""
     cols, flt, shadow, weak, g2s, W = stack_cols(genomes, device, seed=1)
     kw = dict(W=W, min_ov_ratio=f, check_strand=check_strand,
               use_ori=use_ori)
     sk.reset_counts()
     got = st.round_step(cols, flt, shadow, weak, g2s, **kw)
     assert sk.n_batched == {"kernel": 1, "plain": 0}
-    want = st.round_step(cols, flt, shadow, weak, g2s,
-                         sweep=sk.shadow_sweep_batched_plain, **kw)
     cpu = torch.device("cpu")
     c_cols, c_flt, c_shadow, c_weak, c_g2s, c_W = stack_cols(genomes, cpu,
                                                              seed=1)
     assert c_W == W
     host = st.round_step(c_cols, c_flt, c_shadow, c_weak, c_g2s, **kw)
-    for name, a, b, c in zip(st.STEP_OUTPUTS, got, want, host):
-        assert a.dtype == b.dtype == c.dtype, name
-        assert torch.equal(a, b), name
+    for name, a, c in zip(st.STEP_OUTPUTS, got, host):
+        assert a.dtype == c.dtype, name
         assert torch.equal(a.cpu(), c), name
     sk.reset_counts()
     return got
@@ -874,3 +875,274 @@ def test_round_scratch_zeroed_after_failed_launch(cuda_device, name,
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert not bool(scratch[:ROUND_COUNTERS].any())
+
+
+# ---------------------------------------------------------------------------
+# the fused sweep epilogues and the per-round step's kernels
+# ---------------------------------------------------------------------------
+
+def fused_both(args, mode, check_strand=False, f=0.3):
+    """The fused sweep (`mode` "loop" or "step") on the card and its plain
+    version on copies of the same arguments (loop_sweep_args' for "loop";
+    for "step" the same less pid_dom, ev1, pid, with cm): the outputs and
+    the planes updated in place, each pair (kernel, plain)."""
+    bc, flt, weak, W, shadow, pid_dom, ev1, pid = args
+    G, H = flt.shape
+    cm = torch.arange(G * H, dtype=torch.int64,
+                      device=flt.device).reshape(G, H) * 7919 % 100003
+    out = []
+    for fn in ("kernel", "plain"):
+        sh, pd = shadow.clone(), pid_dom.clone()
+        if mode == "loop":
+            if fn == "kernel":
+                sk.sweep_round_loop(bc, flt, weak, W, check_strand, f, sh,
+                                    pd, ev1, pid)
+            else:
+                marks, score, other = sk.shadow_sweep_batched_plain(
+                    bc, flt, weak, W, check_strand, f)
+                sk.sweep_epilogue_plain(marks, score, other, flt, sh,
+                                        bc.n_rows, ev1=ev1, pid=pid,
+                                        pid_dom=pd)
+            out.append((sh, pd))
+        else:
+            if fn == "kernel":
+                res = sk.sweep_round_step(bc, flt, weak, W, check_strand, f,
+                                          sh, cm)
+            else:
+                marks, score, other = sk.shadow_sweep_batched_plain(
+                    bc, flt, weak, W, check_strand, f)
+                res = (score, other, sk.sweep_epilogue_plain(
+                    marks, score, other, flt, sh, bc.n_rows, cid=bc.cid,
+                    cm=cm))
+            out.append((sh,) + tuple(res))
+    torch.cuda.synchronize()
+    return out
+
+
+def assert_fused_equal(args, check_strand=False, f=0.3):
+    for mode in ("loop", "step"):
+        sk.reset_counts()
+        got, want = fused_both(args, mode, check_strand, f)
+        assert sk.n_batched == {"kernel": 1, "plain": 0}
+        assert sk.n_fused[mode]["kernel"] == 1
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), mode
+    sk.reset_counts()
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [0.5, 0.3])
+@pytest.mark.parametrize("check_strand", [False, True])
+@pytest.mark.parametrize("seed0", [0, 20])
+def test_fused_sweep_vs_plain(cuda_device, seed0, check_strand, f):
+    """Both fused epilogues on random genome sets (an empty genome, a
+    one-hit genome, rows padded past the longest genome)."""
+    sizes = (2000, 700, 0, 64, 65, 1, 1300)
+    genomes = [random_genome(np.random.default_rng(seed0 + k), n_hits=n,
+                             weak=True, max_exon=6, max_cs=30 * n + 100)
+               for k, n in enumerate(sizes)]
+    args = loop_sweep_args(genomes, cuda_device, seed=seed0, H=2100)
+    got = assert_fused_equal(args, check_strand, f)
+    assert got[0].any() and (got[1] > sk.SCORE_NONE).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["tile", "wide"])
+def test_fused_sweep_stacked_edge_cases(cuda_device, which):
+    """The kernel's edge cases as one batch, through both epilogues (the
+    2,000-exon hit, which the split-form plain sweep cannot hold, left
+    out)."""
+    genomes = [(d, g) for d, g in stacked_edge_cases()[which]
+               if int(g.hits.n_exon.max(initial=0)) < 100]
+    assert_fused_equal(loop_sweep_args(genomes, cuda_device, seed=3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 8, 21, 32, 33])
+def test_fused_sweep_band_widths(cuda_device, W):
+    """The batched tile's edges (test_batched_kernel_band_widths' genomes)
+    through both epilogues: items wholly past a genome's rows get the
+    epilogue too."""
+    rows = sk.tile_shape(batched=True)[0]
+    sizes = (rows - 1, 0, rows, rows + 1, 2 * rows + W, 0, 700, 5)
+    genomes = [band_genome(np.random.default_rng(10 * W + k), n, W)
+               for k, n in enumerate(sizes)]
+    assert_fused_equal(loop_sweep_args(genomes, cuda_device, seed=W,
+                                       H=5 * rows + 3))
+    for epi in (sk.EPI_LOOP, sk.EPI_STEP):
+        shape = sk.launch_shape_batched(len(sizes), 5 * rows + 3, W, epi)
+        assert shape["items"] == len(sizes) * 6 and shape["blocks"] >= 1
+
+
+@pytest.mark.cuda
+def test_fused_sweep_wrappers_raise_on_bad_columns(cuda_device):
+    genomes = [random_genome(np.random.default_rng(3), n_hits=100)]
+    bc, flt, weak, W, shadow, pid_dom, ev1, pid = loop_sweep_args(
+        genomes, cuda_device)
+    cm = torch.zeros_like(pid_dom, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        sk.sweep_round_loop(bc, flt, weak, W, False, 0.5, shadow.cpu(),
+                            pid_dom, ev1, pid)
+    with pytest.raises(ValueError):
+        sk.sweep_round_loop(bc, flt, weak, W, False, 0.5, shadow,
+                            pid_dom.to(torch.int64), ev1, pid)
+    with pytest.raises(ValueError):
+        sk.sweep_round_loop(bc, flt, weak, W, False, 0.5, shadow, pid_dom,
+                            ev1[:, :-1], pid)
+    with pytest.raises(ValueError):
+        sk.sweep_round_step(bc, flt, weak, W, False, 0.5, shadow,
+                            cm.to(torch.int32))
+    with pytest.raises(ValueError):
+        sk.sweep_round_step(bc, flt, weak, W, False, 0.5,
+                            shadow.repeat(1, 2)[:, ::2], cm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_ori", [False, True])
+@pytest.mark.parametrize("which", STEP_STATES)
+def test_step_kernels_vs_plain(cuda_device, which, use_ori):
+    """step_walk and step_dedupe against their plain versions on the step
+    states (testing.STEP_STATES), every output equal."""
+    calls = step_calls(step_state(which, 5, torch.device("cpu")),
+                       cuda_device, use_ori)
+    stk.reset_counts()
+    for name, (args, kw) in calls.items():
+        got = getattr(stk, name)(*args, **kw)
+        want = getattr(stk, name + "_plain")(*args, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), name
+    assert stk.n_calls == {"step_walk": {"kernel": 1, "plain": 0},
+                           "step_dedupe": {"kernel": 1, "plain": 0}}
+    stk.reset_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_ori", [False, True])
+@pytest.mark.parametrize("which", STEP_STATES)
+def test_round_step_on_step_states(cuda_device, which, use_ori):
+    """The whole step on the card (three launches, two sorts) against the
+    whole step on the CPU, on the step states."""
+    kw = dict(min_ov_ratio=0.3, check_strand=False, use_ori=use_ori)
+    cpu = torch.device("cpu")
+    cols, flt, shadow, weak, g2s, W = step_state(which, 6, cuda_device)
+    sk.reset_counts()
+    stk.reset_counts()
+    got = st.round_step(cols, flt, shadow, weak, g2s, W=W, **kw)
+    assert sk.n_fused["step"] == {"kernel": 1, "plain": 0}
+    assert all(c == {"kernel": 1, "plain": 0} for c in stk.n_calls.values())
+    c_cols, c_flt, c_shadow, c_weak, c_g2s, _ = step_state(which, 6, cpu)
+    want = st.round_step(c_cols, c_flt, c_shadow, c_weak, c_g2s, W=W, **kw)
+    for name, a, b in zip(st.STEP_OUTPUTS, got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b), name
+    sk.reset_counts()
+    stk.reset_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("past", [0, 1])
+def test_step_walk_seen_bits_past_shared_memory(cuda_device, past):
+    """At the most genes whose seen bits fit in shared memory, and one past
+    it (a global scratch, one genome's bits each), step_walk equals its
+    plain version, in a call and in a graph replay."""
+    n_smem = stk.smem_genes()
+    lib = stk._kernel_lib()
+    assert lib.pg_step_walk_scratch(6, n_smem) == 0
+    assert lib.pg_step_walk_scratch(6, n_smem + 1) == 6 * (
+        (n_smem + 1 + 31) // 32) * 4
+    state = step_state("many_genes", 12, torch.device("cpu"),
+                       n_gene=n_smem + past)
+    (args, kw) = step_calls(state, cuda_device)["step_walk"]
+    want = stk.step_walk_plain(*args, **kw)
+    got = [t.clone() for t in stk.step_walk(*args, **kw)]
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = stk.step_walk(*args, **kw)
+    g.replay()
+    g.replay()
+    torch.cuda.synchronize()
+    assert int(want[5][1].sum()) > 0
+    for a, b, c in zip(got, want, outs):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+        assert torch.equal(c, b)
+
+
+@pytest.mark.cuda
+def test_step_wrappers_raise_on_bad_columns(cuda_device):
+    calls = step_calls(step_state("random", 2, torch.device("cpu")),
+                       cuda_device)
+    (cols, perm, flt, shadow, g2s), kw = calls["step_walk"]
+    with pytest.raises(ValueError):
+        stk.step_walk(cols, perm.to(torch.int32), flt, shadow, g2s, **kw)
+    with pytest.raises(ValueError):
+        stk.step_walk(cols, perm, flt.cpu(), shadow, g2s, **kw)
+    with pytest.raises(ValueError):
+        stk.step_walk(cols, perm, flt, shadow, g2s[:0], **kw)
+    with pytest.raises(ValueError):
+        stk.step_walk(cols._replace(cm=cols.cm.to(torch.int32)), perm, flt,
+                      shadow, g2s, **kw)
+    args, _ = calls["step_dedupe"]
+    with pytest.raises(ValueError):
+        stk.step_dedupe(args[0][:, :-1].contiguous(), *args[1:])
+    with pytest.raises(ValueError):
+        stk.step_dedupe(*args[:2], args[2].to(torch.int32), *args[3:])
+    with pytest.raises(ValueError):
+        stk.step_dedupe(args[0], args[1].t().contiguous().t(), *args[2:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("which", ["random", "repeats", "many_genes"])
+def test_step_kernels_called_again(cuda_device, which, graph):
+    """A second call, and a CUDA graph of one call replayed twice, give the
+    first call's outputs (the counters are zeroed in every launch)."""
+    calls = step_calls(step_state(which, 8, torch.device("cpu")),
+                       cuda_device)
+    for name, (args, kw) in calls.items():
+        fn = getattr(stk, name)
+        first = [t.clone() for t in fn(*args, **kw)]
+        if graph:
+            torch.cuda.synchronize()
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                outs = fn(*args, **kw)
+            g.replay()
+            g.replay()
+        else:
+            outs = fn(*args, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(first, outs):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph", [False, True])
+def test_fused_sweep_called_again(cuda_device, graph):
+    """The fused epilogues are idempotent on their in-place planes: a
+    second call (or a graph replayed twice) leaves them as the first did."""
+    genomes = [random_genome(np.random.default_rng(9 + k), n_hits=n,
+                             weak=True, max_cs=30 * n + 100)
+               for k, n in enumerate((900, 0, 300))]
+    bc, flt, weak, W, shadow, pid_dom, ev1, pid = loop_sweep_args(
+        genomes, cuda_device, seed=9)
+    cm = torch.zeros_like(pid, dtype=torch.int64)
+
+    def calls():
+        sk.sweep_round_loop(bc, flt, weak, W, False, 0.3, shadow, pid_dom,
+                            ev1, pid)
+        return sk.sweep_round_step(bc, flt, weak, W, False, 0.3, shadow, cm)
+    first = [t.clone() for t in calls()] + [shadow.clone(), pid_dom.clone()]
+    if graph:
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            outs = calls()
+        g.replay()
+        g.replay()
+    else:
+        outs = calls()
+    torch.cuda.synchronize()
+    for a, b in zip(first, list(outs) + [shadow, pid_dom]):
+        assert torch.equal(a, b)

@@ -554,6 +554,45 @@ def test_occ_bound_reads_loci_or_n_grp(cuts):
     assert got[1] - got[0] == 4 * A + (8 * A if cuts is None else 0)
 
 
+@pytest.mark.parametrize("use_ori", [False, True])
+@pytest.mark.parametrize("which", ["random", "hit0_filtered", "repeats"])
+def test_step_bound_counts_what_is_read(which, use_ori):
+    """chip_smoke.step_bound_bytes: step_walk reads a row's columns (21
+    bytes; 25 with use_ori off, and dom_gid's 4 where score_ori <=
+    score_dom) only at a kept row, flt and shadow only below n_rows, and
+    nothing of a row past n_rows; step_dedupe reads dist, s1 and s2 only
+    at a pair's row."""
+    from pangene_tpu_torch.testing import step_calls, step_state
+    cs = chip_smoke()
+    cpu = torch.device("cpu")
+    calls = step_calls(step_state(which, 4, cpu), cpu, use_ori)
+    (cols, perm, flt, shadow, g2s), _ = calls["step_walk"]
+    pair_ok = calls["step_dedupe"][0][2]
+    G, H = flt.shape
+    n_gene = g2s.shape[0]
+    valid = torch.arange(H)[None, :] < cols.batch.n_rows[:, None]
+    kept = valid & (flt == 0) & (shadow == 0)
+    n_pairs = int((pair_ok != 0).sum())
+    assert kept.any() and not kept[valid].all() and n_pairs > 0
+    got = cs.step_bound_bytes(cols, perm, flt, shadow, g2s, use_ori,
+                              pair_ok)
+    # every row shadowed: no kept row's columns
+    hidden = cs.step_bound_bytes(cols, perm, flt, torch.ones_like(shadow),
+                                 g2s, use_ori, pair_ok)
+    col = (21 if use_ori else 25) * int(kept.sum())
+    if not use_ori:
+        col += 4 * int((kept & (cols.score_ori <= cols.score_dom)).sum())
+    assert got["step_walk"] - hidden["step_walk"] == col
+    # no row below n_rows: perm, the outputs, n_rows, g2s and the counters
+    empty = cols._replace(batch=cols.batch._replace(
+        n_rows=torch.zeros_like(cols.batch.n_rows)))
+    none = cs.step_bound_bytes(empty, perm, flt, shadow, g2s, use_ori,
+                               torch.zeros_like(pair_ok))
+    assert none["step_walk"] == (8 + 29) * G * H + 4 * G + 12 * n_gene
+    assert none["step_dedupe"] == 2 * G * H * 44 + G * H
+    assert got["step_dedupe"] - none["step_dedupe"] == 12 * n_pairs
+
+
 # ---------------------------------------------------------------------------
 # the rest of a round: walk_pairs, branch_prep, prop_round, occ_round
 # against numpy oracles written from the JAX blocks' formulas

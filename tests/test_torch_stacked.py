@@ -251,7 +251,7 @@ def jax_round(jd, g2s, check_strand, use_ori, f):
     return out
 
 
-def port_round(d, g2s, check_strand, use_ori, f, sweep=None):
+def port_round(d, g2s, check_strand, use_ori, f):
     hs = st.build_stacked(d)
     cols = st.stack_views(*[torch.from_numpy(a) for a in hs[:5]])
     G, H = hs.i32.shape[1:]
@@ -260,7 +260,7 @@ def port_round(d, g2s, check_strand, use_ori, f, sweep=None):
     outs = st.round_step(cols, mut[0], mut[1], mut[2],
                          torch.from_numpy(np.asarray(g2s)), W=hs.W,
                          min_ov_ratio=f, check_strand=check_strand,
-                         use_ori=use_ori, sweep=sweep)
+                         use_ori=use_ori)
     return {name: o.numpy() for name, o in zip(st.STEP_OUTPUTS, outs)}
 
 
@@ -321,7 +321,8 @@ def test_round_step_outputs_and_empty_stack(corpus):
 def test_round_step_on_random_genome_sets(check_strand):
     """testing.stack_cols (the card checks' input): the step's sweep outputs
     equal the per-genome plain sweep with the stale-flag rule, every kept
-    pair gives two arcs, and naming the plain sweep changes nothing."""
+    pair gives two arcs, and a second step on the merged shadow (updated
+    in place) changes nothing."""
     from pangene_tpu_torch.ops import device_engine as de
     from pangene_tpu_torch.testing import random_genome, stack_cols
     sizes = (300, 0, 120, 64, 1)
@@ -334,8 +335,7 @@ def test_round_step_on_random_genome_sets(check_strand):
     kw = dict(W=W, min_ov_ratio=0.3, check_strand=check_strand,
               use_ori=False)
     outs = st.round_step(cols, flt, shadow, weak, g2s, **kw)
-    again = st.round_step(cols, flt, shadow, weak, g2s,
-                          sweep=sk.shadow_sweep_batched_plain, **kw)
+    again = st.round_step(cols, flt, shadow.clone(), weak, g2s, **kw)
     for a, b in zip(outs, again):
         assert a.dtype == b.dtype and torch.equal(a, b)
     new_shadow, b_score, b_other = outs[:3]
@@ -482,6 +482,53 @@ def test_forced_loop_fallback_takes_per_round_path(corpus, monkeypatch):
     assert st.LAST["const_permutes"] == 0     # phase 1 settled the order
     assert sk.n_batched["plain"] == 16
     assert got == want
+
+
+# the ceiling of aten operations a step that round_step dispatches outside
+# its kernels' wrappers (the fused sweep's, step_walk's, step_dedupe's):
+# the two sorts and the counters' two rows, 4 as measured (140 before
+# the walk, the dedupe and the counters became kernels)
+STEP_OPS_CEILING = 4
+
+
+def test_step_ops_a_step(corpus, monkeypatch):
+    """Counts the aten operations round_step dispatches on the CPU outside
+    the kernels' wrappers (what the host enqueues one at a time on the
+    card), per step of a per-round run."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from pangene_tpu_torch.ops import step_kernels as stk
+    count, inside = [0], [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not inside[0]:
+                count[0] += 1
+            return func(*args, **(kwargs or {}))
+
+    def wrapped(fn):
+        def call(*a, **kw):
+            inside[0] += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                inside[0] -= 1
+        return call
+
+    monkeypatch.setattr(sk, "sweep_round_step", wrapped(sk.sweep_round_step))
+    for name in stk.n_calls:
+        monkeypatch.setattr(stk, name, wrapped(getattr(stk, name)))
+    round_step = st.round_step
+
+    def counted(*a, **kw):
+        with Count():
+            return round_step(*a, **kw)
+    monkeypatch.setattr(st, "round_step", counted)
+    monkeypatch.setenv("PANGENE_DEVICE_LOOP", "0")
+    st.LAST.clear()
+    run_port(corpus)
+    assert_per_round_path(rounds=17)
+    a_step = count[0] / st.LAST["rounds"]
+    assert 0 < a_step <= STEP_OPS_CEILING, (count[0], a_step)
 
 
 def test_loop_engaged_leaves_per_round_path_alone(corpus):
