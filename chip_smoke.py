@@ -33,7 +33,11 @@ Phases (each one passes or raises, so any failure exits nonzero):
      sweep and against the whole step on the CPU, on random genome sets and
      on the stacked edge cases: every output equal; and step_walk and
      step_dedupe (ops/step_kernels.py) against their plain versions on the
-     step states (testing.STEP_STATES), use_ori on and off.
+     step states (testing.STEP_STATES, the tile-crossing ones among them),
+     use_ori on and off, at the most genes whose seen bits the old
+     one-block-a-genome walk kept in shared memory and one past it, and
+     inside a CUDA graph of three launches replayed twice on the tile
+     states.
      Then (2e) the device loop's block kernels (ops/loop_kernels.py:
      branch_block and the mesh's branch_locality + branch_classify,
      merge_fold) against their plain versions on random arc tables (groups
@@ -67,8 +71,9 @@ Phases (each one passes or raises, so any failure exits nonzero):
      (one sweep launch per genome, host rounds; small and bact), --engine
      sharded (the device-resident pruning loop; big and northstar, whose
      device tensors phase 4 reads), --engine sharded with
-     PANGENE_DEVICE_LOOP=0 (the per-round device step; bact and big) and a
-     forced loop fallback (PANGENE_DEVLOOP_MAX_A=1; bact).
+     PANGENE_DEVICE_LOOP=0 (the per-round device step; bact, the north
+     star and big) and a forced loop fallback (PANGENE_DEVLOOP_MAX_A=1;
+     bact).
      Each GFA's md5 must be the reference binary's (bact: pangene_tpu's
      --engine host -J GFA of that draw). Launch counts and the native
      runtime's call counts are zeroed before and read after each run: no
@@ -148,10 +153,17 @@ Phases (each one passes or raises, so any failure exits nonzero):
      the big loop's columns) against its plain version, and timed. The
      fused sweep: LOOP on the big and north-star loops' columns (entry and
      final state), STEP, step_walk and step_dedupe on the per-round path's
-     full big stack in its final state: kernel == plain, device time of
-     200 launches in one CUDA graph, the plain version's time, the bound
-     (least bytes over the memory rate); beside step_walk the counters'
-     PyTorch yardstick (scatter_add_ and the two sums).
+     full big and north-star stacks in their final state and on a mesh
+     shard of big's (its first G_loc = 16 genomes): kernel == plain, and
+     again after a CUDA graph of three launches replayed twice; device
+     time of 200 launches in one CUDA graph, the plain version's time, the
+     bound (least bytes over the memory rate), the step kernels' launch
+     shape (blocks, tile, scratch bytes); beside step_walk the counters'
+     PyTorch yardstick (scatter_add_ and the two sums). The protein-keyed
+     reductions on big (post_reductions_sharded) split into the host's
+     stacking, the upload, the device and the pull, reduction_step's
+     device time, and the same seven sums by one scatter_reduce_ and one
+     index_add_ (its library time).
      Then (4d) branch_block, merge_fold (lean: the first in-loop merge) and
      merge_fold's full mode (the full=True tail) on the arguments of their
      first call in the default loop of the big corpus and of the north
@@ -232,7 +244,7 @@ CORPORA = {
 # where phase 4 reads their device tensors (big, northstar).
 IN_PROCESS = {"small": ("device",),
               "bact": ("device", "rounds", "fallback"),
-              "northstar": ("sharded",),
+              "northstar": ("sharded", "rounds"),
               "big": ("sharded", "rounds")}
 # The north star's draw takes longest. Beside it run the in-process runs of
 # these corpora (their records list the draws still running) and then the
@@ -910,6 +922,30 @@ def compare_step_kernels(stk, calls):
     return int((got[1] > 0).sum())
 
 
+def step_graph_equal(stk, calls):
+    """step_walk and step_dedupe (testing.step_calls' arguments), each as
+    three launches captured in one CUDA graph and replayed twice, against
+    their plain versions: the last launch's outputs must equal them (each
+    launch zeroes its scratch, the tickets and the tiles' status, with its
+    one memset)."""
+    for name, (args, kw) in calls.items():
+        fn = getattr(stk, name)
+        want = getattr(stk, name + "_plain")(*args, **kw)
+        fn(*args, **kw)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(3):
+                outs = fn(*args, **kw)
+        g.replay()
+        g.replay()
+        torch.cuda.synchronize()
+        for k, (a, b) in enumerate(zip(outs, want)):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError("%s in a CUDA graph != plain: output %d"
+                                     % (name, k))
+
+
 def bound_batched_ms(bc, flt, W, check_strand, epi="none", extra=0):
     """Least time for one batched sweep on these inputs: the bytes it must
     move (for every hit row the SHADOW input columns, hit_bytes; 8 bytes an
@@ -1134,12 +1170,13 @@ def step_bound_bytes(cols, perm, flt, shadow, g2s, use_ori, pair_ok):
 
 
 def step_on_stack(sk, stkk, cols, flt, weak, shadow, g2s, W, use_ori):
-    """The per-round step's kernels on its full stack (cols: StackCols, the
-    flags of one round, g2s), each against its plain version and timed
-    (200 launches in one CUDA graph; the plain version's time; the bound):
-    the fused STEP sweep, then, on the inputs the step hands them,
-    step_walk (beside it the counters' PyTorch yardstick: scatter_add_
-    into [G, n_gene] and the two sums) and step_dedupe. Returns {record
+    """The per-round step's kernels on a full stack (cols: StackCols, the
+    flags of one round, g2s), each against its plain version, again after
+    a CUDA graph of three launches replayed twice, and timed (200 launches
+    in one CUDA graph; the plain version's time; the bound): the fused STEP
+    sweep, then, on the inputs the step hands them, step_walk (beside it
+    the counters' PyTorch yardstick: scatter_add_ into [G, n_gene] and the
+    two sums) and step_dedupe, with their launch shape. Returns {record
     name: fields}."""
     bc = cols.batch
     G, H = flt.shape
@@ -1170,6 +1207,10 @@ def step_on_stack(sk, stkk, cols, flt, weak, shadow, g2s, W, use_ori):
         if a.dtype != b.dtype or not torch.equal(a, b):
             raise AssertionError("step_walk != plain on the full stack: "
                                  "output %d" % k)
+    xs, aperm = torch.sort(walk[0], dim=1, stable=True)
+    dargs = (xs, aperm) + tuple(walk[1:5])
+    step_graph_equal(stkk, {"step_walk": (wargs, dict(use_ori=use_ori)),
+                            "step_dedupe": (dargs, {})})
     # the counters alone in PyTorch, on the same kept rows and segments
     gat = lambda a: torch.gather(a, 1, perm)
     valid = torch.arange(H, device=flt.device)[None, :] < bc.n_rows[:, None]
@@ -1185,6 +1226,7 @@ def step_on_stack(sk, stkk, cols, flt, weak, shadow, g2s, W, use_ori):
     if not torch.equal(counters(), walk[5]):
         raise AssertionError("the counters' yardstick != step_walk's")
     least = step_bound_bytes(cols, perm, flt, sh, g2s, use_ori, walk[1])
+    shape = stkk.launch_shape(G, H, n_gene)
     nbytes = least["step_walk"]
     out["step_walk"] = dict(
         ms=graph_ms(lambda: stkk.step_walk(*wargs, use_ori=use_ori),
@@ -1193,9 +1235,10 @@ def step_on_stack(sk, stkk, cols, flt, weak, shadow, g2s, W, use_ori):
             *wargs, use_ori=use_ori), 5),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         nbytes=nbytes, counters_torch_ms=graph_ms(counters, TIMED_LAUNCHES),
-        pairs=int(walk[1].sum()))
-    xs, aperm = torch.sort(walk[0], dim=1, stable=True)
-    dargs = (xs, aperm) + tuple(walk[1:5])
+        pairs=int(walk[1].sum()), kept=int(kept.sum()),
+        launch=dict(blocks=shape["walk_blocks"], threads=shape["threads"],
+                    tile=shape["tile"],
+                    scratch_bytes=shape["walk_scratch_bytes"] + 8 * n_gene))
     got = stkk.step_dedupe(*dargs)
     want = stkk.step_dedupe_plain(*dargs)
     for k, (a, b) in enumerate(zip(got, want)):
@@ -1203,16 +1246,133 @@ def step_on_stack(sk, stkk, cols, flt, weak, shadow, g2s, W, use_ori):
             raise AssertionError("step_dedupe != plain on the full stack: "
                                  "output %d" % k)
     nbytes = least["step_dedupe"]
+    n_groups = int((torch.cat([xs.new_ones((G, 1), dtype=torch.bool),
+                               xs[:, 1:] != xs[:, :-1]], 1)).sum())
     out["step_dedupe"] = dict(
         ms=graph_ms(lambda: stkk.step_dedupe(*dargs), TIMED_LAUNCHES),
         plain_ms=stream_ms(lambda: stkk.step_dedupe_plain(*dargs), 5),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        nbytes=nbytes, arcs=int((got[1] > 0).sum()))
+        nbytes=nbytes, arcs=int((got[1] > 0).sum()), groups=n_groups,
+        launch=dict(blocks=shape["dedupe_blocks"], threads=shape["threads"],
+                    tile=shape["tile"],
+                    scratch_bytes=shape["dedupe_scratch_bytes"]))
     out["torch_sort_ms"] = dict(
         cm_key=stream_ms(lambda: torch.sort(key, dim=1, stable=True), 20),
         arc_key=stream_ms(lambda: torch.sort(walk[0], dim=1, stable=True),
                           20))
     return out
+
+
+def step_stack(stk, graph, dev, g_loc=None):
+    """The per-round path's device-resident stack of a run's final graph
+    (its StackCols, cached on the graph by parallel/stacked.py) with the
+    run's final flags (flt, weak, shadow) and g2s, on `dev`; with `g_loc`
+    its first g_loc genomes, a mesh rank's shard. Returns (cols, flt,
+    weak, shadow, g2s, W)."""
+    cache = graph._stacked_dev_cache
+    G, H = cache["G"], cache["H"]
+    flt, shadow, weak = torch.from_numpy(stk.stack_mutable(
+        graph.d, np.zeros((3, G, H), np.uint8))).to(dev)
+    g2s = np.full(max(graph.d.n_gene, 1), -1, np.int32)
+    g2s[:graph.d.n_gene] = graph.g2s
+    cols = cache["cols"]
+    if g_loc is not None:
+        cut = lambda t: t[:g_loc].contiguous()
+        cols = type(cols)(type(cols.batch)(*map(cut, cols.batch)),
+                          *map(cut, cols[1:]))
+        flt, shadow, weak = cut(flt), cut(shadow), cut(weak)
+    return (cols, flt.contiguous(), weak.contiguous(), shadow.contiguous(),
+            torch.from_numpy(g2s).to(dev), cache["W"])
+
+
+def reduction_split(stk, opt, d, reps=5):
+    """post_reductions_sharded on one device split into its parts, each
+    between synchronisations, best of `reps`: the host's stacking of the
+    columns, the upload, the device (reduction_step), the pull. Then
+    reduction_step's device time (CUDA graph) and the same seven sums by
+    two library calls, one scatter_reduce_ (the maximum) and one
+    index_add_ of an [N, 6] int64 block (the six sums), their masks made
+    beforehand; both must equal reduction_step's. Returns a dict of ms."""
+    from pangene_tpu_torch.parallel import mesh as M
+    want = stk.post_reductions_sharded(opt, d)
+    mesh = M.make_mesh(opt.n_devices, opt.device)
+    G = M.pad_genomes(d.n_genome, mesh)
+    H = max(max((g.n_hit for g in d.genomes), default=1), 1)
+    P = max(d.n_prot, 1)
+    best = {}
+
+    def lap(name, t0):
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        best[name] = min(best.get(name, 1e9), 1e3 * (t1 - t0))
+        return t1
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        i32 = stk._host_array((len(stk.REDUCTION_COLS), G, H), np.int32, True)
+        i32.fill(0)
+        flt = stk._host_array((G, H), np.uint8, True)
+        flt.fill(1)
+        n_rows = stk._host_array((G,), np.int32, True)
+        n_rows.fill(0)
+        for j, g in enumerate(d.genomes):
+            h = g.hits
+            n = len(h)
+            n_rows[j] = n
+            for k, name in enumerate(stk.REDUCTION_COLS):
+                i32[k, j, :n] = h.cols[name]
+            flt[j, :n] = h.flt
+        t = lap("stacking", t)
+        cols = (M.put_sharded(i32, mesh, 1), M.put_sharded(flt, mesh),
+                M.put_sharded(n_rows, mesh))
+        t = lap("upload", t)
+        outs = stk.reduction_step(*cols[0], cols[1], cols[2], n_prot=P)
+        t = lap("device", t)
+        arr = torch.cat([o.to(torch.int64) for o in outs]).cpu().numpy()
+        lap("pull", t)
+    mx, z, (c, s) = want
+    if not (np.array_equal(arr[:d.n_prot], mx)
+            and np.array_equal(arr[P:P + d.n_prot], c[:, 0])):
+        raise AssertionError("reduction split != post_reductions_sharded")
+    pid, so, sa, n_exon, rank = cols[0]
+    fl, nr = cols[1], cols[2]
+    best["reduction_step"] = graph_ms(
+        lambda: stk.reduction_step(pid, so, sa, n_exon, rank, fl, nr,
+                                   n_prot=P), 20)
+    # the library calls' inputs: the clamped ids, the masked maximum's
+    # values and the six sums' columns
+    va = (torch.arange(H, device=pid.device)[None, :]
+          < nr[:, None]).reshape(-1)
+    ids = pid.reshape(-1).clamp(0, P - 1).long()
+    sof = so.reshape(-1)
+    multi = n_exon.reshape(-1) != 1
+    r0 = (rank.reshape(-1) == 0) & (fl.reshape(-1) == 0) & va
+    one = torch.ones_like(sof, dtype=torch.int64)
+    vals = torch.stack([
+        torch.where(r0 & ~multi, one, 0), torch.where(r0 & multi, one, 0),
+        torch.where(r0 & ~multi, sof.long(), 0),
+        torch.where(r0 & multi, sof.long(), 0),
+        torch.where(r0, sa.reshape(-1).long(), 0),
+        torch.where(r0, one, 0)], 1).contiguous()
+    mvals = torch.where(va, sof, 0)
+    mx_out = torch.zeros(P, dtype=torch.int32, device=pid.device)
+    sum_out = torch.zeros((P, 6), dtype=torch.int64, device=pid.device)
+
+    def library():
+        mx_out.zero_().scatter_reduce_(0, ids, mvals, "amax",
+                                       include_self=True)
+        sum_out.zero_().index_add_(0, ids, vals)
+    library()
+    if not (torch.equal(mx_out, outs[0])
+            and torch.equal(sum_out.t(), torch.stack(outs[1:]))):
+        raise AssertionError("the library calls != reduction_step")
+    best["library"] = graph_ms(library, 20)
+    best["library_max"] = graph_ms(lambda: mx_out.scatter_reduce_(
+        0, ids, mvals, "amax", include_self=True), 20)
+    best["library_sums"] = graph_ms(lambda: sum_out.index_add_(0, ids, vals),
+                                    20)
+    best.update(G=G, H=H, n_prot=P)
+    return best
 
 
 def compare_step(stk, sk, genomes, dev, check_strand, use_ori, f):
@@ -1507,8 +1667,8 @@ def smoke(names, draws):
     from pangene_tpu_torch.parallel import device_loop as dl
     from pangene_tpu_torch.parallel import stacked as stk
     from pangene_tpu_torch.testing import (BRANCH_B, EXACT_BRANCH_DIFFS,
-                                           ROUND_STATES, STEP_STATES,
-                                           SWEEP_EDGE_CASES,
+                                           ROUND_STATES, SEEN_SMEM_GENES,
+                                           STEP_STATES, SWEEP_EDGE_CASES,
                                            WALK_FORMS, band_genome,
                                            branch_table, deficit_ratios,
                                            fold_inputs, make_state,
@@ -1682,29 +1842,33 @@ def smoke(names, draws):
         n_cases += 1
     log("per-round step: %d cases, card == CPU, every output "
         "(%.1f s)" % (n_cases, time.monotonic() - t0))
-    # the step's kernels on the step states
+    # the step's kernels on the step states; on the tile states also
+    # inside a CUDA graph of repeated launches
     t0 = time.monotonic()
-    n_cases = 0
+    n_cases = n_graphs = 0
     for k, which in enumerate(STEP_STATES):
         state = step_state(which, 300 + k, torch.device("cpu"))
         for use_ori in (False, True):
-            if not compare_step_kernels(stkk, step_calls(state, dev,
-                                                         use_ori)):
+            calls = step_calls(state, dev, use_ori)
+            if not compare_step_kernels(stkk, calls):
                 raise AssertionError("step state %s: no arc" % which)
             n_cases += 2
-    # the seen bits at the most genes shared memory holds, and one past it
-    # (a global scratch)
-    n_smem = stkk.smem_genes()
-    for n_gene in (n_smem, n_smem + 1):
+            if which.startswith("tile") and not use_ori:
+                step_graph_equal(stkk, calls)
+                n_graphs += 2
+    # the seen bits at the most genes the one-block-a-genome walk kept in
+    # shared memory, and one past it
+    for n_gene in (SEEN_SMEM_GENES, SEEN_SMEM_GENES + 1):
         state = step_state("many_genes", 330, torch.device("cpu"),
                            n_gene=n_gene)
         if not compare_step_kernels(stkk, step_calls(state, dev)):
             raise AssertionError("%d genes: no arc" % n_gene)
         n_cases += 2
-    log("step kernels: %d cases on %d states and %d / %d genes, step_walk "
-        "and step_dedupe == plain (%.1f s)" % (
-            n_cases, len(STEP_STATES), n_smem, n_smem + 1,
-            time.monotonic() - t0))
+    log("step kernels: %d cases on %d states and %d / %d genes, %d in CUDA "
+        "graphs of three launches replayed twice; step_walk and step_dedupe "
+        "== plain (%.1f s)" % (
+            n_cases, len(STEP_STATES), SEEN_SMEM_GENES, SEEN_SMEM_GENES + 1,
+            n_graphs, time.monotonic() - t0))
 
     # 2e. the device loop's block kernels: random arc tables (every group
     # size up to the window D = 64 and one past it) and merge keys in the
@@ -2108,6 +2272,7 @@ def smoke(names, draws):
 
     corpora = {}
     big_graphs = {}   # the big corpus's final graph by path, for phase 4
+    rounds_graphs = {}   # big's and the north star's per-round graphs
     built = {}
 
     def take(name):
@@ -2123,6 +2288,8 @@ def smoke(names, draws):
             graph = run_path(name, path)
             if name == "big":
                 big_graphs[path] = graph
+            if path == "rounds" and name in ("big", "northstar"):
+                rounds_graphs[name] = graph
             if path == "rounds":
                 # the protein-keyed reductions on the card against the host
                 # loops
@@ -2422,35 +2589,47 @@ def smoke(names, draws):
         else:
             rec["ms_rounds_final"] = ms
     kernels.append(rec)
-    # the fused STEP sweep and the step's kernels on the same stack in the
-    # run's final state, with the round's shadow flags
-    fin_shadow = torch.from_numpy(stk.stack_mutable(
-        rounds_graph.d, np.zeros((3, sG, sH), np.uint8))[1]).to(dev)
-    g2s_host = np.full(max(rounds_graph.d.n_gene, 1), -1, np.int32)
-    g2s_host[:rounds_graph.d.n_gene] = rounds_graph.g2s
-    step_recs = step_on_stack(sk, stkk, cache["cols"], fin_flt, sweak,
-                              fin_shadow, torch.from_numpy(g2s_host).to(dev),
-                              sW, opt_cuda.use_ori_for_branch)
-    for name in ("sweep_round_step", "step_walk", "step_dedupe"):
-        r = step_recs[name]
-        log("STEP KERNEL %s, per-round stack final (G %d H %d n_gene %d): ms "
-            "%.5f plain_ms %.3f bound_ms %.6f (%s; %d bytes)%s; kernel == "
-            "plain" % (name, sG, sH, len(g2s_host), r["ms"], r["plain_ms"],
-                       r["bound_ms"], r["bound_by"], r["nbytes"],
-                       "; counters in PyTorch (scatter_add_ and two sums) "
-                       "%.5f ms, %d pairs" % (r["counters_torch_ms"],
-                                              r["pairs"])
-                       if name == "step_walk" else
-                       "; %d arcs" % r["arcs"] if name == "step_dedupe"
-                       else ""))
-        fused_recs[name].update({k: r[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by")})
-    fused_recs["step_walk"]["counters_torch_ms"] = \
-        step_recs["step_walk"]["counters_torch_ms"]
-    log("torch.sort of the step, per-round stack final: (cid, cm) key %.5f "
-        "ms, arc key %.5f ms (stable, [G, H] and [G, 2H] int64)" % (
-            step_recs["torch_sort_ms"]["cm_key"],
-            step_recs["torch_sort_ms"]["arc_key"]))
+    # the fused STEP sweep and the step's kernels on the per-round stacks
+    # in the run's final state, with the round's shadow flags: big's, the
+    # north star's, and big's first 16 genomes (a mesh rank's shard)
+    for label, cname, g_loc in (("", "big", None),
+                                ("_northstar", "northstar", None),
+                                ("_shard16", "big", 16)):
+        scols, s_flt, s_weak, s_shadow, s_g2s, s_W = step_stack(
+            stk, rounds_graphs[cname], dev, g_loc)
+        step_recs = step_on_stack(sk, stkk, scols, s_flt, s_weak, s_shadow,
+                                  s_g2s, s_W, opt_cuda.use_ori_for_branch)
+        G_s, H_s = s_flt.shape
+        where = "%s%s" % (cname, "" if g_loc is None
+                          else " shard G_loc %d" % g_loc)
+        for name in ("sweep_round_step", "step_walk", "step_dedupe"):
+            r = step_recs[name]
+            extra = ""
+            if name == "step_walk":
+                extra = ("; counters in PyTorch (scatter_add_ and two sums) "
+                         "%.5f ms, %d kept, %d pairs; launch %s" % (
+                             r["counters_torch_ms"], r["kept"], r["pairs"],
+                             json.dumps(r["launch"])))
+            elif name == "step_dedupe":
+                extra = "; %d groups, %d arcs; launch %s" % (
+                    r["groups"], r["arcs"], json.dumps(r["launch"]))
+            log("STEP KERNEL %s, per-round stack %s final (G %d H %d n_gene "
+                "%d): ms %.5f plain_ms %.3f bound_ms %.6f (%s; %d bytes)%s; "
+                "kernel == plain, also in a CUDA graph" % (
+                    name, where, G_s, H_s, s_g2s.shape[0], r["ms"],
+                    r["plain_ms"], r["bound_ms"], r["bound_by"],
+                    r["nbytes"], extra))
+            fused_recs[name].update({k + label: r[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by")})
+            if "launch" in r:
+                fused_recs[name]["launch" + label] = r["launch"]
+        fused_recs["step_walk"]["counters_torch_ms" + label] = \
+            step_recs["step_walk"]["counters_torch_ms"]
+        log("torch.sort of the step, per-round stack %s final: (cid, cm) key "
+            "%.5f ms, arc key %.5f ms (stable, [G, H] and [G, 2H] int64)" % (
+                where, step_recs["torch_sort_ms"]["cm_key"],
+                step_recs["torch_sort_ms"]["arc_key"]))
+        del scols, s_flt, s_weak, s_shadow, s_g2s, step_recs
 
     # the per-round step and the loop's blocks: measured device time beside
     # the least time their bytes allow
@@ -2467,6 +2646,17 @@ def smoke(names, draws):
     red = runs["big_rounds"]["reductions_s"]
     log("reductions, big corpus: card %.4f s, host loops %.4f s"
         % (red["card"], red["host_loops"]))
+    split = reduction_split(stk, opt_cuda, rounds_graph.d)
+    runs["big_rounds"]["reductions_split_ms"] = split
+    log("REDUCTIONS big (G %d H %d, %d proteins), best of 5, ms: host "
+        "stacking %.4f, upload %.4f, device %.4f, pull %.4f; reduction_step "
+        "device time %.5f (CUDA graph); the same seven sums by one "
+        "scatter_reduce_ and one index_add_ %.5f (max %.5f, sums %.5f); "
+        "bound %.6f" % (
+            split["G"], split["H"], split["n_prot"], split["stacking"],
+            split["upload"], split["device"], split["pull"],
+            split["reduction_step"], split["library"], split["library_max"],
+            split["library_sums"], red["bound_ms"]))
 
     # 4c. colsort_i64 against torch.sort at the loop's merge key count; its
     # bound: each int64 key read once and written once

@@ -23,9 +23,12 @@ with jnp.argsort):
                rows past the last group read 0.
 
 On cuda each wrapper launches its kernel or raises; on the CPU it takes the
-plain version. Neither reads a value on the host. step_walk takes any gene
-count: a genome's seen bits live in shared memory up to smem_genes() genes
-and in a global scratch past it.
+plain version. Neither reads a value on the host. Both kernels cut each
+genome into tiles of TILE positions, one block a tile taken by ticket, the
+carry by a decoupled look-back; each call is one memset of its scratch
+(sized by the C side, allocated here) and one launch. step_walk takes any
+gene count: the genomes' seen bits are a global plane of the scratch,
+which follows the counts in one buffer.
 """
 from __future__ import annotations
 
@@ -46,6 +49,10 @@ U8 = torch.uint8
 BIAS = -(1 << 63)                 # uint64 order as int64 order (xor)
 NO_ARC = (1 << 63) - 1            # the all-ones uint64 key, biased
 SCORE_FLOOR = -2**31 + 1          # m1 / m2 of a group's invalid members
+# Positions a tile of either kernel holds: kTile of csrc/step_round.cu
+# (launch_shape reads it from the built library; a card test holds the two
+# equal). testing.STEP_STATES cut their genomes at its multiples.
+TILE = 1024
 
 # Launches of each kernel and calls of its plain version. reset_counts()
 # zeroes them; stacked.LAST and chip_smoke.py read them.
@@ -84,12 +91,16 @@ def load(path: str) -> ctypes.CDLL:
     fn.argtypes = [vp] * 12 + [i] * 4 + [vp] * 8
     fn = lib.pg_step_walk_scratch
     fn.restype = ctypes.c_longlong
+    fn.argtypes = [i, i, i]
+    fn = lib.pg_step_dedupe_scratch
+    fn.restype = ctypes.c_longlong
     fn.argtypes = [i, i]
-    lib.pg_step_walk_smem_genes.restype = i
-    lib.pg_step_walk_smem_genes.argtypes = []
+    fn = lib.pg_step_shape
+    fn.restype = None
+    fn.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_longlong)]
     fn = lib.pg_step_dedupe
     fn.restype = i
-    fn.argtypes = [vp] * 6 + [i] * 2 + [vp] * 6
+    fn.argtypes = [vp] * 6 + [i] * 2 + [vp] * 7
     return lib
 
 
@@ -102,10 +113,15 @@ def _kernel_lib() -> ctypes.CDLL:
         return _lib
 
 
-def smem_genes() -> int:
-    """The most genes whose seen bits step_walk keeps in a block's shared
-    memory; past it they go to a global scratch (built library needed)."""
-    return int(_kernel_lib().pg_step_walk_smem_genes())
+def launch_shape(G: int, H: int, n_gene: int = 1) -> dict:
+    """Both kernels' launch for G genomes of H rows and n_gene genes, from
+    the built library: threads a block, positions a tile, step_walk's and
+    step_dedupe's blocks, and the bytes of their scratch (step_walk's after
+    the counts)."""
+    info = (ctypes.c_longlong * 6)()
+    _kernel_lib().pg_step_shape(G, H, n_gene, info)
+    return dict(zip(("threads", "tile", "walk_blocks", "dedupe_blocks",
+                     "walk_scratch_bytes", "dedupe_scratch_bytes"), info))
 
 
 def _launch_device(dev: torch.device, name: str) -> bool:
@@ -163,17 +179,18 @@ def step_walk(st, perm: torch.Tensor, flt: torch.Tensor,
     pair_ok = torch.empty((G, H), dtype=U8, device=dev)
     dist, s1, s2 = (torch.empty((G, H), dtype=I32, device=dev)
                     for _ in range(3))
-    counts = torch.empty((2, n_gene), dtype=I32, device=dev)
     lib = _kernel_lib()
-    # each genome's seen bits, in global memory past the kernel's shared
-    nb = lib.pg_step_walk_scratch(G, n_gene)
-    seen = torch.empty(nb, dtype=U8, device=dev) if nb > 0 else None
-    p = lambda t: None if t is None else t.data_ptr()
+    # the counts, then the scratch (the genomes' seen bits, the tiles'
+    # status words, the ticket): one buffer, one memset
+    nb = lib.pg_step_walk_scratch(G, H, n_gene)
+    buf = torch.empty(2 * n_gene + nb // 4, dtype=I32, device=dev)
+    counts = buf[:2 * n_gene].view(2, n_gene)
+    p = lambda t: t.data_ptr()
     _launch("step_walk", dev, lib.pg_step_walk, p(perm), p(flt),
             p(shadow), p(bc.n_rows), p(bc.cid), p(bc.gid), p(bc.rev),
             p(st.score_ori), p(st.score_dom), p(st.dom_gid), p(st.cm),
             p(g2s), G, H, n_gene, int(bool(use_ori)), p(akey), p(pair_ok),
-            p(dist), p(s1), p(s2), p(counts), p(seen))
+            p(dist), p(s1), p(s2), p(counts), p(buf[2 * n_gene:]))
     return akey, pair_ok, dist, s1, s2, counts
 
 
@@ -249,10 +266,14 @@ def step_dedupe(xs: torch.Tensor, aperm: torch.Tensor,
                     for _ in range(2))
     cnt, m1, m2 = (torch.empty((G, A), dtype=I32, device=dev)
                    for _ in range(3))
+    lib = _kernel_lib()
+    # the tiles' flags, aggregates and inclusive values, the ticket
+    scratch = torch.empty(lib.pg_step_dedupe_scratch(G, H) // 8, dtype=I64,
+                          device=dev)
     p = lambda t: t.data_ptr()
-    _launch("step_dedupe", dev, _kernel_lib().pg_step_dedupe, p(xs),
-            p(aperm), p(pair_ok), p(dist), p(s1), p(s2), G, H, p(uniq_x),
-            p(cnt), p(dsum), p(m1), p(m2))
+    _launch("step_dedupe", dev, lib.pg_step_dedupe, p(xs), p(aperm),
+            p(pair_ok), p(dist), p(s1), p(s2), G, H, p(uniq_x), p(cnt),
+            p(dsum), p(m1), p(m2), p(scratch))
     return uniq_x, cnt, dsum, m1, m2
 
 

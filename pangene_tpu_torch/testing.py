@@ -336,18 +336,32 @@ def stack_cols(genomes, device, seed=0, H=None):
 
 
 # The per-round step's states (step_state): random genome sets of the sizes
-# STEP_SIZES (one past the step kernels' 1,024-position chunks, its arc
-# keys past two), and edges: most genes no vertex (kept hits of sid -1:
+# STEP_SIZES (one past a step kernel's tile of TILE = 1,024 positions, its
+# arc keys past two), and edges: most genes no vertex (kept hits of sid -1:
 # keys past 2^63); cm gaps past 2^31 (int32-truncated distances); two empty
 # genomes; one genome all filtered; every genome's hit 0 filtered; one
 # genome of 2,500 kept hits on one contig and strand alternating between
-# two genes (four groups of ~1,250 equal arcs, across warps and chunks);
-# 300,000 genes (the counters' seen bits past 48 KB of shared memory; with
-# step_state's n_gene, any number: past ops/step_kernels.smem_genes() they
-# go to a global scratch).
+# two genes (four groups of ~1,250 equal arcs, across warps and tiles);
+# 300,000 genes (the counters' seen bits past 48 KB; with step_state's
+# n_gene, any number); and the tiles' edges: "tile_gap", a genome of 6,000
+# hits of one gene on one contig and strand (two runs of ~5,000 equal arc
+# keys, each spanning at least three whole tiles besides the NO_ARC tail)
+# whose positions [2 TILE, 3 TILE) are all filtered (a whole tile without
+# a kept row, its carry looked back past it); "tiles_4T-1", "tiles_4T",
+# "tiles_4T+1", H of 4 TILE - 1, 4 TILE and 4 TILE + 1 with genome 0 of H
+# hits (the walk's last tile one short, whole or of one position; the
+# dedupe's 2H keys likewise by two).
 STEP_SIZES = (700, 0, 120, 64, 1, 1300)
 STEP_STATES = ("random", "non_vertex", "cm_gap", "empty", "all_filtered",
-               "hit0_filtered", "repeats", "many_genes")
+               "hit0_filtered", "repeats", "many_genes", "tile_gap",
+               "tiles_4T-1", "tiles_4T", "tiles_4T+1")
+# The most genes whose seen bits a block's shared memory held when
+# step_walk ran one block a genome: the card tests and chip_smoke.py draw
+# "many_genes" at it and one past it.
+SEEN_SMEM_GENES = 1661952
+# step_state's gap genome: its hits, and the tile of positions it filters
+GAP_HITS = 6000
+GAP_TILE = 2
 
 
 def step_state(which, seed, device, H=None, n_gene=300000):
@@ -355,10 +369,14 @@ def step_state(which, seed, device, H=None, n_gene=300000):
     stack_cols returns it: (StackCols, flt, shadow, weak, g2s, W); n_gene
     is the gene count of "many_genes"."""
     import torch
+    from .ops.step_kernels import TILE
     cpu = torch.device("cpu")
     sizes = list(STEP_SIZES)
     if which == "empty":
         sizes[0] = sizes[3] = 0
+    if which.startswith("tiles_4T"):
+        H = 4 * TILE + int(which[len("tiles_4T"):] or 0)
+        sizes[0] = H
     genomes = [random_genome(np.random.default_rng(100 * seed + k),
                              n_hits=n, weak=True, max_cs=30 * n + 100)
                for k, n in enumerate(sizes)]
@@ -366,6 +384,10 @@ def step_state(which, seed, device, H=None, n_gene=300000):
         genomes[2] = random_genome(np.random.default_rng(seed), n_hits=2500,
                                    n_ctg=1, max_cs=10 ** 8)
         genomes[2][1].hits.flt[:] = 0
+    if which == "tile_gap":
+        genomes[0] = random_genome(np.random.default_rng(seed),
+                                   n_hits=GAP_HITS, n_ctg=1, max_cs=10 ** 8)
+        genomes[0][1].hits.flt[:] = 0
     for d, g in genomes:
         if which == "hit0_filtered" and g.n_hit:
             g.hits.flt[0] = 1
@@ -389,6 +411,17 @@ def step_state(which, seed, device, H=None, n_gene=300000):
         cols.batch.rev[2] = 0
         shadow[2] = 0
         g2s[:2] = torch.tensor([0, 1], dtype=g2s.dtype)
+    if which == "tile_gap":
+        # one gene on one strand; the rows at positions [GAP_TILE TILE,
+        # (GAP_TILE + 1) TILE) of the (cid, cm) order filtered
+        n = int(n_rows[0])
+        order = np.argsort(cols.cm[0, :n].numpy(), kind="stable")
+        cols.batch.gid[0, :n] = 0
+        cols.batch.rev[0] = 0
+        shadow[0] = 0
+        flt[0, torch.from_numpy(
+            order[GAP_TILE * TILE:(GAP_TILE + 1) * TILE])] = 1
+        g2s[0] = 0
     if which == "many_genes":
         g2s = torch.from_numpy(np.where(
             rng.random(n_gene) < 0.25, -1,

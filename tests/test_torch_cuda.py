@@ -33,8 +33,9 @@ from pangene_tpu_torch.testing import (BRANCH_B, EXACT_BRANCH_DIFFS,
                                        round_outputs,
                                        round_state, stack_cols,
                                        stacked_edge_cases, sweep_edge_case,
-                                       STEP_STATES, loop_sweep_args,
-                                       step_calls, step_state)
+                                       SEEN_SMEM_GENES, STEP_STATES,
+                                       loop_sweep_args, step_calls,
+                                       step_state)
 
 
 @pytest.fixture
@@ -1043,17 +1044,19 @@ def test_round_step_on_step_states(cuda_device, which, use_ori):
 @pytest.mark.cuda
 @pytest.mark.parametrize("past", [0, 1])
 def test_step_walk_seen_bits_past_shared_memory(cuda_device, past):
-    """At the most genes whose seen bits fit in shared memory, and one past
-    it (a global scratch, one genome's bits each), step_walk equals its
-    plain version, in a call and in a graph replay."""
-    n_smem = stk.smem_genes()
+    """At the most genes whose seen bits a block's shared memory held in
+    the one-block-a-genome walk, and one past it, step_walk equals its
+    plain version, in a call and in a graph replay: the genomes' bits are
+    one global plane of the scratch ([(G + 31) / 32, n_gene] words), the
+    tiles' status words and the ticket after it."""
+    n_gene = SEEN_SMEM_GENES + past
     lib = stk._kernel_lib()
-    assert lib.pg_step_walk_scratch(6, n_smem) == 0
-    assert lib.pg_step_walk_scratch(6, n_smem + 1) == 6 * (
-        (n_smem + 1 + 31) // 32) * 4
-    state = step_state("many_genes", 12, torch.device("cpu"),
-                       n_gene=n_smem + past)
+    state = step_state("many_genes", 12, torch.device("cpu"), n_gene=n_gene)
     (args, kw) = step_calls(state, cuda_device)["step_walk"]
+    G, H = args[2].shape
+    tiles = G * -(-H // stk.TILE)
+    assert lib.pg_step_walk_scratch(G, H, n_gene) == \
+        -(-4 * n_gene * -(-G // 32) // 8) * 8 + 8 * (tiles + 1)
     want = stk.step_walk_plain(*args, **kw)
     got = [t.clone() for t in stk.step_walk(*args, **kw)]
     torch.cuda.synchronize()
@@ -1067,6 +1070,53 @@ def test_step_walk_seen_bits_past_shared_memory(cuda_device, past):
     for a, b, c in zip(got, want, outs):
         assert a.dtype == b.dtype and torch.equal(a, b)
         assert torch.equal(c, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,H", [(1, 1), (6, 4 * stk.TILE - 1),
+                                 (64, 20933), (16, 20933), (100, 40000)])
+def test_step_tile_matches_the_library(cuda_device, G, H):
+    """stk.TILE is the built library's tile (pg_step_shape), and the launch
+    shape is one block a tile: step_walk G x ceil(H / TILE) blocks,
+    step_dedupe (G + 1) x ceil(2H / TILE) (the last T zero the last
+    genome's rows past its groups), their scratch as the C entries size
+    it."""
+    shape = stk.launch_shape(G, H, 1000)
+    lib = stk._kernel_lib()
+    T = stk.TILE
+    assert shape == {
+        "threads": 256, "tile": T, "walk_blocks": G * -(-H // T),
+        "dedupe_blocks": (G + 1) * -(-2 * H // T),
+        "walk_scratch_bytes": lib.pg_step_walk_scratch(G, H, 1000),
+        "dedupe_scratch_bytes": lib.pg_step_dedupe_scratch(G, H)}
+    nt = G * -(-2 * H // T)
+    assert shape["dedupe_scratch_bytes"] == 48 * nt + -(-4 * nt // 8) * 8 + 8
+
+
+@pytest.mark.cuda
+def test_step_kernels_more_tiles_than_resident_blocks(cuda_device):
+    """The tile_gap state's genomes repeated 40 times (240 genomes: some
+    2,900 dedupe tiles, past the blocks the card holds at once): both
+    kernels equal their plain versions, so no tile waits on one that no
+    running block holds."""
+    calls = step_calls(step_state("tile_gap", 7, torch.device("cpu")),
+                       cuda_device)
+    (cols, perm, flt, shadow, g2s), kw = calls["step_walk"]
+    G = flt.shape[0]
+    rep = lambda t: t.repeat(40, *[1] * (t.dim() - 1)) \
+        if t.dim() and t.shape[0] == G else t
+    cols = type(cols)(type(cols.batch)(*map(rep, cols.batch)),
+                      *map(rep, cols[1:]))
+    args = (cols, rep(perm), rep(flt), rep(shadow), g2s)
+    got = stk.step_walk(*args, **kw)
+    want = stk.step_walk_plain(*args, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    dargs = [rep(t) for t in calls["step_dedupe"][0]]
+    shape = stk.launch_shape(*dargs[2].shape)
+    assert shape["dedupe_blocks"] > 132 * 8
+    for a, b in zip(stk.step_dedupe(*dargs), stk.step_dedupe_plain(*dargs)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -1094,10 +1144,13 @@ def test_step_wrappers_raise_on_bad_columns(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("graph", [False, True])
-@pytest.mark.parametrize("which", ["random", "repeats", "many_genes"])
+@pytest.mark.parametrize("which", ["random", "repeats", "many_genes",
+                                   "tile_gap", "tiles_4T-1", "tiles_4T",
+                                   "tiles_4T+1"])
 def test_step_kernels_called_again(cuda_device, which, graph):
     """A second call, and a CUDA graph of one call replayed twice, give the
-    first call's outputs (the counters are zeroed in every launch)."""
+    first call's outputs (each call's one memset zeroes the counters and
+    the scratch: the tickets, the tiles' status, the seen bits)."""
     calls = step_calls(step_state(which, 8, torch.device("cpu")),
                        cuda_device)
     for name, (args, kw) in calls.items():

@@ -5,7 +5,8 @@ the JAX package's per-genome round (pangene_tpu/parallel/stacked.py:
 _genome_round, vmapped over the genomes), on the step states of
 pangene_tpu_torch.testing (STEP_STATES: random genome sets, non-vertex
 genes, cm gaps past 2^31, empty genomes, a genome all filtered, every hit 0
-filtered, long runs of equal arcs, 300,000 genes), with use_ori on and off.
+filtered, long runs of equal arcs, 300,000 genes, the kernels' tile edges),
+with use_ori on and off.
 Inputs are made from numpy seeds; every comparison is exact (tolerance 0:
 the outputs are integers).
 
@@ -24,7 +25,8 @@ from pangene_tpu.parallel import stacked as jst
 from pangene_tpu_torch.ops import step_kernels as stk
 from pangene_tpu_torch.ops import sweep_kernel as sk
 from pangene_tpu_torch.parallel import stacked as st
-from pangene_tpu_torch.testing import STEP_STATES, step_calls, step_state
+from pangene_tpu_torch.testing import (GAP_TILE, STEP_STATES, step_calls,
+                                       step_state)
 
 # small tensors: one torch thread per test process, so that several test
 # workers on one machine do not contend for its cores
@@ -204,3 +206,46 @@ def test_step_wrappers_check_their_columns():
         stk.step_dedupe(*args[:3], args[3][:, :-1], *args[4:])
     with pytest.raises(ValueError):
         stk.step_walk(cols, perm.to("meta"), flt, shadow, g2s, **kw)
+
+
+@pytest.mark.parametrize("which", [w for w in STEP_STATES
+                                   if w.startswith("tile")])
+def test_step_states_hold_their_edges(which):
+    """Each tile state holds the edge it is named for at the kernels' tile
+    (stk.TILE), on every seed the tests and chip_smoke.py draw it from:
+    tile_gap a genome of at least four tiles with a whole tile of
+    positions without a kept row between kept ones, and a group of valid
+    arcs spanning at least three whole tiles of keys; tiles_4T*: H of
+    4 TILE + d with genome 0 of H rows."""
+    T = stk.TILE
+    for seed in (5, 6, 8, 11, 300 + STEP_STATES.index(which)):
+        calls = step_calls(step_state(which, seed, CPU), CPU)
+        (cols, perm, flt, shadow, g2s), kw = calls["step_walk"]
+        G, H = flt.shape
+        n_rows = cols.batch.n_rows
+        if which == "tile_gap":
+            valid = torch.arange(H)[None, :] < n_rows[:, None]
+            kept = torch.gather((flt == 0) & (shadow == 0) & valid, 1,
+                                perm)[0]
+            n = int(n_rows[0])
+            assert n >= 4 * T
+            tiles = kept[:n // T * T].view(-1, T).any(1)
+            assert not tiles[GAP_TILE]
+            assert tiles[:GAP_TILE].all() and tiles[GAP_TILE + 1:].all()
+            cnt = stk.step_dedupe(*calls["step_dedupe"][0])[1]
+            assert int(cnt[0].max()) >= 4 * T - 1
+        else:
+            d = int(which[len("tiles_4T"):] or 0)
+            assert H == 4 * T + d and int(n_rows[0]) == H
+
+
+def test_tile_mirrors_the_source():
+    """stk.TILE is the kernels' tile in csrc/step_round.cu (kThreads x
+    kRows); the card test test_step_tile_matches_the_library asks the
+    built library."""
+    import re
+    with open(stk._SRC) as f:
+        src = f.read()
+    const = lambda name: int(re.search(
+        r"constexpr int %s = (\d+);" % name, src).group(1))
+    assert const("kThreads") * const("kRows") == stk.TILE
