@@ -7,8 +7,8 @@ GPU. Run from the root of a checkout:
 Phases (each one passes or raises, so any failure exits nonzero):
   1. the card's name and power limit (nvidia-smi); the CUDA kernels are
      built from pangene_tpu_torch/csrc/ (shadow_sweep.cu, loop_blocks.cu,
-     loop_round.cu, step_round.cu), one nvcc for each source, started
-     together, and the native host runtime
+     loop_round.cu, step_round.cu, mesh_round.cu), one nvcc for each
+     source, started together, and the native host runtime
      (native/pgsweep.c, ops/sweep_native.py) with the host's C compiler:
      it must load, since the host rounds' branch marking, the phase-1 walk,
      the vertex scan and the L-line renderer take it on every card path.
@@ -99,7 +99,9 @@ Phases (each one passes or raises, so any failure exits nonzero):
      ops/pseudo.py.
   3c. the builds as a user runs them, each in a process of its own that
      imports no torch before the build (BUILD_SCRIPT): the default engine
-     and --engine host on each corpus, and after the last corpus big with
+     and --engine host on each corpus (small's only when big is left out:
+     its card paths run in process and on the mesh), and after the last
+     corpus big with
      --profile (the idle share of a user's traced build, the five device
      operations with most time). Each GFA's md5; the wall measured outside
      the process, split into the script's import, cli.main outside the
@@ -134,8 +136,11 @@ Phases (each one passes or raises, so any failure exits nonzero):
      fall back, launch the per-genome kernel or call a plain version, each
      rank of a loop run launches the block kernels as the in-process loop
      does (at world > 1 branch_locality and branch_classify once a branch
-     round in place of branch_block), and a rank that does not end within
-     its own timeout fails the run.
+     round in place of branch_block), every rank at world > 1 launches
+     protein_reduce once (post_process's reductions) and at world > 2
+     exchange_pack, exchange_window and exchange_finish once an in-loop
+     merge (the bucket exchange), and a rank that does not end within its
+     own timeout fails the run.
   4. the kernel against the plain version on the largest genome of the big
      corpus (the main path's shapes), unfiltered and in the run's final
      filter state. Kernel time is the device time per launch of 200
@@ -161,9 +166,12 @@ Phases (each one passes or raises, so any failure exits nonzero):
      shape (blocks, tile, scratch bytes); beside step_walk the counters'
      PyTorch yardstick (scatter_add_ and the two sums). The protein-keyed
      reductions on big (post_reductions_sharded) split into the host's
-     stacking, the upload, the device and the pull, reduction_step's
-     device time, and the same seven sums by one scatter_reduce_ and one
-     index_add_ (its library time).
+     stacking of a rank's rows end to end, the upload, the device and the
+     pull, at world 1 and for rank 0's share at world 4; protein_reduce
+     against its plain version in the flat layout (the main path's) and
+     the padded [G, H] stack, its device time and its bound on the run's
+     data (reduction_bound_bytes) in both, and the same seven
+     sums by one scatter_reduce_ and one index_add_ (its library time).
      Then (4d) branch_block, merge_fold (lean: the first in-loop merge) and
      merge_fold's full mode (the full=True tail) on the arguments of their
      first call in the default loop of the big corpus and of the north
@@ -180,6 +188,15 @@ Phases (each one passes or raises, so any failure exits nonzero):
      after prop_round's line, ORDCM LOCALITY: how local its reads are
      (testing.ordcm_locality of its cm order, testing.sector_shares of its
      arc rows).
+     Then (4e) the bucket exchange's kernels (ops/mesh_kernels.py:
+     exchange_pack, exchange_window, exchange_finish) at the world-4 shape
+     of the big and the north-star loops (G_loc = Gp / 4 genomes of the
+     loop's H rows, its S and A), on every state of testing.exchange_calls
+     (random keys, a destination over the bucket, every key a sentinel,
+     every key to one destination, windows past the table), every rank:
+     kernel == plain exactly, eager and from a CUDA graph replayed twice;
+     device time of rank 0's ordinary call (200 launches in one CUDA
+     graph), the plain version's, the bound (exchange_bound_bytes).
 
 ``--corpora NAME[,NAME]`` runs only those corpora and what needs them, for
 a short first run of new code (``--corpora small`` takes about two
@@ -324,17 +341,21 @@ if sn is not None:
 sk = m.get("pangene_tpu_torch.ops.sweep_kernel")
 lk = m.get("pangene_tpu_torch.ops.loop_kernels")
 stk = m.get("pangene_tpu_torch.ops.step_kernels")
+mk = m.get("pangene_tpu_torch.ops.mesh_kernels")
 if sk is not None and lk is not None:
     step = stk.n_calls if stk is not None else {}
+    mesh = mk.n_calls if mk is not None else {}
     st["launches"] = {
         "per_genome": sum(sk.n_kernel_launches.values()),
-        "batched": sk.n_batched["kernel"],
+        "batched": sk.n_batched()["kernel"],
         "fused": {k: c["kernel"] for k, c in sk.n_fused.items()},
         "loop": {k: c["kernel"] for k, c in lk.n_calls.items()},
         "step": {k: c["kernel"] for k, c in step.items()},
-        "plain": (sum(sk.n_plain_calls.values()) + sk.n_batched["plain"]
+        "mesh": {k: c["kernel"] for k, c in mesh.items()},
+        "plain": (sum(sk.n_plain_calls.values()) + sk.n_batched()["plain"]
                   + sum(c["plain"] for c in lk.n_calls.values())
-                  + sum(c["plain"] for c in step.values()))}
+                  + sum(c["plain"] for c in step.values())
+                  + sum(c["plain"] for c in mesh.values()))}
 dl = m.get("pangene_tpu_torch.parallel.device_loop")
 if dl is not None and dl.LAST:
     st["loop"] = {k: dl.LAST.get(k) for k in (
@@ -706,6 +727,9 @@ def fold_bound_ms(args, kw):
 # branch_classify. merge_fold counts both of its modes, merge_fold_full the
 # full mode's launches alone. The round kernels run at every world.
 ROUND_KERNELS = ("walk_pairs", "branch_prep", "prop_round", "occ_round")
+# ops/mesh_kernels.py, launched only by the mesh's ranks (world > 1)
+MESH_KERNELS = ("protein_reduce", "exchange_pack", "exchange_window",
+                "exchange_finish")
 LOOP_KERNELS = ("branch_block", "branch_locality", "branch_classify",
                 "merge_fold", "merge_fold_full") + ROUND_KERNELS
 
@@ -1004,20 +1028,21 @@ LOOP_BLOCK_BYTES = {"walk_merge": (64, 12, 9), "branch": (19, 13, 16),
 # 4, score_dom 4, dom_gid 4 = 32; out: shadow 1, b_score 8, b_other 4, and
 # two arc slots of uniq_x 8, cnt 4, dsum 8, m1 4, m2 4 = 69.
 STEP_ROW_BYTES = 32 + 69
-# stacked.reduction_step: per [G, H] row in: pid, score_ori, score_adj,
-# n_exon, rank (int32) and flt = 21; per genome n_rows 4; per protein out:
-# the int32 maximum and six int64 sums = 52.
-REDUCTION_BYTES = (21, 4, 52)
-
-
-def reduction_bound_ms(d):
-    """Least time of one reduction_step over the dataset's stacked columns:
-    its bytes over the memory rate."""
-    G = d.n_genome
-    H = max(max((g.n_hit for g in d.genomes), default=1), 1)
-    r, gb, pb = REDUCTION_BYTES
-    nbytes = G * H * r + G * gb + max(d.n_prot, 1) * pb
-    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+def reduction_bound_bytes(pid, score_ori, score_adj, n_exon, rank, flt,
+                          n_rows, n_prot):
+    """Least bytes of one reduction_step (mesh_kernels.protein_reduce) on
+    these [G, H] columns, in either layout: pid, score_ori and rank (12
+    bytes) at every valid row (below its genome's n_rows), flt (1) at a
+    valid rank-0 row, n_exon and score_adj (8) at a valid rank-0
+    unfiltered row; n_rows 4 a genome; out, per protein, the int32 maximum
+    and six int64 sums (52). Rows past n_rows (the padded stack's padding)
+    are not read."""
+    G, H = flt.shape
+    n = n_rows.to(torch.int64).clamp(0, H)
+    valid = torch.arange(H, device=flt.device)[None, :] < n[:, None]
+    r0 = valid & (rank == 0)
+    return (12 * int(valid.sum()) + int(r0.sum())
+            + 8 * int((r0 & (flt == 0)).sum()) + 4 * G + 52 * max(n_prot, 1))
 
 
 def loop_block_bounds(shape, calls):
@@ -1285,19 +1310,91 @@ def step_stack(stk, graph, dev, g_loc=None):
             torch.from_numpy(g2s).to(dev), cache["W"])
 
 
-def reduction_split(stk, opt, d, reps=5):
-    """post_reductions_sharded on one device split into its parts, each
-    between synchronisations, best of `reps`: the host's stacking of the
-    columns, the upload, the device (reduction_step), the pull. Then
-    reduction_step's device time (CUDA graph) and the same seven sums by
-    two library calls, one scatter_reduce_ (the maximum) and one
-    index_add_ of an [N, 6] int64 block (the six sums), their masks made
-    beforehand; both must equal reduction_step's. Returns a dict of ms."""
+def fresh_args(name, args):
+    """The exchange kernel `name`'s arguments with the plane it writes in
+    place (exchange_finish's pair) copied."""
+    return [a.clone() if name == "finish" and i == 4 else a
+            for i, a in enumerate(args)]
+
+
+def compare_mesh_kernel(mk, name, args, kw):
+    """exchange_`name` (ops/mesh_kernels.py) against its plain version on
+    `args`, eager and from a CUDA graph replayed twice; raises unless every
+    output is equal."""
+    fn = getattr(mk, "exchange_" + name)
+    want = getattr(mk, "exchange_%s_plain" % name)(*fresh_args(name, args),
+                                                   **kw)
+    got = fn(*fresh_args(name, args), **kw)
+    torch.cuda.synchronize()
+    a = fresh_args(name, args)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        in_graph = fn(*a, **kw)
+    g.replay()
+    g.replay()
+    torch.cuda.synchronize()
+    for outs in (got, in_graph):
+        for k, (x, y) in enumerate(zip(outs, want)):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                raise AssertionError("exchange_%s != plain: output %d"
+                                     % (name, k))
+
+
+def exchange_bound_bytes(name, args, kw, got):
+    """Least bytes of one call of exchange_`name` on these arguments
+    (`got`: its outputs), inputs read once and outputs written once, what
+    the data needs: pack reads the keys it sends and their rows' s1 (12
+    bytes a key; the run boundaries' binary searches are not counted) and
+    writes the [nd, 2, C] plane, the flag and the zeroed pair plane;
+    window reads the gathered (n_out_l, overflow) words, its fold's rows
+    that land in the table (12 bytes), reply_loc at the received keys that
+    are not sentinels and every received key, and writes the [2, A] table,
+    the reply and n_out; finish reads the table's live rows, n_out, the
+    keys it sent and their replies, and writes the arc table (12 bytes a
+    row) and the pair slots of the keys sent."""
+    from pangene_tpu_torch.ops.loop_kernels import KSENT_I as KSENT
+    if name == "pack":
+        send = got[0]
+        nd, _, C = send.shape
+        n_sent = int((send[:, 0] != KSENT).sum())
+        NL = args[0].shape[0]
+        return n_sent * 12 + nd * 2 * C * 8 + 8 + (NL + 1) * 4
+    if name == "window":
+        per_rank, vw, s1, reply_loc, got_k = args
+        A, rank = kw["A"], kw["rank"]
+        nouts = per_rank.reshape(-1, 2)[:, 0].tolist()
+        start = min(max(sum(nouts[:rank]), 0), A)
+        n_win = max(min(nouts[rank], A - start), 0)
+        RL = vw.shape[0]
+        n_recv = int((got_k != KSENT).sum())
+        return (per_rank.numel() * 8 + n_win * 12 + n_recv * 4 + RL * 8
+                + 16 * A + 4 * RL + 8)
+    table, n_out, send, reply, pair = args
+    A = table.shape[1]
+    n_sent = int((send[:, 0] != KSENT).sum())
+    n_live = min(int(n_out), A)
+    return n_live * 16 + 8 + send[:, 0].numel() * 8 + n_sent * 4 + A * 12 \
+        + n_sent * 4
+
+
+def reduction_split(stk, mk, opt, d, reps=5):
+    """post_reductions_sharded on the card split into its parts, each
+    between synchronisations, best of `reps`, for the whole dataset (world
+    1) and for rank 0's share at world 4 (its genomes, stacked as that rank
+    stacks them; no collective): the host's stacking of the rank's rows
+    end to end (stacked.stack_reductions), the upload, the device
+    (reduction_step: one protein_reduce launch), the pull. Then
+    protein_reduce on the whole dataset in the flat layout (the main
+    path's) and in the padded [G, H] stack, each against its plain version
+    exactly, its device time in a CUDA graph, its bound on that layout's
+    data (reduction_bound_bytes) and the plain version's time; and
+    the same seven sums by two library calls on the flat layout, one
+    scatter_reduce_ (the maximum) and one index_add_ of an [N, 6] int64
+    block (the six sums), their masks made beforehand; both must equal
+    protein_reduce's. Returns a dict of ms."""
     from pangene_tpu_torch.parallel import mesh as M
-    want = stk.post_reductions_sharded(opt, d)
-    mesh = M.make_mesh(opt.n_devices, opt.device)
-    G = M.pad_genomes(d.n_genome, mesh)
-    H = max(max((g.n_hit for g in d.genomes), default=1), 1)
+    mx, z, (c, s) = stk.post_reductions_sharded(opt, d)
+    dev = torch.device(DEVICE)
     P = max(d.n_prot, 1)
     best = {}
 
@@ -1306,43 +1403,67 @@ def reduction_split(stk, opt, d, reps=5):
         t1 = time.monotonic()
         best[name] = min(best.get(name, 1e9), 1e3 * (t1 - t0))
         return t1
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t = time.monotonic()
-        i32 = stk._host_array((len(stk.REDUCTION_COLS), G, H), np.int32, True)
-        i32.fill(0)
-        flt = stk._host_array((G, H), np.uint8, True)
-        flt.fill(1)
-        n_rows = stk._host_array((G,), np.int32, True)
-        n_rows.fill(0)
-        for j, g in enumerate(d.genomes):
-            h = g.hits
-            n = len(h)
-            n_rows[j] = n
-            for k, name in enumerate(stk.REDUCTION_COLS):
-                i32[k, j, :n] = h.cols[name]
-            flt[j, :n] = h.flt
-        t = lap("stacking", t)
-        cols = (M.put_sharded(i32, mesh, 1), M.put_sharded(flt, mesh),
-                M.put_sharded(n_rows, mesh))
-        t = lap("upload", t)
-        outs = stk.reduction_step(*cols[0], cols[1], cols[2], n_prot=P)
-        t = lap("device", t)
-        arr = torch.cat([o.to(torch.int64) for o in outs]).cpu().numpy()
-        lap("pull", t)
-    mx, z, (c, s) = want
-    if not (np.array_equal(arr[:d.n_prot], mx)
-            and np.array_equal(arr[P:P + d.n_prot], c[:, 0])):
-        raise AssertionError("reduction split != post_reductions_sharded")
-    pid, so, sa, n_exon, rank = cols[0]
-    fl, nr = cols[1], cols[2]
-    best["reduction_step"] = graph_ms(
-        lambda: stk.reduction_step(pid, so, sa, n_exon, rank, fl, nr,
-                                   n_prot=P), 20)
-    # the library calls' inputs: the clamped ids, the masked maximum's
-    # values and the six sums' columns
-    va = (torch.arange(H, device=pid.device)[None, :]
-          < nr[:, None]).reshape(-1)
+    for world in (1, 4):
+        m = M.Mesh(world, 0, dev, None, None)
+        sfx = "" if world == 1 else "_w4_rank0"
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            buf, N = stk.stack_reductions(d, m, True)
+            t = lap("stacking" + sfx, t)
+            cols = stk.reduction_views(
+                torch.from_numpy(buf).to(dev, non_blocking=True), N)
+            t = lap("upload" + sfx, t)
+            outs = stk.reduction_step(*cols, n_prot=P)
+            t = lap("device" + sfx, t)
+            arr = torch.cat([o.to(torch.int64) for o in outs]).cpu().numpy()
+            lap("pull" + sfx, t)
+        best["rows" + sfx] = int(cols[6][0])
+        if world == 1:
+            flat = cols
+            if not (np.array_equal(arr[:d.n_prot], mx)
+                    and np.array_equal(arr[P:P + d.n_prot], c[:, 0])):
+                raise AssertionError("reduction split != "
+                                     "post_reductions_sharded")
+    # the padded [G, H] stack of the same rows
+    G = d.n_genome
+    H = max(max((g.n_hit for g in d.genomes), default=1), 1)
+    i32 = np.zeros((len(stk.REDUCTION_COLS), G, H), np.int32)
+    flt = np.ones((G, H), np.uint8)
+    n_rows = np.zeros(G, np.int32)
+    for j, g in enumerate(d.genomes):
+        n = g.n_hit
+        n_rows[j] = n
+        for k, name in enumerate(stk.REDUCTION_COLS):
+            i32[k, j, :n] = g.hits.cols[name]
+        flt[j, :n] = g.hits.flt
+    t = lambda a: torch.from_numpy(a).to(dev)
+    padded = tuple(t(x) for x in i32) + (t(flt), t(n_rows))
+    for layout, args in (("flat", flat), ("padded", padded)):
+        got = mk.protein_reduce(*args, n_prot=P)
+        want = mk.protein_reduce_plain(*args, n_prot=P)
+        for a, b in zip(got, want):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError("protein_reduce != plain (%s layout)"
+                                     % layout)
+        if layout == "flat" and not (
+                np.array_equal(got[0][:d.n_prot].cpu().numpy(), mx)
+                and np.array_equal(got[1][:2, :d.n_prot].t().cpu().numpy(),
+                                   c)):
+            raise AssertionError("protein_reduce != post_reductions_sharded")
+        sfx = "" if layout == "flat" else "_padded"
+        nbytes = reduction_bound_bytes(*args, P)
+        best["bound_bytes" + sfx] = nbytes
+        best["bound" + sfx] = nbytes / HBM_BYTES_PER_S * 1e3
+        best["protein_reduce" + sfx] = graph_ms(
+            lambda: mk.protein_reduce(*args, n_prot=P), 20)
+        best["plain" + sfx] = stream_ms(
+            lambda: mk.protein_reduce_plain(*args, n_prot=P), 5)
+    # the library calls' inputs on the flat layout: the clamped ids, the
+    # masked maximum's values and the six sums' columns
+    pid, so, sa, n_exon, rank, fl, nr = flat
+    N = pid.shape[1]
+    va = (torch.arange(N, device=dev)[None, :] < nr[:, None]).reshape(-1)
     ids = pid.reshape(-1).clamp(0, P - 1).long()
     sof = so.reshape(-1)
     multi = n_exon.reshape(-1) != 1
@@ -1355,17 +1476,17 @@ def reduction_split(stk, opt, d, reps=5):
         torch.where(r0, sa.reshape(-1).long(), 0),
         torch.where(r0, one, 0)], 1).contiguous()
     mvals = torch.where(va, sof, 0)
-    mx_out = torch.zeros(P, dtype=torch.int32, device=pid.device)
-    sum_out = torch.zeros((P, 6), dtype=torch.int64, device=pid.device)
+    mx_out = torch.zeros(P, dtype=torch.int32, device=dev)
+    sum_out = torch.zeros((P, 6), dtype=torch.int64, device=dev)
 
     def library():
         mx_out.zero_().scatter_reduce_(0, ids, mvals, "amax",
                                        include_self=True)
         sum_out.zero_().index_add_(0, ids, vals)
     library()
-    if not (torch.equal(mx_out, outs[0])
-            and torch.equal(sum_out.t(), torch.stack(outs[1:]))):
-        raise AssertionError("the library calls != reduction_step")
+    got = mk.protein_reduce(*flat, n_prot=P)
+    if not (torch.equal(mx_out, got[0]) and torch.equal(sum_out.t(), got[1])):
+        raise AssertionError("the library calls != protein_reduce")
     best["library"] = graph_ms(library, 20)
     best["library_max"] = graph_ms(lambda: mx_out.scatter_reduce_(
         0, ids, mvals, "amax", include_self=True), 20)
@@ -1384,9 +1505,9 @@ def compare_step(stk, sk, genomes, dev, check_strand, use_ori, f):
     cols, flt, shadow, weak, g2s, W = stack_cols(genomes, dev, seed=1)
     kw = dict(W=W, min_ov_ratio=f, check_strand=check_strand,
               use_ori=use_ori)
-    before = sk.n_batched["kernel"]
+    before = sk.n_batched()["kernel"]
     got = stk.round_step(cols, flt, shadow, weak, g2s, **kw)
-    if sk.n_batched["kernel"] != before + 1:
+    if sk.n_batched()["kernel"] != before + 1:
         raise AssertionError("the step did not launch the batched kernel")
     c = stack_cols(genomes, torch.device("cpu"), seed=1)
     host = stk.round_step(*c[:5], **kw)
@@ -1440,15 +1561,16 @@ def run_session(cmd, timeout, env):
 
 def mesh_phase(corpora):
     """Phase 3e: the MESH_RUNS whose corpus was built, each checked; returns
-    ({key: record}, batched launches, {loop kernel: launches} and
-    {FUSED_KERNELS name: launches}, summed over every rank of every
-    run)."""
+    ({key: record}, batched launches, {loop kernel: launches},
+    {FUSED_KERNELS name: launches} and {MESH_KERNELS name: launches},
+    summed over every rank of every run)."""
     from pangene_tpu_torch.parallel.mesh import SHARE_DEVICE_ENV
     from pangene_tpu_torch.testing import REPORT_TAG, run_ranks
     runs = {}
     launches = 0
     loop_launches = {k: 0 for k in LOOP_KERNELS}
     step_launches = {k: 0 for k in FUSED_KERNELS}
+    mesh_launches = {k: 0 for k in MESH_KERNELS}
     for key, name, world, how, extra in MESH_RUNS:
         if name not in corpora:
             continue
@@ -1527,19 +1649,29 @@ def mesh_phase(corpora):
                     bad.append("loop %s, step kernels %s" % (last, fl))
                 if world > 2 and not last.get("shard_merge"):
                     bad.append("no bucket exchange at world %d" % world)
+            # one protein_reduce a build at world > 1 (post_process); the
+            # exchange's three kernels once an in-loop merge at world > 2
+            # (merge_fold's launches less the full tail's)
+            ml = rep["mesh_launches"]
+            n_merge = ll["merge_fold"] - 1 if world > 2 and last else 0
+            want_ml = dict({k: n_merge for k in MESH_KERNELS[1:]},
+                           protein_reduce=int(world > 1))
+            if ml != want_ml or (world > 2 and last and n_merge < 1):
+                bad.append("mesh kernels %s, expected %s" % (ml, want_ml))
             if bad:
                 raise AssertionError("%s rank %d: %s" % (key, rep["rank"],
                                                          "; ".join(bad)))
             launches += rep["batched_launches"]
             add_loop_launches(loop_launches, ll)
             add_loop_launches(step_launches, fl)
+            add_loop_launches(mesh_launches, ml)
             keep = ("pack_s", "upload_s", "run_s", "pull_s", "host_syncs",
                     "collective_calls", "collective_s", "staged_bytes",
                     "upload_bytes")
             rec["ranks"].append(dict(
                 rank=rep["rank"], md5=rep["md5"], wall_s=rep["wall_s"],
                 batched_launches=rep["batched_launches"],
-                loop_launches=ll, step_launches=fl,
+                loop_launches=ll, step_launches=fl, mesh_launches=ml,
                 peak_device_bytes=rep["peak_device_bytes"],
                 mesh_calls=rep["mesh"]["calls"],
                 mesh_collective_s=round(rep["mesh"]["collective_s"], 3),
@@ -1554,7 +1686,7 @@ def mesh_phase(corpora):
                     if k in rounds}))
         runs[key] = rec
         log("mesh %s: %s" % (key, json.dumps(rec)))
-    return runs, launches, loop_launches, step_launches
+    return runs, launches, loop_launches, step_launches, mesh_launches
 
 
 def corpus_dir(name):
@@ -1659,6 +1791,7 @@ def smoke(names, draws):
     from pangene_tpu_torch.ops import device_engine as de
     from pangene_tpu_torch.ops import dispatch
     from pangene_tpu_torch.ops import loop_kernels as lk
+    from pangene_tpu_torch.ops import mesh_kernels as mkk
     from pangene_tpu_torch.ops import step_kernels as stkk
     from pangene_tpu_torch.ops import sweep_kernel as sk
     from pangene_tpu_torch.ops import sweep_native as sn
@@ -1667,10 +1800,11 @@ def smoke(names, draws):
     from pangene_tpu_torch.parallel import device_loop as dl
     from pangene_tpu_torch.parallel import stacked as stk
     from pangene_tpu_torch.testing import (BRANCH_B, EXACT_BRANCH_DIFFS,
-                                           ROUND_STATES, SEEN_SMEM_GENES,
-                                           STEP_STATES, SWEEP_EDGE_CASES,
-                                           WALK_FORMS, band_genome,
-                                           branch_table, deficit_ratios,
+                                           EXCHANGE_STATES, ROUND_STATES,
+                                           SEEN_SMEM_GENES, STEP_STATES,
+                                           SWEEP_EDGE_CASES, WALK_FORMS,
+                                           band_genome, branch_table,
+                                           deficit_ratios, exchange_calls,
                                            fold_inputs, make_state,
                                            ordcm_locality, random_genome,
                                            round_calls, sector_shares,
@@ -1687,13 +1821,13 @@ def smoke(names, draws):
                                          torch.version.cuda))
     # one nvcc for each kernel source, all started together
     t0 = time.monotonic()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         builds = {src: pool.submit(build, True) for src, build in (
             ("shadow_sweep.cu", sk.build), ("loop_blocks.cu", lk.build),
             ("loop_round.cu", lk.build_round),
-            ("step_round.cu", stkk.build))}
+            ("step_round.cu", stkk.build), ("mesh_round.cu", mkk.build))}
         builds = {src: f.result() for src, f in builds.items()}
-    log("build: the four kernel sources in %.2f s"
+    log("build: the five kernel sources in %.2f s"
         % (time.monotonic() - t0))
     for src, (build_s, ptxas) in builds.items():
         log("build: nvcc %s %.2f s" % (src, build_s))
@@ -2009,6 +2143,7 @@ def smoke(names, draws):
         sk.reset_counts()
         lk.reset_counts()
         stkk.reset_counts()
+        mkk.reset_counts()
         sn.reset_counts()
         dl.LAST.clear()
         stk.LAST.clear()
@@ -2027,7 +2162,7 @@ def smoke(names, draws):
         wall = time.monotonic() - t0
         counts = dict(sk.n_kernel_launches)
         plain = dict(sk.n_plain_calls)
-        batched = dict(sk.n_batched)
+        batched = sk.n_batched()
         loop = {k: c["kernel"] for k, c in lk.n_calls.items()}
         step = fused_counts(sk, stkk)
         native = {k: v for k, v in sn.n_calls.items() if v}
@@ -2046,7 +2181,9 @@ def smoke(names, draws):
             "plain_calls": (sum(plain.values()) + batched["plain"]
                             + sum(c["plain"] for c in lk.n_calls.values())
                             + sum(c["plain"]
-                                  for c in stkk.n_calls.values())),
+                                  for c in stkk.n_calls.values())
+                            + sum(c["plain"]
+                                  for c in mkk.n_calls.values())),
             "native_calls": native,
             "peak_device_bytes": torch.cuda.max_memory_allocated(),
             "env": env, "draws_running": running}
@@ -2294,15 +2431,12 @@ def smoke(names, draws):
                 # the protein-keyed reductions on the card against the host
                 # loops
                 card_s, host_s = compare_reductions(stk, opt_cuda, graph.d)
-                red_ms, red_bytes = reduction_bound_ms(graph.d)
                 runs[name + "_rounds"]["reductions_s"] = {
-                    "card": round(card_s, 4), "host_loops": round(host_s, 4),
-                    "bound_ms": red_ms}
+                    "card": round(card_s, 4), "host_loops": round(host_s, 4)}
                 log("reductions %s: post_reductions_sharded == host loops (%d"
                     " proteins); card %.4f s (stacking, upload, 7 reductions,"
-                    " one pull), host loops %.4f s; reduction_step bound %.6f"
-                    " ms (%d bytes)" % (name, graph.d.n_prot, card_s, host_s,
-                                        red_ms, red_bytes))
+                    " one pull), host loops %.4f s" % (
+                        name, graph.d.n_prot, card_s, host_s))
             del graph
 
     # beside the north star's draw: the in-process runs of the corpora
@@ -2316,13 +2450,15 @@ def smoke(names, draws):
             take(name)
     t0 = time.monotonic()
     log("mesh phase beside the draws %s" % draws_running())
-    mesh_runs, mesh_launches, mesh_loop_launches, mesh_step_launches = \
-        mesh_phase(corpora)
+    (mesh_runs, mesh_launches, mesh_loop_launches, mesh_step_launches,
+     mesh_kernel_launches) = mesh_phase(corpora)
     runs["mesh"] = mesh_runs
-    log("mesh phase: %d runs, %d batched launches, loop kernel launches %s "
-        "and fused / step kernel launches %s over every rank, %.1f s" % (
+    log("mesh phase: %d runs, %d batched launches, loop kernel launches %s, "
+        "fused / step kernel launches %s and mesh kernel launches %s over "
+        "every rank, %.1f s" % (
             len(mesh_runs), mesh_launches, json.dumps(mesh_loop_launches),
-            json.dumps(mesh_step_launches), time.monotonic() - t0))
+            json.dumps(mesh_step_launches),
+            json.dumps(mesh_kernel_launches), time.monotonic() - t0))
     # then, once no draw runs, the other corpora's in-process runs
     for name in names:
         if name not in BESIDE_DRAW:
@@ -2331,8 +2467,11 @@ def smoke(names, draws):
             in_process(name)
     dispatch.shadow, dispatch.flt_ov_isoform = untimed
     dl.schedule_device = schedule_device
-    # then the builds as a user runs them, every draw ended
+    # then the builds as a user runs them, every draw ended; small's only
+    # when the toolkit needs its GFA (no big corpus in the run)
     for name in names:
+        if name == "small" and "big" in names:
+            continue
         for kind, path in (("default", "sharded"), ("host", "host")):
             key = "%s_%s_process" % (name, kind)
             built[key], _ = build_process(
@@ -2406,6 +2545,16 @@ def smoke(names, draws):
     g = max(graph.d.genomes, key=lambda x: x.n_hit)
     hit_sort(g, by_cm=False)
     kernels = []
+    # the mesh kernels: launches from the mesh's ranks (3e) only
+    mesh_recs = {name: {
+        "name": name, "route": "cuda",
+        "source": "pangene_tpu_torch/csrc/mesh_round.cu",
+        "replaces": replaces, "launches": mesh_kernel_launches[name],
+        "max_abs_err": 0, "library_ms": None} for name, replaces in (
+            ("protein_reduce", "pangene_tpu/parallel/stacked.py:428"),
+            ("exchange_pack", "pangene_tpu/parallel/device_loop.py:325"),
+            ("exchange_window", "pangene_tpu/parallel/device_loop.py:377"),
+            ("exchange_finish", "pangene_tpu/parallel/device_loop.py:393"))}
     states = {"unfiltered": np.zeros_like(g.hits.flt),
               "final": g.hits.flt.copy()}
     for mode, replaces in ((sk.SHADOW, "pangene_tpu/ops/pallas_sweep.py:57"),
@@ -2506,11 +2655,14 @@ def smoke(names, draws):
              "pangene_tpu/parallel/stacked.py:117"))}
     fused_recs["sweep_round_loop"].update(
         fused_on_loop(sk, dl, kept["big"], "big"))
-    # one kernel: its launches on the main path are all with an epilogue
+    # one kernel: every launch has an epilogue (the three planes are STEP
+    # on a zeroed shadow plane)
     by_epi = {e: fused_recs["sweep_round_" + e]["launches"]
               for e in ("loop", "step")}
-    batched_rec["launches_by_epilogue"] = dict(
-        none=batched_rec["launches"] - sum(by_epi.values()), **by_epi)
+    if sum(by_epi.values()) != batched_rec["launches"]:
+        raise AssertionError("batched launches %d != by epilogue %s" % (
+            batched_rec["launches"], by_epi))
+    batched_rec["launches_by_epilogue"] = by_epi
     cfg = kept["big"]["cfg"]
     G, H = kept["big"]["blocks"][0].shape[1:3]
 
@@ -2646,17 +2798,31 @@ def smoke(names, draws):
     red = runs["big_rounds"]["reductions_s"]
     log("reductions, big corpus: card %.4f s, host loops %.4f s"
         % (red["card"], red["host_loops"]))
-    split = reduction_split(stk, opt_cuda, rounds_graph.d)
+    split = reduction_split(stk, mkk, opt_cuda, rounds_graph.d)
     runs["big_rounds"]["reductions_split_ms"] = split
-    log("REDUCTIONS big (G %d H %d, %d proteins), best of 5, ms: host "
-        "stacking %.4f, upload %.4f, device %.4f, pull %.4f; reduction_step "
-        "device time %.5f (CUDA graph); the same seven sums by one "
+    log("REDUCTIONS big (G %d, %d rows, padded H %d, %d proteins), best of "
+        "5, ms: world 1: host stacking %.4f, upload %.4f, device %.4f, pull "
+        "%.4f; rank 0 of 4 (%d rows): stacking %.4f, upload %.4f, device "
+        "%.4f, pull %.4f. protein_reduce device time (CUDA graph) flat "
+        "%.5f, padded %.5f (plain %.3f / %.3f); the same seven sums by one "
         "scatter_reduce_ and one index_add_ %.5f (max %.5f, sums %.5f); "
-        "bound %.6f" % (
-            split["G"], split["H"], split["n_prot"], split["stacking"],
-            split["upload"], split["device"], split["pull"],
-            split["reduction_step"], split["library"], split["library_max"],
-            split["library_sums"], red["bound_ms"]))
+        "bound flat %.6f (%d bytes), padded %.6f (%d bytes); kernel == "
+        "plain in both layouts" % (
+            split["G"], split["rows"], split["H"], split["n_prot"],
+            split["stacking"], split["upload"], split["device"],
+            split["pull"], split["rows_w4_rank0"],
+            split["stacking_w4_rank0"], split["upload_w4_rank0"],
+            split["device_w4_rank0"], split["pull_w4_rank0"],
+            split["protein_reduce"], split["protein_reduce_padded"],
+            split["plain"], split["plain_padded"], split["library"],
+            split["library_max"], split["library_sums"], split["bound"],
+            split["bound_bytes"], split["bound_padded"],
+            split["bound_bytes_padded"]))
+    mesh_recs["protein_reduce"].update(
+        ms=split["protein_reduce"], plain_ms=split["plain"],
+        bound_ms=split["bound"], bound_by="bytes",
+        library_ms=split["library"], ms_padded=split["protein_reduce_padded"],
+        bound_ms_padded=split["bound_padded"])
 
     # 4c. colsort_i64 against torch.sort at the loop's merge key count; its
     # bound: each int64 key read once and written once
@@ -2829,6 +2995,52 @@ def smoke(names, draws):
                         "bound_ms" + ksfx: b_ms, "bound_by" + ksfx: "bytes"})
     kernels.extend(loop_recs.values())
     kernels.extend(fused_recs.values())
+
+    # 4e. the bucket exchange's kernels at the world-4 shape of the big and
+    # north-star loops (rank r of 4 holds G_loc = Gp / 4 genomes of the
+    # loop's H rows; the loop's S and A): every testing.exchange_calls
+    # state, every rank, each kernel == plain, eager and in a CUDA graph
+    # replayed twice; timed on rank 0 of the ordinary state
+    for cname in ("big", "northstar"):
+        cfg = kept[cname]["cfg"]
+        G = kept[cname]["blocks"][0].shape[1]
+        G_loc = -(-G // 4)
+        sfx = "" if cname == "big" else "_" + cname
+        t0 = time.monotonic()
+        for which in EXCHANGE_STATES:
+            meta, calls = exchange_calls(which, 17, dev, nd=4, G_loc=G_loc,
+                                         H=cfg.H, S=cfg.S, A=cfg.A)
+            for r, call in enumerate(calls):
+                for name in ("pack", "window", "finish"):
+                    args, kw = call[name]
+                    compare_mesh_kernel(mkk, name, args, kw)
+            if which != "ordinary":
+                continue
+            for name in ("pack", "window", "finish"):
+                args, kw = calls[0][name]
+                fn = getattr(mkk, "exchange_" + name)
+                plain = getattr(mkk, "exchange_%s_plain" % name)
+                got = fn(*args, **kw)
+                ms = graph_ms(lambda: fn(*args, **kw), TIMED_LAUNCHES)
+                plain_ms = stream_ms(lambda: plain(*fresh_args(name, args),
+                                                   **kw), 5)
+                nbytes = exchange_bound_bytes(name, args, kw, got)
+                b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                log("MESH KERNEL %s exchange_%s (world 4, rank 0; NL %d, C "
+                    "%d, RL %d, A %d, %d keys sent): ms %.5f plain_ms %.3f "
+                    "bound_ms %.6f (bytes; %d bytes); kernel == plain" % (
+                        cname, name, meta["NL"], meta["C"], 4 * meta["C"],
+                        meta["A"], int((calls[0]["finish"][0][2][:, 0]
+                                        != lk.KSENT_I).sum()), ms, plain_ms,
+                        b_ms, nbytes))
+                mesh_recs["exchange_" + name].update({
+                    "ms" + sfx: ms, "plain_ms" + sfx: plain_ms,
+                    "bound_ms" + sfx: b_ms, "bound_by" + sfx: "bytes"})
+        log("exchange kernels %s (G_loc %d, H %d, S %d, A %d): %d states x 4 "
+            "ranks, each kernel == plain, also in a CUDA graph (%.1f s)" % (
+                cname, G_loc, cfg.H, cfg.S, cfg.A, len(EXCHANGE_STATES),
+                time.monotonic() - t0))
+    kernels.extend(mesh_recs.values())
     kept.clear()
 
     log(smi)

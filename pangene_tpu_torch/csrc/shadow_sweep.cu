@@ -67,7 +67,7 @@
 // Input and output are one packed buffer each (ops/sweep_kernel.py:
 // pack_layout, out_layout): every column at a 16-byte-aligned byte offset.
 //
-// The batched entry (pg_shadow_sweep_batched) runs mode SHADOW over the
+// The batched entry (pg_shadow_sweep_round) runs mode SHADOW over the
 // H-padded [G, H] columns that the device-resident pruning loop and the
 // per-round step keep on the card (parallel/device_loop.py,
 // parallel/stacked.py), all genomes in one launch; genome g's hits are rows
@@ -91,11 +91,12 @@
 // and the argmax are the per-genome tile's, so the exactness argument is
 // the same.
 //
-// The batched entry's epilogue (pg_shadow_sweep_round), a compile-time
-// mode of the same kernel. Where one thread holds a row's final (mark,
-// best score, best other), the row's round update is applied there instead
-// of writing three [G, H] planes (13 bytes a row) that a chain of about a
-// dozen torch operations read back:
+// The batched entry's epilogue, a compile-time mode of the same kernel
+// (the per-genome entry's kEpiNone writes the three planes marks, score,
+// other). Where one thread holds a row's final (mark, best score, best
+// other), the row's round update is applied there instead of writing three
+// [G, H] planes (13 bytes a row) that a chain of about a dozen torch
+// operations read back:
 //  * LOOP (the device loop's sweep block, JAX
 //    pangene_tpu/parallel/device_loop.py:758-775): the stale-flag merge
 //    shadow = evaluated ? mark : (shadow != 0) | mark, evaluated = unfiltered
@@ -110,7 +111,10 @@
 // Rows past n (padding) get the update too, with no mark and no dominator,
 // as the JAX epilogue gives them. shadow and pid_dom are updated in place:
 // the sweep never reads either (its inputs are the columns, flt and weak),
-// and each row is read and written by the one thread that owns it.
+// and each row is read and written by the one thread that owns it. On a
+// zeroed shadow plane STEP leaves each row's mark in it (the merge of a 0
+// is the mark), so the three planes of the batched sweep are STEP's
+// shadow, score and other; there is no entry without an epilogue.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -138,7 +142,7 @@ constexpr int kNarrow = 1 << 29;
 constexpr int64_t kScoreNone = -9223372036854775807LL - 1;  // biased raw 0
 constexpr int32_t kOtherNone = 2147483647;
 // The batched entry's epilogue modes (ops/sweep_kernel.py: EPI_*).
-constexpr int kEpiNone = 0;   // the three planes: marks, score, other
+constexpr int kEpiNone = 0;   // the per-genome entry's three planes
 constexpr int kEpiLoop = 1;   // the device loop's shadow and pid_dom
 constexpr int kEpiStep = 2;   // the per-round step's shadow, score, other
 constexpr int kStepKeyBits = 44;                    // cid << 44 | cm
@@ -911,9 +915,7 @@ BatchKernel batch_kernel(bool tile) {
 cudaError_t batch_launch(int G, int H, int W, int epi, BatchLaunch* L) {
   batch_tile_shape(W, &L->halo, &L->chunk);
   const bool tile = L->halo == W;
-  if (epi == kEpiNone)
-    L->kernel = batch_kernel<kEpiNone>(tile);
-  else if (epi == kEpiLoop)
+  if (epi == kEpiLoop)
     L->kernel = batch_kernel<kEpiLoop>(tile);
   else if (epi == kEpiStep)
     L->kernel = batch_kernel<kEpiStep>(tile);
@@ -1021,27 +1023,11 @@ extern "C" int pg_shadow_sweep(const void* in, const long long* in_off,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One launch on `stream` of mode SHADOW over G genomes of H-padded columns:
-// cols holds the kNumCols device pointers in the packed input's column order
-// ([G, H] planes; the two exon pools [G, E]), n_rows the int32 [G] hit
-// counts on the device; marks, best_score and best_other are [G, H] planes.
-// Returns cudaGetLastError() (0 on success).
-extern "C" int pg_shadow_sweep_batched(const void* const* cols,
-                                       const void* n_rows, int G, int H,
-                                       int E, int W, int check_strand,
-                                       double f, void* marks,
-                                       void* best_score, void* best_other,
-                                       void* stream) {
-  Epi e = {};
-  e.marks = static_cast<uint8_t*>(marks);
-  e.score = static_cast<int64_t*>(best_score);
-  e.other = static_cast<int32_t*>(best_other);
-  return launch_batched(cols, n_rows, G, H, E, W, check_strand, f, kEpiNone,
-                        e, stream);
-}
-
-// The same launch with the round's epilogue fused (mode 1 LOOP, 2 STEP;
-// see the top of this file); [G, H] planes: shadow uint8 (in place); LOOP:
+// One launch on `stream` of mode SHADOW over G genomes of H-padded columns
+// with the round's epilogue fused (mode 1 LOOP, 2 STEP; see the top of
+// this file): cols holds the kNumCols device pointers in the packed input's
+// column order ([G, H] planes; the two exon pools [G, E]), n_rows the int32
+// [G] hit counts on the device; [G, H] planes: shadow uint8 (in place); LOOP:
 // ev1 uint8, pid int32, pid_dom int32 (in place); STEP: cm int64 read,
 // best_score int64, best_other int32 and key int64 written. The pointers
 // of the other mode may be null. Returns cudaGetLastError() (0 on

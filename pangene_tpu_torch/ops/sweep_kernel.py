@@ -18,14 +18,15 @@ with the largest winner score, ties to the smallest winner index, with the
 pair's ov. That lexicographic argmax equals the reference's first-max-wins
 chronological scan (ops/sweep.py:149-156 of the JAX package).
 
-shadow_sweep_batched is the same kernel in SHADOW mode over the H-padded
+The batched entry is the same kernel in SHADOW mode over the H-padded
 columns of many genomes at once (the device-resident loop's layout,
-parallel/device_loop.py): one launch over (genome, tile). Its plain version
-is the split form of ops/device.py. sweep_round_loop and sweep_round_step
-are that launch with the round's epilogue fused into the kernel (the
-device loop's sweep block; the per-round step's sweep and sort key): their
-plain versions are shadow_sweep_batched_plain followed by
-sweep_epilogue_plain.
+parallel/device_loop.py): one launch over (genome, tile), always with the
+round's epilogue fused into the kernel: sweep_round_loop (the device
+loop's sweep block) and sweep_round_step (the per-round step's sweep and
+sort key); their plain versions are shadow_sweep_batched_plain (the split
+form of ops/device.py) followed by sweep_epilogue_plain.
+shadow_sweep_batched, the sweep's three planes (marks, score, other), is
+the STEP launch on a zeroed shadow plane, its key dropped.
 
 The packed score is the reference's uint64 score_adj<<33 | pref<<32 |
 hash(pid). torch has poor uint64 support, so it travels as int64
@@ -63,18 +64,24 @@ STEP_KEY_PAD = 1 << 62             # its key past a genome's rows
 # reset_counts() zeroes both; chip_smoke.py reads them around the main path.
 n_kernel_launches = {SHADOW: 0, ISOFORM: 0}
 n_plain_calls = {SHADOW: 0, ISOFORM: 0}
-# The same two counts for the batched entry, its fused forms included
-# (shadow_sweep_batched, sweep_round_loop, sweep_round_step): one a sweep
-# round. n_fused counts the fused forms alone, by epilogue.
-n_batched = {"kernel": 0, "plain": 0}
+# The same two counts for the batched entry, by its epilogue: "loop"
+# (sweep_round_loop), "step" (sweep_round_step and shadow_sweep_batched,
+# which launches STEP).
 n_fused = {e: {"kernel": 0, "plain": 0} for e in ("loop", "step")}
+
+
+def n_batched() -> dict:
+    """The batched entry's launches and plain calls over both epilogues:
+    one a sweep round."""
+    return {k: sum(c[k] for c in n_fused.values()) for k in ("kernel",
+                                                              "plain")}
 
 
 def reset_counts() -> None:
     for m in (SHADOW, ISOFORM):
         n_kernel_launches[m] = 0
         n_plain_calls[m] = 0
-    for c in [n_batched] + list(n_fused.values()):
+    for c in n_fused.values():
         for k in c:
             c[k] = 0
 
@@ -359,33 +366,23 @@ def shadow_sweep_batched(bc: BatchCols, flt: torch.Tensor,
     weak (uint8 [G, H]), with one band W for all: (marks uint8, best_score
     int64 biased, best_other int32), [G, H] each; rows past a genome's
     n_rows come back unmarked with no dominator. On cuda it is one launch
-    of the kernel over (genome, tile) or it raises; on the CPU it is the
-    plain version (ops/device.py: sweep_geo_planes + shadow_round_kernel).
-    `geo`, a dict the caller keeps for one `bc`, lets the plain version
-    compute its round-invariant planes once."""
+    of the kernel over (genome, tile) with the STEP epilogue on a zeroed
+    shadow plane, which then holds the marks (its sort key dropped), or it
+    raises; on the CPU it is the plain version (ops/device.py:
+    sweep_geo_planes + shadow_round_kernel). `geo`, a dict the caller keeps
+    for one `bc`, lets the plain version compute its round-invariant planes
+    once. Counted under n_fused["step"]."""
     dev, G, H, E = _check_batched(bc, flt, weak, W)
     if dev.type == "cpu":
-        n_batched["plain"] += 1
+        n_fused["step"]["plain"] += 1
         return shadow_sweep_batched_plain(bc, flt, weak, W, check_strand,
                                           min_ov_ratio, geo)
     if dev.type != "cuda":
         raise ValueError("shadow_sweep runs on cuda or cpu, not %s" % dev)
-    marks = torch.empty((G, H), dtype=torch.uint8, device=dev)
-    score = torch.empty((G, H), dtype=torch.int64, device=dev)
-    other = torch.empty((G, H), dtype=torch.int32, device=dev)
-    if G == 0 or H == 0:
-        return marks, score, other
-    lib = _kernel_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pg_shadow_sweep_batched(
-            _col_ptrs(bc, flt, weak), bc.n_rows.data_ptr(), G, H, E, W,
-            int(bool(check_strand)), float(min_ov_ratio), marks.data_ptr(),
-            score.data_ptr(), other.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("batched shadow_sweep kernel launch failed: CUDA "
-                           "error %d" % err)
-    n_batched["kernel"] += 1
+    marks = torch.zeros((G, H), dtype=torch.uint8, device=dev)
+    score, other, _ = sweep_round_step(
+        bc, flt, weak, W, check_strand, min_ov_ratio, marks,
+        torch.zeros((G, H), dtype=torch.int64, device=dev))
     return marks, score, other
 
 
@@ -474,7 +471,6 @@ def sweep_round_loop(bc: BatchCols, flt: torch.Tensor, weak: torch.Tensor,
                    ("ev1", ev1, torch.uint8), ("pid", pid, torch.int32)],
                   dev, (G, H))
     if dev.type == "cpu":
-        n_batched["plain"] += 1
         n_fused["loop"]["plain"] += 1
         marks, score, other = shadow_sweep_batched_plain(
             bc, flt, weak, W, check_strand, min_ov_ratio, geo)
@@ -485,7 +481,6 @@ def sweep_round_loop(bc: BatchCols, flt: torch.Tensor, weak: torch.Tensor,
         raise ValueError("shadow_sweep runs on cuda or cpu, not %s" % dev)
     _launch_round(EPI_LOOP, bc, flt, weak, W, check_strand, min_ov_ratio,
                   shadow, ev1=ev1, pid=pid, pid_dom=pid_dom)
-    n_batched["kernel"] += 1
     n_fused["loop"]["kernel"] += 1
 
 
@@ -506,7 +501,6 @@ def sweep_round_step(bc: BatchCols, flt: torch.Tensor, weak: torch.Tensor,
     _check_planes([("shadow", shadow, torch.uint8),
                    ("cm", cm, torch.int64)], dev, (G, H))
     if dev.type == "cpu":
-        n_batched["plain"] += 1
         n_fused["step"]["plain"] += 1
         marks, score, other = shadow_sweep_batched_plain(
             bc, flt, weak, W, check_strand, min_ov_ratio, geo)
@@ -520,7 +514,6 @@ def sweep_round_step(bc: BatchCols, flt: torch.Tensor, weak: torch.Tensor,
     key = torch.empty((G, H), dtype=torch.int64, device=dev)
     _launch_round(EPI_STEP, bc, flt, weak, W, check_strand, min_ov_ratio,
                   shadow, cm=cm, score=score, other=other, key=key)
-    n_batched["kernel"] += 1
     n_fused["step"]["kernel"] += 1
     return score, other, key
 
@@ -573,9 +566,10 @@ def launch_shape(n: int, W: int) -> dict:
                      "registers", "halo", "chunk"), info))
 
 
-def launch_shape_batched(G: int, H: int, W: int, epi: int = 0) -> dict:
+def launch_shape_batched(G: int, H: int, W: int,
+                         epi: int = EPI_STEP) -> dict:
     """The batched entry's launch for G genomes of H rows and band W (with
-    the fused epilogue `epi`: 0, EPI_LOOP or EPI_STEP), from the CUDA
+    the fused epilogue `epi`: EPI_LOOP or EPI_STEP), from the CUDA
     runtime: (genome, tile) items, persistent blocks, threads, dynamic
     shared bytes, resident blocks per SM, registers per thread, staged halo
     and band chunk."""
@@ -720,11 +714,6 @@ def load(path: str) -> ctypes.CDLL:
     fn = lib.pg_shadow_sweep_shape
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    fn = lib.pg_shadow_sweep_batched
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
-                   + [ctypes.c_int] * 5 + [ctypes.c_double]
-                   + [ctypes.c_void_p] * 4)
     fn = lib.pg_shadow_sweep_round
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]

@@ -79,8 +79,9 @@ import torch
 from ..options import PgOpt
 from ..ops import device as dev
 from ..ops import loop_kernels as lk
+from ..ops import mesh_kernels as mk
 from ..ops import sweep_kernel as sk
-from ..ops.loop_kernels import KSENT_I, SENT_I, seg_sum
+from ..ops.loop_kernels import SENT_I
 from ..util import log_msg
 from . import mesh as M
 
@@ -251,6 +252,49 @@ def copy_args(x):
     return x
 
 
+def exchange_merge(keys: torch.Tensor, s1: torch.Tensor, *, cfg: Cfg,
+                   mesh: M.Mesh, fold):
+    """The in-loop merge at more than two ranks as a bucket exchange (JAX
+    device_loop.py:301-409). Keys are monotone in the out-vertex v (their
+    top bits), so cutting the key space into nd contiguous v-ranges keeps
+    every out-group (vw) and in-group (vw, g) whole, and the ranks' sorted
+    ranges concatenated are the global sort. Each rank sorts its NL keys
+    (walk_pairs' lean form: the global slot in the low JB bits; s1 int32
+    [NL] by slot), sends each destination's run (at most C = a2a_cap keys,
+    with their s1) by all_to_all, sorts and folds the range it receives
+    (`fold`: loop_kernels.merge_fold through the caller's capture), and
+    writes its arcs into the replicated [A] table at its global offset (a
+    sum over ranks of disjoint windows). Each pair slot's arc row goes back to its origin by a second
+    all_to_all aligned with the send slots. A destination count above C
+    sets the overflow flag (n_out = A + 1). The packing, the table window
+    and reply, and the table's mask and the pair scatter are the three
+    kernels of ops/mesh_kernels; around them only the two sorts, the fold
+    and the four collectives, in the JAX order (all_to_all, all_gather,
+    psum, all_to_all). Returns (arc_vw, arc_s1, n_out, pair_loc int32
+    [NL]: each slot's arc row)."""
+    nd, rank = mesh.world, mesh.rank
+    kps = torch.sort(keys.reshape(-1)).values
+    sent, ovf, pair = mk.exchange_pack(
+        kps, s1, nd=nd, cap=cfg.a2a_cap, jb=cfg.JB,
+        shift=cfg.JB + cfg.GB + cfg.B, two_s=2 * cfg.S, rank=rank)
+    got = M.all_to_all(sent, mesh)                        # [nd, 2, C]
+    got_k = got[:, 0].reshape(-1)
+    rk, rpos = torch.sort(got_k, stable=True)
+    # the received range's arcs in rows [0, n_out_l), each received
+    # slot's local out-group row in `reply_loc`
+    vw_f, s1_loc, n_out_l, reply_loc = fold(
+        rk, got[:, 1].to(I32).reshape(-1), jb=cfg.JB, gb=cfg.GB,
+        cap=got_k.shape[0], perm=rpos)
+    per_rank = M.all_gather(torch.stack([n_out_l, ovf]), mesh)
+    table, reply, n_out = mk.exchange_window(
+        per_rank, vw_f, s1_loc, reply_loc, got_k, rank=rank, A=cfg.A)
+    table = M.psum(table, mesh)
+    reply = M.all_to_all(reply, mesh)                     # [nd * C]
+    arc_vw, arc_s1, pair_loc = mk.exchange_finish(
+        table, n_out, sent, reply, pair, jb=cfg.JB, rank=rank)
+    return arc_vw, arc_s1, n_out, pair_loc
+
+
 def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
                     arc0_vw, arc0_s1, seg_tot0, seg_ng0, occ_cut, deg_cut,
                     loci_cut, do_branch, do_occ, do_sweep, do_walk, no_skip,
@@ -297,67 +341,8 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
         return x.tolist()
 
     geo: dict = {}                # the plain sweep's round-invariant planes
-    launches0 = sk.n_batched["kernel"]
+    launches0 = sk.n_batched()["kernel"]
     loop0 = {k: c["kernel"] for k, c in lk.n_calls.items()}
-
-    def exchange_merge(kps, s1_2, nxt, pair_ok, seg_tot, seg_ng):
-        """The in-loop merge at more than two ranks as a bucket exchange
-        (JAX device_loop.py:301-409). Keys are monotone in the out-vertex v
-        (their top bits), so cutting the key space into nd contiguous
-        v-ranges keeps every out-group (vw) and in-group (vw, g) whole, and
-        the ranks' sorted ranges concatenated are the global sort. Each rank
-        sorts its NL keys (walk_pairs' lean form: the global slot in the
-        low JB bits), sends each destination's run (at most C = a2a_cap
-        keys, with their s1) by all_to_all, sorts and reduces the range it
-        receives, and writes its arcs into the replicated [A] table at its
-        global offset (a sum over ranks of disjoint windows). Each pair
-        slot's arc row goes back to its origin by a second all_to_all
-        aligned with the send slots. A destination count above C sets the
-        overflow flag (n_out = A + 1)."""
-        C, JB = cfg.a2a_cap, cfg.JB
-        base = rank * NL
-        kps = torch.sort(kps.reshape(-1)).values
-        dest = ((kps >> (JB + GB + B)) * nd // (2 * S)).clamp(0, nd - 1)
-        cnt = seg_sum((kps != KSENT_I).to(I32), dest, nd)
-        start = torch.cumsum(cnt, 0) - cnt
-        ovf_x = (cnt > C).any()
-        cc = torch.arange(C, dtype=I32, device=device)[None, :]
-        k_g = kps[(start[:, None] + cc).clamp(0, NL - 1)]
-        smask = cc < cnt[:, None]                         # [nd, C]
-        orig_row = ((k_g & ((1 << JB) - 1)) - base).clamp(0, NL - 1)
-        sent = torch.stack([torch.where(smask, k_g, KSENT_I),
-                            torch.where(smask, s1_2[orig_row], 0).to(I64)],
-                           dim=1)                         # [nd, 2, C]
-        got = M.all_to_all(sent, mesh)
-        RL = nd * C
-        got_k = got[:, 0].reshape(-1)
-        rk, rpos = torch.sort(got_k, stable=True)
-        # the received range's arcs in rows [0, n_out_l), each received
-        # slot's local out-group row in `reply`
-        vw_f, s1_loc, n_out_l, reply = captured(
-            lk.merge_fold, rk, got[:, 1].reshape(-1).to(I32), jb=JB, gb=GB,
-            cap=RL, perm=rpos)
-        per_rank = M.all_gather(torch.stack([n_out_l, ovf_x.to(I64)]),
-                                mesh).reshape(nd, 2)
-        nouts = per_rank[:, 0]
-        off = nouts[:rank].sum()
-        n_out = torch.where(per_rank[:, 1].sum() > 0, A + 1, nouts.sum())
-        # this rank's rows at [off, off + RL) of the table, the window held
-        # inside [0, A + RL) as the JAX dynamic_update_slice holds it
-        lv = torch.arange(RL, device=device) < n_out_l
-        at = off.clamp(0, A) + torch.arange(RL, device=device)
-        put = lambda x: torch.zeros(A + RL, dtype=I64, device=device) \
-            .index_copy_(0, at, torch.where(lv, x, 0).to(I64))[:A]
-        vw_gl, s1_gl = M.psum(torch.stack([put(vw_f), put(s1_loc)]), mesh)
-        live = torch.arange(A, dtype=I64, device=device) < n_out
-        arc_vw = torch.where(live, vw_gl, SENT_I)
-        arc_s1 = torch.where(live, s1_gl.to(I32), 0)
-        reply = torch.where(got_k != KSENT_I, reply + off, 0).to(I32)
-        reply = M.all_to_all(reply, mesh)                 # [nd * C]
-        pair_loc = torch.zeros(NL + 1, dtype=I32, device=device).scatter_(
-            0, torch.where(smask, orig_row, NL).reshape(-1), reply)
-        return (arc_vw, arc_s1, n_out, seg_tot, seg_ng,
-                (pair_loc[:NL].view(G, 2 * H), nxt, pair_ok))
 
     def walk_merge(full: bool):
         """Walk + two-level merge (graph.c:87-177) from one global sort of
@@ -379,8 +364,11 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
         keys, s1_2, pair_ok, nxt, seg = out[:5]
         seg_tot, seg_ng = M.psum(seg, mesh)
         if lean and cfg.a2a_cap:
-            return exchange_merge(keys, s1_2.reshape(-1), nxt, pair_ok,
-                                  seg_tot, seg_ng)
+            arc_vw, arc_s1, n_out, mine = exchange_merge(
+                keys, s1_2.reshape(-1), cfg=cfg, mesh=mesh,
+                fold=lambda *a, **kw: captured(lk.merge_fold, *a, **kw))
+            return (arc_vw, arc_s1, n_out, seg_tot, seg_ng,
+                    (mine.view(G, 2 * H), nxt, pair_ok))
         if not lean:
             # co-sorted form: equal keys keep their row order. The full
             # tail adds the output-only statistics (the reverse key's s2
@@ -570,7 +558,7 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     overflow = M.pmax(overflow.to(I32), mesh) > 0
     if stats is not None:
         stats.update(host_syncs=syncs[0], block_ms=timer.result(),
-                     sweep_launches=sk.n_batched["kernel"] - launches0,
+                     sweep_launches=sk.n_batched()["kernel"] - launches0,
                      loop_launches={k: c["kernel"] - loop0[k]
                                     for k, c in lk.n_calls.items()})
     return (flt, weak, shadow, pid_dom, alive, seg_tot, seg_ng, arc_vw,

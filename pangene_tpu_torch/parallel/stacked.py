@@ -59,10 +59,10 @@ import numpy as np
 import torch
 
 from ..options import PgOpt
+from ..ops import mesh_kernels as mk
 from ..ops import step_kernels as stk
 from ..ops import sweep_kernel as sk
 from ..ops.device import PAD_CID
-from ..ops.loop_kernels import seg_sum
 from . import mesh as M
 from .device_loop import _BlockTimer, _host_array
 
@@ -432,7 +432,7 @@ def gen_arc_sharded(opt: PgOpt, q) -> None:
     t = _add("upload_s", t)
 
     timer = _BlockTimer(device, STEP_BLOCKS)
-    launches0 = sk.n_batched["kernel"]
+    launches0 = sk.n_batched()["kernel"]
     step0 = {k: c["kernel"] for k, c in stk.n_calls.items()}
     outs = round_step(
         cache["cols"], flt, shadow, weak_br, g2s, W=W,
@@ -441,7 +441,7 @@ def gen_arc_sharded(opt: PgOpt, q) -> None:
         geo=cache["geo"], timer=timer, mesh=mesh)
     for name, ms in timer.result().items():     # synchronises
         LAST["block_ms"][name] = round(LAST["block_ms"][name] + ms, 3)
-    LAST["sweep_launches"] += sk.n_batched["kernel"] - launches0
+    LAST["sweep_launches"] += sk.n_batched()["kernel"] - launches0
     for k, c in stk.n_calls.items():
         LAST["step_launches"][k] += c["kernel"] - step0[k]
     t = _add("step_s", t)
@@ -506,70 +506,73 @@ def reduction_step(pid: torch.Tensor, score_ori: torch.Tensor,
                    mesh: Optional[M.Mesh] = None):
     """The protein-keyed reductions feeding pg_cap_score_dom /
     pg_flag_representative / pg_flag_pseudo_joint (hit.c:148-247) over
-    stacked [G, H] columns (int32; flt uint8; n_rows int32 [G]). Returns
-    seven [n_prot] tensors: max score_ori (int32); then, int64, over rank-0
+    stacked [G, H] columns (int32; flt uint8; n_rows int32 [G]: the padded
+    stack, or every genome's rows end to end with G = 1). Returns seven
+    [n_prot] tensors: max score_ori (int32); then, int64, over rank-0
     unfiltered hits, the counts and score_ori sums of single-exon and of
     multi-exon hits (cnt0, cnt1, sum0, sum1) and the representative's
     score_adj sum and count. Integer sums and maxima: bit-equal to the host
-    loops in any order. Over a `mesh` the columns are this rank's genomes
-    and the results are over every rank's (a pmax and one psum)."""
-    dev = pid.device
-    H = pid.shape[1]
-    va = (torch.arange(H, dtype=I32, device=dev)[None, :]
-          < n_rows[:, None]).reshape(-1)
-    pidc = pid.reshape(-1).clamp(0, n_prot - 1).long()
-    so = score_ori.reshape(-1)
-    multi = n_exon.reshape(-1) != 1
-    r0 = (rank.reshape(-1) == 0) & (flt.reshape(-1) == 0) & va
-    max_so = torch.zeros(n_prot, dtype=I32, device=dev).scatter_reduce_(
-        0, pidc, torch.where(va, so, 0), "amax", include_self=True)
+    loops in any order and layout. One launch of mesh_kernels.protein_reduce
+    (its plain version on the CPU); over a `mesh` the columns are this
+    rank's genomes and the results are over every rank's (a pmax and one
+    psum)."""
+    max_so, sums = mk.protein_reduce(pid, score_ori, score_adj, n_exon, rank,
+                                     flt, n_rows, n_prot=n_prot)
+    if mesh is not None:
+        max_so, sums = M.pmax(max_so, mesh), M.psum(sums, mesh)
+    return (max_so,) + tuple(sums)
 
-    def total(mask, vals=None):
-        x = mask.to(I64) if vals is None else torch.where(mask, vals.to(I64),
-                                                          0)
-        return seg_sum(x, pidc, n_prot)
 
-    sums = (total(r0 & ~multi), total(r0 & multi), total(r0 & ~multi, so),
-            total(r0 & multi, so), total(r0, score_adj.reshape(-1)),
-            total(r0))
-    if mesh is None:
-        return (max_so,) + sums
-    return (M.pmax(max_so, mesh),) + tuple(M.psum(torch.stack(sums), mesh))
+def stack_reductions(d, mesh: M.Mesh, pin: bool):
+    """This rank's genomes of the padded genome axis (rows [rank G_loc,
+    (rank + 1) G_loc), the partition of mesh.put_sharded) in one host
+    buffer, their rows end to end: n_rows int32 [1], then REDUCTION_COLS
+    int32 [N] each, then flt uint8 [N] (N >= 1 slots, the rows beyond the
+    count invalid). Returns (buffer uint8, N)."""
+    G_loc = M.pad_genomes(d.n_genome, mesh) // mesh.world
+    mine = d.genomes[mesh.rank * G_loc:(mesh.rank + 1) * G_loc]
+    n = sum(len(g.hits) for g in mine)
+    N = max(n, 1)
+    nc = len(REDUCTION_COLS)
+    buf = _host_array((4 * (1 + nc * N) + N,), np.uint8, pin)
+    i32 = buf[:4 * (1 + nc * N)].view(np.int32)
+    i32[0] = n
+    cols = i32[1:].reshape(nc, N)
+    flt = buf[4 * (1 + nc * N):]
+    if n:
+        for k, name in enumerate(REDUCTION_COLS):
+            np.concatenate([g.hits.cols[name] for g in mine], out=cols[k, :n])
+        np.concatenate([g.hits.flt for g in mine], out=flt[:n])
+    return buf, N
+
+
+def reduction_views(buf: torch.Tensor, N: int):
+    """stack_reductions' buffer as reduction_step's arguments ([1, N] views
+    and n_rows [1])."""
+    nc = len(REDUCTION_COLS)
+    i32 = buf[:4 * (1 + nc * N)].view(I32)
+    cols = i32[1:].view(nc, 1, N)
+    return (*cols, buf[4 * (1 + nc * N):].view(1, N), i32[:1])
 
 
 def post_reductions_sharded(opt: PgOpt, d):
     """The protein-keyed cross-genome reductions of post_process on the
     device: (mx, z, (c, s)) in the formats ops/pseudo.py's cap_score_dom,
     flag_representative and flag_pseudo_joint take, bit-equal to their host
-    loops. One upload per column block, one pull; over the ranks of the
-    genome mesh, each with its genomes.
+    loops. Each rank of the genome mesh stacks only its own genomes, their
+    rows end to end (stack_reductions), uploads them once, launches one
+    reduction, takes the pmax and psum over the ranks and pulls once.
 
     graph/post.py takes it on the main path when more than one device
     shards the genomes, as the JAX package does; on one device it keeps the
     host loops (the tests and chip_smoke.py hold the two against each
     other)."""
     mesh = M.make_mesh(opt.n_devices, opt.device)
-    device = mesh.device
-    pin = device.type == "cuda"
-    G = M.pad_genomes(d.n_genome, mesh)
-    H = max(max((g.n_hit for g in d.genomes), default=1), 1)
     n_prot = max(d.n_prot, 1)
-    i32 = _host_array((len(REDUCTION_COLS), G, H), np.int32, pin)
-    i32.fill(0)
-    flt = _host_array((G, H), np.uint8, pin)
-    flt.fill(1)
-    n_rows = _host_array((G,), np.int32, pin)
-    n_rows.fill(0)
-    for j, g in enumerate(d.genomes):
-        h = g.hits
-        n = len(h)
-        n_rows[j] = n
-        for k, name in enumerate(REDUCTION_COLS):
-            i32[k, j, :n] = h.cols[name]
-        flt[j, :n] = h.flt
-    outs = reduction_step(*M.put_sharded(i32, mesh, 1),
-                          M.put_sharded(flt, mesh), M.put_sharded(n_rows, mesh),
-                          n_prot=n_prot, mesh=mesh)
+    buf, N = stack_reductions(d, mesh, mesh.device.type == "cuda")
+    cols = reduction_views(torch.from_numpy(buf).to(mesh.device,
+                                                    non_blocking=True), N)
+    outs = reduction_step(*cols, n_prot=n_prot, mesh=mesh)
     arr = torch.cat([o.to(I64) for o in outs]).cpu().numpy()    # one pull
     P = n_prot
     max_so, cnt0, cnt1, sum0, sum1, rep_sum, rep_cnt = (

@@ -633,6 +633,139 @@ def fold_inputs(rng, form, N, n_vw, n_g=8, p_valid=0.7, smax=1000,
     return out
 
 
+# The fuzz cases of mesh_kernels.protein_reduce (reduction_inputs): random
+# rows; pids outside [0, n_prot) (clamped); scores <= 0; every row
+# filtered; one protein; an empty genome; 300 genomes.
+REDUCE_CASES = ("random", "pid_out_of_range", "scores_le_zero",
+                "all_filtered", "n_prot_1", "empty_genome", "many_genomes")
+
+
+def reduction_inputs(which: str, flat: bool = False):
+    """protein_reduce's arguments in case `which` (REDUCE_CASES) as numpy
+    arrays: (cols: pid, score_ori, score_adj, n_exon, rank int32, flt
+    uint8, n_rows int32, n_prot). The padded [G, H] stack, its rows past
+    n_rows noise; with `flat`, the valid rows of every genome end to end
+    (G = 1, one spare row), as post_reductions_sharded stacks them."""
+    rng = np.random.default_rng(REDUCE_CASES.index(which))
+    G, H, P = (300, 700, 5000) if which == "many_genomes" else (4, 300, 40)
+    lo_pid, hi_pid, lo_sc = 0, P, 0
+    if which == "pid_out_of_range":
+        lo_pid, hi_pid = -5, P + 5
+    elif which == "scores_le_zero":
+        lo_sc = -1000
+    elif which == "n_prot_1":
+        P, hi_pid = 1, 3
+    n_rows = rng.integers(1, H + 1, G).astype(np.int32)
+    if which == "empty_genome":
+        n_rows[1] = 0
+    cols = [rng.integers(lo_pid, hi_pid, (G, H)),
+            rng.integers(lo_sc, 900, (G, H)),
+            rng.integers(lo_sc, 900, (G, H)),
+            rng.integers(1, 4, (G, H)), rng.integers(0, 2, (G, H))]
+    if which == "scores_le_zero":
+        cols[1] = np.minimum(cols[1], 0)
+    cols = [c.astype(np.int32) for c in cols]
+    flt = (rng.random((G, H)) < 0.3).astype(np.uint8)
+    if which == "all_filtered":
+        flt[:] = 1
+    if flat:
+        take = lambda a: np.concatenate(
+            [a[j, :n] for j, n in enumerate(n_rows)]
+            + [np.zeros(1, a.dtype)])[None, :]
+        cols, flt = [take(c) for c in cols], take(flt)
+        n_rows = np.array([n_rows.sum()], np.int32)
+    return cols, flt, n_rows, P
+
+
+# The states of exchange_calls: random keys; one destination's run longer
+# than the bucket (the overflow flag); every key a sentinel; every key to
+# one destination (a bucket of NL); a table of A = NL // 64 rows, so that
+# the later ranks' windows start past it.
+EXCHANGE_STATES = ("ordinary", "overflow", "all_sentinel", "one_dest",
+                   "window_past_A")
+
+
+def exchange_calls(which: str, seed: int, device, nd: int = 4,
+                   G_loc: int = 3, H: int = 400, S: int = 12,
+                   A: int = None):
+    """The bucket exchange of device_loop.exchange_merge over `nd` ranks of
+    G_loc genomes of H rows (NL = 2 G_loc H lean keys a rank, 70% valid:
+    v uniform in [0, 2S), w one of v's three neighbours), in state `which`
+    (EXCHANGE_STATES), every rank's step made here with the plain versions
+    on `device`; the bucket is the loop's (1.5 NL / nd keys, padded to 128,
+    at most NL), A the given one or nd * NL. Returns (meta, calls):
+    meta the shape (nd, NL, C, A, JB, GB, B, S); calls[r] maps
+    "pack", "window" and "finish" to rank r's (args, kw) of
+    ops/mesh_kernels' entry of that name (its plain version on other
+    devices; the pair plane of "finish" is a fresh copy of the pack's)."""
+    import torch
+    from .ops import loop_kernels as lk
+    from .ops import mesh_kernels as mk
+    rng = np.random.default_rng(seed)
+    NL = G_loc * 2 * H
+    B = max((2 * S - 1).bit_length(), 1)
+    GB = max((nd * G_loc - 1).bit_length(), 1)
+    JB = max((nd * NL - 1).bit_length(), 1)
+    C = min(((int(NL * 1.5) // nd + 127) // 128) * 128, NL)
+    if A is None:
+        A = nd * NL
+    p_valid, skew, dest = 0.7, 0.0, None
+    if which == "overflow":
+        skew = 0.6              # of the keys forced to destination 0
+    elif which == "all_sentinel":
+        p_valid = 0.0
+    elif which == "one_dest":
+        dest, C = int(rng.integers(0, nd)), NL
+    elif which == "window_past_A":
+        A = max(1, NL // 64)
+    elif which != "ordinary":
+        raise ValueError(which)
+    span = -(-2 * S // nd)                  # v's of one destination
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    kw_pack = dict(nd=nd, cap=C, jb=JB, shift=JB + GB + B, two_s=2 * S)
+    keys, s1 = [], []
+    for r in range(nd):
+        v = rng.integers(0, 2 * S, NL)
+        if dest is not None:
+            v = rng.integers(dest * span, min((dest + 1) * span, 2 * S), NL)
+        elif skew:
+            v = np.where(rng.random(NL) < skew, rng.integers(0, span, NL), v)
+        w = (v + rng.integers(1, 4, NL)) % (2 * S)
+        g = r * G_loc + np.arange(NL) // (2 * H)
+        k = ((((v << B) | w) << GB | g) << JB) | (r * NL + np.arange(NL))
+        keys.append(np.sort(np.where(rng.random(NL) < p_valid, k,
+                                     lk.KSENT_I)))
+        s1.append(rng.integers(0, 1000, NL).astype(np.int32))
+    packs = [mk.exchange_pack_plain(t(keys[r]), t(s1[r]), rank=r, **kw_pack)
+             for r in range(nd)]
+    calls, folds = [], []
+    for r in range(nd):
+        got = torch.cat([packs[q][0][r:r + 1] for q in range(nd)])
+        got_k = got[:, 0].reshape(-1)
+        rk, rpos = torch.sort(got_k, stable=True)
+        vw, fs1, n_out_l, reply_loc = lk.merge_fold_plain(
+            rk, got[:, 1].to(torch.int32).reshape(-1), jb=JB, gb=GB,
+            cap=nd * C, perm=rpos)
+        folds.append((vw, fs1, n_out_l, reply_loc, got_k))
+    per_rank = torch.stack([torch.stack([f[2], p[1]])
+                            for f, p in zip(folds, packs)]).reshape(-1)
+    windows = [mk.exchange_window_plain(per_rank, *folds[r][:2],
+                                        *folds[r][3:], rank=r, A=A)
+               for r in range(nd)]
+    table = sum(w[0] for w in windows)
+    for r in range(nd):
+        back = torch.cat([windows[q][1][r * C:(r + 1) * C]
+                          for q in range(nd)])
+        calls.append({
+            "pack": ((t(keys[r]), t(s1[r])), dict(kw_pack, rank=r)),
+            "window": ((per_rank, *folds[r][:2], *folds[r][3:]),
+                       dict(rank=r, A=A)),
+            "finish": ((table, windows[r][2], packs[r][0], back,
+                        packs[r][2].clone()), dict(jb=JB, rank=r))})
+    meta = dict(nd=nd, NL=NL, C=C, A=A, JB=JB, GB=GB, B=B, S=S)
+    return meta, calls
+
+
 def round_state(rng, G, H, S=40, n_gene=50, sizes=(3, 1, 5, 2, 1, 4),
                 n_invalid=7, p_flt=0.2, p_shadow=0.1, p_dead=0.2,
                 empty=(), far=False, edges=0, min_valid=0):
@@ -865,12 +998,15 @@ def rank_report_main(argv: List[str]) -> int:
     the output, the CLI's exit code, the wall of the CLI call, the device
     loop's and the per-round path's LAST, the mesh's collective counts, the
     kernels' launches (the fused sweep's by epilogue and the step kernels'
-    under step_launches) and plain calls, the peak device bytes on cuda, the
+    under step_launches, the mesh kernels' under mesh_launches) and plain
+    calls (mesh_calls: the mesh kernels' both), the peak device bytes on
+    cuda, the
     stage walls, and the modules of other packages the rank loaded."""
     import hashlib
     import torch
     from . import cli, pipeline, util
     from .ops import loop_kernels as lk
+    from .ops import mesh_kernels as mk
     from .ops import step_kernels as stk
     from .ops import sweep_kernel as sk
     from .parallel import device_loop, mesh, stacked
@@ -887,6 +1023,7 @@ def rank_report_main(argv: List[str]) -> int:
     sk.reset_counts()
     lk.reset_counts()
     stk.reset_counts()
+    mk.reset_counts()
     mesh.reset_counts()
     t0 = time.monotonic()
     rc = cli.main(argv)
@@ -897,15 +1034,18 @@ def rank_report_main(argv: List[str]) -> int:
         "wall_s": round(wall, 3), "LAST": device_loop.LAST,
         "rounds_LAST": stacked.LAST, "mesh": mesh.LAST,
         "kernel_launches": sum(sk.n_kernel_launches.values()),
-        "batched_launches": sk.n_batched["kernel"],
+        "batched_launches": sk.n_batched()["kernel"],
         "loop_launches": {k: c["kernel"] for k, c in lk.n_calls.items()},
         "step_launches": {
             "sweep_round_loop": sk.n_fused["loop"]["kernel"],
             "sweep_round_step": sk.n_fused["step"]["kernel"],
             **{k: c["kernel"] for k, c in stk.n_calls.items()}},
-        "plain_calls": (sum(sk.n_plain_calls.values()) + sk.n_batched["plain"]
+        "mesh_launches": {k: c["kernel"] for k, c in mk.n_calls.items()},
+        "mesh_calls": mk.n_calls,
+        "plain_calls": (sum(sk.n_plain_calls.values()) + sk.n_batched()["plain"]
                         + sum(c["plain"] for c in lk.n_calls.values())
-                        + sum(c["plain"] for c in stk.n_calls.values())),
+                        + sum(c["plain"] for c in stk.n_calls.values())
+                        + sum(c["plain"] for c in mk.n_calls.values())),
         "peak_device_bytes": (torch.cuda.max_memory_allocated()
                               if torch.cuda.is_initialized() else None),
         "stages": util.stage_stats,

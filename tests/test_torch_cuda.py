@@ -3,7 +3,9 @@ epilogues too) against their plain PyTorch versions, the per-round device
 step and its kernels (ops/step_kernels.py: step_walk, step_dedupe), and
 the device loop's block kernels (ops/loop_kernels.py: the branch block,
 merge_fold, and the round kernels walk_pairs, branch_prep, prop_round and
-occ_round) against theirs, on the card.
+occ_round) and the mesh's kernels (ops/mesh_kernels.py: protein_reduce and
+the bucket exchange's pack, window and finish) against theirs, on the
+card.
 
 These tests need an NVIDIA GPU (the kernel has no CPU mode) and skip
 without one. The file imports neither jax nor pangene_tpu, so it runs on a
@@ -24,7 +26,8 @@ from pangene_tpu_torch.ops import sweep_kernel as sk
 from pangene_tpu_torch.parallel import stacked as st
 from pangene_tpu_torch.ops.loop_kernels import SENT_I
 from pangene_tpu_torch.testing import (BRANCH_B, EXACT_BRANCH_DIFFS,
-                                       ROUND_STATES, SWEEP_EDGE_CASES,
+                                       REDUCE_CASES, ROUND_STATES,
+                                       SWEEP_EDGE_CASES,
                                        WALK_FORMS, band_genome, batch_cols,
                                        branch_table, deficit_ratios,
                                        fold_inputs, locality_table,
@@ -129,7 +132,7 @@ def assert_batched_equals_per_genome(genomes, device, check_strand, f,
     sk.reset_counts()
     marks, score, other = sk.shadow_sweep_batched(bc, flt, weak, W,
                                                   check_strand, f)
-    assert sk.n_batched == {"kernel": 1, "plain": 0}
+    assert sk.n_batched() == {"kernel": 1, "plain": 0}
     if split_form:
         want = sk.shadow_sweep_batched_plain(bc, flt, weak, W, check_strand,
                                              f)
@@ -216,7 +219,7 @@ def assert_step_equals_plain(genomes, device, check_strand, use_ori, f):
               use_ori=use_ori)
     sk.reset_counts()
     got = st.round_step(cols, flt, shadow, weak, g2s, **kw)
-    assert sk.n_batched == {"kernel": 1, "plain": 0}
+    assert sk.n_batched() == {"kernel": 1, "plain": 0}
     cpu = torch.device("cpu")
     c_cols, c_flt, c_shadow, c_weak, c_g2s, c_W = stack_cols(genomes, cpu,
                                                              seed=1)
@@ -924,7 +927,7 @@ def assert_fused_equal(args, check_strand=False, f=0.3):
     for mode in ("loop", "step"):
         sk.reset_counts()
         got, want = fused_both(args, mode, check_strand, f)
-        assert sk.n_batched == {"kernel": 1, "plain": 0}
+        assert sk.n_batched() == {"kernel": 1, "plain": 0}
         assert sk.n_fused[mode]["kernel"] == 1
         for a, b in zip(got, want):
             assert a.dtype == b.dtype and torch.equal(a, b), mode
@@ -1199,3 +1202,100 @@ def test_fused_sweep_called_again(cuda_device, graph):
     torch.cuda.synchronize()
     for a, b in zip(first, list(outs) + [shadow, pid_dom]):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the mesh kernels (ops/mesh_kernels.py)
+# ---------------------------------------------------------------------------
+
+def reduce_inputs(which, device, flat=False):
+    """testing.reduction_inputs on `device`: the seven arguments and
+    n_prot."""
+    from pangene_tpu_torch.testing import reduction_inputs
+    cols, flt, n_rows, P = reduction_inputs(which, flat)
+    t = lambda a: torch.from_numpy(a).to(device)
+    return [t(c) for c in cols] + [t(flt), t(n_rows)], P
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["padded", "flat"])
+@pytest.mark.parametrize("which", REDUCE_CASES)
+def test_protein_reduce_vs_plain(cuda_device, which, layout):
+    from pangene_tpu_torch.ops import mesh_kernels as mk
+    args, P = reduce_inputs(which, cuda_device, layout == "flat")
+    mk.reset_counts()
+    got = mk.protein_reduce(*args, n_prot=P)
+    want = mk.protein_reduce_plain(*args, n_prot=P)
+    torch.cuda.synchronize()
+    assert mk.n_calls["protein_reduce"] == {"kernel": 1, "plain": 0}
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert want[1].any() or which == "all_filtered"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("shape", ["small", "loop"])
+@pytest.mark.parametrize("which", ["ordinary", "overflow", "all_sentinel",
+                                   "one_dest", "window_past_A"])
+def test_exchange_kernels_vs_plain(cuda_device, which, shape, graph):
+    """Each exchange kernel on each rank's arguments against its plain
+    version, exactly; with `graph`, from a CUDA graph replayed twice."""
+    from pangene_tpu_torch.ops import mesh_kernels as mk
+    from pangene_tpu_torch.testing import exchange_calls
+    kw = dict(G_loc=16, H=1024, S=3000) if shape == "loop" else {}
+    _, calls = exchange_calls(which, 5, cuda_device, **kw)
+    mk.reset_counts()
+    n = 0
+    for call in calls:
+        for name in ("pack", "window", "finish"):
+            args, kwargs = call[name]
+            fn = getattr(mk, "exchange_" + name)
+            plain = getattr(mk, "exchange_%s_plain" % name)
+            fresh = lambda: [a.clone() if i == 4 and name == "finish" else a
+                             for i, a in enumerate(args)]
+            want = plain(*fresh(), **kwargs)
+            a = fresh()
+            if graph:
+                fn(*fresh(), **kwargs)          # built and loaded
+                n += 1
+                torch.cuda.synchronize()
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g):
+                    got = fn(*a, **kwargs)
+                g.replay()
+                g.replay()
+            else:
+                got = fn(*a, **kwargs)
+            n += 1
+            torch.cuda.synchronize()
+            for x, y in zip(got, want):
+                assert x.dtype == y.dtype and torch.equal(x, y), name
+    assert sum(c["kernel"] for c in mk.n_calls.values()) == n
+    assert sum(c["plain"] for c in mk.n_calls.values()) == 0
+
+
+@pytest.mark.cuda
+def test_mesh_wrappers_raise_on_bad_columns(cuda_device):
+    from pangene_tpu_torch.ops import mesh_kernels as mk
+    from pangene_tpu_torch.testing import exchange_calls
+    args, P = reduce_inputs("random", cuda_device)
+    with pytest.raises(ValueError):
+        mk.protein_reduce(*args[:5], args[5].to(torch.int32), args[6],
+                          n_prot=P)
+    with pytest.raises(ValueError):
+        mk.protein_reduce(*args, n_prot=0)
+    _, calls = exchange_calls("ordinary", 1, cuda_device)
+    (keys, s1), kw = calls[0]["pack"]
+    with pytest.raises(ValueError):
+        mk.exchange_pack(keys.cpu(), s1, **kw)
+    with pytest.raises(ValueError):
+        mk.exchange_pack(keys, s1.long(), **kw)
+    args, kw = calls[0]["window"]
+    with pytest.raises(ValueError):
+        mk.exchange_window(*args, rank=kw["rank"], A=0)
+    args, kw = calls[0]["finish"]
+    with pytest.raises(ValueError):
+        mk.exchange_finish(*args[:4], args[4].long(), **kw)
+    with pytest.raises(ValueError):
+        mk.exchange_finish(*args[:3], args[3][:-1], args[4], **kw)

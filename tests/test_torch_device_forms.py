@@ -145,7 +145,7 @@ def test_batched_plain_equals_per_genome_plain(seed0, check_strand, f):
         sk.reset_counts()
         marks, score, other = sk.shadow_sweep_batched(
             bc, flt, weak, Wb, check_strand, f, geo)
-        assert sk.n_batched == {"kernel": 0, "plain": 1}
+        assert sk.n_batched() == {"kernel": 0, "plain": 1}
         assert marks.dtype == torch.uint8 and score.dtype == torch.int64 \
             and other.dtype == torch.int32
         for j, (d, g) in enumerate(genomes):

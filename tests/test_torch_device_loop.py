@@ -448,7 +448,7 @@ def test_sharded_plain_sweep_calls_equal_sweep_rounds(corpus):
     from pangene_tpu_torch.ops import sweep_kernel as sk
     sk.reset_counts()
     run_port(corpus)
-    assert sk.n_batched == {"kernel": 0,
+    assert sk.n_batched() == {"kernel": 0,
                             "plain": dl.LAST["rounds_sweep_run"]}
     sk.reset_counts()
 

@@ -453,7 +453,7 @@ def test_cli_per_round_path_vs_jax(corpus, monkeypatch, kw):
     sk.reset_counts()
     got = run_port(corpus, **kw)
     assert_per_round_path(rounds=17)
-    assert sk.n_batched == {"kernel": 0, "plain": 17}
+    assert sk.n_batched() == {"kernel": 0, "plain": 17}
     assert dl.LAST == {}            # the loop did not run
     assert got == run_jax(corpus, **kw)
     assert got == run_port(corpus, engine="device", **kw)
@@ -480,7 +480,7 @@ def test_forced_loop_fallback_takes_per_round_path(corpus, monkeypatch):
     assert dl.LAST["engaged"] is False and "capacity" in dl.LAST["reason"]
     assert_per_round_path(rounds=16)
     assert st.LAST["const_permutes"] == 0     # phase 1 settled the order
-    assert sk.n_batched["plain"] == 16
+    assert sk.n_batched()["plain"] == 16
     assert got == want
 
 

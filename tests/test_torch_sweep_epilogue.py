@@ -120,7 +120,7 @@ def test_loop_epilogue_equals_jax(case, check_strand, f):
     sk.reset_counts()
     sk.sweep_round_loop(bc, flt, weak, W, check_strand, f, sh, pd, ev1, pid)
     assert sk.n_fused["loop"] == {"kernel": 0, "plain": 1}
-    assert sk.n_batched == {"kernel": 0, "plain": 1}
+    assert sk.n_batched() == {"kernel": 0, "plain": 1}
     assert np.array_equal(sh.numpy(), np.asarray(want_sh))
     assert np.array_equal(pd.numpy(), np.asarray(want_pd))
     # what the case holds: padded unfiltered rows, rows with and without a
