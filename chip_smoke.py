@@ -139,8 +139,8 @@ Phases (each one passes or raises, so any failure exits nonzero):
      round in place of branch_block), every rank at world > 1 launches
      protein_reduce once (post_process's reductions) and at world > 2
      exchange_pack, exchange_window and exchange_finish once an in-loop
-     merge (the bucket exchange), and a rank that does not end within its
-     own timeout fails the run.
+     merge (the bucket exchange; EXCHANGE_RUNS' ranks 16 times each), and
+     a rank that does not end within its own timeout fails the run.
   4. the kernel against the plain version on the largest genome of the big
      corpus (the main path's shapes), unfiltered and in the run's final
      filter state. Kernel time is the device time per launch of 200
@@ -193,10 +193,13 @@ Phases (each one passes or raises, so any failure exits nonzero):
      of the big and the north-star loops (G_loc = Gp / 4 genomes of the
      loop's H rows, its S and A), on every state of testing.exchange_calls
      (random keys, a destination over the bucket, every key a sentinel,
-     every key to one destination, windows past the table), every rank:
-     kernel == plain exactly, eager and from a CUDA graph replayed twice;
-     device time of rank 0's ordinary call (200 launches in one CUDA
-     graph), the plain version's, the bound (exchange_bound_bytes).
+     every key to one destination, windows past the table, an empty
+     destination between two that are not), every rank: kernel == plain
+     exactly, eager and from a CUDA graph replayed twice; device time of
+     rank 0's ordinary call (200 launches in one CUDA graph; pack through
+     one exchange_scratch, as the loop calls it, left zeroed), the plain
+     version's, the bound (exchange_bound_bytes), pack's and finish's
+     launch shape (mesh_kernels.launch_shape: tiles, grid, blocks a SM).
 
 ``--corpora NAME[,NAME]`` runs only those corpora and what needs them, for
 a short first run of new code (``--corpora small`` takes about two
@@ -730,6 +733,10 @@ ROUND_KERNELS = ("walk_pairs", "branch_prep", "prop_round", "occ_round")
 # ops/mesh_kernels.py, launched only by the mesh's ranks (world > 1)
 MESH_KERNELS = ("protein_reduce", "exchange_pack", "exchange_window",
                 "exchange_finish")
+# the mesh runs (MESH_RUNS keys) whose loop takes the bucket exchange, and
+# its in-loop merges a rank there (one a round that walks: 16)
+EXCHANGE_RUNS = ("big_w4", "small_w3")
+EXCHANGE_MERGES = 16
 LOOP_KERNELS = ("branch_block", "branch_locality", "branch_classify",
                 "merge_fold", "merge_fold_full") + ROUND_KERNELS
 
@@ -1340,25 +1347,32 @@ def compare_mesh_kernel(mk, name, args, kw):
                                      % (name, k))
 
 
+def exchange_sent(bounds, C):
+    """The slots sent of a send plane of C slots a destination, from
+    exchange_pack's bounds: the sum of min(bounds[t + 1] - bounds[t], C)."""
+    return int((bounds[1:] - bounds[:-1]).clamp(max=C).sum())
+
+
 def exchange_bound_bytes(name, args, kw, got):
     """Least bytes of one call of exchange_`name` on these arguments
     (`got`: its outputs), inputs read once and outputs written once, what
     the data needs: pack reads the keys it sends and their rows' s1 (12
-    bytes a key; the run boundaries' binary searches are not counted) and
-    writes the [nd, 2, C] plane, the flag and the zeroed pair plane;
-    window reads the gathered (n_out_l, overflow) words, its fold's rows
-    that land in the table (12 bytes), reply_loc at the received keys that
-    are not sentinels and every received key, and writes the [2, A] table,
-    the reply and n_out; finish reads the table's live rows, n_out, the
-    keys it sent and their replies, and writes the arc table (12 bytes a
+    bytes a key; the reads that find where a run longer than C ends are
+    not counted) and writes the [nd, 2, C] plane, the flag, the zeroed
+    pair plane and the bounds plane; window reads the gathered (n_out_l,
+    overflow) words, its fold's rows that land in the table (12 bytes),
+    reply_loc at the received keys that are not sentinels and every
+    received key, and writes the [2, A] table, the reply and n_out; finish
+    reads the table's live rows, n_out, the bounds plane, and the key and
+    the reply of each slot sent, and writes the arc table (12 bytes a
     row) and the pair slots of the keys sent."""
     from pangene_tpu_torch.ops.loop_kernels import KSENT_I as KSENT
     if name == "pack":
-        send = got[0]
+        send, bounds = got[0], got[3]
         nd, _, C = send.shape
-        n_sent = int((send[:, 0] != KSENT).sum())
         NL = args[0].shape[0]
-        return n_sent * 12 + nd * 2 * C * 8 + 8 + (NL + 1) * 4
+        return (exchange_sent(bounds, C) * 12 + nd * 2 * C * 8 + 8
+                + (NL + 1) * 4 + (nd + 1) * 4)
     if name == "window":
         per_rank, vw, s1, reply_loc, got_k = args
         A, rank = kw["A"], kw["rank"]
@@ -1369,12 +1383,12 @@ def exchange_bound_bytes(name, args, kw, got):
         n_recv = int((got_k != KSENT).sum())
         return (per_rank.numel() * 8 + n_win * 12 + n_recv * 4 + RL * 8
                 + 16 * A + 4 * RL + 8)
-    table, n_out, send, reply, pair = args
+    table, n_out, send, reply, pair, bounds = args
     A = table.shape[1]
-    n_sent = int((send[:, 0] != KSENT).sum())
+    nd, _, C = send.shape
     n_live = min(int(n_out), A)
-    return n_live * 16 + 8 + send[:, 0].numel() * 8 + n_sent * 4 + A * 12 \
-        + n_sent * 4
+    return (n_live * 16 + 8 + (nd + 1) * 4 + exchange_sent(bounds, C) * 16
+            + A * 12)
 
 
 def reduction_split(stk, mk, opt, d, reps=5):
@@ -1658,6 +1672,15 @@ def mesh_phase(corpora):
                            protein_reduce=int(world > 1))
             if ml != want_ml or (world > 2 and last and n_merge < 1):
                 bad.append("mesh kernels %s, expected %s" % (ml, want_ml))
+            # the bucket exchange's runs: pack and finish once an in-loop
+            # merge, 16 a rank, and no plain call of any mesh kernel
+            if key in EXCHANGE_RUNS and not (
+                    ml["exchange_pack"] == ml["exchange_finish"]
+                    == EXCHANGE_MERGES and not any(
+                        c["plain"] for c in rep["mesh_calls"].values())):
+                bad.append("exchange kernels %s (calls %s), expected %d "
+                           "launches each and no plain call" % (
+                               ml, rep["mesh_calls"], EXCHANGE_MERGES))
             if bad:
                 raise AssertionError("%s rank %d: %s" % (key, rep["rank"],
                                                          "; ".join(bad)))
@@ -3016,26 +3039,62 @@ def smoke(names, draws):
                     compare_mesh_kernel(mkk, name, args, kw)
             if which != "ordinary":
                 continue
+            shape = mkk.launch_shape(meta["NL"], meta["nd"], meta["C"],
+                                     meta["A"])
+            scratch = mkk.exchange_scratch(dev, meta["nd"])
             for name in ("pack", "window", "finish"):
                 args, kw = calls[0][name]
                 fn = getattr(mkk, "exchange_" + name)
                 plain = getattr(mkk, "exchange_%s_plain" % name)
-                got = fn(*args, **kw)
+                # the main path's call: pack through the loop's scratch
+                if name == "pack":
+                    kw = dict(kw, scratch=scratch)
+                got = fn(*fresh_args(name, args), **kw)
                 ms = graph_ms(lambda: fn(*args, **kw), TIMED_LAUNCHES)
+                kw.pop("scratch", None)
                 plain_ms = stream_ms(lambda: plain(*fresh_args(name, args),
                                                    **kw), 5)
                 nbytes = exchange_bound_bytes(name, args, kw, got)
                 b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                launch = ""
+                if name == "pack":
+                    launch = (
+                        "; launch %d threads, %d + %d tiles (key %d x %d, "
+                        "fill %d x %d) by ticket over %d blocks (%d a SM "
+                        "of %d SMs)" % (
+                            shape["threads"], shape["pack_key_tiles"],
+                            shape["pack_fill_tiles"], shape["threads"],
+                            shape["rows"], shape["threads"],
+                            shape["fill_rows"], shape["pack_grid"],
+                            shape["pack_blocks_per_sm"], shape["sms"]))
+                elif name == "finish":
+                    launch = (
+                        "; launch %d threads, %d + %d tiles (table + slot, "
+                        "%d x %d; the slot tiles past the slots sent "
+                        "skipped) over %d blocks (%d a SM of %d SMs)" % (
+                            shape["threads"], shape["finish_table_tiles"],
+                            shape["finish_slot_tiles"], shape["threads"],
+                            shape["rows"], shape["finish_grid"],
+                            shape["finish_blocks_per_sm"], shape["sms"]))
                 log("MESH KERNEL %s exchange_%s (world 4, rank 0; NL %d, C "
                     "%d, RL %d, A %d, %d keys sent): ms %.5f plain_ms %.3f "
-                    "bound_ms %.6f (bytes; %d bytes); kernel == plain" % (
+                    "bound_ms %.6f (bytes; %d bytes)%s; kernel == plain" % (
                         cname, name, meta["NL"], meta["C"], 4 * meta["C"],
-                        meta["A"], int((calls[0]["finish"][0][2][:, 0]
-                                        != lk.KSENT_I).sum()), ms, plain_ms,
-                        b_ms, nbytes))
+                        meta["A"], exchange_sent(calls[0]["finish"][0][5],
+                                                 meta["C"]), ms, plain_ms,
+                        b_ms, nbytes, launch))
                 mesh_recs["exchange_" + name].update({
                     "ms" + sfx: ms, "plain_ms" + sfx: plain_ms,
                     "bound_ms" + sfx: b_ms, "bound_by" + sfx: "bytes"})
+                if name != "window":
+                    mesh_recs["exchange_" + name]["launch" + sfx] = {
+                        k: v for k, v in shape.items()
+                        if k.startswith(name) or k in (
+                            "threads", "rows", "sms")
+                        or (name == "pack" and k == "fill_rows")}
+            if scratch.any():
+                raise AssertionError("exchange_pack left its scratch "
+                                     "dirty")
         log("exchange kernels %s (G_loc %d, H %d, S %d, A %d): %d states x 4 "
             "ranks, each kernel == plain, also in a CUDA graph (%.1f s)" % (
                 cname, G_loc, cfg.H, cfg.S, cfg.A, len(EXCHANGE_STATES),

@@ -22,7 +22,8 @@
 //    the key, and the s1 of its origin row (the key's low jb bits less
 //    this rank's base), KSENT / 0 past the run; the overflow flag is set
 //    when a run is longer than C. It also zeroes the pair plane that
-//    exchange_finish scatters into.
+//    exchange_finish scatters into, and returns the runs' bounds [nd + 1]
+//    (JAX's start, then the count of valid keys).
 //  * exchange_window: device_loop.py:377-401. From the all_gather of every
 //    rank's (n_out, overflow): this rank's offset (the earlier ranks'
 //    out-group counts), n_out (A + 1 on any overflow), and the rank's [2, A]
@@ -32,7 +33,8 @@
 //  * exchange_finish: device_loop.py:393-405. The summed table masked by
 //    live rows (SENT / 0 past n_out, s1 to int32), and each returned arc
 //    row scattered to the pair slot of the key this rank sent there (its
-//    origin row, recomputed from the key; only slots really sent).
+//    origin row, recomputed from the key; only the slots pack's bounds say
+//    were sent: c < min(bound[t + 1] - bound[t], C)).
 //
 // Bounds and design. All four move little data (big at world 4: a few MB)
 // and are bound by bytes; none reads a value on the host, so the ranks
@@ -43,15 +45,36 @@
 //    order gives the same bits). Only rank-0 unfiltered rows touch the
 //    sums. The output [7, n_prot] is one int64 buffer, zeroed by one memset:
 //    row 0 holds the int32 maxima in its first n_prot words.
-//  * exchange_pack: no count pass and no scan. Destinations are monotone in
-//    the sorted keys and the sentinels come last, so the nd run boundaries
-//    (the first position whose key is KSENT or goes to t or later, t = 1
-//    .. nd) come from binary searches; each block makes them itself, one
-//    warp a boundary, each step a 32-way probe of the warp (five steps at a
-//    million keys). Then every slot of the plane is one coalesced store.
-//  * exchange_window and exchange_finish: elementwise over the A table
-//    rows and the nd * C slots, grid-stride; the per-rank sums are made
-//    once a block in shared memory.
+//  * exchange_pack: no count pass, no scan and no search (a binary search of
+//    the run bounds in every block is a chain of dependent scattered probes
+//    before any store): destinations are monotone in the sorted keys and the
+//    sentinels come last, so bound[t] (t = 1 .. nd) is the position where D,
+//    the destination (nd at a sentinel), steps past t - 1; D comes from nd - 1
+//    thresholds on v = key >> shift (no 64-bit division a key). One launch, no
+//    memset, a persistent grid (the resident blocks) taking tiles by ticket:
+//    the key tiles (1,024 positions, the first tickets) read their keys
+//    coalesced, publish the bounds that fall in them (each on a 128-byte line
+//    of its own) and write them to the bounds plane, zero the pair plane,
+//    gather each valid key's s1, then wait only for the bounds of their own
+//    keys' destinations (published by this tile or an earlier ticket) and
+//    store each key at slot p - bound[t]; the fill tiles (2,048 slots) wait
+//    for the bounds of their destinations and store KSENT / 0 past each run.
+//    The tile that publishes bound[nd] sets the overflow flag. The block that
+//    takes the launch's last ticket zeroes the scratch (every other block took
+//    its last ticket after its last tile), so CUDA-graph replays stay right.
+//    The bytes it must move are the keys sent and their s1 (12 bytes a key),
+//    the [nd, 2, C] plane, the pair plane and the bounds; at big's world-4
+//    shape the launch and the tickets alone take a third of its time.
+//  * exchange_finish: a persistent grid over table tiles of 1,024 rows (a live
+//    row's two words read, 12 bytes written), then tiles over the sent slots
+//    only, numbered t-major from pack's bounds: each reads its key and reply
+//    (12 bytes) and raises one 4-byte row of the zeroed pair plane to the
+//    reply by atomicMax (a reduction done in L2: the row's store, since each
+//    row takes one key and a reply is an arc row >= 0, and the same again on a
+//    replay; a random 4-byte store takes twice as long on an H100).
+//  * exchange_window: elementwise over the A table rows and the RL
+//    received slots, grid-stride; the per-rank sums are made once a block
+//    in shared memory.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -59,8 +82,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-// blocks a SM the grid-stride kernels ask for at most (132 SMs)
+// blocks a SM the grid-stride kernel asks for at most (132 SMs)
 constexpr int kMaxBlocks = 132 * 8;
 constexpr int64_t kKSent = int64_t(1) << 62;       // an invalid row's key
 constexpr int64_t kSent = (int64_t(1) << 62) - 1;  // an empty table slot
@@ -132,36 +154,43 @@ __device__ __forceinline__ int dest_of(int64_t key, int shift, int nd,
   return static_cast<int>(t < 0 ? 0 : (t > nd - 1 ? nd - 1 : t));
 }
 
-// The first position in [0, n) whose key is KSENT or goes to destination
-// t or later (n when none), by a 32-way search of one warp; every lane
-// returns it.
-__device__ int run_bound(const int64_t* keys, int n, int t, int shift,
-                         int nd, long long two_s) {
-  const int lane = threadIdx.x & 31;
-  long long lo = 0, hi = n;  // positions before lo fail; the answer <= hi
-  while (lo < hi) {
-    const long long len = hi - lo;
-    const long long step = len <= 32 ? 1 : (len + 31) / 32;
-    const long long p = lo + lane * step;
-    bool hit = false;
-    if (p < hi) {
-      const int64_t k = keys[p];
-      hit = k >= kKSent || dest_of(k, shift, nd, two_s) >= t;
-    }
-    // the ballot is the warp's: every lane takes the same branch
-    const unsigned bal = __ballot_sync(0xffffffffu, hit);
-    if (bal == 0) {
-      // every probe failed: the answer is past the last one below hi
-      const long long m = (len - 1) / step;
-      lo += (m < 31 ? m : 31) * step + 1;
-    } else {
-      const int f = __ffs(bal) - 1;
-      if (f == 0) return static_cast<int>(lo);
-      hi = lo + f * step;
-      lo += (f - 1) * step + 1;
-    }
+// exchange_pack's and exchange_finish's tiles: kThreads threads, kExRows
+// positions (keys, slots or table rows) a thread, kThreads apart, so that
+// each warp's loads and stores are coalesced.
+constexpr int kExRows = 4;
+constexpr int kExTile = kThreads * kExRows;  // 1,024
+// a fill tile of exchange_pack: kFillRows slots a thread (stores only)
+constexpr int kFillRows = 8;
+constexpr int kFillTile = kThreads * kFillRows;  // 2,048
+// the blocks a SM each kernel asks ptxas for; both grids are persistent,
+// the blocks that fit on the card at once (at most kPackBlocksPerSm or
+// kFinishBlocksPerSm a SM), each block looping over tiles
+constexpr int kPackBlocksPerSm = 4;
+constexpr int kFinishBlocksPerSm = 8;
+// exchange_pack's scratch, in 32-bit words: the ticket (word 0) on the
+// first 128-byte line, then bound[t] + 1 (0: not published yet) at the
+// first word of line t, t = 1 .. nd, so that a block waiting for one bound
+// polls a line of its own and no poll meets the tickets. Zero before a
+// launch; the block that takes the launch's last ticket zeroes it.
+constexpr int kScLine = 32;
+
+__device__ __forceinline__ void publish_bound(unsigned* sc, int t,
+                                              long long p) {
+  *reinterpret_cast<volatile unsigned*>(sc + kScLine * t) =
+      static_cast<unsigned>(p) + 1u;
+}
+
+// bound[t], once a block with an earlier ticket (or this one, before a
+// __syncthreads) has published it; the polls back off to 256 ns.
+__device__ __forceinline__ int acquire_bound(const unsigned* sc, int t) {
+  if (t == 0) return 0;
+  const volatile unsigned* w = sc + kScLine * t;
+  unsigned v = *w;
+  for (unsigned ns = 32; v == 0; ns = ns < 256 ? 2 * ns : ns) {
+    __nanosleep(ns);
+    v = *w;
   }
-  return static_cast<int>(lo);
+  return static_cast<int>(v - 1u);
 }
 
 struct PackArgs {
@@ -169,48 +198,198 @@ struct PackArgs {
   const int32_t* s1;        // [NL] by local row
   int NL, nd, C, jb, shift;
   long long two_s, base;
+  long long v_max;          // the largest v whose v * nd is no overflow
+  long long n_key;          // key tiles (tickets 0 .. n_key - 1)
+  long long n_fill;         // fill tiles (the next tickets)
   int64_t* send;            // [nd, 2, C]
   int64_t* ovf;             // scalar
   int32_t* pair;            // [NL + 1], zeroed here
+  int32_t* bounds;          // [nd + 1]
+  unsigned* sc;             // the scratch
 };
 
-__global__ void __launch_bounds__(kThreads) exchange_pack_kernel(PackArgs a) {
-  // bound[t]: the start of destination t's run, t = 0 .. nd (bound[nd]:
-  // the first sentinel)
-  extern __shared__ int bound[];
-  const int warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) bound[0] = 0;
-  for (int t = 1 + warp; t <= a.nd; t += kWarps) {
-    const int b = run_bound(a.keys, a.NL, t, a.shift, a.nd, a.two_s);
-    if ((threadIdx.x & 31) == 0) bound[t] = b;
+// D: the destination of a key, nd at a sentinel. th[t] (t = 1 .. nd - 1,
+// in shared memory) is the least v = key >> shift with floor(v nd / two_s)
+// >= t, so dest counts the th[t] <= v: no 64-bit division a key.
+__device__ __forceinline__ int dest_at(const PackArgs& a,
+                                       const long long* th, int64_t key) {
+  if (key >= kKSent) return a.nd;
+  const long long v = key >> a.shift;
+  if (v > a.v_max || v < -a.v_max)
+    return dest_of(key, a.shift, a.nd, a.two_s);
+  int lo = 0, hi = a.nd - 1;  // dest in [lo, hi]
+  while (lo < hi) {
+    const int m = (lo + hi + 1) >> 1;
+    if (v >= th[m])
+      lo = m;
+    else
+      hi = m - 1;
+  }
+  return lo;
+}
+
+// The block's shared words of a tile.
+struct PackTile {
+  unsigned k;       // the ticket
+  unsigned lo, hi;  // a key tile's destinations
+  int end;          // the key tile publishes bound[nd]
+};
+
+// A key tile: positions [p0, p0 + kExTile). bound[t] (t = 1 .. nd) is the
+// position p with D(p - 1) < t <= D(p) (D(-1) = 0), or NL when D(NL - 1) <
+// t: the tile holding p publishes it (and writes it to the bounds plane),
+// before it waits for the bounds of its own keys' destinations (each at or
+// before its keys, so published by this tile or an earlier ticket). Each
+// valid key's s1 is gathered before the wait; then the key goes to slot
+// p - bound[t] of its destination t (dropped past C). The tile that
+// publishes bound[nd] sets the overflow flag from every bound.
+__device__ void pack_keys(const PackArgs& a, long long p0,
+                          const long long* th, int* sb, PackTile& sh) {
+  const int lane = threadIdx.x & 31;
+  const int64_t mask = (int64_t(1) << a.jb) - 1;
+  int64_t key[kExRows];
+  int d[kExRows];
+  int32_t v1[kExRows];
+#pragma unroll
+  for (int r = 0; r < kExRows; ++r) {
+    const long long p = p0 + r * kThreads + threadIdx.x;
+    key[r] = p < a.NL ? __ldg(a.keys + p) : kKSent;
+  }
+  // the key before each warp's first position
+  const long long pw = p0 + (threadIdx.x & ~31);
+  int64_t kw[kExRows];
+#pragma unroll
+  for (int r = 0; r < kExRows; ++r) {
+    const long long p = pw + r * kThreads;
+    kw[r] = lane == 0 && p > 0 && p <= a.NL ? __ldg(a.keys + p - 1) : 0;
+  }
+  if (p0 == 0 && threadIdx.x == 0) a.bounds[0] = 0;
+  unsigned lo = a.nd, hi = 0;
+#pragma unroll
+  for (int r = 0; r < kExRows; ++r) {
+    const long long p = p0 + r * kThreads + threadIdx.x;
+    d[r] = dest_at(a, th, key[r]);
+    // D(p - 1): the lane before's, or for a warp's first lane its load
+    int dp = __shfl_up_sync(0xffffffffu, d[r], 1);
+    if (lane == 0) dp = p == 0 ? 0 : dest_at(a, th, kw[r]);
+    v1[r] = 0;
+    if (p >= a.NL) continue;
+    // the bounds at p, and at NL after the last position
+    const int t_end = p == a.NL - 1 ? a.nd : d[r];
+    for (int t = dp + 1; t <= t_end; ++t) {
+      const long long at = t <= d[r] ? p : a.NL;
+      publish_bound(a.sc, t, at);
+      a.bounds[t] = static_cast<int32_t>(at);
+    }
+    if (dp < a.nd && t_end == a.nd) sh.end = 1;
+    a.pair[p] = 0;
+    if (p == a.NL - 1) a.pair[a.NL] = 0;
+    if (d[r] < a.nd) {
+      long long row = (key[r] & mask) - a.base;
+      row = row < 0 ? 0 : (row > a.NL - 1 ? a.NL - 1 : row);
+      v1[r] = __ldg(a.s1 + row);
+      lo = min(lo, static_cast<unsigned>(d[r]));
+      hi = max(hi, static_cast<unsigned>(d[r]));
+    }
+  }
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  if (lane == 0) {
+    atomicMin(&sh.lo, lo);
+    atomicMax(&sh.hi, hi);
   }
   __syncthreads();
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
+  if (sh.end && threadIdx.x == 0) {
+    // every bound is at or before bound[nd]: published by this tile or an
+    // earlier ticket
     int64_t over = 0;
-    for (int t = 0; t < a.nd; ++t)
-      over |= bound[t + 1] - bound[t] > a.C;
+    int prev = 0;
+    for (int t = 1; t <= a.nd; ++t) {
+      const int b = acquire_bound(a.sc, t);
+      over |= b - prev > a.C;
+      prev = b;
+    }
     *a.ovf = over;
   }
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  const long long first = static_cast<long long>(blockIdx.x) * kThreads +
-                          threadIdx.x;
-  const long long slots = static_cast<long long>(a.nd) * a.C;
-  const int64_t mask = (int64_t(1) << a.jb) - 1;
-  for (long long j = first; j < slots; j += stride) {
-    const int t = static_cast<int>(j / a.C);
-    const int c = static_cast<int>(j - static_cast<long long>(t) * a.C);
-    int64_t key = kKSent, s1 = 0;
-    if (c < bound[t + 1] - bound[t]) {
-      key = a.keys[bound[t] + c];
-      long long row = (key & mask) - a.base;
-      row = row < 0 ? 0 : (row > a.NL - 1 ? a.NL - 1 : row);
-      s1 = a.s1[row];
-    }
-    int64_t* out = a.send + 2LL * t * a.C + c;
-    out[0] = key;
-    out[a.C] = s1;
+  for (int t = static_cast<int>(sh.lo) + threadIdx.x;
+       t <= static_cast<int>(sh.hi); t += kThreads)
+    sb[t] = acquire_bound(a.sc, t);
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kExRows; ++r) {
+    const long long p = p0 + r * kThreads + threadIdx.x;
+    if (p >= a.NL || d[r] >= a.nd) continue;
+    const long long c = p - sb[d[r]];
+    if (c >= a.C) continue;
+    int64_t* out = a.send + 2LL * d[r] * a.C + c;
+    out[0] = key[r];
+    out[a.C] = v1[r];
   }
-  for (long long j = first; j <= a.NL; j += stride) a.pair[j] = 0;
+}
+
+// A fill tile: slots [j0, j0 + kFillTile) of the plane, t-major,
+// destinations t0 .. t1. Once their bounds (t0 .. t1 + 1) are published,
+// each slot (t, c) past its run gets KSENT / 0.
+__device__ void pack_fill(const PackArgs& a, long long j0, int* sb) {
+  const long long slots = static_cast<long long>(a.nd) * a.C;
+  const long long j1 = (j0 + kFillTile < slots ? j0 + kFillTile : slots) - 1;
+  const int t0 = static_cast<int>(j0 / a.C);
+  const int t1 = static_cast<int>(j1 / a.C);
+  for (int t = t0 + threadIdx.x; t <= t1 + 1; t += kThreads)
+    sb[t] = acquire_bound(a.sc, t);
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kFillRows; ++r) {
+    const long long j = j0 + r * kThreads + threadIdx.x;
+    if (j > j1) continue;
+    int t = t0;
+    long long c = j - static_cast<long long>(t0) * a.C;
+    while (c >= a.C) {
+      c -= a.C;
+      ++t;
+    }
+    if (c < sb[t + 1] - sb[t]) continue;
+    int64_t* out = a.send + 2LL * t * a.C + c;
+    out[0] = kKSent;
+    out[a.C] = 0;
+  }
+}
+
+// One launch of resident blocks, each taking tiles by ticket until none is
+// left: the key tiles first, then the fill tiles (which wait for their
+// destinations' bounds: the key tiles hold earlier tickets, so they are
+// running or done). A block takes its last ticket (past the tiles) after
+// its last tile, so the block that takes the launch's last ticket is the
+// only one still to touch the scratch: it zeroes it.
+__global__ void __launch_bounds__(kThreads, kPackBlocksPerSm)
+exchange_pack_kernel(PackArgs a) {
+  extern __shared__ long long th[];  // th[1 .. nd - 1], then bound[0 .. nd]
+  int* sb = reinterpret_cast<int*>(th + a.nd);
+  __shared__ PackTile sh;
+  for (int t = 1 + threadIdx.x; t < a.nd; t += kThreads) {
+    const long long n = t * a.two_s;
+    th[t] = (n + a.nd - 1) / a.nd;
+  }
+  const long long n_tiles = a.n_key + a.n_fill;
+  for (;;) {
+    if (threadIdx.x == 0) {
+      sh.k = atomicAdd(a.sc, 1u);
+      sh.lo = a.nd;
+      sh.hi = 0;
+      sh.end = 0;
+    }
+    __syncthreads();
+    const long long tk = sh.k;
+    if (tk >= n_tiles) break;
+    if (tk < a.n_key)
+      pack_keys(a, tk * kExTile, th, sb, sh);
+    else
+      pack_fill(a, (tk - a.n_key) * kFillTile, sb);
+    __syncthreads();  // before the next tile's ticket and bounds
+  }
+  if (sh.k != n_tiles + gridDim.x - 1) return;
+  for (int t = threadIdx.x; t <= a.nd; t += kThreads)
+    a.sc[kScLine * t] = 0;
 }
 
 struct WindowArgs {
@@ -267,34 +446,93 @@ struct FinishArgs {
   const int64_t* n_out;     // scalar
   const int64_t* send;      // [nd, 2, C] this rank's send plane
   const int32_t* reply;     // [nd * C] the arc rows returned to the slots
+  const int32_t* bounds;    // [nd + 1] exchange_pack's run bounds
   int A, nd, C, NL, jb;
   long long base;
+  long long n_table;        // table tiles (blocks 0 .. n_table - 1)
   int64_t* arc_vw;          // [A]
   int32_t* arc_s1;          // [A]
   int32_t* pair;            // [NL + 1], zeroed by exchange_pack
 };
 
-__global__ void __launch_bounds__(kThreads)
+// One launch of resident blocks over tiles w = blockIdx.x, + gridDim.x,
+// ...: the table tiles first (rows [p0, p0 + kExTile): a live row's two
+// words read, 12 bytes written a row), then the tiles of the sent slots,
+// numbered t-major (slot (t, c) was sent iff c < min(bound[t + 1] -
+// bound[t], C)): each reads its keys and replies and adds each reply to
+// its key's origin row of the zeroed pair plane; an unsent slot is never
+// read.
+__global__ void __launch_bounds__(kThreads, kFinishBlocksPerSm)
 exchange_finish_kernel(FinishArgs a) {
-  const long long n_out = *a.n_out;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  const long long first = static_cast<long long>(blockIdx.x) * kThreads +
-                          threadIdx.x;
-  for (long long p = first; p < a.A; p += stride) {
-    const bool live = p < n_out;
-    a.arc_vw[p] = live ? a.table[p] : kSent;
-    a.arc_s1[p] = live ? static_cast<int32_t>(a.table[a.A + p]) : 0;
+  // pre[t]: the sent slots of the destinations before t
+  extern __shared__ long long pre[];  // [nd + 1]
+  for (int t = threadIdx.x; t <= a.nd; t += kThreads)
+    pre[t] = __ldg(a.bounds + t);
+  long long w = blockIdx.x;
+  if (w < a.n_table) {
+    const long long n_out = __ldg(a.n_out);
+    for (; w < a.n_table; w += gridDim.x) {
+      const long long p0 = w * kExTile;
+      int64_t vw[kExRows], s1[kExRows];
+#pragma unroll
+      for (int r = 0; r < kExRows; ++r) {
+        const long long p = p0 + r * kThreads + threadIdx.x;
+        const bool live = p < n_out && p < a.A;
+        vw[r] = live ? __ldg(a.table + p) : kSent;
+        s1[r] = live ? __ldg(a.table + a.A + p) : 0;
+      }
+#pragma unroll
+      for (int r = 0; r < kExRows; ++r) {
+        const long long p = p0 + r * kThreads + threadIdx.x;
+        if (p >= a.A) continue;
+        a.arc_vw[p] = vw[r];
+        a.arc_s1[p] = static_cast<int32_t>(s1[r]);
+      }
+    }
   }
-  const long long slots = static_cast<long long>(a.nd) * a.C;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    long long acc = 0, prev = pre[0];
+    pre[0] = 0;
+    for (int t = 1; t <= a.nd; ++t) {
+      const long long b = pre[t], n = b - prev;
+      acc += n < a.C ? n : a.C;
+      prev = b;
+      pre[t] = acc;
+    }
+  }
+  __syncthreads();
+  const long long total = pre[a.nd];
+  const long long n_work = a.n_table + (total + kExTile - 1) / kExTile;
   const int64_t mask = (int64_t(1) << a.jb) - 1;
-  for (long long j = first; j < slots; j += stride) {
-    const int t = static_cast<int>(j / a.C);
-    const int c = static_cast<int>(j - static_cast<long long>(t) * a.C);
-    const int64_t key = a.send[2LL * t * a.C + c];
-    if (key == kKSent) continue;
-    long long row = (key & mask) - a.base;
-    row = row < 0 ? 0 : (row > a.NL - 1 ? a.NL - 1 : row);
-    a.pair[row] = a.reply[j];
+  for (; w < n_work; w += gridDim.x) {
+    const long long i0 = (w - a.n_table) * kExTile;
+    int64_t key[kExRows];
+    int32_t rep[kExRows];
+#pragma unroll
+    for (int r = 0; r < kExRows; ++r) {
+      const long long i = i0 + r * kThreads + threadIdx.x;
+      key[r] = kKSent;
+      rep[r] = 0;
+      if (i >= total) continue;
+      int t = 0;
+      while (pre[t + 1] <= i) ++t;
+      const long long c = i - pre[t];
+      key[r] = __ldg(a.send + 2LL * t * a.C + c);
+      rep[r] = __ldg(a.reply + static_cast<long long>(t) * a.C + c);
+    }
+#pragma unroll
+    for (int r = 0; r < kExRows; ++r) {
+      const long long i = i0 + r * kThreads + threadIdx.x;
+      if (i >= total) continue;
+      long long row = (key[r] & mask) - a.base;
+      row = row < 0 ? 0 : (row > a.NL - 1 ? a.NL - 1 : row);
+      // the plane is zero, a row takes one key and a reply (an arc row)
+      // is >= 0: the maximum is the store, done in L2 without a reply and
+      // the same again on a replay (a random 4-byte store costs a sector's
+      // round trip through L1)
+      atomicMax(a.pair + row, rep[r]);
+    }
   }
 }
 
@@ -334,17 +572,56 @@ extern "C" int pg_protein_reduce(const void* pid, const void* score_ori,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Bytes of exchange_pack's scratch for nd destinations (zeroed once by
+// the caller; each launch leaves it zeroed).
+extern "C" long long pg_exchange_scratch(int nd) {
+  return nd < 1 ? 0 : (nd + 1LL) * kScLine * 4;
+}
+
+// exchange_pack's dynamic shared memory: the thresholds, then the bounds.
+inline size_t pack_smem(int nd) {
+  return nd * sizeof(long long) + (nd + 1) * sizeof(int);
+}
+
+// exchange_finish's: the sent slots before each destination.
+inline size_t finish_smem(int nd) { return (nd + 1) * sizeof(long long); }
+
+// The persistent grids on the current device: each kernel's resident
+// blocks a SM (its occupancy) and the SMs.
+cudaError_t exchange_caps(int nd, int* sms, int* pack_sm, int* finish_sm) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        pack_sm, exchange_pack_kernel, kThreads, pack_smem(nd));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        finish_sm, exchange_finish_kernel, kThreads, finish_smem(nd));
+  if (e == cudaSuccess && (*sms < 1 || *pack_sm < 1 || *finish_sm < 1))
+    e = cudaErrorInvalidConfiguration;
+  return e;
+}
+
+inline long long min_ll(long long x, long long y) { return x < y ? x : y; }
+
 // The send plane of NL sorted lean keys (int64, KSENT at the end) and
 // their rows' s1 (int32 [NL], by local row) for nd destinations of C
 // slots on `stream`: send int64 [nd, 2, C] (keys, s1), ovf int64 scalar,
-// pair int32 [NL + 1] zeroed. dest = clip((key >> shift) * nd // two_s, 0,
-// nd - 1); a key's origin row is (key & (2^jb - 1)) - base. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue on a bad shape.
+// pair int32 [NL + 1] zeroed, bounds int32 [nd + 1] (destination t's run
+// starts at bounds[t]; bounds[nd] is the first sentinel). dest =
+// clip((key >> shift) * nd // two_s, 0, nd - 1); a key's origin row is
+// (key & (2^jb - 1)) - base. scratch: pg_exchange_scratch(nd) bytes, zero,
+// left zero. Returns cudaGetLastError(), or cudaErrorInvalidValue on a
+// bad shape.
 extern "C" int pg_exchange_pack(const void* keys, const void* s1, int NL,
                                 int nd, int C, int jb, int shift,
                                 long long two_s, long long base, void* send,
-                                void* ovf, void* pair, void* stream) {
-  if (NL < 1 || nd < 1 || C < 1 || two_s < 1 || jb < 1 || jb > 62)
+                                void* ovf, void* pair, void* bounds,
+                                void* scratch, void* stream) {
+  if (NL < 1 || nd < 1 || C < 1 || two_s < 1 || jb < 1 || jb > 62 ||
+      !scratch)
     return static_cast<int>(cudaErrorInvalidValue);
   PackArgs a;
   a.keys = static_cast<const int64_t*>(keys);
@@ -356,12 +633,24 @@ extern "C" int pg_exchange_pack(const void* keys, const void* s1, int NL,
   a.shift = shift;
   a.two_s = two_s;
   a.base = base;
+  a.v_max = 0x7fffffffffffffffLL / nd;
+  a.n_key = (NL + kExTile - 1LL) / kExTile;
+  a.n_fill = (static_cast<long long>(nd) * C + kFillTile - 1) / kFillTile;
   a.send = static_cast<int64_t*>(send);
   a.ovf = static_cast<int64_t*>(ovf);
   a.pair = static_cast<int32_t*>(pair);
-  const long long n = static_cast<long long>(nd) * C;
-  const int grid = grid_of(n > NL + 1LL ? n : NL + 1LL);
-  exchange_pack_kernel<<<grid, kThreads, (nd + 1) * sizeof(int),
+  a.bounds = static_cast<int32_t*>(bounds);
+  a.sc = static_cast<unsigned*>(scratch);
+  // every block takes one ticket past the last tile
+  if (a.n_key + a.n_fill > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0, pack_sm = 0, finish_sm = 0;
+  const cudaError_t e = exchange_caps(nd, &sms, &pack_sm, &finish_sm);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long grid = min_ll(a.n_key + a.n_fill,
+                                static_cast<long long>(sms) * pack_sm);
+  exchange_pack_kernel<<<static_cast<unsigned>(grid), kThreads,
+                         pack_smem(nd),
                          static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -399,15 +688,17 @@ extern "C" int pg_exchange_window(const void* per_rank, const void* vw,
 
 // The arc table and the pair slots on `stream`: table int64 [2, A] (summed
 // over the ranks), n_out int64 scalar, this rank's send int64 [nd, 2, C],
-// the returned reply int32 [nd * C]. Writes arc_vw int64 [A], arc_s1 int32
-// [A] and pair int32 [NL + 1] at the origin rows of the keys sent (zeroed
-// before by pg_exchange_pack). Returns cudaGetLastError(), or
-// cudaErrorInvalidValue on a bad shape.
+// the returned reply int32 [nd * C], pg_exchange_pack's bounds int32
+// [nd + 1]. Writes arc_vw int64 [A], arc_s1 int32 [A] and pair int32
+// [NL + 1] at the origin rows of the keys sent (zeroed before by
+// pg_exchange_pack). Returns cudaGetLastError(), or cudaErrorInvalidValue
+// on a bad shape.
 extern "C" int pg_exchange_finish(const void* table, const void* n_out,
-                                  const void* send, const void* reply, int A,
-                                  int nd, int C, int NL, int jb,
-                                  long long base, void* arc_vw, void* arc_s1,
-                                  void* pair, void* stream) {
+                                  const void* send, const void* reply,
+                                  const void* bounds, int A, int nd, int C,
+                                  int NL, int jb, long long base,
+                                  void* arc_vw, void* arc_s1, void* pair,
+                                  void* stream) {
   if (A < 1 || nd < 1 || C < 1 || NL < 1 || jb < 1 || jb > 62)
     return static_cast<int>(cudaErrorInvalidValue);
   FinishArgs a;
@@ -415,17 +706,56 @@ extern "C" int pg_exchange_finish(const void* table, const void* n_out,
   a.n_out = static_cast<const int64_t*>(n_out);
   a.send = static_cast<const int64_t*>(send);
   a.reply = static_cast<const int32_t*>(reply);
+  a.bounds = static_cast<const int32_t*>(bounds);
   a.A = A;
   a.nd = nd;
   a.C = C;
   a.NL = NL;
   a.jb = jb;
   a.base = base;
+  a.n_table = (A + kExTile - 1LL) / kExTile;
   a.arc_vw = static_cast<int64_t*>(arc_vw);
   a.arc_s1 = static_cast<int32_t*>(arc_s1);
   a.pair = static_cast<int32_t*>(pair);
-  const long long n = static_cast<long long>(nd) * C;
-  exchange_finish_kernel<<<grid_of(n > A ? n : A), kThreads, 0,
+  const long long n_slot =
+      (static_cast<long long>(nd) * C + kExTile - 1) / kExTile;
+  int sms = 0, pack_sm = 0, finish_sm = 0;
+  const cudaError_t e = exchange_caps(nd, &sms, &pack_sm, &finish_sm);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long grid = min_ll(a.n_table + n_slot,
+                                static_cast<long long>(sms) * finish_sm);
+  exchange_finish_kernel<<<static_cast<unsigned>(grid), kThreads,
+                           finish_smem(nd),
                            static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch shape of exchange_pack and exchange_finish on the current
+// device, into out[13]: threads a block, positions a thread in a key,
+// table or slot tile, pack's key and fill tiles (kFillRows slots a thread),
+// pack's resident blocks a SM, finish's table and slot tiles (the most
+// slots; the tiles past the slots sent are skipped), finish's resident
+// blocks a SM, the device's SMs, pack's scratch bytes, pack's and finish's
+// grids (persistent: at most the resident blocks), slots a thread in a
+// fill tile. Returns a CUDA error code.
+extern "C" int pg_exchange_shape(int NL, int nd, int C, int A,
+                                 long long* out) {
+  int sms = 0, pack_sm = 0, finish_sm = 0;
+  const cudaError_t e = exchange_caps(nd, &sms, &pack_sm, &finish_sm);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long slots = static_cast<long long>(nd) * C;
+  out[0] = kThreads;
+  out[1] = kExRows;
+  out[2] = (NL + kExTile - 1LL) / kExTile;
+  out[3] = (slots + kFillTile - 1) / kFillTile;
+  out[4] = pack_sm;
+  out[5] = (A + kExTile - 1LL) / kExTile;
+  out[6] = (slots + kExTile - 1) / kExTile;
+  out[7] = finish_sm;
+  out[8] = sms;
+  out[9] = pg_exchange_scratch(nd);
+  out[10] = min_ll(out[2] + out[3], static_cast<long long>(sms) * pack_sm);
+  out[11] = min_ll(out[5] + out[6], static_cast<long long>(sms) * finish_sm);
+  out[12] = kFillRows;
+  return 0;
 }

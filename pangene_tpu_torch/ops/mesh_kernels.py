@@ -16,8 +16,11 @@ They replace the XLA forms of the JAX package's mesh:
   exchange_pack    pangene_tpu/parallel/device_loop.py:325-348: each
                    destination's run of the locally sorted lean keys, cut
                    at C, into the [nd, 2, C] send plane (key, s1 of its
-                   origin row), the overflow flag; and the pair plane of
-                   exchange_finish, zeroed.
+                   origin row), the overflow flag, the runs' bounds [nd + 1]
+                   (JAX's start, then the valid keys' count); and the pair
+                   plane of exchange_finish, zeroed. One launch, ticketed
+                   tiles, through a scratch (exchange_scratch) that each
+                   launch leaves zeroed.
   exchange_window  device_loop.py:377-401: after the all_gather of every
                    rank's (n_out_l, overflow), the rank's offset and n_out,
                    its [2, A] table plane (its fold's rows at the window
@@ -25,7 +28,9 @@ They replace the XLA forms of the JAX package's mesh:
                    received slot's global arc row, 0 at a sentinel).
   exchange_finish  device_loop.py:393-405: after the psum and the second
                    all_to_all, the table masked by the live rows, and each
-                   returned arc row at the pair slot of the key sent there.
+                   returned arc row at the pair slot of the key sent there
+                   (an atomicMax on the zeroed plane); only the slots
+                   pack's bounds say were sent are read.
 
 The two sorts around the fold stay torch.sort and the fold stays
 loop_kernels.merge_fold, as the JAX package sorts with XLA's sort. On cuda
@@ -77,17 +82,25 @@ def build(force: bool = False) -> Tuple[float, str]:
     return build_so(_SRC, SO_NAME, force)
 
 
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# The C entries of csrc/mesh_round.cu: name -> (return type, argument
+# types, the stream last where there is one)
+ENTRIES = {
+    "pg_protein_reduce": (_I, [_VP] * 7 + [_I] * 3 + [_VP] * 2),
+    "pg_exchange_scratch": (_LL, [_I]),
+    "pg_exchange_pack": (_I, [_VP] * 2 + [_I] * 5 + [_LL] * 2 + [_VP] * 6),
+    "pg_exchange_window": (_I, [_VP] * 5 + [_I] * 4 + [_VP] * 4),
+    "pg_exchange_finish": (_I, [_VP] * 5 + [_I] * 5 + [_LL] + [_VP] * 4),
+    "pg_exchange_shape": (_I, [_I] * 4 + [_VP]),
+}
+
+
 def load(path: str) -> ctypes.CDLL:
-    """The built library with its entry points' C signatures."""
+    """The built library with its entry points' C signatures (ENTRIES)."""
     lib = ctypes.CDLL(path)
-    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name, args in (
-            ("pg_protein_reduce", [vp] * 7 + [i] * 3 + [vp] * 2),
-            ("pg_exchange_pack", [vp] * 2 + [i] * 5 + [ll] * 2 + [vp] * 4),
-            ("pg_exchange_window", [vp] * 5 + [i] * 4 + [vp] * 4),
-            ("pg_exchange_finish", [vp] * 4 + [i] * 5 + [ll] + [vp] * 4)):
+    for name, (res, args) in ENTRIES.items():
         fn = getattr(lib, name)
-        fn.restype = i
+        fn.restype = res
         fn.argtypes = args
     return lib
 
@@ -184,15 +197,67 @@ def protein_reduce_plain(pid, score_ori, score_adj, n_exon, rank, flt,
 # the bucket exchange
 # ---------------------------------------------------------------------------
 
+def exchange_scratch(device, nd: int) -> torch.Tensor:
+    """The zeroed scratch of exchange_pack for nd destinations on `device`
+    (int64, its size from pg_exchange_scratch): its blocks' ticket and the
+    published run bounds. Each launch leaves it zeroed (the block that
+    takes the launch's last ticket), so one serves every call on one
+    stream; a CUDA graph replays right with it."""
+    n = int(_kernel_lib().pg_exchange_scratch(max(int(nd), 1)))
+    return torch.zeros(n // 8, dtype=I64, device=device)
+
+
+def launch_shape(NL: int, nd: int, C: int, A: int) -> dict:
+    """exchange_pack's and exchange_finish's launch on the current cuda
+    device (C entry pg_exchange_shape): threads a block, rows (positions a
+    thread in a key, table or slot tile; `tile` positions a tile),
+    fill_rows (slots a thread in a fill tile), pack's key and fill tiles
+    and finish's table and slot tiles (the most slots; those past the
+    slots sent are skipped), each kernel's resident blocks a SM and grid
+    (persistent: the tiles or the resident blocks, whichever is fewer; a
+    block takes pack's tiles by ticket), the SMs, the scratch bytes."""
+    out = (ctypes.c_longlong * 13)()
+    err = _kernel_lib().pg_exchange_shape(NL, nd, C, A, out)
+    if err:
+        raise RuntimeError("pg_exchange_shape: CUDA error %d" % err)
+    keys = ("threads", "rows", "pack_key_tiles", "pack_fill_tiles",
+            "pack_blocks_per_sm", "finish_table_tiles", "finish_slot_tiles",
+            "finish_blocks_per_sm", "sms", "scratch_bytes", "pack_grid",
+            "finish_grid", "fill_rows")
+    shape = dict(zip(keys, out))
+    shape["tile"] = shape["threads"] * shape["rows"]
+    return shape
+
+
+def _exchange_scratch(scratch, dev, nd: int) -> torch.Tensor:
+    """`scratch`, checked to be an exchange_scratch for nd on `dev`, or a
+    new one."""
+    if scratch is None:
+        return exchange_scratch(dev, nd)
+    n = int(_kernel_lib().pg_exchange_scratch(nd)) // 8
+    if scratch.dtype != I64 or scratch.device != dev or scratch.dim() != 1 \
+            or not scratch.is_contiguous() or scratch.numel() < n:
+        raise ValueError("scratch must be a contiguous int64 tensor of at "
+                         "least %d on %s (exchange_scratch(device, %d)), got "
+                         "%s %s on %s" % (n, dev, nd, scratch.dtype,
+                                          tuple(scratch.shape),
+                                          scratch.device))
+    return scratch
+
+
 def exchange_pack(keys: torch.Tensor, s1: torch.Tensor, *, nd: int,
-                  cap: int, jb: int, shift: int, two_s: int, rank: int):
+                  cap: int, jb: int, shift: int, two_s: int, rank: int,
+                  scratch: Optional[torch.Tensor] = None):
     """The send plane of this rank's NL sorted lean keys (int64, KSENT_I at
     the end; the low jb bits the global row rank * NL + local row) and
     their rows' s1 (int32 [NL], by local row), for nd destinations of `cap`
     slots: dest = clip((key >> shift) * nd // two_s, 0, nd - 1). Returns
     (send int64 [nd, 2, cap]: keys, KSENT_I past each run, and s1, 0 there;
     ovf int64 scalar, 1 when a run is longer than cap; pair int32
-    [NL + 1], zeros, exchange_finish's plane)."""
+    [NL + 1], zeros, exchange_finish's plane; bounds int32 [nd + 1]:
+    destination t's run is [bounds[t], bounds[t + 1]), bounds[nd] the
+    valid keys). On cuda `scratch` is an exchange_scratch(device, nd) (a
+    new one when None); a failed launch zeroes it again."""
     dev = keys.device
     NL = keys.shape[0]
     _check([("keys", keys, I64, (NL,)), ("s1", s1, I32, (NL,))], dev)
@@ -203,13 +268,20 @@ def exchange_pack(keys: torch.Tensor, s1: torch.Tensor, *, nd: int,
     if not _launch_device(dev, "exchange_pack"):
         return exchange_pack_plain(keys, s1, nd=nd, cap=cap, jb=jb,
                                    shift=shift, two_s=two_s, rank=rank)
+    scratch = _exchange_scratch(scratch, dev, nd)
     send = torch.empty((nd, 2, cap), dtype=I64, device=dev)
     ovf = torch.empty((), dtype=I64, device=dev)
     pair = torch.empty(NL + 1, dtype=I32, device=dev)
-    _launch("exchange_pack", dev, _kernel_lib().pg_exchange_pack,
-            _ptr(keys), _ptr(s1), NL, nd, cap, jb, shift, two_s, rank * NL,
-            _ptr(send), _ptr(ovf), _ptr(pair))
-    return send, ovf, pair
+    bounds = torch.empty(nd + 1, dtype=I32, device=dev)
+    try:
+        _launch("exchange_pack", dev, _kernel_lib().pg_exchange_pack,
+                _ptr(keys), _ptr(s1), NL, nd, cap, jb, shift, two_s,
+                rank * NL, _ptr(send), _ptr(ovf), _ptr(pair), _ptr(bounds),
+                _ptr(scratch))
+    except RuntimeError:
+        scratch.zero_()
+        raise
+    return send, ovf, pair, bounds
 
 
 def exchange_pack_plain(keys, s1, *, nd: int, cap: int, jb: int,
@@ -227,8 +299,9 @@ def exchange_pack_plain(keys, s1, *, nd: int, cap: int, jb: int,
     orig_row = ((k_g & ((1 << jb) - 1)) - rank * NL).clamp(0, NL - 1)
     send = torch.stack([torch.where(smask, k_g, KSENT_I),
                         torch.where(smask, s1[orig_row], 0).to(I64)], dim=1)
+    bounds = torch.cat([start, cnt.sum().reshape(1)]).to(I32)
     return (send, (cnt > cap).any().to(I64),
-            torch.zeros(NL + 1, dtype=I32, device=dev))
+            torch.zeros(NL + 1, dtype=I32, device=dev), bounds)
 
 
 def exchange_window(per_rank: torch.Tensor, vw: torch.Tensor,
@@ -285,43 +358,55 @@ def exchange_window_plain(per_rank, vw, s1, reply_loc, got_k, *, rank: int,
 
 def exchange_finish(table: torch.Tensor, n_out: torch.Tensor,
                     send: torch.Tensor, reply: torch.Tensor,
-                    pair: torch.Tensor, *, jb: int, rank: int):
+                    pair: torch.Tensor, bounds: torch.Tensor, *, jb: int,
+                    rank: int):
     """The arc table and the pair slots: table int64 [2, A] (the ranks'
     planes summed), n_out int64 scalar, this rank's send plane int64
     [nd, 2, C], reply int32 [nd C] (the arc rows returned to its slots),
-    pair int32 [NL + 1] (exchange_pack's, zeros). Returns (arc_vw int64
-    [A]: SENT_I past n_out; arc_s1 int32 [A]: 0 there; pair[:NL], each
-    sent key's origin row holding its slot's reply, written in place)."""
+    pair int32 [NL + 1] (exchange_pack's, zeros), bounds int32 [nd + 1]
+    (exchange_pack's: slot (t, c) was sent iff c < min(bounds[t + 1] -
+    bounds[t], C); only those are read). Returns (arc_vw int64 [A]: SENT_I
+    past n_out; arc_s1 int32 [A]: 0 there; pair[:NL], each sent key's
+    origin row holding its slot's reply, written in place). The kernel
+    raises each such row to its reply (atomicMax), which is the store
+    because the plane is exchange_pack's zeros, a row takes one key and a
+    reply is an arc row (>= 0)."""
     dev = table.device
     A = table.shape[1]
     nd, _, C = send.shape
     NL = pair.shape[0] - 1
     _check([("table", table, I64, (2, A)), ("n_out", n_out, I64, ()),
             ("send", send, I64, (nd, 2, C)), ("reply", reply, I32, (nd * C,)),
-            ("pair", pair, I32, (NL + 1,))], dev)
+            ("pair", pair, I32, (NL + 1,)),
+            ("bounds", bounds, I32, (nd + 1,))], dev)
     if not (A >= 1 and NL >= 1 and 1 <= jb <= 62 and 0 <= rank < nd):
         raise ValueError("exchange_finish: A %d NL %d jb %d rank %d"
                          % (A, NL, jb, rank))
     if not _launch_device(dev, "exchange_finish"):
-        return exchange_finish_plain(table, n_out, send, reply, pair, jb=jb,
-                                     rank=rank)
+        return exchange_finish_plain(table, n_out, send, reply, pair, bounds,
+                                     jb=jb, rank=rank)
     arc_vw = torch.empty(A, dtype=I64, device=dev)
     arc_s1 = torch.empty(A, dtype=I32, device=dev)
     _launch("exchange_finish", dev, _kernel_lib().pg_exchange_finish,
-            *map(_ptr, (table, n_out, send, reply)), A, nd, C, NL, jb,
-            rank * NL, _ptr(arc_vw), _ptr(arc_s1), _ptr(pair))
+            *map(_ptr, (table, n_out, send, reply, bounds)), A, nd, C, NL,
+            jb, rank * NL, _ptr(arc_vw), _ptr(arc_s1), _ptr(pair))
     return arc_vw, arc_s1, pair[:NL]
 
 
-def exchange_finish_plain(table, n_out, send, reply, pair, *, jb: int,
-                          rank: int):
-    """Plain PyTorch version of exchange_finish: the pair slots by one
-    scatter_ whose unsent slots go to the spare row NL."""
+def exchange_finish_plain(table, n_out, send, reply, pair, bounds, *,
+                          jb: int, rank: int):
+    """Plain PyTorch version of exchange_finish: the slots sent from the
+    bounds (JAX's smask), the pair slots by one scatter_ whose unsent
+    slots go to the spare row NL."""
     A = table.shape[1]
+    nd, _, C = send.shape
     NL = pair.shape[0] - 1
-    live = torch.arange(A, dtype=I64, device=table.device) < n_out
-    k = send[:, 0].reshape(-1)
+    dev = table.device
+    live = torch.arange(A, dtype=I64, device=dev) < n_out
+    cnt = (bounds[1:] - bounds[:-1]).clamp(max=C)
+    sent = torch.arange(C, dtype=I32, device=dev)[None, :] < cnt[:, None]
+    k = send[:, 0]
     row = ((k & ((1 << jb) - 1)) - rank * NL).clamp(0, NL - 1)
-    pair.scatter_(0, torch.where(k != KSENT_I, row, NL), reply)
+    pair.scatter_(0, torch.where(sent, row, NL).reshape(-1), reply)
     return (torch.where(live, table[0], SENT_I),
             torch.where(live, table[1].to(I32), 0), pair[:NL])

@@ -253,7 +253,7 @@ def copy_args(x):
 
 
 def exchange_merge(keys: torch.Tensor, s1: torch.Tensor, *, cfg: Cfg,
-                   mesh: M.Mesh, fold):
+                   mesh: M.Mesh, fold, scratch=None):
     """The in-loop merge at more than two ranks as a bucket exchange (JAX
     device_loop.py:301-409). Keys are monotone in the out-vertex v (their
     top bits), so cutting the key space into nd contiguous v-ranges keeps
@@ -270,13 +270,16 @@ def exchange_merge(keys: torch.Tensor, s1: torch.Tensor, *, cfg: Cfg,
     and reply, and the table's mask and the pair scatter are the three
     kernels of ops/mesh_kernels; around them only the two sorts, the fold
     and the four collectives, in the JAX order (all_to_all, all_gather,
-    psum, all_to_all). Returns (arc_vw, arc_s1, n_out, pair_loc int32
-    [NL]: each slot's arc row)."""
+    psum, all_to_all); the packing's run bounds go to the finish, which
+    reads only the slots sent. `scratch`: exchange_pack's (a new one a call
+    when None). Returns (arc_vw, arc_s1, n_out, pair_loc int32 [NL]: each
+    slot's arc row)."""
     nd, rank = mesh.world, mesh.rank
     kps = torch.sort(keys.reshape(-1)).values
-    sent, ovf, pair = mk.exchange_pack(
+    sent, ovf, pair, bounds = mk.exchange_pack(
         kps, s1, nd=nd, cap=cfg.a2a_cap, jb=cfg.JB,
-        shift=cfg.JB + cfg.GB + cfg.B, two_s=2 * cfg.S, rank=rank)
+        shift=cfg.JB + cfg.GB + cfg.B, two_s=2 * cfg.S, rank=rank,
+        scratch=scratch)
     got = M.all_to_all(sent, mesh)                        # [nd, 2, C]
     got_k = got[:, 0].reshape(-1)
     rk, rpos = torch.sort(got_k, stable=True)
@@ -291,7 +294,7 @@ def exchange_merge(keys: torch.Tensor, s1: torch.Tensor, *, cfg: Cfg,
     table = M.psum(table, mesh)
     reply = M.all_to_all(reply, mesh)                     # [nd * C]
     arc_vw, arc_s1, pair_loc = mk.exchange_finish(
-        table, n_out, sent, reply, pair, jb=cfg.JB, rank=rank)
+        table, n_out, sent, reply, pair, bounds, jb=cfg.JB, rank=rank)
     return arc_vw, arc_s1, n_out, pair_loc
 
 
@@ -366,7 +369,8 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
         if lean and cfg.a2a_cap:
             arc_vw, arc_s1, n_out, mine = exchange_merge(
                 keys, s1_2.reshape(-1), cfg=cfg, mesh=mesh,
-                fold=lambda *a, **kw: captured(lk.merge_fold, *a, **kw))
+                fold=lambda *a, **kw: captured(lk.merge_fold, *a, **kw),
+                scratch=exchange_sc)
             return (arc_vw, arc_s1, n_out, seg_tot, seg_ng,
                     (mine.view(G, 2 * H), nxt, pair_ok))
         if not lean:
@@ -417,6 +421,10 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     # zeroed)
     words = torch.zeros((cfg.R, 2), dtype=I64, device=device)
     round_sc = lk.round_scratch(device, S) if device.type == "cuda" else None
+    # exchange_pack's ticket and run bounds (the bucket exchange at more
+    # than two ranks; each launch leaves it zeroed)
+    exchange_sc = mk.exchange_scratch(device, nd) \
+        if device.type == "cuda" and nd > 2 and cfg.a2a_cap else None
     aw_c = torch.zeros(A, dtype=torch.uint8, device=device)
     cnt_c = torch.zeros(2, dtype=I64, device=device)
     n_out_c = torch.zeros((), dtype=I64, device=device)

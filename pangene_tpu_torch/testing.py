@@ -680,9 +680,10 @@ def reduction_inputs(which: str, flat: bool = False):
 # The states of exchange_calls: random keys; one destination's run longer
 # than the bucket (the overflow flag); every key a sentinel; every key to
 # one destination (a bucket of NL); a table of A = NL // 64 rows, so that
-# the later ranks' windows start past it.
+# the later ranks' windows start past it; no key to destination 1, between
+# destinations 0 and 2 that get keys (an empty run in the middle).
 EXCHANGE_STATES = ("ordinary", "overflow", "all_sentinel", "one_dest",
-                   "window_past_A")
+                   "window_past_A", "empty_middle")
 
 
 def exchange_calls(which: str, seed: int, device, nd: int = 4,
@@ -697,7 +698,8 @@ def exchange_calls(which: str, seed: int, device, nd: int = 4,
     meta the shape (nd, NL, C, A, JB, GB, B, S); calls[r] maps
     "pack", "window" and "finish" to rank r's (args, kw) of
     ops/mesh_kernels' entry of that name (its plain version on other
-    devices; the pair plane of "finish" is a fresh copy of the pack's)."""
+    devices; the pair plane of "finish", its fifth argument, is a fresh
+    copy of the pack's, its sixth the pack's bounds)."""
     import torch
     from .ops import loop_kernels as lk
     from .ops import mesh_kernels as mk
@@ -707,6 +709,9 @@ def exchange_calls(which: str, seed: int, device, nd: int = 4,
     GB = max((nd * G_loc - 1).bit_length(), 1)
     JB = max((nd * NL - 1).bit_length(), 1)
     C = min(((int(NL * 1.5) // nd + 127) // 128) * 128, NL)
+    if 2 * B + GB + JB > 62:
+        raise ValueError("exchange_calls: a lean key of %d bits is not "
+                         "below KSENT" % (2 * B + GB + JB))
     if A is None:
         A = nd * NL
     p_valid, skew, dest = 0.7, 0.0, None
@@ -718,8 +723,10 @@ def exchange_calls(which: str, seed: int, device, nd: int = 4,
         dest, C = int(rng.integers(0, nd)), NL
     elif which == "window_past_A":
         A = max(1, NL // 64)
-    elif which != "ordinary":
+    elif which not in ("ordinary", "empty_middle"):
         raise ValueError(which)
+    # the v's whose destination is not 1 (empty_middle draws from them)
+    v_not1 = np.flatnonzero((np.arange(2 * S) * nd) // (2 * S) != 1)
     span = -(-2 * S // nd)                  # v's of one destination
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     kw_pack = dict(nd=nd, cap=C, jb=JB, shift=JB + GB + B, two_s=2 * S)
@@ -728,6 +735,8 @@ def exchange_calls(which: str, seed: int, device, nd: int = 4,
         v = rng.integers(0, 2 * S, NL)
         if dest is not None:
             v = rng.integers(dest * span, min((dest + 1) * span, 2 * S), NL)
+        elif which == "empty_middle":
+            v = rng.choice(v_not1, NL)
         elif skew:
             v = np.where(rng.random(NL) < skew, rng.integers(0, span, NL), v)
         w = (v + rng.integers(1, 4, NL)) % (2 * S)
@@ -761,7 +770,8 @@ def exchange_calls(which: str, seed: int, device, nd: int = 4,
             "window": ((per_rank, *folds[r][:2], *folds[r][3:]),
                        dict(rank=r, A=A)),
             "finish": ((table, windows[r][2], packs[r][0], back,
-                        packs[r][2].clone()), dict(jb=JB, rank=r))})
+                        packs[r][2].clone(), packs[r][3]),
+                       dict(jb=JB, rank=r))})
     meta = dict(nd=nd, NL=NL, C=C, A=A, JB=JB, GB=GB, B=B, S=S)
     return meta, calls
 

@@ -26,6 +26,7 @@ from pangene_tpu_torch.ops import sweep_kernel as sk
 from pangene_tpu_torch.parallel import stacked as st
 from pangene_tpu_torch.ops.loop_kernels import SENT_I
 from pangene_tpu_torch.testing import (BRANCH_B, EXACT_BRANCH_DIFFS,
+                                       EXCHANGE_STATES,
                                        REDUCE_CASES, ROUND_STATES,
                                        SWEEP_EDGE_CASES,
                                        WALK_FORMS, band_genome, batch_cols,
@@ -1236,8 +1237,7 @@ def test_protein_reduce_vs_plain(cuda_device, which, layout):
 @pytest.mark.cuda
 @pytest.mark.parametrize("graph", [False, True])
 @pytest.mark.parametrize("shape", ["small", "loop"])
-@pytest.mark.parametrize("which", ["ordinary", "overflow", "all_sentinel",
-                                   "one_dest", "window_past_A"])
+@pytest.mark.parametrize("which", EXCHANGE_STATES)
 def test_exchange_kernels_vs_plain(cuda_device, which, shape, graph):
     """Each exchange kernel on each rank's arguments against its plain
     version, exactly; with `graph`, from a CUDA graph replayed twice."""
@@ -1294,8 +1294,149 @@ def test_mesh_wrappers_raise_on_bad_columns(cuda_device):
     args, kw = calls[0]["window"]
     with pytest.raises(ValueError):
         mk.exchange_window(*args, rank=kw["rank"], A=0)
+    with pytest.raises(ValueError):
+        mk.exchange_pack(keys, s1, **calls[0]["pack"][1],
+                         scratch=torch.zeros(1, dtype=torch.int32,
+                                             device=cuda_device))
     args, kw = calls[0]["finish"]
     with pytest.raises(ValueError):
-        mk.exchange_finish(*args[:4], args[4].long(), **kw)
+        mk.exchange_finish(*args[:4], args[4].long(), args[5], **kw)
     with pytest.raises(ValueError):
-        mk.exchange_finish(*args[:3], args[3][:-1], args[4], **kw)
+        mk.exchange_finish(*args[:3], args[3][:-1], *args[4:], **kw)
+    with pytest.raises(ValueError):
+        mk.exchange_finish(*args[:5], args[5][:-1], **kw)
+    with pytest.raises(ValueError):
+        mk.exchange_finish(*args[:5], args[5].long(), **kw)
+
+
+def exchange_equal(name, args, kw, got=None):
+    """exchange_`name` on `args` (the plane finish writes in place copied)
+    against its plain version, exactly; `got`: outputs already made."""
+    from pangene_tpu_torch.ops import mesh_kernels as mk
+    fresh = lambda: [a.clone() if i == 4 and name == "finish" else a
+                     for i, a in enumerate(args)]
+    if got is None:
+        got = getattr(mk, "exchange_" + name)(*fresh(), **kw)
+    want = getattr(mk, "exchange_%s_plain" % name)(*fresh(), **kw)
+    torch.cuda.synchronize()
+    for k, (x, y) in enumerate(zip(got, want)):
+        assert x.dtype == y.dtype and torch.equal(x, y), (name, k)
+
+
+@pytest.mark.cuda
+def test_exchange_more_tickets_than_resident_blocks(cuda_device):
+    """NL 1,048,576 keys a rank (G_loc 64, H 8,192; S 20,000, so the lean
+    keys keep within 62 bits): pack's tiles (key tiles, then fill tiles,
+    by ticket) and finish's are several times the blocks the card holds at
+    once, which each take many; every rank's pack and finish equal their
+    plain versions."""
+    from pangene_tpu_torch.ops import mesh_kernels as mk
+    from pangene_tpu_torch.testing import exchange_calls
+    meta, calls = exchange_calls("ordinary", 9, cuda_device, G_loc=64,
+                                 H=8192, S=20000)
+    shape = mk.launch_shape(meta["NL"], meta["nd"], meta["C"], meta["A"])
+    resident = shape["sms"] * shape["pack_blocks_per_sm"]
+    assert shape["pack_grid"] == resident
+    assert shape["pack_key_tiles"] + shape["pack_fill_tiles"] > 2 * resident
+    assert shape["finish_table_tiles"] + shape["finish_slot_tiles"] > \
+        2 * shape["finish_grid"]
+    scratch = mk.exchange_scratch(cuda_device, meta["nd"])
+    for call in calls:
+        args, kw = call["pack"]
+        exchange_equal("pack", args, kw, mk.exchange_pack(*args, **kw,
+                                                          scratch=scratch))
+        exchange_equal("finish", *call["finish"])
+    assert not scratch.any()
+
+
+@pytest.mark.cuda
+def test_exchange_graph_replays_reset_the_scratch(cuda_device):
+    """exchange_pack and exchange_finish captured once in a CUDA graph on
+    rank 0's arguments of one state, replayed three times, each time on
+    rank 0's arguments of another state (the same shapes) copied into the
+    captured inputs: each replay equals the plain versions on those
+    arguments (the block done last left pack's scratch zeroed for the
+    next, so its tickets and bounds are that replay's), and the scratch is
+    zero after the last."""
+    from pangene_tpu_torch.ops import mesh_kernels as mk
+    from pangene_tpu_torch.testing import exchange_calls
+    shape = dict(G_loc=8, H=1024, S=3000)
+    meta, calls = exchange_calls("ordinary", 4, cuda_device, **shape)
+    scratch = mk.exchange_scratch(cuda_device, meta["nd"])
+    (keys, s1), kw = calls[0]["pack"]
+    pk_in = (keys.clone(), s1.clone())
+    fargs, fkw = calls[0]["finish"]
+    fin_in = [a.clone() for a in fargs]
+    mk.exchange_pack(*pk_in, **kw, scratch=scratch)       # built and loaded
+    mk.exchange_finish(*[a.clone() if i == 4 else a
+                         for i, a in enumerate(fin_in)], **fkw)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        pk_out = mk.exchange_pack(*pk_in, **kw, scratch=scratch)
+        fin_out = mk.exchange_finish(*fin_in, **fkw)
+    for k, which in enumerate(("empty_middle", "overflow", "ordinary")):
+        m, c = exchange_calls(which, 5 + k, cuda_device, **shape)
+        assert (m["NL"], m["C"], m["A"]) == (meta["NL"], meta["C"],
+                                             meta["A"])
+        for dst, src in zip(pk_in, c[0]["pack"][0]):
+            dst.copy_(src)
+        for dst, src in zip(fin_in, c[0]["finish"][0]):
+            dst.copy_(src)
+        want_bounds = mk.exchange_pack_plain(*pk_in, **kw)[3]
+        g.replay()
+        torch.cuda.synchronize()
+        exchange_equal("pack", pk_in, kw, pk_out)
+        assert torch.equal(pk_out[3], want_bounds), which
+        want = mk.exchange_finish_plain(*fin_in[:4],
+                                        torch.zeros_like(fin_in[4]),
+                                        *fin_in[5:], **fkw)
+        for x, y in zip(fin_out, want):
+            assert torch.equal(x, y), which
+    assert not scratch.any()
+
+
+def one_key_call(valid, device):
+    """exchange_pack's and exchange_finish's arguments at NL = 1 (rank 1 of
+    nd 4, S 12): the one key (to destination 2) or a sentinel."""
+    from pangene_tpu_torch.ops.loop_kernels import KSENT_I
+    nd, S, B, GB, JB = 4, 12, 5, 2, 2
+    key = ((((13 << B) | 14) << GB | 1) << JB) | 1
+    keys = torch.tensor([key if valid else KSENT_I], dtype=torch.int64,
+                        device=device)
+    s1 = torch.tensor([42], dtype=torch.int32, device=device)
+    kw = dict(nd=nd, cap=1, jb=JB, shift=JB + GB + B, two_s=2 * S, rank=1)
+    return (keys, s1), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("valid", [True, False])
+def test_exchange_one_key(cuda_device, valid):
+    """NL = 1: one key tile of one position, its bounds published at 0 and
+    at NL; pack and finish equal their plain versions."""
+    from pangene_tpu_torch.ops import mesh_kernels as mk
+    args, kw = one_key_call(valid, cuda_device)
+    got = mk.exchange_pack(*args, **kw)
+    exchange_equal("pack", args, kw, got)
+    send, _, pair, bounds = got
+    assert bounds.tolist() == ([0, 0, 0, 1, 1] if valid else [0] * 5)
+    g = torch.Generator().manual_seed(3)
+    table = torch.randint(0, 1 << 40, (2, 8), generator=g).to(cuda_device)
+    n_out = torch.tensor(5, dtype=torch.int64, device=cuda_device)
+    reply = torch.arange(4, dtype=torch.int32, device=cuda_device) + 7
+    exchange_equal("finish", (table, n_out, send, reply, pair, bounds),
+                   dict(jb=kw["jb"], rank=kw["rank"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["ordinary", "empty_middle", "overflow"])
+def test_exchange_ragged_tiles(cuda_device, which):
+    """NL = 2,406 (G_loc 3, H 401), not a multiple of the 1,024-position
+    tile, and C = 1,024: every rank's three kernels equal their plain
+    versions."""
+    from pangene_tpu_torch.testing import exchange_calls
+    meta, calls = exchange_calls(which, 8, cuda_device, H=401)
+    assert meta["NL"] % 1024 and meta["NL"] == 2406
+    for call in calls:
+        for name in ("pack", "window", "finish"):
+            exchange_equal(name, *call[name])

@@ -14,11 +14,15 @@ tolerance 0).
                    against a numpy transcription of the JAX lines they
                    replace (pangene_tpu/parallel/device_loop.py:325-348,
                    :377-405) on every state of testing.exchange_calls, each
-                   rank; the whole exchange against the replicated lean
-                   merge; and the aten operations exchange_merge dispatches
+                   rank, pack's bounds plane against JAX's start and cnt,
+                   finish fed those bounds reading only the slots sent;
+                   the whole exchange against the replicated lean merge;
+                   the bounds in chip_smoke.py count only what the kernels
+                   read; and the aten operations exchange_merge dispatches
                    a round outside the kernels' wrappers and the
                    collectives, at world 3 on the loop's own inputs.
 """
+import ctypes
 import json
 
 import numpy as np
@@ -131,6 +135,63 @@ def test_reduction_bound_counts_what_is_read(which, layout):
             *[t(c) for c in fc], t(ff), t(fn), P) + 4 * (G - 1)
 
 
+C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+           "const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+           "long long*": ctypes.c_void_p}
+
+
+def test_mesh_entries_match_the_source():
+    """Every C entry that mesh_kernels.load binds is defined in
+    csrc/mesh_round.cu with that return type and those argument types, and
+    the source defines no other (the library is built only on the card, so
+    this is the check the CPU can make)."""
+    import re
+    src = open(mk._SRC).read()
+    found = {}
+    for ret, name, params in re.findall(
+            r'extern "C" (int|long long) (pg_\w+)\(([^)]*)\)', src):
+        types = [re.sub(r"\s*\w+$", "", p.strip())
+                 for p in params.split(",")]
+        found[name] = (C_TYPES[ret], [C_TYPES[t] for t in types])
+    assert found == mk.ENTRIES
+
+
+@pytest.mark.parametrize("which", EXCHANGE_STATES)
+def test_exchange_bound_counts_what_is_read(which):
+    """chip_smoke.exchange_bound_bytes, the least bytes of exchange_pack
+    and exchange_finish: pack reads each key it sends and its row's s1 (12
+    bytes) and writes the [nd, 2, C] plane, the flag, the pair plane and the
+    bounds plane; finish reads n_out, a live table row's two words, the
+    bounds plane and each sent slot's key and reply, and writes 12 bytes a
+    table row and each sent key's pair slot. Neither counts an unsent
+    slot's key: noise there leaves finish's count as it was."""
+    cs = chip_smoke()
+    meta, calls = exchange(which)
+    nd, C, NL, A = meta["nd"], meta["C"], meta["NL"], meta["A"]
+    for r, call in enumerate(calls):
+        args, kw = call["pack"]
+        smask = jax_pack(*numpy_args(args), **kw)[3]
+        n_sent = int(smask.sum())
+        got = mk.exchange_pack(*args, **kw)
+        assert cs.exchange_bound_bytes("pack", args, kw, got) == (
+            12 * n_sent + 16 * nd * C + 8 + 4 * (NL + 1) + 4 * (nd + 1)), r
+        fargs, fkw = call["finish"]
+        n_live = min(int(fargs[1]), A)
+        want = 16 * n_live + 8 + 4 * (nd + 1) + 16 * n_sent + 12 * A
+        outs = mk.exchange_finish(*fargs[:4], fargs[4].clone(), fargs[5],
+                                  **fkw)
+        assert cs.exchange_bound_bytes("finish", fargs, fkw, outs) == want
+        noisy = fargs[2].clone()
+        noisy[:, 0][torch.from_numpy(~smask)] = 5
+        assert cs.exchange_bound_bytes("finish", (*fargs[:2], noisy,
+                                                  *fargs[3:]), fkw,
+                                       outs) == want
+        if which == "all_sentinel":
+            assert n_sent == 0 and n_live == 0
+        else:
+            assert 0 < n_sent < nd * C
+
+
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
     """Five genomes: at world 2 the padded axis has one genome of padding."""
@@ -184,7 +245,7 @@ def test_reductions_each_rank_stacks_its_genomes(corpus, world):
 
 def jax_pack(kps_l, s1f, *, nd, cap, jb, shift, two_s, rank):
     """device_loop.py:325-348 in numpy: (k_send, s1_send, ovf_x, smask,
-    orig_row)."""
+    orig_row, start, cnt)."""
     NL = kps_l.shape[0]
     base = rank * NL
     validl = kps_l != KSENT
@@ -203,7 +264,7 @@ def jax_pack(kps_l, s1f, *, nd, cap, jb, shift, two_s, rank):
     orig_row = np.clip((k_g & ((1 << jb) - 1)) - base, 0, NL - 1) \
         .astype(np.int32)
     s1_send = np.where(smask, s1f[orig_row], 0)
-    return k_send, s1_send, ovf_x, smask, orig_row
+    return k_send, s1_send, ovf_x, smask, orig_row, start, cnt
 
 
 def jax_window(per_rank, vw_f, s1_loc, reply_loc, got_k, *, rank, A, jb):
@@ -246,9 +307,9 @@ def test_exchange_pack_equals_jax_lines(which):
     meta, calls = exchange(which)
     for r, call in enumerate(calls):
         args, kw = call["pack"]
-        k_send, s1_send, ovf, _, _ = jax_pack(*numpy_args(args), **kw)
+        k_send, s1_send, ovf = jax_pack(*numpy_args(args), **kw)[:3]
         before = dict(mk.n_calls["exchange_pack"])
-        send, got_ovf, pair = mk.exchange_pack(*args, **kw)
+        send, got_ovf, pair, _ = mk.exchange_pack(*args, **kw)
         assert mk.n_calls["exchange_pack"]["plain"] == before["plain"] + 1
         assert send.shape == (meta["nd"], 2, meta["C"])
         assert send.dtype == torch.int64 and got_ovf.dtype == torch.int64
@@ -281,9 +342,9 @@ def test_exchange_finish_equals_jax_lines(which):
     NL = meta["NL"]
     for r, call in enumerate(calls):
         args, kw = call["finish"]
-        table, n_out, _, reply, _ = numpy_args(args)
-        _, _, _, smask, orig_row = jax_pack(*numpy_args(call["pack"][0]),
-                                            **call["pack"][1])
+        table, n_out, _, reply, _, _ = numpy_args(args)
+        smask, orig_row = jax_pack(*numpy_args(call["pack"][0]),
+                                   **call["pack"][1])[3:5]
         live = np.arange(meta["A"]) < n_out
         want_vw = np.where(live, table[0], SENT)
         want_s1 = np.where(live, table[1].astype(np.int32), 0)
@@ -297,6 +358,57 @@ def test_exchange_finish_equals_jax_lines(which):
         assert np.array_equal(arc_s1.numpy(), want_s1), r
         assert pair.dtype == torch.int32 and pair.shape == (NL,)
         assert np.array_equal(pair.numpy(), want_pair[:NL]), r
+
+
+@pytest.mark.parametrize("which", EXCHANGE_STATES)
+def test_exchange_pack_bounds_equal_jax_start_cnt(which):
+    """exchange_pack's bounds plane is JAX's start (device_loop.py:335-337)
+    followed by the valid keys' count: bounds[t + 1] - bounds[t] is JAX's
+    cnt, the finish's sent slots min(cnt, C) JAX's smask."""
+    meta, calls = exchange(which)
+    nd, C = meta["nd"], meta["C"]
+    for r, call in enumerate(calls):
+        args, kw = call["pack"]
+        _, _, _, smask, _, start, cnt = jax_pack(*numpy_args(args), **kw)
+        bounds = mk.exchange_pack(*args, **kw)[3]
+        assert bounds.dtype == torch.int32 and bounds.shape == (nd + 1,)
+        b = bounds.numpy()
+        assert np.array_equal(b[:nd], start), r
+        assert np.array_equal(np.diff(b), cnt), r
+        assert b[nd] == int((args[0] != KSENT).sum()), r
+        sent = np.arange(C)[None, :] < np.minimum(np.diff(b), C)[:, None]
+        assert np.array_equal(sent, smask), r
+        # the finish's arguments carry the same plane
+        assert torch.equal(call["finish"][0][5], bounds), r
+
+
+@pytest.mark.parametrize("which", EXCHANGE_STATES)
+def test_exchange_finish_reads_only_the_slots_sent(which):
+    """exchange_finish takes the slots sent from pack's bounds, not from
+    the keys: with every unsent slot's key and reply made noise (a valid
+    key of another row, a reply that is not 0), its outputs are the JAX
+    lines' still."""
+    meta, calls = exchange(which)
+    rng = np.random.default_rng(11)
+    for r, call in enumerate(calls):
+        args, kw = call["finish"]
+        table, n_out, send, reply, pair, bounds = args
+        smask = jax_pack(*numpy_args(call["pack"][0]),
+                         **call["pack"][1])[3]
+        unsent = torch.from_numpy(~smask)
+        noisy = send.clone()
+        noisy[:, 0][unsent] = torch.from_numpy(rng.integers(
+            0, 1 << 40, int(unsent.sum())))
+        noise_reply = reply.clone()
+        noise_reply[unsent.reshape(-1)] = 7
+        want = mk.exchange_finish(table, n_out, send, reply, pair.clone(),
+                                  bounds, **kw)
+        got = mk.exchange_finish(table, n_out, noisy, noise_reply,
+                                 pair.clone(), bounds, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), r
+        if which != "all_sentinel":
+            assert unsent.any() and (noisy[:, 0] != KSENT).all()
 
 
 @pytest.mark.parametrize("which", EXCHANGE_STATES)
@@ -327,8 +439,15 @@ def test_exchange_states_hold_their_edges(which):
         assert len({t for v in valid for t in range(nd) if v[t]}) == 1
     if which == "window_past_A":
         assert int(offs[-1]) > A and n_out > A
-    elif which in ("ordinary", "one_dest"):
+    elif which in ("ordinary", "one_dest", "empty_middle"):
         assert 0 < n_out <= A
+    if which == "empty_middle":
+        # destination 1 gets nothing from any rank, 0 and 2 get keys from
+        # every rank: an empty run between two that are not
+        for s_, v in zip(sends, valid):
+            b = s_[3]
+            assert int(v[1]) == 0 and int(v[0]) > 0 and int(v[2]) > 0
+            assert int(b[1]) == int(b[2]) > int(b[0]) == 0
 
 
 @pytest.mark.parametrize("which", [s for s in EXCHANGE_STATES
