@@ -167,11 +167,13 @@ Phases (each one passes or raises, so any failure exits nonzero):
      PyTorch yardstick (scatter_add_ and the two sums). The protein-keyed
      reductions on big (post_reductions_sharded) split into the host's
      stacking of a rank's rows end to end, the upload, the device and the
-     pull, at world 1 and for rank 0's share at world 4; protein_reduce
-     against its plain version in the flat layout (the main path's) and
-     the padded [G, H] stack, its device time and its bound on the run's
-     data (reduction_bound_bytes) in both, and the same seven
-     sums by one scatter_reduce_ and one index_add_ (its library time).
+     pull, at world 1 and for rank 0's share at world 4; protein_reduce at
+     REDUCE_SHAPES on big's and the north star's final rows (rank 0's
+     share at world 4, the main path's, and every genome's rows end to end;
+     big's padded [G, H] stack): against its plain version and against
+     the same seven sums by one scatter_reduce_ and one index_add_ (its
+     library time), its device time, the plain version's and its bound on
+     the shape's data (reduction_bound_bytes).
      Then (4d) branch_block, merge_fold (lean: the first in-loop merge) and
      merge_fold's full mode (the full=True tail) on the arguments of their
      first call in the default loop of the big corpus and of the north
@@ -1391,21 +1393,14 @@ def exchange_bound_bytes(name, args, kw, got):
             + A * 12)
 
 
-def reduction_split(stk, mk, opt, d, reps=5):
+def reduction_split(stk, opt, d, reps=5):
     """post_reductions_sharded on the card split into its parts, each
     between synchronisations, best of `reps`, for the whole dataset (world
     1) and for rank 0's share at world 4 (its genomes, stacked as that rank
     stacks them; no collective): the host's stacking of the rank's rows
     end to end (stacked.stack_reductions), the upload, the device
-    (reduction_step: one protein_reduce launch), the pull. Then
-    protein_reduce on the whole dataset in the flat layout (the main
-    path's) and in the padded [G, H] stack, each against its plain version
-    exactly, its device time in a CUDA graph, its bound on that layout's
-    data (reduction_bound_bytes) and the plain version's time; and
-    the same seven sums by two library calls on the flat layout, one
-    scatter_reduce_ (the maximum) and one index_add_ of an [N, 6] int64
-    block (the six sums), their masks made beforehand; both must equal
-    protein_reduce's. Returns a dict of ms."""
+    (reduction_step: one protein_reduce launch), the pull. Returns a dict
+    of ms."""
     from pangene_tpu_torch.parallel import mesh as M
     mx, z, (c, s) = stk.post_reductions_sharded(opt, d)
     dev = torch.device(DEVICE)
@@ -1433,13 +1428,16 @@ def reduction_split(stk, mk, opt, d, reps=5):
             arr = torch.cat([o.to(torch.int64) for o in outs]).cpu().numpy()
             lap("pull" + sfx, t)
         best["rows" + sfx] = int(cols[6][0])
-        if world == 1:
-            flat = cols
-            if not (np.array_equal(arr[:d.n_prot], mx)
-                    and np.array_equal(arr[P:P + d.n_prot], c[:, 0])):
-                raise AssertionError("reduction split != "
-                                     "post_reductions_sharded")
-    # the padded [G, H] stack of the same rows
+        if world == 1 and not (
+                np.array_equal(arr[:d.n_prot], mx)
+                and np.array_equal(arr[P:P + d.n_prot], c[:, 0])):
+            raise AssertionError("reduction split != post_reductions_sharded")
+    return best
+
+
+def padded_reduction_args(stk, d, dev):
+    """protein_reduce's arguments on the padded [G, H] stack of d's rows
+    (the JAX package's layout; the rows past a genome's count filtered)."""
     G = d.n_genome
     H = max(max((g.n_hit for g in d.genomes), default=1), 1)
     i32 = np.zeros((len(stk.REDUCTION_COLS), G, H), np.int32)
@@ -1452,32 +1450,18 @@ def reduction_split(stk, mk, opt, d, reps=5):
             i32[k, j, :n] = g.hits.cols[name]
         flt[j, :n] = g.hits.flt
     t = lambda a: torch.from_numpy(a).to(dev)
-    padded = tuple(t(x) for x in i32) + (t(flt), t(n_rows))
-    for layout, args in (("flat", flat), ("padded", padded)):
-        got = mk.protein_reduce(*args, n_prot=P)
-        want = mk.protein_reduce_plain(*args, n_prot=P)
-        for a, b in zip(got, want):
-            if a.dtype != b.dtype or not torch.equal(a, b):
-                raise AssertionError("protein_reduce != plain (%s layout)"
-                                     % layout)
-        if layout == "flat" and not (
-                np.array_equal(got[0][:d.n_prot].cpu().numpy(), mx)
-                and np.array_equal(got[1][:2, :d.n_prot].t().cpu().numpy(),
-                                   c)):
-            raise AssertionError("protein_reduce != post_reductions_sharded")
-        sfx = "" if layout == "flat" else "_padded"
-        nbytes = reduction_bound_bytes(*args, P)
-        best["bound_bytes" + sfx] = nbytes
-        best["bound" + sfx] = nbytes / HBM_BYTES_PER_S * 1e3
-        best["protein_reduce" + sfx] = graph_ms(
-            lambda: mk.protein_reduce(*args, n_prot=P), 20)
-        best["plain" + sfx] = stream_ms(
-            lambda: mk.protein_reduce_plain(*args, n_prot=P), 5)
-    # the library calls' inputs on the flat layout: the clamped ids, the
-    # masked maximum's values and the six sums' columns
-    pid, so, sa, n_exon, rank, fl, nr = flat
-    N = pid.shape[1]
-    va = (torch.arange(N, device=dev)[None, :] < nr[:, None]).reshape(-1)
+    return [t(x) for x in i32] + [t(flt), t(n_rows)]
+
+
+def reduction_library(args, P):
+    """The same seven outputs as protein_reduce by two PyTorch calls, one
+    scatter_reduce_ (the maxima) and one index_add_ of an [N, 6] int64
+    block (the six sums), their masks and ids made here beforehand.
+    Returns (both calls, the maxima only, the sums only, outputs)."""
+    pid, so, sa, n_exon, rank, fl, nr = args
+    H = pid.shape[1]
+    va = (torch.arange(H, device=pid.device)[None, :]
+          < nr[:, None]).reshape(-1)
     ids = pid.reshape(-1).clamp(0, P - 1).long()
     sof = so.reshape(-1)
     multi = n_exon.reshape(-1) != 1
@@ -1490,24 +1474,80 @@ def reduction_split(stk, mk, opt, d, reps=5):
         torch.where(r0, sa.reshape(-1).long(), 0),
         torch.where(r0, one, 0)], 1).contiguous()
     mvals = torch.where(va, sof, 0)
-    mx_out = torch.zeros(P, dtype=torch.int32, device=dev)
-    sum_out = torch.zeros((P, 6), dtype=torch.int64, device=dev)
+    mx_out = torch.zeros(P, dtype=torch.int32, device=pid.device)
+    sum_out = torch.zeros((P, 6), dtype=torch.int64, device=pid.device)
 
-    def library():
+    def both():
         mx_out.zero_().scatter_reduce_(0, ids, mvals, "amax",
                                        include_self=True)
         sum_out.zero_().index_add_(0, ids, vals)
-    library()
-    got = mk.protein_reduce(*flat, n_prot=P)
-    if not (torch.equal(mx_out, got[0]) and torch.equal(sum_out.t(), got[1])):
-        raise AssertionError("the library calls != protein_reduce")
-    best["library"] = graph_ms(library, 20)
-    best["library_max"] = graph_ms(lambda: mx_out.scatter_reduce_(
-        0, ids, mvals, "amax", include_self=True), 20)
-    best["library_sums"] = graph_ms(lambda: sum_out.index_add_(0, ids, vals),
-                                    20)
-    best.update(G=G, H=H, n_prot=P)
-    return best
+    return (both, lambda: mx_out.scatter_reduce_(
+        0, ids, mvals, "amax", include_self=True),
+        lambda: sum_out.index_add_(0, ids, vals), (mx_out, sum_out))
+
+
+# protein_reduce's shapes in phase 4: label -> (corpus, world of the share
+# (rank 0's; 1: every genome), padded [G, H] stack). The main path launches
+# it at a rank's share (world > 1); the first is the kernels line's.
+REDUCE_SHAPES = {"big_w4_rank0": ("big", 4, False),
+                 "northstar_w4_rank0": ("northstar", 4, False),
+                 "big_flat": ("big", 1, False),
+                 "northstar_flat": ("northstar", 1, False),
+                 "big_padded": ("big", 1, True)}
+
+
+def reduction_args(stk, d, label, dev):
+    """protein_reduce's arguments and n_prot at shape `label`
+    (REDUCE_SHAPES) on d's rows: rank 0's share stacked end to end as that
+    rank stacks it (stacked.stack_reductions), or the padded stack."""
+    from pangene_tpu_torch.parallel import mesh as M
+    _, world, padded = REDUCE_SHAPES[label]
+    P = max(d.n_prot, 1)
+    if padded:
+        return padded_reduction_args(stk, d, dev), P
+    buf, N = stk.stack_reductions(d, M.Mesh(world, 0, dev, None, None),
+                                  False)
+    return list(stk.reduction_views(torch.from_numpy(buf).to(dev), N)), P
+
+
+def reduction_shapes(stk, mk, datas):
+    """protein_reduce at REDUCE_SHAPES on the corpora's final rows (datas:
+    corpus -> its per-round run's data): the rank's rows stacked end to end
+    (stacked.stack_reductions) or the padded stack; at each the kernel
+    against its plain version and the library pair (reduction_library)
+    against the kernel, exactly; the kernel's device time (200 launches in
+    one CUDA graph), the plain version's, the library pair's; the bound on
+    the shape's data (reduction_bound_bytes). Returns
+    {label: record}."""
+    dev = torch.device(DEVICE)
+    out = {}
+    for label, (name, _, _) in REDUCE_SHAPES.items():
+        args, P = reduction_args(stk, datas[name], label, dev)
+        got = mk.protein_reduce(*args, n_prot=P)
+        want = mk.protein_reduce_plain(*args, n_prot=P)
+        for a, b in zip(got, want):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError("protein_reduce != plain (%s)" % label)
+        both, lib_max, lib_sums, (mx_out, sum_out) = reduction_library(
+            args, P)
+        both()
+        if not (torch.equal(mx_out, got[0])
+                and torch.equal(sum_out.t(), got[1])):
+            raise AssertionError("the library calls != protein_reduce (%s)"
+                                 % label)
+        G, H = args[0].shape
+        nbytes = reduction_bound_bytes(*args, P)
+        out[label] = dict(
+            G=G, H=H, rows=int(args[6].clamp(0, H).sum()), n_prot=P,
+            ms=graph_ms(lambda: mk.protein_reduce(*args, n_prot=P),
+                        TIMED_LAUNCHES),
+            plain_ms=stream_ms(
+                lambda: mk.protein_reduce_plain(*args, n_prot=P), 5),
+            library_ms=graph_ms(both, TIMED_LAUNCHES),
+            library_max_ms=graph_ms(lib_max, TIMED_LAUNCHES),
+            library_sums_ms=graph_ms(lib_sums, TIMED_LAUNCHES),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_bytes=nbytes)
+    return out
 
 
 def compare_step(stk, sk, genomes, dev, check_strand, use_ori, f):
@@ -2821,31 +2861,34 @@ def smoke(names, draws):
     red = runs["big_rounds"]["reductions_s"]
     log("reductions, big corpus: card %.4f s, host loops %.4f s"
         % (red["card"], red["host_loops"]))
-    split = reduction_split(stk, mkk, opt_cuda, rounds_graph.d)
+    split = reduction_split(stk, opt_cuda, rounds_graph.d)
     runs["big_rounds"]["reductions_split_ms"] = split
-    log("REDUCTIONS big (G %d, %d rows, padded H %d, %d proteins), best of "
-        "5, ms: world 1: host stacking %.4f, upload %.4f, device %.4f, pull "
-        "%.4f; rank 0 of 4 (%d rows): stacking %.4f, upload %.4f, device "
-        "%.4f, pull %.4f. protein_reduce device time (CUDA graph) flat "
-        "%.5f, padded %.5f (plain %.3f / %.3f); the same seven sums by one "
-        "scatter_reduce_ and one index_add_ %.5f (max %.5f, sums %.5f); "
-        "bound flat %.6f (%d bytes), padded %.6f (%d bytes); kernel == "
-        "plain in both layouts" % (
-            split["G"], split["rows"], split["H"], split["n_prot"],
-            split["stacking"], split["upload"], split["device"],
-            split["pull"], split["rows_w4_rank0"],
+    log("REDUCTIONS big (%d rows), best of 5, ms: world 1: host stacking "
+        "%.4f, upload %.4f, device %.4f, pull %.4f; rank 0 of 4 (%d rows): "
+        "stacking %.4f, upload %.4f, device %.4f, pull %.4f" % (
+            split["rows"], split["stacking"], split["upload"],
+            split["device"], split["pull"], split["rows_w4_rank0"],
             split["stacking_w4_rank0"], split["upload_w4_rank0"],
-            split["device_w4_rank0"], split["pull_w4_rank0"],
-            split["protein_reduce"], split["protein_reduce_padded"],
-            split["plain"], split["plain_padded"], split["library"],
-            split["library_max"], split["library_sums"], split["bound"],
-            split["bound_bytes"], split["bound_padded"],
-            split["bound_bytes_padded"]))
+            split["device_w4_rank0"], split["pull_w4_rank0"]))
+    reduce_recs = reduction_shapes(stk, mkk, {
+        "big": rounds_graph.d, "northstar": rounds_graphs["northstar"].d})
+    runs["big_rounds"]["protein_reduce_shapes"] = reduce_recs
+    for label, r in reduce_recs.items():
+        log("REDUCE KERNEL %s (G %d, H %d, %d rows, %d proteins): "
+            "protein_reduce %.5f ms (CUDA graph), plain %.3f, one "
+            "scatter_reduce_ + one index_add_ %.5f (max %.5f, sums %.5f), "
+            "bound %.6f (%d bytes); kernel == plain == library" % (
+                label, r["G"], r["H"], r["rows"], r["n_prot"], r["ms"],
+                r["plain_ms"], r["library_ms"], r["library_max_ms"],
+                r["library_sums_ms"], r["bound_ms"], r["bound_bytes"]))
+    main_shape = reduce_recs[next(iter(REDUCE_SHAPES))]
     mesh_recs["protein_reduce"].update(
-        ms=split["protein_reduce"], plain_ms=split["plain"],
-        bound_ms=split["bound"], bound_by="bytes",
-        library_ms=split["library"], ms_padded=split["protein_reduce_padded"],
-        bound_ms_padded=split["bound_padded"])
+        ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
+        bound_ms=main_shape["bound_ms"], bound_by="bytes",
+        library_ms=main_shape["library_ms"],
+        shape=next(iter(REDUCE_SHAPES)),
+        ms_by_shape={k: r["ms"] for k, r in reduce_recs.items()},
+        bound_ms_by_shape={k: r["bound_ms"] for k, r in reduce_recs.items()})
 
     # 4c. colsort_i64 against torch.sort at the loop's merge key count; its
     # bound: each int64 key read once and written once

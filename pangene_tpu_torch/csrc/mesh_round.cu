@@ -39,12 +39,22 @@
 // Bounds and design. All four move little data (big at world 4: a few MB)
 // and are bound by bytes; none reads a value on the host, so the ranks
 // cannot disagree on one.
-//  * protein_reduce: one pass over the rows, one block row of the grid per
-//    genome (no division), int32 atomicMax (skipped for values <= 0: the
-//    output starts at 0) and 64-bit atomicAdd (two's complement: every
-//    order gives the same bits). Only rank-0 unfiltered rows touch the
-//    sums. The output [7, n_prot] is one int64 buffer, zeroed by one memset:
-//    row 0 holds the int32 maxima in its first n_prot words.
+//  * protein_reduce: bound not by its bytes but by its scattered L2
+//    requests: a genome meets each protein about once, so a warp's 32 rows
+//    hold ~32 pids (a gene's isoforms side by side at best) and there is
+//    nothing to fold before the atomics. Every 64-bit add is two's
+//    complement, so every order gives the same bits. One memset and one
+//    launch, a thread a row (more rows a thread, persistent blocks taking
+//    tiles by ticket, or a protein table in a cluster's shared memory were
+//    slower: the many warps of a thread a row hide each row's chain of
+//    loads best), the grid's rows striding over the genomes, so any number
+//    of them; flt read only at a rank-0 row, n_exon and score_adj only at a
+//    rank-0 unfiltered one. Every row with score_ori > 0 takes its
+//    atomicMax: a strong read of the running maximum from L2 first costs
+//    about what the atomic it would save does. rep_cnt keeps its atomic:
+//    deriving it as cnt0 + cnt1 after the rows (a second launch, or the
+//    blocks counted last) cost more than the atomics it saves at a rank's
+//    share.
 //  * exchange_pack: no count pass, no scan and no search (a binary search of
 //    the run bounds in every block is a chain of dependent scattered probes
 //    before any store): destinations are monotone in the sorted keys and the
@@ -105,36 +115,43 @@ struct ReduceArgs {
   const int32_t* rank;
   const uint8_t* flt;
   const int32_t* n_rows;
-  int H, n_prot;
+  int G, H, n_prot;
   int32_t* max_so;                // [n_prot]
   unsigned long long* sums;       // [6, n_prot]: cnt0 cnt1 sum0 sum1 rep_sum rep_cnt
 };
 
+// A thread a row, the grid's rows striding over the genomes, its columns
+// over a genome's rows. pid and score_ori are read at every valid row,
+// rank there too, flt at a rank-0 row, n_exon and score_adj at a rank-0
+// unfiltered row. atomicMax at every row with score_ori > 0; then a rank-0
+// unfiltered row's four atomicAdds: its count and score_ori sum by its
+// exon class, its score_adj sum, the row count.
 __global__ void __launch_bounds__(kThreads)
 protein_reduce_kernel(ReduceArgs a) {
-  const int g = blockIdx.y;
-  int n = a.n_rows[g];
-  n = n < 0 ? 0 : (n > a.H ? a.H : n);
-  const long long base = static_cast<long long>(g) * a.H;
   const int P = a.n_prot;
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += gridDim.x * kThreads) {
-    const long long r = base + i;
-    int p = __ldg(a.pid + r);
-    p = p < 0 ? 0 : (p >= P ? P - 1 : p);
-    const int so = __ldg(a.score_ori + r);
-    if (so > 0) atomicMax(a.max_so + p, so);
-    if (__ldg(a.rank + r) != 0 || __ldg(a.flt + r) != 0) continue;
-    const int multi = __ldg(a.n_exon + r) != 1;
-    atomicAdd(a.sums + static_cast<long long>(multi) * P + p, 1ULL);
-    if (so != 0)
-      atomicAdd(a.sums + static_cast<long long>(2 + multi) * P + p,
-                static_cast<unsigned long long>(static_cast<long long>(so)));
-    const int sa = __ldg(a.score_adj + r);
-    if (sa != 0)
-      atomicAdd(a.sums + 4LL * P + p,
-                static_cast<unsigned long long>(static_cast<long long>(sa)));
-    atomicAdd(a.sums + 5LL * P + p, 1ULL);
+  for (int g = blockIdx.y; g < a.G; g += gridDim.y) {
+    int n = a.n_rows[g];
+    n = n < 0 ? 0 : (n > a.H ? a.H : n);
+    const long long base = static_cast<long long>(g) * a.H;
+    for (int i = blockIdx.x * kThreads + threadIdx.x; i < n;
+         i += gridDim.x * kThreads) {
+      const long long r = base + i;
+      int p = __ldg(a.pid + r);
+      p = p < 0 ? 0 : (p >= P ? P - 1 : p);
+      const int so = __ldg(a.score_ori + r);
+      if (so > 0) atomicMax(a.max_so + p, so);
+      if (__ldg(a.rank + r) != 0 || __ldg(a.flt + r) != 0) continue;
+      const int multi = __ldg(a.n_exon + r) != 1;
+      atomicAdd(a.sums + static_cast<long long>(multi) * P + p, 1ULL);
+      if (so != 0)
+        atomicAdd(a.sums + static_cast<long long>(2 + multi) * P + p,
+                  static_cast<unsigned long long>(static_cast<long long>(so)));
+      const int sa = __ldg(a.score_adj + r);
+      if (sa != 0)
+        atomicAdd(a.sums + 4LL * P + p,
+                  static_cast<unsigned long long>(static_cast<long long>(sa)));
+      atomicAdd(a.sums + 5LL * P + p, 1ULL);
+    }
   }
 }
 
@@ -543,14 +560,14 @@ exchange_finish_kernel(FinishArgs a) {
 // out: int64 [7, n_prot], zeroed here by one memset; row 0 holds the int32
 // maxima in its first n_prot words, rows 1-6 cnt0, cnt1, sum0, sum1,
 // rep_sum, rep_cnt. Returns cudaGetLastError(), or cudaErrorInvalidValue
-// for n_prot < 1 or a grid past 65,535 genomes.
+// for n_prot < 1.
 extern "C" int pg_protein_reduce(const void* pid, const void* score_ori,
                                  const void* score_adj, const void* n_exon,
                                  const void* rank, const void* flt,
                                  const void* n_rows, int G, int H,
                                  int n_prot, void* out, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_prot < 1 || G > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_prot < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaMemsetAsync(out, 0, 56LL * n_prot, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (G <= 0 || H <= 0) return 0;
@@ -562,12 +579,16 @@ extern "C" int pg_protein_reduce(const void* pid, const void* score_ori,
   a.rank = static_cast<const int32_t*>(rank);
   a.flt = static_cast<const uint8_t*>(flt);
   a.n_rows = static_cast<const int32_t*>(n_rows);
+  a.G = G;
   a.H = H;
   a.n_prot = n_prot;
   a.max_so = static_cast<int32_t*>(out);
   a.sums = static_cast<unsigned long long*>(out) + n_prot;
+  // a block column a kThreads rows of H, a block row a genome (each at
+  // most 65,535; the kernel strides over the rest)
   const long long bx = (static_cast<long long>(H) + kThreads - 1) / kThreads;
-  const dim3 grid(static_cast<unsigned>(bx < 65535 ? bx : 65535), G);
+  const dim3 grid(static_cast<unsigned>(bx < 65535 ? bx : 65535),
+                  static_cast<unsigned>(G < 65535 ? G : 65535));
   protein_reduce_kernel<<<grid, kThreads, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

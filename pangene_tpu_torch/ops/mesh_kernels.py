@@ -12,7 +12,9 @@ They replace the XLA forms of the JAX package's mesh:
                    rank-0 unfiltered valid rows the single- and multi-exon
                    counts and score_ori sums, the score_adj sum and the row
                    count. [G, H] planes plus n_rows: the padded stack, or
-                   every genome's rows end to end in one row (G = 1).
+                   every genome's rows end to end in one row (G = 1). One
+                   memset and one launch, a thread a row, the grid's rows
+                   striding over the genomes.
   exchange_pack    pangene_tpu/parallel/device_loop.py:325-348: each
                    destination's run of the locally sorted lean keys, cut
                    at C, into the [nd, 2, C] send plane (key, s1 of its

@@ -635,9 +635,17 @@ def fold_inputs(rng, form, N, n_vw, n_g=8, p_valid=0.7, smax=1000,
 
 # The fuzz cases of mesh_kernels.protein_reduce (reduction_inputs): random
 # rows; pids outside [0, n_prot) (clamped); scores <= 0; every row
-# filtered; one protein; an empty genome; 300 genomes.
+# filtered; one protein; an empty genome; 300 genomes; score_ori rising
+# along the rows, so that every valid row is a new maximum of its protein
+# (10 proteins, so many rows a protein, each raising its maximum); every
+# row to one pid of 5,000; 60,000 proteins
+# over 1.6 million rows (more row blocks than the card holds at once);
+# every rank-0 unfiltered row multi-exon (cnt0 and sum0 zero, rep_cnt =
+# cnt1).
 REDUCE_CASES = ("random", "pid_out_of_range", "scores_le_zero",
-                "all_filtered", "n_prot_1", "empty_genome", "many_genomes")
+                "all_filtered", "n_prot_1", "empty_genome", "many_genomes",
+                "ascending_scores", "one_protein_all_rows", "wide",
+                "r0_none_multi")
 
 
 def reduction_inputs(which: str, flat: bool = False):
@@ -647,7 +655,10 @@ def reduction_inputs(which: str, flat: bool = False):
     n_rows noise; with `flat`, the valid rows of every genome end to end
     (G = 1, one spare row), as post_reductions_sharded stacks them."""
     rng = np.random.default_rng(REDUCE_CASES.index(which))
-    G, H, P = (300, 700, 5000) if which == "many_genomes" else (4, 300, 40)
+    G, H, P = {"many_genomes": (300, 700, 5000),
+               "ascending_scores": (4, 300, 10),
+               "one_protein_all_rows": (4, 300, 5000),
+               "wide": (4, 400_000, 60_000)}.get(which, (4, 300, 40))
     lo_pid, hi_pid, lo_sc = 0, P, 0
     if which == "pid_out_of_range":
         lo_pid, hi_pid = -5, P + 5
@@ -658,12 +669,22 @@ def reduction_inputs(which: str, flat: bool = False):
     n_rows = rng.integers(1, H + 1, G).astype(np.int32)
     if which == "empty_genome":
         n_rows[1] = 0
+    elif which == "wide":
+        n_rows = (H - rng.integers(1, 100, G)).astype(np.int32)
     cols = [rng.integers(lo_pid, hi_pid, (G, H)),
             rng.integers(lo_sc, 900, (G, H)),
             rng.integers(lo_sc, 900, (G, H)),
             rng.integers(1, 4, (G, H)), rng.integers(0, 2, (G, H))]
     if which == "scores_le_zero":
         cols[1] = np.minimum(cols[1], 0)
+    elif which == "ascending_scores":
+        # 1, 2, ... along the valid rows, genome after genome
+        valid = np.arange(H)[None, :] < n_rows[:, None]
+        cols[1][valid] = np.arange(1, int(valid.sum()) + 1)
+    elif which == "one_protein_all_rows":
+        cols[0][:] = 1234
+    elif which == "r0_none_multi":
+        cols[3] = rng.integers(2, 4, (G, H))
     cols = [c.astype(np.int32) for c in cols]
     flt = (rng.random((G, H)) < 0.3).astype(np.uint8)
     if which == "all_filtered":

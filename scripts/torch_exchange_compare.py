@@ -14,8 +14,9 @@ them. The first form's two kernels are kept here as source text
 (FIRST_FORM) and built by nvcc into build/exchange_compare/first/; this
 checkout's csrc/mesh_round.cu is built into build/exchange_compare/change/,
 each of VARIANTS (textual substitutions of it) and each --also source (a
-mesh_round.cu with these C entries) into build/exchange_compare/<name>/,
-one nvcc a source, all started together. Every exact build's pack and
+mesh_round.cu with these C entries) into build/exchange_compare/<name>/
+(scripts/torch_compare_builds.py: one nvcc a source, all started
+together). Every exact build's pack and
 finish must equal the plain versions (ops/mesh_kernels.py) on the
 arguments; then they take turns, first, change, --also, variants, and the
 same again in reverse, each the device time of 200 launches in one CUDA
@@ -27,13 +28,13 @@ ptxas lines, a line a shape and kernel, and last EXCHANGE=<json>.
 """
 import argparse
 import ctypes
-import importlib.util
 import json
 import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from torch_compare_builds import (ROOT, build_all, card_line, chip_smoke,
+                                  turns, write_source, write_variants)
+
 # the loops' world-4 shapes: rank r of 4 holds G_loc = G / 4 genomes of
 # the loop's H rows (big: G 64, H 10,240, S 10,000, A 327,680; the north
 # star: G 100, H 18,944, S 19,000, A 831,488; chip_smoke.py's CORPORA)
@@ -320,15 +321,6 @@ extern "C" int pg_exchange_finish(const void* table, const void* n_out,
 """
 
 
-def chip_smoke():
-    """This checkout's chip_smoke.py as a module (timers, bounds)."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke_exchange", os.path.join(ROOT, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 class FirstForm:
     """The first form's two kernels through their C entries."""
 
@@ -454,59 +446,23 @@ def main():
     sys.path.insert(0, ROOT)
     from pangene_tpu_torch.ops import mesh_kernels as mk
     from pangene_tpu_torch.testing import exchange_calls
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    smi = card_line()
     print("card: " + smi, flush=True)
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     dev = torch.device("cuda")
-    cs = chip_smoke()
+    cs = chip_smoke("chip_smoke_exchange")
     out_root = os.path.join(ROOT, "build", "exchange_compare")
-    first_dir = os.path.join(out_root, "first")
-    os.makedirs(first_dir, exist_ok=True)
-    with open(os.path.join(first_dir, "mesh_first.cu"), "w") as fp:
-        fp.write(FIRST_FORM)
     src = os.path.join(ROOT, "pangene_tpu_torch", "csrc", "mesh_round.cu")
-    with open(src) as fp:
-        text = fp.read()
-    sources = {"first": os.path.join(first_dir, "mesh_first.cu"),
-               "change": src}
     variants = [v for v in a.variants.split(",") if v]
     also = dict(x.split("=", 1) for x in a.also)
-    for name, path in also.items():
-        sources[name] = os.path.abspath(path)
-    for name in variants:
-        vtext = text
-        for old, new in VARIANTS[name][2]:
-            if old not in vtext:
-                raise SystemExit("variant %s: %r not found" % (name, old))
-            vtext = vtext.replace(old, new)
-        d = os.path.join(out_root, name)
-        os.makedirs(d, exist_ok=True)
-        sources[name] = os.path.join(d, "mesh_round.cu")
-        with open(sources[name], "w") as fp:
-            fp.write(vtext)
-    # one nvcc a source, all started together
-    procs = {}
-    from pangene_tpu_torch.ops.sweep_kernel import nvcc_command
-    for name, path in sources.items():
-        d = os.path.join(out_root, name)
-        os.makedirs(d, exist_ok=True)
-        so = os.path.join(d, "libmesh_%s.so" % name)
-        procs[name] = (so, subprocess.Popen(
-            nvcc_command(path, so), stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True))
-    sos = {}
-    for name, (so, p) in procs.items():
-        _, err = p.communicate()
-        if p.returncode:
-            raise SystemExit("nvcc %s: %s" % (name, err[-3000:]))
-        ptxas = [ln.strip() for ln in err.splitlines()
-                 if "Used" in ln or "spill" in ln
-                 or ("Compiling entry" in ln and "exchange" in ln)]
-        print("ptxas %s: %s" % (name, " | ".join(ptxas)), flush=True)
-        sos[name] = so
+    sources = {"first": write_source(out_root, "first", "mesh_first.cu",
+                                     FIRST_FORM), "change": src}
+    sources.update((name, os.path.abspath(path))
+                   for name, path in also.items())
+    sources.update(write_variants(
+        src, {name: VARIANTS[name][2] for name in variants}, out_root))
+    sos = build_all(sources, out_root, "exchange")
     result = {"card": smi, "shapes": {}}
     for shape_name in a.shapes.split(","):
         shape = SHAPES[shape_name]
@@ -541,10 +497,7 @@ def main():
                         raise AssertionError("%s %s %s != plain: output %d"
                                              % (who, shape_name, kname, k))
                 launches[who] = launch
-            order = list(launches)
-            ms = {who: [] for who in order}
-            for who in order + order[::-1]:
-                ms[who].append(cs.graph_ms(launches[who], cs.TIMED_LAUNCHES))
+            ms = turns(cs, launches, 2)
             got = mk.exchange_pack(*args, **kw) if kname == "pack" else None
             nbytes = cs.exchange_bound_bytes(kname, args, kw, got)
             old = first_form_bound_bytes(kname, args, got)

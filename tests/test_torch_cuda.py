@@ -1235,6 +1235,89 @@ def test_protein_reduce_vs_plain(cuda_device, which, layout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["padded", "flat"])
+@pytest.mark.parametrize("which", ["random", "ascending_scores", "n_prot_1"])
+def test_protein_reduce_graph_replays_on_new_inputs(cuda_device, which,
+                                                     layout):
+    """One protein_reduce captured in a CUDA graph (its memset and its
+    launch), replayed three times, each after new rows are written into the
+    captured input buffers (the case's rows shuffled): every replay equals
+    the plain version."""
+    from pangene_tpu_torch.ops import mesh_kernels as mk
+    args, P = reduce_inputs(which, cuda_device, layout == "flat")
+    first = [a.clone() for a in args]
+    mk.protein_reduce(*args, n_prot=P)  # built and loaded
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = mk.protein_reduce(*args, n_prot=P)
+    gen = torch.Generator().manual_seed(3)
+    for _ in range(3):
+        perm = torch.randperm(args[0].numel(), generator=gen).to(cuda_device)
+        for a, f in zip(args[:6], first[:6]):
+            a.copy_(f.reshape(-1)[perm].reshape(f.shape))
+        g.replay()
+        torch.cuda.synchronize()
+        want = mk.protein_reduce_plain(*args, n_prot=P)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_protein_reduce_edge_shapes(cuda_device):
+    """protein_reduce against its plain version at one row, at n_prot 1
+    (every row's atomics on one protein), on more genomes than a grid's
+    y dimension holds (70,000 of 3 rows: its rows stride over them), and
+    with 200,000 proteins."""
+    from pangene_tpu_torch.ops import mesh_kernels as mk
+    rng = np.random.default_rng(8)
+
+    def check(G, H, P, n_rows):
+        cols = [rng.integers(-3, P + 3, (G, H))] + [
+            rng.integers(-5, 900, (G, H)) for _ in range(2)] + [
+            rng.integers(1, 4, (G, H)), rng.integers(0, 2, (G, H))]
+        t = lambda a, dt: torch.from_numpy(a.astype(dt)).to(cuda_device)
+        args = [t(c, np.int32) for c in cols] + [
+            t(rng.random((G, H)) < 0.3, np.uint8), t(n_rows, np.int32)]
+        got = mk.protein_reduce(*args, n_prot=P)
+        want = mk.protein_reduce_plain(*args, n_prot=P)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (G, H, P)
+    check(1, 1, 5, np.array([1]))
+    check(1, 1, 1, np.array([1]))
+    check(4, 5000, 1, np.array([5000, 17, 0, 4999]))
+    check(70000, 3, 40, rng.integers(0, 4, 70000))
+    check(2, 3000, 200_000, np.array([3000, 2999]))
+
+
+@pytest.mark.cuda
+def test_protein_reduce_on_a_rank_share(cuda_device, tmp_path):
+    """Each rank's share at world 4, stacked by stacked.stack_reductions
+    as post_reductions_sharded stacks it, through protein_reduce (one
+    launch, no plain call) against the plain version."""
+    from pangene_tpu_torch import pipeline
+    from pangene_tpu_torch.ops import mesh_kernels as mk
+    from pangene_tpu_torch.options import PgOpt
+    from pangene_tpu_torch.parallel import mesh as M
+    from pangene_tpu_torch.testing import synth_paf_files
+    files = synth_paf_files(str(tmp_path), n_genome=7, n_gene=400, seed=5)
+    d = pipeline.read_all(PgOpt(engine="sharded", device="cpu"), files)
+    P = max(d.n_prot, 1)
+    for r in range(4):
+        buf, N = st.stack_reductions(d, M.Mesh(4, r, cuda_device, None,
+                                               None), False)
+        args = st.reduction_views(torch.from_numpy(buf).to(cuda_device), N)
+        mk.reset_counts()
+        got = mk.protein_reduce(*args, n_prot=P)
+        assert mk.n_calls["protein_reduce"] == {"kernel": 1, "plain": 0}
+        want = mk.protein_reduce_plain(*args, n_prot=P)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), r
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("graph", [False, True])
 @pytest.mark.parametrize("shape", ["small", "loop"])
 @pytest.mark.parametrize("which", EXCHANGE_STATES)

@@ -6,7 +6,9 @@ tolerance 0).
                    mesh, the same rows in the padded [G, H] stack and in the
                    flat layout (every genome's rows end to end, G = 1), under
                    fuzz: pids out of range (clamped), negative and zero
-                   scores, every row filtered, n_prot 1, an empty genome;
+                   scores, every row filtered, n_prot 1, an empty genome,
+                   rising scores, one pid for every row, 60,000 proteins,
+                   no single-exon row counted; each state held to its edge;
                    and post_reductions_sharded's stacking of one rank's
                    genomes: the ranks' partials make the whole; its
                    bound in chip_smoke.py counts only the bytes it reads;
@@ -83,10 +85,32 @@ def test_protein_reduce_plain_equals_jax(which, layout):
     # reduction_step (one rank) returns the same seven
     for g, w in zip(st.reduction_step(*args, n_prot=P), want):
         assert np.array_equal(g.numpy(), w)
+    # each state holds its edge
+    cnt0, cnt1, sum0, sum1, rep_sum, rep_cnt = want[1:]
+    assert np.array_equal(rep_cnt, cnt0 + cnt1)
     if which == "all_filtered":
         assert not any(w.any() for w in want[1:]) and want[0].any()
     elif which == "scores_le_zero":
         assert not want[0].any() and want[1].any()
+    elif which == "ascending_scores":
+        # score_ori 1, 2, ... along the valid rows: the largest is the count
+        assert want[0].max() == int(n_rows.sum())
+    elif which == "one_protein_all_rows":
+        assert np.flatnonzero(want[0]).tolist() == [1234] and P > 1234
+        assert rep_cnt[1234] == rep_cnt.sum() > 0
+    elif which == "r0_none_multi":
+        assert not cnt0.any() and not sum0.any() and cnt1.any()
+        assert np.array_equal(rep_cnt, cnt1)
+    elif which == "wide":
+        assert P >= 60_000 and np.count_nonzero(want[0]) > 0.99 * P
+
+
+def test_wide_case_outnumbers_the_resident_blocks():
+    """The wide case's rows (flat) make more blocks of protein_reduce (a
+    thread a row) than an H100 holds at once: more rows than its 132 SMs
+    of 2,048 resident threads each, twice over."""
+    cols, flt, n_rows, P = reduction_inputs("wide", flat=True)
+    assert int(n_rows[0]) > 2 * 132 * 2048
 
 
 def chip_smoke():
