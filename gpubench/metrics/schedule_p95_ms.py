@@ -1,0 +1,10 @@
+"""schedule_p95_ms: the 95th percentile of the wall of every schedule of
+the window (statistics.quantiles, exclusive method), in ms."""
+import statistics
+
+
+def read(run):
+    w = [1e3 * x for x in run.walls]
+    if len(w) < 2:
+        return w[0] if w else None
+    return statistics.quantiles(w, n=20)[18]
