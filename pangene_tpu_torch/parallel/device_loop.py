@@ -67,10 +67,8 @@ Bit-exactness:
 """
 from __future__ import annotations
 
-import contextlib
 import os
 import sys
-import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -82,6 +80,7 @@ from ..ops import loop_kernels as lk
 from ..ops import mesh_kernels as mk
 from ..ops import sweep_kernel as sk
 from ..ops.loop_kernels import SENT_I
+from .. import util
 from ..util import log_msg
 from . import mesh as M
 
@@ -141,39 +140,6 @@ class Cfg(NamedTuple):
 def cfg_from(other) -> Cfg:
     """Cfg from any object with the same attributes (a JAX-package Cfg)."""
     return Cfg(**{f: getattr(other, f) for f in Cfg._fields})
-
-
-class _BlockTimer:
-    """Time per named block of the round loop, summed over rounds: CUDA
-    events on cuda (read by result(), which synchronises), the host clock
-    on the CPU."""
-
-    def __init__(self, device: torch.device, blocks=BLOCKS):
-        self.cuda = device.type == "cuda"
-        self.spans = []
-        self.ms = {b: 0.0 for b in blocks}
-
-    @contextlib.contextmanager
-    def __call__(self, name):
-        if self.cuda:
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            yield
-            t1.record()
-            self.spans.append((name, t0, t1))
-        else:
-            t0 = time.monotonic()
-            yield
-            self.ms[name] += 1e3 * (time.monotonic() - t0)
-
-    def result(self) -> dict:
-        if self.cuda:
-            torch.cuda.synchronize()
-            for name, t0, t1 in self.spans:
-                self.ms[name] += t0.elapsed_time(t1)
-            self.spans = []
-        return {k: round(v, 3) for k, v in self.ms.items()}
 
 
 def _steady_cm_views(d):
@@ -309,13 +275,19 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     stay host arrays); returns device tensors, the first four of them this
     rank's genomes. `stats`, when given, receives host_syncs, block_ms,
     sweep_launches and loop_launches (the launches of each kernel of
-    ops/loop_kernels). `capture`, when given, receives a copy of the
-    arguments of the first call of each of those kernels, by name (the
-    round state is updated in place): prop_round's first call that
-    propagates, occ_round's first with the loci and the cuts (its first
-    other one under "occ_round_partial"), and the full=True tail's calls
-    under "walk_pairs_full" and "merge_fold_full"; the round kernels'
-    scratch is not kept (a caller passes its own)."""
+    ops/loop_kernels), and from the schedule's spans (util.Tracer, on only
+    then) host_ms (the host's milliseconds in each block's code, its reads
+    included, by block, the full=True tail as walk_merge_full),
+    sync_wait_ms (blocked on the device: the host reads and, on cuda, the
+    closing synchronise) and driver_ms (the rest of the schedule span: the
+    driver's Python, dispatch, launches and event records). `capture`,
+    when given, receives a copy of the arguments of the first call of each
+    of those kernels, by name (the round state is updated in place):
+    prop_round's first call that propagates, occ_round's first with the
+    loci and the cuts (its first other one under "occ_round_partial"), and
+    the full=True tail's calls under "walk_pairs_full" and
+    "merge_fold_full"; the round kernels' scratch is not kept (a caller
+    passes its own)."""
     device = blk_i32.device
     mesh = mesh or M.local(device)
     nd, rank = mesh.world, mesh.rank
@@ -328,8 +300,9 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     ga = lambda x: M.all_gather(x.reshape(-1), mesh)
     sid_of = sid_of.to(I32)
     seg_gid = seg_gid.to(I64)
-    syncs = [0]
-    timer = _BlockTimer(device)
+    # the schedule's spans: schedule > round > block > sync
+    tr = util.Tracer(stats is not None, device)
+    tr.begin("schedule")
     # the walk's round-invariant planes in cm order, once
     planes = lk.walk_planes(cols, cols.pop("ordcm"), sid_of, S)
 
@@ -339,9 +312,10 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
                 k: v for k, v in kw.items() if k != "scratch"})
         return fn(*args, **kw)
     def host(x: torch.Tensor):
-        """One read of a small tensor on the host (a synchronisation)."""
-        syncs[0] += 1
-        return x.tolist()
+        """One read of a small tensor on the host (a synchronisation), the
+        span "sync" (counted in host_syncs)."""
+        with tr.span("sync"):
+            return x.tolist()
 
     geo: dict = {}                # the plain sweep's round-invariant planes
     launches0 = sk.n_batched()["kernel"]
@@ -438,6 +412,7 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
                   branch_diff_cut=cfg.branch_diff_cut)
 
     for r in range(cfg.R):
+        tr.begin("round")
         run_br = bool(do_branch[r]) and (not nc_in or no_skip)
 
         # ===== branch marking on the previous round's arcs =====
@@ -447,7 +422,7 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
         # classification and the n_dist_loci greedy (branch.c:82-90)
         n_grp = None
         if run_br:
-            with timer("branch"):
+            with tr.block("branch"):
                 # the groups' window check (into overflow), each arc's
                 # target gene and the representatives (branch.c:6-29): last
                 # kept hit per gene in the current cs order, with its
@@ -487,7 +462,7 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
         # the previous round's walk_merge, which recorded each pair's arc
         # row; then the weak == 2 filter, n_prop and the change bit
         word = words[r]
-        with timer("prop"):
+        with tr.block("prop"):
             prop_args = (weak, flt, valid, planes.ordcm, *pair_st,
                          arc_weak, word)
             if do_branch[r]:
@@ -499,7 +474,7 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
         # ===== annealed high-occurrence filter (graph.c:237-263) =====
         # with n_dist_loci from the branch round's n_grp, the #del capture
         # rows and the convergence count
-        with timer("occ"):
+        with tr.block("occ"):
             cuts = (int(occ_cut[r]), int(deg_cut[r]), int(loci_cut[r])) \
                 if do_occ[r] else None
             captured(lk.occ_round, alive, flt, valid, cols["gid"], sid_of,
@@ -526,7 +501,7 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
         if run_sw:
             # shadow and pid_dom in place (rows past a genome's kept rows
             # too, as the JAX epilogue: there ev1 & valid is false)
-            with timer("sweep"):
+            with tr.block("sweep"):
                 sk.sweep_round_loop(batch, flt, weak, cfg.W,
                                     cfg.check_strand, cfg.min_ov_ratio,
                                     shadow, pid_dom, cols["ev1"],
@@ -535,7 +510,7 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
         # walk + lean merge (the rounds only consume group structure, the
         # exact s1 average and the seg counters)
         if recompute and do_walk[r]:
-            with timer("walk_merge"):
+            with tr.block("walk_merge"):
                 arc_vw, arc_s1, n_out, seg_tot, seg_ng, pair_st = \
                     walk_merge(full=False)
         else:
@@ -545,12 +520,13 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
         n_out_r.append(n_out)
         flags.append((int(run_br), int(run_sw)))
         aw_c, cnt_c, n_out_c = arc_weak, cnt, n_out
+        tr.end()
 
     # recompute the final arc table with its output-only stats from the
     # final state (identical kept pairs -> identical groups); all averages
     # are rounded exactly: IEEE double in merge_fold's full mode on cuda,
     # softfloat in its plain version
-    with timer("walk_merge"):
+    with tr.block("walk_merge_full", "walk_merge"):
         (arc_vw, arc_s1, n_out, seg_tot, seg_ng, arc_ng, arc_tot, arc_ad,
          arc_s2) = walk_merge(full=True)
     # the logs' columns the round kernels did not write (occ_round wrote
@@ -564,8 +540,14 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     # replicated by construction; reduced once more so that every rank
     # falls back, or none
     overflow = M.pmax(overflow.to(I32), mesh) > 0
+    block_ms = tr.block_ms(BLOCKS) if stats is not None else None
+    tr.end()
     if stats is not None:
-        stats.update(host_syncs=syncs[0], block_ms=timer.result(),
+        wait = tr.ns("sync", "sync_final")
+        stats.update(host_syncs=tr.names.count("sync"), block_ms=block_ms,
+                     host_ms=tr.host_ms(BLOCKS + ("walk_merge_full",)),
+                     sync_wait_ms=wait / 1e6,
+                     driver_ms=(tr.ns("schedule") - wait) / 1e6,
                      sweep_launches=sk.n_batched()["kernel"] - launches0,
                      loop_launches={k: c["kernel"] - loop0[k]
                                     for k, c in lk.n_calls.items()})
@@ -580,7 +562,8 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
 
 # Diagnostics of the most recent graph_gen_device call: engaged flag,
 # fallback reason, static shape, wall-clock stage breakdown (pack / upload /
-# device run / pull), rounds run, host reads and per-block time.
+# device run / pull, from the spans of pack_host and run_packed), rounds
+# run, host reads, per-block time and schedule_device's other stats.
 LAST: dict = {}
 
 
@@ -611,11 +594,13 @@ def _host_array(shape, dtype, pin: bool) -> np.ndarray:
     return torch.empty(shape, dtype=tdt, pin_memory=True).numpy().view(dtype)
 
 
+@util.stage_span("pack")
 def pack_host(opt: PgOpt, q, pin: bool = False):
     """Size and pack the schedule's inputs from the graph after phase 1, in
     NumPy (into pinned memory when `pin`), for the genome mesh of the run:
     the genome axis padded to a multiple of its world. Returns a Pack, or
-    the reason (a string) why the device loop cannot take this graph."""
+    the reason (a string) why the device loop cannot take this graph.
+    Its wall is the span "pack", util.stage_stats["pack_s"]."""
     d = q.d
     G = d.n_genome
     nd = M.make_mesh(opt.n_devices, opt.device).world
@@ -860,6 +845,45 @@ def pack_host(opt: PgOpt, q, pin: bool = False):
 N_DEVICE_INPUTS = 11   # leading inputs of schedule() that live on the device
 
 
+def run_packed(pk: Pack, mesh: M.Mesh, stats: Optional[dict] = None,
+               pull_dcap: bool = False) -> list:
+    """pack_host's inputs through the device, as graph_gen_device runs them
+    between its pack and its apply: the upload (the five blocks, each rank
+    its genomes of `mesh`, then the next six inputs; from pinned memory on
+    cuda), schedule_device, the read of its overflow flag, and the pull of
+    its 20 outputs (the first four gathered over the ranks; the #del
+    capture planes, O(R*S), only when `pull_dcap`, else empty). Returns the
+    20 host arrays. `stats`, when given, receives schedule_device's and the
+    seconds of the three phases, each a span ended by a synchronise:
+    upload_s (the upload's), run_s (the overflow read), pull_s (the
+    pull's copies)."""
+    device = mesh.device
+    tr = util.Tracer(stats is not None)
+    with tr.span("upload"):
+        # one copy per block
+        on_dev = [M.put_sharded(a, mesh, 1) for a in pk.inputs[:5]] \
+            + [torch.from_numpy(a).to(device, non_blocking=True)
+               for a in pk.inputs[5:N_DEVICE_INPUTS]]
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    with tr.span("run"):
+        outs = schedule_device(*on_dev, *pk.inputs[N_DEVICE_INPUTS:-1],
+                               bool(pk.inputs[-1]), cfg=pk.cfg,
+                               stats=stats, mesh=mesh)
+        outs[-1].item()
+    with tr.span("pull"):
+        # the first four outputs are this rank's genomes, the rest
+        # replicated
+        host = [M.pull_global(o, mesh) if i < 4
+                else o.cpu().numpy() if pull_dcap or not 15 <= i < 19
+                else np.zeros((0,) + tuple(o.shape[1:]), np.int32)
+                for i, o in enumerate(outs)]
+    if stats is not None:
+        stats.update({k + "_s": tr.seconds(k)
+                      for k in ("upload", "run", "pull")})
+    return host
+
+
 def graph_gen_device(opt: PgOpt, q) -> bool:
     """Run phases 2+3 of the schedule on opt.device, over the ranks of the
     genome mesh (parallel/mesh.py; one device without a launch). Returns
@@ -868,7 +892,6 @@ def graph_gen_device(opt: PgOpt, q) -> bool:
     and the caller must run the host rounds instead. Assumes phase 1
     (gen_vtx + first gen_arc) already ran. Raises when opt.device is "cuda"
     and there is no CUDA device."""
-    from .. import util
     from ..graph.graphdata import ArcTable
 
     mesh = M.make_mesh(opt.n_devices, opt.device)
@@ -877,41 +900,20 @@ def graph_gen_device(opt: PgOpt, q) -> bool:
     G = d.n_genome
     if G == 0 or q.n_seg == 0 or q.n_arc == 0:
         return _fallback("empty graph")
-    cuda = device.type == "cuda"
-    t_pack0 = time.monotonic()
     # every rank packs the same host data and uploads its genomes
-    pk = pack_host(opt, q, pin=cuda)
+    pk = pack_host(opt, q, pin=device.type == "cuda")
     if isinstance(pk, str):
         return _fallback(pk)
     cfg = pk.cfg
     coll0 = (sum(M.LAST["calls"].values()), M.LAST["collective_s"],
              M.LAST["staged_bytes"])
-    t_up0 = time.monotonic()
-    # one copy per block, from pinned memory on cuda
-    on_dev = [M.put_sharded(a, mesh, 1) for a in pk.inputs[:5]] \
-        + [torch.from_numpy(a).to(device, non_blocking=True)
-           for a in pk.inputs[5:N_DEVICE_INPUTS]]
-    if cuda:
-        torch.cuda.synchronize(device)
-    t_run0 = time.monotonic()
     stats: dict = {}
-    outs = schedule_device(*on_dev, *pk.inputs[N_DEVICE_INPUTS:-1],
-                           bool(pk.inputs[-1]), cfg=cfg, stats=stats,
-                           mesh=mesh)
-    overflow_flag = bool(outs[-1].item())
-    t_pull0 = time.monotonic()
-    # the first four outputs are this rank's genomes, the rest replicated;
-    # the #del capture planes (outs[15:19], O(R*S)) are pulled only when
-    # the verbosity will replay them
-    pull_dcap = util.verbose >= 3
-    host = [M.pull_global(o, mesh) if i < 4
-            else o.cpu().numpy() if pull_dcap or not 15 <= i < 19
-            else np.zeros((0,) + tuple(o.shape[1:]), np.int32)
-            for i, o in enumerate(outs)]
-    t_pull1 = time.monotonic()
+    # the #del capture planes only when the verbosity will replay them
+    host = run_packed(pk, mesh, stats, pull_dcap=util.verbose >= 3)
     (flt, weak, shadow, pid_dom, alive, seg_tot, seg_ng, arc_vw, arc_s1,
      arc_ng, arc_tot, arc_ad, arc_s2, loci_fin, logs,
      dmask, ddeg, dloci, dtot, overflow) = host
+    overflow_flag = bool(overflow)
     H, S, B, R = cfg.H, cfg.S, cfg.B, cfg.R
     LAST.clear()
     LAST.update(
@@ -926,10 +928,7 @@ def graph_gen_device(opt: PgOpt, q) -> bool:
         kept_frac=round(sum(len(k) for k in pk.kept_idx)
                         / max(1, sum(g.n_hit for g in d.genomes)), 3),
         upload_bytes=int(sum(a.nbytes for a in pk.inputs[:5])),
-        pack_s=round(t_up0 - t_pack0, 3),
-        upload_s=round(t_run0 - t_up0, 3),
-        run_s=round(t_pull0 - t_run0, 3),
-        pull_s=round(t_pull1 - t_pull0, 3),
+        pack_s=util.stage_stats.get("pack_s"),
         # convergence skipping (logs cols 8/9 = ran_branch / ran_sweep)
         rounds_branch_run=int(logs[:, 8].sum()),
         rounds_sweep_run=int(logs[:, 9].sum()),
@@ -1001,7 +1000,6 @@ def graph_gen_device(opt: PgOpt, q) -> bool:
 def _emit_round_logs(q, logs, dmask, ddeg, dloci, dtot, R) -> None:
     """Replay the reference's per-round stderr messages from the pulled
     counters (content-exact; timestamps are emission-time)."""
-    from .. import util
     d = q.d
     for r in range(R):
         n1, n2, nprop, nocc, ndeg, nloci, nseg, narc = (

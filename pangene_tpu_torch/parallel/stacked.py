@@ -51,20 +51,20 @@ int64 max.
 """
 from __future__ import annotations
 
-import contextlib
 import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .. import util
 from ..options import PgOpt
 from ..ops import mesh_kernels as mk
 from ..ops import step_kernels as stk
 from ..ops import sweep_kernel as sk
 from ..ops.device import PAD_CID
 from . import mesh as M
-from .device_loop import _BlockTimer, _host_array
+from .device_loop import _host_array
 
 I64 = torch.int64
 I32 = torch.int32
@@ -230,12 +230,11 @@ def round_step(st: StackCols, flt: torch.Tensor, shadow: torch.Tensor,
 
     On cuda three kernel launches and two torch.sort calls; on the CPU the
     kernels' plain versions. `geo` is the plain sweep's cache for this
-    `st`; `timer`, a device_loop._BlockTimer over STEP_BLOCKS, times the
-    parts. Over a `mesh`, `st` and the flags hold this rank's genomes and
-    tot_cnt / n_genome sum over every rank's."""
+    `st`; `timer`, a util.Tracer, times the parts as blocks of
+    STEP_BLOCKS. Over a `mesh`, `st` and the flags hold this rank's genomes
+    and tot_cnt / n_genome sum over every rank's."""
     bc = st.batch
-    span = timer if timer is not None else \
-        (lambda name: contextlib.nullcontext())
+    span = (timer or util.Tracer(False)).block
 
     # a. shadow sweep on the cs-sorted state, the stale-flag merge (hit 0
     # and filtered hits are never the evaluated side, overlap.c:108-116)
@@ -431,7 +430,7 @@ def gen_arc_sharded(opt: PgOpt, q) -> None:
     _sync(device)
     t = _add("upload_s", t)
 
-    timer = _BlockTimer(device, STEP_BLOCKS)
+    timer = util.Tracer(device=device)
     launches0 = sk.n_batched()["kernel"]
     step0 = {k: c["kernel"] for k, c in stk.n_calls.items()}
     outs = round_step(
@@ -439,7 +438,7 @@ def gen_arc_sharded(opt: PgOpt, q) -> None:
         min_ov_ratio=float(opt.min_ov_ratio),
         check_strand=opt.check_strand, use_ori=opt.use_ori_for_branch,
         geo=cache["geo"], timer=timer, mesh=mesh)
-    for name, ms in timer.result().items():     # synchronises
+    for name, ms in timer.block_ms(STEP_BLOCKS).items():  # synchronises
         LAST["block_ms"][name] = round(LAST["block_ms"][name] + ms, 3)
     LAST["sweep_launches"] += sk.n_batched()["kernel"] - launches0
     for k, c in stk.n_calls.items():

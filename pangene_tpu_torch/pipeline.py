@@ -29,6 +29,7 @@ from .options import (HOST_ENGINES, PG_F_WRITE_BED_FLAG, PG_F_WRITE_BED_RAW,
 from .ops import pseudo as pseudo_ops
 from .ops import dispatch as sweep
 from .ops.sort import hit_sort
+from . import util
 from .util import log_msg
 
 
@@ -71,7 +72,10 @@ def _n_parse_workers(files: List[str]) -> int:
     return min(n, len(files))
 
 
+@util.stage_span("parse")
 def read_all(opt: PgOpt, files: List[str]) -> DataSet:
+    """Every PAF of `files` into one DataSet, with the per-genome filter
+    postpass. Its wall is the span "parse", util.stage_stats["parse_s"]."""
     d = DataSet.new()
     n_workers = _n_parse_workers(files)
     if n_workers > 1 and opt.excl is None and "-" not in files:
@@ -207,9 +211,7 @@ def run(opt: PgOpt, files: List[str], out: Optional[IO[str]] = None,
 
 def _run_inner(opt, files, out, save_hits, load_hits) -> Graph:
     import time as _time
-    from . import util
     util.stage_stats.clear()
-    t0 = _time.monotonic()
     if load_hits:
         from .io.checkpoint import load_dataset
         d = load_dataset(load_hits)
@@ -221,7 +223,6 @@ def _run_inner(opt, files, out, save_hits, load_hits) -> Graph:
         from .io.checkpoint import save_dataset
         save_dataset(d, save_hits)
         log_msg("pg_checkpoint", "saved post-ingest tensors to %s", save_hits)
-    util.stage_stats["parse_s"] = round(_time.monotonic() - t0, 3)
     t0 = _time.monotonic()
     post_process(opt, d)
     util.stage_stats["post_s"] = round(_time.monotonic() - t0, 3)

@@ -6,6 +6,7 @@ graph-quality regressions diffable against reference stderr output.
 """
 from __future__ import annotations
 
+import functools
 import os
 import resource
 import sys
@@ -14,9 +15,138 @@ import time
 verbose = 3
 
 # Coarse wall-clock of the most recent pipeline.run, keyed by stage
-# (parse_s/post_s/graph_s/emit_s). Reset at the start of each run;
+# (parse_s/post_s/graph_s/emit_s; parse_s and pack_s from the spans of
+# read_all and device_loop.pack_host). Reset at the start of each run;
 # chip_smoke.py prints it.
 stage_stats: dict = {}
+
+
+class Tracer:
+    """Spans of the port's host code. A span has a name, its parent (the
+    span open when it began; -1 for none), a start and an end on
+    time.perf_counter_ns(), and for a block a key; the spans stay in
+    memory until the caller sums them. While a torch.profiler records, a
+    span is also the profiler annotation "pg.<name>", so that a trace shows
+    which span the host was in beside the device's kernels and copies. A
+    span with a key (`block`) on a CUDA device also records a pair of CUDA
+    events, which block_ms() reads. A tracer that is off reads no clock,
+    allocates nothing a span and enters no profiler scope.
+
+        tr = Tracer(on, device)
+        with tr.span("name"):         # or tr.begin("name") ... tr.end()
+            with tr.block("branch"):
+                ...
+    """
+
+    def __init__(self, on: bool = True, device=None):
+        self.on = on
+        self.cuda = on and getattr(device, "type", None) == "cuda"
+        self.names: list = []
+        self.keys: list = []
+        self.parents: list = []
+        self.t0: list = []
+        self.t1: list = []
+        self._open: list = []         # (index, annotation, end event)
+        self._events: list = []       # (key, start event, end event)
+        self._next = None             # (name, key) of the next `with`
+        torch = sys.modules.get("torch")
+        self._profiling = (torch._C._autograd._profiler_enabled
+                           if on and torch is not None else None)
+
+    def begin(self, name: str, key=None) -> None:
+        if not self.on:
+            return
+        t = time.perf_counter_ns()
+        i = len(self.names)
+        self.names.append(name)
+        self.keys.append(key)
+        self.parents.append(self._open[-1][0] if self._open else -1)
+        self.t0.append(t)
+        self.t1.append(t)
+        ann = end = None
+        if self._profiling is not None and self._profiling():
+            ann = sys.modules["torch"].profiler.record_function("pg." + name)
+            ann.__enter__()
+        if key is not None and self.cuda:
+            import torch
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self._events.append((key, start, end))
+        self._open.append((i, ann, end))
+
+    def end(self) -> None:
+        if not self.on:
+            return
+        i, ann, end = self._open.pop()
+        if end is not None:
+            end.record()
+        if ann is not None:
+            ann.__exit__(None, None, None)
+        self.t1[i] = time.perf_counter_ns()
+
+    def span(self, name: str, key=None) -> "Tracer":
+        if self.on:
+            self._next = (name, key)
+        return self
+
+    def block(self, name: str, key=None) -> "Tracer":
+        """A span timed on the device too, under `key` (default: name)."""
+        return self.span(name, key or name)
+
+    def __enter__(self) -> None:
+        if self.on:
+            self.begin(*self._next)
+
+    def __exit__(self, *exc) -> bool:
+        self.end()
+        return False
+
+    def ns(self, *names: str) -> int:
+        """Host nanoseconds in the finished spans of these names."""
+        return sum(b - a for n, a, b in zip(self.names, self.t0, self.t1)
+                   if n in names)
+
+    def seconds(self, name: str) -> float:
+        return round(self.ns(name) / 1e9, 3)
+
+    def host_ms(self, names) -> dict:
+        """Host milliseconds by span name, each summed over its spans."""
+        return {n: self.ns(n) / 1e6 for n in names}
+
+    def block_ms(self, keys) -> dict:
+        """Milliseconds by block key, summed over the blocks' spans: on a
+        CUDA device from their events, after a synchronise that is itself a
+        span, "sync_final"; elsewhere their host time."""
+        ms = dict.fromkeys(keys, 0.0)
+        if self.cuda:
+            import torch
+            with self.span("sync_final"):
+                torch.cuda.synchronize()
+            for key, start, end in self._events:
+                ms[key] += start.elapsed_time(end)
+            self._events = []
+        else:
+            for k, a, b in zip(self.keys, self.t0, self.t1):
+                if k is not None:
+                    ms[k] += (b - a) / 1e6
+        return {k: round(v, 3) for k, v in ms.items()}
+
+
+def stage_span(name: str):
+    """Decorator: each call of the function is a span `name` of a tracer of
+    its own (one pair of clock reads; the annotation "pg.<name>" under
+    --profile), whose seconds go to stage_stats["<name>_s"]."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kw):
+            tr = Tracer()
+            with tr.span(name):
+                out = fn(*args, **kw)
+            stage_stats[name + "_s"] = tr.seconds(name)
+            return out
+        return call
+    return wrap
 
 _t0 = time.monotonic()
 _cpu0 = time.process_time()
