@@ -46,7 +46,15 @@ and :724-740), described at each wrapper and in csrc/loop_round.cu.
 prop_round and occ_round update the round state in place.
 
 On cuda each wrapper launches its kernel or raises; on the CPU it takes the
-plain version. Neither reads a value on the host on the card.
+plain version. Neither reads a value on the host on the card. The kernels
+that the device loop launches every round (branch_prep, branch_block,
+prop_round, occ_round, walk_pairs, merge_fold) are each a check and a
+launch: bind_<name> checks the arguments, allocates the outputs and binds
+the library symbol, the stream and the device pointers once, and returns a
+Bound whose launch(...) takes only what changes between calls; the public
+wrapper is bind then launch, one call. A binding's outputs are its own
+planes, written anew by every launch (on the CPU from the plain version's
+result).
 """
 from __future__ import annotations
 
@@ -59,7 +67,8 @@ import torch
 
 from ..util import build_dir
 from . import softfloat as sf
-from .sweep_kernel import build_so
+from .sweep_kernel import Bound, build_so, device_guard
+from .sweep_kernel import bound_stream as _stream
 
 I64 = torch.int64
 I32 = torch.int32
@@ -76,7 +85,15 @@ n_calls = {name: {"kernel": 0, "plain": 0} for name in (
     "occ_round")}
 
 
+# Argument checks (_check calls) of the wrappers of this module and of the
+# modules that share _check (ops/mesh_kernels, ops/step_kernels): one a
+# public call, one a bind_<name>. reset_counts() zeroes it.
+n_checks = 0
+
+
 def reset_counts() -> None:
+    global n_checks
+    n_checks = 0
     for c in n_calls.values():
         for k in c:
             c[k] = 0
@@ -204,7 +221,10 @@ def _round_lib() -> ctypes.CDLL:
 
 
 def _check(named, dev: torch.device) -> None:
-    """Each (name, tensor, dtype, shape) contiguous on `dev`."""
+    """Each (name, tensor, dtype, shape) contiguous on `dev` (counted in
+    n_checks)."""
+    global n_checks
+    n_checks += 1
     for name, t, dtype, shape in named:
         if t.dtype != dtype:
             raise ValueError("%s: dtype %s, expected %s"
@@ -216,16 +236,25 @@ def _check(named, dev: torch.device) -> None:
                                            tuple(t.shape), t.device))
 
 
+def _on_cuda(dev: torch.device, name: str) -> bool:
+    """True on cuda (launch), False on the CPU (plain); raises elsewhere."""
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError("%s runs on cuda or cpu, not %s" % (name, dev))
+    return dev.type == "cuda"
+
+
 def _launch_device(dev: torch.device, *what: str) -> bool:
-    """True on cuda (launch), False on the CPU (plain, counted under each
-    name of `what`); raises elsewhere."""
-    if dev.type == "cpu":
-        for name in what:
-            n_calls[name]["plain"] += 1
-        return False
-    if dev.type != "cuda":
-        raise ValueError("%s runs on cuda or cpu, not %s" % (what[0], dev))
-    return True
+    """_on_cuda; on the CPU counts a plain call under each name of
+    `what`."""
+    if _on_cuda(dev, what[0]):
+        return True
+    _plain(*what)
+    return False
+
+
+def _plain(*what: str) -> None:
+    for name in what:
+        n_calls[name]["plain"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -246,10 +275,6 @@ def _launch(names, fn, *args) -> None:
                            % (names[0], err))
     for name in names:
         n_calls[name]["kernel"] += 1
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _check_planes(r_pres, r_cid, r_cm, r_rank, tgt_gid, named, dev):
@@ -299,6 +324,27 @@ def branch_block(r_pres, r_cid, r_cm, r_rank, tgt_gid, arc_vw, arc_s1, *,
     kept hit in genome g; tgt_gid (int64 [A], in [0, n_gene)) is each arc's
     target gene."""
     dev = r_pres.device
+    with device_guard(dev):
+        return bind_branch_block(
+            r_pres, r_cid, r_cm, r_rank, tgt_gid, arc_vw, arc_s1, B=B, D=D,
+            frag_mode=frag_mode, local_dist=local_dist,
+            local_count=local_count, branch_diff=branch_diff,
+            branch_diff_dist=branch_diff_dist,
+            branch_diff_cut=branch_diff_cut).launch(
+                r_pres, r_cid, r_cm, r_rank, tgt_gid, arc_vw, arc_s1,
+                torch.zeros(2, dtype=I64, device=dev))
+
+
+def bind_branch_block(r_pres, r_cid, r_cm, r_rank, tgt_gid, arc_vw, arc_s1,
+                      *, B: int, D: int, frag_mode: bool, local_dist: int,
+                      local_count: int, branch_diff: float,
+                      branch_diff_dist: float, branch_diff_cut: float
+                      ) -> Bound:
+    """branch_block's check and launch: launch(r_pres, r_cid, r_cm, r_rank,
+    tgt_gid, arc_vw, arc_s1, counts) -> (aw, n_grp, counts) on arguments
+    shaped as the ones checked here, counts a zeroed int64 [2] (a view
+    will do) that the launch adds into; aw and n_grp are out."""
+    dev = r_pres.device
     G, A = _check_planes(r_pres, r_cid, r_cm, r_rank, tgt_gid,
                          [("arc_vw", arc_vw, I64), ("arc_s1", arc_s1, I32)],
                          dev)
@@ -308,24 +354,33 @@ def branch_block(r_pres, r_cid, r_cm, r_rank, tgt_gid, arc_vw, arc_s1, *,
               local_count=local_count, branch_diff=branch_diff,
               branch_diff_dist=branch_diff_dist,
               branch_diff_cut=branch_diff_cut)
-    if not _launch_device(dev, "branch_block"):
-        return branch_block_plain(r_pres, r_cid, r_cm, r_rank, tgt_gid,
-                                  arc_vw, arc_s1, B=B, **kw)
     aw = torch.empty(A, dtype=torch.uint8, device=dev)
     n_grp = torch.empty(A, dtype=I32, device=dev)
-    counts = torch.zeros(2, dtype=I64, device=dev)
-    if A == 0:
+    if not _on_cuda(dev, "branch_block"):
+        def plain(r_pres, r_cid, r_cm, r_rank, tgt_gid, arc_vw, arc_s1,
+                  counts):
+            _plain("branch_block")
+            out = branch_block_plain(r_pres, r_cid, r_cm, r_rank, tgt_gid,
+                                     arc_vw, arc_s1, B=B, **kw)
+            for t, o in zip((aw, n_grp, counts), out):
+                t.copy_(o)
+            return aw, n_grp, counts
+        return Bound(plain, (aw, n_grp))
+    fn = _kernel_lib().pg_branch_block
+    opts = (int(D), int(bool(frag_mode)), _clip(local_dist),
+            _clip(local_count), float(branch_diff), float(branch_diff_dist),
+            float(branch_diff_cut), aw.data_ptr(), n_grp.data_ptr())
+    stream = _stream(dev)
+
+    def launch(r_pres, r_cid, r_cm, r_rank, tgt_gid, arc_vw, arc_s1, counts):
+        if A:
+            _launch("branch_block", fn, r_pres.data_ptr(), r_cid.data_ptr(),
+                    r_cm.data_ptr(), r_rank.data_ptr(), G,
+                    tgt_gid.data_ptr(), arc_vw.data_ptr(),
+                    arc_s1.data_ptr(), B, A, *opts, counts.data_ptr(),
+                    stream)
         return aw, n_grp, counts
-    with torch.cuda.device(dev):
-        _launch("branch_block", _kernel_lib().pg_branch_block,
-                r_pres.data_ptr(), r_cid.data_ptr(), r_cm.data_ptr(),
-                r_rank.data_ptr(), G, tgt_gid.data_ptr(), arc_vw.data_ptr(),
-                arc_s1.data_ptr(), B, A, int(D), int(bool(frag_mode)),
-                _clip(local_dist), _clip(local_count), float(branch_diff),
-                float(branch_diff_dist), float(branch_diff_cut),
-                aw.data_ptr(), n_grp.data_ptr(), counts.data_ptr(),
-                _stream(dev))
-    return aw, n_grp, counts
+    return Bound(launch, (aw, n_grp))
 
 
 def branch_block_plain(r_pres, r_cid, r_cm, r_rank, tgt_gid, arc_vw, arc_s1,
@@ -478,6 +533,22 @@ def merge_fold(keys: torch.Tensor, s1: torch.Tensor, *, jb: int, gb: int,
     the output-only statistics (arc_ng, arc_tot, arc_ad, arc_s2), int32
     [cap] each."""
     dev = keys.device
+    with device_guard(dev):
+        return bind_merge_fold(keys, s1, jb=jb, gb=gb, cap=cap, perm=perm,
+                               full=full).launch(
+            keys, s1, torch.empty((), dtype=I64, device=dev), perm, full)
+
+
+def bind_merge_fold(keys: torch.Tensor, s1: torch.Tensor, *, jb: int,
+                    gb: int, cap: int, perm: Optional[torch.Tensor] = None,
+                    full: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                    ) -> Bound:
+    """merge_fold's check and launch: launch(keys, s1, n_out, perm, full)
+    -> (arc_vw, arc_s1, n_out, pair[, the four statistics]) on arguments
+    shaped as the ones checked here (perm and full given or not as here),
+    n_out an int64 scalar the launch writes (a view will do); arc_vw,
+    arc_s1, pair and the statistics are out."""
+    dev = keys.device
     N = keys.shape[0]
     named = [("keys", keys, I64, (N,)), ("s1", s1, I32, (N,))]
     if perm is not None:
@@ -489,32 +560,42 @@ def merge_fold(keys: torch.Tensor, s1: torch.Tensor, *, jb: int, gb: int,
         raise ValueError("merge_fold: jb %d gb %d cap %d" % (jb, gb, cap))
     names = ("merge_fold",) + (("merge_fold_full",) if full is not None
                                else ())
-    if not _launch_device(dev, *names):
-        return merge_fold_plain(keys, s1, jb=jb, gb=gb, cap=cap, perm=perm,
-                                full=full)
     arc_vw = torch.empty(cap, dtype=I64, device=dev)
     arc_s1 = torch.empty(cap, dtype=I32, device=dev)
-    stats = [torch.empty(cap, dtype=I32, device=dev)
-             for _ in range(4 if full is not None else 0)]
-    n_out = torch.empty((), dtype=I64, device=dev)
+    stats = tuple(torch.empty(cap, dtype=I32, device=dev)
+                  for _ in range(4 if full is not None else 0))
+    if not _on_cuda(dev, "merge_fold"):
+        pair = torch.empty(N, dtype=I32, device=dev)
+        out = (arc_vw, arc_s1, pair) + stats
+
+        def plain(keys, s1, n_out, perm=None, full=None):
+            _plain(*names)
+            got = merge_fold_plain(keys, s1, jb=jb, gb=gb, cap=cap,
+                                   perm=perm, full=full)
+            for t, o in zip((arc_vw, arc_s1, n_out, pair) + stats, got):
+                t.copy_(o)
+            return (arc_vw, arc_s1, n_out, pair) + stats
+        return Bound(plain, out)
     lib = _kernel_lib()
     # the pair plane, then the tiles' look-back words and the ticket: one
-    # buffer, zeroed by one memset
+    # buffer, zeroed by the launch's memset
     n_pair = N + (N & 1)
     n_words = int(lib.pg_merge_fold_tiles(N)) + 1
     zeroed = torch.empty(n_pair + 2 * n_words, dtype=I32, device=dev)
     pair = zeroed[:N]
     ptr = lambda t: None if t is None else t.data_ptr()
-    s2, dist = full if full is not None else (None, None)
-    with torch.cuda.device(dev):
-        _launch(names, lib.pg_merge_fold, keys.data_ptr(), ptr(perm),
-                s1.data_ptr(), ptr(s2), ptr(dist), N, jb, gb, cap,
-                arc_vw.data_ptr(), arc_s1.data_ptr(),
-                *([t.data_ptr() for t in stats] or [None] * 4),
-                n_out.data_ptr(), zeroed.data_ptr(),
-                zeroed.data_ptr() + 4 * n_pair, 4 * zeroed.numel(),
-                _stream(dev))
-    return (arc_vw, arc_s1, n_out, pair) + tuple(stats)
+    fn = lib.pg_merge_fold
+    sizes = (N, jb, gb, cap, arc_vw.data_ptr(), arc_s1.data_ptr(),
+             *([t.data_ptr() for t in stats] or [None] * 4))
+    tail = (zeroed.data_ptr(), zeroed.data_ptr() + 4 * n_pair,
+            4 * zeroed.numel(), _stream(dev))
+
+    def launch(keys, s1, n_out, perm=None, full=None):
+        s2, dist = full if full is not None else (None, None)
+        _launch(names, fn, keys.data_ptr(), ptr(perm), s1.data_ptr(),
+                ptr(s2), ptr(dist), *sizes, n_out.data_ptr(), *tail)
+        return (arc_vw, arc_s1, n_out, pair) + stats
+    return Bound(launch, (arc_vw, arc_s1, pair) + stats)
 
 
 def merge_fold_plain(keys: torch.Tensor, s1: torch.Tensor, *, jb: int,
@@ -668,6 +749,19 @@ def walk_pairs(planes: WalkPlanes, flt: torch.Tensor, shadow: torch.Tensor,
     follows); seg this rank's (kept rows, genomes with a kept row) a
     segment. g is the global genome rank * G + row, a slot rank * G * 2H +
     its index."""
+    with device_guard(flt.device):
+        return bind_walk_pairs(planes, flt, shadow, alive, B=B, GB=GB, jb=jb,
+                               rank=rank, use_ori=use_ori,
+                               full=full).launch()
+
+
+def bind_walk_pairs(planes: WalkPlanes, flt: torch.Tensor,
+                    shadow: torch.Tensor, alive: torch.Tensor, *, B: int,
+                    GB: int, jb: int, rank: int, use_ori: bool,
+                    full: bool = False) -> Bound:
+    """walk_pairs' check and launch: launch() -> its outputs from the
+    state these planes hold at the call; the outputs are out (seg a view
+    of the launch's scratch)."""
     dev = flt.device
     G, H = flt.shape
     S = alive.shape[0]
@@ -680,25 +774,36 @@ def walk_pairs(planes: WalkPlanes, flt: torch.Tensor, shadow: torch.Tensor,
         raise ValueError("walk_pairs: B %d GB %d jb %d S %d rank %d"
                          % (B, GB, jb, S, rank))
     kw = dict(B=B, GB=GB, jb=jb, rank=rank, use_ori=use_ori, full=full)
-    if not _launch_device(dev, "walk_pairs"):
-        return walk_pairs_plain(planes, flt, shadow, alive, **kw)
     new = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)
     keys, s12 = new((G, 2 * H), I64), new((G, 2 * H), I32)
     pair_ok, nxt = new((G, H), BOOL), new((G, H), I32)
+    stats = tuple(new((G, 2 * H), I32) for _ in range(2 if full else 0))
+    if not _on_cuda(dev, "walk_pairs"):
+        out = (keys, s12, pair_ok, nxt, new((2, S), I32)) + stats
+
+        def plain():
+            _plain("walk_pairs")
+            for t, o in zip(out, walk_pairs_plain(planes, flt, shadow, alive,
+                                                  **kw)):
+                t.copy_(o)
+            return out
+        return Bound(plain, out)
     lib = _round_lib()
     # the segment counters first, then the genome bits and the scan's
     # status words
     scratch = new((lib.pg_walk_pairs_scratch(G, H, S) + 3) // 4, I32)
-    stats = [new((G, 2 * H), I32) for _ in range(2 if full else 0)]
-    with torch.cuda.device(dev):
-        _launch("walk_pairs", lib.pg_walk_pairs,
-                *[t.data_ptr() for t in planes], flt.data_ptr(),
-                shadow.data_ptr(), alive.data_ptr(), G, H, S, B, GB, jb,
-                rank, int(bool(use_ori)), keys.data_ptr(), s12.data_ptr(),
-                pair_ok.data_ptr(), nxt.data_ptr(), scratch.data_ptr(),
-                *([t.data_ptr() for t in stats] or [None] * 2), _stream(dev))
-    return (keys, s12, pair_ok, nxt, scratch[:2 * S].view(2, S)) \
-        + tuple(stats)
+    out = (keys, s12, pair_ok, nxt, scratch[:2 * S].view(2, S)) + stats
+    fn = lib.pg_walk_pairs
+    args = (*[t.data_ptr() for t in planes], flt.data_ptr(),
+            shadow.data_ptr(), alive.data_ptr(), G, H, S, B, GB, jb, rank,
+            int(bool(use_ori)), keys.data_ptr(), s12.data_ptr(),
+            pair_ok.data_ptr(), nxt.data_ptr(), scratch.data_ptr(),
+            *([t.data_ptr() for t in stats] or [None] * 2), _stream(dev))
+
+    def launch():
+        _launch("walk_pairs", fn, *args)
+        return out
+    return Bound(launch, out)
 
 
 def walk_pairs_plain(planes: WalkPlanes, flt, shadow, alive, *, B: int,
@@ -758,6 +863,17 @@ def branch_prep(flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid,
     [A] (each arc's target gene, clamped into [0, n_gene)). Sets
     `overflow` (a bool scalar, in place) when a group of one source vertex
     holds more than max(D, 1) arcs."""
+    with device_guard(flt.device):
+        return bind_branch_prep(flt, shadow, valid, gid, cid, cm, arc_vw,
+                                seg_gid, overflow, n_gene=n_gene, B=B,
+                                D=D).launch(arc_vw)
+
+
+def bind_branch_prep(flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid,
+                     overflow, *, n_gene: int, B: int, D: int) -> Bound:
+    """branch_prep's check and launch: launch(arc_vw) -> its outputs from
+    the state these planes hold at the call and that arc table (shaped as
+    the one checked here); the outputs are out."""
     dev = flt.device
     G, H = flt.shape
     A, S = arc_vw.shape[0], seg_gid.shape[0]
@@ -769,23 +885,32 @@ def branch_prep(flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid,
     if min(H, A, S, n_gene) < 1 or not 1 <= B < 62:
         raise ValueError("branch_prep: H %d A %d S %d n_gene %d B %d"
                          % (H, A, S, n_gene, B))
-    kw = dict(n_gene=n_gene, B=B, D=D)
-    if not _launch_device(dev, "branch_prep"):
-        return branch_prep_plain(flt, shadow, valid, gid, cid, cm, arc_vw,
-                                 seg_gid, overflow, **kw)
     new = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)
     out = (new((n_gene, G), BOOL), new((n_gene, G), I32),
            new((n_gene, G), I64), new((n_gene, G), I32), new(A, I64))
+    if not _on_cuda(dev, "branch_prep"):
+        def plain(arc_vw):
+            _plain("branch_prep")
+            for t, o in zip(out, branch_prep_plain(
+                    flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid,
+                    overflow, n_gene=n_gene, B=B, D=D)):
+                t.copy_(o)
+            return out
+        return Bound(plain, out)
     lib = _round_lib()
     scratch = new(lib.pg_branch_prep_scratch(G, H, n_gene), U8)
-    with torch.cuda.device(dev):
-        _launch("branch_prep", lib.pg_branch_prep,
-                flt.data_ptr(), shadow.data_ptr(), valid.data_ptr(),
-                gid.data_ptr(), cid.data_ptr(), cm.data_ptr(), G, H, n_gene,
-                arc_vw.data_ptr(), A, seg_gid.data_ptr(), S, B, int(D),
-                *[t.data_ptr() for t in out], overflow.data_ptr(),
-                scratch.data_ptr(), _stream(dev))
-    return out
+    fn = lib.pg_branch_prep
+    planes = (flt.data_ptr(), shadow.data_ptr(), valid.data_ptr(),
+              gid.data_ptr(), cid.data_ptr(), cm.data_ptr(), G, H, n_gene)
+    rest = (A, seg_gid.data_ptr(), S, B, int(D),
+            *[t.data_ptr() for t in out], overflow.data_ptr())
+    stream = _stream(dev)
+
+    def launch(arc_vw):
+        _launch("branch_prep", fn, *planes, arc_vw.data_ptr(), *rest,
+                scratch.data_ptr(), stream)
+        return out
+    return Bound(launch, out)
 
 
 def branch_prep_plain(flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid,
@@ -865,6 +990,19 @@ def prop_round(weak, flt, valid, ordcm, pair_arc, nxt, pair_ok, arc_weak,
     ordcm, nxt (int32), pair_ok (bool) [G, H] and pair_arc (int32 [G, 2H])
     are walk_pairs' pair state and merge_fold's pair plane; arc_weak is
     uint8 [A]. On cuda `scratch` is a round_scratch (a new one when None)."""
+    with device_guard(weak.device):
+        bind_prop_round(weak, flt, valid, ordcm, pair_arc, nxt, pair_ok,
+                        arc_weak, word, scratch=scratch).launch(
+            pair_arc, nxt, pair_ok, arc_weak, word, propagate)
+
+
+def bind_prop_round(weak, flt, valid, ordcm, pair_arc, nxt, pair_ok,
+                    arc_weak, word, *,
+                    scratch: Optional[torch.Tensor] = None) -> Bound:
+    """prop_round's check and launch: launch(pair_arc, nxt, pair_ok,
+    arc_weak, word, propagate) on weak, flt, valid and ordcm as they are at
+    the call, the rest shaped as the ones checked here (word: a view will
+    do)."""
     dev = weak.device
     G, H = weak.shape
     A = arc_weak.shape[0]
@@ -874,19 +1012,30 @@ def prop_round(weak, flt, valid, ordcm, pair_arc, nxt, pair_ok, arc_weak,
             ("nxt", nxt, I32, (G, H)), ("pair_ok", pair_ok, BOOL, (G, H)),
             ("arc_weak", arc_weak, U8, (A,)), ("word", word, I64, (2,))],
            dev)
-    if propagate and A < 1:
-        raise ValueError("prop_round: an empty arc table")
-    if not _launch_device(dev, "prop_round"):
-        return prop_round_plain(weak, flt, valid, ordcm, pair_arc, nxt,
-                                pair_ok, arc_weak, word, propagate=propagate)
-    with torch.cuda.device(dev):
-        scratch = _round_scratch(scratch, dev)
-        _launch_round("prop_round", _round_lib().pg_prop_round, scratch,
-                      weak.data_ptr(), flt.data_ptr(), valid.data_ptr(), G,
-                      H, int(bool(propagate)), ordcm.data_ptr(),
-                      pair_arc.data_ptr(), nxt.data_ptr(), pair_ok.data_ptr(),
-                      arc_weak.data_ptr(), A, word.data_ptr(),
-                      scratch.data_ptr(), _stream(dev))
+
+    def empty_table(propagate):
+        if propagate and A < 1:
+            raise ValueError("prop_round: an empty arc table")
+    if not _on_cuda(dev, "prop_round"):
+        def plain(pair_arc, nxt, pair_ok, arc_weak, word, propagate):
+            empty_table(propagate)
+            _plain("prop_round")
+            prop_round_plain(weak, flt, valid, ordcm, pair_arc, nxt,
+                             pair_ok, arc_weak, word, propagate=propagate)
+        return Bound(plain)
+    scratch = _round_scratch(scratch, dev)
+    fn = _round_lib().pg_prop_round
+    planes = (weak.data_ptr(), flt.data_ptr(), valid.data_ptr(), G, H)
+    sc, stream = scratch.data_ptr(), _stream(dev)
+    o = ordcm.data_ptr()
+
+    def launch(pair_arc, nxt, pair_ok, arc_weak, word, propagate):
+        empty_table(propagate)
+        _launch_round("prop_round", fn, scratch, *planes,
+                      int(bool(propagate)), o, pair_arc.data_ptr(),
+                      nxt.data_ptr(), pair_ok.data_ptr(),
+                      arc_weak.data_ptr(), A, word.data_ptr(), sc, stream)
+    return Bound(launch)
 
 
 def prop_round_plain(weak, flt, valid, ordcm, pair_arc, nxt, pair_ok,
@@ -938,6 +1087,21 @@ def occ_round(alive, flt, valid, gid, sid_of, arc_vw, seg_tot, loci, logs,
     valid arc's v < 2S, n_grp non-zero only at a vertex's first arc (the
     kernel reads degrees and loci off the runs). On cuda `scratch` is a
     round_scratch for S segments (a new one when None)."""
+    with device_guard(alive.device):
+        bind_occ_round(alive, flt, valid, gid, sid_of, arc_vw, seg_tot,
+                       loci, logs, dcap_mask, dcap_deg, dcap_loci, dcap_tot,
+                       word, B=B, n_grp=n_grp, scratch=scratch).launch(
+            arc_vw, seg_tot, word, r, n_grp, cuts)
+
+
+def bind_occ_round(alive, flt, valid, gid, sid_of, arc_vw, seg_tot, loci,
+                   logs, dcap_mask, dcap_deg, dcap_loci, dcap_tot, word, *,
+                   B: int, n_grp: Optional[torch.Tensor] = None,
+                   scratch: Optional[torch.Tensor] = None) -> Bound:
+    """occ_round's check and launch: launch(arc_vw, seg_tot, word, r,
+    n_grp, cuts) on the other planes as they are at the call, arc_vw,
+    seg_tot and word shaped as the ones checked here (word: a view will
+    do), n_grp None or as the one checked here."""
     dev = alive.device
     G, H = flt.shape
     S, A, R = alive.shape[0], arc_vw.shape[0], logs.shape[0]
@@ -953,32 +1117,42 @@ def occ_round(alive, flt, valid, gid, sid_of, arc_vw, seg_tot, loci, logs,
             ("dcap_tot", dcap_tot, I32, (R, S)), ("word", word, I64, (2,))]
            + ([("n_grp", n_grp, I32, (A,))] if n_grp is not None else []),
            dev)
-    if not (0 <= r < R and S >= 1 and A >= 1 and ng >= 1 and 1 <= B < 62):
-        raise ValueError("occ_round: r %d R %d S %d A %d n_gene %d B %d"
-                         % (r, R, S, A, ng, B))
-    kw = dict(r=r, B=B, n_grp=n_grp, cuts=cuts)
-    if not _launch_device(dev, "occ_round"):
-        return occ_round_plain(alive, flt, valid, gid, sid_of, arc_vw,
-                               seg_tot, loci, logs, dcap_mask, dcap_deg,
-                               dcap_loci, dcap_tot, word, **kw)
-    occ_cut, deg_cut, loci_cut = cuts if cuts is not None else (0, 0, 0)
-    with torch.cuda.device(dev):
-        scratch = _round_scratch(scratch, dev, S)
-        _launch_round("occ_round", _round_lib().pg_occ_round, scratch,
-                      alive.data_ptr(), flt.data_ptr(), valid.data_ptr(),
-                      gid.data_ptr(), sid_of.data_ptr(), ng, G * H,
-                      arc_vw.data_ptr(), A, B, S, seg_tot.data_ptr(),
-                      loci.data_ptr(),
+    if not (S >= 1 and A >= 1 and ng >= 1 and 1 <= B < 62):
+        raise ValueError("occ_round: R %d S %d A %d n_gene %d B %d"
+                         % (R, S, A, ng, B))
+
+    def round_of(r):
+        if not 0 <= r < R:
+            raise ValueError("occ_round: r %d R %d" % (r, R))
+    if not _on_cuda(dev, "occ_round"):
+        def plain(arc_vw, seg_tot, word, r, n_grp, cuts):
+            round_of(r)
+            _plain("occ_round")
+            occ_round_plain(alive, flt, valid, gid, sid_of, arc_vw, seg_tot,
+                            loci, logs, dcap_mask, dcap_deg, dcap_loci,
+                            dcap_tot, word, r=r, B=B, n_grp=n_grp, cuts=cuts)
+        return Bound(plain)
+    scratch = _round_scratch(scratch, dev, S)
+    fn = _round_lib().pg_occ_round
+    head = (alive.data_ptr(), flt.data_ptr(), valid.data_ptr(),
+            gid.data_ptr(), sid_of.data_ptr(), ng, G * H)
+    lo, dm, dd, dl, dt = (t.data_ptr() for t in (
+        logs, dcap_mask, dcap_deg, dcap_loci, dcap_tot))
+    lp, sc, stream = loci.data_ptr(), scratch.data_ptr(), _stream(dev)
+
+    def launch(arc_vw, seg_tot, word, r, n_grp, cuts):
+        round_of(r)
+        occ_cut, deg_cut, loci_cut = cuts if cuts is not None else (0, 0, 0)
+        _launch_round("occ_round", fn, scratch, *head, arc_vw.data_ptr(), A,
+                      B, S, seg_tot.data_ptr(), lp,
                       None if n_grp is None else n_grp.data_ptr(),
                       int(cuts is not None), _clip(occ_cut),
                       max(min(int(deg_cut), 2**31 - 1), -2**31),
                       max(min(int(loci_cut), 2**31 - 1), -2**31),
-                      logs.data_ptr() + 8 * (10 * r + 3),
-                      dcap_mask.data_ptr() + r * S,
-                      dcap_deg.data_ptr() + 8 * r * S,
-                      dcap_loci.data_ptr() + 8 * r * S,
-                      dcap_tot.data_ptr() + 4 * r * S, word.data_ptr(),
-                      scratch.data_ptr(), _stream(dev))
+                      lo + 8 * (10 * r + 3), dm + r * S, dd + 8 * r * S,
+                      dl + 8 * r * S, dt + 4 * r * S, word.data_ptr(), sc,
+                      stream)
+    return Bound(launch)
 
 
 def occ_round_plain(alive, flt, valid, gid, sid_of, arc_vw, seg_tot, loci,

@@ -42,7 +42,8 @@ import re
 import subprocess
 import threading
 import time
-from typing import NamedTuple, Optional, Tuple
+from contextlib import nullcontext
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,6 +71,11 @@ n_plain_calls = {SHADOW: 0, ISOFORM: 0}
 n_fused = {e: {"kernel": 0, "plain": 0} for e in ("loop", "step")}
 
 
+# Argument checks of the batched entry (one a call of its wrappers, one a
+# bind_sweep_round_loop). reset_counts() zeroes it.
+n_checks = 0
+
+
 def n_batched() -> dict:
     """The batched entry's launches and plain calls over both epilogues:
     one a sweep round."""
@@ -78,6 +84,8 @@ def n_batched() -> dict:
 
 
 def reset_counts() -> None:
+    global n_checks
+    n_checks = 0
     for m in (SHADOW, ISOFORM):
         n_kernel_launches[m] = 0
         n_plain_calls[m] = 0
@@ -338,6 +346,10 @@ class BatchCols(NamedTuple):
 
 def _check_batched(bc: BatchCols, flt: torch.Tensor, weak: torch.Tensor,
                    W: int) -> Tuple[torch.device, int, int, int]:
+    """The batched entry's columns, flt and weak checked (counted in
+    n_checks)."""
+    global n_checks
+    n_checks += 1
     if W < 1:
         raise ValueError("band width must be >= 1, got %d" % W)
     dev = bc.cid.device
@@ -419,6 +431,33 @@ def shadow_sweep_batched_plain(bc: BatchCols, flt: torch.Tensor,
     return marks.to(torch.uint8), score, other
 
 
+class Bound(NamedTuple):
+    """A kernel's arguments checked and bound once (a bind_<name> here or
+    in ops/loop_kernels): launch(...) issues it with only what changes
+    between calls; out holds the planes every launch writes, the
+    binding's own. On cuda the binding keeps the device pointers of the
+    tensors it was given, so they must outlive it; it keeps alive what it
+    allocated itself."""
+    launch: Callable
+    out: tuple = ()
+
+
+def device_guard(dev: torch.device):
+    """`dev` made the current CUDA device for a with-block (nothing on the
+    CPU). A bound launch goes to the device current when it was bound, so
+    it runs inside the guard it was bound in."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else nullcontext()
+
+
+def bound_stream(dev: torch.device) -> int:
+    """The handle of dev's current stream, for a launch bound now; dev must
+    be the current device (device_guard), where the launch goes."""
+    if torch.cuda.current_device() != dev.index:
+        raise ValueError("a launch on %s bound while cuda:%d is current"
+                         % (dev, torch.cuda.current_device()))
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def _check_planes(named, dev: torch.device, shape) -> None:
     """Each (name, tensor, dtype) a contiguous `shape` tensor on `dev`."""
     for name, t, dtype in named:
@@ -465,23 +504,53 @@ def sweep_round_loop(bc: BatchCols, flt: torch.Tensor, weak: torch.Tensor,
     cuda one launch of the kernel with the LOOP epilogue, writing no other
     plane, or it raises; on the CPU shadow_sweep_batched_plain then
     sweep_epilogue_plain (`geo` as for shadow_sweep_batched)."""
+    with device_guard(flt.device):
+        bind_sweep_round_loop(bc, flt, weak, W, check_strand, min_ov_ratio,
+                              shadow, pid_dom, ev1, pid, geo).launch()
+
+
+def bind_sweep_round_loop(bc: BatchCols, flt: torch.Tensor,
+                          weak: torch.Tensor, W: int, check_strand: bool,
+                          min_ov_ratio: float, shadow: torch.Tensor,
+                          pid_dom: torch.Tensor, ev1: torch.Tensor,
+                          pid: torch.Tensor, geo: Optional[dict] = None
+                          ) -> Bound:
+    """sweep_round_loop's check and launch, every argument bound: launch()
+    sweeps the planes as they are at the call (on cuda inside the
+    device_guard it was bound in)."""
     dev, G, H, _ = _check_batched(bc, flt, weak, W)
     _check_planes([("shadow", shadow, torch.uint8),
                    ("pid_dom", pid_dom, torch.int32),
                    ("ev1", ev1, torch.uint8), ("pid", pid, torch.int32)],
                   dev, (G, H))
     if dev.type == "cpu":
-        n_fused["loop"]["plain"] += 1
-        marks, score, other = shadow_sweep_batched_plain(
-            bc, flt, weak, W, check_strand, min_ov_ratio, geo)
-        sweep_epilogue_plain(marks, score, other, flt, shadow, bc.n_rows,
-                             ev1=ev1, pid=pid, pid_dom=pid_dom)
-        return
+        def plain():
+            n_fused["loop"]["plain"] += 1
+            marks, score, other = shadow_sweep_batched_plain(
+                bc, flt, weak, W, check_strand, min_ov_ratio, geo)
+            sweep_epilogue_plain(marks, score, other, flt, shadow, bc.n_rows,
+                                 ev1=ev1, pid=pid, pid_dom=pid_dom)
+        return Bound(plain)
     if dev.type != "cuda":
         raise ValueError("shadow_sweep runs on cuda or cpu, not %s" % dev)
-    _launch_round(EPI_LOOP, bc, flt, weak, W, check_strand, min_ov_ratio,
-                  shadow, ev1=ev1, pid=pid, pid_dom=pid_dom)
-    n_fused["loop"]["kernel"] += 1
+    if G == 0 or H == 0:
+        def none():
+            n_fused["loop"]["kernel"] += 1
+        return Bound(none)
+    args = (_col_ptrs(bc, flt, weak), bc.n_rows.data_ptr(), G, H,
+            bc.exon_os.shape[1], W, int(bool(check_strand)),
+            float(min_ov_ratio), EPI_LOOP, shadow.data_ptr(), ev1.data_ptr(),
+            pid.data_ptr(), pid_dom.data_ptr(), None, None, None, None,
+            bound_stream(dev))
+    fn = _kernel_lib().pg_shadow_sweep_round
+
+    def launch():
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError("fused shadow_sweep kernel launch failed: "
+                               "CUDA error %d" % err)
+        n_fused["loop"]["kernel"] += 1
+    return Bound(launch)
 
 
 def sweep_round_step(bc: BatchCols, flt: torch.Tensor, weak: torch.Tensor,

@@ -275,9 +275,12 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     stay host arrays); returns device tensors, the first four of them this
     rank's genomes. `stats`, when given, receives host_syncs, block_ms,
     sweep_launches and loop_launches (the launches of each kernel of
-    ops/loop_kernels), and from the schedule's spans (util.Tracer, on only
-    then) host_ms (the host's milliseconds in each block's code, its reads
-    included, by block, the full=True tail as walk_merge_full),
+    ops/loop_kernels), launch_checks (the kernels' argument checks: the
+    launch plan's, once a schedule, and the checked wrappers' calls) and
+    bound_launches (the launches issued through the plan), and from the
+    schedule's spans (util.Tracer, on only then) host_ms (the host's
+    milliseconds in each block's code, its reads included, by block, the
+    full=True tail as walk_merge_full),
     sync_wait_ms (blocked on the device: the host reads and, on cuda, the
     closing synchronise) and driver_ms (the rest of the schedule span: the
     driver's Python, dispatch, launches and event records). `capture`,
@@ -287,7 +290,36 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     loci and the cuts (its first other one under "occ_round_partial"), and
     the full=True tail's calls under "walk_pairs_full" and
     "merge_fold_full"; the round kernels' scratch is not kept (a caller
-    passes its own)."""
+    passes its own).
+
+    The launch plan: before round 0 each kernel that a round launches is
+    bound (ops/loop_kernels bind_<name>, ops/sweep_kernel
+    bind_sweep_round_loop): its arguments checked, its outputs allocated,
+    its library symbol, stream and pointers read, once; a round passes
+    only what changes (the arc table of the last merge, the round's rows,
+    the cuts). The schedule runs with its device current (one guard), as
+    the bound launches need. Each binding's outputs are planes of this
+    call, written anew by every launch of it, so a value carried past a
+    round (the marks, n_grp, the walk's pair planes, the arc table) is
+    read before the next launch of its kernel writes it again; the
+    per-round counts and arc counts go to rows of their own. Nothing bound
+    outlives the call. At world > 1 the branch block's locality and
+    classification and the bucket exchange stay on the checked
+    wrappers."""
+    with lk.device_guard(blk_i32.device):
+        return _schedule(
+            blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of, arc0_vw,
+            arc0_s1, seg_tot0, seg_ng0, occ_cut, deg_cut, loci_cut,
+            do_branch, do_occ, do_sweep, do_walk, no_skip, cfg=cfg,
+            stats=stats, mesh=mesh, capture=capture)
+
+
+def _schedule(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
+              arc0_vw, arc0_s1, seg_tot0, seg_ng0, occ_cut, deg_cut, loci_cut,
+              do_branch, do_occ, do_sweep, do_walk, no_skip, *, cfg: Cfg,
+              stats: Optional[dict], mesh: Optional[M.Mesh],
+              capture: Optional[dict]):
+    """schedule_device's body, inside its device guard."""
     device = blk_i32.device
     mesh = mesh or M.local(device)
     nd, rank = mesh.world, mesh.rank
@@ -306,11 +338,17 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     # the walk's round-invariant planes in cm order, once
     planes = lk.walk_planes(cols, cols.pop("ordcm"), sid_of, S)
 
-    def captured(fn, *args, key=None, **kw):
-        if capture is not None and (key or fn.__name__) not in capture:
-            capture[key or fn.__name__] = (copy_args(args), {
+    def keep(key, args, kw):
+        """A copy of a call's arguments, the first under `key` (capture)."""
+        if key not in capture:
+            capture[key] = (copy_args(args), {
                 k: v for k, v in kw.items() if k != "scratch"})
+
+    def captured(fn, *args, key=None, **kw):
+        if capture is not None:
+            keep(key or fn.__name__, args, kw)
         return fn(*args, **kw)
+
     def host(x: torch.Tensor):
         """One read of a small tensor on the host (a synchronisation), the
         span "sync" (counted in host_syncs)."""
@@ -320,56 +358,78 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     geo: dict = {}                # the plain sweep's round-invariant planes
     launches0 = sk.n_batched()["kernel"]
     loop0 = {k: c["kernel"] for k, c in lk.n_calls.items()}
+    checks0 = lk.n_checks + sk.n_checks
+    n_bound = 0
 
-    def walk_merge(full: bool):
+    def run(bound: lk.Bound, *args):
+        """A launch through the plan (counted in bound_launches)."""
+        nonlocal n_bound
+        n_bound += 1
+        return bound.launch(*args)
+
+    fold: Optional[lk.Bound] = None   # the in-loop merge_fold, bound at
+                                      # its first call (the sort's outputs)
+
+    def walk_merge(r: int):
         """Walk + two-level merge (graph.c:87-177) from one global sort of
         (vw, genome) keys, gathered from every rank: walk_pairs builds the
         keys from the round state, the sort stays torch.sort, merge_fold
-        folds. full=False (in the loop) computes only what the rounds
+        folds. In the loop (round r) it computes only what the rounds
         consume (group structure + the exact s1 average) and records, per
         pair slot, the arc row its key landed in: the next round's weak
         propagation (branch.c:108-145) is then a gather (the pairs it walks
-        are built from the same flt/shadow state this merge consumed).
-        full=True (after the loop) adds the output-only stats (n_genome,
-        tot_cnt, dist, s2)."""
+        are built from the same flt/shadow state this merge consumed)."""
+        nonlocal fold
         JB = cfg.JB
-        lean = bool(JB) and not full
-        out = captured(lk.walk_pairs, planes, flt, shadow, alive, B=B,
-                       GB=GB, jb=JB if lean else 0, rank=rank,
-                       use_ori=cfg.use_ori, full=full,
-                       key="walk_pairs_full" if full else None)
-        keys, s1_2, pair_ok, nxt, seg = out[:5]
+        if capture is not None:
+            keep("walk_pairs", (planes, flt, shadow, alive), dict(
+                B=B, GB=GB, jb=JB, rank=rank, use_ori=cfg.use_ori,
+                full=False))
+        keys, s1_2, pair_ok, nxt, seg = run(walk)
         seg_tot, seg_ng = M.psum(seg, mesh)
-        if lean and cfg.a2a_cap:
+        if JB and cfg.a2a_cap:
             arc_vw, arc_s1, n_out, mine = exchange_merge(
                 keys, s1_2.reshape(-1), cfg=cfg, mesh=mesh,
                 fold=lambda *a, **kw: captured(lk.merge_fold, *a, **kw),
                 scratch=exchange_sc)
             return (arc_vw, arc_s1, n_out, seg_tot, seg_ng,
                     (mine.view(G, 2 * H), nxt, pair_ok))
-        if not lean:
-            # co-sorted form: equal keys keep their row order. The full
-            # tail adds the output-only statistics (the reverse key's s2
-            # is the pair's s1) and reads no pair plane.
-            keys, so = torch.sort(ga(keys), stable=True)
-            stats = dict(full=(ga(out[5]), ga(out[6])),
-                         key="merge_fold_full") if full else {}
-            fo = captured(lk.merge_fold, keys, ga(s1_2), jb=0, gb=GB,
-                          cap=A, perm=so, **stats)
-            if full:
-                return fo[:3] + (seg_tot, seg_ng) + fo[4:]
-            arc_vw, arc_s1, n_out, pair_arc = fo
-        else:
+        if JB:
             # JB low bits of the lean sort key carry the global row index:
             # the merge sorts one int64 tensor of distinct keys and the
             # fold finds each row's origin in them
-            kps = torch.sort(ga(keys)).values
-            arc_vw, arc_s1, n_out, pair_arc = captured(
-                lk.merge_fold, kps, ga(s1_2), jb=JB, gb=GB, cap=A)
+            kps, so = torch.sort(ga(keys)).values, None
+        else:
+            # co-sorted form: equal keys keep their row order
+            kps, so = torch.sort(ga(keys), stable=True)
+        s1_all = ga(s1_2)
+        kw = dict(jb=JB, gb=GB, cap=A, perm=so)
+        if capture is not None:
+            keep("merge_fold", (kps, s1_all),
+                 kw if so is not None else dict(jb=JB, gb=GB, cap=A))
+        if fold is None:
+            fold = lk.bind_merge_fold(kps, s1_all, **kw)
+        arc_vw, arc_s1, n_out, pair_arc = run(fold, kps, s1_all,
+                                              n_out_rows[r], so)
         # each pair slot's arc row, this rank's window of the replicated
         # plane
         mine = pair_arc[rank * NL:(rank + 1) * NL].view(G, 2 * H)
         return arc_vw, arc_s1, n_out, seg_tot, seg_ng, (mine, nxt, pair_ok)
+
+    def walk_merge_full():
+        """walk_merge after the loop, through the checked wrappers: the
+        co-sorted form (equal keys keep their row order) with the
+        output-only statistics n_genome, tot_cnt, dist and s2 (the reverse
+        key's s2 is the pair's s1); it reads no pair plane."""
+        out = captured(lk.walk_pairs, planes, flt, shadow, alive, B=B,
+                       GB=GB, jb=0, rank=rank, use_ori=cfg.use_ori,
+                       full=True, key="walk_pairs_full")
+        seg_tot, seg_ng = M.psum(out[4], mesh)
+        keys, so = torch.sort(ga(out[0]), stable=True)
+        fo = captured(lk.merge_fold, keys, ga(out[1]), jb=0, gb=GB, cap=A,
+                      perm=so, full=(ga(out[5]), ga(out[6])),
+                      key="merge_fold_full")
+        return fo[:3] + (seg_tot, seg_ng) + fo[4:]
 
     # ---- round state (flt, weak, shadow, alive, loci_st and the logs are
     # updated in place by the kernels) ----
@@ -390,10 +450,14 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     dcap_deg = torch.zeros((cfg.R, S, 2), dtype=I32, device=device)
     dcap_loci = torch.zeros((cfg.R, S, 2), dtype=I32, device=device)
     dcap_tot = torch.zeros((cfg.R, S), dtype=I32, device=device)
-    # each round's (n_prop, changed) word; on the card the scratch that
-    # prop_round and occ_round count through (each call leaves its counters
-    # zeroed)
+    # each round's (n_prop, changed) word, branch counts (zeroed once: the
+    # branch block adds into its round's row) and arc count, a row each
     words = torch.zeros((cfg.R, 2), dtype=I64, device=device)
+    cnt_rows = torch.zeros((cfg.R, 2), dtype=I64, device=device).unbind(0)
+    n_out_rows = torch.empty(cfg.R, dtype=I64, device=device).unbind(0)
+    word_rows = words.unbind(0)
+    # on the card the scratch that prop_round and occ_round count through
+    # (each call leaves its counters zeroed)
     round_sc = lk.round_scratch(device, S) if device.type == "cuda" else None
     # exchange_pack's ticket and run bounds (the bucket exchange at more
     # than two ranks; each launch leaves it zeroed)
@@ -410,6 +474,27 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     cls_kw = dict(branch_diff=cfg.branch_diff,
                   branch_diff_dist=cfg.branch_diff_dist,
                   branch_diff_cut=cfg.branch_diff_cut)
+
+    # ---- the launch plan: every in-loop kernel bound on the round state
+    # (the state at round 0 stands for the arguments that change) ----
+    prep = lk.bind_branch_prep(flt, shadow, valid, cols["gid"], cols["cid"],
+                               cols["cm"], arc_vw, seg_gid, overflow,
+                               n_gene=ng, B=B, D=D)
+    block = lk.bind_branch_block(*prep.out, arc_vw, arc_s1, B=B, **loc_kw,
+                                 **cls_kw) if nd == 1 else None
+    prop = lk.bind_prop_round(weak, flt, valid, planes.ordcm, *pair_st, aw_c,
+                              word_rows[0], scratch=round_sc)
+    occ = lk.bind_occ_round(alive, flt, valid, cols["gid"], sid_of, arc_vw,
+                            seg_tot, loci_st, logs, dcap_mask, dcap_deg,
+                            dcap_loci, dcap_tot, word_rows[0], B=B,
+                            n_grp=block.out[1] if block else None,
+                            scratch=round_sc)
+    sweep = sk.bind_sweep_round_loop(batch, flt, weak, cfg.W,
+                                     cfg.check_strand, cfg.min_ov_ratio,
+                                     shadow, pid_dom, cols["ev1"],
+                                     cols["pid"], geo)
+    walk = lk.bind_walk_pairs(planes, flt, shadow, alive, B=B, GB=GB,
+                              jb=cfg.JB, rank=rank, use_ori=cfg.use_ori)
 
     for r in range(cfg.R):
         tr.begin("round")
@@ -428,15 +513,20 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
                 # kept hit per gene in the current cs order, with its
                 # kept-rank and cm, as gene-major [ng, G] planes of this
                 # rank's genomes
-                rep = captured(lk.branch_prep, flt, shadow, valid,
-                               cols["gid"], cols["cid"], cols["cm"], arc_vw,
-                               seg_gid, overflow, n_gene=ng, B=B, D=D)
+                if capture is not None:
+                    keep("branch_prep", (flt, shadow, valid, cols["gid"],
+                                         cols["cid"], cols["cm"], arc_vw,
+                                         seg_gid, overflow),
+                         dict(n_gene=ng, B=B, D=D))
+                rep = run(prep, arc_vw)
                 if nd == 1:
                     # one kernel: the groups, the locality, the
                     # classification (no host read)
-                    arc_weak, n_grp, cnt = captured(
-                        lk.branch_block, *rep, arc_vw, arc_s1, B=B,
-                        **loc_kw, **cls_kw)
+                    if capture is not None:
+                        keep("branch_block", (*rep, arc_vw, arc_s1),
+                             dict(B=B, **loc_kw, **cls_kw))
+                    arc_weak, n_grp, cnt = run(block, *rep, arc_vw, arc_s1,
+                                               cnt_rows[r])
                 else:
                     # a genome of any rank: the locality bits OR'd over the
                     # ranks before the classification
@@ -461,15 +551,13 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
         # the pairs walked here are built from the same flt/shadow state as
         # the previous round's walk_merge, which recorded each pair's arc
         # row; then the weak == 2 filter, n_prop and the change bit
-        word = words[r]
+        word = word_rows[r]
         with tr.block("prop"):
-            prop_args = (weak, flt, valid, planes.ordcm, *pair_st,
-                         arc_weak, word)
-            if do_branch[r]:
-                captured(lk.prop_round, *prop_args, propagate=True,
-                         scratch=round_sc)
-            else:
-                lk.prop_round(*prop_args, propagate=False, scratch=round_sc)
+            if capture is not None and do_branch[r]:
+                keep("prop_round", (weak, flt, valid, planes.ordcm,
+                                    *pair_st, arc_weak, word),
+                     dict(propagate=True))
+            run(prop, *pair_st, arc_weak, word, bool(do_branch[r]))
 
         # ===== annealed high-occurrence filter (graph.c:237-263) =====
         # with n_dist_loci from the branch round's n_grp, the #del capture
@@ -477,12 +565,14 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
         with tr.block("occ"):
             cuts = (int(occ_cut[r]), int(deg_cut[r]), int(loci_cut[r])) \
                 if do_occ[r] else None
-            captured(lk.occ_round, alive, flt, valid, cols["gid"], sid_of,
-                     arc_vw, seg_tot, loci_st, logs, dcap_mask, dcap_deg,
-                     dcap_loci, dcap_tot, word, r=r, B=B, n_grp=n_grp,
-                     cuts=cuts, scratch=round_sc,
-                     key=None if n_grp is not None and cuts
-                     else "occ_round_partial")
+            if capture is not None:
+                keep("occ_round" if n_grp is not None and cuts
+                     else "occ_round_partial",
+                     (alive, flt, valid, cols["gid"], sid_of, arc_vw,
+                      seg_tot, loci_st, logs, dcap_mask, dcap_deg,
+                      dcap_loci, dcap_tot, word),
+                     dict(r=r, B=B, n_grp=n_grp, cuts=cuts))
+            run(occ, arc_vw, seg_tot, word, r, n_grp, cuts)
             # The hit state is this rank's, alive is replicated: the word
             # is summed over the ranks before the host reads it
             if nd > 1:
@@ -502,17 +592,14 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
             # shadow and pid_dom in place (rows past a genome's kept rows
             # too, as the JAX epilogue: there ev1 & valid is false)
             with tr.block("sweep"):
-                sk.sweep_round_loop(batch, flt, weak, cfg.W,
-                                    cfg.check_strand, cfg.min_ov_ratio,
-                                    shadow, pid_dom, cols["ev1"],
-                                    cols["pid"], geo)
+                run(sweep)
 
         # walk + lean merge (the rounds only consume group structure, the
         # exact s1 average and the seg counters)
         if recompute and do_walk[r]:
             with tr.block("walk_merge"):
                 arc_vw, arc_s1, n_out, seg_tot, seg_ng, pair_st = \
-                    walk_merge(full=False)
+                    walk_merge(r)
         else:
             n_out = n_out_c
         nc_in = bool(do_branch[r]) and not ch
@@ -528,7 +615,7 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     # softfloat in its plain version
     with tr.block("walk_merge_full", "walk_merge"):
         (arc_vw, arc_s1, n_out, seg_tot, seg_ng, arc_ng, arc_tot, arc_ad,
-         arc_s2) = walk_merge(full=True)
+         arc_s2) = walk_merge_full()
     # the logs' columns the round kernels did not write (occ_round wrote
     # 3-6): the branch counts, n_prop, the arc count, the two run flags
     n_outs = torch.stack(n_out_r)
@@ -550,7 +637,9 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
                      driver_ms=(tr.ns("schedule") - wait) / 1e6,
                      sweep_launches=sk.n_batched()["kernel"] - launches0,
                      loop_launches={k: c["kernel"] - loop0[k]
-                                    for k, c in lk.n_calls.items()})
+                                    for k, c in lk.n_calls.items()},
+                     launch_checks=lk.n_checks + sk.n_checks - checks0,
+                     bound_launches=n_bound)
     return (flt, weak, shadow, pid_dom, alive, seg_tot, seg_ng, arc_vw,
             arc_s1, arc_ng, arc_tot, arc_ad, arc_s2, loci_st, logs,
             dcap_mask, dcap_deg, dcap_loci, dcap_tot, overflow)

@@ -20,6 +20,18 @@ verbose = 3
 # chip_smoke.py prints it.
 stage_stats: dict = {}
 
+# The timing events of Tracer's blocks no tracer holds now, by CUDA device
+# index: a tracer takes two a block and gives them back once block_ms has
+# read them, so the pool holds as many as the most blocks timed at once,
+# each created once (event_pool).
+_event_pools: dict = {}
+
+
+def event_pool(index: int) -> list:
+    """The free timing events of CUDA device `index` (created on first
+    use, never released)."""
+    return _event_pools.setdefault(index, [])
+
 
 class Tracer:
     """Spans of the port's host code. A span has a name, its parent (the
@@ -29,8 +41,10 @@ class Tracer:
     span is also the profiler annotation "pg.<name>", so that a trace shows
     which span the host was in beside the device's kernels and copies. A
     span with a key (`block`) on a CUDA device also records a pair of CUDA
-    events, which block_ms() reads. A tracer that is off reads no clock,
-    allocates nothing a span and enters no profiler scope.
+    events, taken from the device's event_pool and recorded on the stream
+    current when the tracer was made, which block_ms() reads. A tracer
+    that is off reads no clock, allocates nothing a span and enters no
+    profiler scope.
 
         tr = Tracer(on, device)
         with tr.span("name"):         # or tr.begin("name") ... tr.end()
@@ -52,6 +66,9 @@ class Tracer:
         torch = sys.modules.get("torch")
         self._profiling = (torch._C._autograd._profiler_enabled
                            if on and torch is not None else None)
+        if self.cuda:
+            self._stream = torch.cuda.current_stream(device)
+            self._pool = event_pool(self._stream.device_index)
 
     def begin(self, name: str, key=None) -> None:
         if not self.on:
@@ -68,10 +85,8 @@ class Tracer:
             ann = sys.modules["torch"].profiler.record_function("pg." + name)
             ann.__enter__()
         if key is not None and self.cuda:
-            import torch
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
+            start, end = self._take(), self._take()
+            start.record(self._stream)
             self._events.append((key, start, end))
         self._open.append((i, ann, end))
 
@@ -80,10 +95,15 @@ class Tracer:
             return
         i, ann, end = self._open.pop()
         if end is not None:
-            end.record()
+            end.record(self._stream)
         if ann is not None:
             ann.__exit__(None, None, None)
         self.t1[i] = time.perf_counter_ns()
+
+    def _take(self):
+        if self._pool:
+            return self._pool.pop()
+        return sys.modules["torch"].cuda.Event(enable_timing=True)
 
     def span(self, name: str, key=None) -> "Tracer":
         if self.on:
@@ -125,6 +145,7 @@ class Tracer:
                 torch.cuda.synchronize()
             for key, start, end in self._events:
                 ms[key] += start.elapsed_time(end)
+                self._pool += (start, end)
             self._events = []
         else:
             for k, a, b in zip(self.keys, self.t0, self.t1):

@@ -189,7 +189,17 @@ def test_schedule_split_branch_entries_equal_jax(corpus, optset, monkeypatch):
         return lk.branch_classify(arc_s1, mx, branching, aml, he, gs_of,
                                   **cls)
 
-    monkeypatch.setattr(lk, "branch_block", split)
+    def split_bound(*bound, B, **kw):
+        # the loop launches the branch block through its binding
+        def launch(r_pres, r_cid, r_cm, r_rank, tgt_gid, arc_vw, arc_s1,
+                   counts):
+            aw, n_grp, cnt = split(r_pres, r_cid, r_cm, r_rank, tgt_gid,
+                                   arc_vw, arc_s1, B=B, **kw)
+            return aw, n_grp, counts.copy_(cnt)
+        return lk.Bound(launch, bind(*bound, B=B, **kw).out)
+
+    bind = lk.bind_branch_block
+    monkeypatch.setattr(lk, "bind_branch_block", split_bound)
     want = cap["outputs"]
     got = dl.schedule(*cap["inputs"], cfg=dl.cfg_from(cap["cfg"]),
                       device="cpu")
@@ -505,10 +515,22 @@ def test_loop_ops_a_round(corpus, monkeypatch):
                 inside[0] -= 1
         return call
 
+    def wrapped_bind(bind):
+        # a binding (its allocations) and each of its launches
+        def call(*a, **kw):
+            b = wrapped(bind)(*a, **kw)
+            return lk.Bound(wrapped(b.launch), b.out)
+        return call
+
     for name in lk.n_calls:
         if name != "merge_fold_full":
             monkeypatch.setattr(lk, name, wrapped(getattr(lk, name)))
+            if hasattr(lk, "bind_" + name):
+                monkeypatch.setattr(lk, "bind_" + name, wrapped_bind(
+                    getattr(lk, "bind_" + name)))
     monkeypatch.setattr(sk, "sweep_round_loop", wrapped(sk.sweep_round_loop))
+    monkeypatch.setattr(sk, "bind_sweep_round_loop",
+                        wrapped_bind(sk.bind_sweep_round_loop))
     schedule_device = dl.schedule_device
 
     def counted(*a, **kw):

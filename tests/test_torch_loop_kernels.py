@@ -1031,20 +1031,32 @@ def loop_round_calls(run, tmp_path_factory, monkeypatch):
                             n_genome=ng, n_gene=ngene, n_iso=n_iso,
                             seed=seed, single_exon=single)
     calls = {"prop_round": [], "occ_round": []}
+    # the loop launches both through their bindings: a launch's arguments
+    # (a) with the bound ones (b, kw) in the wrapper's order
+    order = {"prop_round": lambda b, kw, a: (
+                 list(b[:4]) + list(a[:5]), dict(propagate=a[5])),
+             "occ_round": lambda b, kw, a: (
+                 list(b[:5]) + list(a[:2]) + list(b[7:13]) + [a[2]],
+                 dict(r=a[3], B=kw["B"], n_grp=a[4], cuts=a[5]))}
 
     def spy(name):
-        fn = getattr(lk, name)
+        bind = getattr(lk, "bind_" + name)
 
-        def call(*a, **kw):
-            calls[name].append(([x.clone() if torch.is_tensor(x) else x
-                                 for x in a],
-                                {k: v for k, v in kw.items()
-                                 if k != "scratch"}))
-            return fn(*a, **kw)
-        return call
+        def bound(*b, **kw):
+            out = bind(*b, **kw)
+
+            def launch(*a):
+                # n_grp too: the binding's plane, rewritten every round
+                args, akw = order[name](b, kw, a)
+                copy = lambda x: x.clone() if torch.is_tensor(x) else x
+                calls[name].append(([copy(x) for x in args],
+                                    {k: copy(v) for k, v in akw.items()}))
+                return out.launch(*a)
+            return lk.Bound(launch, out.out)
+        return bound
 
     for name in calls:
-        monkeypatch.setattr(lk, name, spy(name))
+        monkeypatch.setattr(lk, "bind_" + name, spy(name))
     monkeypatch.setenv("PANGENE_PARSE_WORKERS", "1")
     opt, files, extras = cli.parse_args(
         argv + ["--engine", "sharded", "--device", "cpu"] + files)
