@@ -613,14 +613,14 @@ def round_bound_ms(lk, name, make, got):
                  "full %s" % (G, H, n_valid, n_kept, int(got[2].sum()),
                               kw["jb"], full))
     elif name == "branch_prep":
-        flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid, _ = args
+        flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid = args
         (G, H), ng = flt.shape, kw["n_gene"]
         A, S = arc_vw.numel(), seg_gid.numel()
         n_kept = int(((flt == 0) & (shadow == 0) & valid).sum())
         n_present = int(got[0].sum())
         n_arc = int((arc_vw != lk.SENT_I).sum())
         nbytes = (3 * G * H + 4 * n_kept + 12 * n_present + 17 * ng * G
-                  + 16 * A + 8 * min(S, n_arc) + 1)
+                  + 16 * A + 8 * min(S, n_arc))
         shape = "G %d, H %d, kept %d, genes %d, present %d, A %d" % (
             G, H, n_kept, ng, n_present, A)
     elif name == "prop_round":
@@ -685,7 +685,9 @@ def locality_bound_ms(args, kw, aml, he):
     nbytes = A + 17 * nb + 17 * n_tg * G + 2 * A
     far = LOC_FAR_OPS - (1 if kw["frag_mode"] else 0)
     ops = 0
-    for d in range(1, min(kw["D"], A)):
+    widest = int(torch.unique_consecutive(gs[branching], return_counts=True)[
+        1].max()) if nb else 0
+    for d in range(1, widest):
         e, l = slice(0, A - d), slice(d, A)     # earlier, later member
         need = (branching[e] & branching[l] & (gs[e] == gs[l])
                 & ((~aml[l] & is_max[e]) | (~aml[e] & is_max[l]) | ~he[l]))
@@ -800,8 +802,7 @@ def branch_split_args(args, kw):
     import pangene_tpu_torch.ops.loop_kernels as lk
     r_pres, r_cid, r_cm, r_rank, tgt, vw, s1 = args
     gs_of, mx, branching, is_max = lk.arc_groups(vw, s1, kw["B"])
-    loc_kw = {k: kw[k] for k in ("D", "frag_mode", "local_dist",
-                                 "local_count")}
+    loc_kw = {k: kw[k] for k in ("frag_mode", "local_dist", "local_count")}
     cls_kw = {k: kw[k] for k in ("branch_diff", "branch_diff_dist",
                                  "branch_diff_cut")}
     loc = ([r_pres, r_cid, r_cm, r_rank, tgt, gs_of, branching, is_max],
@@ -2068,8 +2069,8 @@ def smoke(names, draws):
             n_graphs, time.monotonic() - t0))
 
     # 2e. the device loop's block kernels: random arc tables (every group
-    # size up to the window D = 64 and one past it) and merge keys in the
-    # loop's three call shapes
+    # size up to the block path's 64 and one past it, the wide path) and
+    # merge keys in the loop's three call shapes
     t0 = time.monotonic()
     n_cases = 0
     on_dev = lambda x: None if x is None else \
@@ -2083,7 +2084,7 @@ def smoke(names, draws):
                                     ratios=deficit_ratios(diffs))
                 kw = dict(zip(("branch_diff", "branch_diff_dist",
                                "branch_diff_cut"), diffs),
-                          B=BRANCH_B, D=64, frag_mode=frag, local_dist=1000,
+                          B=BRANCH_B, frag_mode=frag, local_dist=1000,
                           local_count=3)
                 args = [on_dev(v) for v in t.values()]
                 _, got = compare_loop_kernel(lk, "branch_block", args, kw)
@@ -2096,7 +2097,7 @@ def smoke(names, draws):
                     raise AssertionError("branch_block != branch_locality "
                                          "+ branch_classify")
                 n_cases += 3
-    # branch_classify alone: groups over several warps (past the window),
+    # branch_classify alone: groups over several warps (the wide path's),
     # its bit planes as the mesh passes them (he the second row of one
     # [2, A] tensor, unaligned)
     rng = np.random.default_rng(5)

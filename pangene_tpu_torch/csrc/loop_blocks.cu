@@ -7,19 +7,21 @@
 // at :578, the deficit at :627-634, n_dist_loci at :636; reference
 // branch.c:48-106). The arc table is v-sorted, so the arcs of one source
 // vertex (a group) are contiguous; a group of >= 2 valid arcs branches. For
-// every branching arc a and every other member p with 0 < |a - p| < D, the
-// pair is local when some genome g has both targets' representatives
-// present, on the same contig unless frag_mode, with |cm_a - cm_p| <=
-// local_dist or |rank_a - rank_p| <= local_count. Then aml[a] |= is_max[p]
-// (p's s1 is the group's largest), and he[a] is set when p < a. The
-// classification of each branching arc is the reference's double test of
-// its deficit RN(1 - RN(s1 / mx)) against branch_diff, branch_diff_dist and
-// branch_diff_cut: 0 kept, 1 a weak candidate, 2 cut; n_grp, at a group's
-// first arc, counts its members with no earlier local partner. Two entries
-// of one kernel: pg_branch_block (one rank: the groups found in the arc
-// table, locality and classification in one launch), and for the mesh
-// pg_branch_locality (the groups given; its bits are OR'd over the ranks),
-// then pg_branch_classify, a kernel of its own.
+// every branching arc a and every other member p of its group, whatever the
+// group's size, the pair is local when some genome g has both targets'
+// representatives present, on the same contig unless frag_mode, with
+// |cm_a - cm_p| <= local_dist or |rank_a - rank_p| <= local_count. Then
+// aml[a] |= is_max[p] (p's s1 is the group's largest), and he[a] is set
+// when p < a. The classification of each branching arc is the reference's
+// double test of its deficit RN(1 - RN(s1 / mx)) against branch_diff,
+// branch_diff_dist and branch_diff_cut: 0 kept, 1 a weak candidate, 2 cut;
+// n_grp, at a group's first arc, counts its members with no earlier local
+// partner. Two entries of one kernel: pg_branch_block (one rank: the groups
+// found in the arc table, locality and classification in one launch), and
+// for the mesh pg_branch_locality (the groups given; its bits are OR'd over
+// the ranks), then pg_branch_classify, a kernel of its own. Both add into a
+// tally: valid arcs (the mesh's: branching arcs), branching arcs, groups
+// that took the wide path, the widest branching group.
 //
 // merge_fold replaces the merge's fold after its sort (JAX
 // device_loop.py:264 walk_merge: the in-loop fold at :436-471, the bucket
@@ -65,15 +67,27 @@
 //    masks, and the next chunk is staged only while some tested pair was
 //    not local. A group of up to kBrRows members is the whole block's
 //    (rows staged by every warp, pairs split by warp, masks in shared
-//    memory); a larger one (past the window D, so the loop falls back)
-//    walks each member's window through global memory. The epilogue
-//    classifies each member in IEEE double (__ddiv_rn, __dsub_rn): (double)
-//    of an int32 is exact and each step rounds to nearest, which is
-//    ops/softfloat.py:one_minus_div / gt_const bit for bit for 0 <= s1 <=
-//    mx; the class counts go to two integer atomics a block. Each group is
-//    written by the warp or block that owns its head: deterministic. What
-//    is left is latency: each warp's chain of round trips (the members,
-//    each chunk's rows) for its ~2.5 groups, at 24 warps a SM.
+//    memory). A larger one takes the wide path: its head's block registers
+//    it (one atomic gives the group its slot and its first item), and the
+//    launch's last n_wide blocks (a quarter of the SMs: fewer than the
+//    device holds at once, so while they wait for the arc-tile blocks to
+//    finish, those always have room to run) take its items by ticket, an
+//    item a pair of kBrTile-member tiles (ti <= tj): both tiles' target
+//    rows staged as above, the pairs of the item that can still change a
+//    bit tested, the bits OR'd into global bit planes after each chunk of
+//    genomes and re-read before the next (other items' finds end tests
+//    early). The block that finishes a group's last item classifies its
+//    members and clears its bits. The epilogue classifies each member in IEEE double
+//    (__ddiv_rn, __dsub_rn): (double) of an int32 is exact and each step
+//    rounds to nearest, which is ops/softfloat.py:one_minus_div / gt_const
+//    bit for bit for 0 <= s1 <= mx; the class counts go to two integer
+//    atomics a block. Each group is written by the warp or block that owns
+//    its head, or the one that finishes its last item: deterministic. The
+//    scratch (the counters, the wide groups, their bits) is left zeroed by
+//    every launch that completes: the last wide block zeroes the counters
+//    and the groups' slots. What is left is latency: each warp's chain of
+//    round trips (the members, each chunk's rows) for its ~2.5 groups, at
+//    24 warps a SM.
 //  * branch_classify (the mesh's classification once the bits are OR'd):
 //    kClsArcs arcs a thread, the byte planes read four arcs in one load,
 //    s1, mx and the group start read for branching arcs only; n_grp at a
@@ -116,6 +130,17 @@ constexpr int kBrChunk = 32;             // genomes staged at a time
 // groups of more than kBrWarpRows members that start in one block's arcs
 // (each spans more than half of a warp's 32)
 constexpr int kBrBig = kBrWarps * 2;
+// the wide path (groups of more than kBrRows members): items of two tiles
+// of kBrTile members, staged in BranchStage's rows; SMs a block of it
+constexpr int kBrTile = 32;
+static_assert(2 * kBrTile <= kBrRows, "two member tiles fill the stage");
+constexpr int kBrSmsPerWide = 4;
+// the branch scratch's header: arc-tile blocks done, wide blocks done, wide
+// groups << kWideShift | their items, item ticket
+constexpr int kScMainDone = 0, kScWideDone = 1, kScWide = 2, kScItem = 3,
+              kScWords = 4;
+constexpr int kWideShift = 40;
+constexpr unsigned long long kWideItems = (1ull << kWideShift) - 1;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kClsThreads = 256;         // branch_classify
 constexpr int kClsArcs = 4;              // arcs a thread (one int4 of n_grp)
@@ -132,9 +157,29 @@ constexpr unsigned long long kTileCount = (1ull << 62) - 1;
 constexpr long long kKeySent = 1LL << 62;         // KSENT_I
 constexpr long long kArcSent = (1LL << 62) - 1;   // SENT_I
 
+// A 64-bit word other blocks read or write while this one runs.
+__device__ __forceinline__ void tile_store(unsigned long long* t,
+                                           unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(t) = v;
+}
+__device__ __forceinline__ unsigned long long tile_load(
+    const unsigned long long* t) {
+  return *reinterpret_cast<const volatile unsigned long long*>(t);
+}
+
 // ---------------------------------------------------------------------------
 // the branch block
 // ---------------------------------------------------------------------------
+
+// A group of the wide path: its first arc, its first item, its members,
+// its largest s1 (found groups), its items done.
+struct WideGroup {
+  long long h, off;
+  int n, mx;
+  unsigned done;
+  int pad;
+};
+static_assert(sizeof(WideGroup) == 32, "WideGroup is 32 bytes");
 
 // The arguments of both branch kernels (one struct, passed by value).
 struct BranchArgs {
@@ -154,7 +199,7 @@ struct BranchArgs {
   const int32_t* s1;
   int B;
   long long A;
-  int D, frag;
+  int frag;
   long long local_dist, local_count;
   double diff, diff_dist, diff_cut;
   uint8_t* aml;                // pg_branch_locality's outputs
@@ -162,6 +207,15 @@ struct BranchArgs {
   uint8_t* aw;                 // pg_branch_block's outputs
   int32_t* n_grp;
   unsigned long long* counts;
+  // the scratch (pg_branch_scratch): the header, the wide groups and
+  // their aml and he bits, a bit an arc
+  unsigned long long* sc;
+  WideGroup* wide;
+  unsigned* wbits_aml;
+  unsigned* wbits_he;
+  long long n_main;            // blocks of kBrThreads arcs
+  int n_wide;                  // blocks of the wide path
+  unsigned long long* tally;   // [4], added into
 };
 
 // Member rows staged for one chunk of kBrChunk genomes: rows
@@ -279,23 +333,6 @@ __device__ __forceinline__ bool br_local_staged(const BranchArgs& p,
       p));
 }
 
-// The same for genes ta and tb read from the planes (groups past kBrRows).
-__device__ bool br_local_global(const BranchArgs& p, long long ta,
-                                long long tb, int lane) {
-  bool loc = false;
-  for (int g0 = 0; g0 < p.G && !loc; g0 += 32) {
-    const int g = g0 + lane;
-    bool l = false;
-    if (g < p.G) {
-      const long long a = ta * p.G + g, b = tb * p.G + g;
-      l = local_pair(p.pres[a], p.pres[b], p.cid[a], p.cid[b], p.cm[a],
-                     p.cm[b], p.rank[a], p.rank[b], p);
-    }
-    loc = __any_sync(kFull, l);
-  }
-  return loc;
-}
-
 // Can the pair of members (i, j), i < j, still change a bit?
 __device__ __forceinline__ bool br_need(unsigned long long aml,
                                         unsigned long long he,
@@ -305,17 +342,15 @@ __device__ __forceinline__ bool br_need(unsigned long long aml,
          || (!((aml >> j) & 1) && ((im >> i) & 1));
 }
 
-// The members j > i inside the window (j - i < D) that may still change a
-// bit with i (see br_need), as a mask over the group's n members.
+// The members j > i that may still change a bit with i (see br_need), as a
+// mask over the group's n members.
 __device__ __forceinline__ unsigned long long br_partners(
     unsigned long long aml, unsigned long long he, unsigned long long im,
-    int i, int n, int D) {
+    int i, int n) {
   const unsigned long long all = n >= 64 ? ~0ull : (1ull << n) - 1;
   const unsigned long long later = all & ~((2ull << i) - 1);
-  const int lim = i + D;
-  const unsigned long long win = lim >= 64 ? ~0ull : (1ull << lim) - 1;
-  return later & win & (~he | (((aml >> i) & 1) ? 0ull : im)
-                        | (((im >> i) & 1) ? ~aml : 0ull));
+  return later & (~he | (((aml >> i) & 1) ? 0ull : im)
+                  | (((im >> i) & 1) ? ~aml : 0ull));
 }
 
 // The reference's deficit test (branch.c:72-78) of one branching arc:
@@ -410,7 +445,7 @@ __device__ void br_group_warp(const BranchArgs& p, BranchStage& st, int row0,
     __syncwarp();
     bool pending = false;
     for (int i = 0; i + 1 < n; ++i) {
-      unsigned long long cand = br_partners(aml, he, im, i, n, p.D);
+      unsigned long long cand = br_partners(aml, he, im, i, n);
       while (cand) {
         const int j = __ffsll(static_cast<long long>(cand)) - 1;
         cand &= cand - 1;
@@ -468,7 +503,7 @@ __device__ void br_group_block(const BranchArgs& p, BranchStage& st,
     for (int i = warp; i + 1 < n; i += kBrWarps) {
       unsigned long long cand = br_partners(
           __shfl_sync(kFull, vb[0], 0), __shfl_sync(kFull, vb[1], 0), im, i,
-          n, p.D);
+          n);
       while (cand) {
         const int j = __ffsll(static_cast<long long>(cand)) - 1;
         cand &= cand - 1;
@@ -497,88 +532,289 @@ __device__ void br_group_block(const BranchArgs& p, BranchStage& st,
   __syncthreads();
 }
 
-// A group of more than kBrRows members (past the window D, so the loop falls
-// back; the bits must still be the plain version's): each member walks its
-// window |a - p| < D inside the group, the rows read from the planes, one
-// member a warp.
-template <bool kFound>
-__device__ void br_group_walk(const BranchArgs& p, long long h, long long e,
-                              int lane, int warp, int* s_cnt,
-                              BranchCounts& cnt) {
-  const int mx = kFound ? br_group_max(p, h, e - h, lane) : 0;
-  if (threadIdx.x == 0) *s_cnt = 0;
-  __syncthreads();
-  for (long long a = h + warp; a < e; a += kBrWarps) {
-    bool am = false, hh = false;
-    const long long ta = p.tgt[a];
-    const long long lo = a - (p.D - 1) > h ? a - (p.D - 1) : h;
-    const long long hi = a + (p.D - 1) < e - 1 ? a + (p.D - 1) : e - 1;
-    for (long long q = lo; q <= hi; ++q) {
-      if (q == a) continue;
-      const bool want_am = !am && br_is_max<kFound>(p, q, mx);
-      const bool want_he = !hh && q < a;
-      if (!want_am && !want_he) continue;
-      if (br_local_global(p, ta, p.tgt[q], lane)) {
-        am = am || want_am;
-        hh = hh || want_he;
-      }
-    }
-    if (lane == 0) {
-      if (!hh) atomicAdd(s_cnt, 1);
-      br_out<kFound>(p, h, a - h, am, hh, kFound ? p.s1[a] : 0, mx, 0, cnt);
-    }
-  }
-  __syncthreads();
-  if (kFound && threadIdx.x == 0) p.n_grp[h] = *s_cnt;
-  __syncthreads();
+// Bits [a0, a0 + n) of a bit plane (n <= 32), read from L2: other blocks
+// set them by atomics.
+__device__ __forceinline__ unsigned bits_load(const unsigned* w, long long a0,
+                                              int n) {
+  const long long q = a0 >> 5;
+  const int s = static_cast<int>(a0 & 31);
+  const unsigned lo = __ldcg(w + q);
+  const unsigned v = s ? __funnelshift_r(lo, __ldcg(w + q + 1), s) : lo;
+  return n >= 32 ? v : v & ((1u << n) - 1);
 }
 
-// Each warp owns the 32 arcs [base, base + 32) as group heads (an arc not
-// linked to the one before it). Groups of one member leave at once; groups
-// of up to kBrWarpRows are the warp's; larger ones wait for the whole block.
+// Bits m (of [a0, a0 + 32)) OR'd into a bit plane.
+__device__ __forceinline__ void bits_or(unsigned* w, long long a0,
+                                        unsigned m) {
+  const long long q = a0 >> 5;
+  const int s = static_cast<int>(a0 & 31);
+  if (m << s) atomicOr(w + q, m << s);
+  if (s && (m >> (32 - s))) atomicOr(w + q + 1, m >> (32 - s));
+}
+
+// Bits [a0, a0 + n) of a bit plane cleared (n <= 32).
+__device__ __forceinline__ void bits_clear(unsigned* w, long long a0, int n) {
+  const unsigned m = n >= 32 ? kFull : (1u << n) - 1;
+  const long long q = a0 >> 5;
+  const int s = static_cast<int>(a0 & 31);
+  atomicAnd(w + q, ~(m << s));
+  if (s) atomicAnd(w + q + 1, ~(m >> (32 - s)));
+}
+
+// A group of n > kBrRows members at h takes the wide path: its slot and its
+// first item from one atomic, its items the pairs of kBrTile-member tiles
+// ti <= tj. By one warp (its largest s1, found groups).
+template <bool kFound>
+__device__ void br_wide_put(const BranchArgs& p, long long h, long long n,
+                            int lane) {
+  const int mx = kFound ? br_group_max(p, h, n, lane) : 0;
+  if (lane == 0) {
+    const unsigned long long T = (n + kBrTile - 1) / kBrTile;
+    const unsigned long long old = atomicAdd(
+        p.sc + kScWide, (1ull << kWideShift) | (T * (T + 1) / 2));
+    WideGroup* g = p.wide + (old >> kWideShift);
+    g->h = h;
+    g->off = static_cast<long long>(old & kWideItems);
+    g->n = static_cast<int>(n);
+    g->mx = mx;
+  }
+}
+
+// The members j of the tile J that may still change a bit with member i of
+// the tile I (br_need over the shared words: m[0] aml of I, m[ja] aml of J,
+// m[2] he of J).
+__device__ __forceinline__ unsigned br_tile_need(const volatile unsigned* m,
+                                                 int ja, unsigned im_i,
+                                                 unsigned im_j, int i) {
+  const unsigned aml_i = m[0], aml_j = m[ja], he_j = m[2];
+  return ~he_j | (((aml_i >> i) & 1) ? 0u : im_j)
+         | (((im_i >> i) & 1) ? ~aml_j : 0u);
+}
+
+// The group at h finished (every item done): each member classified (found)
+// or its bits written (given), n_grp at h, the bits cleared for the next
+// launch. By the whole block.
+template <bool kFound>
+__device__ void br_wide_finish(const BranchArgs& p, long long h, int n,
+                               int mx, int* s_cnt, BranchCounts& cnt) {
+  __syncthreads();
+  if (threadIdx.x == 0) *s_cnt = 0;
+  __syncthreads();
+  int nz = 0;
+  for (int m = threadIdx.x; m < n; m += kBrThreads) {
+    const long long a = h + m;
+    const bool am = (__ldcg(p.wbits_aml + (a >> 5)) >> (a & 31)) & 1;
+    const bool hh = (__ldcg(p.wbits_he + (a >> 5)) >> (a & 31)) & 1;
+    nz += !hh;
+    br_out<kFound>(p, h, m, am, hh, kFound ? p.s1[a] : 0, mx, 0, cnt);
+  }
+  for (int o = 16; o; o >>= 1) nz += __shfl_xor_sync(kFull, nz, o);
+  if ((threadIdx.x & 31) == 0) atomicAdd(s_cnt, nz);
+  __syncthreads();
+  for (int m0 = threadIdx.x * kBrTile; m0 < n; m0 += kBrThreads * kBrTile) {
+    bits_clear(p.wbits_aml, h + m0, min(kBrTile, n - m0));
+    bits_clear(p.wbits_he, h + m0, min(kBrTile, n - m0));
+  }
+  if (kFound && threadIdx.x == 0) p.n_grp[h] = *s_cnt;
+}
+
+// Item `it` of the wide group k: the pairs (i, j), i in tile ti and j in
+// tile tj (j > i when ti == tj), that can still change a bit, tested as the
+// block path tests them: both tiles' target rows staged kBrChunk genomes at
+// a time (I in rows [0, kBrTile), J after it unless I is J), i split by
+// warp, the bits in shared words, OR'd into the bit planes after each chunk
+// and refreshed from them before the next. The block that completes the
+// group's last item finishes the group.
+template <bool kFound>
+__device__ void br_wide_item(const BranchArgs& p, BranchStage& st,
+                             long long k, long long it, int lane, int warp,
+                             unsigned* s_m, int* s_flag, BranchCounts& cnt) {
+  WideGroup* wg = p.wide + k;
+  const long long h = __ldcg(&wg->h);
+  const int n = __ldcg(&wg->n), mx = __ldcg(&wg->mx);
+  const int T = (n + kBrTile - 1) / kBrTile;
+  long long r = it - __ldcg(&wg->off);
+  int ti = 0;
+  while (r >= T - ti) {
+    r -= T - ti;
+    ++ti;
+  }
+  const int tj = ti + static_cast<int>(r);
+  const bool diag = ti == tj;
+  const int i0 = ti * kBrTile, j0 = tj * kBrTile;
+  const int ni = min(kBrTile, n - i0), nj = min(kBrTile, n - j0);
+  const int jrow = diag ? 0 : kBrTile;       // J's first staged row
+  const int ja = diag ? 0 : 1;               // J's aml word
+  if (threadIdx.x < ni) st.tgt[threadIdx.x] = p.tgt[h + i0 + threadIdx.x];
+  if (!diag && threadIdx.x >= kBrTile && threadIdx.x - kBrTile < nj)
+    st.tgt[threadIdx.x] = p.tgt[h + j0 + threadIdx.x - kBrTile];
+  if (warp < 2) {
+    const int m0 = warp ? j0 : i0, nm = warp ? nj : ni;
+    const unsigned b = __ballot_sync(
+        kFull, lane < nm && br_is_max<kFound>(p, h + m0 + lane, mx));
+    if (lane == 0) s_m[3 + warp] = b;
+  }
+  if (threadIdx.x == 0) s_m[0] = s_m[1] = s_m[2] = 0;
+  __syncthreads();
+  const unsigned im_i = s_m[3], im_j = s_m[4];
+  const unsigned all_j = nj >= 32 ? kFull : (1u << nj) - 1;
+  volatile unsigned* vm = s_m;
+  for (int g0 = 0; g0 < p.G; g0 += kBrChunk) {
+    if (threadIdx.x == 0) {
+      // what the group's other items have found so far
+      s_m[0] |= bits_load(p.wbits_aml, h + i0, ni);
+      if (!diag) s_m[1] |= bits_load(p.wbits_aml, h + j0, nj);
+      s_m[2] |= bits_load(p.wbits_he, h + j0, nj);
+    }
+    br_stage_rows(p, st, 0, warp, kBrWarps, ni, g0, lane);
+    if (!diag) br_stage_rows(p, st, kBrTile, warp, kBrWarps, nj, g0, lane);
+    __syncthreads();
+    bool pending = false;
+    for (int i = warp; i < ni; i += kBrWarps) {
+      const unsigned later = diag ? all_j & ~((2u << i) - 1) : all_j;
+      unsigned cand = later & br_tile_need(vm, ja, im_i, im_j, i);
+      while (cand) {
+        const int j = __ffs(cand) - 1;
+        cand &= cand - 1;
+        if (!((br_tile_need(vm, ja, im_i, im_j, i) >> j) & 1)) continue;
+        if (br_local_staged(p, st, i, jrow + j, lane)) {
+          if (lane == 0) {
+            atomicOr(&s_m[2], 1u << j);
+            if ((im_j >> j) & 1) atomicOr(&s_m[0], 1u << i);
+            if ((im_i >> i) & 1) atomicOr(&s_m[ja], 1u << j);
+          }
+          __syncwarp();
+        } else {
+          pending = true;
+        }
+      }
+    }
+    const bool more = __syncthreads_or(pending);
+    if (threadIdx.x == 0) {
+      bits_or(p.wbits_aml, h + i0, s_m[0]);
+      if (!diag) bits_or(p.wbits_aml, h + j0, s_m[1]);
+      bits_or(p.wbits_he, h + j0, s_m[2]);
+    }
+    if (!more) break;
+  }
+  if (threadIdx.x == 0) {
+    // this item's bits before its count: the finisher reads them all
+    __threadfence();
+    const unsigned items = static_cast<unsigned>(T) * (T + 1) / 2;
+    *s_flag = atomicAdd(&wg->done, 1u) == items - 1;
+    if (*s_flag) __threadfence();
+  }
+  __syncthreads();
+  if (*s_flag) br_wide_finish<kFound>(p, h, n, mx, s_flag, cnt);
+}
+
+// A block of the wide path: once every arc-tile block is done, items by
+// ticket until none is left, each item's group found by a binary search
+// over the groups' first items (the groups are in slot order, their first
+// items increasing).
+template <bool kFound>
+__device__ void br_wide(const BranchArgs& p, BranchStage& st, int lane,
+                        int warp, BranchCounts& cnt) {
+  __shared__ unsigned long long s_w;
+  __shared__ long long s_it, s_k;
+  __shared__ unsigned s_m[5];
+  __shared__ int s_flag;
+  if (threadIdx.x == 0) {
+    while (tile_load(p.sc + kScMainDone)
+           < static_cast<unsigned long long>(p.n_main))
+      __nanosleep(64);
+    __threadfence();
+    s_w = tile_load(p.sc + kScWide);
+  }
+  __syncthreads();
+  const long long n_grp = static_cast<long long>(s_w >> kWideShift);
+  const long long n_item = static_cast<long long>(s_w & kWideItems);
+  while (n_item) {
+    if (threadIdx.x == 0) {
+      s_it = static_cast<long long>(atomicAdd(p.sc + kScItem, 1ull));
+      long long lo = 0, hi = n_grp - 1;
+      while (lo < hi) {
+        const long long mid = (lo + hi + 1) >> 1;
+        if (__ldcg(&p.wide[mid].off) <= s_it) lo = mid;
+        else hi = mid - 1;
+      }
+      s_k = lo;
+    }
+    __syncthreads();
+    if (s_it >= n_item) break;
+    br_wide_item<kFound>(p, st, s_k, s_it, lane, warp, s_m, &s_flag, cnt);
+    __syncthreads();
+  }
+}
+
+// The first n_main blocks own 32 arcs a warp as group heads (an arc not
+// linked to the one before it): groups of one member leave at once; groups
+// of up to kBrWarpRows are the warp's, of up to kBrRows the whole block's,
+// larger ones go to the wide path, the last n_wide blocks. Every block adds
+// its class counts and tally; the last wide block to finish zeroes the
+// scratch's counters and the groups' slots.
 template <bool kFound>
 __global__ void __launch_bounds__(kBrThreads)
 branch_kernel(BranchArgs p) {
   __shared__ BranchStage st;
   __shared__ long long s_big[kBrBig];
   __shared__ unsigned long long s_bits[3];
-  __shared__ int s_nbig, s_mx, s_cnt;
+  __shared__ int s_nbig, s_mx, s_last;
   __shared__ int s_sum[2];
+  __shared__ int s_tally[3];      // valid arcs, branching arcs, widest
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (threadIdx.x == 0) {
     s_nbig = 0;
     s_sum[0] = s_sum[1] = 0;
+    s_tally[0] = s_tally[1] = s_tally[2] = 0;
   }
   __syncthreads();
+  const bool arcs = blockIdx.x < p.n_main;    // an arc-tile block
   BranchCounts cnt;
-  const long long base =
-      (static_cast<long long>(blockIdx.x) * kBrWarps + warp) * 32;
-  // a head followed by a head (or the table's end) is a group of one: all
-  // of them leave at once (the table's empty slots are such groups)
-  const long long a = base + lane;
-  const bool head = a < p.A && !br_link<kFound>(p, a);
-  const bool one = head && !br_link<kFound>(p, a + 1);
-  if (one) br_out<kFound>(p, a, 0, false, false, 0, 0, 0, cnt);
-  unsigned heads = __ballot_sync(kFull, head && !one);
-  while (heads) {
-    const long long h = base + __ffs(heads) - 1;
-    heads &= heads - 1;
-    const Members mb = br_members<kFound>(p, h, lane);
-    if (mb.n <= kBrWarpRows) {
-      br_group_warp<kFound>(p, st, warp * kBrWarpRows, h, mb, lane, cnt);
-    } else if (lane == 0) {
-      s_big[atomicAdd(&s_nbig, 1)] = h;
+  if (!arcs) {
+    br_wide<kFound>(p, st, lane, warp, cnt);
+  } else {
+    const long long base =
+        (static_cast<long long>(blockIdx.x) * kBrWarps + warp) * 32;
+    // a head followed by a head (or the table's end) is a group of one:
+    // all of them leave at once (the table's empty slots are such groups)
+    const long long a = base + lane;
+    const bool head = a < p.A && !br_link<kFound>(p, a);
+    const bool one = head && !br_link<kFound>(p, a + 1);
+    if (one) br_out<kFound>(p, a, 0, false, false, 0, 0, 0, cnt);
+    const bool brn = a < p.A && !one;
+    const int nv = __popc(__ballot_sync(
+        kFull, kFound ? a < p.A && p.vw[a] != kArcSent : brn));
+    const int nb = __popc(__ballot_sync(kFull, brn));
+    int widest = 0;
+    unsigned heads = __ballot_sync(kFull, head && !one);
+    while (heads) {
+      const long long h = base + __ffs(heads) - 1;
+      heads &= heads - 1;
+      const Members mb = br_members<kFound>(p, h, lane);
+      if (mb.n <= kBrWarpRows) {
+        widest = max(widest, mb.n);
+        br_group_warp<kFound>(p, st, warp * kBrWarpRows, h, mb, lane, cnt);
+      } else if (lane == 0) {
+        s_big[atomicAdd(&s_nbig, 1)] = h;
+      }
     }
-  }
-  __syncthreads();
-  for (int k = 0; k < s_nbig; ++k) {
-    const long long h = s_big[k];
-    const long long n = br_group_end<kFound>(p, h, lane) - h;
-    if (n <= kBrRows)
-      br_group_block<kFound>(p, st, h, static_cast<int>(n), lane, warp,
-                             s_bits, &s_mx, cnt);
-    else
-      br_group_walk<kFound>(p, h, h + n, lane, warp, &s_cnt, cnt);
+    __syncthreads();
+    for (int k = 0; k < s_nbig; ++k) {
+      const long long h = s_big[k];
+      const long long n = br_group_end<kFound>(p, h, lane) - h;
+      widest = max(widest, static_cast<int>(min(n, 0x7fffffffLL)));
+      if (n <= kBrRows)
+        br_group_block<kFound>(p, st, h, static_cast<int>(n), lane, warp,
+                               s_bits, &s_mx, cnt);
+      else if (warp == 0)
+        br_wide_put<kFound>(p, h, n, lane);
+    }
+    if (lane == 0) {
+      atomicAdd(&s_tally[0], nv);
+      atomicAdd(&s_tally[1], nb);
+      atomicMax(&s_tally[2], widest);
+    }
   }
   if (kFound) {
     for (int o = 16; o; o >>= 1) {
@@ -589,11 +825,42 @@ branch_kernel(BranchArgs p) {
       atomicAdd(&s_sum[0], cnt.n1);
       atomicAdd(&s_sum[1], cnt.n2);
     }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      atomicAdd(&p.counts[0], static_cast<unsigned long long>(s_sum[0]));
-      atomicAdd(&p.counts[1], static_cast<unsigned long long>(s_sum[1]));
+  }
+  __syncthreads();
+  using u64 = unsigned long long;
+  if (threadIdx.x == 0) {
+    if (kFound && s_sum[0])
+      atomicAdd(&p.counts[0], static_cast<u64>(s_sum[0]));
+    if (kFound && s_sum[1])
+      atomicAdd(&p.counts[1], static_cast<u64>(s_sum[1]));
+    if (arcs) {
+      if (s_tally[0]) atomicAdd(p.tally, static_cast<u64>(s_tally[0]));
+      if (s_tally[1]) atomicAdd(p.tally + 1, static_cast<u64>(s_tally[1]));
+      if (s_tally[2]) atomicMax(p.tally + 3, static_cast<u64>(s_tally[2]));
     }
+    // arc-tile blocks: the wide groups this thread registered, before the
+    // count of blocks done that the wide blocks wait for
+    __threadfence();
+    if (arcs) {
+      atomicAdd(p.sc + kScMainDone, 1ull);
+      s_last = 0;
+    } else {
+      s_last = atomicAdd(p.sc + kScWideDone, 1ull)
+               == static_cast<u64>(p.n_wide - 1);
+    }
+  }
+  __syncthreads();
+  if (!s_last) return;
+  // the last wide block, every other block done: the count of wide groups
+  // into the tally, the groups' slots and the counters zeroed for the next
+  // launch
+  const u64 w = tile_load(p.sc + kScWide);
+  const long long n_grp = static_cast<long long>(w >> kWideShift);
+  for (long long k = threadIdx.x; k < n_grp; k += kBrThreads)
+    p.wide[k] = WideGroup{};
+  if (threadIdx.x == 0) {
+    if (n_grp) atomicAdd(p.tally + 2, static_cast<u64>(n_grp));
+    for (int q = 0; q < kScWords; ++q) tile_store(p.sc + q, 0);
   }
 }
 
@@ -971,15 +1238,6 @@ __device__ void fold_write(const FoldArgs& p, long long id, long long vw,
   }
 }
 
-__device__ __forceinline__ void tile_store(unsigned long long* t,
-                                           unsigned long long v) {
-  *reinterpret_cast<volatile unsigned long long*>(t) = v;
-}
-__device__ __forceinline__ unsigned long long tile_load(
-    const unsigned long long* t) {
-  return *reinterpret_cast<const volatile unsigned long long*>(t);
-}
-
 // The out-group heads of the tiles before `tile` (one warp): windows of 32
 // predecessors, nearest first, their aggregates summed down to the nearest
 // inclusive prefix. Tiles are taken in order, so each predecessor is held
@@ -1263,7 +1521,7 @@ namespace {
 
 BranchArgs branch_args(const void* pres, const void* cid, const void* cm,
                        const void* rank, int G, const void* tgt, long long A,
-                       int D, int frag, long long local_dist,
+                       int frag, long long local_dist,
                        long long local_count) {
   BranchArgs p = {};
   p.pres = static_cast<const uint8_t*>(pres);
@@ -1273,54 +1531,100 @@ BranchArgs branch_args(const void* pres, const void* cid, const void* cm,
   p.G = G;
   p.tgt = static_cast<const int64_t*>(tgt);
   p.A = A;
-  p.D = D;
   p.frag = frag;
   p.local_dist = local_dist;
   p.local_count = local_count;
   return p;
 }
 
-unsigned branch_blocks(long long A) {
-  return static_cast<unsigned>((A + kBrThreads - 1) / kBrThreads);
+// Slots of the wide groups (each of more than kBrRows of the A arcs) and
+// words of each bit plane (a bit an arc, a word past the last's).
+long long wide_slots(long long A) { return A / (kBrRows + 1) + 1; }
+long long wide_words(long long A) { return (A >> 5) + 2; }
+
+// Blocks of the wide path a launch: one every kBrSmsPerWide SMs, cached
+// per device. They wait for the arc-tile blocks, so they must be fewer
+// than the blocks the device holds at once: a SM holds several.
+int wide_blocks() {
+  static int cached[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+  int* c = dev >= 0 && dev < 64 ? &cached[dev] : nullptr;
+  if (c && *c) return *c;
+  int sms = 1;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int g = sms > kBrSmsPerWide ? sms / kBrSmsPerWide : 1;
+  if (c) *c = g;
+  return g;
+}
+
+// The scratch, the tally and the grid of a launch over A arcs; returns its
+// blocks.
+long long branch_grid(BranchArgs& p, void* scratch, void* tally) {
+  char* s = static_cast<char*>(scratch);
+  p.sc = reinterpret_cast<unsigned long long*>(s);
+  p.wide = reinterpret_cast<WideGroup*>(s + 8 * kScWords);
+  p.wbits_aml = reinterpret_cast<unsigned*>(
+      s + 8 * kScWords + sizeof(WideGroup) * wide_slots(p.A));
+  p.wbits_he = p.wbits_aml + wide_words(p.A);
+  p.tally = static_cast<unsigned long long*>(tally);
+  p.n_main = (p.A + kBrThreads - 1) / kBrThreads;
+  p.n_wide = wide_blocks();
+  return p.n_main + p.n_wide;
 }
 
 }  // namespace
 
+// Bytes of the branch kernels' scratch over A arcs, zeroed once by the
+// caller: every launch that completes leaves it zeroed (its counters, its
+// wide groups' item counts and bits), so one serves every launch on one
+// stream.
+extern "C" long long pg_branch_scratch(long long A) {
+  if (A < 1) A = 1;
+  return 8LL * kScWords + static_cast<long long>(sizeof(WideGroup))
+         * wide_slots(A) + 8LL * wide_words(A);
+}
+
 // (aml, he) [A] of groups given by gs / branching / is_max (one rank's
-// genomes; OR'd over the ranks before pg_branch_classify).
+// genomes; OR'd over the ranks before pg_branch_classify). tally uint64
+// [4] is added into (the branching arcs stand for the valid ones).
 extern "C" int pg_branch_locality(const void* pres, const void* cid,
                                   const void* cm, const void* rank, int G,
                                   const void* tgt, const void* gs,
                                   const void* branching, const void* is_max,
-                                  long long A, int D, int frag,
+                                  long long A, int frag,
                                   long long local_dist, long long local_count,
-                                  void* aml, void* he, void* stream) {
+                                  void* aml, void* he, void* scratch,
+                                  void* tally, void* stream) {
   if (A <= 0) return 0;
-  BranchArgs p = branch_args(pres, cid, cm, rank, G, tgt, A, D, frag,
+  BranchArgs p = branch_args(pres, cid, cm, rank, G, tgt, A, frag,
                              local_dist, local_count);
   p.gs = static_cast<const int64_t*>(gs);
   p.branching = static_cast<const uint8_t*>(branching);
   p.is_max = static_cast<const uint8_t*>(is_max);
   p.aml = static_cast<uint8_t*>(aml);
   p.he = static_cast<uint8_t*>(he);
-  branch_kernel<false><<<branch_blocks(A), kBrThreads, 0,
+  const long long blocks = branch_grid(p, scratch, tally);
+  branch_kernel<false><<<static_cast<unsigned>(blocks), kBrThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The whole branch block at one rank: groups found in the arc table
 // (vw, s1), locality and classification in one launch. aw uint8 [A],
-// n_grp int32 [A], counts uint64 [2] zeroed by the caller.
+// n_grp int32 [A], counts uint64 [2] zeroed by the caller; tally uint64
+// [4] added into.
 extern "C" int pg_branch_block(const void* pres, const void* cid,
                                const void* cm, const void* rank, int G,
                                const void* tgt, const void* vw,
-                               const void* s1, int B, long long A, int D,
-                               int frag, long long local_dist,
-                               long long local_count, double diff,
-                               double diff_dist, double diff_cut, void* aw,
-                               void* n_grp, void* counts, void* stream) {
+                               const void* s1, int B, long long A, int frag,
+                               long long local_dist, long long local_count,
+                               double diff, double diff_dist,
+                               double diff_cut, void* aw, void* n_grp,
+                               void* counts, void* scratch, void* tally,
+                               void* stream) {
   if (A <= 0) return 0;
-  BranchArgs p = branch_args(pres, cid, cm, rank, G, tgt, A, D, frag,
+  BranchArgs p = branch_args(pres, cid, cm, rank, G, tgt, A, frag,
                              local_dist, local_count);
   p.vw = static_cast<const int64_t*>(vw);
   p.s1 = static_cast<const int32_t*>(s1);
@@ -1331,7 +1635,8 @@ extern "C" int pg_branch_block(const void* pres, const void* cid,
   p.aw = static_cast<uint8_t*>(aw);
   p.n_grp = static_cast<int32_t*>(n_grp);
   p.counts = static_cast<unsigned long long*>(counts);
-  branch_kernel<true><<<branch_blocks(A), kBrThreads, 0,
+  const long long blocks = branch_grid(p, scratch, tally);
+  branch_kernel<true><<<static_cast<unsigned>(blocks), kBrThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,11 +20,11 @@
 // genomes, before the mesh's psum.
 //
 // branch_prep replaces the JAX branch block's prelude (:512-514 the arc
-// groups' window check and targets, :527-537 the representatives): per
-// (gene, genome) the last kept hit in cs order (presence, contig, cm and
-// kept rank; row 0's when absent, as the plain gather reads), each arc's
-// target gene, and the window flag (a group of more than D arcs) OR'd into
-// the loop's overflow word.
+// groups' targets, :527-537 the representatives): per (gene, genome) the
+// last kept hit in cs order (presence, contig, cm and kept rank; row 0's
+// when absent, as the plain gather reads) and each arc's target gene. The
+// JAX block's window check is not ported: the branch kernels test every
+// pair of a group of any size.
 //
 // prop_round replaces weak propagation and the weak == 2 filter (:673-690;
 // branch.c:108-145): in gather form, each cm position takes the larger of
@@ -87,10 +87,7 @@
 //    row's last + 1 into the genome-major [G, n_gene] scratch by atomicMax
 //    (it does not fit a block's shared memory once a genome's rows span
 //    many blocks), then counts itself done. An arc block writes its
-//    targets and the window flag: a group of one source vertex holds more
-//    than win = max(D, 1) arcs exactly when some valid arc a has the arc
-//    a + win of its vertex (the table is v-sorted, valid arcs first): one
-//    comparison an arc. A representative block (32 genes x 32 genomes)
+//    targets. A representative block (32 genes x 32 genomes)
 //    waits until every tile is done (they hold earlier tickets), reads its
 //    last rows and gathers their values genome-major, transposes them in
 //    shared memory and writes the gene-major planes coalesced.
@@ -456,13 +453,12 @@ struct PrepArgs {
   const int64_t* arc_vw;   // [A]
   long long A;
   const int64_t* seg_gid;  // [S]
-  int S, B, D;
+  int S, B;
   uint8_t* r_pres;         // [ng, G]
   int32_t* r_cid;
   int64_t* r_cm;
   int32_t* r_rank;
   int64_t* tgt;            // [A]
-  uint8_t* overflow;       // one byte, OR'd
   int T, W;                // tiles and 32-row words a genome
   long long n_tile, n_arc; // the ticket: tiles, then arc blocks, then reps
   int rep_gc;              // representative blocks a gene chunk
@@ -534,11 +530,9 @@ __device__ void prep_tile(const PrepArgs& p, long long tile) {
   if (threadIdx.x == 0) atomicAdd(p.tiles + p.n_tile + 1, 1ull);
 }
 
-// kArcRows x kScanThreads arcs: each target gene, the window check.
+// kArcRows x kScanThreads arcs: each target gene.
 __device__ void prep_arcs(const PrepArgs& p, long long c) {
   const int64_t wmask = (int64_t(1) << p.B) - 1;
-  const int win = p.D > 1 ? p.D : 1;
-  bool ovf = false;
 #pragma unroll
   for (int q = 0; q < kArcRows; ++q) {
     const long long a = (c * kArcRows + q) * kScanThreads + threadIdx.x;
@@ -546,13 +540,7 @@ __device__ void prep_arcs(const PrepArgs& p, long long c) {
     const int64_t vw = p.arc_vw[a];
     const int64_t tg = p.seg_gid[clampi((vw & wmask) >> 1, 0, p.S - 1)];
     p.tgt[a] = tg < 0 ? 0 : (tg > p.ng - 1 ? p.ng - 1 : tg);
-    // more than win arcs of a vertex: its arc a and arc a + win
-    if (vw != kSent && a + win < p.A) {
-      const int64_t x = p.arc_vw[a + win];
-      ovf |= x != kSent && (x >> p.B) == (vw >> p.B);
-    }
   }
-  if (__syncthreads_or(ovf) && threadIdx.x == 0) *p.overflow = 1;
 }
 
 // kRepChunk genes x kRepChunk genomes of the representative planes: the
@@ -1249,13 +1237,13 @@ extern "C" long long pg_branch_prep_scratch(long long G, int H, int ng) {
 // The branch block's prelude (branch_prep in ops/loop_kernels.py): one
 // memset (pg_branch_prep_scratch), then one launch whose blocks take the
 // genomes' tiles, the arc blocks and the representative blocks in order
-// from a ticket. overflow (one byte) is set when a group is past D.
+// from a ticket.
 extern "C" int pg_branch_prep(
     const void* flt, const void* shadow, const void* valid, const void* gid,
     const void* cid, const void* cm, int G, int H, int ng,
     const void* arc_vw, long long A, const void* seg_gid, int S, int B,
-    int D, void* r_pres, void* r_cid, void* r_cm, void* r_rank, void* tgt,
-    void* overflow, void* scratch, void* stream) {
+    void* r_pres, void* r_cid, void* r_cm, void* r_rank, void* tgt,
+    void* scratch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   PrepArgs p = {};
   p.flt = static_cast<const uint8_t*>(flt);
@@ -1272,13 +1260,11 @@ extern "C" int pg_branch_prep(
   p.seg_gid = static_cast<const int64_t*>(seg_gid);
   p.S = S;
   p.B = B;
-  p.D = D;
   p.r_pres = static_cast<uint8_t*>(r_pres);
   p.r_cid = static_cast<int32_t*>(r_cid);
   p.r_cm = static_cast<int64_t*>(r_cm);
   p.r_rank = static_cast<int32_t*>(r_rank);
   p.tgt = static_cast<int64_t*>(tgt);
-  p.overflow = static_cast<uint8_t*>(overflow);
   p.T = static_cast<int>(scan_tiles(1, H));
   p.W = (H + 31) / 32;
   p.n_tile = scan_tiles(G, H);

@@ -10,11 +10,12 @@ pangene_tpu/parallel/device_loop.py:525 branch_block, its loc_chunk loop at
 loop's: v-sorted, so the arcs of one source vertex (a group) are
 contiguous; a group of >= 2 valid arcs branches, gs_of is its first arc, mx
 its largest s1 (at least 0) and is_max marks the members whose s1 is mx.
-For every branching arc a and every other member p with 0 < |a - p| < D,
-the pair is local when some genome has both targets' representatives
-present, on the same contig unless frag_mode, within local_dist bp of cm
-or local_count kept-hit ranks. Then aml[a] |= is_max[p], and he[a] is set
-when p < a (an earlier local partner). The self pair is never counted.
+For every branching arc a and every other member p of its group, whatever
+the group's size, the pair is local when some genome has both targets'
+representatives present, on the same contig unless frag_mode, within
+local_dist bp of cm or local_count kept-hit ranks. Then aml[a] |=
+is_max[p], and he[a] is set when p < a (an earlier local partner). The
+self pair is never counted.
 Each branching arc is then classified by the reference's double deficit
 1 - s1 / mx (branch.c:72-78): aw 1 when it exceeds branch_diff, 2 when it
 also exceeds branch_diff_cut, or branch_diff_dist without a local max
@@ -23,6 +24,9 @@ local partner (branch.c:82-90), and counts = (#aw == 1, #aw == 2). Three
 entries: branch_block (one rank: the groups found in the arc table,
 locality and classification in one launch), and for the mesh
 branch_locality (its bits are OR'd over the ranks) then branch_classify.
+The first two add into a tally (int64 [4]): valid arcs (branch_locality:
+its branching arcs), branching arcs, the groups of more than WIDE_ROWS
+members (the kernel's wide path) and the widest branching group.
 
 merge_fold: the merge's fold after its sort (graph.c:87-177; JAX
 device_loop.py:264 walk_merge, its bucket exchange and its full tail).
@@ -160,11 +164,13 @@ def load(path: str) -> ctypes.CDLL:
     d = ctypes.c_double
     fn = lib.pg_branch_locality
     fn.restype = i
-    fn.argtypes = [vp] * 4 + [i] + [vp] * 4 + [ll, i, i, ll, ll] + [vp] * 3
+    fn.argtypes = [vp] * 4 + [i] + [vp] * 4 + [ll, i, ll, ll] + [vp] * 5
     fn = lib.pg_branch_block
     fn.restype = i
-    fn.argtypes = ([vp] * 4 + [i] + [vp] * 3 + [i, ll, i, i, ll, ll]
-                   + [d] * 3 + [vp] * 4)
+    fn.argtypes = ([vp] * 4 + [i] + [vp] * 3 + [i, ll, i, ll, ll]
+                   + [d] * 3 + [vp] * 6)
+    lib.pg_branch_scratch.restype = ll
+    lib.pg_branch_scratch.argtypes = [ll]
     fn = lib.pg_branch_classify
     fn.restype = i
     fn.argtypes = [vp] * 6 + [ll] + [d] * 3 + [vp] * 4
@@ -186,7 +192,7 @@ def load_round(path: str) -> ctypes.CDLL:
     fn.argtypes = [vp] * 13 + [i] * 6 + [ll, i] + [vp] * 8
     fn = lib.pg_branch_prep
     fn.restype = i
-    fn.argtypes = [vp] * 6 + [i] * 3 + [vp, ll, vp] + [i] * 3 + [vp] * 8
+    fn.argtypes = [vp] * 6 + [i] * 3 + [vp, ll, vp] + [i] * 2 + [vp] * 7
     for fn in (lib.pg_walk_pairs_scratch, lib.pg_branch_prep_scratch):
         fn.restype = ll
         fn.argtypes = [ll, i, i]
@@ -288,6 +294,11 @@ def _check_planes(r_pres, r_cid, r_cm, r_rank, tgt_gid, named, dev):
     return G, A
 
 
+# Members a branch group must pass to take the kernel's wide path
+# (csrc/loop_blocks.cu kBrRows); the tally counts such groups.
+WIDE_ROWS = 64
+
+
 def arc_heads(arc_vw: torch.Tensor, B: int):
     """(valid, v, g_new, g_id, n_in_g), [A] each, of the v-sorted arc
     table: a group is a run of valid arcs (vw != SENT_I) of one source
@@ -313,44 +324,94 @@ def arc_groups(arc_vw: torch.Tensor, arc_s1: torch.Tensor, B: int):
     return gs_of, mx, branching, branching & (arc_s1 == mx)
 
 
+def branch_tally(n_valid: torch.Tensor, gs_of: torch.Tensor,
+                 branching: torch.Tensor) -> torch.Tensor:
+    """The tally (int64 [4]) of one branch call: n_valid (a count), the
+    branching arcs, the groups of more than WIDE_ROWS members, the widest
+    group."""
+    n = torch.unique_consecutive(gs_of[branching], return_counts=True)[1]
+    widest = n.max() if n.numel() else n.new_zeros(())
+    return torch.stack([n_valid.to(I64), branching.sum(),
+                        (n > WIDE_ROWS).sum(), widest.to(I64)])
+
+
+def branch_scratch(device, A: int) -> torch.Tensor:
+    """The zeroed scratch of the branch kernels over A arcs on `device`
+    (int64, its size from pg_branch_scratch): the launch's counters, the
+    wide groups and their bits. Every launch that completes leaves it
+    zeroed, so one serves every launch on one stream; a failed launch
+    leaves it dirty (the wrappers zero it again)."""
+    return torch.zeros(-(-int(_kernel_lib().pg_branch_scratch(int(A))) // 8),
+                       dtype=I64, device=device)
+
+
+def _launch_branch(name, fn, scratch, *args) -> None:
+    """_launch of a branch kernel; its scratch zeroed after a failure."""
+    try:
+        _launch(name, fn, *args)
+    except RuntimeError:
+        scratch.zero_()
+        raise
+
+
+def _tally(tally, dev) -> torch.Tensor:
+    """`tally`, checked to be a contiguous int64 [4] on `dev` (not counted
+    in n_checks: it rides on its wrapper's check), or a zeroed one."""
+    if tally is None:
+        return torch.zeros(4, dtype=I64, device=dev)
+    if tally.dtype != I64 or tally.device != dev or \
+            tuple(tally.shape) != (4,) or not tally.is_contiguous():
+        raise ValueError("tally must be a contiguous int64 (4,) tensor on "
+                         "%s, got %s %s on %s" % (dev, tally.dtype,
+                                                  tuple(tally.shape),
+                                                  tally.device))
+    return tally
+
+
 def branch_block(r_pres, r_cid, r_cm, r_rank, tgt_gid, arc_vw, arc_s1, *,
-                 B: int, D: int, frag_mode: bool, local_dist: int,
+                 B: int, frag_mode: bool, local_dist: int,
                  local_count: int, branch_diff: float,
-                 branch_diff_dist: float, branch_diff_cut: float):
+                 branch_diff_dist: float, branch_diff_cut: float,
+                 tally: Optional[torch.Tensor] = None):
     """(aw uint8 [A], n_grp int32 [A], counts int64 [2]) of the arc table
     (arc_vw int64, arc_s1 int32 [A]) with the groups found in it. The
     representative planes are gene-major [n_gene, G]: presence (bool),
     contig (int32), cm (int64) and kept-hit rank (int32) of each gene's last
     kept hit in genome g; tgt_gid (int64 [A], in [0, n_gene)) is each arc's
-    target gene."""
+    target gene. `tally` (int64 [4]), when given, is added into."""
     dev = r_pres.device
     with device_guard(dev):
         return bind_branch_block(
-            r_pres, r_cid, r_cm, r_rank, tgt_gid, arc_vw, arc_s1, B=B, D=D,
+            r_pres, r_cid, r_cm, r_rank, tgt_gid, arc_vw, arc_s1, B=B,
             frag_mode=frag_mode, local_dist=local_dist,
             local_count=local_count, branch_diff=branch_diff,
             branch_diff_dist=branch_diff_dist,
-            branch_diff_cut=branch_diff_cut).launch(
+            branch_diff_cut=branch_diff_cut, tally=tally).launch(
                 r_pres, r_cid, r_cm, r_rank, tgt_gid, arc_vw, arc_s1,
                 torch.zeros(2, dtype=I64, device=dev))
 
 
 def bind_branch_block(r_pres, r_cid, r_cm, r_rank, tgt_gid, arc_vw, arc_s1,
-                      *, B: int, D: int, frag_mode: bool, local_dist: int,
+                      *, B: int, frag_mode: bool, local_dist: int,
                       local_count: int, branch_diff: float,
-                      branch_diff_dist: float, branch_diff_cut: float
-                      ) -> Bound:
+                      branch_diff_dist: float, branch_diff_cut: float,
+                      tally: Optional[torch.Tensor] = None,
+                      scratch: Optional[torch.Tensor] = None) -> Bound:
     """branch_block's check and launch: launch(r_pres, r_cid, r_cm, r_rank,
     tgt_gid, arc_vw, arc_s1, counts) -> (aw, n_grp, counts) on arguments
     shaped as the ones checked here, counts a zeroed int64 [2] (a view
-    will do) that the launch adds into; aw and n_grp are out."""
+    will do) that the launch adds into; aw and n_grp are out. Every launch
+    adds into `tally` (int64 [4]; the binding's own zeroed one when None),
+    out[2]. On cuda the launches count through `scratch` (branch_scratch
+    over A arcs; the binding's own when None)."""
     dev = r_pres.device
     G, A = _check_planes(r_pres, r_cid, r_cm, r_rank, tgt_gid,
                          [("arc_vw", arc_vw, I64), ("arc_s1", arc_s1, I32)],
                          dev)
-    if D < 1 or not 0 <= B < 62:
-        raise ValueError("branch_block: D %d, B %d" % (D, B))
-    kw = dict(D=D, frag_mode=frag_mode, local_dist=local_dist,
+    if not 0 <= B < 62:
+        raise ValueError("branch_block: B %d" % B)
+    tally = _tally(tally, dev)
+    kw = dict(frag_mode=frag_mode, local_dist=local_dist,
               local_count=local_count, branch_diff=branch_diff,
               branch_diff_dist=branch_diff_dist,
               branch_diff_cut=branch_diff_cut)
@@ -361,83 +422,114 @@ def bind_branch_block(r_pres, r_cid, r_cm, r_rank, tgt_gid, arc_vw, arc_s1,
                   counts):
             _plain("branch_block")
             out = branch_block_plain(r_pres, r_cid, r_cm, r_rank, tgt_gid,
-                                     arc_vw, arc_s1, B=B, **kw)
+                                     arc_vw, arc_s1, B=B, tally=tally, **kw)
             for t, o in zip((aw, n_grp, counts), out):
                 t.copy_(o)
             return aw, n_grp, counts
-        return Bound(plain, (aw, n_grp))
+        return Bound(plain, (aw, n_grp, tally))
     fn = _kernel_lib().pg_branch_block
-    opts = (int(D), int(bool(frag_mode)), _clip(local_dist),
-            _clip(local_count), float(branch_diff), float(branch_diff_dist),
+    if scratch is None:
+        scratch = branch_scratch(dev, A)
+    elif scratch.dtype != I64 or scratch.device != dev or \
+            not scratch.is_contiguous() or \
+            scratch.numel() * 8 < _kernel_lib().pg_branch_scratch(A):
+        raise ValueError("scratch must be a contiguous int64 "
+                         "branch_scratch(%s, %d)" % (dev, A))
+    opts = (int(bool(frag_mode)), _clip(local_dist), _clip(local_count),
+            float(branch_diff), float(branch_diff_dist),
             float(branch_diff_cut), aw.data_ptr(), n_grp.data_ptr())
-    stream = _stream(dev)
+    tail = (scratch.data_ptr(), tally.data_ptr(), _stream(dev))
 
-    def launch(r_pres, r_cid, r_cm, r_rank, tgt_gid, arc_vw, arc_s1, counts):
+    # _own keeps the binding's tally alive as long as its launch (the
+    # caller may hold only the launch, and the tally is read through a
+    # pointer)
+    def launch(r_pres, r_cid, r_cm, r_rank, tgt_gid, arc_vw, arc_s1, counts,
+               _own=(scratch, tally)):
         if A:
-            _launch("branch_block", fn, r_pres.data_ptr(), r_cid.data_ptr(),
-                    r_cm.data_ptr(), r_rank.data_ptr(), G,
-                    tgt_gid.data_ptr(), arc_vw.data_ptr(),
-                    arc_s1.data_ptr(), B, A, *opts, counts.data_ptr(),
-                    stream)
+            _launch_branch("branch_block", fn, scratch, r_pres.data_ptr(),
+                           r_cid.data_ptr(), r_cm.data_ptr(),
+                           r_rank.data_ptr(), G, tgt_gid.data_ptr(),
+                           arc_vw.data_ptr(), arc_s1.data_ptr(), B, A, *opts,
+                           counts.data_ptr(), *tail)
         return aw, n_grp, counts
-    return Bound(launch, (aw, n_grp))
+    return Bound(launch, (aw, n_grp, tally))
 
 
 def branch_block_plain(r_pres, r_cid, r_cm, r_rank, tgt_gid, arc_vw, arc_s1,
-                       *, B: int, D: int, frag_mode: bool, local_dist: int,
+                       *, B: int, frag_mode: bool, local_dist: int,
                        local_count: int, branch_diff: float,
-                       branch_diff_dist: float, branch_diff_cut: float):
+                       branch_diff_dist: float, branch_diff_cut: float,
+                       tally: Optional[torch.Tensor] = None):
     """Plain PyTorch version of branch_block: arc_groups, then
-    branch_locality_plain and branch_classify_plain."""
+    branch_locality_plain and branch_classify_plain; the tally's share
+    added into `tally` when given."""
     gs_of, mx, branching, is_max = arc_groups(arc_vw, arc_s1, B)
     aml, he = branch_locality_plain(
-        r_pres, r_cid, r_cm, r_rank, tgt_gid, gs_of, branching, is_max, D=D,
+        r_pres, r_cid, r_cm, r_rank, tgt_gid, gs_of, branching, is_max,
         frag_mode=frag_mode, local_dist=local_dist, local_count=local_count)
+    if tally is not None:
+        _add_tally(tally, branch_tally((arc_vw != SENT_I).sum(), gs_of,
+                                       branching))
     return branch_classify_plain(
         arc_s1, mx, branching, aml, he, gs_of, branch_diff=branch_diff,
         branch_diff_dist=branch_diff_dist, branch_diff_cut=branch_diff_cut)
 
 
+def _add_tally(tally: torch.Tensor, t: torch.Tensor) -> None:
+    """t added into tally: the counts summed, the widest group a maximum."""
+    t = t.to(tally.device)
+    tally[:3] += t[:3]
+    tally[3] = torch.maximum(tally[3], t[3])
+
+
 def branch_locality(r_pres, r_cid, r_cm, r_rank, tgt_gid, gs_of, branching,
-                    is_max, *, D: int, frag_mode: bool, local_dist: int,
-                    local_count: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                    is_max, *, frag_mode: bool, local_dist: int,
+                    local_count: int, tally: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(aml, he), bool [A], of the groups given per arc of the v-sorted
     table: the group's first arc gs_of (int64), branching and is_max (bool);
     a group's branching members are contiguous. The planes and tgt_gid are
-    branch_block's."""
+    branch_block's; `tally` (int64 [4]), when given, is added into (its
+    valid arcs are the branching ones)."""
     dev = r_pres.device
     G, A = _check_planes(r_pres, r_cid, r_cm, r_rank, tgt_gid,
                          [("gs_of", gs_of, I64),
                           ("branching", branching, torch.bool),
                           ("is_max", is_max, torch.bool)], dev)
-    if D < 1:
-        raise ValueError("branch window D must be >= 1, got %d" % D)
+    kw = dict(frag_mode=frag_mode, local_dist=local_dist,
+              local_count=local_count)
     if not _launch_device(dev, "branch_locality"):
-        return branch_locality_plain(
-            r_pres, r_cid, r_cm, r_rank, tgt_gid, gs_of, branching, is_max,
-            D=D, frag_mode=frag_mode, local_dist=local_dist,
-            local_count=local_count)
+        out = branch_locality_plain(r_pres, r_cid, r_cm, r_rank, tgt_gid,
+                                    gs_of, branching, is_max, **kw)
+        if tally is not None:
+            _add_tally(tally, branch_tally(branching.sum(), gs_of,
+                                           branching))
+        return out
     aml = torch.empty(A, dtype=torch.bool, device=dev)
     he = torch.empty(A, dtype=torch.bool, device=dev)
     if A == 0:
         return aml, he
     with torch.cuda.device(dev):
-        _launch("branch_locality", _kernel_lib().pg_branch_locality,
-                r_pres.data_ptr(), r_cid.data_ptr(), r_cm.data_ptr(),
-                r_rank.data_ptr(), G, tgt_gid.data_ptr(), gs_of.data_ptr(),
-                branching.data_ptr(), is_max.data_ptr(), A, int(D),
-                int(bool(frag_mode)), _clip(local_dist), _clip(local_count),
-                aml.data_ptr(), he.data_ptr(), _stream(dev))
+        tally = _tally(tally, dev)
+        scratch = branch_scratch(dev, A)
+        _launch_branch("branch_locality", _kernel_lib().pg_branch_locality,
+                       scratch, r_pres.data_ptr(), r_cid.data_ptr(),
+                       r_cm.data_ptr(), r_rank.data_ptr(), G,
+                       tgt_gid.data_ptr(), gs_of.data_ptr(),
+                       branching.data_ptr(), is_max.data_ptr(), A,
+                       int(bool(frag_mode)), _clip(local_dist),
+                       _clip(local_count), aml.data_ptr(), he.data_ptr(),
+                       scratch.data_ptr(), tally.data_ptr(), _stream(dev))
     return aml, he
 
 
 def branch_locality_plain(r_pres, r_cid, r_cm, r_rank, tgt_gid, gs_of,
-                          branching, is_max, *, D: int, frag_mode: bool,
+                          branching, is_max, *, frag_mode: bool,
                           local_dist: int, local_count: int):
     """Plain PyTorch version of branch_locality: the branching arcs
     compacted (a group's members stay contiguous, so its partner at
-    in-group offset d is index + d), then one pass per offset d <
-    min(largest group, D), each evaluated once for both members."""
+    in-group offset d is index + d), then one pass per offset d below the
+    largest group's size, each evaluated once for both members."""
     A = tgt_gid.shape[0]
     dev = tgt_gid.device
     aml = torch.zeros(A, dtype=torch.bool, device=dev)
@@ -453,14 +545,17 @@ def branch_locality_plain(r_pres, r_cid, r_cm, r_rank, tgt_gid, gs_of,
     max_n = int(torch.unique_consecutive(gs_b, return_counts=True)[1].max())
     aml_b = torch.zeros(nb, dtype=torch.bool, device=dev)
     he_b = torch.zeros(nb, dtype=torch.bool, device=dev)
-    for d in range(1, min(max_n, D)):
+    for d in range(1, max_n):
         e, l = slice(0, nb - d), slice(d, nb)     # earlier, later
+        same = gs_b[e] == gs_b[l]
+        if not bool(same.any()):
+            continue
         ok = pa[e] & pa[l]
         if not frag_mode:
             ok &= ca[e] == ca[l]
         loc = ok & (((ma[e] - ma[l]).abs() <= local_dist)
                     | ((ra[e] - ra[l]).abs() <= local_count))
-        lp = loc.any(dim=1) & (gs_b[e] == gs_b[l])
+        lp = loc.any(dim=1) & same
         aml_b[e] |= lp & im_b[l]                  # a later max
         aml_b[l] |= lp & im_b[e]                  # an earlier max
         he_b[l] |= lp                             # an earlier local
@@ -851,8 +946,8 @@ def walk_pairs_plain(planes: WalkPlanes, flt, shadow, alive, *, B: int,
     return out + (torch.cat([s2, s1], dim=1), torch.cat([dist, dist], dim=1))
 
 
-def branch_prep(flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid,
-                overflow, *, n_gene: int, B: int, D: int):
+def branch_prep(flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid, *,
+                n_gene: int, B: int):
     """branch_block's representative planes and targets from the round
     state (flt, shadow uint8, valid bool, gid, cid int32, cm int64, [G, H]
     in cs order), the v-sorted arc table (arc_vw int64 [A], valid arcs
@@ -860,17 +955,14 @@ def branch_prep(flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid,
     r_cid int32, r_cm int64, r_rank int32), gene-major [n_gene, G], of each
     gene's last kept hit in a genome (its kept rank: kept rows before it;
     row 0's cid, cm and rank where the gene has none), and tgt_gid int64
-    [A] (each arc's target gene, clamped into [0, n_gene)). Sets
-    `overflow` (a bool scalar, in place) when a group of one source vertex
-    holds more than max(D, 1) arcs."""
+    [A] (each arc's target gene, clamped into [0, n_gene))."""
     with device_guard(flt.device):
         return bind_branch_prep(flt, shadow, valid, gid, cid, cm, arc_vw,
-                                seg_gid, overflow, n_gene=n_gene, B=B,
-                                D=D).launch(arc_vw)
+                                seg_gid, n_gene=n_gene, B=B).launch(arc_vw)
 
 
-def bind_branch_prep(flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid,
-                     overflow, *, n_gene: int, B: int, D: int) -> Bound:
+def bind_branch_prep(flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid, *,
+                     n_gene: int, B: int) -> Bound:
     """branch_prep's check and launch: launch(arc_vw) -> its outputs from
     the state these planes hold at the call and that arc table (shaped as
     the one checked here); the outputs are out."""
@@ -880,8 +972,8 @@ def bind_branch_prep(flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid,
     _check([("flt", flt, U8, (G, H)), ("shadow", shadow, U8, (G, H)),
             ("valid", valid, BOOL, (G, H)), ("gid", gid, I32, (G, H)),
             ("cid", cid, I32, (G, H)), ("cm", cm, I64, (G, H)),
-            ("arc_vw", arc_vw, I64, (A,)), ("seg_gid", seg_gid, I64, (S,)),
-            ("overflow", overflow, BOOL, ())], dev)
+            ("arc_vw", arc_vw, I64, (A,)), ("seg_gid", seg_gid, I64, (S,))],
+           dev)
     if min(H, A, S, n_gene) < 1 or not 1 <= B < 62:
         raise ValueError("branch_prep: H %d A %d S %d n_gene %d B %d"
                          % (H, A, S, n_gene, B))
@@ -893,7 +985,7 @@ def bind_branch_prep(flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid,
             _plain("branch_prep")
             for t, o in zip(out, branch_prep_plain(
                     flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid,
-                    overflow, n_gene=n_gene, B=B, D=D)):
+                    n_gene=n_gene, B=B)):
                 t.copy_(o)
             return out
         return Bound(plain, out)
@@ -902,8 +994,7 @@ def bind_branch_prep(flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid,
     fn = lib.pg_branch_prep
     planes = (flt.data_ptr(), shadow.data_ptr(), valid.data_ptr(),
               gid.data_ptr(), cid.data_ptr(), cm.data_ptr(), G, H, n_gene)
-    rest = (A, seg_gid.data_ptr(), S, B, int(D),
-            *[t.data_ptr() for t in out], overflow.data_ptr())
+    rest = (A, seg_gid.data_ptr(), S, B, *[t.data_ptr() for t in out])
     stream = _stream(dev)
 
     def launch(arc_vw):
@@ -913,16 +1004,13 @@ def bind_branch_prep(flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid,
     return Bound(launch, out)
 
 
-def branch_prep_plain(flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid,
-                      overflow, *, n_gene: int, B: int, D: int):
-    """Plain PyTorch version of branch_prep: the groups by head flags and a
-    segment sum, the last kept hit by a scatter maximum, the planes by
-    gathers."""
+def branch_prep_plain(flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid, *,
+                      n_gene: int, B: int):
+    """Plain PyTorch version of branch_prep: the last kept hit by a scatter
+    maximum, the planes by gathers."""
     dev = flt.device
     G, H = flt.shape
     S = seg_gid.shape[0]
-    valid_a, _, _, _, n_in_g = arc_heads(arc_vw, B)
-    overflow |= (valid_a & (n_in_g > max(D, 1))).any()
     tgt_gid = seg_gid[((arc_vw & ((1 << B) - 1)) >> 1).clamp(0, S - 1)] \
         .clamp(0, n_gene - 1)
     keptc = (flt == 0) & (shadow == 0) & valid

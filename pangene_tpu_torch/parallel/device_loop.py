@@ -60,8 +60,10 @@ Bit-exactness:
     reference's hard compaction (graph.c:219-235) is order-preserving, so
     arc keys group and sort identically; ids are compacted once on the
     host after the loop.
-  * Capacity overflows (arc table, branch window) set a flag and the host
-    falls back to the reference-exact host rounds.
+  * The arc table's capacity is the one capacity of the rounds: a merge
+    with more arcs than it sets a flag and the host falls back to the
+    reference-exact host rounds. The branch block tests every pair of a
+    group of any size (the JAX package's window of D arcs is not ported).
   * Every reduction is over integers (sums, maxima), so the order in which
     a device adds them cannot change a bit.
 """
@@ -106,13 +108,13 @@ BLOCKS = ("branch", "prop", "occ", "sweep", "walk_merge")
 
 class Cfg(NamedTuple):
     """Static configuration of the device schedule (the JAX package's Cfg
-    less its columnsort switches, which are not ported)."""
+    less its columnsort switches and its branch window D, which are not
+    ported)."""
     H: int          # hit capacity per genome
     K: int          # exon capacity per hit
     W: int          # sweep band width
     S: int          # segment count at entry (original ids)
     A: int          # merged arc-table capacity
-    D: int          # max arcs per oriented vertex (branch window)
     B: int          # bits of a packed vertex (sid<<1|rev < 2^B)
     GB: int         # bits of a genome index
     JB: int         # bits of a global pair-row index packed into the lean
@@ -276,21 +278,26 @@ def schedule_device(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     rank's genomes. `stats`, when given, receives host_syncs, block_ms,
     sweep_launches and loop_launches (the launches of each kernel of
     ops/loop_kernels), launch_checks (the kernels' argument checks: the
-    launch plan's, once a schedule, and the checked wrappers' calls) and
-    bound_launches (the launches issued through the plan), and from the
-    schedule's spans (util.Tracer, on only then) host_ms (the host's
-    milliseconds in each block's code, its reads included, by block, the
-    full=True tail as walk_merge_full),
-    sync_wait_ms (blocked on the device: the host reads and, on cuda, the
-    closing synchronise) and driver_ms (the rest of the schedule span: the
-    driver's Python, dispatch, launches and event records). `capture`,
+    launch plan's, once a schedule, and the checked wrappers' calls),
+    bound_launches (the launches issued through the plan), the branch
+    kernels' tally read once after the closing synchronise
+    (branch_valid_arcs and branch_branching_arcs summed over the branch
+    launches, branch_wide_groups: the groups of more than
+    loop_kernels.WIDE_ROWS members, which took the kernel's wide path,
+    summed too, and branch_max_group: the widest branching group), and
+    from the schedule's spans (util.Tracer, on only then) host_ms (the
+    host's milliseconds in each block's code, its reads included, by
+    block, the full=True tail as walk_merge_full), sync_wait_ms (blocked
+    on the device: the host reads and, on cuda, the closing synchronise)
+    and driver_ms (the rest of the schedule span: the driver's Python,
+    dispatch, launches and event records). `capture`,
     when given, receives a copy of the arguments of the first call of each
     of those kernels, by name (the round state is updated in place):
     prop_round's first call that propagates, occ_round's first with the
     loci and the cuts (its first other one under "occ_round_partial"), and
     the full=True tail's calls under "walk_pairs_full" and
-    "merge_fold_full"; the round kernels' scratch is not kept (a caller
-    passes its own).
+    "merge_fold_full"; the round kernels' scratch and the branch tally are
+    not kept (a caller passes its own).
 
     The launch plan: before round 0 each kernel that a round launches is
     bound (ops/loop_kernels bind_<name>, ops/sweep_kernel
@@ -326,7 +333,7 @@ def _schedule(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     cols, batch = unpack_blocks(blk_i32, blk_c, blk_ps, blk_u8, blk_ex)
     valid = cols["valid"] != 0
     G, H = valid.shape            # this rank's genomes
-    S, A, D, B, GB = cfg.S, cfg.A, cfg.D, cfg.B, cfg.GB
+    S, A, B, GB = cfg.S, cfg.A, cfg.B, cfg.GB
     ng = cfg.n_gene
     NL = G * 2 * H                # this rank's merge keys
     ga = lambda x: M.all_gather(x.reshape(-1), mesh)
@@ -342,7 +349,7 @@ def _schedule(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
         """A copy of a call's arguments, the first under `key` (capture)."""
         if key not in capture:
             capture[key] = (copy_args(args), {
-                k: v for k, v in kw.items() if k != "scratch"})
+                k: v for k, v in kw.items() if k not in ("scratch", "tally")})
 
     def captured(fn, *args, key=None, **kw):
         if capture is not None:
@@ -469,7 +476,11 @@ def _schedule(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     cnt_r, n_out_r, flags = [], [], []
     nc_in = False
     overflow = torch.zeros((), dtype=torch.bool, device=device)
-    loc_kw = dict(D=D, frag_mode=cfg.frag_mode, local_dist=cfg.local_dist,
+    # the branch kernels' tally over the schedule (valid arcs, branching
+    # arcs, groups of the wide path, the widest group), read after the
+    # closing synchronise when `stats` is given
+    br_tally = torch.zeros(4, dtype=I64, device=device)
+    loc_kw = dict(frag_mode=cfg.frag_mode, local_dist=cfg.local_dist,
                   local_count=cfg.local_count)
     cls_kw = dict(branch_diff=cfg.branch_diff,
                   branch_diff_dist=cfg.branch_diff_dist,
@@ -478,10 +489,10 @@ def _schedule(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     # ---- the launch plan: every in-loop kernel bound on the round state
     # (the state at round 0 stands for the arguments that change) ----
     prep = lk.bind_branch_prep(flt, shadow, valid, cols["gid"], cols["cid"],
-                               cols["cm"], arc_vw, seg_gid, overflow,
-                               n_gene=ng, B=B, D=D)
+                               cols["cm"], arc_vw, seg_gid, n_gene=ng, B=B)
     block = lk.bind_branch_block(*prep.out, arc_vw, arc_s1, B=B, **loc_kw,
-                                 **cls_kw) if nd == 1 else None
+                                 **cls_kw, tally=br_tally) if nd == 1 \
+        else None
     prop = lk.bind_prop_round(weak, flt, valid, planes.ordcm, *pair_st, aw_c,
                               word_rows[0], scratch=round_sc)
     occ = lk.bind_occ_round(alive, flt, valid, cols["gid"], sid_of, arc_vw,
@@ -508,16 +519,14 @@ def _schedule(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
         n_grp = None
         if run_br:
             with tr.block("branch"):
-                # the groups' window check (into overflow), each arc's
-                # target gene and the representatives (branch.c:6-29): last
-                # kept hit per gene in the current cs order, with its
-                # kept-rank and cm, as gene-major [ng, G] planes of this
-                # rank's genomes
+                # each arc's target gene and the representatives
+                # (branch.c:6-29): last kept hit per gene in the current cs
+                # order, with its kept-rank and cm, as gene-major [ng, G]
+                # planes of this rank's genomes
                 if capture is not None:
                     keep("branch_prep", (flt, shadow, valid, cols["gid"],
                                          cols["cid"], cols["cm"], arc_vw,
-                                         seg_gid, overflow),
-                         dict(n_gene=ng, B=B, D=D))
+                                         seg_gid), dict(n_gene=ng, B=B))
                 rep = run(prep, arc_vw)
                 if nd == 1:
                     # one kernel: the groups, the locality, the
@@ -533,7 +542,8 @@ def _schedule(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
                     gs_of, mx, branching, is_max = lk.arc_groups(
                         arc_vw, arc_s1, B)
                     aml, he = captured(lk.branch_locality, *rep, gs_of,
-                                       branching, is_max, **loc_kw)
+                                       branching, is_max, **loc_kw,
+                                       tally=br_tally)
                     aml, he = M.psum(torch.stack([aml, he]).to(I32),
                                      mesh) > 0
                     arc_weak, n_grp, cnt = captured(
@@ -631,7 +641,12 @@ def _schedule(blk_i32, blk_c, blk_ps, blk_u8, blk_ex, seg_gid, sid_of,
     tr.end()
     if stats is not None:
         wait = tr.ns("sync", "sync_final")
+        # read once, after the closing synchronise (no wait of its own)
+        valid_arcs, branching_arcs, wide, widest = br_tally.tolist()
         stats.update(host_syncs=tr.names.count("sync"), block_ms=block_ms,
+                     branch_valid_arcs=valid_arcs,
+                     branch_branching_arcs=branching_arcs,
+                     branch_wide_groups=wide, branch_max_group=widest,
                      host_ms=tr.host_ms(BLOCKS + ("walk_merge_full",)),
                      sync_wait_ms=wait / 1e6,
                      driver_ms=(tr.ns("schedule") - wait) / 1e6,
@@ -748,7 +763,6 @@ def pack_host(opt: PgOpt, q, pin: bool = False):
         log_msg("pg_device_loop", "arc capacity %d below phase-1 count %d; "
                 "falling back to host rounds", A, q.n_arc)
         return "arc capacity %d < phase-1 count %d" % (A, q.n_arc)
-    D = 64
     T = opt.n_branch_flt
     R = T + 1
 
@@ -913,7 +927,7 @@ def pack_host(opt: PgOpt, q, pin: bool = False):
         NL = (Gp // nd) * 2 * H
         slack = float(os.environ.get("PANGENE_DEVLOOP_A2A_SLACK", "1.5"))
         a2a_cap = min(((int(NL * slack) // nd + 127) // 128) * 128, NL)
-    cfg = Cfg(H=H, K=K, W=W, S=S, A=A, D=D, B=B, GB=GB, JB=JB,
+    cfg = Cfg(H=H, K=K, W=W, S=S, A=A, B=B, GB=GB, JB=JB,
               n_gene=ngene, R=R, G_loc=Gp // nd, coord32=coord32,
               check_strand=bool(opt.check_strand),
               use_ori=bool(opt.use_ori_for_branch),
@@ -1009,7 +1023,7 @@ def graph_gen_device(opt: PgOpt, q) -> bool:
         engaged=not overflow_flag,
         device=str(device),
         shape=dict(G=G, Gp=cfg.G_loc * mesh.world, H=H, E=pk.E, K=cfg.K,
-                   W=cfg.W, S=S, A=cfg.A, D=cfg.D, R=R,
+                   W=cfg.W, S=S, A=cfg.A, R=R,
                    n_devices=mesh.world),
         rank=mesh.rank,
         shard_merge=bool(cfg.a2a_cap),
@@ -1029,9 +1043,12 @@ def graph_gen_device(opt: PgOpt, q) -> bool:
         staged_bytes=M.LAST["staged_bytes"] - coll0[2],
         **stats)
     if overflow_flag:
-        LAST["reason"] = "capacity overflow (arcs or branch window)"
-        log_msg("pg_device_loop", "capacity overflow (arcs or branch "
-                "window); falling back to host rounds")
+        # the arc table's capacity (at more than two ranks also the bucket
+        # exchange's, whose overflow reads as n_out > A)
+        LAST["reason"] = "arc capacity overflow" if not cfg.a2a_cap \
+            else "arc or bucket-exchange capacity overflow"
+        log_msg("pg_device_loop", "%s; falling back to host rounds",
+                LAST["reason"])
         return False
 
     logs = np.array(logs)

@@ -3,8 +3,8 @@
 The counterpart of pangene_tpu/parallel/stacked.py. It is what
 ``--engine sharded`` runs when the device-resident loop
 (parallel/device_loop.py) is switched off (PANGENE_DEVICE_LOOP=0) or cannot
-take the graph (a branch group wider than its window, an arc table over its
-capacity, an unsettled sort cycle): every pg_gen_arc (graph.c:87-177) of the
+take the graph (an arc table over its capacity, an unsettled sort cycle):
+every pg_gen_arc (graph.c:87-177) of the
 host rounds becomes one device step over the stacked [G, H] hit tables:
 
   a. the shadow sweep of every genome with the reference's stale-flag merge

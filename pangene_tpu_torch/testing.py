@@ -79,6 +79,47 @@ def synth_paf_files(out_dir: str, n_genome: int = 8, n_gene: int = 200,
     return files
 
 
+def wide_paf_files(out_dir: str, n_genome: int = 40, n_slot: int = 8,
+                   n_wide: int = 80, seed: int = 0) -> List[str]:
+    """A corpus whose pruning loop meets a branch group wider than the
+    branch kernels' block path (ops/loop_kernels.WIDE_ROWS), with the
+    default options: every genome holds, along one contig, n_slot runs of
+    a core gene of its own slot, a gene X, a hub gene P and one of n_wide
+    genes Y (each in n_genome * n_slot / n_wide genomes, enough to be a
+    vertex), then a last core gene; all single exon. P has n_wide
+    successors, so the first round deletes it as a high-degree segment,
+    and its merge links X to every Y: a group of n_wide arcs in the branch
+    rounds."""
+    rng = np.random.default_rng(seed)
+    X, P = n_slot + 1, n_slot + 2
+    files = []
+    os.makedirs(out_dir, exist_ok=True)
+    for gi in range(n_genome):
+        genes = []
+        for j in range(n_slot):
+            genes += [j, X, P, n_slot + 3 + (gi * n_slot + j) % n_wide]
+        genes.append(n_slot)
+        lines = []
+        for k, gene in enumerate(genes):
+            aa = int(rng.integers(100, 400))
+            qlen = aa + int(rng.integers(0, 30))
+            qs = int(rng.integers(0, 10))
+            qe = min(qs + aa, qlen)
+            base = 100_000 + 20_000 * k + int(rng.integers(0, 2000))
+            mlen = int((qe - qs) * (0.85 + 0.14 * rng.random()))
+            ms = int(mlen * 2 * (0.9 + 0.2 * rng.random()))
+            lines.append("\t".join(map(str, (
+                "GENE%05d:ISO0" % gene, qlen, qs, qe, "+",
+                "S%03d#%d#ctg0" % (gi // 2, gi % 2 + 1), 60_000_000, base,
+                base + 3 * aa, mlen, qe - qs + int(rng.integers(0, 10)), 60,
+                "ms:i:%d" % ms, "fs:i:0", "st:i:0", "cg:Z:%dM" % aa))))
+        fn = os.path.join(out_dir, "wide%03d.paf.gz" % gi)
+        with gzip.open(fn, "wt") as fp:
+            fp.write("\n".join(lines) + "\n")
+        files.append(fn)
+    return files
+
+
 def random_genome(rng, n_hits=60, n_genes=8, n_prots_per_gene=3, n_ctg=3,
                   weak=False, max_exon=4, max_cs=3000):
     """One cs-sorted random genome with dense overlaps, for the sweep:
@@ -874,8 +915,10 @@ def round_state(rng, G, H, S=40, n_gene=50, sizes=(3, 1, 5, 2, 1, 4),
 # the scans' 1,024-row tiles (csrc/loop_round.cu kScanTile): 70 genomes;
 # one genome; a north-star-wide genome's kept rows so sparse that several
 # tiles in a row hold none; kept rows only at the tiles' first and last
-# rows (tiles start at a genome's row 0), and groups of exactly D = 64 and
-# D + 1 arcs across a branch_prep arc block's end (1,024 arcs a block).
+# rows (tiles start at a genome's row 0), and groups of exactly 64 and 65
+# arcs (the JAX package's branch window D = 64 and one past it; the branch
+# kernels' block path and their wide path) across a branch_prep arc
+# block's end (1,024 arcs a block).
 ROUND_STATES = {
     "random": dict(G=5, H=40),
     "far": dict(G=5, H=40, far=True),
@@ -917,11 +960,11 @@ def make_state(which, seed):
 WALK_FORMS = {"lean": (0, 1, True, False), "cosorted": (0, 1, False, False),
               "full": (0, 1, False, True), "exchange": (2, 3, True, False)}
 # positions of the arguments each round kernel updates in place
-ROUND_INPLACE = {"walk_pairs": (), "branch_prep": (8,), "prop_round": (0, 1, 8),
+ROUND_INPLACE = {"walk_pairs": (), "branch_prep": (), "prop_round": (0, 1, 8),
                  "occ_round": (0, 1, 7, 8, 9, 10, 11, 12, 13)}
 
 
-def round_calls(st, device, form="lean", use_ori=False, D=64, r=1,
+def round_calls(st, device, form="lean", use_ori=False, r=1,
                 cuts=(60, 3, 2), propagate=True, loci=True):
     """{kernel name: make} for the four round kernels of
     ops/loop_kernels.py on the round_state `st` on `device`: make() returns
@@ -952,8 +995,7 @@ def round_calls(st, device, form="lean", use_ori=False, D=64, r=1,
             [planes, t("flt"), t("shadow"), t("alive")], dict(walk_kw)),
         "branch_prep": lambda: (
             [t(k) for k in ("flt", "shadow", "valid", "gid", "cid", "cm",
-                            "arc_vw", "seg_gid")]
-            + [new((), torch.bool)], dict(n_gene=ng, B=B, D=D)),
+                            "arc_vw", "seg_gid")], dict(n_gene=ng, B=B)),
         "prop_round": lambda: (
             [t("weak"), t("flt"), t("valid"), planes.ordcm, t("pair_arc"),
              nxt, pair_ok, t("arc_weak"), new(2, torch.int64)],

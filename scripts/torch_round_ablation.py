@@ -32,7 +32,7 @@ bound chip_smoke.round_bound_ms computes, on states made from seeded numpy
 of H rows, about 97% of them valid and 98.5% of those kept, n_gene genes
 and segments (each gene once a genome at the north star, in no order,
 each with its own segment), groups of 1-39 arcs; walk_pairs lean (the
-in-loop key) and full (the tail's), branch_prep with D 64; prop_round and
+in-loop key) and full (the tail's), branch_prep; prop_round and
 occ_round on an arc table as the loop's (loop_arcs: 71% of the loop's A
 valid, 12-16 arcs a vertex, as chip_smoke.py's 4d lines show it) and a
 cm order as local as the loops' (each valid row's cs row its own but for
@@ -228,9 +228,10 @@ VARIANTS = {
                2),
         _stamp("  if (threadIdx.x == 0) atomicAdd(p.tiles + p.n_tile + 1, "
                "1ull);\n", "tile", 3),
-        _stamp("  bool ovf = false;\n", _ARC, 0),
-        _stamp("  if (__syncthreads_or(ovf) && threadIdx.x == 0) "
-               "*p.overflow = 1;\n", _ARC, 3),
+        _stamp("  const int64_t wmask = (int64_t(1) << p.B) - 1;\n", _ARC,
+               0),
+        _stamp("    p.tgt[a] = tg < 0 ? 0 : (tg > p.ng - 1 ? p.ng - 1 : tg);"
+               "\n  }\n", _ARC, 3),
         _stamp("  __shared__ int64_t s_cm[kRepChunk][kRepChunk + 1];\n",
                _REP, 0),
         _stamp("    __threadfence();\n  }\n  __syncthreads();\n"
@@ -826,9 +827,11 @@ def parent_calls(lib):
                                          [None] * 2), lk._stream(dev)))
         return tuple(out) + (zeroed[:2 * S].view(2, S),) + tuple(stats)
 
-    def prep(flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid, overflow,
-             *, n_gene, B, D):
+    def prep(flt, shadow, valid, gid, cid, cm, arc_vw, seg_gid, *, n_gene,
+             B, D=64):
+        # the parent's entry also checks a branch window of D arcs
         dev, (G, H) = flt.device, flt.shape
+        overflow = torch.zeros((), dtype=torch.bool, device=dev)
         new = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)
         out = (new((n_gene, G), torch.bool), new((n_gene, G), torch.int32),
                new((n_gene, G), torch.int64), new((n_gene, G), torch.int32),

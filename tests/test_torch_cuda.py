@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from pangene_tpu_torch import plain_branch
 from pangene_tpu_torch.ops import device_engine as de
 from pangene_tpu_torch.ops import loop_kernels as lk
 from pangene_tpu_torch.ops import step_kernels as stk
@@ -319,8 +320,7 @@ def locality_both(t, device, **kw):
     version, on the same tensors on the card."""
     args = [torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for v in t.values()]
-    kw = dict(dict(D=64, frag_mode=False, local_dist=1000, local_count=3),
-              **kw)
+    kw = dict(dict(frag_mode=False, local_dist=1000, local_count=3), **kw)
     before = dict(lk.n_calls["branch_locality"])
     got = lk.branch_locality(*args, **kw)
     want = lk.branch_locality_plain(*args, **kw)
@@ -347,15 +347,14 @@ def test_branch_locality_kernel_vs_plain(cuda_device, G, frag_mode):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["no_branching", "all_absent", "one_pair",
-                                  "window_8"])
+                                  "wide_130"])
 def test_branch_locality_kernel_edges(cuda_device, case):
     rng = np.random.default_rng(5)
     sizes = {"no_branching": [1] * 40, "all_absent": [3, 5, 2],
-             "one_pair": [1, 2, 1], "window_8": [20, 9, 8, 3]}[case]
+             "one_pair": [1, 2, 1], "wide_130": [130, 9, 66, 3]}[case]
     t, _ = locality_table(rng, 5, sizes,
                           p_absent=1.0 if case == "all_absent" else 0.3)
-    got, want = locality_both(t, cuda_device,
-                              D=8 if case == "window_8" else 64)
+    got, want = locality_both(t, cuda_device)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
@@ -369,8 +368,7 @@ def branch_block_both(t, device, diffs="default", **kw):
     kernels), on the same tensors on the card: (kernel, plain, split)."""
     args = [torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for v in t.values()]
-    kw = dict(dict(D=64, frag_mode=False, local_dist=1000, local_count=3),
-              **kw)
+    kw = dict(dict(frag_mode=False, local_dist=1000, local_count=3), **kw)
     cls = dict(zip(("branch_diff", "branch_diff_dist", "branch_diff_cut"),
                    DIFFS[diffs]))
     before = {k: dict(lk.n_calls[k]) for k in lk.n_calls}
@@ -398,8 +396,8 @@ def assert_branch_equal(got, want, split):
 @pytest.mark.parametrize("G", [1, 8, 33, 64, 70])
 def test_branch_block_kernel_vs_plain(cuda_device, G, frag_mode, diffs):
     """Groups of every size 1..64 (the warp's, the block's) and one of 65
-    (the walk); ratios on and beside each branch constant, s1 == mx, s1 ==
-    0; genomes in one, two and three chunks."""
+    (the wide path); ratios on and beside each branch constant, s1 == mx,
+    s1 == 0; genomes in one, two and three chunks."""
     rng = np.random.default_rng(G)
     sizes = list(rng.permutation(np.arange(1, 65))) + [65]
     t, _ = branch_table(rng, G, sizes, n_gene=300,
@@ -412,24 +410,87 @@ def test_branch_block_kernel_vs_plain(cuda_device, G, frag_mode, diffs):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["no_branching", "pairs", "one_group_D",
-                                  "all_equal_s1", "all_absent", "window_8",
+                                  "all_equal_s1", "all_absent", "wide_130",
                                   "many_groups"])
 def test_branch_block_kernel_edges(cuda_device, case):
-    """No branching arc; groups of two; one group of D; one s1 for all;
-    no representative present; a window of 8 over groups past it; and
-    20,000 groups of 2-20 members (many blocks, many warps' heads)."""
+    """No branching arc; groups of two; one group of D = 64 (the block
+    path's largest); one s1 for all; no representative present; groups of
+    130 and 66 (the wide path) among small ones; and 20,000 groups of 2-20
+    members (many blocks, many warps' heads)."""
     rng = np.random.default_rng(6)
     sizes = {"no_branching": [1] * 40, "pairs": [2] * 50,
              "one_group_D": [64], "all_equal_s1": [5, 7, 3, 17],
-             "all_absent": [3, 5, 2], "window_8": [20, 9, 8, 3],
+             "all_absent": [3, 5, 2], "wide_130": [130, 9, 66, 3],
              "many_groups": list(rng.integers(2, 21, 20000))}[case]
     t, _ = branch_table(rng, 64, sizes, n_gene=2000,
                         p_absent=1.0 if case == "all_absent" else 0.3)
     if case == "all_equal_s1":
         t["arc_s1"][:] = 77
-    got, want, split = branch_block_both(
-        t, cuda_device, D=8 if case == "window_8" else 64)
+    got, want, split = branch_block_both(t, cuda_device)
     assert_branch_equal(got, want, split)
+
+
+def wide_args(seed, G, sizes, device, n_gene=600):
+    """branch_block's arguments on the card: a branch_table of `sizes`
+    with cm spread so that about half the pairs are local."""
+    rng = np.random.default_rng(seed)
+    t, _ = branch_table(rng, G, sizes, n_gene=n_gene, p_absent=0.5)
+    t["r_cm"][:] = rng.integers(0, 3000, t["r_cm"].shape)
+    return [torch.from_numpy(np.ascontiguousarray(t[k])).to(device)
+            for k in ("r_pres", "r_cid", "r_cm", "r_rank", "tgt_gid",
+                      "arc_vw", "arc_s1")]
+
+
+WIDE_CASES = {
+    "65": (1, [65]), "66_152": (152, [3, 66, 2]), "96": (40, [96, 7]),
+    "128_33": (33, [128]), "129": (70, [5, 129, 64, 65]),
+    "200": (152, [200, 1, 2]), "300": (152, [300]),
+    "many_65_70": (16, [65, 66, 67, 68, 69, 70] * 40),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frag_mode", [False, True])
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_wide_path_kernel_vs_reference(cuda_device, case, frag_mode):
+    """Groups of 65-300 members on 1-152 genomes (the kernels' wide path):
+    the kernel equals the plain reference (plain_branch: every pair of
+    every group) and the plain version bit for bit, and so do the split
+    entries; the tally equals the plain version's; launched twice on one
+    scratch, which each launch leaves zeroed."""
+    G, sizes = WIDE_CASES[case]
+    args = wide_args(len(case), G, sizes, cuda_device)
+    kw = dict(B=BRANCH_B, frag_mode=frag_mode, local_dist=1000,
+              local_count=3, branch_diff=0.02, branch_diff_dist=0.05,
+              branch_diff_cut=0.5)
+    tally = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    sc = lk.branch_scratch(cuda_device, args[5].shape[0])
+    bound = lk.bind_branch_block(*args, **kw, tally=tally, scratch=sc)
+    for _ in range(2):
+        got = bound.launch(*args, torch.zeros(2, dtype=torch.int64,
+                                              device=cuda_device))
+        torch.cuda.synchronize()
+        want = plain_branch.mark_branch(*args, **kw)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        assert not sc.any()
+    ptally = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    plain = lk.branch_block_plain(*args, **kw, tally=ptally)
+    for a, b in zip(plain, want):
+        assert torch.equal(a, b)
+    assert tally.tolist() == [2 * x for x in ptally.tolist()[:3]] \
+        + ptally.tolist()[3:]
+    assert ptally.tolist()[2] == sum(n > lk.WIDE_ROWS for n in sizes)
+    loc = {k: kw[k] for k in ("frag_mode", "local_dist", "local_count")}
+    gs_of, mx, branching, is_max = lk.arc_groups(args[5], args[6], BRANCH_B)
+    aml, he = lk.branch_locality(*args[:5], gs_of, branching, is_max, **loc)
+    split = lk.branch_classify(args[6], mx, branching, aml, he, gs_of,
+                               **{k: kw[k] for k in ("branch_diff",
+                                                     "branch_diff_dist",
+                                                     "branch_diff_cut")})
+    torch.cuda.synchronize()
+    for a, b in zip(split, want):
+        assert torch.equal(a, b)
 
 
 def fold_both(keys, s1, jb, gb, cap, perm, device, full=None):
@@ -581,7 +642,7 @@ def test_loop_kernel_wrappers_raise_on_bad_inputs(cuda_device):
     t, _ = locality_table(np.random.default_rng(2), 4, [3, 2, 5])
     args = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda_device)
             for k, v in t.items()}
-    kw = dict(D=64, frag_mode=False, local_dist=10, local_count=3)
+    kw = dict(frag_mode=False, local_dist=10, local_count=3)
     lk.reset_counts()
     for bad in (dict(args, r_rank=args["r_rank"].long()),
                 dict(args, tgt_gid=args["tgt_gid"][:-1]),
@@ -652,14 +713,13 @@ def test_walk_pairs_kernel_vs_plain(cuda_device, which, form):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 8])
+@pytest.mark.parametrize("seed", [5, 6])
 @pytest.mark.parametrize("which", list(ROUND_STATES))
-def test_branch_prep_kernel_vs_plain(cuda_device, which, D):
-    got, want = round_both("branch_prep", which, "lean", 5, D=D)
+def test_branch_prep_kernel_vs_plain(cuda_device, which, seed):
+    got, want = round_both("branch_prep", which, "lean", seed)
+    assert len(got) == len(want) == 5
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
-    if which.startswith("window") and D == 64:
-        assert bool(got[5]) == ("D+1" in which)
 
 
 @pytest.mark.cuda
@@ -694,7 +754,7 @@ def test_round_kernel_wrappers_raise_on_bad_inputs(cuda_device):
             ("walk_pairs", 1, lambda t: t.cpu()),
             ("walk_pairs", 3, lambda t: t.to(torch.uint8)),
             ("branch_prep", 5, lambda t: t.to(torch.int32)),
-            ("branch_prep", 8, lambda t: t.cpu()),
+            ("branch_prep", 7, lambda t: t.cpu()),
             ("prop_round", 4, lambda t: t[:, :-1]),
             ("prop_round", 7, lambda t: t.cpu()),
             ("occ_round", 7, lambda t: t.reshape(-1)),

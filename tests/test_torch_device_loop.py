@@ -39,7 +39,8 @@ from pangene_tpu_torch.options import (PG_F_CHECK_STRAND, PG_F_FRAG_MODE,
                                        PG_F_WRITE_BED_FLAG,
                                        PG_F_WRITE_BED_WALK, PgOpt)
 from pangene_tpu_torch.parallel import device_loop as dl
-from pangene_tpu_torch.testing import synth_paf_files
+from pangene_tpu_torch.ops import loop_kernels as lk
+from pangene_tpu_torch.testing import synth_paf_files, wide_paf_files
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -179,12 +180,12 @@ def test_schedule_split_branch_entries_equal_jax(corpus, optset, monkeypatch):
     calls = []
 
     def split(r_pres, r_cid, r_cm, r_rank, tgt_gid, arc_vw, arc_s1, *, B,
-              D, frag_mode, local_dist, local_count, **cls):
+              frag_mode, local_dist, local_count, tally, **cls):
         calls.append(1)
         gs_of, mx, branching, is_max = lk.arc_groups(arc_vw, arc_s1, B)
         aml, he = lk.branch_locality(
             r_pres, r_cid, r_cm, r_rank, tgt_gid, gs_of, branching, is_max,
-            D=D, frag_mode=frag_mode, local_dist=local_dist,
+            frag_mode=frag_mode, local_dist=local_dist,
             local_count=local_count)
         return lk.branch_classify(arc_s1, mx, branching, aml, he, gs_of,
                                   **cls)
@@ -247,8 +248,8 @@ def test_pack_equals_jax(corpus, optset, monkeypatch):
     assert pk.n_prop_stale == cap["n_prop_stale"]
     assert gfa == cap["gfa"]
     shape = dl.LAST["shape"]
-    assert {k: shape[k] for k in ("G", "H", "K", "W", "S", "A", "D", "R")} \
-        == {"G": 10, **{k: getattr(pk.cfg, k) for k in "HKWSADR"}}
+    assert {k: shape[k] for k in ("G", "H", "K", "W", "S", "A", "R")} \
+        == {"G": 10, **{k: getattr(pk.cfg, k) for k in "HKWSAR"}}
 
 
 # ---------------------------------------------------------------------------
@@ -325,19 +326,42 @@ def test_devloop_capacity_fallback(corpus, monkeypatch):
 
 
 def test_devloop_overflow_in_loop_falls_back(corpus, monkeypatch):
-    """A branch group wider than the window sets the overflow flag inside
-    the loop; the host rounds take over and the bytes stay the same."""
+    """An arc table full inside the loop (capacity one below phase 1's
+    count, the table cut to it: the first merge needs more) sets the
+    overflow flag; the host rounds take over and the bytes stay the
+    same."""
     orig = dl.pack_host
+    seen = {}
 
-    def narrow(opt, q, pin=False):
+    def tight(opt, q, pin=False):
         pk = orig(opt, q, pin)
-        return pk._replace(cfg=pk.cfg._replace(D=2))
+        A = q.n_arc - 1
+        seen["A"] = A
+        inputs = list(pk.inputs)
+        inputs[7], inputs[8] = inputs[7][:A].copy(), inputs[8][:A].copy()
+        return pk._replace(inputs=tuple(inputs), cfg=pk.cfg._replace(A=A))
 
-    monkeypatch.setattr(dl, "pack_host", narrow)
+    monkeypatch.setattr(dl, "pack_host", tight)
     got = run_port(corpus)
-    assert dl.LAST["engaged"] is False
-    assert dl.LAST["reason"] == "capacity overflow (arcs or branch window)"
+    assert dl.LAST["engaged"] is False and seen["A"] > 0
+    assert dl.LAST["reason"] == "arc capacity overflow"
     assert got == run_jax(corpus)
+
+
+def test_devloop_wide_group_engaged(tmp_path, monkeypatch):
+    """A corpus whose branch rounds meet a group of 80 arcs, past the JAX
+    package's branch window (D = 64), where its loop falls back: the port's
+    loop takes it (the kernels' wide path, every pair of the group), stays
+    engaged and gives the JAX package's bytes."""
+    files = wide_paf_files(str(tmp_path))
+    got = run_port(files)
+    assert dl.LAST["engaged"] is True
+    assert dl.LAST["branch_max_group"] == 80 > lk.WIDE_ROWS
+    assert dl.LAST["branch_wide_groups"] >= 1
+    assert dl.LAST["branch_branching_arcs"] <= dl.LAST["branch_valid_arcs"]
+    assert got == run_jax(files)
+    assert got == run_jax(files, "sharded", n_devices=1)
+    assert jdl.LAST["engaged"] is False
 
 
 def test_devloop_hit0_filtered_at_entry(corpus, monkeypatch):

@@ -4,9 +4,9 @@ on the CPU. Every output is an integer or a bit: tolerance 0 (exact).
 
   branch_locality  a scalar walk of branch.c:48-106 over explicit group
                    lists: for each arc of a branching group and each other
-                   member within the branch window, pg_n_local (branch.c:
-                   31-46) over the genomes; aml = a local max partner, he =
-                   an earlier local partner.
+                   member of its group, whatever the group's size,
+                   pg_n_local (branch.c:31-46) over the genomes; aml = a
+                   local max partner, he = an earlier local partner.
   branch_block     the same walk plus the reference's classification of
                    every branching arc in Python doubles (1 - s1 / mx against
                    the three branch constants, branch.c:72-78) and the
@@ -38,6 +38,7 @@ import pytest
 import torch
 
 from pangene_tpu.ops import softfloat as jsf
+from pangene_tpu_torch import plain_branch
 from pangene_tpu_torch.ops import loop_kernels as lk
 from pangene_tpu_torch.testing import (BRANCH_B, EXACT_BRANCH_DIFFS,
                                        ROUND_EDGE_CASES, ROUND_STATES,
@@ -51,7 +52,9 @@ torch.set_num_threads(1)
 
 KSENT = lk.KSENT_I
 SENT = lk.SENT_I
-D = 64
+# the largest group of the kernels' block path; larger ones take the wide
+# path
+D = lk.WIDE_ROWS
 
 
 # ---------------------------------------------------------------------------
@@ -84,7 +87,7 @@ def oracle_locality(t, groups, frag_mode, local_dist, local_count):
             continue
         for a in grp:
             for p in grp:
-                if p == a or abs(p - a) >= D:
+                if p == a:
                     continue
                 key = (min(a, p), max(a, p))
                 if key not in memo:
@@ -100,7 +103,7 @@ def run_locality(t, frag_mode, local_dist, local_count):
     args = [torch.from_numpy(np.ascontiguousarray(t[k])) for k in (
         "r_pres", "r_cid", "r_cm", "r_rank", "tgt_gid", "gs_of",
         "branching", "is_max")]
-    aml, he = lk.branch_locality(*args, D=D, frag_mode=frag_mode,
+    aml, he = lk.branch_locality(*args, frag_mode=frag_mode,
                                  local_dist=local_dist,
                                  local_count=local_count)
     assert aml.dtype == he.dtype == torch.bool
@@ -110,8 +113,8 @@ def run_locality(t, frag_mode, local_dist, local_count):
 @pytest.mark.parametrize("frag_mode", [False, True])
 @pytest.mark.parametrize("G,seed", [(1, 0), (3, 1), (8, 2)])
 def test_branch_locality_plain_equals_oracle(G, seed, frag_mode):
-    """Groups of every size 1..D and one of D + 1 (its run falls back; the
-    window must still give the oracle's bits), absent targets."""
+    """Groups of every size 1..D and one of D + 1 (the kernels' wide path:
+    every pair tested all the same), absent targets."""
     rng = np.random.default_rng(seed)
     sizes = list(rng.permutation(np.arange(1, D + 1))) + [D + 1]
     t, groups = locality_table(rng, G, sizes)
@@ -191,7 +194,7 @@ def oracle_branch(t, groups, frag_mode, local_dist, local_count, diffs):
 
 def run_branch(t, frag_mode, diffs, split=False, **kw):
     args = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in t.items()}
-    kw = dict(dict(D=D, frag_mode=frag_mode, local_dist=1000, local_count=3),
+    kw = dict(dict(frag_mode=frag_mode, local_dist=1000, local_count=3),
               **kw)
     cls = dict(zip(("branch_diff", "branch_diff_dist", "branch_diff_cut"),
                    diffs))
@@ -216,8 +219,8 @@ def run_branch(t, frag_mode, diffs, split=False, **kw):
 @pytest.mark.parametrize("frag_mode", [False, True])
 @pytest.mark.parametrize("G,seed", [(1, 0), (3, 1), (8, 2)])
 def test_branch_block_plain_equals_oracle(G, seed, frag_mode, diffs, split):
-    """Groups of every size 1..D and one of D + 1 (its run falls back; the
-    window must still give the oracle's bits); ratios whose deficit lies on
+    """Groups of every size 1..D and one of D + 1 (the kernels' wide path:
+    every pair tested all the same); ratios whose deficit lies on
     or beside each branch constant, s1 == mx, s1 == 0; the fused entry and
     the mesh's split entries."""
     rng = np.random.default_rng(seed)
@@ -462,7 +465,7 @@ def test_wrappers_reject_bad_inputs():
     t, _ = locality_table(rng, 2, [3, 2])
     args = {k: torch.from_numpy(np.ascontiguousarray(v))
             for k, v in t.items()}
-    kw = dict(D=D, frag_mode=False, local_dist=10, local_count=3)
+    kw = dict(frag_mode=False, local_dist=10, local_count=3)
     bad = dict(args, r_cid=args["r_cid"].long())
     with pytest.raises(ValueError, match="r_cid"):
         lk.branch_locality(*bad.values(), **kw)
@@ -699,8 +702,8 @@ def test_walk_pairs_plain_equals_oracle(case, form, use_ori):
         assert max(abs(x) for x in gaps) >= 1 << 31
 
 
-def oracle_prep(st, B, D):
-    """The branch block's prelude: planes, targets, the window flag."""
+def oracle_prep(st, B):
+    """The branch block's prelude: planes and targets."""
     G, H = st["cid"].shape
     S, ng = len(st["alive"]), len(st["sid_of"])
     r_pres = np.zeros((ng, G), bool)
@@ -722,60 +725,82 @@ def oracle_prep(st, B, D):
     tgt = np.array([_clip(st["seg_gid"][_clip((x & ((1 << B) - 1)) >> 1, 0,
                                                S - 1)], 0, ng - 1)
                     for x in vw], np.int64)
-    runs = {}
-    for x in vw:
-        if x != SENT:
-            runs[x >> B] = runs.get(x >> B, 0) + 1
-    ovf = max(runs.values(), default=0) > max(D, 1)
-    return r_pres, r_cid, r_cm, r_rank, tgt, np.array(ovf)
+    return r_pres, r_cid, r_cm, r_rank, tgt
 
 
-@pytest.mark.parametrize("D", [64, 8])
+BLOCK_KW = dict(frag_mode=False, local_dist=1000, local_count=3,
+                branch_diff=0.02, branch_diff_dist=0.05, branch_diff_cut=0.5)
+
+
+@pytest.mark.parametrize("seed", [11, 12])
 @pytest.mark.parametrize("case", ROUND_EDGE_CASES)
-def test_branch_prep_plain_equals_oracle(case, D):
-    st = make_state(case, 11)
-    args, kw = round_calls(st, "cpu", D=D)["branch_prep"]()
-    got = as_np(round_outputs("branch_prep", args, kw))
-    want = oracle_prep(st, kw["B"], D)
-    for name, a, b in zip(("r_pres", "r_cid", "r_cm", "r_rank", "tgt_gid",
-                           "overflow"), got, want):
+def test_branch_prep_plain_equals_oracle(case, seed):
+    """branch_prep's planes and targets equal the oracle's; the branch
+    block on them equals the plain reference (plain_branch), groups of 64
+    and 65 arcs (the wide path) in the window states included."""
+    st = make_state(case, seed)
+    args, kw = round_calls(st, "cpu")["branch_prep"]()
+    out = round_outputs("branch_prep", args, kw)
+    got = as_np(out)
+    want = oracle_prep(st, kw["B"])
+    assert len(got) == len(want) == 5
+    for name, a, b in zip(("r_pres", "r_cid", "r_cm", "r_rank", "tgt_gid"),
+                          got, want):
         assert a.dtype == b.dtype and np.array_equal(a, b), name
-    if case.startswith("window") and D == 64:
-        assert bool(got[5]) == ("D+1" in case)
     if case == "all_filtered":
         assert not got[0].any()
+    vw = args[6]
+    s1 = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 900, vw.shape[0]).astype(np.int32))
+    block = lk.branch_block(*out, vw, s1, B=kw["B"], **BLOCK_KW)
+    ref = plain_branch.mark_branch(*out, vw, s1, B=kw["B"], **BLOCK_KW)
+    for a, b in zip(block, ref):
+        assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("D", [64, 1, 0, 5])
+def wide_table(rng, G, band, n_groups, n_gene=400):
+    """A v-sorted branch table (branch_table's, BRANCH_B) of n_groups
+    groups of sizes drawn in [band - 3, band + 3] and a few small ones,
+    on G genomes; cm spread so that about half the pairs are local."""
+    sizes = list(rng.integers(max(band - 3, 1), band + 4, n_groups)) \
+        + list(rng.integers(1, 6, 4))
+    rng.shuffle(sizes)
+    t, groups = branch_table(rng, G, sizes, n_gene=n_gene, p_absent=0.5)
+    t["r_cm"][:] = rng.integers(0, 3000, t["r_cm"].shape)
+    return t, sizes
+
+
+@pytest.mark.parametrize("band", [64, 66, 150, 300])
 @pytest.mark.parametrize("seed", range(4))
-def test_window_check_one_comparison_an_arc(seed, D):
-    """branch_prep's kernel flags a group of more than win = max(D, 1) arcs
-    by one comparison an arc: some valid arc a whose arc a + win is not
-    SENT_I and has a's source vertex. On random v-sorted tables (groups of
-    sizes around win, then 0-3 SENT_I slots) that flag equals
-    branch_prep_plain's overflow."""
-    rng = np.random.default_rng(300 + seed)
-    B = 8
-    win = max(D, 1)
-    for _ in range(40):
-        sizes = rng.integers(max(win - 2, 1), win + 3, rng.integers(1, 12))
-        vs = np.sort(rng.choice(1 << 10, len(sizes), replace=False))
-        vw = np.concatenate([(int(v) << B) | np.sort(rng.integers(
-            0, 1 << B, n)) for v, n in zip(vs, sizes)]).astype(np.int64)
-        vw = np.concatenate([vw, np.full(rng.integers(0, 4), SENT,
-                                         np.int64)])
-        A = len(vw)
-        nxt = np.concatenate([vw[win:], np.full(min(win, A), SENT,
-                                                np.int64)])[:A]
-        flag = bool(((vw != SENT) & (nxt != SENT)
-                     & ((nxt >> B) == (vw >> B))).any())
-        st = make_state("random", seed)
-        st.update(arc_vw=vw, B=B,
-                  seg_gid=np.zeros(len(st["alive"]), np.int64))
-        args, kw = round_calls(st, "cpu", D=D)["branch_prep"]()
-        got = bool(round_outputs("branch_prep", args, kw)[5])
-        assert flag == got == (int(sizes.max()) > win)
-
+def test_wide_path_equals_plain_reference(seed, band):
+    """Groups around the kernels' wide path (more than WIDE_ROWS members)
+    and far past it: the plain branch block, and the mesh's split entries,
+    equal the plain reference (every pair of every group, plain_branch)
+    bit for bit, on 1-152 genomes, frag_mode both ways; the tally counts
+    the groups of more than WIDE_ROWS members and the widest."""
+    rng = np.random.default_rng(500 + seed)
+    G = int(rng.choice([1, 7, 40, 152]))
+    t, sizes = wide_table(rng, G, band, 2 if band < 150 else 1)
+    args = [torch.from_numpy(np.ascontiguousarray(t[k])) for k in (
+        "r_pres", "r_cid", "r_cm", "r_rank", "tgt_gid", "arc_vw", "arc_s1")]
+    kw = dict(BLOCK_KW, frag_mode=bool(seed % 2))
+    tally = torch.zeros(4, dtype=torch.int64)
+    got = lk.branch_block(*args, B=BRANCH_B, **kw, tally=tally)
+    want = plain_branch.mark_branch(*args, B=BRANCH_B, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    gs_of, mx, branching, is_max = lk.arc_groups(args[5], args[6], BRANCH_B)
+    loc = {k: kw[k] for k in ("frag_mode", "local_dist", "local_count")}
+    aml, he = lk.branch_locality(*args[:5], gs_of, branching, is_max, **loc)
+    split = lk.branch_classify(args[6], mx, branching, aml, he, gs_of,
+                               **{k: kw[k] for k in kw if k not in loc})
+    for a, b in zip(split, want):
+        assert torch.equal(a, b)
+    sizes = np.array(sizes)
+    assert tally.tolist() == [int(sizes.sum()), int(sizes[sizes >= 2].sum()),
+                              int((sizes > lk.WIDE_ROWS).sum()),
+                              int(sizes.max())]
+    assert got[2].sum() > 0 and (~he & branching).any() and he.any()
 
 
 # The scans' tile and the arc pass's block (csrc/loop_round.cu kScanTile,
@@ -831,13 +856,33 @@ def test_scan_edge_states_hold_their_edges(which, seed):
                    for a, size in zip(heads, sizes))
 
 
-def test_branch_prep_keeps_overflow_set():
-    """overflow is OR'd: a set flag stays set on a table within the
-    window."""
-    st = make_state("random", 3)
-    args, kw = round_calls(st, "cpu")["branch_prep"]()
-    args[8].fill_(True)
-    assert bool(round_outputs("branch_prep", args, kw)[5])
+def test_wide_rows_mirror_the_source():
+    """WIDE_ROWS is csrc/loop_blocks.cu's kBrRows (kBrWarps x
+    kBrWarpRows), the largest group of the kernels' block path."""
+    import re
+    src = open(lk._SRC).read()
+    val = {k: int(re.search(r"constexpr int %s = (\d+);" % k, src).group(1))
+           for k in ("kBrWarps", "kBrWarpRows")}
+    assert re.search(r"constexpr int kBrRows = kBrWarps \* kBrWarpRows;",
+                     src)
+    assert lk.WIDE_ROWS == val["kBrWarps"] * val["kBrWarpRows"]
+
+
+def test_branch_tally_counts_wide_groups():
+    """The branch block's tally on the window states: a group of 64 arcs
+    stays on the block path, one of 65 takes the wide path; both are the
+    widest group there."""
+    for which, wide in (("window_D", 0), ("window_D+1", 1)):
+        st = make_state(which, 3)
+        args, kw = round_calls(st, "cpu")["branch_prep"]()
+        out = round_outputs("branch_prep", args, kw)
+        vw = args[6]
+        tally = torch.zeros(4, dtype=torch.int64)
+        lk.branch_block(*out, vw, torch.ones(vw.shape[0], dtype=torch.int32),
+                        B=kw["B"], **BLOCK_KW, tally=tally)
+        valid = int((vw != SENT).sum())
+        assert tally.tolist()[0] == valid and tally.tolist()[2:] == \
+            [wide, 64 + wide]
 
 
 def oracle_prop(st, prevs, pair_ok, propagate):
@@ -983,7 +1028,7 @@ def test_round_wrappers_reject_bad_inputs():
             ("walk_pairs", 1, lambda t: t.to(torch.int32), "flt"),
             ("walk_pairs", 3, lambda t: t.to(torch.uint8), "alive"),
             ("branch_prep", 6, lambda t: t.to(torch.int32), "arc_vw"),
-            ("branch_prep", 8, lambda t: t.reshape(1), "overflow"),
+            ("branch_prep", 7, lambda t: t.to(torch.int32), "seg_gid"),
             ("prop_round", 4, lambda t: t[:, :-1], "pair_arc"),
             ("prop_round", 8, lambda t: t.to(torch.int32), "word"),
             ("occ_round", 8, lambda t: t[:, :9], "logs"),

@@ -24,7 +24,9 @@ from pangene_tpu.parallel import device_loop as jdl
 from pangene_tpu_torch import cli, util
 from pangene_tpu_torch.parallel import device_loop as dl
 from pangene_tpu_torch.parallel import mesh
-from pangene_tpu_torch.testing import run_ranks, synth_paf_files
+from pangene_tpu_torch.ops import loop_kernels as lk
+from pangene_tpu_torch.testing import (run_ranks, synth_paf_files,
+                                       wide_paf_files)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -45,6 +47,12 @@ def few(tmp_path_factory):
     return synth_paf_files(str(d), n_genome=3, n_gene=120, n_iso=2, seed=5)
 
 
+@pytest.fixture(scope="module")
+def wide(tmp_path_factory):
+    """Branch groups of 80 arcs in the loop's branch rounds."""
+    return wide_paf_files(str(tmp_path_factory.mktemp("torch_mesh_wide")))
+
+
 _jax = {}
 
 
@@ -62,6 +70,12 @@ def jax_sharded(files, nd):
             jutil.verbose = 3
         _jax[key] = (out.getvalue(), dict(jdl.LAST))
     return _jax[key]
+
+
+def port_shape(jlast):
+    """The JAX loop's shape less its branch window D, which the port's
+    loop does not have."""
+    return {k: v for k, v in jlast["shape"].items() if k != "D"}
 
 
 def md5(text):
@@ -90,7 +104,7 @@ def test_cli_mesh_equals_jax(corpus, world, loop):
         if loop == "1":
             last = rep["LAST"]
             assert last["engaged"] is True and rep["rounds_LAST"] == {}
-            assert last["shape"] == jlast["shape"]
+            assert last["shape"] == port_shape(jlast)
             assert last["shard_merge"] == jlast["shard_merge"] == (world > 2)
             assert last["collective_calls"] > 0
         else:
@@ -107,7 +121,22 @@ def test_cli_mesh_fewer_genomes_than_ranks(few):
     for rep in reports:
         assert rep["md5"] == md5(gfa)
         assert rep["LAST"]["engaged"] is True
-        assert rep["LAST"]["shape"] == jlast["shape"]
+        assert rep["LAST"]["shape"] == port_shape(jlast)
+
+
+def test_cli_mesh_wide_group(wide):
+    """Two ranks on a corpus whose branch rounds meet a group of 80 arcs
+    (the JAX package's loop falls back there, its window being 64): the
+    split branch entries take it on the wide path at every rank, the loop
+    stays engaged and every rank's bytes are the JAX package's."""
+    gfa, jlast = jax_sharded(wide, 2)
+    assert jlast["engaged"] is False
+    for rep in ranks(2, wide):
+        assert rep["md5"] == md5(gfa)
+        last = rep["LAST"]
+        assert last["engaged"] is True
+        assert last["branch_max_group"] == 80 > lk.WIDE_ROWS
+        assert last["branch_wide_groups"] >= 1
 
 
 def test_only_rank_0_writes(corpus, tmp_path):
